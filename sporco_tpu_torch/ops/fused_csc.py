@@ -1,0 +1,414 @@
+"""Fused spatial-Woodbury ConvBPDN ADMM driver (counterpart of
+``sporco_tpu.ops.fused_csc``, single-channel ``l1`` part).
+
+The x-step of single-channel 2-D ConvBPDN is solved in space by the
+Woodbury identity::
+
+    x = scale * yu + D^H irfft((Sf - scale * rfft(D yu)) / (DHD + beta))
+
+with the whole ADMM state kept in a polyphase (space-to-depth) layout
+folded by ``PS = 8`` per axis, which turns the convolutions with ``D``
+into dense matmuls.  Every iteration runs the small spectral glue (the
+rolls, one rfft2/irfft2 pair and the per-bin division) in PyTorch and
+everything that touches the packed state arrays in one call of
+:func:`sporco_tpu_torch.ops.csc_iter.csc_iter`, which also produces the
+next iteration's forward product.  AutoRho's dual rescale is deferred
+through the factor ``us`` and folded into that product by linearity:
+``(Y - us U) @ Wf = R1 + (1 - us) R2``.
+
+The loop runs on the host and reads back one small vector per
+iteration (the kernel's six sums and the data-fidelity term) for the
+stopping test and the stats row.  It reproduces the JAX driver's
+iteration count, stats rows, returned ``U = us * U`` and the x-step
+rebuilt after the loop at the final ``(Y, U, rho)``.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from sporco_tpu_torch._device import fp32_precision
+from sporco_tpu_torch.ops import fft as sf
+from sporco_tpu_torch.ops.csc_iter import csc_iter
+from sporco_tpu_torch.solvers.admm import (ADMMState, _update_rho,
+                                           norm_residuals)
+
+__all__ = ["cbpdn_solve", "eligible", "unsupported_reason",
+           "xstep_kernels", "spatial_xstep", "poly_pack", "poly_unpack",
+           "pack_state", "unpack_state", "PS", "MAX_SUPPORT"]
+
+PS = 8            # polyphase factor (spatial fold per axis)
+MAX_SUPPORT = 24  # largest filter support the spatial form beats FFT at
+
+f32 = np.float32
+
+
+# ---------------------------------------------------------------------------
+# Polyphase packing
+
+def poly_pack(A, ps=PS):
+    """(..., N0, N1) -> (..., N0/ps, N1/ps, ps*ps) with channel order
+    (w0, w1): A[..., w0 + ps p, w1 + ps q] = P[..., p, q, w0*ps + w1]."""
+    lead = tuple(A.shape[:-2])
+    n0, n1 = A.shape[-2:]
+    P = A.reshape(lead + (n0 // ps, ps, n1 // ps, ps))
+    nl = len(lead)
+    perm = tuple(range(nl)) + (nl, nl + 2, nl + 1, nl + 3)
+    return P.permute(perm).reshape(lead + (n0 // ps, n1 // ps, ps * ps))
+
+
+def poly_unpack(P, ps=PS):
+    """Inverse of :func:`poly_pack`."""
+    lead = tuple(P.shape[:-3])
+    p0, p1 = P.shape[-3:-1]
+    nl = len(lead)
+    A = P.reshape(lead + (p0, p1, ps, ps))
+    perm = tuple(range(nl)) + (nl, nl + 2, nl + 1, nl + 3)
+    return A.permute(perm).reshape(lead + (p0 * ps, p1 * ps))
+
+
+def pack_state(A, ps=PS):
+    """Internal CSC layout (K, 1, M, N0, N1) -> polyphase
+    (K, N0/ps, N1/ps, ps*ps*M) with channel order (w0, w1, m); always a
+    new contiguous tensor."""
+    K, _, M, n0, n1 = A.shape
+    P = poly_pack(A.reshape(K, M, n0, n1), ps)     # (K, M, p0, p1, ps*ps)
+    P = P.permute(0, 2, 3, 4, 1)                   # (K, p0, p1, ps*ps, M)
+    return P.reshape(K, n0 // ps, n1 // ps, ps * ps * M).contiguous()
+
+
+def unpack_state(P, M, ps=PS):
+    """Inverse of :func:`pack_state`."""
+    K, p0, p1, _ = P.shape
+    A = P.reshape(K, p0, p1, ps * ps, M).permute(0, 4, 1, 2, 3)
+    return poly_unpack(A, ps).reshape(K, 1, M, p0 * ps, p1 * ps)
+
+
+# ---------------------------------------------------------------------------
+# Polyphase convolution weights built from the dictionary
+
+def _sel_fwd(nd, ps):
+    """Selector S[a, k, w, u] = 1 iff the forward tap ``yu[x - u]`` at
+    output phase ``a`` reads input phase ``w = (a - u) mod ps`` at
+    polyphase shift ``j``, mapped to padded-conv tap ``k = J - j``."""
+    J = -(-(nd - 1) // ps)
+    S = np.zeros((ps, J + 1, ps, nd), np.float64)
+    for a in range(ps):
+        for u in range(nd):
+            w = (a - u) % ps
+            j = (w - (a - u)) // ps
+            S[a, J - j, w, u] = 1.0
+    return S, J
+
+
+def _sel_adj(nd, ps):
+    """Selector for the adjoint (correlation) ``G[x + u]``: output phase
+    ``a`` reads phase ``w = (a + u) mod ps`` at tap ``k = (a+u-w)/ps``."""
+    J = -(-(nd - 1) // ps)
+    S = np.zeros((ps, J + 1, ps, nd), np.float64)
+    for a in range(ps):
+        for u in range(nd):
+            w = (a + u) % ps
+            j = (a + u - w) // ps
+            S[a, j, w, u] = 1.0
+    return S, J
+
+
+def _fwd_kernel(D, nd0, nd1, ps):
+    """HWIO kernel of ``R = sum_m d_m (*) yu_m`` in polyphase: input
+    channels (w0, w1, m), output channels (a0, a1).  The selectors are
+    0/1 with one nonzero term per output, so the einsum (in float64 on
+    the host) only moves entries of ``D``."""
+    M = D.shape[0]
+    S0, J0 = _sel_fwd(nd0, ps)
+    S1, J1 = _sel_fwd(nd1, ps)
+    ker = np.einsum("muv,akwu,blzv->klwzmab", D, S0, S1)
+    return ker.reshape(J0 + 1, J1 + 1, ps * ps * M, ps * ps), J0, J1
+
+
+def _adj_kernel(D, nd0, nd1, ps):
+    """HWIO kernel of ``(D^H G)_m = corr(G, d_m)`` in polyphase: input
+    channels (w0, w1), output channels (a0, a1, m)."""
+    M = D.shape[0]
+    S0, J0 = _sel_adj(nd0, ps)
+    S1, J1 = _sel_adj(nd1, ps)
+    ker = np.einsum("muv,akwu,blzv->klwzabm", D, S0, S1)
+    return ker.reshape(J0 + 1, J1 + 1, ps * ps, ps * ps * M), J0, J1
+
+
+def xstep_kernels(Dsm, nd0, nd1, ps=PS):
+    """Packed single-matmul weights for the spatial-Woodbury x-step.
+
+    ``Dsm`` is the spatial dictionary block ``(M, nd0, nd1)``.  Returns
+    ``(Wf, Wa, (jf0, jf1, ja0, ja1))``: the forward/adjoint polyphase
+    matmul weights (float32 tensors on ``Dsm``'s device) and their
+    circular-roll tap radii.
+    """
+    D = Dsm.detach().cpu().double().numpy()
+    M = D.shape[0]
+    kf, jf0, jf1 = _fwd_kernel(D, nd0, nd1, ps)
+    ka, ja0, ja1 = _adj_kernel(D, nd0, nd1, ps)
+    C = ps * ps * M
+    Wf = np.transpose(kf, (2, 0, 1, 3)).reshape(
+        C, (jf0 + 1) * (jf1 + 1) * ps * ps)
+    Wa = ka.reshape((ja0 + 1) * (ja1 + 1) * ps * ps, C)
+
+    def dev(w):
+        return torch.as_tensor(np.ascontiguousarray(w, np.float32),
+                               device=Dsm.device)
+    return dev(Wf), dev(Wa), (jf0, jf1, ja0, ja1)
+
+
+def _fwd_combine(o, J0, J1, ps):
+    """Epilogue of the forward polyphase conv: roll-and-sum the per-tap
+    matmul outputs ``o`` of shape (K, p0, p1, T*ps*ps)."""
+    K, p0, p1, _ = o.shape
+    T = (J0 + 1) * (J1 + 1)
+    o = o.reshape(K, p0, p1, T, ps * ps)
+    out = 0.0
+    for kx in range(J0 + 1):
+        for ky in range(J1 + 1):
+            t = kx * (J1 + 1) + ky
+            out = out + torch.roll(o[:, :, :, t], (J0 - kx, J1 - ky),
+                                   dims=(1, 2))
+    return out
+
+
+def _conv_fwd_mm(Pyu, Wf, J0, J1, ps):
+    """Forward polyphase conv as one dense matmul plus circular rolls of
+    the small per-tap outputs."""
+    return _fwd_combine(Pyu @ Wf, J0, J1, ps)
+
+
+def _adj_rolls(Gp, J0, J1):
+    """Prologue of the adjoint polyphase conv: concat of the rolled
+    single-channel operand."""
+    gs = [torch.roll(Gp, (-kx, -ky), dims=(1, 2))
+          for kx in range(J0 + 1) for ky in range(J1 + 1)]
+    return torch.cat(gs, dim=-1)
+
+
+def _conv_adj_mm(Gp, Wa, J0, J1):
+    """Adjoint polyphase conv as rolled-input concat plus one dense
+    matmul."""
+    return _adj_rolls(Gp, J0, J1) @ Wa
+
+
+def spatial_xstep(Pyu, Wf, Wa, js, DHD, sfr, sfi, beta, scale, Nv):
+    """The spatial-Woodbury CSC x-step in the packed polyphase layout.
+
+    Solves ``(beta I + D^H D) x = beta yu + D^H s`` as::
+
+        x = scale * yu + D^H irfft((Sf - scale * rfft(D yu)) / (DHD + beta))
+
+    Returns ``(PX, rfr, rfi, gr, gi)``.
+    """
+    jf0, jf1, ja0, ja1 = js
+    axes = (-2, -1)
+    beta, scale = float(beta), float(scale)
+    R = poly_unpack(_conv_fwd_mm(Pyu, Wf, jf0, jf1, PS))
+    rf = sf.rfftn(R, axes=axes)
+    rfr, rfi = scale * rf.real, scale * rf.imag
+    den = 1.0 / (DHD[None] + beta)
+    gr = (sfr - rfr) * den
+    gi = (sfi - rfi) * den
+    G = sf.irfftn(torch.complex(gr, gi), s=Nv, axes=axes)
+    PX = scale * Pyu + _conv_adj_mm(poly_pack(G), Wa, ja0, ja1)
+    return PX, rfr, rfi, gr, gi
+
+
+def _rfl2norm2_sq(sq, n1):
+    """Parseval correction given per-bin squared magnitudes ``sq`` of an
+    rfft half-spectrum: double all bins except the first (and, for even
+    n1, the last) column, divide by n0*n1."""
+    k1 = sq.shape[-1]
+    total = 2.0 * torch.sum(sq)
+    edge = torch.sum(sq[..., 0])
+    if n1 % 2 == 0:
+        edge = edge + torch.sum(sq[..., k1 - 1])
+    return (total - edge) / (sq.shape[-2] * n1)
+
+
+def _rfl2norm2_planar(er, ei, n1):
+    """Parseval-corrected squared l2 norm of an rfft half-spectrum given
+    planar real/imaginary parts."""
+    return _rfl2norm2_sq(er * er + ei * ei, n1)
+
+
+# ---------------------------------------------------------------------------
+# Eligibility
+
+def _layout_ok(cri, nd0, nd1, dtype, force=False):
+    """Structural layout constraints: 2-D, single-channel, PS-aligned even
+    spatial dims, float32; the small-support heuristic (``MAX_SUPPORT``)
+    is a performance choice only and is bypassed with ``force``."""
+    if not (cri.dimN == 2 and cri.Cd == 1 and cri.C == 1):
+        return False
+    if dtype != torch.float32:
+        return False
+    n0, n1 = cri.Nv
+    if n0 % PS != 0 or n1 % PS != 0 or n1 % 2 != 0:
+        return False
+    return force or (nd0 <= MAX_SUPPORT and nd1 <= MAX_SUPPORT)
+
+
+def _wl1_per_channel(wl1):
+    return wl1.ndim == 0 or all(d == 1 for i, d in enumerate(wl1.shape)
+                                if i != 2)
+
+
+def unsupported_reason(cfg, params, opts, force=False):
+    """None if this slice of the port's fused driver takes the
+    configuration, else what it lacks and the ROADMAP item that ports
+    it."""
+    cri = cfg.cri
+    if cri.Cd > 1 or cri.C > 1:
+        return ("multi-channel (colour) CSC is not ported yet "
+                "(ROADMAP queue 1, item 11)")
+    if cfg.variant != "l1":
+        return (f"the {cfg.variant!r} variant is not ported yet "
+                "(ROADMAP queue 1, item 8)")
+    if not (cfg.real and not cfg.no_bndry and not cfg.lin_check
+            and cfg.obj_from_x
+            and _layout_ok(cri, cri.dsz[0], cri.dsz[1], opts.dtype,
+                           force=force)):
+        return ("this configuration needs the generic ConvBPDN path, "
+                "which is not ported yet (ROADMAP queue 1, item 7); the "
+                "fused driver takes real single-channel 2-D float32 "
+                f"problems with {PS}-aligned even spatial dims")
+    if not _wl1_per_channel(params["wl1"]):
+        return ("a spatially varying L1Weight needs the fused driver's "
+                "XLA body, which is not ported yet (ROADMAP queue 1, "
+                "item 8)")
+    return None
+
+
+def eligible(cfg, params, opts, force=False):
+    """Whether the fused driver of this slice takes the configuration."""
+    return unsupported_reason(cfg, params, opts, force) is None
+
+
+# ---------------------------------------------------------------------------
+# The fused driver
+
+def _packed_wl1(wl1):
+    """l1 weights in the packed layout: a float32 scalar, or the
+    per-filter vector tiled over the ps*ps phases."""
+    if wl1.ndim == 0 or wl1.numel() == 1:
+        return f32(wl1.reshape(()).item())
+    return wl1.reshape(-1).to(torch.float32).repeat(PS * PS).contiguous()
+
+
+def cbpdn_solve(cfg, params, opts, state):
+    """Run (or resume) one fused solve call from ``state``; returns the
+    final :class:`ADMMState` in the internal layout."""
+    reason = unsupported_reason(cfg, params, opts, force=True)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    with fp32_precision(), torch.no_grad():
+        return _cbpdn_fused_run(cfg, params, opts, state)
+
+
+def _cbpdn_fused_run(cfg, params, opts, state):
+    cri = cfg.cri
+    n0, n1 = cri.Nv
+    K, M = cri.K, cri.M
+    nd0, nd1 = cri.dsz[0], cri.dsz[1]
+    axes = (-2, -1)
+    ar = opts.auto_rho
+    rlx = f32(opts.relax_param)
+    lmbda = f32(params["lmbda"])
+    wl1p = _packed_wl1(params["wl1"])
+
+    D = params["D"].reshape(M, nd0, nd1)
+    S = params["S"].reshape(K, n0, n1)
+    Df = sf.rfftn(D, s=cri.Nv, axes=axes)
+    DHD = torch.sum((Df * Df.conj()).real, dim=0)          # (n0, k1)
+    Sf = sf.rfftn(S, axes=axes)                            # (K, n0, k1)
+    sfr, sfi = Sf.real.contiguous(), Sf.imag.contiguous()
+    Wf, Wa, js = xstep_kernels(D, nd0, nd1, PS)
+    jf0, jf1, ja0, ja1 = js
+    pos = K * (n0 // PS) * (n1 // PS)
+    C = PS * PS * M
+    Ta = (ja0 + 1) * (ja1 + 1) * PS * PS
+
+    k0 = int(state.k)
+    k = k0
+    nc = math.sqrt(K * M * n0 * n1)    # sqrt of the size of X and of Y
+    rho, rho_xi = f32(state.rho), f32(state.rho_xi)
+    r, s = f32(state.r), f32(state.s)
+    epri, edua = f32(state.epri), f32(state.edua)
+    nobj = 4
+    stats = np.array(state.stats, np.float32, copy=True)
+    if stats.shape[0] != opts.max_iter:
+        stats = np.full((opts.max_iter, 1 + nobj + 5), np.nan, np.float32)
+
+    # fresh packed buffers: csc_iter updates PY/PU in place
+    PY = pack_state(state.Y)
+    PU = pack_state(state.U)        # true dual = us * PU
+    us = f32(1.0)
+    R1 = (PY - PU).reshape(pos, C) @ Wf
+    R2 = PU.reshape(pos, C) @ Wf
+
+    def converged():
+        return (r <= epri and s <= edua) or k - k0 >= opts.max_iter
+
+    while not converged():
+        # the l1 x-step: beta = rho, scale = 1 (elastic net is not ported)
+        # forward product, rescale-corrected by linearity
+        o2 = R1 + float(f32(1.0) - us) * R2
+        o4 = o2.reshape(K, n0 // PS, n1 // PS, -1)
+        R = poly_unpack(_fwd_combine(o4, jf0, jf1, PS))
+        rf = sf.rfftn(R, axes=axes)
+        rfr, rfi = rf.real, rf.imag
+        den = 1.0 / (DHD[None] + float(rho))
+        gr = (sfr - rfr) * den
+        gi = (sfi - rfi) * den
+        G = sf.irfftn(torch.complex(gr, gi), s=cri.Nv, axes=axes)
+        G2 = _adj_rolls(poly_pack(G), ja0, ja1)
+        lr = f32(lmbda / rho)
+        thr = lr * wl1p if isinstance(wl1p, np.floating) \
+            else float(lr) * wl1p
+        _, _, _, R1, R2, sums = csc_iter(
+            G2.reshape(pos, Ta), PY.view(pos, C), PU.view(pos, C), Wa, Wf,
+            thr, wl1p, rlx, us, 1.0, nonneg=cfg.non_neg, emit_px=False)
+        if opts.fast_solve:
+            host = sums.cpu().numpy()
+        else:
+            # DXf - Sf = rf + DHD*g - Sf (free spectral identity)
+            er = rfr + DHD[None] * gr - sfr
+            ei = rfi + DHD[None] * gi - sfi
+            dfd = 0.5 * _rfl2norm2_planar(er, ei, n1)
+            host = torch.cat([sums, dfd.reshape(1)]).cpu().numpy()
+        # the one host read of the iteration
+        rnrm = np.sqrt(host[0])
+        snrm = rho * np.sqrt(host[1])
+        rn = np.sqrt(np.maximum(host[2], host[3]))
+        sn = rho * np.sqrt(host[4])
+        r_, s_, epri_, edua_ = norm_residuals(ar, opts, nc, nc, rnrm, snrm,
+                                              rn, sn)
+        if opts.fast_solve:
+            objv = (np.nan,) * nobj
+        else:
+            rl1, dfd_h = host[5], host[6]
+            objv = (dfd_h + lmbda * rl1, dfd_h, rl1, np.nan)
+        stats[k - k0] = (k,) + objv + (r_, s_, epri_, edua_, rho)
+        if opts.verbose:
+            print(f"it {k}  obj {stats[k - k0, 1]:.4e}  r {r_:.3e}  "
+                  f"s {s_:.3e}  rho {rho:.3e}")
+        rho_new, us = _update_rho(ar, k, r_, s_, rho, rho_xi, f32(1.0))
+        rho, r, s, epri, edua = rho_new, r_, s_, epri_, edua_
+        k += 1
+
+    # The loop never stores X; it is the x-step at the final (Y, U, rho),
+    # which is what the next iteration (or a resumed solve) computes.
+    PXf = spatial_xstep(PY - float(us) * PU, Wf, Wa, js, DHD, sfr, sfi,
+                        rho, f32(1.0), cri.Nv)[0]
+    shp = state.Y.shape
+    return ADMMState(
+        X=unpack_state(PXf, M).reshape(shp),
+        Y=unpack_state(PY, M).reshape(shp),
+        U=(float(us) * unpack_state(PU, M)).reshape(shp),
+        rho=rho, rho_xi=rho_xi, k=np.int32(k), r=r, s=s, epri=epri,
+        edua=edua, stats=stats)

@@ -1,0 +1,1 @@
+"""solvers of the PyTorch/CUDA port (see the package docstring)."""

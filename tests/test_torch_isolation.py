@@ -1,0 +1,134 @@
+"""The port stands alone: ``sporco_tpu_torch`` and ``chip_smoke.py``
+import neither JAX nor the JAX package, the kernel build never falls
+back, and ``chip_smoke.py`` fails without a CUDA device."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from sporco_tpu_torch.ops import _nvcc
+from sporco_tpu_torch.ops import csc_iter as tci
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "sporco_tpu_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(mod):
+    top = mod.split(".")[0]
+    return top in ("jax", "jaxlib", "sporco_tpu")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    return env
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_importing_everything_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import sporco_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages("
+        "sporco_tpu_torch.__path__, 'sporco_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'sporco_tpu')]\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad or len(mods) < 10 else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_nvcc, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_nvcc, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    monkeypatch.setattr(_nvcc, "_LIBS", {})
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    assert _nvcc.find_nvcc() is None
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        _nvcc.load("csc_iter")
+    assert not (tmp_path / "kernels").exists()
+
+
+def test_failed_build_raises_with_compiler_output(monkeypatch, tmp_path):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\n"
+                    "exit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_nvcc, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_nvcc, "_LIBS", {})
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.setattr(shutil, "which", lambda name: str(fake))
+    with pytest.raises(RuntimeError, match="no sm_90a here"):
+        _nvcc.load("csc_iter")
+    assert list((tmp_path / "kernels").iterdir()) == []
+
+
+def test_build_flags_target_sm90a():
+    flags = " ".join(_nvcc.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-shared" in flags and "-O3" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    src = (PKG / "csrc" / "csc_iter.cu").read_text()
+    includes = [ln.split()[1] for ln in src.splitlines()
+                if ln.startswith("#include")]
+    assert includes == ["<cuda_runtime.h>", "<stdint.h>"]
+    assert 'extern "C"' in src and "cudaGetLastError" in src
+
+
+def test_non_cpu_tensors_never_take_the_plain_version():
+    m = torch.empty((8, 8), device="meta")
+    tci.reset_launches()
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tci.csc_iter(m, m, m, m, m, 0.1, 1.0, 1.8, 1.0, 1.0)
+    assert tci.LAUNCHES["csc_iter"] == 0
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_cuda(alone, tmp_path):
+    """Without a CUDA device (as here), and in a directory holding
+    chip_smoke.py and nothing else of the repo, the script exits
+    non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cwd = ROOT
+    env = dict(os.environ)
+    if alone:
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+        env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "{" not in out.stdout
+    if alone:
+        assert "sporco_tpu_torch" in out.stderr
