@@ -3,29 +3,43 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile]
 
-The main path is the headline problem of the repository: single-channel
-2-D ConvBPDN solved by ADMM on a 512x512 image with 64 filters of 8x8,
-lmbda = 0.05, to relative residual 1e-3 (``bench.py``'s problem),
-through ``sporco_tpu_torch.models.cbpdn.ConvBPDN`` on the fused driver
-and its hand-written CUDA kernel ``csc_iter``.
+The main paths are the headline problem of the repository, single-channel
+2-D ConvBPDN on a 512x512 image with 64 filters of 8x8, lmbda = 0.05
+(``bench.py``'s problem), solved two ways:
+
+- by ADMM to relative residual 1e-3, through
+  ``sporco_tpu_torch.models.cbpdn.ConvBPDN`` on the fused driver and its
+  hand-written CUDA kernel ``csc_iter``;
+- by FISTA at ``bench.py``'s PGM configuration (L = 100, 250 iterations,
+  no stopping tolerance), through ``sporco_tpu_torch.models.pgm.ConvBPDN``
+  on the fused packed problem and its hand-written CUDA kernel
+  ``pgm_iter``.
 
 Phases, each printing one JSON line on stdout:
 
 1. ``device``: the card's name and power limit, torch and CUDA versions;
-2. ``build``: the kernel's nvcc build (seconds, ptxas report);
+2. ``build``: the kernels' nvcc builds, one process per source, all
+   started together (seconds, ptxas report);
 3. ``kernel``: ``csc_iter`` against its plain PyTorch version on the card
    at the headline geometry over the flag grid, and both timed;
-4. ``parity``: 10 iterations of the headline problem on the card against
-   the port on the CPU (plain version), stats row by row;
-5. ``solve``: the headline problem to 1e-3 through ``ConvBPDN.solve()``;
-   the kernel's launch count must equal the iterations run.
+4. ``parity``: 10 ADMM iterations of the headline problem on the card
+   against the port on the CPU (plain version), stats row by row;
+5. ``solve``: the ADMM headline solve through ``ConvBPDN.solve()``; the
+   ``csc_iter`` launch count must equal the iterations run;
+6. ``pgm_kernel``: ``pgm_iter`` against its plain version on the card at
+   the headline geometry over its flag grid, and both timed;
+7. ``pgm_parity``: 10 FISTA iterations on the card against the CPU,
+   unmasked and with about 30% of the pixels masked out;
+8. ``pgm_solve``: the FISTA solve; the ``pgm_iter`` launch count must
+   equal the iterations run.
 
-Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
-limit line, and last ``{"ok": true, "device": {...}}``.  Any failure
-exits non-zero without the ``ok`` line; so does a run past the time
-budget, or a machine without a CUDA device.  ``--profile`` adds a phase
-that runs the headline solve under ``torch.profiler`` and reports the
-device's busy and idle share and its time by kernel.
+Each solve sets every kernel's launch count to 0 just before it and
+reads the counts just after.  Then the ``{"kernels": [...]}`` line, the
+``nvidia-smi`` name and power limit line, and last ``{"ok": true,
+"device": {...}}``.  Any failure exits non-zero without the ``ok`` line;
+so does a run past the time budget, or a machine without a CUDA device.
+``--profile`` adds phases that run each solve under ``torch.profiler``
+and report the device's busy and idle share and its time by kernel.
 """
 
 import json
@@ -40,9 +54,11 @@ import numpy as np
 import torch
 
 from sporco_tpu_torch._device import fp32_precision
+from sporco_tpu_torch.models import pgm as tpgm
 from sporco_tpu_torch.models.cbpdn import ConvBPDN
 from sporco_tpu_torch.ops import _nvcc
 from sporco_tpu_torch.ops import csc_iter as tci
+from sporco_tpu_torch.ops import pgm_iter as tpi
 from sporco_tpu_torch.ops.fused_csc import PS, xstep_kernels
 
 BUDGET_S = 600          # hard limit for the whole script, build included
@@ -50,6 +66,9 @@ BUDGET_S = 600          # hard limit for the whole script, build included
 N, ND, M, LMBDA = 512, 8, 64, 0.05
 MAX_ITER, REL_TOL = 500, 1e-3
 PARITY_ITERS = 10
+PGM_L, PGM_ITERS = 100.0, 250         # bench.py:_bench_pgm
+MASK_MISSING = 0.3                    # share of pixels masked out
+KERNELS = ("csc_iter", "pgm_iter")
 
 # Kernel against plain version, both fp32 on the card: they differ only in
 # summation order (k = 256 for G2 @ Wa, k = 4096 for R1/R2), about 1e-6
@@ -59,13 +78,17 @@ KERNEL_RTOL = 1e-5
 # tolerances of the CPU test of the port against the JAX package.
 PARITY = {"X": 2e-4, "ObjFun": 1e-4, "DFid": 1e-4, "RegL1": 1e-4,
           "Rho": 1e-4, "PrimalRsdl": 1e-3, "DualRsdl": 1e-3}
+PGM_PARITY = {"X": 2e-4, "ObjFun": 1e-4, "DFid": 1e-4, "RegL1": 1e-4,
+              "Rsdl": 1e-4}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# float operations per state element in the kernel's epilogue (update of
-# Y and U and the six sums), beside the 2*k of each product
+# float operations per state element in each kernel's epilogue, beside
+# the 2*k of each product: csc_iter's update of Y and U and six sums;
+# pgm_iter's step, prox, momentum and two sums
 EPI_FLOPS = 29
+PGM_EPI_FLOPS = 15
 
 PHASE = {"name": "start"}
 
@@ -117,24 +140,101 @@ def cuda_ms(fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
-def csc_iter_bound_ms(pos, C, T, emit_px, vectors):
-    """Least time of one csc_iter call on an H100 SXM: the larger of its
-    fp32 operations over 67 TFLOP/s and its bytes (each input read once,
-    each output written once) over 3.35 TB/s."""
-    flops = 3 * 2 * pos * T * C + EPI_FLOPS * pos * C
-    floats = (pos * T + 2 * pos * C + 2 * T * C            # G2 Y U Wa Wf
-              + 2 * pos * C + 2 * pos * T + 6              # Yn Un R1 R2 sums
-              + (pos * C if emit_px else 0) + (2 * C if vectors else 0))
+def _bound_ms(flops, floats):
+    """Least time on an H100 SXM for ``flops`` fp32 operations and
+    ``floats`` float32 values moved (each input read once, each output
+    written once): the larger of the operations over 67 TFLOP/s and the
+    bytes over 3.35 TB/s, with which of the two bounds it."""
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = 4 * floats / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
 
+def csc_iter_bound_ms(pos, C, T, emit_px, vectors):
+    """Least time of one csc_iter call (see :func:`_bound_ms`)."""
+    flops = 3 * 2 * pos * T * C + EPI_FLOPS * pos * C
+    floats = (pos * T + 2 * pos * C + 2 * T * C            # G2 Y U Wa Wf
+              + 2 * pos * C + 2 * pos * T + 6              # Yn Un R1 R2 sums
+              + (pos * C if emit_px else 0) + (2 * C if vectors else 0))
+    return _bound_ms(flops, floats)
+
+
+def pgm_iter_bound_ms(pos, C, T, vectors):
+    """Least time of one pgm_iter call (see :func:`_bound_ms`)."""
+    flops = 3 * 2 * pos * T * C + PGM_EPI_FLOPS * pos * C
+    floats = (pos * T + 2 * pos * C + 2 * T * C            # G2 Y Xprv Wa Wf
+              + 2 * pos * C + 2 * pos * T + 2              # X Yn R1 RX sums
+              + (2 * C if vectors else 0))
+    return _bound_ms(flops, floats)
+
+
+def reset_launches():
+    tci.reset_launches()
+    tpi.reset_launches()
+
+
+def launches():
+    return {**tci.LAUNCHES, **tpi.LAUNCHES}
+
+
+def compare_outputs(kernel, names, got, ref, where):
+    """Hold a kernel's outputs against its plain version's: each within
+    KERNEL_RTOL of that output's largest magnitude.  Returns the relative
+    error by output and the largest absolute error over the arrays (not
+    the sums)."""
+    torch.cuda.synchronize()
+    errs, max_abs = {}, 0.0
+    for name, k, p in zip(names, got, ref):
+        if not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"{kernel} {name} not finite at {where}")
+        ae = float((k - p).abs().max())
+        errs[name] = ae / max(float(p.abs().max()), 1e-30)
+        if name != "sums":
+            max_abs = max(max_abs, ae)
+        if errs[name] > KERNEL_RTOL:
+            raise AssertionError(
+                f"{kernel} {name} differs from the plain version by "
+                f"{errs[name]:.3e} (tolerance {KERNEL_RTOL:.0e}) at "
+                f"{where}")
+    return errs, max_abs
+
+
+def compare_runs(label, runs, stat_names, tolerance):
+    """Hold a solve on the card against the same solve on the CPU: the
+    stats columns ``stat_names`` row by row (relative), and each named
+    array within its tolerance of its scale.  ``runs`` is
+    ``[(itstat, {name: array}), ...]`` for the card, then the CPU."""
+    (ig, ag), (ic, ac) = runs
+    if len(ig) != PARITY_ITERS or len(ic) != PARITY_ITERS:
+        raise AssertionError(f"{label}: runs did not take {PARITY_ITERS} "
+                             "iterations")
+    errs = {}
+    for name in stat_names:
+        a, b = getattr(ig, name), getattr(ic, name)
+        errs[name] = float(np.max(np.abs(a - b) / np.abs(b)))
+    for name in ag:
+        a, b = ag[name], ac[name]
+        errs[name] = float(np.abs(a - b).max() / max(np.abs(b).max(),
+                                                      1e-6))
+    for name, e in errs.items():
+        tol = tolerance["X" if name in ag else name]
+        if not e <= tol:
+            raise AssertionError(f"{label}: {name} differs by {e:.3e} "
+                                 f"(tolerance {tol:.0e})")
+    return errs
+
+
+def headline_weights(dev, D):
+    """The polyphase weights of the headline dictionary on the card and
+    the packed geometry (pos, C, T)."""
+    Wf, Wa, _ = xstep_kernels(torch.as_tensor(D).permute(2, 0, 1)
+                              .contiguous().to(dev), ND, ND, PS)
+    return Wf, Wa, ((N // PS) ** 2, PS * PS * M, Wa.shape[0])
+
+
 def phase_kernel(dev, D):
-    Wf, Wa, js = xstep_kernels(torch.as_tensor(D).permute(2, 0, 1)
-                               .contiguous().to(dev), ND, ND, PS)
-    pos, C, T = (N // PS) ** 2, PS * PS * M, Wa.shape[0]
+    Wf, Wa, (pos, C, T) = headline_weights(dev, D)
     g = torch.Generator(device=dev).manual_seed(1)
 
     def randn(*shape):
@@ -157,25 +257,12 @@ def phase_kernel(dev, D):
                     o = fn(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale,
                            nonneg=nonneg, emit_px=emit_px)
                     outs.append([t for t in o if t is not None])
-                torch.cuda.synchronize()
-                errs = {}
-                for name, k, p in zip(
-                        (["PX"] if emit_px else []) + ["Yn", "Un", "R1",
-                                                       "R2", "sums"],
-                        *outs):
-                    if not bool(torch.isfinite(k).all()):
-                        raise AssertionError(f"kernel {name} not finite")
-                    ae = float((k - p).abs().max())
-                    re = ae / max(float(p.abs().max()), 1e-30)
-                    errs[name] = re
-                    if name != "sums":      # arrays, not the six sums
-                        max_abs = max(max_abs, ae)
-                    if re > KERNEL_RTOL:
-                        raise AssertionError(
-                            f"csc_iter {name} differs from the plain "
-                            f"version by {re:.3e} (tolerance "
-                            f"{KERNEL_RTOL:.0e}) at emit_px={emit_px} "
-                            f"nonneg={nonneg} vectors={vectors}")
+                names = (["PX"] if emit_px else []) + ["Yn", "Un", "R1",
+                                                       "R2", "sums"]
+                errs, ae = compare_outputs(
+                    "csc_iter", names, *outs,
+                    f"emit_px={emit_px} nonneg={nonneg} vectors={vectors}")
+                max_abs = max(max_abs, ae)
                 grid.append({"emit_px": emit_px, "nonneg": nonneg,
                              "vectors": vectors, "rel_err": errs})
     # time the main path's configuration
@@ -205,28 +292,14 @@ def phase_kernel(dev, D):
 
 def phase_parity(dev, D, S, lmbda):
     opt = ConvBPDN.options(max_iter=PARITY_ITERS, rel_stop_tol=0.0)
-    runs = {}
+    runs = []
     for d in (dev, "cpu"):
         b = ConvBPDN(D, S, lmbda, opt=opt, device=d)
         Yd = b.solve()
-        runs[str(d)] = (b.getitstat(), Yd.cpu().numpy(),
-                        b.state.X.cpu().numpy())
-    (ig, Yg, Xg), (ic, Yc, Xc) = runs[str(dev)], runs["cpu"]
-    if len(ig) != PARITY_ITERS or len(ic) != PARITY_ITERS:
-        raise AssertionError("parity runs did not take 10 iterations")
-    errs = {}
-    for name in ("ObjFun", "DFid", "RegL1", "Rho", "PrimalRsdl",
-                 "DualRsdl"):
-        a, b = getattr(ig, name), getattr(ic, name)
-        errs[name] = float(np.max(np.abs(a - b) / np.abs(b)))
-    for name, a, b in (("Y", Yg, Yc), ("X", Xg, Xc)):
-        errs[name] = float(np.abs(a - b).max() / max(np.abs(b).max(),
-                                                      1e-6))
-    for name, e in errs.items():
-        tol = PARITY["X" if name in ("X", "Y") else name]
-        if not e <= tol:
-            raise AssertionError(f"parity: {name} differs by {e:.3e} "
-                                 f"(tolerance {tol:.0e})")
+        runs.append((b.getitstat(), {"Y": Yd.cpu().numpy(),
+                                     "X": b.state.X.cpu().numpy()}))
+    errs = compare_runs("parity", runs, ("ObjFun", "DFid", "RegL1", "Rho",
+                                         "PrimalRsdl", "DualRsdl"), PARITY)
     return {"iterations": PARITY_ITERS, "rel_err": errs,
             "tolerance": PARITY}
 
@@ -238,17 +311,17 @@ def phase_solve(dev, D, S, lmbda):
     b = ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(
         max_iter=MAX_ITER, rel_stop_tol=REL_TOL), device=dev)
     torch.cuda.synchronize()
-    tci.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     X = b.solve()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(tci.LAUNCHES)
+    counts = launches()
     its = b.getitstat()
     k = int(b.state.k)
-    if launches["csc_iter"] != k:
-        raise AssertionError(f"csc_iter launched {launches['csc_iter']} "
-                             f"times in a solve of {k} iterations")
+    if counts != {"csc_iter": k, "pgm_iter": 0}:
+        raise AssertionError(f"launches {counts} in an ADMM solve of {k} "
+                             "iterations")
     if tuple(X.shape) != (N, N, 1, 1, M):
         raise AssertionError(f"coefficients have shape {tuple(X.shape)}")
     for name, t in (("Y", X), ("X", b.state.X), ("U", b.state.U)):
@@ -267,18 +340,126 @@ def phase_solve(dev, D, S, lmbda):
             "final_objective": float(its.ObjFun[-1]),
             "final_dfid": float(its.DFid[-1]),
             "final_rho": float(its.Rho[-1]), "nonzero_fraction": nnz,
-            "launches": launches}
+            "launches": counts}
 
 
-def phase_profile(dev, D, S, lmbda):
-    """The headline solve under ``torch.profiler``: device busy time
-    (the sum of every kernel's and copy's time on the card) against the
-    solve's wall time, and the device time by kernel.  The profiler's
-    own host overhead lengthens the wall time, so the idle share is an
-    upper bound."""
+def pgm_options(max_iter=PGM_ITERS):
+    return tpgm.ConvBPDN.options(max_iter=max_iter, rel_stop_tol=0.0,
+                                 L=PGM_L)
+
+
+def phase_pgm_kernel(dev, D):
+    Wf, Wa, (pos, C, T) = headline_weights(dev, D)
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def sparse(*shape):
+        return randn(*shape) * (torch.rand(shape, generator=g, device=dev)
+                                < 0.05)
+    G2 = randn(pos, T)
+    Y0, X0 = sparse(pos, C), sparse(pos, C)
+    thr_v = 0.01 + 0.02 * torch.rand(C, generator=g, device=dev)
+    wl1_v = 0.5 + torch.rand(C, generator=g, device=dev)
+    rL = 1.0 / PGM_L
+    grid, max_abs = [], 0.0
+    for nonneg in (False, True):
+        for vectors in (False, True):
+            for beta in (0.0, 0.7):
+                thr, wl1 = (thr_v, wl1_v) if vectors else (5e-4, 1.0)
+                outs = []
+                for fn in (tpi.pgm_iter, tpi.pgm_iter_plain):
+                    Y, X = Y0.clone(), X0.clone()
+                    outs.append(fn(G2, Y, X, Wa, Wf, thr, wl1, rL, beta,
+                                   nonneg=nonneg))
+                errs, ae = compare_outputs(
+                    "pgm_iter", ("X", "Yn", "R1", "RX", "sums"), *outs,
+                    f"nonneg={nonneg} vectors={vectors} beta={beta}")
+                max_abs = max(max_abs, ae)
+                nnz = float((outs[0][0] != 0).float().mean())
+                grid.append({"nonneg": nonneg, "vectors": vectors,
+                             "beta": beta, "x_nonzero": nnz,
+                             "rel_err": errs})
+    # time the main path's configuration (scalar thr and wl1)
+    Y, X = Y0.clone(), X0.clone()
+
+    def run(fn):
+        return lambda: fn(G2, Y, X, Wa, Wf, 5e-4, 1.0, rL, 0.7)
+    kernel_ms = cuda_ms(run(tpi.pgm_iter))
+    plain_ms = cuda_ms(run(tpi.pgm_iter_plain))
+    bound_ms, bound_by = pgm_iter_bound_ms(pos, C, T, False)
+    gflop = 2 * pos * T * C / 1e9
+    return {"geometry": {"pos": pos, "C": C, "T": T},
+            "tolerance_rel": KERNEL_RTOL, "grid": grid,
+            "max_abs_err": max_abs, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "kernel_tflops": 3 * gflop / kernel_ms}
+
+
+def phase_pgm_parity(dev, D, S, lmbda):
+    W = (np.random.default_rng(3).random((N, N))
+         >= MASK_MISSING).astype(np.float32)
+    out = {}
+    for masked in (False, True):
+        cls = tpgm.ConvBPDNMask if masked else tpgm.ConvBPDN
+        kw = {"W": W} if masked else {}
+        runs = []
+        for d in (dev, "cpu"):
+            b = cls(D, S, lmbda, opt=pgm_options(PARITY_ITERS), device=d,
+                    **kw)
+            X = b.solve()
+            runs.append((b.getitstat(), {"X": X.cpu().numpy(),
+                                         "Y": b.state.Y.cpu().numpy()}))
+        label = "masked" if masked else "unmasked"
+        out[label] = compare_runs(f"FISTA parity ({label})", runs,
+                                  ("ObjFun", "DFid", "RegL1", "Rsdl"),
+                                  PGM_PARITY)
+    return {"iterations": PARITY_ITERS, "mask_missing": MASK_MISSING,
+            "rel_err": out, "tolerance": PGM_PARITY}
+
+
+def phase_pgm_solve(dev, D, S, lmbda):
+    # warm-up: cuBLAS handles, allocator
+    tpgm.ConvBPDN(D, S, lmbda, opt=pgm_options(3), device=dev).solve()
+    b = tpgm.ConvBPDN(D, S, lmbda, opt=pgm_options(), device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    X = b.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    its = b.getitstat()
+    k = int(b.state.k)
+    if k != PGM_ITERS or counts != {"csc_iter": 0, "pgm_iter": k}:
+        raise AssertionError(f"launches {counts} in a FISTA solve of {k} "
+                             "iterations")
+    if tuple(X.shape) != (N, N, 1, 1, M):
+        raise AssertionError(f"coefficients have shape {tuple(X.shape)}")
+    for name in ("X", "Y", "Xprv"):
+        if not bool(torch.isfinite(getattr(b.state, name)).all()):
+            raise AssertionError(f"{name} is not finite")
+    if not (np.all(np.isfinite(its.ObjFun)) and np.all(its.Rsdl > 0)
+            and its.ObjFun[-1] < its.ObjFun[0]):
+        raise AssertionError("objective not finite or not decreasing")
+    nnz = float((b.state.X != 0).float().mean())
+    return {"iterations": k, "wall_ms": 1e3 * wall, "iters_per_s": k / wall,
+            "ms_per_iter": 1e3 * wall / k,
+            "final_objective": float(its.ObjFun[-1]),
+            "final_dfid": float(its.DFid[-1]),
+            "final_rsdl": float(its.Rsdl[-1]), "nonzero_fraction": nnz,
+            "launches": counts}
+
+
+def phase_profile(dev, make_model):
+    """A solve under ``torch.profiler``: device busy time (the sum of
+    every kernel's and copy's time on the card) against the solve's wall
+    time, and the device time by kernel.  The profiler's own host
+    overhead lengthens the wall time, so the idle share is an upper
+    bound."""
     from torch.profiler import ProfilerActivity, profile as tprof
-    b = ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(
-        max_iter=MAX_ITER, rel_stop_tol=REL_TOL), device=dev)
+    b = make_model()
     torch.cuda.synchronize()
     with tprof(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
@@ -303,6 +484,16 @@ def phase_profile(dev, D, S, lmbda):
             "device_ms_per_iter": busy_ms / k,
             "top": [{"name": e.key[:70], "device_ms": dev_us(e) / 1e3,
                      "count": e.count} for e in top]}
+
+
+def kernel_entry(name, kern, solve, replaces):
+    return {"name": name, "route": "cuda",
+            "source": f"sporco_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": solve["launches"][name],
+            "max_abs_err": kern["max_abs_err"], "ms": kern["kernel_ms"],
+            "kernel_ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
+            "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
+            "library_ms": None}
 
 
 def main(argv):
@@ -330,13 +521,15 @@ def main(argv):
         "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
     def build():
-        _nvcc.build(["csc_iter"])
-        info = _nvcc.BUILD_INFO["csc_iter"]
-        ptxas = [ln for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
-        return {"nvcc": _nvcc.find_nvcc(),
+        _nvcc.build(KERNELS)
+        out = {"nvcc": _nvcc.find_nvcc()}
+        for name in KERNELS:
+            info = _nvcc.BUILD_INFO[name]
+            out[name] = {
                 "build_s": info["seconds"], "cached": info["cached"],
-                "ptxas": ptxas}
+                "ptxas": [ln for ln in info["log"].splitlines()
+                          if "registers" in ln or "spill" in ln]}
+        return out
     run_phase("build", build)
 
     D, S, lmbda = headline_problem()
@@ -344,19 +537,25 @@ def main(argv):
     run_phase("parity", lambda: phase_parity(dev, D, S, lmbda))
     summary["solve"] = run_phase("solve",
                                  lambda: phase_solve(dev, D, S, lmbda))
+    summary["pgm_kernel"] = run_phase("pgm_kernel",
+                                      lambda: phase_pgm_kernel(dev, D))
+    run_phase("pgm_parity", lambda: phase_pgm_parity(dev, D, S, lmbda))
+    summary["pgm_solve"] = run_phase(
+        "pgm_solve", lambda: phase_pgm_solve(dev, D, S, lmbda))
     if "--profile" in argv:
-        run_phase("profile", lambda: phase_profile(dev, D, S, lmbda))
+        run_phase("profile", lambda: phase_profile(dev, lambda: ConvBPDN(
+            D, S, lmbda, opt=ConvBPDN.options(
+                max_iter=MAX_ITER, rel_stop_tol=REL_TOL), device=dev)))
+        run_phase("pgm_profile", lambda: phase_profile(
+            dev, lambda: tpgm.ConvBPDN(D, S, lmbda, opt=pgm_options(),
+                                       device=dev)))
     PHASE["name"] = "kernels"
-    kern = summary["kernel"]
-    emit({"kernels": [{
-        "name": "csc_iter", "route": "cuda",
-        "source": "sporco_tpu_torch/csrc/csc_iter.cu",
-        "replaces": "sporco_tpu/ops/pallas_csc_iter.py:276",
-        "launches": summary["solve"]["launches"]["csc_iter"],
-        "max_abs_err": kern["max_abs_err"], "ms": kern["kernel_ms"],
-        "kernel_ms": kern["kernel_ms"],
-        "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"], "library_ms": None}]})
+    emit({"kernels": [
+        kernel_entry("csc_iter", summary["kernel"], summary["solve"],
+                     "sporco_tpu/ops/pallas_csc_iter.py:276"),
+        kernel_entry("pgm_iter", summary["pgm_kernel"],
+                     summary["pgm_solve"],
+                     "sporco_tpu/ops/pallas_csc_iter.py:409")]})
     elapsed = time.perf_counter() - t_start
     if elapsed > BUDGET_S:
         raise RuntimeError(f"over the time budget: {elapsed:.0f} s")

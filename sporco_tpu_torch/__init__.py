@@ -4,10 +4,13 @@ A second package beside the JAX reference.  Module names mirror
 ``sporco_tpu`` so that every piece has an obvious counterpart:
 
 - :mod:`sporco_tpu_torch.cnvrep`   -- problem dimensions and layouts.
-- :mod:`sporco_tpu_torch.ops`      -- FFT glue, the fused ConvBPDN
-  driver and the hand-written CUDA kernel (``csc_iter``).
-- :mod:`sporco_tpu_torch.solvers`  -- ADMM options, state and AutoRho.
-- :mod:`sporco_tpu_torch.models`   -- ``ConvBPDN``.
+- :mod:`sporco_tpu_torch.ops`      -- FFT glue, the fused ConvBPDN ADMM
+  driver and FISTA problem, and the hand-written CUDA kernels
+  (``csc_iter``, ``pgm_iter``).
+- :mod:`sporco_tpu_torch.solvers`  -- ADMM options, state and AutoRho;
+  the PGM (FISTA) options, state and loop.
+- :mod:`sporco_tpu_torch.models`   -- ``cbpdn.ConvBPDN`` (ADMM),
+  ``pgm.ConvBPDN`` and ``pgm.ConvBPDNMask`` (FISTA).
 
 The package imports ``torch`` and never ``jax``.  Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``; on the CPU

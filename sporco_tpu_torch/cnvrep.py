@@ -22,7 +22,7 @@ import torch
 
 __all__ = ["CSCIndex", "csc_index", "DictionarySize", "to_internal_S",
            "to_internal_D", "to_internal_X", "from_internal_X",
-           "from_internal_D", "l1_weight"]
+           "from_internal_D", "l1_weight", "fidelity_mask"]
 
 
 @dataclass(frozen=True)
@@ -198,3 +198,28 @@ def l1_weight(W, cri):
         return to_internal_X(W, cri)
     raise ValueError(f"Cannot infer internal shape for weight array with "
                      f"shape {tuple(W.shape)}")
+
+
+def fidelity_mask(W, cri):
+    """Convert a user-shaped data-fidelity mask to the internal layout,
+    broadcastable against ``(K, C, 1, Nv...)`` (capability of
+    ``mskWshape``, ``sporco/cnvrep.py:554``; same rules as the JAX
+    package): a scalar; a spatial mask ``Nv``; ``Nv`` plus one axis,
+    which is the signal axis when S has one channel and several signals
+    and the channel axis otherwise; or ``Nv + (C, K)`` (with an optional
+    trailing axis, of which index 0 is taken)."""
+    W = torch.as_tensor(W)
+    if W.ndim == 0 or W.numel() == 1:
+        return W.reshape((1,) * (3 + cri.dimN))
+    dimN = cri.dimN
+    ckdim = W.ndim - dimN
+    if ckdim <= 0:
+        return W.reshape((1, 1, 1) + tuple(W.shape))
+    if ckdim >= 2:
+        Wck = W if ckdim == 2 else W[..., 0]
+        perm = (dimN + 1, dimN) + tuple(range(dimN))
+        return Wck.permute(perm).unsqueeze(2)
+    Wi = W.permute((dimN,) + tuple(range(dimN)))
+    if cri.C == 1 and cri.K > 1:
+        return Wi[:, None, None]              # (K, 1, 1, Nv...)
+    return Wi[None, :, None]                  # (1, C, 1, Nv...)

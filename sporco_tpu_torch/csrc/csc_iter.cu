@@ -30,7 +30,8 @@
 // schedule (the forward product R1 needs about 5e-7 relative accuracy).
 //
 // Design (simple first; TF32x3 on wgmma, TMA and fusing R1/R2 into the
-// first pass are later work):
+// first pass are later work; the tiles are in csc_tiles.cuh, shared with
+// pgm_iter.cu):
 //   1. iter_main: a 128x128-tile SGEMM of G2 @ Wa (8x8 outputs per
 //      thread, k-tiles of 8 in shared memory) whose epilogue runs the
 //      elementwise update on its own tile of Y and U.  Each element is
@@ -41,39 +42,16 @@
 //   2. iter_fwd: a 64x64-tile SGEMM over k = C that forms Yn - Un and Un
 //      while staging them in shared memory and accumulates R1 and R2 in
 //      one pass over Yn and Un.
-//   3. iter_sums: one block reduces the per-block partials in a fixed
+//   3. sums_kernel<6>: one block reduces the per-block partials in a fixed
 //      order, in double.
 // Ragged edges are masked, so any pos, C and T are accepted.  The
 // launch function returns cudaGetLastError() after each launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "csc_tiles.cuh"
 
 namespace {
 
 constexpr int NSUM = 6;
-constexpr int NT = 256;
-
-constexpr int A_BM = 128;  // iter_main tile: rows of the state
-constexpr int A_BN = 128;  // columns (state channels)
-constexpr int A_BK = 8;    // depth (taps)
-
-constexpr int F_BM = 64;   // iter_fwd tile: rows of the state
-constexpr int F_BN = 64;   // columns (taps)
-constexpr int F_BK = 16;   // depth (state channels)
-
-// Elements k..k+3 of a row of length n (zero past its end); one 16-byte
-// load when allowed and in bounds.
-__device__ __forceinline__ float4 load4(const float* __restrict__ row,
-                                        int64_t k, int64_t n, bool vec) {
-  if (vec && k + 3 < n) return *reinterpret_cast<const float4*>(row + k);
-  float4 v;
-  v.x = k < n ? row[k] : 0.f;
-  v.y = k + 1 < n ? row[k + 1] : 0.f;
-  v.z = k + 2 < n ? row[k + 2] : 0.f;
-  v.w = k + 3 < n ? row[k + 3] : 0.f;
-  return v;
-}
 
 struct Epi {
   float rlx, us, scale;
@@ -111,60 +89,16 @@ iter_main(const float* __restrict__ G2, float* __restrict__ Y,
           const float* __restrict__ wl1_v, float wl1_s, Epi p,
           float* __restrict__ PX, float* __restrict__ part, int64_t pos,
           int64_t C, int64_t T, int vec) {
-  __shared__ __align__(16) float As[A_BK][A_BM];
-  __shared__ __align__(16) float Bs[A_BK][A_BN];
-  __shared__ float red[NSUM][NT / 32];
+  float acc[8][8];
+  adj_tile(G2, Wa, pos, C, T, vec, acc);
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int64_t row0 = (int64_t)blockIdx.x * A_BM;
   const int64_t col0 = (int64_t)blockIdx.y * A_BN;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  // loader roles: A tile row ar, depth ak..ak+3; B tile depth bk,
-  // columns bc..bc+3
-  const int ar = tid >> 1, ak = (tid & 1) * 4;
-  const int bk = tid >> 5, bc = (tid & 31) * 4;
-  const int64_t grow = row0 + ar;
-
-  for (int64_t k0 = 0; k0 < T; k0 += A_BK) {
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (grow < pos) av = load4(G2 + grow * T, k0 + ak, T, vec);
-    As[ak + 0][ar] = av.x;
-    As[ak + 1][ar] = av.y;
-    As[ak + 2][ar] = av.z;
-    As[ak + 3][ar] = av.w;
-    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k0 + bk < T) bv = load4(Wa + (k0 + bk) * C, col0 + bc, C, vec);
-    *reinterpret_cast<float4*>(&Bs[bk][bc]) = bv;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < A_BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
   float s[NSUM] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int64_t r = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    const int64_t r = adj_row(row0, ty, i);
     if (r >= pos) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -206,123 +140,25 @@ iter_main(const float* __restrict__ G2, float* __restrict__ Y,
       }
     }
   }
-
-  // block partials of the six sums, in a fixed order
-  const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int q = 0; q < NSUM; ++q) {
-    float v = s[q];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) red[q][warp] = v;
-  }
-  __syncthreads();
-  if (tid < NSUM) {
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < NT / 32; ++w) v += red[tid][w];
-    const int64_t blk = (int64_t)blockIdx.y * gridDim.x + blockIdx.x;
-    part[blk * NSUM + tid] = v;
-  }
+  block_partials<NSUM>(s, part);
 }
+
+// R1 stages Yn - Un, R2 stages Un.
+struct StageDiff {
+  __device__ __forceinline__ void operator()(float yn, float un, float& p,
+                                             float& q) const {
+    p = yn - un;
+    q = un;
+  }
+};
 
 __global__ void __launch_bounds__(NT)
 iter_fwd(const float* __restrict__ Yn, const float* __restrict__ Un,
          const float* __restrict__ Wf, float* __restrict__ R1,
          float* __restrict__ R2, int64_t pos, int64_t C, int64_t T,
          int vec) {
-  __shared__ __align__(16) float Ds[F_BK][F_BM];
-  __shared__ __align__(16) float Us[F_BK][F_BM];
-  __shared__ __align__(16) float Ws[F_BK][F_BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int64_t row0 = (int64_t)blockIdx.x * F_BM;
-  const int64_t col0 = (int64_t)blockIdx.y * F_BN;
-
-  float a1[4][4], a2[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a1[i][j] = a2[i][j] = 0.f;
-
-  // loader roles: state tile row ar, depth ak..ak+3; weight tile depth
-  // wk, columns wc..wc+3
-  const int ar = tid >> 2, ak = (tid & 3) * 4;
-  const int wk = tid >> 4, wc = (tid & 15) * 4;
-  const int64_t grow = row0 + ar;
-
-  for (int64_t k0 = 0; k0 < C; k0 += F_BK) {
-    float4 y4 = make_float4(0.f, 0.f, 0.f, 0.f), u4 = y4;
-    if (grow < pos) {
-      y4 = load4(Yn + grow * C, k0 + ak, C, vec);
-      u4 = load4(Un + grow * C, k0 + ak, C, vec);
-    }
-    Ds[ak + 0][ar] = y4.x - u4.x;
-    Ds[ak + 1][ar] = y4.y - u4.y;
-    Ds[ak + 2][ar] = y4.z - u4.z;
-    Ds[ak + 3][ar] = y4.w - u4.w;
-    Us[ak + 0][ar] = u4.x;
-    Us[ak + 1][ar] = u4.y;
-    Us[ak + 2][ar] = u4.z;
-    Us[ak + 3][ar] = u4.w;
-    float4 w4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k0 + wk < C) w4 = load4(Wf + (k0 + wk) * T, col0 + wc, T, vec);
-    *reinterpret_cast<float4*>(&Ws[wk][wc]) = w4;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < F_BK; ++kk) {
-      const float4 d = *reinterpret_cast<const float4*>(&Ds[kk][ty * 4]);
-      const float4 u = *reinterpret_cast<const float4*>(&Us[kk][ty * 4]);
-      const float4 w = *reinterpret_cast<const float4*>(&Ws[kk][tx * 4]);
-      const float dv[4] = {d.x, d.y, d.z, d.w};
-      const float uv[4] = {u.x, u.y, u.z, u.w};
-      const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          a1[i][j] = fmaf(dv[i], wv[j], a1[i][j]);
-          a2[i][j] = fmaf(uv[i], wv[j], a2[i][j]);
-        }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t r = row0 + ty * 4 + i;
-    if (r >= pos) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t c = col0 + tx * 4 + j;
-      if (c >= T) break;
-      R1[r * T + c] = a1[i][j];
-      R2[r * T + c] = a2[i][j];
-    }
-  }
+  fwd_pair(Yn, Un, Wf, R1, R2, pos, C, T, vec, StageDiff());
 }
-
-__global__ void __launch_bounds__(NT)
-iter_sums(const float* __restrict__ part, int64_t nblk,
-          float* __restrict__ sums) {
-  __shared__ double red[NT];
-  const int tid = threadIdx.x;
-  for (int q = 0; q < NSUM; ++q) {
-    double v = 0.0;
-    for (int64_t b = tid; b < nblk; b += NT) v += part[b * NSUM + q];
-    red[tid] = v;
-    __syncthreads();
-    for (int h = NT / 2; h > 0; h >>= 1) {
-      if (tid < h) red[tid] += red[tid + h];
-      __syncthreads();
-    }
-    if (tid == 0) sums[q] = (float)red[0];
-    __syncthreads();
-  }
-}
-
-int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 }  // namespace
 
@@ -363,7 +199,7 @@ int csc_iter_launch(const float* G2, float* Y, float* U, const float* Wa,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  iter_sums<<<1, NT, 0, st>>>(part, g1x * g1y, sums);
+  sums_kernel<NSUM><<<1, NT, 0, st>>>(part, g1x * g1y, sums);
   return (int)cudaGetLastError();
 }
 

@@ -21,7 +21,7 @@ from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import fused_csc
 from sporco_tpu_torch.solvers.admm import ADMMOpts, AutoRhoOpts, init_state
 
-__all__ = ["ConvBPDN", "CSCConfig", "params_from_numpy"]
+__all__ = ["ConvBPDN", "CSCConfig", "params_from_numpy", "reconstruct"]
 
 
 @dataclass(frozen=True)
@@ -166,14 +166,21 @@ class ConvBPDN(ADMMModel):
     def reconstruct(self, X=None):
         """Reconstruct ``sum_m d_m * x_m`` in the user S layout
         ``Nv + [K]``."""
-        Xi = self.state.Y if X is None else cr.to_internal_X(
-            torch.as_tensor(np.asarray(X, np.float32)),
-            self.cri).to(self.device)
-        axes = (-2, -1)
-        with fp32_precision():
-            Df = sf.rfftn(self.params["D"], s=self.cri.Nv, axes=axes)
-            Xf = sf.rfftn(Xi, axes=axes)
-            Si = sf.irfftn(torch.sum(Df * Xf, dim=2, keepdim=True),
-                           s=self.cri.Nv, axes=axes)
-        S = Si[:, 0, 0].permute(1, 2, 0)              # Nv + (K,)
-        return S[..., 0] if self.cri.dimK == 0 else S
+        return reconstruct(self.params["D"], self.state.Y, self.cri, X)
+
+
+def reconstruct(Di, Xi, cri, X=None):
+    """``sum_m d_m * x_m`` in the user S layout ``Nv + [K]`` for the
+    internal dictionary ``Di`` and coefficients ``Xi``, or the
+    reference-layout coefficients ``X`` when given."""
+    if X is not None:
+        Xi = cr.to_internal_X(torch.as_tensor(np.asarray(X, np.float32)),
+                              cri).to(Di.device)
+    axes = (-2, -1)
+    with fp32_precision():
+        Df = sf.rfftn(Di, s=cri.Nv, axes=axes)
+        Xf = sf.rfftn(Xi, axes=axes)
+        Si = sf.irfftn(torch.sum(Df * Xf, dim=2, keepdim=True), s=cri.Nv,
+                       axes=axes)
+    S = Si[:, 0, 0].permute(1, 2, 0)              # Nv + (K,)
+    return S[..., 0] if cri.dimK == 0 else S

@@ -1,6 +1,7 @@
 """Shared machinery for model classes (counterpart of
 ``sporco_tpu.models.common``): a thin stateful shell holding
-``(cfg, params, opts, state)`` around a functional solver core."""
+``(cfg, params, opts, state)`` around a functional solver core, for ADMM
+and for PGM models."""
 
 import math
 
@@ -9,19 +10,33 @@ import torch
 
 from sporco_tpu_torch import refopts
 from sporco_tpu_torch.solvers import admm as _admm
+from sporco_tpu_torch.solvers import pgm as _pgm
 from sporco_tpu_torch.utils.timer import Timer
 
-__all__ = ["ADMMModel", "default_rho_xi"]
+__all__ = ["ADMMModel", "PGMModel", "default_rho_xi"]
 
 
-class ADMMModel:
-    """Base for ADMM-driven model classes.  Subclasses set ``cfg``,
-    ``params``, ``opts``, ``state`` and ``device`` in ``__init__`` and
-    implement :meth:`_solve_state`.  Constructors accept a
-    reference-style option dict as ``opt`` (see
+def _state_dict(state):
+    """A solver state as numpy arrays (the layout of the JAX package's
+    ``state_dict()``)."""
+    out = {}
+    for k, v in state._asdict().items():
+        if isinstance(v, torch.Tensor):
+            out[k] = v.detach().cpu().numpy()
+        elif k == "extra":
+            out[k] = v
+        else:
+            out[k] = np.array(v, copy=True)
+    return out
+
+
+class _Model:
+    """The stateful shell shared by the ADMM and PGM model bases.
+    Subclasses set ``cfg``, ``params``, ``opts``, ``state`` and
+    ``device`` in ``__init__`` and implement :meth:`_solve_state`.
+    Constructors accept a reference-style option dict as ``opt`` (see
     :mod:`sporco_tpu_torch.refopts`)."""
 
-    REF_OPT_EXTRA = refopts.ADMM_BASE
     STAT_NAMES = ()
 
     def __init_subclass__(cls, **kw):
@@ -51,6 +66,60 @@ class ADMMModel:
         self.timer.stop("solve")
         return self.getmin()
 
+    @property
+    def itstat(self):
+        return self.getitstat()
+
+    def state_dict(self):
+        """Snapshot of the solver state as numpy arrays (the layout of
+        the JAX package's ``state_dict()``)."""
+        return _state_dict(self.state)
+
+    def load_state(self, d):
+        """Restore a snapshot written by :meth:`state_dict`."""
+        self.load_state_dict_numpy(d)
+
+    def _tensor(self, a):
+        """A numpy array as a new float32 tensor on the model's device."""
+        return torch.tensor(np.asarray(a, np.float32), device=self.device)
+
+
+class PGMModel(_Model):
+    """Base for PGM-driven model classes (counterpart of the JAX
+    package's ``PGMModel``)."""
+
+    REF_OPT_EXTRA = refopts.PGM_BASE
+
+    def getmin(self):
+        return self.state.X
+
+    def getitstat(self):
+        """Per-iteration statistics of the most recent ``solve`` call."""
+        return _pgm.pgm_iterstats(self.STAT_NAMES, self.state,
+                                  self.k_start)
+
+    def load_state_dict_numpy(self, d):
+        """Load a PGM state given as numpy arrays: the port's own
+        :meth:`state_dict`, or the JAX package's ``state_dict()`` after
+        ``numpy.asarray`` of each entry.  Every array becomes a buffer of
+        its own (the fused FISTA loop updates its packed copies in
+        place)."""
+        def s32(name):
+            return np.float32(d[name])
+        self.state = _pgm.PGMState(
+            X=self._tensor(d["X"]), Y=self._tensor(d["Y"]),
+            Xprv=self._tensor(d["Xprv"]), Gprv=self._tensor(d["Gprv"]),
+            Zrb=self._tensor(d["Zrb"]), t=s32("t"), Tk=s32("Tk"),
+            L=s32("L"), k=np.int32(d["k"]), rsdl=s32("rsdl"),
+            objprv=s32("objprv"),
+            stats=np.array(d["stats"], np.float32, copy=True))
+
+
+class ADMMModel(_Model):
+    """Base for ADMM-driven model classes."""
+
+    REF_OPT_EXTRA = refopts.ADMM_BASE
+
     def getmin(self):
         return self.state.Y
 
@@ -59,39 +128,15 @@ class ADMMModel:
         return _admm.iterstats(_admm.stat_names(self.STAT_NAMES),
                                self.state, self.k_start)
 
-    @property
-    def itstat(self):
-        return self.getitstat()
-
-    def state_dict(self):
-        """Snapshot of the solver state as numpy arrays (the layout of
-        the JAX package's ``state_dict()``)."""
-        d = self.state._asdict()
-        out = {}
-        for k, v in d.items():
-            if isinstance(v, torch.Tensor):
-                out[k] = v.detach().cpu().numpy()
-            elif k == "extra":
-                out[k] = v
-            else:
-                out[k] = np.array(v, copy=True)
-        return out
-
-    def load_state(self, d):
-        """Restore a snapshot written by :meth:`state_dict`."""
-        self.load_state_dict_numpy(d)
-
     def load_state_dict_numpy(self, d):
         """Load a solver state given as numpy arrays: the port's own
         :meth:`state_dict`, or the JAX package's ``state_dict()`` after
         ``numpy.asarray`` of each entry.  X, Y and U are in the internal
         ``(K, Cx, M, N0, N1)`` layout in both packages."""
-        def arr(name):
-            return torch.tensor(np.asarray(d[name], np.float32),
-                                device=self.device)
         stats = np.array(d["stats"], np.float32, copy=True)
         self.state = _admm.ADMMState(
-            X=arr("X"), Y=arr("Y"), U=arr("U"),
+            X=self._tensor(d["X"]), Y=self._tensor(d["Y"]),
+            U=self._tensor(d["U"]),
             rho=np.float32(d["rho"]), rho_xi=np.float32(d["rho_xi"]),
             k=np.int32(d["k"]), r=np.float32(d["r"]),
             s=np.float32(d["s"]), epri=np.float32(d["epri"]),

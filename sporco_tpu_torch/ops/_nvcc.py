@@ -3,8 +3,9 @@ with a plain C interface, loaded through ``ctypes``.
 
 Each source ``sporco_tpu_torch/csrc/<name>.cu`` is compiled on first use
 by one ``nvcc`` call for ``sm_90a`` into ``build/kernels/`` at the root
-of the checkout, named by a hash of the source and the flags, so an
-unchanged source is never rebuilt.  A missing ``nvcc`` or a failed
+of the checkout, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an unchanged source is never
+rebuilt.  A missing ``nvcc`` or a failed
 build raises with the compiler's output; there is no fallback.
 """
 
@@ -43,9 +44,11 @@ def find_nvcc():
 
 def _target(name):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return src, BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names):

@@ -1,5 +1,6 @@
-"""Fused spatial-Woodbury ConvBPDN ADMM driver (counterpart of
-``sporco_tpu.ops.fused_csc``, single-channel ``l1`` part).
+"""Fused spatial-Woodbury ConvBPDN ADMM driver and fused packed-layout
+FISTA problem (counterpart of ``sporco_tpu.ops.fused_csc``,
+single-channel part).
 
 The x-step of single-channel 2-D ConvBPDN is solved in space by the
 Woodbury identity::
@@ -21,6 +22,15 @@ iteration (the kernel's six sums and the data-fidelity term) for the
 stopping test and the stats row.  It reproduces the JAX driver's
 iteration count, stats rows, returned ``U = us * U`` and the x-step
 rebuilt after the loop at the final ``(Y, U, rho)``.
+
+The FISTA (PGM) form of the same problem keeps its state in the same
+packed layout, where the gradient ``D^H(D y - s)`` is two dense products
+and needs no FFT.  Its plain configuration runs one call of
+:func:`sporco_tpu_torch.ops.pgm_iter.pgm_iter` per iteration (gradient
+product, prox, momentum and the next forward product); backtracking,
+the step-size policies, the monotone variant and a spatially varying
+``L1Weight`` run the generic PGM loop of
+:mod:`sporco_tpu_torch.solvers.pgm` on the packed problem.
 """
 
 import math
@@ -31,10 +41,15 @@ import torch
 from sporco_tpu_torch._device import fp32_precision
 from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops.csc_iter import csc_iter
+from sporco_tpu_torch.ops.pgm_iter import pgm_iter
+from sporco_tpu_torch.solvers import pgm as _pgm
 from sporco_tpu_torch.solvers.admm import (ADMMState, _update_rho,
                                            norm_residuals)
+from sporco_tpu_torch.solvers.pgm import (PGMProblem, _momentum_update,
+                                          stop_tol)
 
 __all__ = ["cbpdn_solve", "eligible", "unsupported_reason",
+           "pgm_cbpdn_solve", "pgm_eligible", "pgm_unsupported_reason",
            "xstep_kernels", "spatial_xstep", "poly_pack", "poly_unpack",
            "pack_state", "unpack_state", "PS", "MAX_SUPPORT"]
 
@@ -412,3 +427,240 @@ def _cbpdn_fused_run(cfg, params, opts, state):
         U=(float(us) * unpack_state(PU, M)).reshape(shp),
         rho=rho, rho_xi=rho_xi, k=np.int32(k), r=r, s=s, epri=epri,
         edua=edua, stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# Fused PGM (FISTA) CSC problem: the same polyphase machinery applied to
+# the proximal-gradient solver (``sporco/pgm/cbpdn.py:29,387``).  In the
+# packed layout the gradient D^H(D y - s) is two dense products and the
+# data term an elementwise norm, so a FISTA iteration (masked or not,
+# backtracking included) needs no FFT.
+
+def _pgm_aux(cfg, params):
+    cri = cfg.cri
+    n0, n1 = cri.Nv
+    M, K = cri.M, cri.K
+    nd0, nd1 = cri.dsz[0], cri.dsz[1]
+    Wf, Wa, js = xstep_kernels(params["D"].reshape(M, nd0, nd1), nd0, nd1,
+                               PS)
+    aux = {"Wf": Wf, "Wa": Wa, "j": js,
+           "Sp": poly_pack(params["S"].reshape(K, n0, n1)),
+           "wl1p": _packed_l1_weight(params["wl1"], cri),
+           "lmbda": f32(params["lmbda"])}
+    if cfg.masked:
+        W = params["W"]
+        Wm = W.reshape(W.shape[0], *W.shape[-2:]).expand(K, n0, n1)
+        aux["Wp2"] = poly_pack(Wm) ** 2
+    return aux
+
+
+def _packed_l1_weight(wl1, cri):
+    """l1 weights in the packed layout: a float32 scalar, the per-filter
+    vector tiled over the ps*ps phases (C,), or a spatially varying
+    weight packed like the state (K, N0/ps, N1/ps, C)."""
+    if wl1.ndim == 0 or wl1.numel() == 1:
+        return f32(wl1.reshape(()).item())
+    if _wl1_per_channel(wl1):
+        return wl1.reshape(-1).to(torch.float32).repeat(PS * PS) \
+            .contiguous()
+    return pack_state(wl1.expand((cri.K, 1, cri.M) + tuple(cri.Nv)))
+
+
+def _pgm_resid(cfg, aux, Yp):
+    jf0, jf1, _, _ = aux["j"]
+    return _fwd_combine(Yp @ aux["Wf"], jf0, jf1, PS) - aux["Sp"]
+
+
+def _pgm_grad(cfg, aux, params, Yp):
+    _, _, ja0, ja1 = aux["j"]
+    Rp = _pgm_resid(cfg, aux, Yp)
+    if cfg.masked:
+        Rp = aux["Wp2"] * Rp
+    return _conv_adj_mm(Rp, aux["Wa"], ja0, ja1)
+
+
+def _thr(aux, L):
+    """The soft threshold (lmbda / L) * wl1p in float32."""
+    lr = aux["lmbda"] / f32(L)
+    wl1p = aux["wl1p"]
+    return lr * wl1p if isinstance(wl1p, np.floating) else float(lr) * wl1p
+
+
+def _pgm_prox(cfg, aux, params, Vp, L):
+    U = torch.sign(Vp) * torch.clamp(Vp.abs() - _thr(aux, L), min=0.0)
+    if cfg.non_neg:
+        U = torch.clamp(U, min=0.0)
+    return U
+
+
+def _pgm_f(cfg, aux, params, Xp):
+    Rp = _pgm_resid(cfg, aux, Xp)
+    if cfg.masked:
+        return 0.5 * torch.sum(aux["Wp2"] * Rp ** 2)
+    return 0.5 * torch.sum(Rp ** 2)
+
+
+def _pgm_reg(aux, Xp):
+    return torch.sum(torch.abs(aux["wl1p"] * Xp))
+
+
+def _pgm_g(cfg, aux, params, Xp):
+    return aux["lmbda"] * f32(_pgm_reg(aux, Xp).item())
+
+
+def _pgm_obfn(cfg, aux, params, Xp):
+    f = f32(_pgm_f(cfg, aux, params, Xp).item())
+    reg = f32(_pgm_reg(aux, Xp).item())
+    return (f + aux["lmbda"] * reg, f, reg)
+
+
+def _pgm_hess(cfg, aux, params, Vp):
+    jf0, jf1, ja0, ja1 = aux["j"]
+    Rp = _fwd_combine(Vp @ aux["Wf"], jf0, jf1, PS)
+    return _conv_adj_mm(Rp, aux["Wa"], ja0, ja1)
+
+
+def _pgm_xinit(cfg, params):
+    cri = cfg.cri
+    return torch.zeros((cri.K, cri.Nv[0] // PS, cri.Nv[1] // PS,
+                        PS * PS * cri.M), dtype=params["S"].dtype,
+                       device=params["S"].device)
+
+
+_CBPDN_PGM_FUSED = PGMProblem(
+    setup=_pgm_aux, grad_f=_pgm_grad, prox_g=_pgm_prox, obfn_f=_pgm_f,
+    obfn_g=_pgm_g, hessian_f=_pgm_hess, xinit=_pgm_xinit, obfn=_pgm_obfn,
+    stat_names=("ObjFun", "DFid", "RegL1"))
+
+
+def pgm_unsupported_reason(cfg, opts):
+    """None if the fused packed-layout FISTA problem of this slice takes
+    the configuration, else what it lacks and the ROADMAP item that
+    ports it."""
+    cri = cfg.cri
+    if cri.Cd > 1:
+        return ("a colour dictionary needs the rank-C packed problem, "
+                "which is not ported yet (ROADMAP queue 1, item 11)")
+    if cri.C > 1:
+        return ("a multi-channel signal needs channel folding (cfold), "
+                "which is not ported yet (ROADMAP queue 1, item 10)")
+    if cfg.no_bndry or not (cri.dimN == 2 and _layout_ok(
+            cri, cri.dsz[0], cri.dsz[1], opts.dtype)):
+        return ("this configuration needs the generic FFT PGM problem, "
+                "which is not ported yet (ROADMAP queue 1, item 10); the "
+                "fused problem takes single-channel 2-D float32 problems "
+                f"with {PS}-aligned even spatial dims, supports up to "
+                f"{MAX_SUPPORT} and no NoBndryCross")
+    return None
+
+
+def pgm_eligible(cfg, opts):
+    """Whether the fused packed-layout FISTA problem takes this (possibly
+    masked) configuration."""
+    return pgm_unsupported_reason(cfg, opts) is None
+
+
+def _pgm_kernel_eligible(cfg, params, opts):
+    """Whether the FISTA loop around the ``pgm_iter`` kernel covers this
+    configuration: the plain momentum step (no backtracking, step-size
+    policy or monotone variant) and a scalar or per-filter L1Weight.
+    The decision rests on the configuration alone; on CPU tensors the
+    same route runs the kernel's plain version."""
+    if (opts.backtrack != "none" or opts.stepsize != "none"
+            or opts.monotone):
+        return False
+    return _wl1_per_channel(params["wl1"])
+
+
+def _pgm_fused_kernel_run(cfg, params, opts, state):
+    """FISTA loop around :func:`sporco_tpu_torch.ops.pgm_iter.pgm_iter`:
+    per iteration the small roll-combine of R1, the residual, the mask
+    and the adjoint rolls in PyTorch, then one kernel call (gradient
+    product, prox, momentum, the next forward product and RX), then the
+    objective from RX and one host read of three floats."""
+    cri = cfg.cri
+    n0, n1 = cri.Nv
+    K, M = cri.K, cri.M
+    p0, p1 = n0 // PS, n1 // PS
+    pos = K * p0 * p1
+    C = PS * PS * M
+    aux = _pgm_aux(cfg, params)
+    Wf, Wa, Sp, wl1p, lmbda = (aux[k] for k in ("Wf", "Wa", "Sp", "wl1p",
+                                                "lmbda"))
+    jf0, jf1, ja0, ja1 = aux["j"]
+    Ta = (ja0 + 1) * (ja1 + 1) * PS * PS
+    Wp2 = aux.get("Wp2")
+
+    k0 = int(state.k)
+    k = k0
+    t, L, rsdl = f32(state.t), f32(state.L), f32(state.rsdl)
+    stats = np.array(state.stats, np.float32, copy=True)
+    if stats.shape[0] != opts.max_iter:
+        stats = np.full((opts.max_iter, stats.shape[1]), np.nan, np.float32)
+    # fresh, distinct packed buffers: pgm_iter writes X over the previous
+    # iterate and Yn over Y in place
+    PX = pack_state(state.X)
+    PY = pack_state(state.Y)
+    R1 = PY.reshape(pos, C) @ Wf
+    nanv = f32(np.nan)
+
+    while k - k0 < opts.max_iter and rsdl >= stop_tol(opts, k):
+        Rp = _fwd_combine(R1.reshape(K, p0, p1, -1), jf0, jf1, PS) - Sp
+        if Wp2 is not None:
+            Rp = Wp2 * Rp
+        G2 = _adj_rolls(Rp, ja0, ja1)
+        tprv = t
+        t = _momentum_update(opts, t, k)
+        beta = (tprv - f32(1.0)) / t
+        _, _, R1, RX, sums = pgm_iter(
+            G2.reshape(pos, Ta), PY.view(pos, C), PX.view(pos, C), Wa, Wf,
+            _thr(aux, L), wl1p, f32(1.0) / L, beta, nonneg=cfg.non_neg)
+        if opts.fast_solve:
+            host = sums.cpu().numpy()
+            objv = (np.nan,) * 3
+        else:
+            RpX = _fwd_combine(RX.reshape(K, p0, p1, -1), jf0, jf1,
+                               PS) - Sp
+            sq = RpX * RpX if Wp2 is None else Wp2 * RpX ** 2
+            f = 0.5 * torch.sum(sq)
+            # the one host read of the iteration
+            host = torch.cat([sums, f.reshape(1)]).cpu().numpy()
+            objv = (host[2] + lmbda * host[1], host[2], host[1])
+        rsdl = f32(np.sqrt(host[0]))
+        stats[k - k0] = (k,) + objv + (rsdl, nanv, nanv, 0.0, L)
+        if opts.verbose:
+            print(f"it {k}  obj {stats[k - k0, 1]:.4e}  rsdl {rsdl:.3e}  "
+                  f"L {L:.3e}")
+        k += 1
+
+    shp = state.X.shape
+    X = unpack_state(PX, M).reshape(shp)
+    return state._replace(
+        X=X, Y=unpack_state(PY, M).reshape(shp), Xprv=X.clone(), t=t, L=L,
+        k=np.int32(k), rsdl=rsdl, stats=stats)
+
+
+def pgm_cbpdn_solve(cfg, params, opts, state):
+    """Run (or resume) one fused FISTA solve from ``state`` (internal
+    layout): through the ``pgm_iter`` loop when the configuration allows
+    it, else the generic PGM loop on the packed problem (backtracking,
+    step-size policies, monotone, spatial L1Weight).  Returns the final
+    :class:`PGMState` in the internal layout."""
+    reason = pgm_unsupported_reason(cfg, opts)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    with fp32_precision(), torch.no_grad():
+        if _pgm_kernel_eligible(cfg, params, opts):
+            return _pgm_fused_kernel_run(cfg, params, opts, state)
+        shp = state.X.shape
+        M = cfg.cri.M
+        packed = state._replace(
+            X=pack_state(state.X), Y=pack_state(state.Y),
+            Xprv=pack_state(state.Xprv), Gprv=pack_state(state.Gprv),
+            Zrb=pack_state(state.Zrb))
+        out = _pgm._pgm_run(_CBPDN_PGM_FUSED, cfg, params, opts, packed)
+
+        def unp(P):
+            return unpack_state(P, M).reshape(shp)
+        return out._replace(X=unp(out.X), Y=unp(out.Y), Xprv=unp(out.Xprv),
+                            Gprv=unp(out.Gprv), Zrb=unp(out.Zrb))

@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from sporco_tpu_torch.models import pgm as tpgm
 from sporco_tpu_torch.models.cbpdn import ConvBPDN
 from sporco_tpu_torch.ops import csc_iter as tci
+from sporco_tpu_torch.ops import pgm_iter as tpi
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +137,93 @@ def test_solve_on_card_matches_cpu(dev):
                                    rtol=1e-4, err_msg=name)
     np.testing.assert_allclose(ia.PrimalRsdl, ib.PrimalRsdl, rtol=1e-3,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# pgm_iter
+
+RL, BETA = 0.05, 0.7
+
+
+def _pgm_inputs(pos, C, T, vectors, dev, seed=1):
+    G2, Y, Xprv, Wa, Wf, thr, wl1 = _inputs(pos, C, T, vectors, dev, seed)
+    return G2, Y, 10.0 * Xprv, Wa, Wf, thr, wl1
+
+
+def _pgm_run(fn, args, nonneg):
+    G2, Y, Xprv, Wa, Wf, thr, wl1 = args
+    out = fn(G2, Y.clone(), Xprv.clone(), Wa, Wf, thr, wl1, RL, BETA,
+             nonneg=nonneg)
+    return [o.cpu() for o in out]
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=str)
+@pytest.mark.parametrize("vectors", [False, True])
+@pytest.mark.parametrize("nonneg", [False, True])
+def test_pgm_kernel_matches_plain(dev, geom, vectors, nonneg):
+    """Both fp32 on the card, differing in summation order only: 1e-5 of
+    each output's largest magnitude."""
+    args = _pgm_inputs(*geom, vectors, dev)
+    got = _pgm_run(tpi.pgm_iter, args, nonneg)
+    ref = _pgm_run(tpi.pgm_iter_plain, args, nonneg)
+    for name, a, b in zip(("X", "Yn", "R1", "RX", "sums"), got, ref):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 1e-5 * scale, name
+
+
+def test_pgm_unaligned_buffers_take_scalar_path(dev):
+    pos, C, T = 64, 256, 256
+    G2, Y, Xprv, Wa, Wf, thr, wl1 = _pgm_inputs(pos, C, T, True, dev)
+    ref = _pgm_run(tpi.pgm_iter_plain, (G2, Y, Xprv, Wa, Wf, thr, wl1),
+                   False)
+    Yb = torch.empty(pos * C + 1, device=dev)
+    Xb = torch.empty(pos * C + 1, device=dev)
+    Yo, Xo = Yb[1:].view(pos, C), Xb[1:].view(pos, C)
+    Yo.copy_(Y)
+    Xo.copy_(Xprv)
+    out = tpi.pgm_iter(G2, Yo, Xo, Wa, Wf, thr, wl1, RL, BETA)
+    for a, b in zip(out, ref):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-5 * float(b.abs().max())
+
+
+def test_pgm_counts_launches_and_updates_in_place(dev):
+    G2, Y, Xprv, Wa, Wf, thr, wl1 = _pgm_inputs(64, 256, 256, False, dev)
+    tpi.reset_launches()
+    x, yn, _, _, _ = tpi.pgm_iter(G2, Y, Xprv, Wa, Wf, thr, wl1, RL, BETA)
+    assert tpi.LAUNCHES["pgm_iter"] == 1
+    assert x is Xprv and yn is Y
+    tpi.pgm_iter_plain(G2, Y, Xprv, Wa, Wf, thr, wl1, RL, BETA)
+    assert tpi.LAUNCHES["pgm_iter"] == 1
+    with pytest.raises(ValueError):
+        tpi.pgm_iter(G2, Y, Y, Wa, Wf, thr, wl1, RL, BETA)
+    with pytest.raises(TypeError):
+        tpi.pgm_iter(G2.double(), Y, Xprv, Wa, Wf, thr, wl1, RL, BETA)
+    assert tpi.LAUNCHES["pgm_iter"] == 1
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_pgm_solve_on_card_matches_cpu(dev, masked):
+    """The FISTA slice at 64x64 with 4 filters, 25 iterations: card
+    (kernel) against CPU (plain version), with the tolerances of the CPU
+    test against the JAX package."""
+    rng = np.random.default_rng(0)
+    D = rng.standard_normal((8, 8, 4)).astype(np.float32)
+    D /= np.sqrt((D ** 2).sum(axis=(0, 1), keepdims=True))
+    S = rng.standard_normal((64, 64)).astype(np.float32)
+    W = (rng.random((64, 64)) >= 0.3).astype(np.float32)
+    cls = tpgm.ConvBPDNMask if masked else tpgm.ConvBPDN
+    opt = cls.options(max_iter=25, rel_stop_tol=0.0, L=50.0)
+    tpi.reset_launches()
+    a = cls(D, S, 0.05, opt=opt, W=W)
+    Xa = a.solve().cpu().numpy()
+    assert a.device.type == "cuda"
+    assert tpi.LAUNCHES["pgm_iter"] == 25
+    b = cls(D, S, 0.05, opt=opt, W=W, device="cpu")
+    Xb = b.solve().numpy()
+    assert np.abs(Xa - Xb).max() < 2e-4 * np.abs(Xb).max()
+    ia, ib = a.getitstat(), b.getitstat()
+    for name in ("ObjFun", "DFid", "RegL1"):
+        np.testing.assert_allclose(getattr(ia, name), getattr(ib, name),
+                                   rtol=1e-4, err_msg=name)
+    np.testing.assert_allclose(ia.Rsdl, ib.Rsdl, rtol=1e-3, atol=1e-6)

@@ -14,6 +14,7 @@ import torch
 
 from sporco_tpu_torch.ops import _nvcc
 from sporco_tpu_torch.ops import csc_iter as tci
+from sporco_tpu_torch.ops import pgm_iter as tpi
 
 torch.set_num_threads(2)
 
@@ -97,19 +98,48 @@ def test_build_flags_target_sm90a():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-shared" in flags and "-O3" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    src = (PKG / "csrc" / "csc_iter.cu").read_text()
-    includes = [ln.split()[1] for ln in src.splitlines()
-                if ln.startswith("#include")]
-    assert includes == ["<cuda_runtime.h>", "<stdint.h>"]
-    assert 'extern "C"' in src and "cudaGetLastError" in src
+    # the sources include nothing of PyTorch: the CUDA runtime, and the
+    # tile header shared by the kernels
+    hdr = (PKG / "csrc" / "csc_tiles.cuh").read_text()
+    assert _includes(hdr) == ["<cuda_runtime.h>", "<stdint.h>"]
+    assert "atomicAdd" not in hdr
+    for name in ("csc_iter", "pgm_iter"):
+        src = (PKG / "csrc" / f"{name}.cu").read_text()
+        assert _includes(src) == ['"csc_tiles.cuh"'], name
+        assert 'extern "C"' in src and "cudaGetLastError" in src, name
+        assert f"{name}_launch" in src and "atomicAdd" not in src, name
+
+
+def _includes(src):
+    return [ln.split()[1] for ln in src.splitlines()
+            if ln.startswith("#include")]
+
+
+def test_build_hash_covers_shared_header(monkeypatch, tmp_path):
+    """A change to the shared tile header gives every kernel a new
+    library name, so a stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in (PKG / "csrc").iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_nvcc, "CSRC", csrc)
+    before = [_nvcc._target(n)[1] for n in ("csc_iter", "pgm_iter")]
+    with open(csrc / "csc_tiles.cuh", "a") as f:
+        f.write("// changed\n")
+    after = [_nvcc._target(n)[1] for n in ("csc_iter", "pgm_iter")]
+    assert before[0] != after[0] and before[1] != after[1]
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
     m = torch.empty((8, 8), device="meta")
     tci.reset_launches()
+    tpi.reset_launches()
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tci.csc_iter(m, m, m, m, m, 0.1, 1.0, 1.8, 1.0, 1.0)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tpi.pgm_iter(m, m, m, m, m, 0.1, 1.0, 0.01, 0.5)
     assert tci.LAUNCHES["csc_iter"] == 0
+    assert tpi.LAUNCHES["pgm_iter"] == 0
 
 
 @pytest.mark.parametrize("alone", [False, True])
