@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one CUDA card and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile]
 
 The main paths are the headline problem of the repository, single-channel
 2-D ConvBPDN on a 512x512 image with 64 filters of 8x8, lmbda = 0.05
-(``bench.py``'s problem), solved two ways:
+(``bench.py``'s problem), solved three ways:
 
 - by ADMM to relative residual 1e-3, through
   ``sporco_tpu_torch.models.cbpdn.ConvBPDN`` on the fused driver and its
@@ -13,7 +13,10 @@ The main paths are the headline problem of the repository, single-channel
 - by FISTA at ``bench.py``'s PGM configuration (L = 100, 250 iterations,
   no stopping tolerance), through ``sporco_tpu_torch.models.pgm.ConvBPDN``
   on the fused packed problem and its hand-written CUDA kernel
-  ``pgm_iter``.
+  ``pgm_iter``;
+- on the generic FFT path (``fused=False``): ADMM to 1e-3 and FISTA at
+  L = 100, masked and not, whose 2-D transforms run the hand-written CUDA
+  kernels ``rfft2_planar``/``irfft2_planar``.
 
 Phases, each printing one JSON line on stdout:
 
@@ -24,25 +27,44 @@ Phases, each printing one JSON line on stdout:
    at the headline geometry over the flag grid, and both timed;
 4. ``parity``: 10 ADMM iterations of the headline problem on the card
    against the port on the CPU (plain version), stats row by row;
-5. ``solve``: the ADMM headline solve through ``ConvBPDN.solve()``; the
+5. ``solve``: the ADMM headline solve through ``ConvBPDN.solve()`` at FFT
+   precision "high" (``bench.py``'s, the glue on ``torch.fft``); the
    ``csc_iter`` launch count must equal the iterations run;
 6. ``pgm_kernel``: ``pgm_iter`` against its plain version on the card at
    the headline geometry over its flag grid, and both timed;
 7. ``pgm_parity``: 10 FISTA iterations on the card against the CPU,
    unmasked and with about 30% of the pixels masked out;
-8. ``pgm_solve``: the FISTA solve; the ``pgm_iter`` launch count must
-   equal the iterations run.
+8. ``pgm_solve``: the FISTA solve at precision "high"; the ``pgm_iter``
+   launch count must equal the iterations run;
+9. ``fft_kernel``: ``rfft2_planar``/``irfft2_planar`` against their plain
+   versions and ``torch.fft`` at the x-step's 64 planes of 512x512, at
+   one plane, and at ragged shapes covering each branch (the inverse
+   also on a non-Hermitian spectrum); kernel, plain version and cuFFT
+   timed at 64 planes and at one;
+10. ``generic_parity``: 10 iterations of ``ConvBPDN(fused=False)`` on the
+    card against the CPU (the FFT kernels' plain versions);
+11. ``generic_solve``: ``ConvBPDN(fused=False)`` to 1e-3, its objective
+    against the fused solve's, one ``rfft2_planar`` per iteration and
+    two in the setup, one ``irfft2_planar`` per iteration; then the
+    fused solve at the default precision "highest", whose glue runs the
+    FFT kernels on one plane;
+12. ``pgm_generic_solve``: ``pgm.ConvBPDN(fused=False)`` at L = 100 for
+    250 iterations, unmasked and masked, with the launches its calls per
+    iteration predict.
 
 Each solve sets every kernel's launch count to 0 just before it and
 reads the counts just after.  Then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true,
 "device": {...}}``.  Any failure exits non-zero without the ``ok`` line;
 so does a run past the time budget, or a machine without a CUDA device.
-``--profile`` adds phases that run each solve under ``torch.profiler``
-and report the device's busy and idle share and its time by kernel.
+``--profile`` adds phases that run the fused ADMM, fused FISTA and
+generic ADMM solves under ``torch.profiler`` and report the device's
+busy and idle share and its time by kernel.
 """
 
+import contextlib
 import json
+import math
 import os
 import signal
 import subprocess
@@ -58,6 +80,8 @@ from sporco_tpu_torch.models import pgm as tpgm
 from sporco_tpu_torch.models.cbpdn import ConvBPDN
 from sporco_tpu_torch.ops import _nvcc
 from sporco_tpu_torch.ops import csc_iter as tci
+from sporco_tpu_torch.ops import fft as tsf
+from sporco_tpu_torch.ops import fft2_planar as tfp
 from sporco_tpu_torch.ops import pgm_iter as tpi
 from sporco_tpu_torch.ops.fused_csc import PS, xstep_kernels
 
@@ -68,7 +92,12 @@ MAX_ITER, REL_TOL = 500, 1e-3
 PARITY_ITERS = 10
 PGM_L, PGM_ITERS = 100.0, 250         # bench.py:_bench_pgm
 MASK_MISSING = 0.3                    # share of pixels masked out
-KERNELS = ("csc_iter", "pgm_iter")
+PGM_GENERIC_ITERS = 250
+# (B, N0, N1) of the FFT kernel phase: the generic x-step's 64 planes,
+# the fused glue's one plane, then each row-pass branch (direct DFT for
+# N1 = 30, FFT for the powers of two, N1 = 2 and 2048)
+FFT_SHAPES = [(M, N, N), (1, N, N), (3, 128, 30), (2, 256, 64),
+              (1, 512, 2048), (2, 128, 2)]
 
 # Kernel against plain version, both fp32 on the card: they differ only in
 # summation order (k = 256 for G2 @ Wa, k = 4096 for R1/R2), about 1e-6
@@ -80,6 +109,14 @@ PARITY = {"X": 2e-4, "ObjFun": 1e-4, "DFid": 1e-4, "RegL1": 1e-4,
           "Rho": 1e-4, "PrimalRsdl": 1e-3, "DualRsdl": 1e-3}
 PGM_PARITY = {"X": 2e-4, "ObjFun": 1e-4, "DFid": 1e-4, "RegL1": 1e-4,
               "Rsdl": 1e-4}
+# The FFT kernels against float64 references on unit-normal data, the
+# JAX package's tolerances (tests/ops/test_pallas_fft.py:36-41): forward
+# 1e-6 of the spectrum's largest magnitude, inverse 3e-5 absolute; the
+# kernel against its plain version and cuFFT (both fp32) within twice.
+FFT_TOL = {"forward": 1e-6, "inverse": 3e-5}
+# The generic solve against the fused solve of the same problem, both to
+# relative residual 1e-3: final objectives within that tolerance.
+OBJ_AGREE = 1e-3
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
@@ -169,13 +206,50 @@ def pgm_iter_bound_ms(pos, C, T, vectors):
     return _bound_ms(flops, floats)
 
 
+def fft_bound_ms(B, n0, n1):
+    """Least time of one 2-D real transform of B planes (either way): the
+    planes in (out) and the planar half-spectrum out (in) once, and the
+    2.5 N log2 N operations of a real FFT of N = n0 n1 points."""
+    flops = 2.5 * B * n0 * n1 * math.log2(n0 * n1)
+    floats = B * n0 * n1 + 2 * B * n0 * (n1 // 2 + 1)
+    return _bound_ms(flops, floats)
+
+
 def reset_launches():
     tci.reset_launches()
     tpi.reset_launches()
+    tfp.reset_launches()
 
 
 def launches():
-    return {**tci.LAUNCHES, **tpi.LAUNCHES}
+    return {**tci.LAUNCHES, **tpi.LAUNCHES, **tfp.LAUNCHES}
+
+
+def expect_launches(label, counts, **want):
+    """Fail unless the launch counts are ``want`` (every other kernel
+    0)."""
+    full = {name: want.get(name, 0) for name in counts}
+    if counts != full:
+        raise AssertionError(f"{label}: launches {counts}, expected {full}")
+
+
+@contextlib.contextmanager
+def fft_precision(p):
+    prev = tsf.get_precision()
+    tsf.set_precision(p)
+    try:
+        yield
+    finally:
+        tsf.set_precision(prev)
+
+
+@contextlib.contextmanager
+def planar_fft(mode):
+    tsf.use_planar_fft(mode)
+    try:
+        yield
+    finally:
+        tsf.use_planar_fft("auto")
 
 
 def compare_outputs(kernel, names, got, ref, where):
@@ -319,9 +393,8 @@ def phase_solve(dev, D, S, lmbda):
     counts = launches()
     its = b.getitstat()
     k = int(b.state.k)
-    if counts != {"csc_iter": k, "pgm_iter": 0}:
-        raise AssertionError(f"launches {counts} in an ADMM solve of {k} "
-                             "iterations")
+    expect_launches(f"an ADMM solve of {k} iterations", counts,
+                    csc_iter=k)
     if tuple(X.shape) != (N, N, 1, 1, M):
         raise AssertionError(f"coefficients have shape {tuple(X.shape)}")
     for name, t in (("Y", X), ("X", b.state.X), ("U", b.state.U)):
@@ -432,9 +505,10 @@ def phase_pgm_solve(dev, D, S, lmbda):
     counts = launches()
     its = b.getitstat()
     k = int(b.state.k)
-    if k != PGM_ITERS or counts != {"csc_iter": 0, "pgm_iter": k}:
-        raise AssertionError(f"launches {counts} in a FISTA solve of {k} "
-                             "iterations")
+    if k != PGM_ITERS:
+        raise AssertionError(f"a FISTA solve of {k} iterations")
+    expect_launches(f"a FISTA solve of {k} iterations", counts,
+                    pgm_iter=k)
     if tuple(X.shape) != (N, N, 1, 1, M):
         raise AssertionError(f"coefficients have shape {tuple(X.shape)}")
     for name in ("X", "Y", "Xprv"):
@@ -450,6 +524,191 @@ def phase_pgm_solve(dev, D, S, lmbda):
             "final_dfid": float(its.DFid[-1]),
             "final_rsdl": float(its.Rsdl[-1]), "nonzero_fraction": nnz,
             "launches": counts}
+
+
+def _rel_err(a, b, scale):
+    return float((a - b).abs().max()) / scale
+
+
+def phase_fft_kernel(dev):
+    """Both FFT kernels against their plain versions, cuFFT and float64
+    references at FFT_SHAPES; kernel, plain and cuFFT timed at the first
+    two shapes."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows, timing, max_abs = [], {}, {}
+    for (B, n0, n1) in FFT_SHAPES:
+        x = torch.randn((B, n0, n1), generator=g, device=dev)
+        yr, yi = tfp.rfft2_planar(x)
+        pr, pi = tfp.rfft2_planar_plain(x)
+        lib = torch.fft.rfft2(x)
+        ref = torch.fft.rfft2(x.double())
+        sc = float(ref.abs().max())
+        fwd = {"ref": max(_rel_err(yr, ref.real, sc),
+                          _rel_err(yi, ref.imag, sc)),
+               "plain": max(_rel_err(yr, pr, sc), _rel_err(yi, pi, sc)),
+               "cufft": max(_rel_err(yr, lib.real, sc),
+                            _rel_err(yi, lib.imag, sc))}
+        # the inverse of a random half-spectrum (not Hermitian), against
+        # numpy's semantics (torch.fft on the CPU, float64) ...
+        zr = torch.randn(yr.shape, generator=g, device=dev)
+        zi = torch.randn(yr.shape, generator=g, device=dev)
+        xb = tfp.irfft2_planar(zr, zi, n1)
+        xp = tfp.irfft2_planar_plain(zr, zi, n1)
+        xref = torch.fft.irfft2(torch.complex(zr.double(), zi.double())
+                                .cpu(), s=(n0, n1)).to(dev)
+        # ... and of the spectrum of a real signal, against cuFFT and the
+        # signal itself
+        xr = tfp.irfft2_planar(yr, yi, n1)
+        xlib = torch.fft.irfft2(lib, s=(n0, n1))
+        inv = {"ref": _rel_err(xb, xref, 1.0),
+               "plain": _rel_err(xb, xp, 1.0),
+               "cufft": _rel_err(xr, xlib, 1.0),
+               "round_trip": _rel_err(xr, x, 1.0)}
+        where = f"(B, N0, N1) = {(B, n0, n1)}"
+        for label, errs, tol in (("rfft2_planar", fwd, FFT_TOL["forward"]),
+                                 ("irfft2_planar", inv,
+                                  FFT_TOL["inverse"])):
+            for key, e in errs.items():
+                lim = tol if key in ("ref", "round_trip") else 2 * tol
+                if not e <= lim:
+                    raise AssertionError(f"{label} differs from {key} by "
+                                         f"{e:.3e} (tolerance {lim:.0e}) "
+                                         f"at {where}")
+        rows.append({"shape": [B, n0, n1], "forward_rel_err": fwd,
+                     "inverse_abs_err": inv})
+        if len(timing) < 2:
+            # the main path's shapes: 64 planes (generic x-step), 1 (glue)
+            if not timing:
+                max_abs = {"rfft2_planar": max(
+                    float((yr - pr).abs().max()),
+                    float((yi - pi).abs().max())),
+                    "irfft2_planar": float((xb - xp).abs().max())}
+            bound, by = fft_bound_ms(B, n0, n1)
+            timing[B] = {
+                "rfft2_planar": {
+                    "ms": cuda_ms(lambda: tfp.rfft2_planar(x)),
+                    "plain_ms": cuda_ms(lambda: tfp.rfft2_planar_plain(x)),
+                    "library_ms": cuda_ms(lambda: torch.fft.rfft2(x))},
+                "irfft2_planar": {
+                    "ms": cuda_ms(lambda: tfp.irfft2_planar(yr, yi, n1)),
+                    "plain_ms": cuda_ms(
+                        lambda: tfp.irfft2_planar_plain(yr, yi, n1)),
+                    "library_ms": cuda_ms(
+                        lambda: torch.fft.irfft2(lib, s=(n0, n1)))},
+                "bound_ms": bound, "bound_by": by}
+    return {"tolerance": FFT_TOL, "shapes": rows,
+            "timing": {f"B={b}": t for b, t in timing.items()},
+            "max_abs_err": max_abs, "headline": timing[M]}
+
+
+def phase_generic_parity(dev, D, S, lmbda):
+    opt = ConvBPDN.options(max_iter=PARITY_ITERS, rel_stop_tol=0.0)
+    runs = []
+    for d in (dev, "cpu"):
+        with planar_fft("auto" if d == dev else "always"):
+            b = ConvBPDN(D, S, lmbda, opt=opt, device=d, fused=False)
+            Yd = b.solve()
+        runs.append((b.getitstat(), {"Y": Yd.cpu().numpy(),
+                                     "X": b.state.X.cpu().numpy()}))
+    errs = compare_runs("generic parity", runs,
+                        ("ObjFun", "DFid", "RegL1", "Rho", "PrimalRsdl",
+                         "DualRsdl"), PARITY)
+    return {"iterations": PARITY_ITERS, "rel_err": errs,
+            "tolerance": PARITY}
+
+
+def _timed_solve(b):
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    X = b.solve()
+    torch.cuda.synchronize()
+    return X, time.perf_counter() - t0, launches()
+
+
+def phase_generic_solve(dev, D, S, lmbda, fused):
+    def model(**kw):
+        return ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(
+            max_iter=MAX_ITER, rel_stop_tol=REL_TOL), device=dev, **kw)
+    # warm-up: kernels, cuBLAS handles, allocator
+    ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(max_iter=3), device=dev,
+             fused=False).solve()
+    b = model(fused=False)
+    X, wall, counts = _timed_solve(b)
+    its = b.getitstat()
+    k = int(b.state.k)
+    expect_launches(f"a generic ADMM solve of {k} iterations", counts,
+                    rfft2_planar=k + 2, irfft2_planar=k)
+    if tuple(X.shape) != (N, N, 1, 1, M) or not all(
+            bool(torch.isfinite(t).all()) for t in (X, b.state.X,
+                                                   b.state.U)):
+        raise AssertionError("generic solve: bad shape or not finite")
+    if not (k < MAX_ITER and its.PrimalRsdl[-1] <= its.EPrimal[-1]
+            and its.DualRsdl[-1] <= its.EDual[-1]):
+        raise AssertionError(f"generic solve not converged to {REL_TOL} "
+                             f"in {k} iterations")
+    obj = float(its.ObjFun[-1])
+    agree = abs(obj - fused["final_objective"]) / fused["final_objective"]
+    if not (np.all(np.isfinite(its.ObjFun)) and agree <= OBJ_AGREE):
+        raise AssertionError(f"generic objective {obj} against the fused "
+                             f"solve's {fused['final_objective']}")
+    # the fused solve at the default precision: its glue runs the FFT
+    # kernels on one plane (setup 2, per iteration 1 + 1, final x-step
+    # 1 + 1)
+    bf = model()
+    _, wall_f, counts_f = _timed_solve(bf)
+    kf = int(bf.state.k)
+    expect_launches(f"a fused ADMM solve of {kf} iterations at highest",
+                    counts_f, csc_iter=kf, rfft2_planar=kf + 3,
+                    irfft2_planar=kf + 1)
+    return {"iterations": k, "wall_s": wall, "iters_per_s": k / wall,
+            "ms_per_iter": 1e3 * wall / k, "final_objective": obj,
+            "fused_final_objective": fused["final_objective"],
+            "fused_iterations": fused["iterations"],
+            "objective_rel_diff": agree, "final_dfid": float(its.DFid[-1]),
+            "final_rho": float(its.Rho[-1]), "launches": counts,
+            "fused_highest": {"iterations": kf, "wall_s": wall_f,
+                              "final_objective": float(
+                                  bf.getitstat().ObjFun[-1]),
+                              "launches": counts_f}}
+
+
+def phase_pgm_generic_solve(dev, D, S, lmbda):
+    W = (np.random.default_rng(3).random((N, N))
+         >= MASK_MISSING).astype(np.float32)
+    out = {}
+    for masked in (False, True):
+        cls = tpgm.ConvBPDNMask if masked else tpgm.ConvBPDN
+        kw = {"W": W} if masked else {}
+        cls(D, S, lmbda, opt=pgm_options(3), device=dev, fused=False,
+            **kw).solve()
+        b = cls(D, S, lmbda, opt=pgm_options(PGM_GENERIC_ITERS), device=dev,
+                fused=False, **kw)
+        X, wall, counts = _timed_solve(b)
+        its = b.getitstat()
+        k = int(b.state.k)
+        # per iteration: gradient 1 + 1 (2 + 2 masked), objective 1 + 0
+        # (1 + 1 masked); the setup's D and S
+        fwd, inv = (3, 3) if masked else (2, 1)
+        label = "masked" if masked else "unmasked"
+        if k != PGM_GENERIC_ITERS:
+            raise AssertionError(f"generic FISTA ({label}) ran {k} "
+                                 "iterations")
+        expect_launches(f"a generic FISTA solve ({label})", counts,
+                        rfft2_planar=fwd * k + 2, irfft2_planar=inv * k)
+        if not (bool(torch.isfinite(X).all())
+                and np.all(np.isfinite(its.ObjFun))
+                and its.ObjFun[-1] < its.ObjFun[0]):
+            raise AssertionError(f"generic FISTA ({label}): objective not "
+                                 "finite or not decreasing")
+        out[label] = {"iterations": k, "wall_s": wall,
+                      "iters_per_s": k / wall, "ms_per_iter": 1e3 * wall / k,
+                      "final_objective": float(its.ObjFun[-1]),
+                      "final_rsdl": float(its.Rsdl[-1]),
+                      "launches": counts,
+                      "predicted": {"rfft2_planar": f"{fwd} k + 2",
+                                    "irfft2_planar": f"{inv} k"}}
+    return out
 
 
 def phase_profile(dev, make_model):
@@ -484,6 +743,17 @@ def phase_profile(dev, make_model):
             "device_ms_per_iter": busy_ms / k,
             "top": [{"name": e.key[:70], "device_ms": dev_us(e) / 1e3,
                      "count": e.count} for e in top]}
+
+
+def fft_entry(name, fft, generic, replaces):
+    t = fft["headline"]
+    return {"name": name, "route": "cuda",
+            "source": "sporco_tpu_torch/csrc/fft2_planar.cu",
+            "replaces": replaces, "launches": generic["launches"][name],
+            "max_abs_err": fft["max_abs_err"][name], "ms": t[name]["ms"],
+            "kernel_ms": t[name]["ms"], "plain_ms": t[name]["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t[name]["library_ms"]}
 
 
 def kernel_entry(name, kern, solve, replaces):
@@ -521,9 +791,9 @@ def main(argv):
         "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
     def build():
-        _nvcc.build(KERNELS)
+        _nvcc.build(_nvcc.KERNELS)
         out = {"nvcc": _nvcc.find_nvcc()}
-        for name in KERNELS:
+        for name in _nvcc.KERNELS:
             info = _nvcc.BUILD_INFO[name]
             out[name] = {
                 "build_s": info["seconds"], "cached": info["cached"],
@@ -535,27 +805,46 @@ def main(argv):
     D, S, lmbda = headline_problem()
     summary["kernel"] = run_phase("kernel", lambda: phase_kernel(dev, D))
     run_phase("parity", lambda: phase_parity(dev, D, S, lmbda))
-    summary["solve"] = run_phase("solve",
-                                 lambda: phase_solve(dev, D, S, lmbda))
+    # the fused solves at bench.py's FFT precision: glue on torch.fft
+    with fft_precision("high"):
+        summary["solve"] = run_phase("solve",
+                                     lambda: phase_solve(dev, D, S, lmbda))
     summary["pgm_kernel"] = run_phase("pgm_kernel",
                                       lambda: phase_pgm_kernel(dev, D))
     run_phase("pgm_parity", lambda: phase_pgm_parity(dev, D, S, lmbda))
-    summary["pgm_solve"] = run_phase(
-        "pgm_solve", lambda: phase_pgm_solve(dev, D, S, lmbda))
+    with fft_precision("high"):
+        summary["pgm_solve"] = run_phase(
+            "pgm_solve", lambda: phase_pgm_solve(dev, D, S, lmbda))
+    summary["fft"] = run_phase("fft_kernel", lambda: phase_fft_kernel(dev))
+    run_phase("generic_parity",
+              lambda: phase_generic_parity(dev, D, S, lmbda))
+    summary["generic"] = run_phase(
+        "generic_solve",
+        lambda: phase_generic_solve(dev, D, S, lmbda, summary["solve"]))
+    run_phase("pgm_generic_solve",
+              lambda: phase_pgm_generic_solve(dev, D, S, lmbda))
     if "--profile" in argv:
-        run_phase("profile", lambda: phase_profile(dev, lambda: ConvBPDN(
-            D, S, lmbda, opt=ConvBPDN.options(
-                max_iter=MAX_ITER, rel_stop_tol=REL_TOL), device=dev)))
-        run_phase("pgm_profile", lambda: phase_profile(
-            dev, lambda: tpgm.ConvBPDN(D, S, lmbda, opt=pgm_options(),
-                                       device=dev)))
+        def admm(**kw):
+            return lambda: ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(
+                max_iter=MAX_ITER, rel_stop_tol=REL_TOL), device=dev, **kw)
+        with fft_precision("high"):
+            run_phase("profile", lambda: phase_profile(dev, admm()))
+            run_phase("pgm_profile", lambda: phase_profile(
+                dev, lambda: tpgm.ConvBPDN(D, S, lmbda, opt=pgm_options(),
+                                           device=dev)))
+        run_phase("generic_profile",
+                  lambda: phase_profile(dev, admm(fused=False)))
     PHASE["name"] = "kernels"
     emit({"kernels": [
         kernel_entry("csc_iter", summary["kernel"], summary["solve"],
                      "sporco_tpu/ops/pallas_csc_iter.py:276"),
         kernel_entry("pgm_iter", summary["pgm_kernel"],
                      summary["pgm_solve"],
-                     "sporco_tpu/ops/pallas_csc_iter.py:409")]})
+                     "sporco_tpu/ops/pallas_csc_iter.py:409"),
+        fft_entry("rfft2_planar", summary["fft"], summary["generic"],
+                  "sporco_tpu/ops/pallas_fft.py:402"),
+        fft_entry("irfft2_planar", summary["fft"], summary["generic"],
+                  "sporco_tpu/ops/pallas_fft.py:433")]})
     elapsed = time.perf_counter() - t_start
     if elapsed > BUDGET_S:
         raise RuntimeError(f"over the time budget: {elapsed:.0f} s")

@@ -79,9 +79,10 @@ class _Model:
         """Restore a snapshot written by :meth:`state_dict`."""
         self.load_state_dict_numpy(d)
 
-    def _tensor(self, a):
-        """A numpy array as a new float32 tensor on the model's device."""
-        return torch.tensor(np.asarray(a, np.float32), device=self.device)
+    def _tensor(self, a, dtype=torch.float32):
+        """A numpy array as a new tensor of ``dtype`` on the model's
+        device."""
+        return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
 
 
 class PGMModel(_Model):
@@ -106,19 +107,27 @@ class PGMModel(_Model):
         place)."""
         def s32(name):
             return np.float32(d[name])
+
+        def arr(name):
+            return self._tensor(d[name], self.opts.dtype)
         self.state = _pgm.PGMState(
-            X=self._tensor(d["X"]), Y=self._tensor(d["Y"]),
-            Xprv=self._tensor(d["Xprv"]), Gprv=self._tensor(d["Gprv"]),
-            Zrb=self._tensor(d["Zrb"]), t=s32("t"), Tk=s32("Tk"),
+            X=arr("X"), Y=arr("Y"), Xprv=arr("Xprv"), Gprv=arr("Gprv"),
+            Zrb=arr("Zrb"), t=s32("t"), Tk=s32("Tk"),
             L=s32("L"), k=np.int32(d["k"]), rsdl=s32("rsdl"),
             objprv=s32("objprv"),
             stats=np.array(d["stats"], np.float32, copy=True))
 
 
 class ADMMModel(_Model):
-    """Base for ADMM-driven model classes."""
+    """Base for ADMM-driven model classes.  Subclasses also set
+    ``problem`` (an :class:`~sporco_tpu_torch.solvers.admm.ADMMProblem`),
+    which the generic solve runs."""
 
     REF_OPT_EXTRA = refopts.ADMM_BASE
+
+    def _solve_state(self):
+        return _admm.admm_solve(self.problem, self.cfg, self.params,
+                                self.opts, self.state)
 
     def getmin(self):
         return self.state.Y
@@ -131,16 +140,20 @@ class ADMMModel(_Model):
     def load_state_dict_numpy(self, d):
         """Load a solver state given as numpy arrays: the port's own
         :meth:`state_dict`, or the JAX package's ``state_dict()`` after
-        ``numpy.asarray`` of each entry.  X, Y and U are in the internal
-        ``(K, Cx, M, N0, N1)`` layout in both packages."""
-        stats = np.array(d["stats"], np.float32, copy=True)
+        ``numpy.asarray`` of each entry, from the fused or the generic
+        path.  X, Y and U are in the internal ``(K, Cx, M, N0, N1)``
+        layout in both packages and take the problem's dtype; the
+        scalars take its scalar type."""
+        ft = _admm.scalar_type(self.opts.dtype)
+        dt = self.opts.dtype
         self.state = _admm.ADMMState(
-            X=self._tensor(d["X"]), Y=self._tensor(d["Y"]),
-            U=self._tensor(d["U"]),
-            rho=np.float32(d["rho"]), rho_xi=np.float32(d["rho_xi"]),
-            k=np.int32(d["k"]), r=np.float32(d["r"]),
-            s=np.float32(d["s"]), epri=np.float32(d["epri"]),
-            edua=np.float32(d["edua"]), stats=stats)
+            X=self._tensor(d["X"], dt), Y=self._tensor(d["Y"], dt),
+            U=self._tensor(d["U"], dt),
+            rho=ft(d["rho"]), rho_xi=ft(d["rho_xi"]), k=np.int32(d["k"]),
+            r=ft(d["r"]), s=ft(d["s"]), epri=ft(d["epri"]),
+            edua=ft(d["edua"]),
+            stats=np.array(d["stats"], np.float32, copy=True),
+            extra=d.get("extra", ()))
 
 
 def default_rho_xi(lmbda):

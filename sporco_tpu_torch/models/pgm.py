@@ -1,16 +1,30 @@
 """Convolutional sparse coding via PGM (FISTA): ``ConvBPDN`` and
 ``ConvBPDNMask`` (counterpart of ``sporco_tpu.models.pgm``).
 
-This slice ports the fused packed-layout problem
-(:mod:`sporco_tpu_torch.ops.fused_csc`): real single-channel 2-D
-float32 problems, masked or not.  The plain FISTA configuration runs
-the hand-written ``pgm_iter`` kernel once per iteration; backtracking,
-the step-size policies, the monotone variant and a spatially varying
-``L1Weight`` run the generic PGM loop on the packed problem.  Every
-other configuration raises :class:`NotImplementedError` naming the
-ROADMAP item that will port it; there is no silent generic path.
+Routed as the JAX package routes them:
+
+- the fused packed-layout problem (:mod:`sporco_tpu_torch.ops.fused_csc`)
+  for single-channel 2-D float32 problems with PS-aligned even sizes,
+  supports up to 24 and no NoBndryCross, masked or not: the plain FISTA
+  configuration runs the CUDA kernel ``pgm_iter`` once per iteration,
+  backtracking, the step-size policies, the monotone variant and a
+  spatially varying ``L1Weight`` the generic PGM loop on the packed
+  problem;
+- the generic FFT problem (``_pcb_*`` below) on the generic PGM loop
+  for every other single-channel-dictionary configuration
+  (``fused=False``, ``no_bndry``, float64, other sizes, large supports,
+  1-3 spatial dims, multi-channel signals under ``fused=False``).  Its
+  gradient is one forward and one inverse 2-D FFT (three of each when
+  masked), which run the CUDA kernels ``rfft2_planar``/``irfft2_planar``
+  where :mod:`sporco_tpu_torch.ops.fft` dispatches them.
+
+Colour dictionaries and channel folding raise
+:class:`NotImplementedError` naming the ROADMAP item that will port
+them.  As in the JAX package, complex ``D``/``S`` are cast to the real
+``dtype`` (their imaginary part is dropped).
 """
 
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -20,8 +34,12 @@ from sporco_tpu_torch import cnvrep as cr
 from sporco_tpu_torch._device import resolve_device
 from sporco_tpu_torch.models import cbpdn as _cbpdn
 from sporco_tpu_torch.models.common import PGMModel
+from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import fused_csc
-from sporco_tpu_torch.solvers.pgm import PGMOpts, pgm_init_state
+from sporco_tpu_torch.ops import prox as sp
+from sporco_tpu_torch.solvers.admm import scalar_type
+from sporco_tpu_torch.solvers.pgm import (PGMOpts, PGMProblem, pgm_init_state,
+                                          pgm_solve)
 
 __all__ = ["ConvBPDN", "ConvBPDNMask", "PGMCSCConfig", "params_from_numpy",
            "DEFAULT_L"]
@@ -38,21 +56,101 @@ class PGMCSCConfig:
 
 
 def params_from_numpy(D, S, lmbda=None, wl1=1.0, W=None, dimK=None, dimN=2,
-                      device="cpu", dtype=torch.float32):
+                      device=None, dtype=torch.float32):
     """The port's PGM problem from the same user-shaped arrays the JAX
     constructor takes.  Returns ``(cri, params, real)``: ``params`` holds
     the internal-layout ``D``, ``S``, ``wl1`` and the fidelity mask ``W``
-    as float32 tensors on ``device``, and ``lmbda`` as a number
-    (defaulting to ``0.1 max|D^H S|``)."""
-    cri, params, real = _cbpdn.params_from_numpy(D, S, lmbda, wl1, dimK,
-                                                 dimN, device, dtype)
-    if not real:
-        return cri, None, False
+    as tensors of ``dtype`` on ``device`` (``None``: the CUDA device, as
+    for the models), and ``lmbda`` as a number (defaulting to
+    ``0.1 max|D^H S|``).  Complex ``D``/``S`` lose their imaginary part,
+    as ``jnp.asarray(D, dtype)`` drops it, so ``real`` is always True."""
+    npdt = _cbpdn._np_dtype(dtype)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", np.exceptions.ComplexWarning)
+        D = np.asarray(D).astype(npdt)
+        S = np.asarray(S).astype(npdt)
+    cri, params, _ = _cbpdn.params_from_numpy(D, S, lmbda, wl1, dimK, dimN,
+                                              device, dtype)
     Wm = torch.ones((1,) * (3 + cri.dimN), dtype=dtype) if W is None \
-        else cr.fidelity_mask(torch.as_tensor(np.asarray(W, np.float32)),
+        else cr.fidelity_mask(torch.as_tensor(np.asarray(W).astype(npdt)),
                               cri)
-    params["W"] = Wm.to(torch.device(device), dtype)
+    params["W"] = Wm.to(params["D"].device, dtype)
     return cri, params, True
+
+
+# ---------------------------------------------------------------------------
+# The generic FFT problem (``sporco/pgm/cbpdn.py:29,387``)
+
+def _pcb_setup(cfg, params):
+    axes = _cbpdn._fftaxes(cfg.cri)
+    return {"Df": sf.rfftn(params["D"], s=cfg.cri.Nv, axes=axes),
+            "Sf": sf.rfftn(params["S"], axes=axes),
+            "lmbda": scalar_type(params["D"].dtype)(params["lmbda"])}
+
+
+def _pcb_Rf(cfg, aux, Vf):
+    return torch.sum(aux["Df"] * Vf, dim=2, keepdim=True) - aux["Sf"]
+
+
+def _pcb_grad(cfg, aux, params, Y):
+    cri = cfg.cri
+    axes = _cbpdn._fftaxes(cri)
+    Ryf = _pcb_Rf(cfg, aux, sf.rfftn(Y, axes=axes))
+    if cfg.masked:
+        Ry = sf.irfftn(Ryf, s=cri.Nv, axes=axes)
+        Ryf = sf.rfftn(params["W"] ** 2 * Ry, axes=axes)
+    return sf.irfftn(aux["Df"].conj() * Ryf, s=cri.Nv, axes=axes)
+
+
+def _pcb_prox(cfg, aux, params, V, L):
+    U = sp.prox_l1(V, float(aux["lmbda"] / L) * params["wl1"])
+    return _cbpdn._apply_masks(_cbpdn.CSCConfig(
+        cri=cfg.cri, non_neg=cfg.non_neg, no_bndry=cfg.no_bndry), U)
+
+
+def _pcb_f(cfg, aux, params, X):
+    cri = cfg.cri
+    axes = _cbpdn._fftaxes(cri)
+    Rf = _pcb_Rf(cfg, aux, sf.rfftn(X, axes=axes))
+    if cfg.masked:
+        R = sf.irfftn(Rf, s=cri.Nv, axes=axes)
+        return 0.5 * torch.sum((params["W"] * R) ** 2)
+    return 0.5 * sf.rfl2norm2(Rf, cri.Nv, axis=axes)
+
+
+def _pcb_reg(params, X):
+    return torch.sum(torch.abs(params["wl1"] * X))
+
+
+def _pcb_g(cfg, aux, params, X):
+    return float(aux["lmbda"]) * _pcb_reg(params, X)
+
+
+def _pcb_obfn(cfg, aux, params, X):
+    # RegL1 reported unscaled (sporco/pgm/cbpdn.py:355-366)
+    f = _pcb_f(cfg, aux, params, X)
+    reg = _pcb_reg(params, X)
+    return (f + float(aux["lmbda"]) * reg, f, reg)
+
+
+def _pcb_hess(cfg, aux, params, V):
+    cri = cfg.cri
+    axes = _cbpdn._fftaxes(cri)
+    Vf = sf.rfftn(V, axes=axes)
+    h = aux["Df"].conj() * torch.sum(aux["Df"] * Vf, dim=2, keepdim=True)
+    return sf.irfftn(h, s=cri.Nv, axes=axes)
+
+
+def _pcb_xinit(cfg, params):
+    return torch.zeros(cfg.cri.shpX, dtype=params["S"].dtype,
+                       device=params["S"].device)
+
+
+_CBPDN_PGM = PGMProblem(setup=_pcb_setup, grad_f=_pcb_grad,
+                        prox_g=_pcb_prox, obfn_f=_pcb_f, obfn_g=_pcb_g,
+                        hessian_f=_pcb_hess, xinit=_pcb_xinit,
+                        obfn=_pcb_obfn,
+                        stat_names=("ObjFun", "DFid", "RegL1"))
 
 
 class ConvBPDN(PGMModel):
@@ -89,36 +187,50 @@ class ConvBPDN(PGMModel):
         self.device = resolve_device(device)
         if opt is None:
             opt = self.options()
-        if fused is False:
-            raise NotImplementedError(
-                "fused=False selects the generic FFT PGM problem, which "
-                "is not ported yet (ROADMAP queue 1, item 10)")
         if not isinstance(dtype, torch.dtype):
             dtype = getattr(torch, np.dtype(dtype).name)
         self.opts = opt.replace(dtype=dtype)
-        cri, params, real = params_from_numpy(D, S, lmbda, wl1, W, dimK,
-                                              dimN, self.device)
-        if not real:
-            raise NotImplementedError(
-                "complex problems need the generic FFT PGM problem, which "
-                "is not ported yet (ROADMAP queue 1, item 10)")
+        cri, params, _ = params_from_numpy(D, S, lmbda, wl1, W, dimK,
+                                           dimN, self.device, dtype)
         self.cri = cri
         self.cfg = PGMCSCConfig(cri=cri, non_neg=non_neg,
                                 no_bndry=no_bndry, masked=self.MASKED)
-        reason = fused_csc.pgm_unsupported_reason(self.cfg, self.opts)
-        if reason is not None:
-            raise NotImplementedError(reason)
         self.params = params
         self.lmbda = params["lmbda"]
+        self.problem = _CBPDN_PGM
+        self._fused = self._route(fused)
         L0 = opt.L if opt.L is not None else DEFAULT_L
-        X0 = torch.zeros(cri.shpX, dtype=dtype, device=self.device)
-        self.state = pgm_init_state(X0, self.opts, L0,
-                                    len(self.STAT_NAMES))
+        self.state = pgm_init_state(_pcb_xinit(self.cfg, params), self.opts,
+                                    L0, len(self.STAT_NAMES))
         self._init_done()
 
+    def _route(self, fused):
+        """Whether the solve runs the fused problem, chosen as
+        ``sporco_tpu.models.pgm.ConvBPDN.solve`` chooses: the fused
+        problem for what ``pgm_eligible`` takes (directly or by channel
+        folding), the generic FFT problem otherwise and always under
+        ``fused=False``.  What neither port path has yet raises
+        :class:`NotImplementedError`."""
+        cfg, opts = self.cfg, self.opts
+        if fused is not False and (
+                fused_csc.pgm_eligible(cfg, opts)
+                or fused_csc.pgm_cfold_eligible(cfg, self.params, opts)):
+            reason = fused_csc.pgm_unsupported_reason(cfg, opts)
+            if reason is not None:
+                raise NotImplementedError(reason)
+            return True
+        if self.cri.Cd > 1:
+            raise NotImplementedError(
+                "the generic FFT PGM problem with a colour dictionary is "
+                "not ported yet (ROADMAP queue 1, item 11)")
+        return False
+
     def _solve_state(self):
-        return fused_csc.pgm_cbpdn_solve(self.cfg, self.params, self.opts,
-                                         self.state)
+        if self._fused:
+            return fused_csc.pgm_cbpdn_solve(self.cfg, self.params,
+                                             self.opts, self.state)
+        return pgm_solve(self.problem, self.cfg, self.params, self.opts,
+                         self.state)
 
     def getmin(self):
         return cr.from_internal_X(self.state.X, self.cri)

@@ -18,13 +18,16 @@ import sys
 import time
 from pathlib import Path
 
-__all__ = ["load", "build", "find_nvcc", "BUILD_INFO"]
+__all__ = ["load", "build", "find_nvcc", "BUILD_INFO", "KERNELS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# every source of csrc/ that holds kernels, as build() takes them
+KERNELS = ("csc_iter", "pgm_iter", "fft2_planar")
 
 _LIBS = {}
 # name -> {"path", "cached", "seconds", "log"} for every loaded library

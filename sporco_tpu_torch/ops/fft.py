@@ -1,41 +1,158 @@
-"""FFT glue on ``torch.fft`` (counterpart of ``sporco_tpu.ops.fft``).
+"""FFT glue (counterpart of ``sporco_tpu.ops.fft`` and of the dispatch in
+``sporco_tpu.ops.mxufft``).
 
-The JAX package dispatches short axis transforms to DFT matmuls on the
-TPU (``mxufft``) only to work around XLA's slow TPU FFT; here every
-transform is ``torch.fft``.  Spatial axes are trailing, as in the JAX
-package.
+Transforms run on ``torch.fft``, except the one the JAX package sends to
+its Pallas kernels: at precision ``"highest"`` (the default, as
+``mxufft``'s), a 2-D ``rfftn``/``irfftn`` over the last two axes of a
+float32 (or complex64) array whose size the kernels take
+(:func:`sporco_tpu_torch.ops.fft2_planar.supported`) runs
+``rfft2_planar``/``irfft2_planar`` (the rule of ``mxufft._pallas_2d_ok``).
+:func:`use_planar_fft` chooses where: ``"auto"`` for CUDA tensors only,
+``"always"`` also for CPU tensors (through the kernels' plain versions,
+as the CPU tests do), ``"never"``.  Spatial axes are trailing, as in the
+JAX package.
 """
 
 import math
 
 import torch
 
-__all__ = ["fftn", "ifftn", "rfftn", "irfftn", "fl2norm2", "rfl2norm2"]
+from sporco_tpu_torch.ops import fft2_planar
+
+__all__ = ["fftn", "ifftn", "rfftn", "irfftn", "fl2norm2", "rfl2norm2",
+           "fftconv", "complex_dtype", "real_dtype", "set_precision",
+           "get_precision", "use_planar_fft"]
+
+_PRECISION = "highest"
+_PLANAR_MODE = "auto"
 
 
-def _dims(axes):
-    return None if axes is None else tuple(axes)
+def set_precision(p):
+    """Set the DFT precision: ``"highest"`` dispatches the planar
+    kernels; ``"high"`` and ``"default"`` keep every transform on
+    ``torch.fft`` (on the TPU they select bf16 splits)."""
+    global _PRECISION
+    if p not in ("default", "high", "highest"):
+        raise ValueError(f"invalid precision {p!r}")
+    _PRECISION = p
+
+
+def get_precision():
+    return _PRECISION
+
+
+def use_planar_fft(mode):
+    """Where the planar kernels run: ``"auto"`` (CUDA tensors only),
+    ``"always"`` (CPU tensors too, through the plain versions) or
+    ``"never"``."""
+    global _PLANAR_MODE
+    if mode not in ("auto", "always", "never"):
+        raise ValueError(f"invalid mode {mode!r}")
+    _PLANAR_MODE = mode
+
+
+def complex_dtype(dtype):
+    """Complex dtype corresponding to a real ``dtype``."""
+    if dtype.is_complex:
+        return dtype
+    return torch.complex128 if dtype == torch.float64 else torch.complex64
+
+
+def real_dtype(dtype):
+    """Real dtype corresponding to a complex ``dtype``."""
+    if not dtype.is_complex:
+        return dtype
+    return torch.float64 if dtype == torch.complex128 else torch.float32
+
+
+def _norm_axes(a, s, axes):
+    if axes is None:
+        axes = tuple(range(a.ndim)) if s is None \
+            else tuple(range(a.ndim - len(s), a.ndim))
+    else:
+        axes = tuple(ax % a.ndim for ax in axes)
+    if s is None:
+        s = tuple(a.shape[ax] for ax in axes)
+    return tuple(s), axes
+
+
+def _planar_ok(a, s, axes):
+    """``mxufft._pallas_2d_ok``, with the device rule of
+    :func:`use_planar_fft`."""
+    if _PRECISION != "highest" or _PLANAR_MODE == "never":
+        return False
+    if _PLANAR_MODE == "auto" and a.device.type != "cuda":
+        return False
+    if len(axes) != 2 or tuple(axes) != (a.ndim - 2, a.ndim - 1):
+        return False
+    if a.dtype not in (torch.float32, torch.complex64):
+        return False
+    return fft2_planar.supported(s[0], s[1], torch.float32)
+
+
+def _resize_axis(x, n, axis):
+    """Zero-pad or truncate ``x`` to length ``n`` along ``axis``."""
+    ln = x.shape[axis]
+    if ln >= n:
+        return x.narrow(axis, 0, n)
+    pad = [0, 0] * (x.ndim - 1 - axis % x.ndim) + [0, n - ln]
+    return torch.nn.functional.pad(x, pad)
 
 
 def fftn(a, s=None, axes=None):
     """n-dimensional complex DFT."""
-    return torch.fft.fftn(a, s=s, dim=_dims(axes))
+    return torch.fft.fftn(a, s=s, dim=axes)
 
 
 def ifftn(a, s=None, axes=None):
     """n-dimensional inverse complex DFT."""
-    return torch.fft.ifftn(a, s=s, dim=_dims(axes))
+    return torch.fft.ifftn(a, s=s, dim=axes)
 
 
 def rfftn(a, s=None, axes=None):
     """n-dimensional real DFT (half-spectrum on the final axis)."""
-    return torch.fft.rfftn(a, s=s, dim=_dims(axes))
+    s, axes = _norm_axes(a, s, axes)
+    if _planar_ok(a, s, axes) and not a.is_complex():
+        for n, ax in zip(s, axes):
+            a = _resize_axis(a, n, ax)
+        yr, yi = fft2_planar.rfft2_planar(a, precision=_PRECISION)
+        return torch.complex(yr, yi)
+    return torch.fft.rfftn(a, s=s, dim=axes)
 
 
 def irfftn(a, s, axes=None):
     """n-dimensional inverse real DFT; ``s`` (the real-domain shape of
     the transformed axes) is required."""
-    return torch.fft.irfftn(a, s=s, dim=_dims(axes))
+    s = tuple(s)
+    if axes is None:
+        axes = tuple(range(a.ndim - len(s), a.ndim))
+    else:
+        axes = tuple(ax % a.ndim for ax in axes)
+    if (_planar_ok(a, s, axes) and a.shape[axes[-1]] == s[-1] // 2 + 1
+            and a.shape[axes[-2]] == s[-2]):
+        if a.is_complex():
+            yr, yi = a.real, a.imag
+        else:
+            yr, yi = a, torch.zeros_like(a)
+        return fft2_planar.irfft2_planar(yr, yi, s[-1],
+                                         precision=_PRECISION)
+    return torch.fft.irfftn(a, s=s, dim=axes)
+
+
+def fftconv(a, b, axes=None, origin=None):
+    """Multi-dimensional circular convolution of real arrays via the DFT
+    (``sporco/fft.py:376-417``): the support per axis is the larger of
+    the two operands'; ``origin`` rolls the filter origin to that
+    index."""
+    if axes is None:
+        axes = tuple(range(a.ndim))
+    axes = tuple(ax % max(a.ndim, b.ndim) for ax in axes)
+    sn = tuple(max(a.shape[ax], b.shape[ax]) for ax in axes)
+    ab = irfftn(rfftn(a, s=sn, axes=axes) * rfftn(b, s=sn, axes=axes),
+                s=sn, axes=axes)
+    if origin is not None:
+        ab = torch.roll(ab, tuple(-o for o in origin), dims=axes)
+    return ab
 
 
 def fl2norm2(xf, axis=None):

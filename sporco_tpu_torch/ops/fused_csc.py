@@ -33,6 +33,7 @@ the step-size policies, the monotone variant and a spatially varying
 :mod:`sporco_tpu_torch.solvers.pgm` on the packed problem.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -48,8 +49,9 @@ from sporco_tpu_torch.solvers.admm import (ADMMState, _update_rho,
 from sporco_tpu_torch.solvers.pgm import (PGMProblem, _momentum_update,
                                           stop_tol)
 
-__all__ = ["cbpdn_solve", "eligible", "unsupported_reason",
-           "pgm_cbpdn_solve", "pgm_eligible", "pgm_unsupported_reason",
+__all__ = ["cbpdn_solve", "eligible", "cfold_eligible",
+           "unsupported_reason", "pgm_cbpdn_solve", "pgm_eligible",
+           "pgm_cfold_eligible", "pgm_unsupported_reason",
            "xstep_kernels", "spatial_xstep", "poly_pack", "poly_unpack",
            "pack_state", "unpack_state", "PS", "MAX_SUPPORT"]
 
@@ -254,11 +256,16 @@ def _rfl2norm2_planar(er, ei, n1):
 # ---------------------------------------------------------------------------
 # Eligibility
 
-def _layout_ok(cri, nd0, nd1, dtype, force=False):
-    """Structural layout constraints: 2-D, single-channel, PS-aligned even
-    spatial dims, float32; the small-support heuristic (``MAX_SUPPORT``)
-    is a performance choice only and is bypassed with ``force``."""
-    if not (cri.dimN == 2 and cri.Cd == 1 and cri.C == 1):
+def _layout_ok(cri, nd0, nd1, dtype, force=False, allow_mc=False):
+    """Structural layout constraints (the JAX package's rule): 2-D,
+    single-channel (or, with ``allow_mc``, a C-channel dictionary with
+    shared coefficient maps, C <= 3), PS-aligned even spatial dims,
+    float32; the small-support heuristic (``MAX_SUPPORT``) is a
+    performance choice only and is bypassed with ``force``."""
+    single = cri.Cd == 1 and cri.C == 1
+    mc = (allow_mc and cri.Cd == cri.C and cri.Cd in (2, 3)
+          and cri.Cx == 1)
+    if not (cri.dimN == 2 and (single or mc)):
         return False
     if dtype != torch.float32:
         return False
@@ -273,35 +280,70 @@ def _wl1_per_channel(wl1):
                                 if i != 2)
 
 
-def unsupported_reason(cfg, params, opts, force=False):
-    """None if this slice of the port's fused driver takes the
-    configuration, else what it lacks and the ROADMAP item that ports
-    it."""
+def eligible(cfg, params, opts, force=False):
+    """Whether the JAX package sends this ``l1`` ConvBPDN configuration to
+    its fused driver (``sporco_tpu.ops.fused_csc.eligible``): real
+    single-channel (or colour-dictionary) 2-D float32 problems with
+    PS-aligned even sizes, no NoBndryCross, LinSolveCheck or
+    ``AuxVarObj``.  With ``force`` the support heuristic is lifted and a
+    configuration outside the rule raises :class:`ValueError`.  What the
+    port's driver lacks of these is :func:`unsupported_reason`."""
+    cri = cfg.cri
+    mc_ok = cri.Cd > 1 and cfg.variant == "l1"
+    structural = (cfg.real and cfg.variant == "l1" and not cfg.no_bndry
+                  and not cfg.lin_check and cfg.obj_from_x
+                  and (cri.Cd == 1 or mc_ok)
+                  and _layout_ok(cri, cri.dsz[0], cri.dsz[1], opts.dtype,
+                                 force=force, allow_mc=mc_ok))
+    if not structural and force:
+        raise ValueError(
+            "fused=True requested, but this ConvBPDN configuration is not "
+            "supported by the fused spatial driver (needs real "
+            "single-channel 2D l1 CSC, "
+            f"PS={PS}-aligned even spatial dims, float32)")
+    return structural
+
+
+def _cfold(cfg, params):
+    """Fold a multi-channel signal's channels into the batch axis (the
+    JAX package's channel folding, exact for a single-channel
+    dictionary)."""
+    cri = cfg.cri
+    K2 = cri.K * cri.C
+    cri2 = dataclasses.replace(cri, K=K2, C=1, Cx=1)
+    S2 = params["S"].reshape((K2, 1, 1) + tuple(cri.Nv))
+    return dataclasses.replace(cfg, cri=cri2), {**params, "S": S2}
+
+
+def _cfold_wl1_ok(cri, wl1):
+    if cri.C <= 1 or cri.Cd != 1 or cri.Cx != cri.C:
+        return False
+    return wl1.ndim == 0 or (wl1.ndim == 5 and _wl1_per_channel(wl1))
+
+
+def cfold_eligible(cfg, params, opts, force=False):
+    """Whether the JAX package runs this multi-channel-signal
+    configuration on its fused driver by channel folding
+    (``sporco_tpu.ops.fused_csc.cfold_eligible``)."""
+    if not _cfold_wl1_ok(cfg.cri, params["wl1"]):
+        return False
+    cfg2, params2 = _cfold(cfg, params)
+    return eligible(cfg2, params2, opts, force=force)
+
+
+def unsupported_reason(cfg, params, opts):
+    """None if the port's fused driver takes a configuration that
+    :func:`eligible` (or :func:`cfold_eligible`) admits, else what it
+    lacks and the ROADMAP item that ports it."""
     cri = cfg.cri
     if cri.Cd > 1 or cri.C > 1:
-        return ("multi-channel (colour) CSC is not ported yet "
-                "(ROADMAP queue 1, item 11)")
-    if cfg.variant != "l1":
-        return (f"the {cfg.variant!r} variant is not ported yet "
-                "(ROADMAP queue 1, item 8)")
-    if not (cfg.real and not cfg.no_bndry and not cfg.lin_check
-            and cfg.obj_from_x
-            and _layout_ok(cri, cri.dsz[0], cri.dsz[1], opts.dtype,
-                           force=force)):
-        return ("this configuration needs the generic ConvBPDN path, "
-                "which is not ported yet (ROADMAP queue 1, item 7); the "
-                "fused driver takes real single-channel 2-D float32 "
-                f"problems with {PS}-aligned even spatial dims")
+        return ("multi-channel (colour) CSC on the fused driver is not "
+                "ported yet (ROADMAP queue 1, item 11)")
     if not _wl1_per_channel(params["wl1"]):
         return ("a spatially varying L1Weight needs the fused driver's "
                 "XLA body, which is not ported yet (ROADMAP queue 1, "
-                "item 8)")
+                "item 8); pass fused=False for the generic path")
     return None
-
-
-def eligible(cfg, params, opts, force=False):
-    """Whether the fused driver of this slice takes the configuration."""
-    return unsupported_reason(cfg, params, opts, force) is None
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +360,8 @@ def _packed_wl1(wl1):
 def cbpdn_solve(cfg, params, opts, state):
     """Run (or resume) one fused solve call from ``state``; returns the
     final :class:`ADMMState` in the internal layout."""
-    reason = unsupported_reason(cfg, params, opts, force=True)
+    eligible(cfg, params, opts, force=True)
+    reason = unsupported_reason(cfg, params, opts)
     if reason is not None:
         raise NotImplementedError(reason)
     with fp32_precision(), torch.no_grad():
@@ -533,10 +576,40 @@ _CBPDN_PGM_FUSED = PGMProblem(
     stat_names=("ObjFun", "DFid", "RegL1"))
 
 
+def pgm_eligible(cfg, opts):
+    """Whether the JAX package sends this (possibly masked) FISTA
+    configuration to its fused packed-layout problem
+    (``sporco_tpu.ops.fused_csc.pgm_eligible``): single-channel or
+    colour-dictionary 2-D float32 problems with PS-aligned even sizes,
+    supports up to 24 and no NoBndryCross."""
+    cri = cfg.cri
+    single = cri.Cd == 1 and cri.C == 1
+    mc = cri.Cd == cri.C and cri.Cd in (2, 3) and cri.Cx == 1
+    if not (cri.dimN == 2 and (single or mc) and not cfg.no_bndry):
+        return False
+    if opts.dtype != torch.float32:
+        return False
+    n0, n1 = cri.Nv
+    if n0 % PS != 0 or n1 % PS != 0 or n1 % 2 != 0:
+        return False
+    return cri.dsz[0] <= MAX_SUPPORT and cri.dsz[1] <= MAX_SUPPORT
+
+
+def pgm_cfold_eligible(cfg, params, opts):
+    """Whether the JAX package runs this multi-channel-signal FISTA
+    configuration on its fused problem by channel folding
+    (``sporco_tpu.ops.fused_csc.pgm_cfold_eligible``)."""
+    cri = cfg.cri
+    if not _cfold_wl1_ok(cri, params["wl1"]):
+        return False
+    cri2 = dataclasses.replace(cri, K=cri.K * cri.C, C=1, Cx=1)
+    return pgm_eligible(dataclasses.replace(cfg, cri=cri2), opts)
+
+
 def pgm_unsupported_reason(cfg, opts):
-    """None if the fused packed-layout FISTA problem of this slice takes
-    the configuration, else what it lacks and the ROADMAP item that
-    ports it."""
+    """None if the port's fused FISTA problem takes a configuration that
+    :func:`pgm_eligible` (or :func:`pgm_cfold_eligible`) admits, else
+    what it lacks and the ROADMAP item that ports it."""
     cri = cfg.cri
     if cri.Cd > 1:
         return ("a colour dictionary needs the rank-C packed problem, "
@@ -544,20 +617,7 @@ def pgm_unsupported_reason(cfg, opts):
     if cri.C > 1:
         return ("a multi-channel signal needs channel folding (cfold), "
                 "which is not ported yet (ROADMAP queue 1, item 10)")
-    if cfg.no_bndry or not (cri.dimN == 2 and _layout_ok(
-            cri, cri.dsz[0], cri.dsz[1], opts.dtype)):
-        return ("this configuration needs the generic FFT PGM problem, "
-                "which is not ported yet (ROADMAP queue 1, item 10); the "
-                "fused problem takes single-channel 2-D float32 problems "
-                f"with {PS}-aligned even spatial dims, supports up to "
-                f"{MAX_SUPPORT} and no NoBndryCross")
     return None
-
-
-def pgm_eligible(cfg, opts):
-    """Whether the fused packed-layout FISTA problem takes this (possibly
-    masked) configuration."""
-    return pgm_unsupported_reason(cfg, opts) is None
 
 
 def _pgm_kernel_eligible(cfg, params, opts):
@@ -646,6 +706,9 @@ def pgm_cbpdn_solve(cfg, params, opts, state):
     it, else the generic PGM loop on the packed problem (backtracking,
     step-size policies, monotone, spatial L1Weight).  Returns the final
     :class:`PGMState` in the internal layout."""
+    if not pgm_eligible(cfg, opts):
+        raise ValueError("this configuration is not one of the fused "
+                         "FISTA problem's (see pgm_eligible)")
     reason = pgm_unsupported_reason(cfg, opts)
     if reason is not None:
         raise NotImplementedError(reason)

@@ -1,0 +1,74 @@
+"""Linear-algebra helpers of the DFT-domain solvers (counterpart of
+``sporco_tpu.ops.linalg``): broadcast inner products, the per-bin
+Sherman-Morrison solves of single-channel CSC and the relative residual
+``rrs``.  The multi-rank solve ``solvemdbi_ism`` (colour dictionaries)
+is not ported yet (ROADMAP queue 1, item 11)."""
+
+import torch
+
+from sporco_tpu_torch._device import fp32_precision
+
+__all__ = ["inner", "dot", "solvedbi_sm", "solvedbi_sm_c", "solvedbd_sm",
+           "solvedbd_sm_c", "rrs"]
+
+
+def inner(x, y, axis=-1):
+    """Broadcast inner product: ``sum(x * y)`` over one axis, keepdims
+    (``sporco/linalg.py:41``)."""
+    return torch.sum(x * y, dim=axis, keepdim=True)
+
+
+def dot(a, b, axis=-2):
+    """Matrix product of 2-D ``a`` against axis ``axis`` of ``b``,
+    leaving the result in that axis position (``sporco/linalg.py:92``);
+    fp32 contractions pinned."""
+    with fp32_precision():
+        return torch.movedim(torch.tensordot(a, b, dims=([1], [axis])), 0,
+                             axis % b.ndim)
+
+
+def solvedbi_sm_c(ah, a, rho, axis=-3):
+    """Cacheable component of :func:`solvedbi_sm`
+    (``sporco/linalg.py:277``)."""
+    return ah / (inner(ah, a, axis=axis) + rho)
+
+
+def solvedbi_sm(ah, rho, b, c=None, axis=-3, aah=None):
+    """Solve ``(rho I + a a^H) x = b`` with ``a = conj(ah)``, per index
+    of the axes other than ``axis``, by rank-1 Sherman-Morrison
+    (``sporco/linalg.py:232``): the per-bin x-step of single-channel CSC
+    with ``axis`` the filter axis.  ``aah`` optionally supplies the
+    rho-independent ``sum |ah|^2``."""
+    a = ah.conj()
+    if c is not None:
+        return (b - a * inner(c, b, axis=axis)) / rho
+    if aah is None:
+        aah = inner(ah, a, axis=axis).real
+    t = inner(ah, b, axis=axis) / (aah + rho)
+    return (b - a * t) / rho
+
+
+def solvedbd_sm_c(ah, a, d, axis=-3):
+    """Cacheable component of :func:`solvedbd_sm`
+    (``sporco/linalg.py:346``)."""
+    return (ah / d) / (inner(ah, a / d, axis=axis) + 1.0)
+
+
+def solvedbd_sm(ah, d, b, c=None, axis=-3):
+    """Solve ``(d + a a^H) x = b`` with a diagonal ``d`` (broadcastable)
+    by Sherman-Morrison (``sporco/linalg.py:301``)."""
+    a = ah.conj()
+    if c is None:
+        c = solvedbd_sm_c(ah, a, d, axis)
+    return (b - a * inner(c, b, axis=axis)) / d
+
+
+def rrs(ax, b):
+    """Relative residual ``||b - Ax|| / max(||Ax||, ||b||)`` with a 0/0
+    guard (``sporco/linalg.py:883``), as a 0-d tensor."""
+    nrm = torch.maximum(torch.linalg.vector_norm(ax),
+                        torch.linalg.vector_norm(b))
+    dv = torch.linalg.vector_norm(ax - b)
+    zero = nrm == 0.0
+    return torch.where(zero, torch.where(dv == 0.0, 0.0, torch.inf),
+                       dv / torch.where(zero, 1.0, nrm))

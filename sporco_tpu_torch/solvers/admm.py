@@ -1,23 +1,29 @@
-"""ADMM options, state and adaptive rho (counterpart of
-``sporco_tpu.solvers.admm``).
+"""ADMM options, state, adaptive rho and the generic driver (counterpart
+of ``sporco_tpu.solvers.admm``).
 
 The JAX package runs the whole loop on the device.  Here the loop runs
 on the host in Python: the large arrays (X, Y, U) are tensors on the
 solve's device, while the scalars of the state (rho, residuals,
 tolerances, the iteration counter) and the per-iteration stats buffer
-are host ``numpy.float32``/``int32`` values.  All scalar arithmetic is
-done in float32, in the same order as the JAX package, so that the
-AutoRho decisions and the stopping test match it.
+are host numpy values (``float32``, or ``float64`` for a float64 or
+complex128 problem).  All scalar arithmetic is done in that type, in
+the same order as the JAX package, so that the AutoRho decisions and
+the stopping test match it.  The generic driver :func:`admm_solve`
+reads one small vector back from the device per iteration.
 """
 
+import math
 from dataclasses import dataclass, field, replace
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["AutoRhoOpts", "ADMMOpts", "ADMMState", "IterStats",
-           "init_state", "iterstats", "stat_names"]
+from sporco_tpu_torch._device import fp32_precision
+
+__all__ = ["AutoRhoOpts", "ADMMOpts", "ADMMProblem", "ADMMState",
+           "IterStats", "admm_solve", "init_state", "iterstats",
+           "stat_names"]
 
 f32 = np.float32
 
@@ -78,30 +84,20 @@ def stat_names(obj_names):
             + ("PrimalRsdl", "DualRsdl", "EPrimal", "EDual", "Rho"))
 
 
-def init_state(shpX, opts, rho0, rho_xi, device, nobj, Y0=None, U0=None):
-    """A fresh :class:`ADMMState` for a problem whose X, Y and U have
-    shape ``shpX`` (zeros unless ``Y0``/``U0`` are given) and whose
-    stats rows hold ``nobj`` objective terms."""
-    def zeros():
-        return torch.zeros(shpX, dtype=opts.dtype, device=device)
-    Y = zeros() if Y0 is None else Y0.to(device, opts.dtype)
-    U = zeros() if U0 is None else U0.to(device, opts.dtype)
-    nstat = 1 + nobj + 5
-    return ADMMState(
-        X=zeros(), Y=Y, U=U, rho=f32(rho0), rho_xi=f32(rho_xi),
-        k=np.int32(0), r=f32(np.inf), s=f32(np.inf), epri=f32(0.0),
-        edua=f32(0.0),
-        stats=np.full((opts.max_iter, nstat), np.nan, np.float32))
+def scalar_type(dtype):
+    """The numpy type of the host scalars of a problem of ``dtype``:
+    float64 for float64 and complex128, else float32."""
+    return np.float64 if dtype in (torch.float64, torch.complex128) \
+        else np.float32
 
 
-def _update_rho(ar, k, r, s, rho, xi, U):
-    """Adaptive rho (``sporco/admm/admm.py:549-575``): returns the new
-    rho and ``U / rsf`` for a float32 scalar ``U`` (the fused driver
-    defers the dual rescale to its factor ``us``)."""
+def _rsf(ar, k, r, s, xi, ft=f32):
+    """The AutoRho scale factor (``sporco/admm/admm.py:549-575``), in
+    the scalar type ``ft``."""
     if not ar.enabled:
-        return rho, U
-    tau = f32(ar.scaling)
-    mu = f32(ar.rsdl_ratio)
+        return ft(1.0)
+    tau = ft(ar.scaling)
+    mu = ft(ar.rsdl_ratio)
     on_period = bool(k != 0 and (int(k) + 1) % ar.period == 0)
     with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
         if ar.auto_scaling:
@@ -115,28 +111,187 @@ def _update_rho(ar, k, r, s, rho, xi, U):
         if r > xi * mu * s:
             rsf = rhomlt
         elif s > (mu / xi) * r:
-            rsf = f32(1.0) / rhomlt
+            rsf = ft(1.0) / rhomlt
         else:
-            rsf = f32(1.0)
-    if not on_period:
-        rsf = f32(1.0)
-    rsf = f32(rsf)
+            rsf = ft(1.0)
+    return ft(rsf) if on_period else ft(1.0)
+
+
+def _update_rho(ar, k, r, s, rho, xi, U):
+    """Adaptive rho: returns the new rho and ``U / rsf`` for a float32
+    scalar ``U`` (the fused driver defers the dual rescale to its factor
+    ``us``)."""
+    if not ar.enabled:
+        return rho, U
+    rsf = _rsf(ar, k, r, s, xi)
     return f32(rho * rsf), f32(U / rsf)
 
 
-def norm_residuals(ar, opts, nc, nx, rnrm, snrm, rn, sn):
+def norm_residuals(ar, opts, nc, nx, rnrm, snrm, rn, sn, ft=f32):
     """Normalised (or standard) residuals and their tolerances
-    (``sporco/admm/admm.py:462-486``), in float32."""
-    atol_c = f32(nc * opts.abs_stop_tol)
-    atol_x = f32(nx * opts.abs_stop_tol)
-    rtol = f32(opts.rel_stop_tol)
+    (``sporco/admm/admm.py:462-486``), in the scalar type ``ft``."""
+    atol_c = ft(nc * opts.abs_stop_tol)
+    atol_x = ft(nx * opts.abs_stop_tol)
+    rtol = ft(opts.rel_stop_tol)
     with np.errstate(divide="ignore", invalid="ignore"):
         if ar.std_residuals:
             return (rnrm, snrm, atol_c + rn * rtol, atol_x + sn * rtol)
-        rn_ = f32(1.0) if rn == 0.0 else rn
-        sn_ = f32(1.0) if sn == 0.0 else sn
+        rn_ = ft(1.0) if rn == 0.0 else rn
+        sn_ = ft(1.0) if sn == 0.0 else sn
         return (rnrm / rn_, snrm / sn_, atol_c / rn_ + rtol,
                 atol_x / sn_ + rtol)
+
+
+# ---------------------------------------------------------------------------
+# The problem protocol and the generic driver
+
+def _identity(cfg, aux, params, v):
+    return v
+
+
+def _neg(cfg, aux, params, v):
+    return -v
+
+
+def _zero_c(cfg, aux, params):
+    return 0.0
+
+
+@dataclass(frozen=True)
+class ADMMProblem:
+    """One ADMM problem as plain functions (``sporco/admm/admm.py:
+    672-775``).  ``cnst_a/cnst_at/cnst_b/cnst_c`` default to the
+    ``ADMMEqual`` constraint ``X - Y = 0``.  Signatures::
+
+        setup(cfg, params) -> aux
+        xstep(cfg, aux, params, state) -> (X, xaux)
+        ystep(cfg, aux, params, state, AXU) -> Y
+        obfn(cfg, aux, params, state, xaux) -> tuple of 0-d tensors
+        cnst_a(cfg, aux, params, X) -> AX        (and cnst_at, cnst_b)
+        cnst_c(cfg, aux, params) -> number or tensor
+        yinit/uinit/xinit(cfg, params) -> tensor
+        extra_init(cfg, params) -> extra carry (kept in the state)
+    """
+    setup: Callable
+    xstep: Callable
+    ystep: Callable
+    obfn: Optional[Callable] = None
+    cnst_a: Callable = _identity
+    cnst_at: Callable = _identity
+    cnst_b: Callable = _neg
+    cnst_c: Callable = _zero_c
+    yinit: Optional[Callable] = None
+    uinit: Optional[Callable] = None
+    xinit: Optional[Callable] = None
+    extra_init: Optional[Callable] = None
+    stat_names: Tuple[str, ...] = ("Obj", "F", "G")
+
+
+def init_state(prob, cfg, params, opts, rho0, rho_xi=1.0, Y0=None,
+               U0=None):
+    """A fresh :class:`ADMMState` (``sporco_tpu.solvers.admm.init_state``):
+    ``Y0``/``U0`` warm-start the solve, else the problem's
+    ``yinit``/``uinit`` give them; X starts at ``xinit`` or zeros."""
+    if Y0 is None and prob.yinit is not None:
+        Y0 = prob.yinit(cfg, params)
+    if U0 is None and prob.uinit is not None:
+        U0 = prob.uinit(cfg, params)
+    if Y0 is None or U0 is None:
+        raise ValueError("problem must provide yinit/uinit or caller "
+                         "must pass Y0/U0")
+    ft = scalar_type(opts.dtype)
+    X0 = prob.xinit(cfg, params) if prob.xinit else torch.zeros_like(Y0)
+    nstat = 1 + len(prob.stat_names) + 5
+    return ADMMState(
+        X=X0, Y=Y0, U=U0, rho=ft(rho0), rho_xi=ft(rho_xi), k=np.int32(0),
+        r=ft(np.inf), s=ft(np.inf), epri=ft(0.0), edua=ft(0.0),
+        stats=np.full((opts.max_iter, nstat), np.nan, np.float32),
+        extra=prob.extra_init(cfg, params) if prob.extra_init else ())
+
+
+def _sumsq(x):
+    """``sum |x|^2`` as a real 0-d tensor."""
+    return torch.sum(x.abs() ** 2 if x.is_complex() else x * x)
+
+
+def _admm_run(prob, cfg, params, opts, state):
+    """Run up to ``opts.max_iter`` iterations from ``state``, stopping
+    when both normalised residuals pass their tolerances; one host read
+    per iteration (the squared norms and the objective terms)."""
+    aux = prob.setup(cfg, params)
+    ar = opts.auto_rho
+    rlx = opts.relax_param
+    ft = scalar_type(opts.dtype)
+    st = state
+    k0 = int(st.k)
+    nc = math.sqrt(st.Y.numel())
+    nx = math.sqrt(st.X.numel())
+    nobj = len(prob.stat_names)
+    stats = np.array(st.stats, np.float32, copy=True)
+    if stats.shape[0] != opts.max_iter:
+        stats = np.full((opts.max_iter, 1 + nobj + 5), np.nan, np.float32)
+
+    def converged(st):
+        return (int(st.k) - k0 >= opts.max_iter
+                or (st.r <= st.epri and st.s <= st.edua))
+
+    while not converged(st):
+        rho = st.rho
+        Yprev = st.Y
+        X, xaux = prob.xstep(cfg, aux, params, st)
+        AXnr = prob.cnst_a(cfg, aux, params, X)
+        c = prob.cnst_c(cfg, aux, params)
+        if rlx == 1.0:
+            AX = AXnr
+        else:
+            BY = prob.cnst_b(cfg, aux, params, st.Y)
+            AX = rlx * AXnr - (1 - rlx) * (BY - c)
+        Y = prob.ystep(cfg, aux, params, st._replace(X=X), AX + st.U)
+        BY = prob.cnst_b(cfg, aux, params, Y)
+        U = st.U + AX + BY - c
+        st2 = st._replace(X=X, Y=Y, U=U)
+        # residuals (sporco/admm/admm.py:462-486), squared, on the device
+        sv = prob.cnst_at(cfg, aux, params,
+                          prob.cnst_b(cfg, aux, params, Y - Yprev))
+        sq = [_sumsq(AXnr + BY - c), _sumsq(sv), _sumsq(AXnr), _sumsq(BY),
+              _sumsq(prob.cnst_at(cfg, aux, params, U))]
+        if isinstance(c, torch.Tensor):
+            sq.append(_sumsq(c))
+        rtype = sq[0].dtype
+        if not (opts.fast_solve or prob.obfn is None):
+            sq += [torch.as_tensor(o, dtype=rtype, device=X.device)
+                   for o in prob.obfn(cfg, aux, params, st2, xaux)]
+        # the one host read of the iteration
+        host = torch.stack(sq).cpu().numpy().astype(ft)
+        rnrm = np.sqrt(host[0])
+        snrm = rho * np.sqrt(host[1])
+        rn = np.maximum(np.sqrt(host[2]), np.sqrt(host[3]))
+        nsq = 5
+        if isinstance(c, torch.Tensor):
+            rn = np.maximum(rn, np.sqrt(host[5]))
+            nsq = 6
+        sn = rho * np.sqrt(host[4])
+        r, s, epri, edua = norm_residuals(ar, opts, nc, nx, rnrm, snrm, rn,
+                                          sn, ft)
+        objv = tuple(host[nsq:]) if len(host) > nsq else (np.nan,) * nobj
+        k = int(st.k)
+        stats[k - k0] = (k,) + objv + (r, s, epri, edua, rho)
+        if opts.verbose:
+            print(f"it {k}  obj {stats[k - k0, 1]:.4e}  r {r:.3e}  "
+                  f"s {s:.3e}  rho {rho:.3e}")
+        rsf = _rsf(ar, k, r, s, st.rho_xi, ft)
+        if rsf != 1.0:
+            U = U / float(rsf)
+        st = st2._replace(U=U, rho=ft(rho * rsf), k=np.int32(k + 1), r=r,
+                          s=s, epri=epri, edua=edua)
+    return st._replace(stats=stats)
+
+
+def admm_solve(prob, cfg, params, opts, state):
+    """Run one (re-entrant) generic solve call with fp32 contractions
+    pinned; returns the final state."""
+    with fp32_precision(), torch.no_grad():
+        return _admm_run(prob, cfg, params, opts, state)
 
 
 class IterStats:

@@ -51,7 +51,8 @@ def interpret():
 
 
 def _jax(D, S, opt, **kw):
-    b = JConvBPDN(D, S, LMBDA, opt=opt, fused=True, **kw)
+    kw.setdefault("fused", True)
+    b = JConvBPDN(D, S, LMBDA, opt=opt, **kw)
     Y = np.asarray(b.solve())
     return b, Y
 
@@ -62,7 +63,7 @@ def _port(D, S, opt, **kw):
     return b, Y
 
 
-def _assert_close(jb, jY, tb, tY):
+def _assert_close(jb, jY, tb, tY, obj_atol=0.0):
     ja, ta = jb.getitstat(), tb.getitstat()
     assert len(ja) == len(ta)
     np.testing.assert_array_equal(ja.Iter, ta.Iter)
@@ -73,7 +74,9 @@ def _assert_close(jb, jY, tb, tY):
     assert np.abs(jX - tX).max() < 2e-4 * max(np.abs(jX).max(), 1e-6)
     for name in ("ObjFun", "DFid", "RegL1", "Rho"):
         np.testing.assert_allclose(getattr(ta, name), getattr(ja, name),
-                                   rtol=1e-4, err_msg=name)
+                                   rtol=1e-4, err_msg=name,
+                                   atol=obj_atol if name in (
+                                       "ObjFun", "DFid") else 0.0)
     for name in ("PrimalRsdl", "DualRsdl"):
         np.testing.assert_allclose(getattr(ta, name), getattr(ja, name),
                                    rtol=1e-3, atol=1e-6, err_msg=name)
@@ -168,7 +171,7 @@ def test_per_filter_weights_nonneg_batch(interpret):
 def test_params_from_numpy_match_jax():
     D, S = _problem(N=32)
     jb = JConvBPDN(D, S, None, fused=True)
-    cri, params, real = params_from_numpy(D, S)
+    cri, params, real = params_from_numpy(D, S, device="cpu")
     assert real and dataclasses.asdict(cri) == dataclasses.asdict(jb.cri)
     for name in ("D", "S", "wl1"):
         np.testing.assert_array_equal(params[name].numpy(),
@@ -279,14 +282,41 @@ def _outside(kind):
 
 
 @pytest.mark.parametrize("kind", ["colour_signal", "colour_dict",
-                                  "generic", "spatial_wl1", "odd_size",
-                                  "no_bndry", "float64", "complex",
-                                  "large_support"])
+                                  "spatial_wl1"])
 def test_outside_slice_raises(kind):
+    """What the JAX package runs on its fused driver and the port's
+    fused driver lacks (channel folding, colour dictionaries, a spatial
+    L1Weight) raises, naming the ROADMAP item."""
     kw = _outside(kind)
     D, S = kw.pop("D"), kw.pop("S")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         ConvBPDN(D, S, LMBDA, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kind", ["generic", "odd_size", "no_bndry",
+                                  "float64", "complex", "large_support"])
+def test_outside_fused_slice_solves_as_jax(kind):
+    """The configurations the fused driver refuses run the generic path,
+    in both packages (``torch.fft`` and ``jnp.fft`` on the CPU), and
+    agree: 12 iterations at the tolerances of this file.  The data
+    fidelity is a nearly cancelled difference of terms of the size of
+    0.5||S||^2 (with the unnormalised 26x26 filters of ``large_support``
+    it falls to 1e-4 of it), so ObjFun and DFid may also differ by 2e-6
+    of that scale, a few fp32 roundings of it."""
+    kw = _outside(kind)
+    D, S = kw.pop("D"), kw.pop("S")
+    jkw = {k: (np.float64 if v is torch.float64 else v)
+           for k, v in kw.items()}
+    opt = dict(max_iter=12, rel_stop_tol=0.0)
+    jb, jY = _jax(D, S, JConvBPDN.options(**opt), **{"fused": "auto",
+                                                     **jkw})
+    tb, tY = _port(D, S, ConvBPDN.options(**opt), **kw)
+    assert tb._fused_solve is None
+    assert tb.state.Y.dtype == {"float64": torch.float64,
+                                "complex": torch.complex64}.get(
+                                    kind, torch.float32)
+    _assert_close(jb, jY, tb, tY,
+                  obj_atol=2e-6 * 0.5 * float(np.sum(np.abs(S) ** 2)))
 
 
 @pytest.mark.parametrize("nd,force", [(8, False), (26, False), (26, True)])

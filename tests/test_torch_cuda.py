@@ -13,6 +13,7 @@ import torch
 from sporco_tpu_torch.models import pgm as tpgm
 from sporco_tpu_torch.models.cbpdn import ConvBPDN
 from sporco_tpu_torch.ops import csc_iter as tci
+from sporco_tpu_torch.ops import fft2_planar as tfp
 from sporco_tpu_torch.ops import pgm_iter as tpi
 
 pytestmark = pytest.mark.cuda
@@ -227,3 +228,195 @@ def test_pgm_solve_on_card_matches_cpu(dev, masked):
         np.testing.assert_allclose(getattr(ia, name), getattr(ib, name),
                                    rtol=1e-4, err_msg=name)
     np.testing.assert_allclose(ia.Rsdl, ib.Rsdl, rtol=1e-3, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# rfft2_planar / irfft2_planar
+
+# (lead, N0, N1): the JAX test shapes, lead dimensions, every row-pass
+# branch (power-of-two N1 by FFT, other even N1 by direct DFT, N1 = 2 and
+# 2048), one plane, and the headline x-step (64 planes of 512 x 512)
+FFT_SHAPES = [((2,), 128, 128), ((2,), 256, 64), ((2,), 512, 512),
+              ((2,), 128, 16), ((2,), 256, 30), ((3,), 128, 30),
+              ((2, 3), 128, 32), ((1,), 512, 2048), ((2,), 128, 2),
+              ((1,), 256, 2046), ((), 512, 512), ((64,), 512, 512)]
+
+
+def _fft_refs(shape, seed):
+    """Unit-normal data, its float64 numpy spectrum, a random
+    (non-Hermitian) half-spectrum and its float64 numpy inverse."""
+    lead, n0, n1 = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(lead + (n0, n1)).astype(np.float32)
+    ref = np.fft.rfftn(x.astype(np.float64), axes=(-2, -1))
+    zr = rng.standard_normal(ref.shape).astype(np.float32)
+    zi = rng.standard_normal(ref.shape).astype(np.float32)
+    xinv = np.fft.irfftn(zr.astype(np.float64) + 1j * zi, s=(n0, n1),
+                         axes=(-2, -1))
+    return x, ref, zr, zi, xinv
+
+
+@pytest.mark.parametrize("shape", FFT_SHAPES, ids=str)
+def test_fft_kernels_match_numpy_and_plain(dev, shape):
+    """The JAX package's tolerances (tests/ops/test_pallas_fft.py):
+    forward within 1e-6 of the largest magnitude of the float64 numpy
+    spectrum, inverse within 3e-5 absolute on unit-normal data; the
+    kernels and the plain versions, both fp32, within twice that of each
+    other.  The inverse gets a non-Hermitian spectrum."""
+    x, ref, zr, zi, xinv = _fft_refs(shape, 5)
+    n1 = shape[2]
+    xt = torch.tensor(x, device=dev)
+    yr, yi = tfp.rfft2_planar(xt)
+    pr, pi = tfp.rfft2_planar_plain(xt)
+    got = yr.cpu().numpy() + 1j * yi.cpu().numpy()
+    plain = pr.cpu().numpy() + 1j * pi.cpu().numpy()
+    scale = np.abs(ref).max()
+    assert np.abs(got - ref).max() < 1e-6 * scale
+    assert np.abs(got - plain).max() < 2e-6 * scale
+    zrt, zit = torch.tensor(zr, device=dev), torch.tensor(zi, device=dev)
+    xb = tfp.irfft2_planar(zrt, zit, n1).cpu().numpy()
+    xp = tfp.irfft2_planar_plain(zrt, zit, n1).cpu().numpy()
+    assert xb.shape == x.shape
+    assert np.abs(xb - xinv).max() < 3e-5
+    assert np.abs(xb - xp).max() < 6e-5
+    # the inputs are left as they were
+    assert torch.equal(zrt.cpu(), torch.tensor(zr))
+    # the round trip of a real signal
+    xr = tfp.irfft2_planar(yr, yi, n1).cpu().numpy()
+    assert np.abs(xr - x).max() < 3e-5
+
+
+def test_fft_kernels_take_unaligned_and_strided_input(dev):
+    """Views that start one float into their buffer, and a transposed
+    (non-contiguous) input, which the wrapper makes contiguous."""
+    x, ref, zr, zi, xinv = _fft_refs(((2,), 256, 64), 6)
+    xb = torch.empty(x.size + 1, device=dev)
+    xo = xb[1:].view(x.shape)
+    xo.copy_(torch.tensor(x))
+    yr, yi = tfp.rfft2_planar(xo)
+    got = yr.cpu().numpy() + 1j * yi.cpu().numpy()
+    assert np.abs(got - ref).max() < 1e-6 * np.abs(ref).max()
+    zb = torch.empty(2, zr.size + 1, device=dev)
+    zro = zb[0, 1:].view(zr.shape)
+    zio = zb[1, 1:].view(zi.shape)
+    zro.copy_(torch.tensor(zr))
+    zio.copy_(torch.tensor(zi))
+    assert np.abs(tfp.irfft2_planar(zro, zio, 64).cpu().numpy()
+                  - xinv).max() < 3e-5
+    xt = torch.tensor(np.ascontiguousarray(np.swapaxes(x, -1, -2)),
+                      device=dev).transpose(-1, -2)
+    assert not xt.is_contiguous()
+    yr2, yi2 = tfp.rfft2_planar(xt)
+    assert torch.equal(yr2, yr) and torch.equal(yi2, yi)
+
+
+def test_fft_kernels_count_launches_and_reject(dev):
+    x = torch.randn(2, 128, 32, device=dev)
+    tfp.reset_launches()
+    yr, yi = tfp.rfft2_planar(x)
+    tfp.irfft2_planar(yr, yi, 32)
+    tfp.rfft2_planar_plain(x)
+    tfp.irfft2_planar_plain(yr, yi, 32)
+    assert tfp.LAUNCHES == {"rfft2_planar": 1, "irfft2_planar": 1}
+    with pytest.raises(ValueError):
+        tfp.rfft2_planar(torch.randn(2, 96, 32, device=dev))
+    with pytest.raises(ValueError):
+        tfp.rfft2_planar(torch.randn(2, 128, 31, device=dev))
+    with pytest.raises(TypeError):
+        tfp.rfft2_planar(x.double())
+    with pytest.raises(ValueError):
+        tfp.irfft2_planar(yr, yi, 34)
+    with pytest.raises(ValueError):
+        tfp.irfft2_planar(yr, yi.cpu(), 32)
+    assert tfp.LAUNCHES == {"rfft2_planar": 1, "irfft2_planar": 1}
+
+
+# ---------------------------------------------------------------------------
+# The generic FFT paths
+
+def _generic_problem(N=128, seed=0):
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((8, 8, 4)).astype(np.float32)
+    D /= np.sqrt((D ** 2).sum(axis=(0, 1), keepdims=True))
+    S = rng.standard_normal((N, N)).astype(np.float32)
+    return D, S, (rng.random((N, N)) >= 0.3).astype(np.float32)
+
+
+@pytest.fixture
+def planar_on_cpu():
+    """The CPU side through the FFT kernels' plain versions."""
+    from sporco_tpu_torch.ops import fft as tsf
+    tsf.use_planar_fft("always")
+    try:
+        yield
+    finally:
+        tsf.use_planar_fft("auto")
+
+
+def test_generic_solve_on_card_matches_cpu(dev, planar_on_cpu):
+    """The generic ADMM ConvBPDN at 128x128 with 4 filters, 25
+    iterations: card (FFT kernels) against CPU (plain versions), with the
+    tolerances of the CPU test against the JAX package; one forward
+    transform per iteration and two in the setup, one inverse per
+    iteration, and no csc_iter."""
+    D, S, _ = _generic_problem()
+    opt = ConvBPDN.options(max_iter=25, rel_stop_tol=0.0)
+    tfp.reset_launches()
+    tci.reset_launches()
+    a = ConvBPDN(D, S, 0.05, opt=opt, fused=False)
+    Ya = a.solve().cpu().numpy()
+    assert tfp.LAUNCHES == {"rfft2_planar": 27, "irfft2_planar": 25}
+    assert tci.LAUNCHES["csc_iter"] == 0
+    b = ConvBPDN(D, S, 0.05, opt=opt, fused=False, device="cpu")
+    Yb = b.solve().numpy()
+    assert np.abs(Ya - Yb).max() < 2e-4 * np.abs(Yb).max()
+    ia, ib = a.getitstat(), b.getitstat()
+    for name in ("ObjFun", "DFid", "RegL1", "Rho"):
+        np.testing.assert_allclose(getattr(ia, name), getattr(ib, name),
+                                   rtol=1e-4, err_msg=name)
+    np.testing.assert_allclose(ia.PrimalRsdl, ib.PrimalRsdl, rtol=1e-3,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_generic_pgm_solve_on_card_matches_cpu(dev, planar_on_cpu, masked):
+    """The generic FFT FISTA problem at 128x128, 25 iterations: card
+    against CPU; per iteration two forward and one inverse transform
+    (three of each masked), and two forward in the setup."""
+    D, S, W = _generic_problem(seed=1)
+    cls = tpgm.ConvBPDNMask if masked else tpgm.ConvBPDN
+    opt = cls.options(max_iter=25, rel_stop_tol=0.0, L=50.0)
+    tfp.reset_launches()
+    a = cls(D, S, 0.05, opt=opt, W=W, fused=False)
+    Xa = a.solve().cpu().numpy()
+    per = (3, 3) if masked else (2, 1)
+    assert tfp.LAUNCHES == {"rfft2_planar": 25 * per[0] + 2,
+                            "irfft2_planar": 25 * per[1]}
+    b = cls(D, S, 0.05, opt=opt, W=W, fused=False, device="cpu")
+    Xb = b.solve().numpy()
+    assert np.abs(Xa - Xb).max() < 2e-4 * np.abs(Xb).max()
+    ia, ib = a.getitstat(), b.getitstat()
+    for name in ("ObjFun", "DFid", "RegL1"):
+        np.testing.assert_allclose(getattr(ia, name), getattr(ib, name),
+                                   rtol=1e-4, err_msg=name)
+    np.testing.assert_allclose(ia.Rsdl, ib.Rsdl, rtol=1e-3, atol=1e-6)
+
+
+def test_fused_glue_runs_fft_kernels_at_highest(dev):
+    """At the default precision the fused ADMM driver's spectral glue
+    (one plane) runs the FFT kernels; at "high" it stays on torch.fft,
+    as the JAX package's at mxufft "high"."""
+    from sporco_tpu_torch.ops import fft as tsf
+    D, S, _ = _generic_problem()
+    opt = ConvBPDN.options(max_iter=5, rel_stop_tol=0.0)
+    tfp.reset_launches()
+    ConvBPDN(D, S, 0.05, opt=opt).solve()
+    # setup (D, S), per iteration one pair, the final x-step's pair
+    assert tfp.LAUNCHES == {"rfft2_planar": 8, "irfft2_planar": 6}
+    tsf.set_precision("high")
+    try:
+        tfp.reset_launches()
+        ConvBPDN(D, S, 0.05, opt=opt).solve()
+    finally:
+        tsf.set_precision("highest")
+    assert tfp.LAUNCHES == {"rfft2_planar": 0, "irfft2_planar": 0}

@@ -14,6 +14,7 @@ import torch
 
 from sporco_tpu_torch.ops import _nvcc
 from sporco_tpu_torch.ops import csc_iter as tci
+from sporco_tpu_torch.ops import fft2_planar as tfp
 from sporco_tpu_torch.ops import pgm_iter as tpi
 
 torch.set_num_threads(2)
@@ -108,6 +109,19 @@ def test_build_flags_target_sm90a():
         assert _includes(src) == ['"csc_tiles.cuh"'], name
         assert 'extern "C"' in src and "cudaGetLastError" in src, name
         assert f"{name}_launch" in src and "atomicAdd" not in src, name
+    # the FFT kernels stand alone: the CUDA runtime only, twiddles from
+    # the host's float64 tables (no fast-math or single-precision sin/cos)
+    src = (PKG / "csrc" / "fft2_planar.cu").read_text()
+    assert _includes(src) == ["<cuda_runtime.h>", "<stdint.h>"]
+    assert 'extern "C"' in src and "cudaGetLastError" in src
+    for name in ("rfft2_planar_launch", "irfft2_planar_launch"):
+        assert name in src
+    for bad in ("atomicAdd", "__sinf", "__cosf", "sinf(", "cosf(",
+                "__sincosf", "sincosf("):
+        assert bad not in src, bad
+    # every kernel source is in the list the build phase compiles
+    assert sorted(_nvcc.KERNELS) == sorted(
+        p.stem for p in (PKG / "csrc").glob("*.cu"))
 
 
 def _includes(src):
@@ -123,11 +137,17 @@ def test_build_hash_covers_shared_header(monkeypatch, tmp_path):
     for f in (PKG / "csrc").iterdir():
         (csrc / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(_nvcc, "CSRC", csrc)
-    before = [_nvcc._target(n)[1] for n in ("csc_iter", "pgm_iter")]
+    before = [_nvcc._target(n)[1] for n in _nvcc.KERNELS]
     with open(csrc / "csc_tiles.cuh", "a") as f:
         f.write("// changed\n")
-    after = [_nvcc._target(n)[1] for n in ("csc_iter", "pgm_iter")]
-    assert before[0] != after[0] and before[1] != after[1]
+    after = [_nvcc._target(n)[1] for n in _nvcc.KERNELS]
+    assert all(a != b for a, b in zip(before, after))
+    # and a change to one source renames its library only
+    with open(csrc / "fft2_planar.cu", "a") as f:
+        f.write("// changed\n")
+    again = [_nvcc._target(n)[1] for n in _nvcc.KERNELS]
+    assert [a == b for a, b in zip(after, again)] == [
+        n != "fft2_planar" for n in _nvcc.KERNELS]
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
@@ -140,6 +160,53 @@ def test_non_cpu_tensors_never_take_the_plain_version():
         tpi.pgm_iter(m, m, m, m, m, 0.1, 1.0, 0.01, 0.5)
     assert tci.LAUNCHES["csc_iter"] == 0
     assert tpi.LAUNCHES["pgm_iter"] == 0
+    mx = torch.empty((2, 128, 32), device="meta")
+    my = torch.empty((2, 128, 17), device="meta")
+    tfp.reset_launches()
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tfp.rfft2_planar(mx)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tfp.irfft2_planar(my, my, 32)
+    assert tfp.LAUNCHES == {"rfft2_planar": 0, "irfft2_planar": 0}
+
+
+def test_cuda_tensors_never_take_the_plain_fft(monkeypatch):
+    """The FFT wrappers send a CUDA tensor to the kernel: with the plain
+    versions made to fail and the build made to fail, a tensor that
+    reports a CUDA device reaches the build (which raises) and never the
+    plain version."""
+    def boom(*a, **k):
+        raise AssertionError("plain version taken")
+
+    def no_build(name):
+        raise RuntimeError(f"cannot build {name}")
+    x = torch.zeros(2, 128, 32)
+    y = torch.zeros(2, 128, 17)
+    monkeypatch.setattr(tfp, "rfft2_planar_plain", boom)
+    monkeypatch.setattr(tfp, "irfft2_planar_plain", boom)
+    monkeypatch.setattr(tfp, "_device_of",
+                        lambda name, *ts: torch.device("cuda", 0))
+    monkeypatch.setattr(_nvcc, "load", no_build)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: _Null())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: _Null(cuda_stream=0))
+    tfp.reset_launches()
+    with pytest.raises(RuntimeError, match="cannot build fft2_planar"):
+        tfp.rfft2_planar(x)
+    with pytest.raises(RuntimeError, match="cannot build fft2_planar"):
+        tfp.irfft2_planar(y, y, 32)
+    assert tfp.LAUNCHES == {"rfft2_planar": 0, "irfft2_planar": 0}
+
+
+class _Null:
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -13,6 +13,7 @@ atol 1e-6.  The JAX kernel runs its products as bf16 splits (3-pass
 adjoint, about 2e-5 relative), the port in fp32.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -390,7 +391,7 @@ def test_params_from_numpy_match_jax():
     D, S = _problem(N=32, K=2)
     W = _mask((32, 32))
     jb = jpgm.ConvBPDNMask(D, S, None, W=W)
-    cri, params, real = tpgm.params_from_numpy(D, S, W=W)
+    cri, params, real = tpgm.params_from_numpy(D, S, W=W, device="cpu")
     assert real and dataclasses.asdict(cri) == dataclasses.asdict(jb.cri)
     for name in ("D", "S", "wl1", "W"):
         np.testing.assert_array_equal(params[name].numpy(),
@@ -464,6 +465,11 @@ class MomentumGenLinear:
         self.a, self.b = a, b
 
 
+class MomentumLinear:
+    def __init__(self, b):
+        self.b = b
+
+
 class StepSizePolicyBB:
     pass
 
@@ -498,6 +504,34 @@ def test_options_dict_matches_jax(opt):
     tm = tpgm.ConvBPDNMask(D, S, LMBDA, W=_mask((32, 32)),
                            opt={"NonNegCoef": True}, device="cpu")
     assert tm.cfg.non_neg and tm.cfg.masked
+
+
+def test_momentum_linear_object_matches_jax(interpret):
+    """A ``MomentumLinear(b=5)`` object: the option translator of both
+    packages reads only its ``a`` (``sporco_tpu/refopts.py:111-115``), so
+    both run linear momentum with the default b = 2 (the fault on record
+    in ROADMAP queue 3).  The port keeps the JAX package's result: the
+    same options, the same t and beta = (t_prv - 1) / t sequence to the
+    last bit, and the same stats rows."""
+    D, S = _problem(N=32, seed=8)
+    opt = {"Momentum": MomentumLinear(b=5.0), "MaxMainIter": 20,
+           "RelStopTol": 0.0, "L": 50.0}
+    jb = jpgm.ConvBPDN(D, S, LMBDA, opt=dict(opt))
+    tb = tpgm.ConvBPDN(D, S, LMBDA, opt=dict(opt), device="cpu")
+    assert tb.opts.momentum == jb.opts.momentum == "linear"
+    assert tb.opts.momentum_b == jb.opts.momentum_b == 2.0
+    jt, tt = jnp.asarray(1.0, jnp.float32), np.float32(1.0)
+    for k in range(20):
+        jn = jspgm._momentum_update(jb.opts, jt, jnp.asarray(k, jnp.int32))
+        tn = tspgm._momentum_update(tb.opts, tt, k)
+        assert np.float32(tn) == np.float32(jn)
+        assert (np.float32((tt - np.float32(1.0)) / tn)
+                == np.float32((jt - 1.0) / jn))
+        jt, tt = jn, tn
+    jX = np.asarray(jb.solve())
+    tX = tb.solve().numpy()
+    assert np.float32(tb.state.t) == np.float32(jb.state.t) == np.float32(tt)
+    _assert_close(jb, jX, tb, tX)
 
 
 def test_unknown_option_keys_raise():
@@ -556,15 +590,43 @@ def _outside(kind):
 
 
 @pytest.mark.parametrize("cls", ["ConvBPDN", "ConvBPDNMask"])
-@pytest.mark.parametrize("kind", ["colour_signal", "colour_dict",
-                                  "generic", "odd_size", "no_bndry",
-                                  "float64", "complex", "large_support",
-                                  "one_dim"])
+@pytest.mark.parametrize("kind", ["colour_signal", "colour_dict"])
 def test_outside_slice_raises(cls, kind):
+    """What the JAX package runs on its fused problem and the port's
+    lacks (channel folding, colour dictionaries) raises, naming the
+    ROADMAP item."""
     kw = _outside(kind)
     D, S = kw.pop("D"), kw.pop("S")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         getattr(tpgm, cls)(D, S, LMBDA, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("cls", ["ConvBPDN", "ConvBPDNMask"])
+@pytest.mark.parametrize("kind", ["generic", "odd_size", "no_bndry",
+                                  "float64", "complex", "large_support",
+                                  "one_dim"])
+def test_outside_fused_slice_solves_as_jax(cls, kind):
+    """The configurations the fused problem refuses run the generic FFT
+    problem in both packages (``torch.fft`` and ``jnp.fft`` on the CPU)
+    and agree over 10 iterations; a complex ``D`` loses its imaginary
+    part in both and runs the fused problem."""
+    kw = _outside(kind)
+    D, S = kw.pop("D"), kw.pop("S")
+    jkw = {k: (np.float64 if v is torch.float64 else v)
+           for k, v in kw.items()}
+    if cls == "ConvBPDNMask":
+        W = _mask(S.shape)
+        jkw["W"] = kw["W"] = W
+    opt = dict(max_iter=10, rel_stop_tol=0.0)
+    jcls, tcls = getattr(jpgm, cls), getattr(tpgm, cls)
+    with pytest.warns(np.exceptions.ComplexWarning) if kind == "complex" \
+            else contextlib.nullcontext():
+        jb = jcls(D, S, LMBDA, opt=jcls.options(**opt), **jkw)
+    jX = np.asarray(jb.solve())
+    tb = tcls(D, S, LMBDA, opt=tcls.options(**opt), device="cpu", **kw)
+    tX = tb.solve().numpy()
+    assert tb._fused == (kind == "complex")
+    _assert_close(jb, jX, tb, tX)
 
 
 def test_default_device_needs_gpu(monkeypatch):
