@@ -16,7 +16,14 @@ The main paths are the headline problem of the repository, single-channel
   ``pgm_iter``;
 - on the generic FFT path (``fused=False``): ADMM to 1e-3 and FISTA at
   L = 100, masked and not, whose 2-D transforms run the hand-written CUDA
-  kernels ``rfft2_planar``/``irfft2_planar``.
+  kernels ``rfft2_planar``/``irfft2_planar``;
+- and its variants on the fused driver: gradient-regularised CSC
+  (``ConvBPDNGradReg``, the last filter an impulse whose map carries the
+  smooth part, as ``examples/csc_gradreg.py``) through the fused
+  driver's ``body``, its per-bin x-step on the FFT kernels and the
+  hand-written CUDA kernel ``admm_tail``; the elastic net
+  (``ConvElasticNet``) through ``csc_iter``; and ``l1`` with a spatially
+  varying ``L1Weight`` through ``body`` with the tail as torch ops.
 
 Phases, each printing one JSON line on stdout:
 
@@ -50,16 +57,36 @@ Phases, each printing one JSON line on stdout:
     FFT kernels on one plane;
 12. ``pgm_generic_solve``: ``pgm.ConvBPDN(fused=False)`` at L = 100 for
     250 iterations, unmasked and masked, with the launches its calls per
-    iteration predict.
+    iteration predict;
+13. ``tail_kernel``: ``admm_tail`` against its plain version on the card
+    at the headline layout (4096 x 4096) and at ragged ones (37 x 4100,
+    4096 x 192) over its flag grid; kernel and plain version timed;
+14. ``gradreg_parity``: 10 iterations of the gradreg problem on the card
+    against the CPU;
+15. ``gradreg_layout``: the same at packed layouts outside the JAX
+    package's TPU block rule for its tail (128x128 with 63 filters,
+    C = 4032; 200x200 with 8 filters, 625 packed rows): one
+    ``admm_tail`` per iteration all the same;
+16. ``gradreg_solve``: the gradreg problem to 1e-3 (or 500 iterations)
+    on the fused driver: one ``admm_tail`` per iteration, one
+    ``rfft2_planar``/``irfft2_planar`` pair on 64 planes per iteration
+    and three forward transforms in the setup; its objective against the
+    generic solve's (``fused=False``);
+17. ``elastic_solve``: the elastic net (mu = 0.05) fused, one
+    ``csc_iter`` per iteration and no ``admm_tail``, against the generic
+    solve;
+18. ``wl1_spatial_solve``: ``l1`` with a random positive spatial weight
+    field on the fused ``body`` (torch-op tail: no ``csc_iter``, no
+    ``admm_tail``), against the generic solve.
 
 Each solve sets every kernel's launch count to 0 just before it and
 reads the counts just after.  Then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true,
 "device": {...}}``.  Any failure exits non-zero without the ``ok`` line;
 so does a run past the time budget, or a machine without a CUDA device.
-``--profile`` adds phases that run the fused ADMM, fused FISTA and
-generic ADMM solves under ``torch.profiler`` and report the device's
-busy and idle share and its time by kernel.
+``--profile`` adds phases that run the fused ADMM, fused FISTA, generic
+ADMM and fused gradreg solves under ``torch.profiler`` and report the
+device's busy and idle share and its time by kernel.
 """
 
 import contextlib
@@ -77,9 +104,11 @@ import torch
 
 from sporco_tpu_torch._device import fp32_precision
 from sporco_tpu_torch.models import pgm as tpgm
-from sporco_tpu_torch.models.cbpdn import ConvBPDN
+from sporco_tpu_torch.models.cbpdn import (ConvBPDN, ConvBPDNGradReg,
+                                           ConvElasticNet)
 from sporco_tpu_torch.ops import _nvcc
 from sporco_tpu_torch.ops import csc_iter as tci
+from sporco_tpu_torch.ops import csc_tail as tct
 from sporco_tpu_torch.ops import fft as tsf
 from sporco_tpu_torch.ops import fft2_planar as tfp
 from sporco_tpu_torch.ops import pgm_iter as tpi
@@ -98,6 +127,16 @@ PGM_GENERIC_ITERS = 250
 # N1 = 30, FFT for the powers of two, N1 = 2 and 2048)
 FFT_SHAPES = [(M, N, N), (1, N, N), (3, 128, 30), (2, 256, 64),
               (1, 512, 2048), (2, 128, 2)]
+# (R, C) of the tail kernel phase: the headline packed layout, then a C
+# off a multiple of 4 with a ragged R, and a C off a multiple of 128
+TAIL_SHAPES = [((N // PS) ** 2, PS * PS * M), (37, 4100),
+               ((N // PS) ** 2, 192)]
+GRAD_MU = 10.0          # gradient penalty of the gradreg problem
+# (image side, filters) of the gradreg layout phase: C = 64 * 63 off a
+# multiple of 128 (FFT kernels on), then 625 packed rows off a multiple
+# of 8 (an image side the FFT kernels do not take: torch.fft)
+GRAD_LAYOUTS = [(128, 63), (200, 8)]
+ELASTIC_MU = 0.05       # l2 penalty of the elastic net
 
 # Kernel against plain version, both fp32 on the card: they differ only in
 # summation order (k = 256 for G2 @ Wa, k = 4096 for R1/R2), about 1e-6
@@ -106,7 +145,8 @@ KERNEL_RTOL = 1e-5
 # Card (kernel) against CPU (plain version) over 10 iterations: the
 # tolerances of the CPU test of the port against the JAX package.
 PARITY = {"X": 2e-4, "ObjFun": 1e-4, "DFid": 1e-4, "RegL1": 1e-4,
-          "Rho": 1e-4, "PrimalRsdl": 1e-3, "DualRsdl": 1e-3}
+          "Rho": 1e-4, "PrimalRsdl": 1e-3, "DualRsdl": 1e-3,
+          "RegGrad": 1e-3}
 PGM_PARITY = {"X": 2e-4, "ObjFun": 1e-4, "DFid": 1e-4, "RegL1": 1e-4,
               "Rsdl": 1e-4}
 # The FFT kernels against float64 references on unit-normal data, the
@@ -126,6 +166,10 @@ PEAK_HBM_BYTES = 3.35e12
 # pgm_iter's step, prox, momentum and two sums
 EPI_FLOPS = 29
 PGM_EPI_FLOPS = 15
+# float operations per element of admm_tail: the rescale, relaxation,
+# threshold, sign, dual update, the two differences (14) and the six sums'
+# products and adds (12)
+TAIL_FLOPS = 26
 
 PHASE = {"name": "start"}
 
@@ -161,8 +205,10 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """Median time of ``fn()`` on the card in ms, from CUDA events."""
+def cuda_ms(fn, reps=20, warmup=3, batch=1):
+    """Median time of ``fn()`` on the card in ms, from CUDA events around
+    ``batch`` calls in a row (``batch > 1`` for a kernel shorter than its
+    wrapper's host time, which would otherwise be timed too)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -170,10 +216,11 @@ def cuda_ms(fn, reps=20, warmup=3):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return float(np.median(times))
 
 
@@ -206,6 +253,13 @@ def pgm_iter_bound_ms(pos, C, T, vectors):
     return _bound_ms(flops, floats)
 
 
+def tail_bound_ms(R, C, vectors):
+    """Least time of one admm_tail call: PX, PY and PU read once, PYn and
+    PUn written once (see :func:`_bound_ms`)."""
+    floats = 5 * R * C + 6 + (2 * C if vectors else 0)
+    return _bound_ms(TAIL_FLOPS * R * C, floats)
+
+
 def fft_bound_ms(B, n0, n1):
     """Least time of one 2-D real transform of B planes (either way): the
     planes in (out) and the planar half-spectrum out (in) once, and the
@@ -219,10 +273,11 @@ def reset_launches():
     tci.reset_launches()
     tpi.reset_launches()
     tfp.reset_launches()
+    tct.reset_launches()
 
 
 def launches():
-    return {**tci.LAUNCHES, **tpi.LAUNCHES, **tfp.LAUNCHES}
+    return {**tci.LAUNCHES, **tpi.LAUNCHES, **tfp.LAUNCHES, **tct.LAUNCHES}
 
 
 def expect_launches(label, counts, **want):
@@ -711,6 +766,227 @@ def phase_pgm_generic_solve(dev, D, S, lmbda):
     return out
 
 
+def phase_tail_kernel(dev):
+    """admm_tail against its plain version at TAIL_SHAPES over the flag
+    grid (per-channel or scalar thr/wl1, nonneg, us); kernel and plain
+    version timed at the headline layout."""
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def arrays(R, C):
+        PX = torch.randn((R, C), generator=g, device=dev)
+        PY = torch.randn((R, C), generator=g, device=dev) * (
+            torch.rand((R, C), generator=g, device=dev) < 0.05)
+        PU = 0.01 * torch.randn((R, C), generator=g, device=dev)
+        thr_v = 0.01 + 0.02 * torch.rand(C, generator=g, device=dev)
+        wl1_v = 0.5 + torch.rand(C, generator=g, device=dev)
+        return PX, PY, PU, thr_v, wl1_v
+    grid, max_abs, sums_rel = [], 0.0, 0.0
+    for R, C in TAIL_SHAPES:
+        PX, PY0, PU0, thr_v, wl1_v = arrays(R, C)
+        for vectors in (False, True):
+            for nonneg in (False, True):
+                for us in (1.0, 0.9):
+                    thr, wl1 = (thr_v, wl1_v) if vectors else (0.0143, 1.0)
+                    outs = []
+                    for fn in (tct.admm_tail, tct.admm_tail_plain):
+                        outs.append(fn(PX, PY0.clone(), PU0.clone(), thr,
+                                       wl1, 1.8, nonneg=nonneg, us=us))
+                    where = (f"(R, C) = {(R, C)} vectors={vectors} "
+                             f"nonneg={nonneg} us={us}")
+                    errs, ae = compare_outputs(
+                        "admm_tail", ("PYn", "PUn", "sums"), *outs, where)
+                    # each sum to KERNEL_RTOL of itself
+                    srel = float(((outs[0][2] - outs[1][2]).abs()
+                                  / outs[1][2].abs().clamp_min(1e-30))
+                                 .max())
+                    if srel > KERNEL_RTOL:
+                        raise AssertionError(
+                            f"admm_tail sums differ by {srel:.3e} relative "
+                            f"at {where}")
+                    max_abs = max(max_abs, ae)
+                    sums_rel = max(sums_rel, srel)
+                    grid.append({"shape": [R, C], "vectors": vectors,
+                                 "nonneg": nonneg, "us": us,
+                                 "rel_err": errs, "sums_rel_err": srel})
+    # time the main path's configuration (per-filter weights, us != 1)
+    R, C = TAIL_SHAPES[0]
+    PX, PY, PU, thr_v, wl1_v = arrays(R, C)
+
+    def run(fn):
+        return lambda: fn(PX, PY, PU, thr_v, wl1_v, 1.8, us=0.9)
+    kernel_ms = cuda_ms(run(tct.admm_tail), batch=10)
+    plain_ms = cuda_ms(run(tct.admm_tail_plain), batch=10)
+    bound_ms, bound_by = tail_bound_ms(R, C, True)
+    return {"tolerance_rel": KERNEL_RTOL, "grid": grid,
+            "max_abs_err": max_abs, "sums_max_rel_err": sums_rel,
+            "geometry": {"R": R, "C": C}, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "achieved_gb_per_s": 5 * 4 * R * C / kernel_ms / 1e6}
+
+
+def gradreg_problem(D):
+    """The headline dictionary with its last filter made an impulse, whose
+    map carries the smooth part of the image (``examples/csc_gradreg.py``):
+    GradWeight 1 on it and 0 elsewhere, L1Weight 0 on it and 1
+    elsewhere."""
+    m = D.shape[-1]
+    Dg = D.copy()
+    Dg[..., -1] = 0.0
+    Dg[0, 0, -1] = 1.0
+    wgrd = np.zeros(m, np.float32)
+    wgrd[-1] = 1.0
+    wl1 = np.ones((1, 1, 1, 1, m), np.float32)
+    wl1[..., -1] = 0.0
+    return Dg, dict(mu=GRAD_MU, wgrd=wgrd, wl1=wl1)
+
+
+def admm_options(cls, max_iter=MAX_ITER, rel_stop_tol=REL_TOL):
+    return cls.options(max_iter=max_iter, rel_stop_tol=rel_stop_tol)
+
+
+def phase_gradreg_parity(dev, Dg, S, kw):
+    opt = admm_options(ConvBPDNGradReg, PARITY_ITERS, 0.0)
+    runs = []
+    for d in (dev, "cpu"):
+        b = ConvBPDNGradReg(Dg, S, LMBDA, opt=opt, device=d, **kw)
+        Yd = b.solve()
+        runs.append((b.getitstat(), {"Y": Yd.cpu().numpy(),
+                                     "X": b.state.X.cpu().numpy()}))
+    errs = compare_runs("gradreg parity", runs,
+                        ("ObjFun", "DFid", "RegL1", "RegGrad", "Rho",
+                         "PrimalRsdl", "DualRsdl"), PARITY)
+    return {"iterations": PARITY_ITERS, "rel_err": errs,
+            "tolerance": PARITY}
+
+
+def phase_gradreg_layout(dev, D, S):
+    """The gradreg problem cut to each of GRAD_LAYOUTS: 10 iterations on
+    the card, where the tail kernel must run once per iteration (the JAX
+    package's tail_eligible rejects these layouts; the CUDA kernel takes
+    any), against the CPU."""
+    opt = admm_options(ConvBPDNGradReg, PARITY_ITERS, 0.0)
+    out = {}
+    for n, m in GRAD_LAYOUTS:
+        Dg, kw = gradreg_problem(np.ascontiguousarray(D[..., :m]))
+        Sn = np.ascontiguousarray(S[:n, :n])
+        runs = []
+        for d in (dev, "cpu"):
+            b = ConvBPDNGradReg(Dg, Sn, LMBDA, opt=opt, device=d, **kw)
+            if d is dev:
+                _, _, counts = _timed_solve(b)
+            else:
+                b.solve()
+            runs.append((b.getitstat(), {"Y": b.state.Y.cpu().numpy(),
+                                         "X": b.state.X.cpu().numpy()}))
+        label = f"gradreg at {n}x{n}, M = {m}"
+        k = PARITY_ITERS
+        planar = tfp.supported(n, n, torch.float32)
+        expect_launches(label, counts, admm_tail=k,
+                        rfft2_planar=k + 3 if planar else 0,
+                        irfft2_planar=k if planar else 0)
+        errs = compare_runs(label, runs,
+                            ("ObjFun", "DFid", "RegL1", "RegGrad", "Rho",
+                             "PrimalRsdl", "DualRsdl"), PARITY)
+        out[f"{n}x{n}x{m}"] = {"rows": (n // PS) ** 2, "C": PS * PS * m,
+                               "launches": counts, "rel_err": errs}
+    return out
+
+
+def _variant_solves(label, make, fused_want, generic_want):
+    """A fused solve and the generic solve (``fused=False``) of the same
+    problem, each timed after a 3-iteration warm-up; the launches of each
+    must be ``fused_want(k)`` / ``generic_want(k)``, the final objectives
+    must agree within OBJ_AGREE, and both must reach the stopping
+    tolerance."""
+    out = {}
+    for route, want in (("fused", fused_want), ("generic", generic_want)):
+        kw = {} if route == "fused" else {"fused": False}
+        make(max_iter=3, **kw).solve()
+        b = make(**kw)
+        X, wall, counts = _timed_solve(b)
+        its = b.getitstat()
+        k = int(b.state.k)
+        expect_launches(f"a {route} {label} solve of {k} iterations",
+                        counts, **want(k))
+        if tuple(X.shape) != (N, N, 1, 1, M) or not all(
+                bool(torch.isfinite(t).all()) for t in (X, b.state.X,
+                                                       b.state.U)):
+            raise AssertionError(f"{route} {label}: bad shape or not "
+                                 "finite")
+        done = (its.PrimalRsdl[-1] <= its.EPrimal[-1]
+                and its.DualRsdl[-1] <= its.EDual[-1])
+        if not (k < MAX_ITER and done):
+            raise AssertionError(f"{route} {label} not converged to "
+                                 f"{REL_TOL} in {k} iterations")
+        if not (np.all(np.isfinite(its.ObjFun))
+                and its.ObjFun[-1] < its.ObjFun[0]):
+            raise AssertionError(f"{route} {label}: objective not finite "
+                                 "or not decreasing")
+        out[route] = {"iterations": k, "converged": bool(done),
+                      "wall_s": wall, "iters_per_s": k / wall,
+                      "ms_per_iter": 1e3 * wall / k,
+                      "final_objective": float(its.ObjFun[-1]),
+                      "final_primal_rsdl": float(its.PrimalRsdl[-1]),
+                      "final_rho": float(its.Rho[-1]),
+                      "nonzero_fraction": float(
+                          (b.state.Y != 0).float().mean()),
+                      "launches": counts}
+    fo, go = out["fused"]["final_objective"], out["generic"]["final_objective"]
+    agree = abs(fo - go) / abs(go)
+    if not agree <= OBJ_AGREE:
+        raise AssertionError(f"{label}: fused objective {fo} against the "
+                             f"generic solve's {go}")
+    out["objective_rel_diff"] = agree
+    out["launches"] = out["fused"]["launches"]
+    return out
+
+
+def phase_gradreg_solve(dev, Dg, S, kw):
+    def make(max_iter=MAX_ITER, **extra):
+        return ConvBPDNGradReg(Dg, S, LMBDA, device=dev, **kw, **extra,
+                               opt=admm_options(ConvBPDNGradReg, max_iter))
+    # fused: setup D, S and the gradient filters, then per iteration the
+    # x-step's pair on 64 planes and one tail; the generic path the same
+    # transforms
+    out = _variant_solves(
+        "gradreg", make,
+        lambda k: dict(admm_tail=k, rfft2_planar=k + 3, irfft2_planar=k),
+        lambda k: dict(rfft2_planar=k + 3, irfft2_planar=k))
+    out["predicted"] = {"admm_tail": "k", "rfft2_planar": "k + 3",
+                        "irfft2_planar": "k"}
+    return out
+
+
+def phase_elastic_solve(dev, D, S):
+    def make(max_iter=MAX_ITER, **extra):
+        return ConvElasticNet(D, S, LMBDA, mu=ELASTIC_MU, device=dev,
+                              **extra,
+                              opt=admm_options(ConvElasticNet, max_iter))
+    # fused at "highest": the glue's pair on one plane per iteration,
+    # setup D and S, the final x-step's pair
+    return _variant_solves(
+        "elastic", make,
+        lambda k: dict(csc_iter=k, rfft2_planar=k + 3,
+                       irfft2_planar=k + 1),
+        lambda k: dict(rfft2_planar=k + 2, irfft2_planar=k))
+
+
+def phase_wl1_spatial_solve(dev, D, S):
+    W = (0.5 + np.random.default_rng(5).random((N, N, M))).astype(
+        np.float32)
+
+    def make(max_iter=MAX_ITER, **extra):
+        return ConvBPDN(D, S, LMBDA, wl1=W, device=dev, **extra,
+                        opt=admm_options(ConvBPDN, max_iter))
+    # fused body: the spatial x-step's pair on one plane per iteration,
+    # the torch-op tail, X carried (no final x-step)
+    return _variant_solves(
+        "spatial-L1Weight", make,
+        lambda k: dict(rfft2_planar=k + 2, irfft2_planar=k),
+        lambda k: dict(rfft2_planar=k + 2, irfft2_planar=k))
+
+
 def phase_profile(dev, make_model):
     """A solve under ``torch.profiler``: device busy time (the sum of
     every kernel's and copy's time on the card) against the solve's wall
@@ -756,9 +1032,9 @@ def fft_entry(name, fft, generic, replaces):
             "library_ms": t[name]["library_ms"]}
 
 
-def kernel_entry(name, kern, solve, replaces):
+def kernel_entry(name, kern, solve, replaces, source=None):
     return {"name": name, "route": "cuda",
-            "source": f"sporco_tpu_torch/csrc/{name}.cu",
+            "source": source or f"sporco_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": solve["launches"][name],
             "max_abs_err": kern["max_abs_err"], "ms": kern["kernel_ms"],
             "kernel_ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
@@ -823,6 +1099,17 @@ def main(argv):
         lambda: phase_generic_solve(dev, D, S, lmbda, summary["solve"]))
     run_phase("pgm_generic_solve",
               lambda: phase_pgm_generic_solve(dev, D, S, lmbda))
+    summary["tail_kernel"] = run_phase("tail_kernel",
+                                       lambda: phase_tail_kernel(dev))
+    Dg, gkw = gradreg_problem(D)
+    run_phase("gradreg_parity",
+              lambda: phase_gradreg_parity(dev, Dg, S, gkw))
+    run_phase("gradreg_layout", lambda: phase_gradreg_layout(dev, D, S))
+    summary["gradreg"] = run_phase(
+        "gradreg_solve", lambda: phase_gradreg_solve(dev, Dg, S, gkw))
+    run_phase("elastic_solve", lambda: phase_elastic_solve(dev, D, S))
+    run_phase("wl1_spatial_solve",
+              lambda: phase_wl1_spatial_solve(dev, D, S))
     if "--profile" in argv:
         def admm(**kw):
             return lambda: ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(
@@ -834,6 +1121,10 @@ def main(argv):
                                            device=dev)))
         run_phase("generic_profile",
                   lambda: phase_profile(dev, admm(fused=False)))
+        run_phase("gradreg_profile", lambda: phase_profile(
+            dev, lambda: ConvBPDNGradReg(
+                Dg, S, LMBDA, device=dev, **gkw,
+                opt=admm_options(ConvBPDNGradReg))))
     PHASE["name"] = "kernels"
     emit({"kernels": [
         kernel_entry("csc_iter", summary["kernel"], summary["solve"],
@@ -844,7 +1135,11 @@ def main(argv):
         fft_entry("rfft2_planar", summary["fft"], summary["generic"],
                   "sporco_tpu/ops/pallas_fft.py:402"),
         fft_entry("irfft2_planar", summary["fft"], summary["generic"],
-                  "sporco_tpu/ops/pallas_fft.py:433")]})
+                  "sporco_tpu/ops/pallas_fft.py:433"),
+        kernel_entry("admm_tail", summary["tail_kernel"],
+                     summary["gradreg"],
+                     "sporco_tpu/ops/pallas_csc_tail.py:105",
+                     source="sporco_tpu_torch/csrc/csc_tail.cu")]})
     elapsed = time.perf_counter() - t_start
     if elapsed > BUDGET_S:
         raise RuntimeError(f"over the time budget: {elapsed:.0f} s")

@@ -1,11 +1,16 @@
-"""Convolutional sparse coding via ADMM: ``ConvBPDN`` (counterpart of
-``sporco_tpu.models.cbpdn``).
+"""Convolutional sparse coding via ADMM: ``ConvBPDN``, ``ConvElasticNet``
+and ``ConvBPDNGradReg`` (counterpart of ``sporco_tpu.models.cbpdn``).
 
-The ``l1`` variant runs two ways, routed as the JAX package routes them:
+Each variant (``l1``, ``elastic``, ``gradreg``) runs two ways, routed as
+the JAX package routes them:
 
 - the fused spatial-Woodbury driver (:mod:`sporco_tpu_torch.ops.fused_csc`)
-  for real single-channel 2-D float32 problems with a scalar or
-  per-filter ``L1Weight``, through the CUDA kernel ``csc_iter``;
+  for real single-channel 2-D float32 problems: ``l1`` and ``elastic``
+  with a scalar or per-filter ``L1Weight`` through the CUDA kernel
+  ``csc_iter``; ``gradreg``, and any variant with a spatially varying
+  ``L1Weight``, through the driver's ``body`` (a per-bin x-step for
+  ``gradreg``, whose transforms run ``rfft2_planar``/``irfft2_planar``,
+  then the tail kernel ``admm_tail`` or its torch ops);
 - the generic DFT-domain ADMM problem (``_csc_*`` below) on the generic
   driver :func:`sporco_tpu_torch.solvers.admm.admm_solve` for every other
   single-channel-dictionary configuration (``fused=False``,
@@ -15,9 +20,9 @@ The ``l1`` variant runs two ways, routed as the JAX package routes them:
   run the CUDA kernels ``rfft2_planar``/``irfft2_planar`` where
   :mod:`sporco_tpu_torch.ops.fft` dispatches them.
 
-Colour dictionaries, channel folding and a spatial ``L1Weight`` on the
-fused driver raise :class:`NotImplementedError` naming the ROADMAP item
-that will port them; there is no silent fallback.
+Colour dictionaries and channel folding on the fused driver raise
+:class:`NotImplementedError` naming the ROADMAP item that will port
+them; there is no silent fallback.
 """
 
 from dataclasses import dataclass
@@ -36,14 +41,16 @@ from sporco_tpu_torch.ops import prox as sp
 from sporco_tpu_torch.solvers.admm import (ADMMOpts, ADMMProblem,
                                            AutoRhoOpts, init_state,
                                            scalar_type)
+from sporco_tpu_torch.utils.signal import gradient_filters
 
-__all__ = ["ConvBPDN", "CSCConfig", "params_from_numpy", "reconstruct"]
+__all__ = ["ConvBPDN", "ConvElasticNet", "ConvBPDNGradReg", "CSCConfig",
+           "params_from_numpy", "reconstruct"]
 
 
 @dataclass(frozen=True)
 class CSCConfig:
     cri: cr.CSCIndex
-    variant: str = "l1"
+    variant: str = "l1"       # l1 | elastic | gradreg
     non_neg: bool = False
     no_bndry: bool = False
     obj_from_x: bool = True
@@ -82,8 +89,15 @@ def _csc_setup(cfg, params):
     Sf = _fwd(cfg)(params["S"], axes=axes)
     # rho-independent per-bin dictionary energy for the SM solve
     DHD = torch.sum((Df * Df.conj()).real, dim=2, keepdim=True)
-    return {"Df": Df, "Sf": Sf, "DSf": Df.conj() * Sf, "DHD": DHD,
-            "lmbda": scalar_type(params["D"].dtype)(params["lmbda"])}
+    ft = scalar_type(params["D"].dtype)
+    aux = {"Df": Df, "Sf": Sf, "DSf": Df.conj() * Sf, "DHD": DHD,
+           "lmbda": ft(params["lmbda"]), "mu": ft(params["mu"])}
+    if cfg.variant == "gradreg":
+        _, GHGf = gradient_filters(cri.dimN, cri.Nv,
+                                   dtype=params["D"].dtype,
+                                   device=params["D"].device)
+        aux["GHGfW"] = params["wgrd"] * GHGf
+    return aux
 
 
 def _sm_solve(cfg, aux, rho, b):
@@ -92,24 +106,34 @@ def _sm_solve(cfg, aux, rho, b):
     return sl.solvedbi_sm(aux["Df"], rho, b, axis=2, aah=aux["DHD"])
 
 
-def _xrrs(cfg, aux, Xf, b, rho):
+def _xrrs(cfg, aux, Xf, b, diag):
     """Inner linear-solve relative residual (LinSolveCheck,
-    ``sporco/admm/cbpdn.py:283-293``)."""
+    ``sporco/admm/cbpdn.py:283-293``) of ``(diag + D^H D) Xf = b``."""
     Df = aux["Df"]
     DXf = torch.sum(Df * Xf, dim=2, keepdim=True)
-    return sl.rrs(Df.conj() * DXf + rho * Xf, b)
+    return sl.rrs(Df.conj() * DXf + diag * Xf, b)
 
 
 def _csc_xstep(cfg, aux, params, state):
     cri = cfg.cri
     axes = _fftaxes(cri)
-    rho = float(state.rho)
-    b = aux["DSf"] + rho * _fwd(cfg)(state.Y - state.U, axes=axes)
-    Xf = _sm_solve(cfg, aux, rho, b)
+    rho = state.rho
+    b = aux["DSf"] + float(rho) * _fwd(cfg)(state.Y - state.U, axes=axes)
+    if cfg.variant == "elastic":
+        # (rho + mu) I + D^H D (sporco/admm/cbpdn.py:948-975)
+        diag = float(rho + aux["mu"])
+        Xf = _sm_solve(cfg, aux, diag, b)
+    elif cfg.variant == "gradreg":
+        # the diagonal mu GHGfW + rho (sporco/admm/cbpdn.py:1173-1201)
+        diag = float(aux["mu"]) * aux["GHGfW"] + float(rho)
+        Xf = sl.solvedbd_sm(aux["Df"], diag, b, axis=2)
+    else:
+        diag = float(rho)
+        Xf = _sm_solve(cfg, aux, diag, b)
     X = _inv(cfg, Xf, cri.Nv, axes)
     xaux = {"Xf": Xf}
     if cfg.lin_check:
-        xaux["xrrs"] = _xrrs(cfg, aux, Xf, b, rho)
+        xaux["xrrs"] = _xrrs(cfg, aux, Xf, b, diag)
     return X, xaux
 
 
@@ -153,7 +177,15 @@ def _csc_obfn(cfg, aux, params, state, xaux):
     dfd = _csc_dfd(cfg, aux, fvarf)
     rl1 = torch.sum(torch.abs(params["wl1"] * gvar))
     xr = xaux["xrrs"] if cfg.lin_check else np.nan
-    return (dfd + float(aux["lmbda"]) * rl1, dfd, rl1, xr)
+    lmbda, mu = float(aux["lmbda"]), float(aux["mu"])
+    if cfg.variant == "elastic":
+        rl2 = 0.5 * torch.sum(gvar ** 2)
+        return (dfd + lmbda * rl1 + mu * rl2, dfd, rl1, rl2, xr)
+    if cfg.variant == "gradreg":
+        rgr = 0.5 * sf.rfl2norm2(torch.sqrt(aux["GHGfW"]) * fvarf,
+                                 cfg.cri.Nv, axis=_fftaxes(cfg.cri))
+        return (dfd + lmbda * rl1 + mu * rgr, dfd, rl1, rgr, xr)
+    return (dfd + lmbda * rl1, dfd, rl1, xr)
 
 
 def _csc_yinit(cfg, params):
@@ -161,11 +193,17 @@ def _csc_yinit(cfg, params):
                        device=params["S"].device)
 
 
+_STATS = {
+    "l1": ("ObjFun", "DFid", "RegL1", "XSlvRelRes"),
+    "elastic": ("ObjFun", "DFid", "RegL1", "RegL2", "XSlvRelRes"),
+    "gradreg": ("ObjFun", "DFid", "RegL1", "RegGrad", "XSlvRelRes"),
+}
+
 _CSC_PROBLEMS = {
-    "l1": ADMMProblem(setup=_csc_setup, xstep=_csc_xstep,
-                      ystep=_csc_ystep, obfn=_csc_obfn, yinit=_csc_yinit,
-                      uinit=_csc_yinit,
-                      stat_names=("ObjFun", "DFid", "RegL1", "XSlvRelRes")),
+    v: ADMMProblem(setup=_csc_setup, xstep=_csc_xstep, ystep=_csc_ystep,
+                   obfn=_csc_obfn, yinit=_csc_yinit, uinit=_csc_yinit,
+                   stat_names=names)
+    for v, names in _STATS.items()
 }
 
 
@@ -186,15 +224,24 @@ def _np_dtype(dtype):
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
+def _wgrd_internal(wgrd, cri, npdt):
+    """GradWeight as a real array; a per-filter vector broadcasts on the
+    M axis."""
+    w = torch.as_tensor(np.asarray(wgrd, npdt))
+    if w.ndim == 1:
+        w = w.reshape((1, 1, w.shape[0]) + (1,) * cri.dimN)
+    return w
+
+
 def params_from_numpy(D, S, lmbda=None, wl1=1.0, dimK=None, dimN=2,
-                      device=None, dtype=torch.float32):
+                      device=None, dtype=torch.float32, mu=0.0, wgrd=1.0):
     """The port's problem from the same user-shaped arrays the JAX
     constructor takes.  Returns ``(cri, params, real)``: ``params`` holds
     the internal-layout ``D``/``S`` in ``dtype`` (its complex counterpart
-    when ``D`` or ``S`` is complex) and ``wl1`` in the real type, as
-    tensors on ``device`` (``None``: the CUDA device, as for the
-    models), and ``lmbda`` as a number (defaulting to
-    ``0.1 max|D^H S|``)."""
+    when ``D`` or ``S`` is complex) and ``wl1`` and ``wgrd`` (GradWeight)
+    in the real type, as tensors on ``device`` (``None``: the CUDA
+    device, as for the models), and ``lmbda`` and ``mu`` as numbers
+    (``lmbda`` defaulting to ``0.1 max|D^H S|``)."""
     D = np.asarray(D)
     S = np.asarray(S)
     real = not (np.iscomplexobj(D) or np.iscomplexobj(S))
@@ -214,7 +261,9 @@ def params_from_numpy(D, S, lmbda=None, wl1=1.0, dimK=None, dimN=2,
     wl1a = torch.as_tensor(np.asarray(wl1, _np_dtype(rdt)))
     if wl1a.ndim > 0:
         wl1a = cr.l1_weight(wl1a, cri)
-    params = {"D": Di, "S": Si, "lmbda": float(lmbda), "wl1": wl1a.to(dev)}
+    params = {"D": Di, "S": Si, "lmbda": float(lmbda), "wl1": wl1a.to(dev),
+              "mu": float(mu),
+              "wgrd": _wgrd_internal(wgrd, cri, _np_dtype(rdt)).to(dev)}
     return cri, params, real
 
 
@@ -234,7 +283,7 @@ class ConvBPDN(ADMMModel):
     """
 
     VARIANT = "l1"
-    STAT_NAMES = ("ObjFun", "DFid", "RegL1", "XSlvRelRes")
+    STAT_NAMES = _STATS["l1"]
 
     REF_OPT_EXTRA = {
         **refopts._ADMM_EQUAL,
@@ -257,9 +306,9 @@ class ConvBPDN(ADMMModel):
         return ADMMOpts(**base)
 
     def __init__(self, D, S, lmbda=None, opt=None, dimK=None, dimN=2,
-                 wl1=1.0, non_neg=False, no_bndry=False, lin_check=False,
-                 dtype=torch.float32, Y0=None, U0=None, fused="auto",
-                 obj_from_x=True, device=None):
+                 wl1=1.0, mu=0.0, wgrd=1.0, non_neg=False, no_bndry=False,
+                 lin_check=False, dtype=torch.float32, Y0=None, U0=None,
+                 fused="auto", obj_from_x=True, device=None):
         super().__init__()
         self.device = resolve_device(device)
         if opt is None:
@@ -267,7 +316,8 @@ class ConvBPDN(ADMMModel):
         if not isinstance(dtype, torch.dtype):
             dtype = getattr(torch, np.dtype(dtype).name)
         cri, params, real = params_from_numpy(D, S, lmbda, wl1, dimK, dimN,
-                                              self.device, dtype)
+                                              self.device, dtype, mu=mu,
+                                              wgrd=wgrd)
         dtype = params["S"].dtype
         self.opts = opt.replace(dtype=dtype)
         self.cri = cri
@@ -339,6 +389,30 @@ class ConvBPDN(ADMMModel):
         """Reconstruct ``sum_m d_m * x_m`` in the user S layout
         ``Nv + [C] + [K]``."""
         return reconstruct(self.params["D"], self.state.Y, self.cri, X)
+
+
+class ConvElasticNet(ConvBPDN):
+    r"""CSC elastic net: adds ``(mu/2)||x||_2^2``; the per-bin solve uses
+    ``mu + rho`` (``sporco/admm/cbpdn.py:813,948-975``)."""
+    VARIANT = "elastic"
+    STAT_NAMES = _STATS["elastic"]
+
+    def __init__(self, D, S, lmbda=None, mu=0.0, opt=None, **kw):
+        super().__init__(D, S, lmbda=lmbda, mu=mu, opt=opt, **kw)
+
+
+class ConvBPDNGradReg(ConvBPDN):
+    r"""CSC with gradient penalty ``(mu/2) sum_i ||G_i x||_2^2``; the
+    per-bin solve has the diagonal term ``mu GHGf + rho`` via
+    ``solvedbd_sm`` (``sporco/admm/cbpdn.py:992,1173-1201``).  ``wgrd``
+    is the per-filter GradWeight array (or a scalar)."""
+    VARIANT = "gradreg"
+    STAT_NAMES = _STATS["gradreg"]
+    REF_OPT_EXTRA = {"GradWeight": ("k", "wgrd")}
+
+    def __init__(self, D, S, lmbda=None, mu=0.0, opt=None, wgrd=1.0, **kw):
+        super().__init__(D, S, lmbda=lmbda, mu=mu, opt=opt, wgrd=wgrd,
+                         **kw)
 
 
 def reconstruct(Di, Xi, cri, X=None):

@@ -104,17 +104,19 @@ class PGMModel(_Model):
         :meth:`state_dict`, or the JAX package's ``state_dict()`` after
         ``numpy.asarray`` of each entry.  Every array becomes a buffer of
         its own (the fused FISTA loop updates its packed copies in
-        place)."""
-        def s32(name):
-            return np.float32(d[name])
+        place); the scalars take the problem's scalar type."""
+        ft = _admm.scalar_type(self.opts.dtype)
+
+        def scalar(name):
+            return ft(d[name])
 
         def arr(name):
             return self._tensor(d[name], self.opts.dtype)
         self.state = _pgm.PGMState(
             X=arr("X"), Y=arr("Y"), Xprv=arr("Xprv"), Gprv=arr("Gprv"),
-            Zrb=arr("Zrb"), t=s32("t"), Tk=s32("Tk"),
-            L=s32("L"), k=np.int32(d["k"]), rsdl=s32("rsdl"),
-            objprv=s32("objprv"),
+            Zrb=arr("Zrb"), t=scalar("t"), Tk=scalar("Tk"),
+            L=scalar("L"), k=np.int32(d["k"]), rsdl=scalar("rsdl"),
+            objprv=scalar("objprv"),
             stats=np.array(d["stats"], np.float32, copy=True))
 
 

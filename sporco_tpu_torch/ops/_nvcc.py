@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every source of csrc/ that holds kernels, as build() takes them
-KERNELS = ("csc_iter", "pgm_iter", "fft2_planar")
+KERNELS = ("csc_iter", "pgm_iter", "fft2_planar", "csc_tail")
 
 _LIBS = {}
 # name -> {"path", "cached", "seconds", "log"} for every loaded library

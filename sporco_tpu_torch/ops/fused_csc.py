@@ -9,19 +9,30 @@ Woodbury identity::
 
 with the whole ADMM state kept in a polyphase (space-to-depth) layout
 folded by ``PS = 8`` per axis, which turns the convolutions with ``D``
-into dense matmuls.  Every iteration runs the small spectral glue (the
-rolls, one rfft2/irfft2 pair and the per-bin division) in PyTorch and
-everything that touches the packed state arrays in one call of
-:func:`sporco_tpu_torch.ops.csc_iter.csc_iter`, which also produces the
-next iteration's forward product.  AutoRho's dual rescale is deferred
-through the factor ``us`` and folded into that product by linearity:
-``(Y - us U) @ Wf = R1 + (1 - us) R2``.
+into dense matmuls (``scale = rho / beta`` and ``beta = rho + mu`` give
+the elastic net).  The driver has the JAX package's two iteration
+bodies:
+
+- ``body_pk`` (``l1`` and ``elastic`` with a scalar or per-filter
+  ``L1Weight``): the small spectral glue (the rolls, one rfft2/irfft2
+  pair and the per-bin division) in PyTorch and everything that touches
+  the packed state arrays in one call of
+  :func:`sporco_tpu_torch.ops.csc_iter.csc_iter`, which also produces
+  the next iteration's forward product.  AutoRho's dual rescale is
+  deferred through the factor ``us`` and folded into that product by
+  linearity: ``(Y - us U) @ Wf = R1 + (1 - us) R2``.  X is rebuilt after
+  the loop as the x-step at the final ``(Y, U, rho)``.
+- ``body`` (``gradreg``, and any variant with a spatially varying
+  ``L1Weight``): the x-step (the spatial one, or for ``gradreg`` a
+  per-bin solve over the M-channel half-spectrum), then the tail of
+  relaxation, l1 prox, dual update and the six sums in one call of
+  :func:`sporco_tpu_torch.ops.csc_tail.admm_tail` for a scalar or
+  per-filter weight, as torch ops for a spatially varying one.
 
 The loop runs on the host and reads back one small vector per
-iteration (the kernel's six sums and the data-fidelity term) for the
+iteration (the six sums and the objective's spectral terms) for the
 stopping test and the stats row.  It reproduces the JAX driver's
-iteration count, stats rows, returned ``U = us * U`` and the x-step
-rebuilt after the loop at the final ``(Y, U, rho)``.
+iteration count, stats rows and returned ``U = us * U``.
 
 The FISTA (PGM) form of the same problem keeps its state in the same
 packed layout, where the gradient ``D^H(D y - s)`` is two dense products
@@ -40,14 +51,17 @@ import numpy as np
 import torch
 
 from sporco_tpu_torch._device import fp32_precision
+from sporco_tpu_torch.ops import csc_tail
 from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops.csc_iter import csc_iter
+from sporco_tpu_torch.ops.csc_tail import tail_ops
 from sporco_tpu_torch.ops.pgm_iter import pgm_iter
 from sporco_tpu_torch.solvers import pgm as _pgm
 from sporco_tpu_torch.solvers.admm import (ADMMState, _update_rho,
                                            norm_residuals)
 from sporco_tpu_torch.solvers.pgm import (PGMProblem, _momentum_update,
                                           stop_tol)
+from sporco_tpu_torch.utils.signal import gradient_filters
 
 __all__ = ["cbpdn_solve", "eligible", "cfold_eligible",
            "unsupported_reason", "pgm_cbpdn_solve", "pgm_eligible",
@@ -281,25 +295,31 @@ def _wl1_per_channel(wl1):
 
 
 def eligible(cfg, params, opts, force=False):
-    """Whether the JAX package sends this ``l1`` ConvBPDN configuration to
-    its fused driver (``sporco_tpu.ops.fused_csc.eligible``): real
-    single-channel (or colour-dictionary) 2-D float32 problems with
-    PS-aligned even sizes, no NoBndryCross, LinSolveCheck or
-    ``AuxVarObj``.  With ``force`` the support heuristic is lifted and a
-    configuration outside the rule raises :class:`ValueError`.  What the
-    port's driver lacks of these is :func:`unsupported_reason`."""
+    """Whether the JAX package sends this ConvBPDN configuration to its
+    fused driver (``sporco_tpu.ops.fused_csc.eligible``): real
+    single-channel (or colour-dictionary ``l1``/``elastic``) 2-D float32
+    ``l1``, ``elastic`` or ``gradreg`` problems with PS-aligned even
+    sizes, no NoBndryCross, LinSolveCheck or ``AuxVarObj``, and a scalar
+    or per-filter ``GradWeight`` (the port has no AMS masking yet).  With
+    ``force`` the support heuristic is lifted and a configuration
+    outside the rule raises :class:`ValueError`.  What the port's driver
+    lacks of these is :func:`unsupported_reason`."""
     cri = cfg.cri
-    mc_ok = cri.Cd > 1 and cfg.variant == "l1"
-    structural = (cfg.real and cfg.variant == "l1" and not cfg.no_bndry
-                  and not cfg.lin_check and cfg.obj_from_x
+    mc_ok = cri.Cd > 1 and cfg.variant in ("l1", "elastic")
+    structural = (cfg.real and cfg.variant in ("l1", "elastic", "gradreg")
+                  and not cfg.no_bndry and not cfg.lin_check
+                  and cfg.obj_from_x
                   and (cri.Cd == 1 or mc_ok)
                   and _layout_ok(cri, cri.dsz[0], cri.dsz[1], opts.dtype,
                                  force=force, allow_mc=mc_ok))
+    if structural and cfg.variant == "gradreg":
+        # the per-bin solve takes a scalar or per-filter GradWeight only
+        structural = _wl1_per_channel(params["wgrd"])
     if not structural and force:
         raise ValueError(
             "fused=True requested, but this ConvBPDN configuration is not "
             "supported by the fused spatial driver (needs real "
-            "single-channel 2D l1 CSC, "
+            "single-channel 2D l1/elastic/gradreg CSC, "
             f"PS={PS}-aligned even spatial dims, float32)")
     return structural
 
@@ -339,23 +359,11 @@ def unsupported_reason(cfg, params, opts):
     if cri.Cd > 1 or cri.C > 1:
         return ("multi-channel (colour) CSC on the fused driver is not "
                 "ported yet (ROADMAP queue 1, item 11)")
-    if not _wl1_per_channel(params["wl1"]):
-        return ("a spatially varying L1Weight needs the fused driver's "
-                "XLA body, which is not ported yet (ROADMAP queue 1, "
-                "item 8); pass fused=False for the generic path")
     return None
 
 
 # ---------------------------------------------------------------------------
 # The fused driver
-
-def _packed_wl1(wl1):
-    """l1 weights in the packed layout: a float32 scalar, or the
-    per-filter vector tiled over the ps*ps phases."""
-    if wl1.ndim == 0 or wl1.numel() == 1:
-        return f32(wl1.reshape(()).item())
-    return wl1.reshape(-1).to(torch.float32).repeat(PS * PS).contiguous()
-
 
 def cbpdn_solve(cfg, params, opts, state):
     """Run (or resume) one fused solve call from ``state``; returns the
@@ -368,6 +376,26 @@ def cbpdn_solve(cfg, params, opts, state):
         return _cbpdn_fused_run(cfg, params, opts, state)
 
 
+def _gradreg_xstep(Pyu, rho, mu, Df, Sf, GHGfW, K, M, Nv):
+    """The gradreg x-step: the per-bin solve of ``(rho I + mu GHGfW +
+    D^H D) x = rho yu + D^H s`` over the M-channel half-spectrum (the
+    rank-1 Woodbury identity with a bin-dependent diagonal, as
+    ``solvedbd_sm``).  Returns ``(PX, Xfg)``."""
+    axes = (-2, -1)
+    yu = unpack_state(Pyu, M).reshape(K, M, *Nv)
+    yuf = sf.rfftn(yu, axes=axes)                        # (K, M, n0, k1)
+    Lam = float(rho) + float(mu) * GHGfW
+    e = 1.0 / Lam
+    Dc = Df.conj()
+    bg = float(rho) * yuf + Dc[None] * Sf[:, None]
+    tg = e * bg
+    alpha = torch.sum(Df[None] * tg, dim=1)              # (K, n0, k1)
+    betaS = torch.sum((Df * Dc).real * e, dim=-3)
+    Xfg = tg - (alpha / (1.0 + betaS))[:, None] * (e * Dc[None])
+    Xg = sf.irfftn(Xfg, s=Nv, axes=axes)
+    return pack_state(Xg.reshape(K, 1, M, *Nv)), Xfg
+
+
 def _cbpdn_fused_run(cfg, params, opts, state):
     cri = cfg.cri
     n0, n1 = cri.Nv
@@ -377,7 +405,11 @@ def _cbpdn_fused_run(cfg, params, opts, state):
     ar = opts.auto_rho
     rlx = f32(opts.relax_param)
     lmbda = f32(params["lmbda"])
-    wl1p = _packed_wl1(params["wl1"])
+    gradreg = cfg.variant == "gradreg"
+    mu = f32(params["mu"]) if cfg.variant in ("elastic", "gradreg") \
+        else None
+    wl1p = _packed_l1_weight(params["wl1"], cri)
+    spatial_w = isinstance(wl1p, torch.Tensor) and wl1p.ndim > 1
 
     D = params["D"].reshape(M, nd0, nd1)
     S = params["S"].reshape(K, n0, n1)
@@ -385,11 +417,22 @@ def _cbpdn_fused_run(cfg, params, opts, state):
     DHD = torch.sum((Df * Df.conj()).real, dim=0)          # (n0, k1)
     Sf = sf.rfftn(S, axes=axes)                            # (K, n0, k1)
     sfr, sfi = Sf.real.contiguous(), Sf.imag.contiguous()
-    Wf, Wa, js = xstep_kernels(D, nd0, nd1, PS)
-    jf0, jf1, ja0, ja1 = js
+    if gradreg:
+        _, GHGf = gradient_filters(2, cri.Nv, dtype=S.dtype,
+                                   device=S.device)
+        wg = params["wgrd"]
+        GHGfW = wg * GHGf if wg.ndim == 0 else wg.reshape(-1, 1, 1) * GHGf
+    else:
+        Wf, Wa, js = xstep_kernels(D, nd0, nd1, PS)
+        jf0, jf1, ja0, ja1 = js
     pos = K * (n0 // PS) * (n1 // PS)
     C = PS * PS * M
-    Ta = (ja0 + 1) * (ja1 + 1) * PS * PS
+
+    # The JAX package's routing, except that the port runs csc_iter
+    # whatever iter_supported says and runs the tail kernel at any layout
+    # (ROADMAP "Kernel routing (deliberate)").
+    use_pk = cfg.variant in ("l1", "elastic") and not spatial_w
+    use_tail = not use_pk and not spatial_w
 
     k0 = int(state.k)
     k = k0
@@ -397,49 +440,91 @@ def _cbpdn_fused_run(cfg, params, opts, state):
     rho, rho_xi = f32(state.rho), f32(state.rho_xi)
     r, s = f32(state.r), f32(state.s)
     epri, edua = f32(state.epri), f32(state.edua)
-    nobj = 4
+    nobj = 4 if mu is None else 5
     stats = np.array(state.stats, np.float32, copy=True)
     if stats.shape[0] != opts.max_iter:
         stats = np.full((opts.max_iter, 1 + nobj + 5), np.nan, np.float32)
 
-    # fresh packed buffers: csc_iter updates PY/PU in place
+    # fresh packed buffers: the kernels update PY/PU in place; body
+    # carries X, body_pk rebuilds it after the loop
+    PX = None if use_pk else pack_state(state.X)
     PY = pack_state(state.Y)
     PU = pack_state(state.U)        # true dual = us * PU
     us = f32(1.0)
-    R1 = (PY - PU).reshape(pos, C) @ Wf
-    R2 = PU.reshape(pos, C) @ Wf
+    if use_pk:
+        R1 = (PY - PU).reshape(pos, C) @ Wf
+        R2 = PU.reshape(pos, C) @ Wf
+        Ta = (ja0 + 1) * (ja1 + 1) * PS * PS
+
+    def beta_scale(rho):
+        """The x-step's ``beta`` and ``scale``: the elastic net's
+        ``(rho + mu) I + D^H D`` system is the l1 one with yu scaled by
+        ``rho / beta``."""
+        if mu is None:
+            return rho, f32(1.0)
+        beta = rho + mu
+        return beta, rho / beta
 
     def converged():
         return (r <= epri and s <= edua) or k - k0 >= opts.max_iter
 
     while not converged():
-        # the l1 x-step: beta = rho, scale = 1 (elastic net is not ported)
-        # forward product, rescale-corrected by linearity
-        o2 = R1 + float(f32(1.0) - us) * R2
-        o4 = o2.reshape(K, n0 // PS, n1 // PS, -1)
-        R = poly_unpack(_fwd_combine(o4, jf0, jf1, PS))
-        rf = sf.rfftn(R, axes=axes)
-        rfr, rfi = rf.real, rf.imag
-        den = 1.0 / (DHD[None] + float(rho))
-        gr = (sfr - rfr) * den
-        gi = (sfi - rfi) * den
-        G = sf.irfftn(torch.complex(gr, gi), s=cri.Nv, axes=axes)
-        G2 = _adj_rolls(poly_pack(G), ja0, ja1)
         lr = f32(lmbda / rho)
         thr = lr * wl1p if isinstance(wl1p, np.floating) \
             else float(lr) * wl1p
-        _, _, _, R1, R2, sums = csc_iter(
-            G2.reshape(pos, Ta), PY.view(pos, C), PU.view(pos, C), Wa, Wf,
-            thr, wl1p, rlx, us, 1.0, nonneg=cfg.non_neg, emit_px=False)
-        if opts.fast_solve:
-            host = sums.cpu().numpy()
+        extra = []
+        if use_pk:
+            # forward product, rescale-corrected by linearity:
+            # (Y - us U) @ Wf = R1 + (1 - us) R2
+            beta, scale = beta_scale(rho)
+            o2 = R1 + float(f32(1.0) - us) * R2
+            o4 = o2.reshape(K, n0 // PS, n1 // PS, -1)
+            R = poly_unpack(_fwd_combine(o4, jf0, jf1, PS))
+            rf = sf.rfftn(R, axes=axes)
+            rfr, rfi = rf.real, rf.imag
+            if mu is not None:
+                rfr, rfi = float(scale) * rfr, float(scale) * rfi
+            den = 1.0 / (DHD[None] + float(beta))
+            gr = (sfr - rfr) * den
+            gi = (sfi - rfi) * den
+            G = sf.irfftn(torch.complex(gr, gi), s=cri.Nv, axes=axes)
+            G2 = _adj_rolls(poly_pack(G), ja0, ja1)
+            _, _, _, R1, R2, sums = csc_iter(
+                G2.reshape(pos, Ta), PY.view(pos, C), PU.view(pos, C), Wa,
+                Wf, thr, wl1p, rlx, us, scale, nonneg=cfg.non_neg,
+                emit_px=False)
         else:
-            # DXf - Sf = rf + DHD*g - Sf (free spectral identity)
+            # the XLA body: the x-step, then the tail on the packed state
+            PUt = float(us) * PU
+            Pyu = PY - PUt
+            if gradreg:
+                PX, Xfg = _gradreg_xstep(Pyu, rho, mu, Df, Sf, GHGfW, K, M,
+                                         cri.Nv)
+            else:
+                beta, scale = beta_scale(rho)
+                PX, rfr, rfi, gr, gi = spatial_xstep(
+                    Pyu, Wf, Wa, js, DHD, sfr, sfi, beta, scale, cri.Nv)
+            if use_tail:
+                PY, PU, sums = csc_tail.admm_tail(
+                    PX, PY, PU, thr, wl1p, rlx, nonneg=cfg.non_neg, us=us)
+            else:
+                PY, PU, sums = tail_ops(PX, PY, PUt, thr, wl1p, rlx,
+                                        nonneg=cfg.non_neg)
+            if gradreg and not opts.fast_solve:
+                DXf = torch.sum(Df[None] * Xfg, dim=1)
+                er = DXf.real - sfr
+                ei = DXf.imag - sfi
+                sqg = (Xfg * Xfg.conj()).real * GHGfW
+                extra = [0.5 * _rfl2norm2_planar(er, ei, n1),
+                         0.5 * _rfl2norm2_sq(sqg, n1)]
+        if not (opts.fast_solve or gradreg):
+            # DXf - Sf = scale rf + DHD g - Sf (free spectral identity)
             er = rfr + DHD[None] * gr - sfr
             ei = rfi + DHD[None] * gi - sfi
-            dfd = 0.5 * _rfl2norm2_planar(er, ei, n1)
-            host = torch.cat([sums, dfd.reshape(1)]).cpu().numpy()
+            extra = [0.5 * _rfl2norm2_planar(er, ei, n1)]
         # the one host read of the iteration
+        host = torch.cat([sums] + [v.reshape(1) for v in extra]) \
+            .cpu().numpy()
         rnrm = np.sqrt(host[0])
         snrm = rho * np.sqrt(host[1])
         rn = np.sqrt(np.maximum(host[2], host[3]))
@@ -449,8 +534,13 @@ def _cbpdn_fused_run(cfg, params, opts, state):
         if opts.fast_solve:
             objv = (np.nan,) * nobj
         else:
-            rl1, dfd_h = host[5], host[6]
-            objv = (dfd_h + lmbda * rl1, dfd_h, rl1, np.nan)
+            rl1, dfd = host[5], host[6]
+            if mu is None:
+                objv = (dfd + lmbda * rl1, dfd, rl1, np.nan)
+            else:
+                # RegGrad from the spectrum, RegL2 from the tail's ||PX||^2
+                reg = host[7] if gradreg else f32(0.5) * host[2]
+                objv = (dfd + lmbda * rl1 + mu * reg, dfd, rl1, reg, np.nan)
         stats[k - k0] = (k,) + objv + (r_, s_, epri_, edua_, rho)
         if opts.verbose:
             print(f"it {k}  obj {stats[k - k0, 1]:.4e}  r {r_:.3e}  "
@@ -459,13 +549,15 @@ def _cbpdn_fused_run(cfg, params, opts, state):
         rho, r, s, epri, edua = rho_new, r_, s_, epri_, edua_
         k += 1
 
-    # The loop never stores X; it is the x-step at the final (Y, U, rho),
-    # which is what the next iteration (or a resumed solve) computes.
-    PXf = spatial_xstep(PY - float(us) * PU, Wf, Wa, js, DHD, sfr, sfi,
-                        rho, f32(1.0), cri.Nv)[0]
+    if use_pk:
+        # The kernel loop never stores X; it is the x-step at the final
+        # (Y, U, rho), which is what the next iteration (or a resumed
+        # solve) computes.
+        PX = spatial_xstep(PY - float(us) * PU, Wf, Wa, js, DHD, sfr, sfi,
+                           *beta_scale(rho), cri.Nv)[0]
     shp = state.Y.shape
     return ADMMState(
-        X=unpack_state(PXf, M).reshape(shp),
+        X=unpack_state(PX, M).reshape(shp),
         Y=unpack_state(PY, M).reshape(shp),
         U=(float(us) * unpack_state(PU, M)).reshape(shp),
         rho=rho, rho_xi=rho_xi, k=np.int32(k), r=r, s=s, epri=epri,

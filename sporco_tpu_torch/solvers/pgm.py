@@ -8,10 +8,12 @@ Barzilai-Borwein, ``sporco/pgm/stepsize.py:49-130``), the monotone
 variant and both backtracking line searches (standard and robust,
 ``sporco/pgm/backtrack.py:49-180``) run as a loop on the host.  The
 arrays of the state (X, Y, Xprv, Gprv, Zrb) are tensors on the solve's
-device; its scalars (t, Tk, L, rsdl, objprv, the counter) and the stats
-buffer are host ``numpy.float32``/``int32`` values, and every scalar is
-computed in float32 in the JAX package's order, so that the momentum
-``beta`` and the stopping test match it to the last bit.
+device; its scalars (t, Tk, L, rsdl, objprv) are host numpy values of
+the problem's real type (``float32``, or ``float64`` for a float64
+problem, as the JAX package's ``rdt``), the counter an ``int32`` and the
+stats buffer ``float32``.  Every scalar is computed in that type in the
+JAX package's order, so that the momentum ``beta`` and the stopping test
+match it to the last bit.
 """
 
 from dataclasses import dataclass, replace
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from sporco_tpu_torch._device import fp32_precision
-from sporco_tpu_torch.solvers.admm import IterStats
+from sporco_tpu_torch.solvers.admm import IterStats, scalar_type
 
 __all__ = ["PGMOpts", "PGMProblem", "PGMState", "pgm_solve",
            "pgm_init_state", "pgm_iterstats", "stat_names"]
@@ -82,9 +84,9 @@ class PGMProblem:
 class PGMState(NamedTuple):
     """Full PGM solver state: tensors X, Y, Xprv, Gprv (previous
     gradient, BB policy), Zrb (robust-backtrack Z sequence); host
-    float32 scalars t, Tk (robust-backtrack T sequence), L, rsdl,
-    objprv (monotone variant); the counter k; the host stats buffer of
-    shape ``(max_iter, nstat)``."""
+    scalars of the problem's real type t, Tk (robust-backtrack T
+    sequence), L, rsdl, objprv (monotone variant); the counter k; the
+    host float32 stats buffer of shape ``(max_iter, nstat)``."""
     X: Any
     Y: Any
     Xprv: Any
@@ -108,47 +110,43 @@ def stat_names(obj_names):
 
 def pgm_init_state(X0, opts, L0, nobj):
     """A fresh :class:`PGMState` starting at ``X0`` whose stats rows hold
-    ``nobj`` objective terms.  X, Y, Xprv and Zrb are distinct buffers
-    (the fused driver updates its packed copies in place)."""
+    ``nobj`` objective terms, its scalars in the real type of
+    ``opts.dtype``.  X, Y, Xprv and Zrb are distinct buffers (the fused
+    driver updates its packed copies in place)."""
+    ft = scalar_type(opts.dtype)
     return PGMState(
         X=X0, Y=X0.clone(), Xprv=X0.clone(), Gprv=torch.zeros_like(X0),
-        Zrb=X0.clone(), t=f32(1.0), Tk=f32(0.0), L=f32(L0),
-        k=np.int32(0), rsdl=f32(np.inf), objprv=f32(np.inf),
+        Zrb=X0.clone(), t=ft(1.0), Tk=ft(0.0), L=ft(L0),
+        k=np.int32(0), rsdl=ft(np.inf), objprv=ft(np.inf),
         stats=np.full((opts.max_iter, len(stat_names(range(nobj)))),
                       np.nan, np.float32))
 
 
 def _momentum_update(opts, t, k):
-    """New momentum parameter (``sporco/pgm/momentum.py``), float32."""
+    """New momentum parameter (``sporco/pgm/momentum.py``), in the type
+    of ``t``."""
+    ft = type(t)
     if opts.momentum == "nesterov":
-        return f32(0.5) * (f32(1.0) + np.sqrt(f32(1.0) + f32(4.0) * (t * t)))
-    kf = f32(k)
+        return ft(0.5) * (ft(1.0) + np.sqrt(ft(1.0) + ft(4.0) * (t * t)))
+    kf = ft(k)
     if opts.momentum == "linear":
-        return (kf + f32(opts.momentum_b)) / f32(opts.momentum_b)
+        return (kf + ft(opts.momentum_b)) / ft(opts.momentum_b)
     if opts.momentum == "genlinear":
-        return (kf + f32(opts.momentum_a)) / f32(opts.momentum_b)
+        return (kf + ft(opts.momentum_a)) / ft(opts.momentum_b)
     raise ValueError(f"unknown momentum {opts.momentum!r}")
 
 
-def _host(x):
-    """A 0-d tensor (or number) as a host float32."""
-    return f32(x.item() if isinstance(x, torch.Tensor) else x)
+def _host(x, ft=f32):
+    """A 0-d tensor (or number) as a host scalar of type ``ft``."""
+    return ft(x.item() if isinstance(x, torch.Tensor) else x)
 
 
-def _dotp(a, b):
-    return _host(torch.sum(a * b))
-
-
-def _norm(a):
-    return f32(np.sqrt(_host(torch.sum(a * a))))
-
-
-def stop_tol(opts, k):
+def stop_tol(opts, k, ft=f32):
     """The stopping tolerance at iteration ``k`` (adaptive under
-    ``auto_stop``), float32."""
+    ``auto_stop``), in the scalar type ``ft``."""
     if opts.auto_stop:
-        return f32(opts.auto_stop_tau0) / (f32(1.0) + f32(k))
-    return f32(opts.rel_stop_tol)
+        return ft(opts.auto_stop_tau0) / (ft(1.0) + ft(k))
+    return ft(opts.rel_stop_tol)
 
 
 def _pgm_run(prob, cfg, params, opts, state):
@@ -157,13 +155,23 @@ def _pgm_run(prob, cfg, params, opts, state):
     Q_Btrack, IterBTrack, L]``."""
     aux = prob.setup(cfg, params)
     k0 = int(state.k)
-    nanv = f32(np.nan)
+    ft = scalar_type(opts.dtype)
+    nanv = ft(np.nan)
+
+    def host(x):
+        return _host(x, ft)
+
+    def dotp(a, b):
+        return host(torch.sum(a * b))
+
+    def norm(a):
+        return ft(np.sqrt(host(torch.sum(a * a))))
 
     def eval_obj(X):
         if prob.obfn is not None:
-            return tuple(_host(v) for v in prob.obfn(cfg, aux, params, X))
-        f = _host(prob.obfn_f(cfg, aux, params, X))
-        g = _host(prob.obfn_g(cfg, aux, params, X))
+            return tuple(host(v) for v in prob.obfn(cfg, aux, params, X))
+        f = host(prob.obfn_f(cfg, aux, params, X))
+        g = host(prob.obfn_g(cfg, aux, params, X))
         return (f + g, f, g)
 
     def step_to(Y, grad, L):
@@ -173,15 +181,15 @@ def _pgm_run(prob, cfg, params, opts, state):
         grad = prob.grad_f(cfg, aux, params, st.Y)
         L = st.L
         if opts.stepsize == "cauchy":
-            den = _dotp(grad, grad)
-            num = _dotp(grad, prob.hessian_f(cfg, aux, params, grad))
+            den = dotp(grad, grad)
+            num = dotp(grad, prob.hessian_f(cfg, aux, params, grad))
             if st.k > 1:
                 L = num / den
         elif opts.stepsize == "bb":
             dx = st.X - st.Xprv
             dg = grad - st.Gprv
             with np.errstate(divide="ignore", invalid="ignore"):
-                Lbb = _dotp(dg, dg) / _dotp(dx, dg)
+                Lbb = dotp(dg, dg) / dotp(dx, dg)
             if st.k > 1 and Lbb >= 0.0:
                 L = Lbb
         X = step_to(st.Y, grad, L)
@@ -194,58 +202,58 @@ def _pgm_run(prob, cfg, params, opts, state):
             objprv = obj
         tprv = st.t
         t = _momentum_update(opts, st.t, st.k)
-        c = float((tprv - f32(1.0)) / t)
+        c = float((tprv - ft(1.0)) / t)
         if opts.monotone:
             Y = X + float(tprv / t) * (ZZ - X) + c * (X - st.X)
         else:
             Y = X + c * (X - st.X)
-        return st._replace(X=X, Y=Y, Xprv=st.X, Gprv=grad, t=t, L=f32(L),
+        return st._replace(X=X, Y=Y, Xprv=st.X, Gprv=grad, t=t, L=ft(L),
                            objprv=objprv), (nanv, nanv, 0)
 
     def majorant(fY, X, Y, grad, L):
         Dxy = X - Y
-        n = _norm(Dxy)
-        return fY + _dotp(Dxy, grad) + (L / f32(2.0)) * (n * n)
+        n = norm(Dxy)
+        return fY + dotp(Dxy, grad) + (L / ft(2.0)) * (n * n)
 
     def bt_standard_step(st):
         grad = prob.grad_f(cfg, aux, params, st.Y)
-        fY = _host(prob.obfn_f(cfg, aux, params, st.Y))
+        fY = host(prob.obfn_f(cfg, aux, params, st.Y))
 
         def trial(L):
             X = step_to(st.Y, grad, L)
-            F = _host(prob.obfn_f(cfg, aux, params, X))
+            F = host(prob.obfn_f(cfg, aux, params, X))
             return X, F, majorant(fY, X, st.Y, grad, L)
 
         L = st.L
         X, F, Q = trial(L)
         ibt = 1
         while F > Q and ibt < opts.bt_maxiter:
-            L = L * f32(opts.bt_gamma_u)
+            L = L * ft(opts.bt_gamma_u)
             X, F, Q = trial(L)
             ibt += 1
         tprv = st.t
         t = _momentum_update(opts, st.t, st.k)
-        Y = X + float((tprv - f32(1.0)) / t) * (X - st.X)
+        Y = X + float((tprv - ft(1.0)) / t) * (X - st.X)
         return st._replace(X=X, Y=Y, Xprv=st.X, Gprv=grad, t=t,
                            L=L), (F, Q, ibt)
 
     def bt_robust_step(st):
         def trial(L):
-            t = (f32(1.0) + np.sqrt(f32(1.0) + f32(4.0) * L * st.Tk)) \
-                / (f32(2.0) * L)
+            t = (ft(1.0) + np.sqrt(ft(1.0) + ft(4.0) * L * st.Tk)) \
+                / (ft(2.0) * L)
             T = st.Tk + t
             y = (float(st.Tk) * st.X + float(t) * st.Zrb) / float(T)
             grad = prob.grad_f(cfg, aux, params, y)
             X = step_to(y, grad, L)
-            F = _host(prob.obfn_f(cfg, aux, params, X))
-            fy = _host(prob.obfn_f(cfg, aux, params, y))
+            F = host(prob.obfn_f(cfg, aux, params, X))
+            fy = host(prob.obfn_f(cfg, aux, params, y))
             return X, y, grad, F, majorant(fy, X, y, grad, L), t, T
 
-        L = st.L * f32(opts.bt_gamma_d)
+        L = st.L * ft(opts.bt_gamma_d)
         X, y, grad, F, Q, t, T = trial(L)
         ibt = 1
         while F > Q and ibt < opts.bt_maxiter:
-            L = L * f32(opts.bt_gamma_u)
+            L = L * ft(opts.bt_gamma_u)
             X, y, grad, F, Q, t, T = trial(L)
             ibt += 1
         Zrb = st.Zrb + float(t * L) * (X - y)
@@ -258,11 +266,11 @@ def _pgm_run(prob, cfg, params, opts, state):
     stats = np.array(st.stats, np.float32, copy=True)
     if stats.shape[0] != opts.max_iter:
         stats = np.full((opts.max_iter, stats.shape[1]), np.nan, np.float32)
-    while int(st.k) - k0 < opts.max_iter and st.rsdl >= stop_tol(opts,
-                                                                  st.k):
+    while int(st.k) - k0 < opts.max_iter and st.rsdl >= stop_tol(opts, st.k,
+                                                                  ft):
         Yprv = st.Y
         st2, (F, Q, ibt) = step(st)
-        rsdl = _norm(st2.X - (st2.Y if opts.monotone else Yprv))
+        rsdl = norm(st2.X - (st2.Y if opts.monotone else Yprv))
         objv = ((np.nan,) * len(prob.stat_names) if opts.fast_solve
                 else eval_obj(st2.X))
         stats[int(st.k) - k0] = ((st.k,) + tuple(objv)

@@ -264,9 +264,6 @@ def _outside(kind):
         return dict(D=Dc, S=np.repeat(S[..., None], 3, axis=-1), dimK=0)
     if kind == "generic":
         return dict(D=D, S=S, fused=False)
-    if kind == "spatial_wl1":
-        return dict(D=D, S=S, wl1=rng.random((32, 32, 4)).astype(
-            np.float32))
     if kind == "odd_size":
         return dict(D=D, S=S[:30, :30])
     if kind == "no_bndry":
@@ -281,12 +278,11 @@ def _outside(kind):
     raise ValueError(kind)
 
 
-@pytest.mark.parametrize("kind", ["colour_signal", "colour_dict",
-                                  "spatial_wl1"])
+@pytest.mark.parametrize("kind", ["colour_signal", "colour_dict"])
 def test_outside_slice_raises(kind):
     """What the JAX package runs on its fused driver and the port's
-    fused driver lacks (channel folding, colour dictionaries, a spatial
-    L1Weight) raises, naming the ROADMAP item."""
+    fused driver lacks (channel folding, colour dictionaries) raises,
+    naming the ROADMAP item."""
     kw = _outside(kind)
     D, S = kw.pop("D"), kw.pop("S")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):

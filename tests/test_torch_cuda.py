@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from sporco_tpu_torch.models import pgm as tpgm
-from sporco_tpu_torch.models.cbpdn import ConvBPDN
+from sporco_tpu_torch.models.cbpdn import (ConvBPDN, ConvBPDNGradReg,
+                                           ConvElasticNet)
 from sporco_tpu_torch.ops import csc_iter as tci
+from sporco_tpu_torch.ops import csc_tail as tct
 from sporco_tpu_torch.ops import fft2_planar as tfp
 from sporco_tpu_torch.ops import pgm_iter as tpi
 
@@ -420,3 +422,154 @@ def test_fused_glue_runs_fft_kernels_at_highest(dev):
     finally:
         tsf.set_precision("highest")
     assert tfp.LAUNCHES == {"rfft2_planar": 0, "irfft2_planar": 0}
+
+
+# ---------------------------------------------------------------------------
+# admm_tail and the fused driver's body
+
+# (R, C): the small slice layout, a C off a multiple of 4 and of 128, a
+# ragged R, a single element
+TAIL_GEOMS = [(64, 256), (37, 4100), (100, 192), (7, 3), (1, 1)]
+
+
+def _tail_inputs(R, C, vectors, dev, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    PX = torch.randn(R, C, generator=g)
+    PY = torch.randn(R, C, generator=g) * (torch.rand(R, C, generator=g)
+                                           < 0.3)
+    PU = 0.1 * torch.randn(R, C, generator=g)
+    if vectors:
+        thr = (0.2 + 0.6 * torch.rand(C, generator=g)).to(dev)
+        wl1 = (0.5 + torch.rand(C, generator=g)).to(dev)
+    else:
+        thr, wl1 = 0.45, 1.3
+    return [t.to(dev) for t in (PX, PY, PU)] + [thr, wl1]
+
+
+def _tail_run(fn, args, nonneg, us):
+    PX, PY, PU, thr, wl1 = args
+    out = fn(PX, PY.clone(), PU.clone(), thr, wl1, RLX, nonneg=nonneg,
+             us=us)
+    return [o.cpu() for o in out]
+
+
+@pytest.mark.parametrize("geom", TAIL_GEOMS, ids=str)
+@pytest.mark.parametrize("vectors", [False, True])
+@pytest.mark.parametrize("nonneg", [False, True])
+@pytest.mark.parametrize("us", [1.0, 0.7])
+def test_tail_kernel_matches_plain(dev, geom, vectors, nonneg, us):
+    """Both fp32 on the card: PYn and PUn within 1e-5 of their largest
+    magnitude, the sums (double partials against torch's float sums)
+    to 1e-5 relative."""
+    args = _tail_inputs(*geom, vectors, dev)
+    got = _tail_run(tct.admm_tail, args, nonneg, us)
+    ref = _tail_run(tct.admm_tail_plain, args, nonneg, us)
+    for name, a, b in zip(("PYn", "PUn"), got, ref):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 1e-5 * scale, name
+    np.testing.assert_allclose(got[2].numpy(), ref[2].numpy(), rtol=1e-5,
+                               atol=1e-30)
+
+
+def test_tail_unaligned_buffers_take_scalar_path(dev):
+    R, C = 64, 256
+    PX, PY, PU, thr, wl1 = _tail_inputs(R, C, True, dev)
+    ref = _tail_run(tct.admm_tail_plain, (PX, PY, PU, thr, wl1), False, 0.9)
+    bufs = [torch.empty(R * C + 1, device=dev) for _ in range(3)]
+    views = [b[1:].view(R, C) for b in bufs]
+    for v, t in zip(views, (PX, PY, PU)):
+        v.copy_(t)
+    out = tct.admm_tail(*views, thr, wl1, RLX, us=0.9)
+    for a, b in zip(out, ref):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-5 * float(b.abs().max())
+
+
+def test_tail_counts_launches_updates_in_place_and_rejects(dev):
+    PX, PY, PU, thr, wl1 = _tail_inputs(64, 256, False, dev)
+    tct.reset_launches()
+    yn, un, sums = tct.admm_tail(PX, PY, PU, thr, wl1, RLX)
+    assert tct.LAUNCHES["admm_tail"] == 1
+    assert yn is PY and un is PU and sums.shape == (6,)
+    s1 = tct.admm_tail(PX, PY.clone(), PU.clone(), thr, wl1, RLX)[2]
+    s2 = tct.admm_tail(PX, PY.clone(), PU.clone(), thr, wl1, RLX)[2]
+    assert torch.equal(s1, s2)              # fixed-order sums
+    with pytest.raises(ValueError):
+        tct.admm_tail(PX, PY, PY, thr, wl1, RLX)
+    with pytest.raises(TypeError):
+        tct.admm_tail(PX.double(), PY, PU, thr, wl1, RLX)
+    with pytest.raises(ValueError):
+        tct.admm_tail(PX.cpu(), PY, PU, thr, wl1, RLX)
+    with pytest.raises(ValueError):
+        tct.admm_tail(PX, PY.t(), PU, thr, wl1, RLX)
+    assert tct.LAUNCHES["admm_tail"] == 3
+
+
+def _variant_problem(N=64, M=8, seed=0):
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((8, 8, M)).astype(np.float32)
+    D /= np.sqrt((D ** 2).sum(axis=(0, 1), keepdims=True))
+    S = rng.standard_normal((N, N)).astype(np.float32)
+    return D, S
+
+
+@pytest.mark.parametrize("kind", ["gradreg", "elastic", "l1_spatial"])
+def test_fused_variants_on_card_match_cpu(dev, kind):
+    """ConvBPDNGradReg (the tail kernel, and the FFT kernels at 128x128),
+    ConvElasticNet (csc_iter) and l1 with a spatial L1Weight (the torch
+    tail), 15 iterations on the card against the CPU."""
+    D, S = _variant_problem(N=128)
+    M = D.shape[-1]
+    opt = dict(max_iter=15, rel_stop_tol=0.0)
+    if kind == "gradreg":
+        cls = ConvBPDNGradReg
+        w = np.ones(M, np.float32)
+        w[-1] = 0.0
+        kw = dict(mu=0.2, wgrd=w)
+    elif kind == "elastic":
+        cls, kw = ConvElasticNet, dict(mu=0.05)
+    else:
+        cls = ConvBPDN
+        kw = dict(wl1=(0.5 + np.random.default_rng(1).random(
+            (128, 128, M))).astype(np.float32))
+    tci.reset_launches()
+    tct.reset_launches()
+    tfp.reset_launches()
+    a = cls(D, S, 0.05, opt=cls.options(**opt), **kw)
+    Ya = a.solve().cpu().numpy()
+    want = {"gradreg": (0, 15), "elastic": (15, 0), "l1_spatial": (0, 0)}
+    assert (tci.LAUNCHES["csc_iter"], tct.LAUNCHES["admm_tail"]) == \
+        want[kind]
+    if kind == "gradreg":
+        # setup: D, S and the gradient filters; one pair per iteration
+        assert tfp.LAUNCHES == {"rfft2_planar": 18, "irfft2_planar": 15}
+    b = cls(D, S, 0.05, opt=cls.options(**opt), device="cpu", **kw)
+    Yb = b.solve().numpy()
+    assert np.abs(Ya - Yb).max() < 2e-4 * np.abs(Yb).max()
+    ia, ib = a.getitstat(), b.getitstat()
+    for name in ("ObjFun", "DFid", "RegL1", "Rho"):
+        np.testing.assert_allclose(getattr(ia, name), getattr(ib, name),
+                                   rtol=1e-4, err_msg=name)
+    np.testing.assert_allclose(ia.PrimalRsdl, ib.PrimalRsdl, rtol=1e-3,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("n,m", [(128, 63), (200, 8)], ids=str)
+def test_fused_gradreg_runs_tail_kernel_at_any_layout(dev, n, m):
+    """Packed layouts the JAX package's TPU block rule sends to its XLA
+    tail (C = 4032, off a multiple of 128; 625 rows, off a multiple of
+    8) still run the tail kernel once per iteration, and agree with the
+    CPU."""
+    D, S = _variant_problem(N=n, M=m)
+    w = np.ones(m, np.float32)
+    w[-1] = 0.0
+    opt = ConvBPDNGradReg.options(max_iter=15, rel_stop_tol=0.0)
+    tct.reset_launches()
+    a = ConvBPDNGradReg(D, S, 0.05, mu=0.2, wgrd=w, opt=opt)
+    Ya = a.solve().cpu().numpy()
+    assert tct.LAUNCHES["admm_tail"] == 15
+    b = ConvBPDNGradReg(D, S, 0.05, mu=0.2, wgrd=w, opt=opt, device="cpu")
+    Yb = b.solve().numpy()
+    assert np.abs(Ya - Yb).max() < 2e-4 * np.abs(Yb).max()
+    np.testing.assert_allclose(a.getitstat().ObjFun, b.getitstat().ObjFun,
+                               rtol=1e-4)

@@ -14,6 +14,7 @@ import torch
 
 from sporco_tpu_torch.ops import _nvcc
 from sporco_tpu_torch.ops import csc_iter as tci
+from sporco_tpu_torch.ops import csc_tail as tct
 from sporco_tpu_torch.ops import fft2_planar as tfp
 from sporco_tpu_torch.ops import pgm_iter as tpi
 
@@ -119,6 +120,12 @@ def test_build_flags_target_sm90a():
     for bad in ("atomicAdd", "__sinf", "__cosf", "sinf(", "cosf(",
                 "__sincosf", "sincosf("):
         assert bad not in src, bad
+    # the tail kernel stands alone too, and its sums take no atomics
+    src = (PKG / "csrc" / "csc_tail.cu").read_text()
+    assert _includes(src) == ["<cuda_runtime.h>", "<stdint.h>"]
+    assert 'extern "C"' in src and "cudaGetLastError" in src
+    assert "csc_tail_launch" in src
+    assert "atomicAdd" not in src and "atomicCAS" not in src
     # every kernel source is in the list the build phase compiles
     assert sorted(_nvcc.KERNELS) == sorted(
         p.stem for p in (PKG / "csrc").glob("*.cu"))
@@ -154,12 +161,16 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     m = torch.empty((8, 8), device="meta")
     tci.reset_launches()
     tpi.reset_launches()
+    tct.reset_launches()
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tci.csc_iter(m, m, m, m, m, 0.1, 1.0, 1.8, 1.0, 1.0)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tpi.pgm_iter(m, m, m, m, m, 0.1, 1.0, 0.01, 0.5)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tct.admm_tail(m, m, m, 0.1, 1.0, 1.8)
     assert tci.LAUNCHES["csc_iter"] == 0
     assert tpi.LAUNCHES["pgm_iter"] == 0
+    assert tct.LAUNCHES["admm_tail"] == 0
     mx = torch.empty((2, 128, 32), device="meta")
     my = torch.empty((2, 128, 17), device="meta")
     tfp.reset_launches()

@@ -534,6 +534,37 @@ def test_momentum_linear_object_matches_jax(interpret):
     _assert_close(jb, jX, tb, tX)
 
 
+def test_float64_scalars_follow_the_problem_type():
+    """A float64 FISTA problem with backtracking keeps its host scalars in
+    float64, as the JAX package's ``pgm_init_state`` (``rdt``) does: the
+    final t, L and Rsdl and the stats' L column agree with the JAX
+    package's to 1e-12 relative, which float32 scalars miss by about
+    1e-8.  The problem is the float64 case of
+    :func:`test_outside_fused_slice_solves_as_jax` (the generic FFT
+    problem)."""
+    D, S = _problem(N=32)
+    opt = dict(max_iter=20, rel_stop_tol=0.0, backtrack="standard", L=1.0)
+    jb = jpgm.ConvBPDN(D, S, LMBDA, opt=jpgm.ConvBPDN.options(**opt),
+                       dtype=np.float64)
+    jb.solve()
+    tb = tpgm.ConvBPDN(D, S, LMBDA, opt=tpgm.ConvBPDN.options(**opt),
+                       dtype=torch.float64, device="cpu")
+    tb.solve()
+    assert not tb._fused
+    assert int(tb.state.k) == int(jb.state.k) == 20
+    for name in ("t", "L", "rsdl", "Tk", "objprv"):
+        v = getattr(tb.state, name)
+        assert isinstance(v, np.float64), name
+    for name in ("t", "L", "rsdl"):
+        got, ref = float(getattr(tb.state, name)), float(getattr(jb.state,
+                                                                 name))
+        assert got == pytest.approx(ref, rel=1e-12, abs=0.0), name
+    ja, ta = jb.getitstat(), tb.getitstat()
+    assert ja.L.max() > 1.0          # the line search raised L
+    np.testing.assert_allclose(ta.L, ja.L, rtol=1e-12, atol=0.0)
+    np.testing.assert_array_equal(ta.IterBTrack, ja.IterBTrack)
+
+
 def test_unknown_option_keys_raise():
     from sporco_tpu_torch import refopts
     D, S = _problem(N=32)
