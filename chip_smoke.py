@@ -47,7 +47,9 @@ Phases, each printing one JSON line on stdout:
    versions and ``torch.fft`` at the x-step's 64 planes of 512x512, at
    one plane, and at ragged shapes covering each branch (the inverse
    also on a non-Hermitian spectrum); kernel, plain version and cuFFT
-   timed at 64 planes and at one;
+   timed at 64 planes and at one (``vs_library``: kernel ms over cuFFT
+   ms); at 64 planes the device time of each kernel's row and column
+   pass and their shares, from ``torch.profiler``;
 10. ``generic_parity``: 10 iterations of ``ConvBPDN(fused=False)`` on the
     card against the CPU (the FFT kernels' plain versions);
 11. ``generic_solve``: ``ConvBPDN(fused=False)`` to 1e-3, its objective
@@ -124,9 +126,14 @@ MASK_MISSING = 0.3                    # share of pixels masked out
 PGM_GENERIC_ITERS = 250
 # (B, N0, N1) of the FFT kernel phase: the generic x-step's 64 planes,
 # the fused glue's one plane, then each row-pass branch (direct DFT for
-# N1 = 30, FFT for the powers of two, N1 = 2 and 2048)
+# N1 = 30, FFT for the powers of two, N1 = 2 and 2048) and each column
+# pass (N0 = 128, 256, 512) with a power-of-two N1 of at least 8
 FFT_SHAPES = [(M, N, N), (1, N, N), (3, 128, 30), (2, 256, 64),
-              (1, 512, 2048), (2, 128, 2)]
+              (1, 512, 2048), (2, 128, 2), (3, 128, 256), (2, 256, 512)]
+# batch of calls per CUDA-event timing of the FFT kernels, their plain
+# versions and torch.fft: a transform of 64 planes takes about as long as
+# its wrapper's host time
+FFT_BATCH = 10
 # (R, C) of the tail kernel phase: the headline packed layout, then a C
 # off a multiple of 4 with a ragged R, and a C off a multiple of 128
 TAIL_SHAPES = [((N // PS) ** 2, PS * PS * M), (37, 4100),
@@ -585,10 +592,59 @@ def _rel_err(a, b, scale):
     return float((a - b).abs().max()) / scale
 
 
+def device_ms_by_kernel(fn, reps=10):
+    """Device time per call of ``fn`` by kernel name, from
+    ``torch.profiler`` over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile as tprof
+    torch.cuda.synchronize()
+    with tprof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+            key = e.key.replace("(anonymous namespace)::", "")
+            key = key.replace("void ", "").split("(")[0][:48]
+            out[key] = out.get(key, 0.0) + t / 1e3 / reps
+    return out
+
+
+def fft_pass_split(x, yr, yi):
+    """Device time per call of each pass of both FFT kernels, each pass's
+    share of its transform, and the device time of torch.fft's call on
+    the same inputs."""
+    n1 = x.shape[-1]
+    spec = torch.complex(yr, yi)
+    fwd = device_ms_by_kernel(lambda: tfp.rfft2_planar(x))
+    inv = device_ms_by_kernel(lambda: tfp.irfft2_planar(yr, yi, n1))
+    libs = {"rfft2_planar": device_ms_by_kernel(lambda: torch.fft.rfft2(x)),
+            "irfft2_planar": device_ms_by_kernel(
+                lambda: torch.fft.irfft2(spec, s=x.shape[-2:]))}
+    out = {}
+    for name, by_kernel, row_kernel in (
+            ("rfft2_planar", fwd, "fft_rows_r2c_pow2"),
+            ("irfft2_planar", inv, "fft_rows_c2r")):
+        rows = sum(t for k, t in by_kernel.items() if row_kernel in k)
+        cols = sum(t for k, t in by_kernel.items() if "fft_cols_pow2" in k)
+        if not (rows > 0 and cols > 0):
+            raise AssertionError(f"the profiler did not see both passes "
+                                 f"of {name}: {by_kernel}")
+        total = rows + cols
+        out[name] = {"device_ms": total, "rows_ms": rows, "cols_ms": cols,
+                     "rows_share": rows / total, "cols_share": cols / total,
+                     "library_device_ms": sum(libs[name].values())}
+    return out
+
+
 def phase_fft_kernel(dev):
     """Both FFT kernels against their plain versions, cuFFT and float64
     references at FFT_SHAPES; kernel, plain and cuFFT timed at the first
-    two shapes."""
+    two shapes, and the device time of each kernel's passes at the
+    first."""
     g = torch.Generator(device=dev).manual_seed(3)
     rows, timing, max_abs = [], {}, {}
     for (B, n0, n1) in FFT_SHAPES:
@@ -639,18 +695,27 @@ def phase_fft_kernel(dev):
                     float((yi - pi).abs().max())),
                     "irfft2_planar": float((xb - xp).abs().max())}
             bound, by = fft_bound_ms(B, n0, n1)
+
+            def ms(fn):
+                return cuda_ms(fn, batch=FFT_BATCH)
             timing[B] = {
                 "rfft2_planar": {
-                    "ms": cuda_ms(lambda: tfp.rfft2_planar(x)),
-                    "plain_ms": cuda_ms(lambda: tfp.rfft2_planar_plain(x)),
-                    "library_ms": cuda_ms(lambda: torch.fft.rfft2(x))},
+                    "ms": ms(lambda: tfp.rfft2_planar(x)),
+                    "plain_ms": ms(lambda: tfp.rfft2_planar_plain(x)),
+                    "library_ms": ms(lambda: torch.fft.rfft2(x))},
                 "irfft2_planar": {
-                    "ms": cuda_ms(lambda: tfp.irfft2_planar(yr, yi, n1)),
-                    "plain_ms": cuda_ms(
+                    "ms": ms(lambda: tfp.irfft2_planar(yr, yi, n1)),
+                    "plain_ms": ms(
                         lambda: tfp.irfft2_planar_plain(yr, yi, n1)),
-                    "library_ms": cuda_ms(
+                    "library_ms": ms(
                         lambda: torch.fft.irfft2(lib, s=(n0, n1)))},
                 "bound_ms": bound, "bound_by": by}
+            for name in ("rfft2_planar", "irfft2_planar"):
+                t = timing[B][name]
+                t["vs_library"] = t["ms"] / t["library_ms"]
+            if B == M:
+                for name, split in fft_pass_split(x, yr, yi).items():
+                    timing[B][name]["passes"] = split
     return {"tolerance": FFT_TOL, "shapes": rows,
             "timing": {f"B={b}": t for b, t in timing.items()},
             "max_abs_err": max_abs, "headline": timing[M]}
@@ -1012,7 +1077,7 @@ def phase_profile(dev, make_model):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
     busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
-    top = sorted(on_dev, key=dev_us, reverse=True)[:12]
+    top = sorted(on_dev, key=dev_us, reverse=True)[:16]
     k = int(b.state.k)
     return {"iterations": k, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,

@@ -16,69 +16,500 @@
 // Shapes: N0 in {128, 256, 512} (a power of two), N1 even, 2 <= N1 <= 2048;
 // the caller flattens lead dimensions into B.  The twiddle tables are built
 // on the host in float64 and passed in as float32 (2, N): cos(2 pi k / N)
-// in the first row, sin(2 pi k / N) in the second.  Everything is fp32.
+// in the first row, sin(2 pi k / N) in the second.  Everything is fp32;
+// no fast-math intrinsic is used.
 //
 // What bounds it.  At the ConvBPDN x-step's size (B = 64 planes of
 // 512 x 512) each transform must read 67.1 MB and write 67.4 MB (or the
-// reverse): 0.040 ms at 3.35 TB/s.  Its arithmetic, about 5 N log2 N
-// operations per complex point, is under 2 GFLOP: 0.03 ms at 67 TFLOP/s.
-// The transform is bound by memory traffic.
+// reverse): 134.5 MB, 0.040 ms at 3.35 TB/s.  Its arithmetic, about
+// 2.5 N log2 N operations for N real points, is under 1 GFLOP: 0.011 ms at
+// 67 TFLOP/s.  The transform is bound by memory traffic, and each of its
+// two passes below moves those bytes once more: 0.040 ms a pass at best.
 //
-// Design (simple first).  The TPU kernel splits the 128-point DFTs into
-// MXU matmuls around a radix-R Cooley-Tukey split; that structure is the
-// MXU's.  Here two passes run through shared memory:
-//   1. rows (axis 1): one block per group of rows.  A power-of-two N1 is
-//      loaded as a complex sequence (imaginary part 0) in bit-reversed
-//      order and transformed by an in-place radix-2 FFT; the first K1 bins
-//      are stored.  Any other even N1 takes a direct DFT against the
-//      twiddle table indexed by (j k) mod N1.
-//   2. columns (axis 0): one block per strip of COLS columns of one plane,
-//      an in-place radix-2 FFT of length N0 for each column.
-// The forward pass writes the row spectra into the outputs and transforms
-// the columns in place; the inverse runs the columns into a scratch pair,
-// then the rows: the Hermitian extension of each row (imaginary parts of
-// bins 0 and N1/2 set to 0) through an inverse complex FFT, or a direct
-// c2r sum with the weights 1, 2, ..., 2, 1, scaled by 1/(N0 N1).
-// The intermediate makes one round trip through device memory, about
-// twice the bound's traffic; keeping it on chip and the half-length
-// real-FFT packing are later work.  The launch functions return
-// cudaGetLastError() after each launch.
+// The forward transform, for a power-of-two N1 (the main path's):
+//   1. rows (axis 1), `fft_rows_r2c_pow2`: each real row of N1 values is
+//      read as M = N1/2 complex values z[n] = x[2n] + i x[2n+1], one float2
+//      load per point, coalesced (a scalar-load path takes input that is
+//      not 8-byte aligned).  A complex FFT of length M runs in registers:
+//      each thread holds 16 points (M for M < 16) and runs radix-16 (or
+//      the remaining smaller radix) butterflies there, Stockham order, so
+//      no bit-reversal scatter; threads exchange through shared memory
+//      padded by one float2 in 16, which makes every exchange free of bank
+//      conflicts.  A warp owns whole rows up to M = 512 and then syncs
+//      with __syncwarp() alone; M = 256 (N1 = 512) is two register passes
+//      and one exchange.  Then the post-pass, one pair (k, M - k) per
+//      thread, k = 0..M/2, with E = (Z[k] + conj Z[M-k]) / 2 and
+//      O = -i (Z[k] - conj Z[M-k]) / 2:
+//          X[k] = E + W_N1^k O,   X[M-k] = conj(E - W_N1^k O),
+//      written back in place in shared memory.  A block's RB rows are
+//      RB K1 consecutive floats of yr and of yi, 16-byte aligned (RB is a
+//      multiple of 4), so the block stores them with float4 stores (scalar
+//      stores where an output is not 16-byte aligned).  The length-M FFT
+//      takes its twiddles W_M^m from tw1[2m] (staged in shared memory per
+//      pass), the post-pass from tw1[k].  Any other even N1 takes a direct
+//      DFT against the twiddle table (`dft_rows_r2c`).
+//   2. columns (axis 0), `fft_cols_pow2`, in place on yr, yi: one block
+//      per strip of 32 consecutive columns of the flattened (plane,
+//      column) index, so no strip is ragged but the last, and a warp reads
+//      128 bytes of a row; the strips run in reverse order, so the first
+//      blocks find the planes the row pass wrote last still in L2.  Each
+//      column's threads hold 32 points each (N0 = 512: 32 x 16) or 16
+//      (128 = 16 x 8, 256 = 16 x 16) and run the same register Stockham
+//      passes, the first reading device memory and the last writing it:
+//      one exchange through shared memory, laid out [row][column] so that
+//      each half-warp touches 16 consecutive columns, with no bank
+//      conflicts and no padding.
+// The inverse transform's column pass is the same kernel with sign +1,
+// from the input into a scratch pair.  Its row pass is still the first
+// design: the Hermitian extension of each row (imaginary parts of bins 0
+// and N1/2 set to 0) through a full-length inverse complex FFT (radix-2
+// stages through shared memory, one barrier each, bit-reversed load), or
+// a direct c2r sum for other even N1, scaled by 1/(N0 N1).
+// The intermediate of either transform makes one round trip through
+// device memory (or L2).  Blocks that need more than 48 KB of shared
+// memory are allowed it with cudaFuncSetAttribute before their launch; the
+// launch functions return cudaGetLastError() after each launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NT = 256;           // threads per block
-constexpr int COLS = 8;           // columns per block of the column pass
-constexpr int ROW_ELEMS = 2048;   // row elements per block of the row pass
+constexpr int NT = 256;           // threads per block of the row passes
+constexpr int ROW_ELEMS = 2048;   // row elements per block, DFT and c2r rows
+constexpr int RMAX = 16;          // points per thread, row passes
+constexpr int CS = 32;            // columns per strip of the column pass
 
 __device__ __forceinline__ int bitrev(int v, int bits) {
   return static_cast<int>(__brev(static_cast<unsigned>(v)) >> (32 - bits));
 }
 
+// ---------------------------------------------------------------------------
+// Register FFT building blocks
+
+__host__ __device__ constexpr int log2c(int n) {
+  return n <= 1 ? 0 : 1 + log2c(n >> 1);
+}
+
+__host__ __device__ constexpr int brevc(int u, int bits) {
+  int r = 0;
+  for (int b = 0; b < bits; ++b) r |= ((u >> b) & 1) << (bits - 1 - b);
+  return r;
+}
+
+// cos(2 pi k / 32) for any k
+__host__ __device__ constexpr float cos32(int k) {
+  switch (k & 31) {
+    case 0: return 1.f;
+    case 8: case 24: return 0.f;
+    case 16: return -1.f;
+    case 1: case 31: return 0.98078528040323043f;
+    case 15: case 17: return -0.98078528040323043f;
+    case 2: case 30: return 0.92387953251128674f;
+    case 14: case 18: return -0.92387953251128674f;
+    case 3: case 29: return 0.83146961230254524f;
+    case 13: case 19: return -0.83146961230254524f;
+    case 4: case 28: return 0.70710678118654757f;
+    case 12: case 20: return -0.70710678118654757f;
+    case 5: case 27: return 0.55557023301960229f;
+    case 11: case 21: return -0.55557023301960229f;
+    case 6: case 26: return 0.38268343236508984f;
+    case 10: case 22: return -0.38268343236508984f;
+    case 7: case 25: return 0.19509032201612833f;
+    case 9: case 23: return -0.19509032201612833f;
+    default: return 0.f;
+  }
+}
+
+__host__ __device__ constexpr float sin32(int k) { return cos32(k + 24); }
+
+// index of a float2 in a padded shared-memory row: one pad in 16
+__host__ __device__ constexpr int pad(int i) { return i + (i >> 4); }
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+
+// a * exp(SIGN 2 pi i t / n), n dividing 32; t and n are constants once
+// the loops around the call are unrolled, so the branch folds away
+template <int SIGN>
+__device__ __forceinline__ float2 mulw(float2 a, int t, int n) {
+  const int k = (t * (32 / n)) & 31;
+  if (k == 0) return a;
+  if (k == 16) return make_float2(-a.x, -a.y);
+  if (k == 8) return make_float2(-SIGN * a.y, SIGN * a.x);
+  if (k == 24) return make_float2(SIGN * a.y, -SIGN * a.x);
+  const float c = cos32(k), s = SIGN * sin32(k);
+  return make_float2(a.x * c - a.y * s, a.x * s + a.y * c);
+}
+
+// In-register DFT of length RP (a power of two up to 32) with the kernel
+// exp(SIGN 2 pi i / RP), radix-2 decimation in frequency, stage by stage:
+// the result for frequency u is left in a[brevc(u, log2 RP)].
+template <int RP, int HALF, int SIGN>
+__device__ __forceinline__ void dif_stages(float2 (&a)[RP]) {
+  if constexpr (HALF >= 1) {
+#pragma unroll
+    for (int s = 0; s < RP; s += 2 * HALF) {
+#pragma unroll
+      for (int t = 0; t < HALF; ++t) {
+        const float2 x = a[s + t], y = a[s + t + HALF];
+        a[s + t] = cadd(x, y);
+        a[s + t + HALF] = mulw<SIGN>(csub(x, y), t, 2 * HALF);
+      }
+    }
+    dif_stages<RP, HALF / 2, SIGN>(a);
+  }
+}
+
+// the integers 0 .. N-1 as a type, Ints<0, ..., N-1>
+template <int... U>
+struct Ints {};
+template <int N, int... U>
+struct MakeInts : MakeInts<N - 1, N - 1, U...> {};
+template <int... U>
+struct MakeInts<0, U...> {
+  using type = Ints<U...>;
+};
+
+// v[q + U Q] = a[brevc(U)] for each U: the DFT's outputs in natural order
+template <int Q, int RP, int R, int... U>
+__device__ __forceinline__ void put_natural(float2 (&v)[R], int q,
+                                            const float2 (&a)[RP],
+                                            Ints<U...>) {
+  ((v[q + U * Q] = a[brevc(U, log2c(RP))]), ...);
+}
+
+// Pass P of a length-2^L Stockham FFT in which each of T = 2^L / R
+// threads holds R points: every pass but the last has radix R, the last
+// the remaining factor.
+template <int L, int R, int P>
+struct Pass {
+  static constexpr int LR = log2c(R);
+  static constexpr int COUNT = L == 0 ? 0 : (L + LR - 1) / LR;
+  static constexpr int NS = 1 << (P * LR);           // span done so far
+  static constexpr int RP = 1 << (L - P * LR < LR ? L - P * LR : LR);
+  static constexpr bool LAST = P + 1 == COUNT;
+};
+
+// One Stockham pass, in place on the thread's points.  Before it,
+// v[q + u Q] (Q = R / RP) is input u of the thread's butterfly
+// b = j + q T, the point data[b + u M / RP] of the sequence; each input
+// u > 0 is multiplied by W_{NS RP}^{k u}, k = b mod NS, from `twf(k, u)`.
+// After it, v[q + u Q] is output u of that butterfly, which
+// `store_pass` puts at (b / NS) NS RP + k + u NS.
+template <int R, int RP, int NS, int T, int SIGN, class TwF>
+__device__ __forceinline__ void stockham_pass(float2 (&v)[R], int j,
+                                              TwF twf) {
+  constexpr int Q = R / RP;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    float2 a[RP];
+#pragma unroll
+    for (int u = 0; u < RP; ++u) a[u] = v[q + u * Q];
+    if constexpr (NS > 1) {
+      const int k = (j + q * T) & (NS - 1);
+#pragma unroll
+      for (int u = 1; u < RP; ++u) a[u] = cmul(a[u], twf(k, u));
+    }
+    dif_stages<RP, RP / 2, SIGN>(a);
+    put_natural<Q>(v, q, a, typename MakeInts<RP>::type{});
+  }
+}
+
+template <int R, int RP, int NS, int T, class WrF>
+__device__ __forceinline__ void store_pass(const float2 (&v)[R], int j,
+                                           WrF wr) {
+  constexpr int Q = R / RP;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int b = j + q * T;
+    const int k = b & (NS - 1);
+    const int base = (b - k) * RP + k;
+#pragma unroll
+    for (int u = 0; u < RP; ++u) wr(base + u * NS, v[q + u * Q]);
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (G == 32) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward row pass, power-of-two N1 = 2^(L+1): real-input packing
+
+template <int L>
+struct RowCfg {
+  static constexpr int M = 1 << L;                   // complex points
+  static constexpr int N1 = 2 * M;
+  static constexpr int K1 = M + 1;
+  static constexpr int R = M < RMAX ? M : RMAX;      // points per thread
+  static constexpr int T = M / R;                    // threads per row
+  static constexpr int RB = NT / T;                  // rows per block
+  // padded row stride, with a spare slot for X[M] at pad(M); a multiple
+  // of 16 float2 past pad(M) keeps the exchanges free of bank conflicts
+  static constexpr int S = L >= 5 ? pad(M) + 16 : L == 4 ? 19 : M + 1;
+  static constexpr int G = T <= 32 ? 32 : NT;        // threads sharing rows
+  static constexpr int RG = G / T;                   // rows per such group
+  static constexpr int COUNT = Pass<L, R, 0>::COUNT;
+};
+
+// offset of pass P's twiddles in the shared table: pass p > 0 holds
+// W_{NS RP}^{k u} at (u - 1) NS + k
+template <int L, int P>
+__host__ __device__ constexpr int tw_offset() {
+  if constexpr (P <= 1) {
+    return 0;
+  } else {
+    using Pp = Pass<L, RowCfg<L>::R, P - 1>;
+    return tw_offset<L, P - 1>() + Pp::NS * (Pp::RP - 1);
+  }
+}
+
+// entries of the whole table
+template <int L>
+__host__ __device__ constexpr int tw_entries() {
+  return tw_offset<L, RowCfg<L>::COUNT>();
+}
+
+template <int L, int P>
+__device__ __forceinline__ void row_twiddles(float2* twp, const float* tw) {
+  using C = RowCfg<L>;
+  if constexpr (P < C::COUNT) {
+    if constexpr (P > 0) {
+      using Pp = Pass<L, C::R, P>;
+      constexpr int n = Pp::NS * (Pp::RP - 1);
+      constexpr int step = C::M / (Pp::NS * Pp::RP);
+      for (int e = threadIdx.x; e < n; e += blockDim.x) {
+        const int u = e / Pp::NS + 1, k = e % Pp::NS;
+        const int m = 2 * k * u * step;               // W_M^(k u step)
+        twp[tw_offset<L, P>() + e] = make_float2(tw[m], -tw[C::N1 + m]);
+      }
+    }
+    row_twiddles<L, P + 1>(twp, tw);
+  }
+}
+
+template <int L, int P>
+__device__ __forceinline__ void row_passes(float2 (&v)[RowCfg<L>::R],
+                                           float2* zs, const float2* twp,
+                                           int j) {
+  using C = RowCfg<L>;
+  if constexpr (P < C::COUNT) {
+    using Pp = Pass<L, C::R, P>;
+    if constexpr (P > 0) {
+      group_sync<C::G>();
+#pragma unroll
+      for (int i = 0; i < C::R; ++i) v[i] = zs[pad(j + C::T * i)];
+      group_sync<C::G>();
+    }
+    const float2* t = twp + tw_offset<L, P>();
+    stockham_pass<C::R, Pp::RP, Pp::NS, C::T, -1>(
+        v, j, [=](int k, int u) { return t[(u - 1) * Pp::NS + k]; });
+    store_pass<C::R, Pp::RP, Pp::NS, C::T>(
+        v, j, [=](int idx, float2 val) { zs[pad(idx)] = val; });
+    row_passes<L, P + 1>(v, zs, twp, j);
+  }
+}
+
+template <int L>
+__global__ void __launch_bounds__(NT)
+fft_rows_r2c_pow2(const float* __restrict__ x, float* __restrict__ yr,
+                  float* __restrict__ yi, const float* __restrict__ tw,
+                  int64_t rows) {
+  using C = RowCfg<L>;
+  extern __shared__ float2 smem2[];
+  float2* twp = smem2 + C::RB * C::S;
+  row_twiddles<L, 0>(twp, tw);
+  const int rl = threadIdx.x / C::T, j = threadIdx.x % C::T;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * C::RB;
+  const int64_t row = row0 + rl;
+  float2 v[C::R];
+  if (row < rows) {
+    const float* xr = x + row * C::N1 + 2 * j;
+    if ((reinterpret_cast<uintptr_t>(x) & 7) == 0) {
+#pragma unroll
+      for (int i = 0; i < C::R; ++i)
+        v[i] = __ldg(reinterpret_cast<const float2*>(xr + 2 * C::T * i));
+    } else {
+#pragma unroll
+      for (int i = 0; i < C::R; ++i)
+        v[i] = make_float2(__ldg(xr + 2 * C::T * i),
+                           __ldg(xr + 2 * C::T * i + 1));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < C::R; ++i) v[i] = make_float2(0.f, 0.f);
+  }
+  float2* zs = smem2 + rl * C::S;
+  __syncthreads();                                    // the twiddle table
+  if constexpr (C::COUNT == 0) {
+    zs[0] = v[0];
+  } else {
+    row_passes<L, 0>(v, zs, twp, j);
+  }
+  group_sync<C::G>();
+  // post-pass: the group's rows, one (k, M - k) pair per thread, in
+  // place: X[k] and X[M - k] replace Z[k] and Z[M - k], X[M] goes to the
+  // row's spare slot pad(M)
+  constexpr int P2 = C::M / 2 + 1;
+  const int gl = threadIdx.x % C::G, gi = threadIdx.x / C::G;
+  float2* gz = smem2 + gi * C::RG * C::S;
+  for (int f = gl; f < C::RG * P2; f += C::G) {
+    const int r = f / P2, k = f - r * P2;
+    float2* zr = gz + r * C::S;
+    const float2 zk = zr[pad(k & (C::M - 1))];
+    const float2 zm = zr[pad((C::M - k) & (C::M - 1))];
+    const float ex = 0.5f * (zk.x + zm.x), ey = 0.5f * (zk.y - zm.y);
+    const float ox = 0.5f * (zk.y + zm.y), oy = 0.5f * (zm.x - zk.x);
+    const float c = __ldg(tw + k), s = __ldg(tw + C::N1 + k);
+    const float wx = c * ox + s * oy, wy = c * oy - s * ox;   // W_N1^k O
+    zr[pad(k)] = make_float2(ex + wx, ey + wy);
+    if (2 * k != C::M) zr[pad(C::M - k)] = make_float2(ex - wx, wy - ey);
+  }
+  __syncthreads();
+  // the block's rows are RB K1 consecutive floats of yr and of yi: float4
+  // stores where both start 16-byte aligned (K1 odd, RB a multiple of 4)
+  const int nr = static_cast<int>(
+      min(static_cast<int64_t>(C::RB), rows - row0));
+  const int n = nr * C::K1;
+  float* oyr = yr + row0 * C::K1;
+  float* oyi = yi + row0 * C::K1;
+  auto at = [&](int e) {
+    const int r = e / C::K1;
+    return smem2[r * C::S + pad(e - r * C::K1)];
+  };
+  int e0 = 0;
+  if (((reinterpret_cast<uintptr_t>(oyr) | reinterpret_cast<uintptr_t>(oyi))
+       & 15) == 0) {
+    for (int q = threadIdx.x; q < n / 4; q += NT) {
+      const float2 a = at(4 * q), b = at(4 * q + 1), c = at(4 * q + 2),
+                   d = at(4 * q + 3);
+      reinterpret_cast<float4*>(oyr)[q] = make_float4(a.x, b.x, c.x, d.x);
+      reinterpret_cast<float4*>(oyi)[q] = make_float4(a.y, b.y, c.y, d.y);
+    }
+    e0 = n / 4 * 4;
+  }
+  for (int e = e0 + threadIdx.x; e < n; e += NT) {
+    const float2 a = at(e);
+    oyr[e] = a.x;
+    oyi[e] = a.y;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Column pass (axis 0), N0 = 2^L0: c2c with the kernel exp(SIGN 2 pi i /
+// N0), from (in_r, in_i) into (out_r, out_i), in place when they are the
+// same; ncols = B K1 columns of the flattened (plane, column) index.
+
+template <int L0>
+struct ColCfg {
+  static constexpr int N0 = 1 << L0;
+  static constexpr int R = L0 >= 9 ? 32 : 16;        // points per thread
+  static constexpr int T = N0 / R;                   // threads per column
+  static constexpr int NTC = CS * T;                 // threads per block
+  static constexpr int COUNT = Pass<L0, R, 0>::COUNT;
+};
+
+template <int L0, int SIGN, int P>
+__device__ __forceinline__ void col_passes(float2 (&v)[ColCfg<L0>::R], float2* sm,
+                                           const float* tw, int j, int c,
+                                           float* out_r, float* out_i,
+                                           int64_t base, int k1, bool live) {
+  using C = ColCfg<L0>;
+  using Pp = Pass<L0, C::R, P>;
+  if constexpr (P > 0) {
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < C::R; ++i) v[i] = sm[(j + C::T * i) * CS + c];
+    if constexpr (!Pp::LAST) __syncthreads();
+  }
+  constexpr int step = C::N0 / (Pp::NS * Pp::RP);
+  stockham_pass<C::R, Pp::RP, Pp::NS, C::T, SIGN>(
+      v, j, [=](int k, int u) {
+        const int m = k * u * step;                   // W_N0^m
+        return make_float2(__ldg(tw + m), SIGN * __ldg(tw + C::N0 + m));
+      });
+  if constexpr (Pp::LAST) {
+    if (live) {
+      store_pass<C::R, Pp::RP, Pp::NS, C::T>(
+          v, j, [=](int idx, float2 val) {
+            const int64_t g = base + static_cast<int64_t>(idx) * k1;
+            out_r[g] = val.x;
+            out_i[g] = val.y;
+          });
+    }
+  } else {
+    store_pass<C::R, Pp::RP, Pp::NS, C::T>(
+        v, j, [=](int idx, float2 val) { sm[idx * CS + c] = val; });
+    col_passes<L0, SIGN, P + 1>(v, sm, tw, j, c, out_r, out_i, base, k1,
+                                live);
+  }
+}
+
+template <int L0, int SIGN>
+__global__ void __launch_bounds__(ColCfg<L0>::NTC)
+fft_cols_pow2(const float* in_r, const float* in_i, float* out_r,
+              float* out_i, const float* __restrict__ tw, int64_t ncols,
+              int k1) {
+  using C = ColCfg<L0>;
+  extern __shared__ float2 smem2[];
+  const int c = threadIdx.x % CS, j = threadIdx.x / CS;
+  // strips in reverse order: the forward's row pass wrote the last planes
+  // last, so they are the ones still in L2
+  const int64_t g = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * CS + c;
+  const bool live = g < ncols;
+  const int64_t plane = g / k1;
+  const int64_t base = plane * C::N0 * k1 + (g - plane * k1);
+  float2 v[C::R];
+  if (live) {
+    const float* pr = in_r + base + static_cast<int64_t>(j) * k1;
+    const float* pi = in_i + base + static_cast<int64_t>(j) * k1;
+    const int64_t step = static_cast<int64_t>(C::T) * k1;
+#pragma unroll
+    for (int i = 0; i < C::R; ++i)
+      v[i] = make_float2(pr[i * step], pi[i * step]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < C::R; ++i) v[i] = make_float2(0.f, 0.f);
+  }
+  col_passes<L0, SIGN, 0>(v, smem2, tw, j, c, out_r, out_i, base, k1, live);
+}
+
+// ---------------------------------------------------------------------------
+// The first design's pieces, kept for the inverse row pass
+
 // In-place radix-2 decimation-in-time FFT of `nseq` sequences of length
 // n = 2^logn held in shared memory in bit-reversed order: element e of
-// sequence q is at q*ss + e*es.  twc/tws hold cos/sin(2 pi m / n) for
-// m < n/2; sign is -1 for the forward and +1 for the inverse transform.
-// SEQ_FAST maps neighbouring threads to neighbouring sequences (the
-// column layout), else to neighbouring butterflies of one sequence.
-template <bool SEQ_FAST>
+// sequence q is at q*n + e, neighbouring threads on neighbouring
+// butterflies of one sequence.  twc/tws hold cos/sin(2 pi m / n) for
+// m < n/2; sign is +1 (the inverse transform).
 __device__ void smem_fft(float* re, float* im, int n, int logn, int nseq,
-                         int ss, int es, const float* twc, const float* tws,
-                         float sign) {
+                         const float* twc, const float* tws, float sign) {
   const int nb = n >> 1;
   const int total = nseq * nb;
   for (int s = 0; s < logn; ++s) {
     const int h = 1 << s;
     const int tsh = logn - 1 - s;          // W_n^(j n / 2h)
     for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      const int q = SEQ_FAST ? t % nseq : t / nb;
-      const int b = SEQ_FAST ? t / nseq : t % nb;
+      const int q = t / nb, b = t % nb;
       const int j = b & (h - 1);
       const int i0 = ((b >> s) << (s + 1)) + j;
-      const int p0 = q * ss + i0 * es;
-      const int p1 = p0 + h * es;
+      const int p0 = q * n + i0;
+      const int p1 = p0 + h;
       const int m = j << tsh;
       const float wr = twc[m], wi = sign * tws[m];
       const float xr = re[p1], xi = im[p1];
@@ -100,77 +531,6 @@ __device__ __forceinline__ void load_twiddles(float* twc, float* tws,
   for (int m = threadIdx.x; m < count; m += blockDim.x) {
     twc[m] = tw[m];
     tws[m] = tw[n + m];
-  }
-}
-
-// Column pass: c2c of length n0 along axis 0 of (n0, k1) planes, from
-// (in_r, in_i) into (out_r, out_i); in place when they are the same.
-__global__ void __launch_bounds__(NT)
-fft_cols(const float* in_r, const float* in_i, float* out_r, float* out_i,
-         const float* tw, int n0, int logn0, int k1, float sign) {
-  extern __shared__ float sm[];
-  float* twc = sm;
-  float* tws = twc + (n0 >> 1);
-  float* re = tws + (n0 >> 1);
-  float* im = re + n0 * COLS;
-  const int strips = (k1 + COLS - 1) / COLS;
-  const int64_t plane = blockIdx.x / strips;
-  const int c0 = (blockIdx.x % strips) * COLS;
-  const int nc = min(COLS, k1 - c0);
-  const int64_t base = plane * n0 * k1 + c0;
-  load_twiddles(twc, tws, tw, n0, n0 >> 1);
-  for (int t = threadIdx.x; t < n0 * COLS; t += blockDim.x) {
-    const int c = t % COLS, r = t / COLS;
-    const int p = bitrev(r, logn0) * COLS + c;
-    float vr = 0.f, vi = 0.f;
-    if (c < nc) {
-      const int64_t g = base + static_cast<int64_t>(r) * k1 + c;
-      vr = in_r[g];
-      vi = in_i[g];
-    }
-    re[p] = vr;
-    im[p] = vi;
-  }
-  __syncthreads();
-  smem_fft<true>(re, im, n0, logn0, COLS, 1, COLS, twc, tws, sign);
-  for (int t = threadIdx.x; t < n0 * COLS; t += blockDim.x) {
-    const int c = t % COLS, r = t / COLS;
-    if (c < nc) {
-      const int64_t g = base + static_cast<int64_t>(r) * k1 + c;
-      out_r[g] = re[t];
-      out_i[g] = im[t];
-    }
-  }
-}
-
-// Row pass, forward, power-of-two n1: rb rows per block.
-__global__ void __launch_bounds__(NT)
-fft_rows_r2c(const float* x, float* yr, float* yi, const float* tw,
-             int64_t rows, int n1, int logn1, int rb) {
-  extern __shared__ float sm[];
-  float* twc = sm;
-  float* tws = twc + (n1 >> 1);
-  float* re = tws + (n1 >> 1);
-  float* im = re + rb * n1;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rb;
-  const int nr = static_cast<int>(min(static_cast<int64_t>(rb), rows - row0));
-  const int k1 = (n1 >> 1) + 1;
-  load_twiddles(twc, tws, tw, n1, n1 >> 1);
-  for (int t = threadIdx.x; t < rb * n1; t += blockDim.x) {
-    const int r = t / n1, j = t % n1;
-    const int p = r * n1 + bitrev(j, logn1);
-    re[p] = r < nr ? x[(row0 + r) * n1 + j] : 0.f;
-    im[p] = 0.f;
-  }
-  __syncthreads();
-  smem_fft<false>(re, im, n1, logn1, rb, n1, 1, twc, tws, -1.f);
-  for (int t = threadIdx.x; t < rb * k1; t += blockDim.x) {
-    const int r = t / k1, k = t % k1;
-    if (r < nr) {
-      const int64_t g = (row0 + r) * k1 + k;
-      yr[g] = re[r * n1 + k];
-      yi[g] = im[r * n1 + k];
-    }
   }
 }
 
@@ -237,7 +597,7 @@ fft_rows_c2r(const float* zr, const float* zi, float* x, const float* tw,
     im[p] = vi;
   }
   __syncthreads();
-  smem_fft<false>(re, im, n1, logn1, rb, n1, 1, twc, tws, 1.f);
+  smem_fft(re, im, n1, logn1, rb, twc, tws, 1.f);
   for (int t = threadIdx.x; t < nr * n1; t += blockDim.x)
     x[row0 * n1 + t] = re[t] * scale;
 }
@@ -300,14 +660,79 @@ unsigned row_blocks(int64_t rows, int rb) {
   return static_cast<unsigned>((rows + rb - 1) / rb);
 }
 
+// Allow `kernel` `smem` bytes of dynamic shared memory (needed above
+// 48 KB), then launch it.
+template <class... P, class... A>
+cudaError_t launch(void (*kernel)(P...), unsigned grid, int block,
+                   size_t smem, cudaStream_t st, A... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, block, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+template <int L>
+cudaError_t launch_rows_r2c(const float* x, float* yr, float* yi,
+                            const float* tw1, int64_t rows,
+                            cudaStream_t st) {
+  using C = RowCfg<L>;
+  const size_t smem = sizeof(float2) * (C::RB * C::S + tw_entries<L>());
+  return launch(fft_rows_r2c_pow2<L>, row_blocks(rows, C::RB), NT, smem, st,
+                x, yr, yi, tw1, rows);
+}
+
+cudaError_t rows_r2c_pow2(const float* x, float* yr, float* yi,
+                          const float* tw1, int64_t rows, int n1,
+                          cudaStream_t st) {
+  switch (ilog2(n1) - 1) {
+    case 0: return launch_rows_r2c<0>(x, yr, yi, tw1, rows, st);
+    case 1: return launch_rows_r2c<1>(x, yr, yi, tw1, rows, st);
+    case 2: return launch_rows_r2c<2>(x, yr, yi, tw1, rows, st);
+    case 3: return launch_rows_r2c<3>(x, yr, yi, tw1, rows, st);
+    case 4: return launch_rows_r2c<4>(x, yr, yi, tw1, rows, st);
+    case 5: return launch_rows_r2c<5>(x, yr, yi, tw1, rows, st);
+    case 6: return launch_rows_r2c<6>(x, yr, yi, tw1, rows, st);
+    case 7: return launch_rows_r2c<7>(x, yr, yi, tw1, rows, st);
+    case 8: return launch_rows_r2c<8>(x, yr, yi, tw1, rows, st);
+    case 9: return launch_rows_r2c<9>(x, yr, yi, tw1, rows, st);
+    case 10: return launch_rows_r2c<10>(x, yr, yi, tw1, rows, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int L0, int SIGN>
+cudaError_t launch_cols_t(const float* in_r, const float* in_i, float* out_r,
+                          float* out_i, const float* tw0, int64_t ncols,
+                          int k1, cudaStream_t st) {
+  using C = ColCfg<L0>;
+  const size_t smem = sizeof(float2) * C::N0 * CS;
+  const unsigned grid = static_cast<unsigned>((ncols + CS - 1) / CS);
+  return launch(fft_cols_pow2<L0, SIGN>, grid, C::NTC, smem, st, in_r, in_i,
+                out_r, out_i, tw0, ncols, k1);
+}
+
+template <int SIGN>
 cudaError_t launch_cols(const float* in_r, const float* in_i, float* out_r,
                         float* out_i, const float* tw0, int64_t B, int n0,
-                        int k1, float sign, cudaStream_t st) {
-  const int strips = (k1 + COLS - 1) / COLS;
-  const size_t smem = sizeof(float) * (n0 + 2 * n0 * COLS);
-  fft_cols<<<static_cast<unsigned>(B * strips), NT, smem, st>>>(
-      in_r, in_i, out_r, out_i, tw0, n0, ilog2(n0), k1, sign);
-  return cudaGetLastError();
+                        int k1, cudaStream_t st) {
+  const int64_t ncols = B * k1;
+  switch (n0) {
+    case 128:
+      return launch_cols_t<7, SIGN>(in_r, in_i, out_r, out_i, tw0, ncols, k1,
+                                    st);
+    case 256:
+      return launch_cols_t<8, SIGN>(in_r, in_i, out_r, out_i, tw0, ncols, k1,
+                                    st);
+    case 512:
+      return launch_cols_t<9, SIGN>(in_r, in_i, out_r, out_i, tw0, ncols, k1,
+                                    st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -321,20 +746,19 @@ int rfft2_planar_launch(const float* x, float* yr, float* yi,
   if (!shape_ok(B, n0, n1)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t rows = B * n0;
-  const int rb = rows_per_block(n1);
+  cudaError_t err;
   if (pow2(n1)) {
-    const size_t smem = sizeof(float) * (n1 + 2 * static_cast<size_t>(rb) * n1);
-    fft_rows_r2c<<<row_blocks(rows, rb), NT, smem, st>>>(
-        x, yr, yi, tw1, rows, n1, ilog2(n1), rb);
+    err = rows_r2c_pow2(x, yr, yi, tw1, rows, n1, st);
   } else {
+    const int rb = rows_per_block(n1);
     const size_t smem = sizeof(float) * (2 * n1 + static_cast<size_t>(rb) * n1);
     dft_rows_r2c<<<row_blocks(rows, rb), NT, smem, st>>>(x, yr, yi, tw1,
                                                          rows, n1, rb);
+    err = cudaGetLastError();
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      launch_cols(yr, yi, yr, yi, tw0, B, n0, n1 / 2 + 1, -1.f, st));
+      launch_cols<-1>(yr, yi, yr, yi, tw0, B, n0, n1 / 2 + 1, st));
 }
 
 // yr, yi (B, n0, n1/2+1) -> x (B, n0, n1), through the scratch pair sr, si
@@ -346,7 +770,7 @@ int irfft2_planar_launch(const float* yr, const float* yi, float* x,
   if (!shape_ok(B, n0, n1)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int k1 = n1 / 2 + 1;
-  cudaError_t err = launch_cols(yr, yi, sr, si, tw0, B, n0, k1, 1.f, st);
+  cudaError_t err = launch_cols<1>(yr, yi, sr, si, tw0, B, n0, k1, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t rows = B * n0;
   const int rb = rows_per_block(n1);

@@ -236,12 +236,17 @@ def test_pgm_solve_on_card_matches_cpu(dev, masked):
 # rfft2_planar / irfft2_planar
 
 # (lead, N0, N1): the JAX test shapes, lead dimensions, every row-pass
-# branch (power-of-two N1 by FFT, other even N1 by direct DFT, N1 = 2 and
-# 2048), one plane, and the headline x-step (64 planes of 512 x 512)
+# branch (power-of-two N1 by FFT, other even N1 by direct DFT), every
+# template case of the register-FFT kernels (the row pass for each
+# power-of-two N1 from 2 to 2048, the column pass for each N0 with a
+# power-of-two N1 of at least 8), an odd number of planes, one plane, and
+# the headline x-step (64 planes of 512 x 512)
 FFT_SHAPES = [((2,), 128, 128), ((2,), 256, 64), ((2,), 512, 512),
               ((2,), 128, 16), ((2,), 256, 30), ((3,), 128, 30),
               ((2, 3), 128, 32), ((1,), 512, 2048), ((2,), 128, 2),
-              ((1,), 256, 2046), ((), 512, 512), ((64,), 512, 512)]
+              ((1,), 256, 2046), ((), 512, 512), ((64,), 512, 512),
+              ((2,), 128, 4), ((1,), 256, 8), ((3,), 256, 256),
+              ((1,), 128, 1024)]
 
 
 def _fft_refs(shape, seed):
@@ -289,12 +294,15 @@ def test_fft_kernels_match_numpy_and_plain(dev, shape):
 
 
 def test_fft_kernels_take_unaligned_and_strided_input(dev):
-    """Views that start one float into their buffer, and a transposed
-    (non-contiguous) input, which the wrapper makes contiguous."""
+    """Views that start one float into their buffer (the forward row pass
+    then takes its scalar-load path: the input is not 8-byte aligned), and
+    a transposed (non-contiguous) input, which the wrapper makes
+    contiguous."""
     x, ref, zr, zi, xinv = _fft_refs(((2,), 256, 64), 6)
     xb = torch.empty(x.size + 1, device=dev)
     xo = xb[1:].view(x.shape)
     xo.copy_(torch.tensor(x))
+    assert xo.is_contiguous() and xo.data_ptr() % 8 == 4
     yr, yi = tfp.rfft2_planar(xo)
     got = yr.cpu().numpy() + 1j * yi.cpu().numpy()
     assert np.abs(got - ref).max() < 1e-6 * np.abs(ref).max()
