@@ -48,8 +48,11 @@ Phases, each printing one JSON line on stdout:
    one plane, and at ragged shapes covering each branch (the inverse
    also on a non-Hermitian spectrum); kernel, plain version and cuFFT
    timed at 64 planes and at one (``vs_library``: kernel ms over cuFFT
-   ms); at 64 planes the device time of each kernel's row and column
-   pass and their shares, from ``torch.profiler``;
+   ms), and so is the dispatch ``ops.fft.irfftn`` on a complex64
+   spectrum (``irfft2_spectrum``, which must equal the planar call bit
+   for bit at every shape); at 64 planes the device time of each
+   kernel's row and column pass and their shares, and the kernels the
+   dispatch runs, from ``torch.profiler``;
 10. ``generic_parity``: 10 iterations of ``ConvBPDN(fused=False)`` on the
     card against the CPU (the FFT kernels' plain versions);
 11. ``generic_solve``: ``ConvBPDN(fused=False)`` to 1e-3, its objective
@@ -82,10 +85,12 @@ Phases, each printing one JSON line on stdout:
     ``admm_tail``), against the generic solve.
 
 Each solve sets every kernel's launch count to 0 just before it and
-reads the counts just after.  Then the ``{"kernels": [...]}`` line, the
-``nvidia-smi`` name and power limit line, and last ``{"ok": true,
-"device": {...}}``.  Any failure exits non-zero without the ``ok`` line;
-so does a run past the time budget, or a machine without a CUDA device.
+reads the counts just after.  Then the ``{"kernels": [...]}`` line (the
+inverse's ``ms`` is that of ``irfftn`` on a complex64 spectrum, the call
+the solves make; ``planar_ms`` the planar entry's), the ``nvidia-smi``
+name and power limit line, and last ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero without the ``ok`` line; so does a run past the
+time budget, or a machine without a CUDA device.
 ``--profile`` adds phases that run the fused ADMM, fused FISTA, generic
 ADMM and fused gradreg solves under ``torch.profiler`` and report the
 device's busy and idle share and its time by kernel.
@@ -126,10 +131,12 @@ MASK_MISSING = 0.3                    # share of pixels masked out
 PGM_GENERIC_ITERS = 250
 # (B, N0, N1) of the FFT kernel phase: the generic x-step's 64 planes,
 # the fused glue's one plane, then each row-pass branch (direct DFT for
-# N1 = 30, FFT for the powers of two, N1 = 2 and 2048) and each column
+# N1 = 30, FFT for every power of two from 2 to 2048) and each column
 # pass (N0 = 128, 256, 512) with a power-of-two N1 of at least 8
 FFT_SHAPES = [(M, N, N), (1, N, N), (3, 128, 30), (2, 256, 64),
-              (1, 512, 2048), (2, 128, 2), (3, 128, 256), (2, 256, 512)]
+              (1, 512, 2048), (2, 128, 2), (3, 128, 256), (2, 256, 512),
+              (2, 128, 4), (1, 256, 8), (2, 128, 16), (1, 512, 32),
+              (2, 256, 128), (1, 128, 1024)]
 # batch of calls per CUDA-event timing of the FFT kernels, their plain
 # versions and torch.fft: a transform of 64 planes takes about as long as
 # its wrapper's host time
@@ -592,31 +599,38 @@ def _rel_err(a, b, scale):
     return float((a - b).abs().max()) / scale
 
 
-def device_ms_by_kernel(fn, reps=10):
+def device_ms_by_kernel(fn, reps=10, tries=3):
     """Device time per call of ``fn`` by kernel name, from
-    ``torch.profiler`` over ``reps`` calls."""
+    ``torch.profiler`` over ``reps`` calls.  A profile that saw no device
+    event at all (it happens now and then in a long run of profiles) is
+    taken again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile as tprof
-    torch.cuda.synchronize()
-    with tprof(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
+        with tprof(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            t = getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0.0))
-            key = e.key.replace("(anonymous namespace)::", "")
-            key = key.replace("void ", "").split("(")[0][:48]
-            out[key] = out.get(key, 0.0) + t / 1e3 / reps
+    for e in events:
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        key = e.key.replace("(anonymous namespace)::", "")
+        key = key.replace("void ", "").split("(")[0][:48]
+        out[key] = out.get(key, 0.0) + t / 1e3 / reps
     return out
 
 
 def fft_pass_split(x, yr, yi):
     """Device time per call of each pass of both FFT kernels, each pass's
-    share of its transform, and the device time of torch.fft's call on
-    the same inputs."""
+    share of its transform, the device time of torch.fft's call on the
+    same inputs, and the kernels that ``ops.fft.irfftn`` runs on the
+    complex64 spectrum, with their device time."""
     n1 = x.shape[-1]
     spec = torch.complex(yr, yi)
     fwd = device_ms_by_kernel(lambda: tfp.rfft2_planar(x))
@@ -624,10 +638,12 @@ def fft_pass_split(x, yr, yi):
     libs = {"rfft2_planar": device_ms_by_kernel(lambda: torch.fft.rfft2(x)),
             "irfft2_planar": device_ms_by_kernel(
                 lambda: torch.fft.irfft2(spec, s=x.shape[-2:]))}
+    dispatch = device_ms_by_kernel(
+        lambda: tsf.irfftn(spec, s=x.shape[-2:]))
     out = {}
     for name, by_kernel, row_kernel in (
             ("rfft2_planar", fwd, "fft_rows_r2c_pow2"),
-            ("irfft2_planar", inv, "fft_rows_c2r")):
+            ("irfft2_planar", inv, "fft_rows_c2r_pow2")):
         rows = sum(t for k, t in by_kernel.items() if row_kernel in k)
         cols = sum(t for k, t in by_kernel.items() if "fft_cols_pow2" in k)
         if not (rows > 0 and cols > 0):
@@ -637,6 +653,12 @@ def fft_pass_split(x, yr, yi):
         out[name] = {"device_ms": total, "rows_ms": rows, "cols_ms": cols,
                      "rows_share": rows / total, "cols_share": cols / total,
                      "library_device_ms": sum(libs[name].values())}
+    own = ("fft_cols_pow2", "fft_rows_c2r_pow2")
+    if sorted(k.split("<")[0] for k in dispatch) != sorted(own):
+        raise AssertionError(f"irfftn on a complex64 spectrum ran "
+                             f"{dispatch}, not the inverse's kernels alone")
+    out["irfft2_planar"]["irfftn_device_ms"] = sum(dispatch.values())
+    out["irfft2_planar"]["irfftn_kernels"] = sorted(dispatch)
     return out
 
 
@@ -664,6 +686,10 @@ def phase_fft_kernel(dev):
         zr = torch.randn(yr.shape, generator=g, device=dev)
         zi = torch.randn(yr.shape, generator=g, device=dev)
         xb = tfp.irfft2_planar(zr, zi, n1)
+        if not torch.equal(tfp.irfft2_spectrum(torch.complex(zr, zi), n1),
+                           xb):
+            raise AssertionError(f"irfft2_spectrum differs from the planar "
+                                 f"call at {(B, n0, n1)}")
         xp = tfp.irfft2_planar_plain(zr, zi, n1)
         xref = torch.fft.irfft2(torch.complex(zr.double(), zi.double())
                                 .cpu(), s=(n0, n1)).to(dev)
@@ -709,8 +735,13 @@ def phase_fft_kernel(dev):
                         lambda: tfp.irfft2_planar_plain(yr, yi, n1)),
                     "library_ms": ms(
                         lambda: torch.fft.irfft2(lib, s=(n0, n1)))},
+                # the dispatch on cuFFT's complex64 spectrum, as the
+                # solvers call it
+                "irfftn": {"ms": ms(lambda: tsf.irfftn(lib, s=(n0, n1)))},
                 "bound_ms": bound, "bound_by": by}
-            for name in ("rfft2_planar", "irfft2_planar"):
+            timing[B]["irfftn"]["library_ms"] = \
+                timing[B]["irfft2_planar"]["library_ms"]
+            for name in ("rfft2_planar", "irfft2_planar", "irfftn"):
                 t = timing[B][name]
                 t["vs_library"] = t["ms"] / t["library_ms"]
             if B == M:
@@ -1086,13 +1117,19 @@ def phase_profile(dev, make_model):
                      "count": e.count} for e in top]}
 
 
-def fft_entry(name, fft, generic, replaces):
+def fft_entry(name, fft, generic, replaces, route=None):
+    """A FFT kernel's entry, its time from the call the solves make:
+    ``route`` names the timing of that call where it is not the planar
+    entry's (the inverse's is ``irfftn`` on a complex64 spectrum, through
+    ``irfft2_spectrum``), and the planar entry's time is kept beside."""
     t = fft["headline"]
+    ms = t[route or name]["ms"]
     return {"name": name, "route": "cuda",
             "source": "sporco_tpu_torch/csrc/fft2_planar.cu",
             "replaces": replaces, "launches": generic["launches"][name],
-            "max_abs_err": fft["max_abs_err"][name], "ms": t[name]["ms"],
-            "kernel_ms": t[name]["ms"], "plain_ms": t[name]["plain_ms"],
+            "max_abs_err": fft["max_abs_err"][name], "ms": ms,
+            "kernel_ms": ms, "planar_ms": t[name]["ms"],
+            "plain_ms": t[name]["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t[name]["library_ms"]}
 
@@ -1156,7 +1193,9 @@ def main(argv):
     with fft_precision("high"):
         summary["pgm_solve"] = run_phase(
             "pgm_solve", lambda: phase_pgm_solve(dev, D, S, lmbda))
-    summary["fft"] = run_phase("fft_kernel", lambda: phase_fft_kernel(dev))
+    with fft_precision("highest"):
+        summary["fft"] = run_phase("fft_kernel",
+                                   lambda: phase_fft_kernel(dev))
     run_phase("generic_parity",
               lambda: phase_generic_parity(dev, D, S, lmbda))
     summary["generic"] = run_phase(
@@ -1200,7 +1239,7 @@ def main(argv):
         fft_entry("rfft2_planar", summary["fft"], summary["generic"],
                   "sporco_tpu/ops/pallas_fft.py:402"),
         fft_entry("irfft2_planar", summary["fft"], summary["generic"],
-                  "sporco_tpu/ops/pallas_fft.py:433"),
+                  "sporco_tpu/ops/pallas_fft.py:433", route="irfftn"),
         kernel_entry("admm_tail", summary["tail_kernel"],
                      summary["gradreg"],
                      "sporco_tpu/ops/pallas_csc_tail.py:105",

@@ -11,7 +11,9 @@
 //                     numpy.fft.irfftn(., s=(N0, N1)): the inverse c2c on
 //                     axis 0 first, then the c2r on axis 1, which drops the
 //                     imaginary part of columns 0 and N1/2 after the c2c
-//                     (the input need not be Hermitian).
+//                     (the input need not be Hermitian);
+//     irfft2_spectrum:  the same from one complex64 array y (B, N0, K1)
+//                     (interleaved real and imaginary parts).
 //
 // Shapes: N0 in {128, 256, 512} (a power of two), N1 even, 2 <= N1 <= 2048;
 // the caller flattens lead dimensions into B.  The twiddle tables are built
@@ -59,12 +61,27 @@
 //      one exchange through shared memory, laid out [row][column] so that
 //      each half-warp touches 16 consecutive columns, with no bank
 //      conflicts and no padding.
-// The inverse transform's column pass is the same kernel with sign +1,
-// from the input into a scratch pair.  Its row pass is still the first
-// design: the Hermitian extension of each row (imaginary parts of bins 0
-// and N1/2 set to 0) through a full-length inverse complex FFT (radix-2
-// stages through shared memory, one barrier each, bit-reversed load), or
-// a direct c2r sum for other even N1, scaled by 1/(N0 N1).
+// The inverse transform, for a power-of-two N1, mirrors the forward:
+//   1. columns (axis 0), `fft_cols_pow2` with sign +1, from the input into
+//      a scratch array: the input is either a planar pair or one complex64
+//      array (interleaved real and imaginary parts, one float2 load a
+//      point), so the dispatch hands a complex spectrum over without a
+//      copy; the scratch is one interleaved complex array.
+//   2. rows (axis 1), `fft_rows_c2r_pow2`: a block's RB rows, RB K1
+//      consecutive complex values of the scratch, come into shared memory
+//      in the padded row layout with 16-byte loads.  The pre-pass, one
+//      pair (k, M - k) per thread, k = 0..M/2, drops the imaginary parts
+//      of bins 0 and M (the input need not be Hermitian) and forms, with
+//      E = (X[k] + conj X[M-k]) / 2 and O = W_N1^-k (X[k] - conj X[M-k]) / 2,
+//          Z[k] = E + i O,   Z[M-k] = conj E + i conj O,
+//      in place.  The length-M inverse complex FFT of Z runs in registers
+//      as the forward's does (sign +1, the staged twiddles conjugated), and
+//      its last pass writes each point z[n] as one float2 (x[2n],
+//      x[2n+1]) times the scale 2 / (N0 N1): coalesced, with no shared
+//      memory round trip.  The rows run in block order: the column pass
+//      wrote the first planes last, so they are read back from L2 first.
+// Any other even N1 takes a direct c2r sum per output point
+// (`dft_rows_c2r`).
 // The intermediate of either transform makes one round trip through
 // device memory (or L2).  Blocks that need more than 48 KB of shared
 // memory are allowed it with cudaFuncSetAttribute before their launch; the
@@ -76,13 +93,9 @@
 namespace {
 
 constexpr int NT = 256;           // threads per block of the row passes
-constexpr int ROW_ELEMS = 2048;   // row elements per block, DFT and c2r rows
+constexpr int ROW_ELEMS = 2048;   // row elements per block, DFT rows
 constexpr int RMAX = 16;          // points per thread, row passes
 constexpr int CS = 32;            // columns per strip of the column pass
-
-__device__ __forceinline__ int bitrev(int v, int bits) {
-  return static_cast<int>(__brev(static_cast<unsigned>(v)) >> (32 - bits));
-}
 
 // ---------------------------------------------------------------------------
 // Register FFT building blocks
@@ -248,8 +261,32 @@ __device__ __forceinline__ void group_sync() {
   }
 }
 
+// complex element i of an interleaved array re (IL) or of the planar
+// pair (re, im)
+template <bool IL>
+__device__ __forceinline__ float2 load_c(const float* re, const float* im,
+                                         int64_t i) {
+  if constexpr (IL) {
+    return reinterpret_cast<const float2*>(re)[i];
+  } else {
+    return make_float2(re[i], im[i]);
+  }
+}
+
+template <bool IL>
+__device__ __forceinline__ void store_c(float* re, float* im, int64_t i,
+                                        float2 v) {
+  if constexpr (IL) {
+    reinterpret_cast<float2*>(re)[i] = v;
+  } else {
+    re[i] = v.x;
+    im[i] = v.y;
+  }
+}
+
 // ---------------------------------------------------------------------------
-// Forward row pass, power-of-two N1 = 2^(L+1): real-input packing
+// Row passes, power-of-two N1 = 2^(L+1): real data packed as M = N1/2
+// complex points
 
 template <int L>
 struct RowCfg {
@@ -285,7 +322,8 @@ __host__ __device__ constexpr int tw_entries() {
   return tw_offset<L, RowCfg<L>::COUNT>();
 }
 
-template <int L, int P>
+// the length-M FFT's twiddles W_M^m of kernel exp(SIGN 2 pi i / M), staged
+template <int L, int SIGN, int P>
 __device__ __forceinline__ void row_twiddles(float2* twp, const float* tw) {
   using C = RowCfg<L>;
   if constexpr (P < C::COUNT) {
@@ -296,17 +334,21 @@ __device__ __forceinline__ void row_twiddles(float2* twp, const float* tw) {
       for (int e = threadIdx.x; e < n; e += blockDim.x) {
         const int u = e / Pp::NS + 1, k = e % Pp::NS;
         const int m = 2 * k * u * step;               // W_M^(k u step)
-        twp[tw_offset<L, P>() + e] = make_float2(tw[m], -tw[C::N1 + m]);
+        twp[tw_offset<L, P>() + e] =
+            make_float2(tw[m], SIGN * tw[C::N1 + m]);
       }
     }
-    row_twiddles<L, P + 1>(twp, tw);
+    row_twiddles<L, SIGN, P + 1>(twp, tw);
   }
 }
 
-template <int L, int P>
+// The length-M FFT of a row from its points v (point j + T i in v[i]):
+// every pass but the last exchanges through the row zs of shared memory,
+// the last hands output point idx to `out(idx, value)`.
+template <int L, int SIGN, int P, class OutF>
 __device__ __forceinline__ void row_passes(float2 (&v)[RowCfg<L>::R],
                                            float2* zs, const float2* twp,
-                                           int j) {
+                                           int j, OutF out) {
   using C = RowCfg<L>;
   if constexpr (P < C::COUNT) {
     using Pp = Pass<L, C::R, P>;
@@ -317,12 +359,25 @@ __device__ __forceinline__ void row_passes(float2 (&v)[RowCfg<L>::R],
       group_sync<C::G>();
     }
     const float2* t = twp + tw_offset<L, P>();
-    stockham_pass<C::R, Pp::RP, Pp::NS, C::T, -1>(
+    stockham_pass<C::R, Pp::RP, Pp::NS, C::T, SIGN>(
         v, j, [=](int k, int u) { return t[(u - 1) * Pp::NS + k]; });
-    store_pass<C::R, Pp::RP, Pp::NS, C::T>(
-        v, j, [=](int idx, float2 val) { zs[pad(idx)] = val; });
-    row_passes<L, P + 1>(v, zs, twp, j);
+    if constexpr (Pp::LAST) {
+      store_pass<C::R, Pp::RP, Pp::NS, C::T>(v, j, out);
+    } else {
+      store_pass<C::R, Pp::RP, Pp::NS, C::T>(
+          v, j, [=](int idx, float2 val) { zs[pad(idx)] = val; });
+      row_passes<L, SIGN, P + 1>(v, zs, twp, j, out);
+    }
   }
+}
+
+// rows of shared memory in the padded layout: element e of a block's
+// RB K1 consecutive values is row e / K1, bin e mod K1
+template <int L>
+__device__ __forceinline__ float2& row_slot(float2* smem, int e) {
+  using C = RowCfg<L>;
+  const int r = e / C::K1;
+  return smem[r * C::S + pad(e - r * C::K1)];
 }
 
 template <int L>
@@ -333,7 +388,7 @@ fft_rows_r2c_pow2(const float* __restrict__ x, float* __restrict__ yr,
   using C = RowCfg<L>;
   extern __shared__ float2 smem2[];
   float2* twp = smem2 + C::RB * C::S;
-  row_twiddles<L, 0>(twp, tw);
+  row_twiddles<L, -1, 0>(twp, tw);
   const int rl = threadIdx.x / C::T, j = threadIdx.x % C::T;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * C::RB;
   const int64_t row = row0 + rl;
@@ -359,7 +414,8 @@ fft_rows_r2c_pow2(const float* __restrict__ x, float* __restrict__ yr,
   if constexpr (C::COUNT == 0) {
     zs[0] = v[0];
   } else {
-    row_passes<L, 0>(v, zs, twp, j);
+    row_passes<L, -1, 0>(v, zs, twp, j,
+                         [=](int idx, float2 val) { zs[pad(idx)] = val; });
   }
   group_sync<C::G>();
   // post-pass: the group's rows, one (k, M - k) pair per thread, in
@@ -388,10 +444,7 @@ fft_rows_r2c_pow2(const float* __restrict__ x, float* __restrict__ yr,
   const int n = nr * C::K1;
   float* oyr = yr + row0 * C::K1;
   float* oyi = yi + row0 * C::K1;
-  auto at = [&](int e) {
-    const int r = e / C::K1;
-    return smem2[r * C::S + pad(e - r * C::K1)];
-  };
+  auto at = [&](int e) { return row_slot<L>(smem2, e); };
   int e0 = 0;
   if (((reinterpret_cast<uintptr_t>(oyr) | reinterpret_cast<uintptr_t>(oyi))
        & 15) == 0) {
@@ -410,10 +463,87 @@ fft_rows_r2c_pow2(const float* __restrict__ x, float* __restrict__ yr,
   }
 }
 
+// Inverse row pass: the interleaved half-spectrum rows s of the column
+// pass -> real rows x, times `scale`.
+template <int L>
+__global__ void __launch_bounds__(NT)
+fft_rows_c2r_pow2(const float* __restrict__ s, float* __restrict__ x,
+                  const float* __restrict__ tw, int64_t rows, float scale) {
+  using C = RowCfg<L>;
+  extern __shared__ float2 smem2[];
+  float2* twp = smem2 + C::RB * C::S;
+  row_twiddles<L, 1, 0>(twp, tw);
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * C::RB;
+  // the block's rows are RB K1 consecutive complex values: 16-byte loads
+  // where aligned (a row of the last block past `rows` is left unset; its
+  // results are not stored)
+  const int nr = static_cast<int>(
+      min(static_cast<int64_t>(C::RB), rows - row0));
+  const int n = nr * C::K1;
+  const float* src = s + 2 * row0 * C::K1;
+  int e0 = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int q = threadIdx.x; q < n / 2; q += NT) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(src) + q);
+      row_slot<L>(smem2, 2 * q) = make_float2(a.x, a.y);
+      row_slot<L>(smem2, 2 * q + 1) = make_float2(a.z, a.w);
+    }
+    e0 = n / 2 * 2;
+  }
+  for (int e = e0 + threadIdx.x; e < n; e += NT)
+    row_slot<L>(smem2, e) = make_float2(__ldg(src + 2 * e),
+                                        __ldg(src + 2 * e + 1));
+  __syncthreads();                        // the rows and the twiddle table
+  // pre-pass: the group's rows, one (k, M - k) pair per thread, in place:
+  // Z[k] and Z[M - k] replace X[k] and X[M - k] (X[M] is read from the
+  // row's spare slot pad(M) and not replaced)
+  constexpr int P2 = C::M / 2 + 1;
+  const int gl = threadIdx.x % C::G, gi = threadIdx.x / C::G;
+  float2* gz = smem2 + gi * C::RG * C::S;
+  for (int f = gl; f < C::RG * P2; f += C::G) {
+    const int r = f / P2, k = f - r * P2;
+    float2* zr = gz + r * C::S;
+    float2 xk = zr[pad(k)];
+    float2 xm = zr[pad(C::M - k)];
+    if (k == 0) {                          // bins 0 and M: real parts only
+      xk.y = 0.f;
+      xm.y = 0.f;
+    }
+    const float ex = 0.5f * (xk.x + xm.x), ey = 0.5f * (xk.y - xm.y);
+    const float dx = 0.5f * (xk.x - xm.x), dy = 0.5f * (xk.y + xm.y);
+    const float c = __ldg(tw + k), sn = __ldg(tw + C::N1 + k);
+    const float ox = c * dx - sn * dy, oy = c * dy + sn * dx;  // W_N1^-k D
+    zr[pad(k)] = make_float2(ex - oy, ey + ox);
+    if (k != 0 && 2 * k != C::M)
+      zr[pad(C::M - k)] = make_float2(ex + oy, ox - ey);
+  }
+  group_sync<C::G>();
+  const int rl = threadIdx.x / C::T, j = threadIdx.x % C::T;
+  const int64_t row = row0 + rl;
+  float2* zs = smem2 + rl * C::S;
+  float2 v[C::R];
+#pragma unroll
+  for (int i = 0; i < C::R; ++i) v[i] = zs[pad(j + C::T * i)];
+  // z[idx] = x[2 idx] + i x[2 idx + 1]: one float2 store a point
+  float2* xo = reinterpret_cast<float2*>(x + row * C::N1);
+  const bool live = row < rows;
+  auto out = [=](int idx, float2 val) {
+    if (live) xo[idx] = make_float2(val.x * scale, val.y * scale);
+  };
+  if constexpr (C::COUNT == 0) {
+    out(0, v[0]);
+  } else {
+    group_sync<C::G>();                    // the loads, before pass 0 stores
+    row_passes<L, 1, 0>(v, zs, twp, j, out);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Column pass (axis 0), N0 = 2^L0: c2c with the kernel exp(SIGN 2 pi i /
 // N0), from (in_r, in_i) into (out_r, out_i), in place when they are the
-// same; ncols = B K1 columns of the flattened (plane, column) index.
+// same; an interleaved complex array (IN_IL, OUT_IL) is passed as its
+// first pointer, the second unused.  ncols = B K1 columns of the
+// flattened (plane, column) index.
 
 template <int L0>
 struct ColCfg {
@@ -424,7 +554,7 @@ struct ColCfg {
   static constexpr int COUNT = Pass<L0, R, 0>::COUNT;
 };
 
-template <int L0, int SIGN, int P>
+template <int L0, int SIGN, bool OUT_IL, int P>
 __device__ __forceinline__ void col_passes(float2 (&v)[ColCfg<L0>::R], float2* sm,
                                            const float* tw, int j, int c,
                                            float* out_r, float* out_i,
@@ -447,20 +577,19 @@ __device__ __forceinline__ void col_passes(float2 (&v)[ColCfg<L0>::R], float2* s
     if (live) {
       store_pass<C::R, Pp::RP, Pp::NS, C::T>(
           v, j, [=](int idx, float2 val) {
-            const int64_t g = base + static_cast<int64_t>(idx) * k1;
-            out_r[g] = val.x;
-            out_i[g] = val.y;
+            store_c<OUT_IL>(out_r, out_i,
+                            base + static_cast<int64_t>(idx) * k1, val);
           });
     }
   } else {
     store_pass<C::R, Pp::RP, Pp::NS, C::T>(
         v, j, [=](int idx, float2 val) { sm[idx * CS + c] = val; });
-    col_passes<L0, SIGN, P + 1>(v, sm, tw, j, c, out_r, out_i, base, k1,
-                                live);
+    col_passes<L0, SIGN, OUT_IL, P + 1>(v, sm, tw, j, c, out_r, out_i, base,
+                                        k1, live);
   }
 }
 
-template <int L0, int SIGN>
+template <int L0, int SIGN, bool IN_IL, bool OUT_IL>
 __global__ void __launch_bounds__(ColCfg<L0>::NTC)
 fft_cols_pow2(const float* in_r, const float* in_i, float* out_r,
               float* out_i, const float* __restrict__ tw, int64_t ncols,
@@ -476,54 +605,21 @@ fft_cols_pow2(const float* in_r, const float* in_i, float* out_r,
   const int64_t base = plane * C::N0 * k1 + (g - plane * k1);
   float2 v[C::R];
   if (live) {
-    const float* pr = in_r + base + static_cast<int64_t>(j) * k1;
-    const float* pi = in_i + base + static_cast<int64_t>(j) * k1;
+    const int64_t g0 = base + static_cast<int64_t>(j) * k1;
     const int64_t step = static_cast<int64_t>(C::T) * k1;
 #pragma unroll
     for (int i = 0; i < C::R; ++i)
-      v[i] = make_float2(pr[i * step], pi[i * step]);
+      v[i] = load_c<IN_IL>(in_r, in_i, g0 + i * step);
   } else {
 #pragma unroll
     for (int i = 0; i < C::R; ++i) v[i] = make_float2(0.f, 0.f);
   }
-  col_passes<L0, SIGN, 0>(v, smem2, tw, j, c, out_r, out_i, base, k1, live);
+  col_passes<L0, SIGN, OUT_IL, 0>(v, smem2, tw, j, c, out_r, out_i, base,
+                                  k1, live);
 }
 
 // ---------------------------------------------------------------------------
-// The first design's pieces, kept for the inverse row pass
-
-// In-place radix-2 decimation-in-time FFT of `nseq` sequences of length
-// n = 2^logn held in shared memory in bit-reversed order: element e of
-// sequence q is at q*n + e, neighbouring threads on neighbouring
-// butterflies of one sequence.  twc/tws hold cos/sin(2 pi m / n) for
-// m < n/2; sign is +1 (the inverse transform).
-__device__ void smem_fft(float* re, float* im, int n, int logn, int nseq,
-                         const float* twc, const float* tws, float sign) {
-  const int nb = n >> 1;
-  const int total = nseq * nb;
-  for (int s = 0; s < logn; ++s) {
-    const int h = 1 << s;
-    const int tsh = logn - 1 - s;          // W_n^(j n / 2h)
-    for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      const int q = t / nb, b = t % nb;
-      const int j = b & (h - 1);
-      const int i0 = ((b >> s) << (s + 1)) + j;
-      const int p0 = q * n + i0;
-      const int p1 = p0 + h;
-      const int m = j << tsh;
-      const float wr = twc[m], wi = sign * tws[m];
-      const float xr = re[p1], xi = im[p1];
-      const float vr = xr * wr - xi * wi;
-      const float vi = xr * wi + xi * wr;
-      const float ur = re[p0], ui = im[p0];
-      re[p0] = ur + vr;
-      im[p0] = ui + vi;
-      re[p1] = ur - vr;
-      im[p1] = ui - vi;
-    }
-    __syncthreads();
-  }
-}
+// Row passes for any other even N1: direct sums against the twiddle table
 
 __device__ __forceinline__ void load_twiddles(float* twc, float* tws,
                                               const float* tw, int n,
@@ -567,46 +663,12 @@ dft_rows_r2c(const float* x, float* yr, float* yi, const float* tw,
   }
 }
 
-// Row pass, inverse, power-of-two n1: the Hermitian extension of each
-// half-spectrum row through an inverse complex FFT, real part scaled.
-__global__ void __launch_bounds__(NT)
-fft_rows_c2r(const float* zr, const float* zi, float* x, const float* tw,
-             int64_t rows, int n1, int logn1, int rb, float scale) {
-  extern __shared__ float sm[];
-  float* twc = sm;
-  float* tws = twc + (n1 >> 1);
-  float* re = tws + (n1 >> 1);
-  float* im = re + rb * n1;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rb;
-  const int nr = static_cast<int>(min(static_cast<int64_t>(rb), rows - row0));
-  const int half = n1 >> 1;
-  const int k1 = half + 1;
-  load_twiddles(twc, tws, tw, n1, half);
-  for (int t = threadIdx.x; t < rb * n1; t += blockDim.x) {
-    const int r = t / n1, j = t % n1;
-    float vr = 0.f, vi = 0.f;
-    if (r < nr) {
-      const int k = j <= half ? j : n1 - j;
-      const int64_t g = (row0 + r) * k1 + k;
-      vr = zr[g];
-      vi = (k == 0 || k == half) ? 0.f : zi[g];
-      if (j > half) vi = -vi;
-    }
-    const int p = r * n1 + bitrev(j, logn1);
-    re[p] = vr;
-    im[p] = vi;
-  }
-  __syncthreads();
-  smem_fft(re, im, n1, logn1, rb, twc, tws, 1.f);
-  for (int t = threadIdx.x; t < nr * n1; t += blockDim.x)
-    x[row0 * n1 + t] = re[t] * scale;
-}
-
 // Row pass, inverse, any other even n1: x[j] = scale * sum_k w_k
-// (Zr_k cos(2 pi k j / n1) - Zi_k sin(2 pi k j / n1)), w = 1, 2, ..., 2, 1.
+// (Zr_k cos(2 pi k j / n1) - Zi_k sin(2 pi k j / n1)), w = 1, 2, ..., 2, 1,
+// from the interleaved scratch z.
 __global__ void __launch_bounds__(NT)
-dft_rows_c2r(const float* zr, const float* zi, float* x, const float* tw,
-             int64_t rows, int n1, int rb, float scale) {
+dft_rows_c2r(const float* z, float* x, const float* tw, int64_t rows, int n1,
+             int rb, float scale) {
   extern __shared__ float sm[];
   float* twc = sm;
   float* tws = twc + n1;
@@ -621,8 +683,9 @@ dft_rows_c2r(const float* zr, const float* zi, float* x, const float* tw,
     const int k = t % k1;
     const bool edge = k == 0 || k == half;
     const float w = edge ? 1.f : 2.f;
-    sr[t] = w * zr[row0 * k1 + t];
-    si[t] = edge ? 0.f : w * zi[row0 * k1 + t];
+    const float2 v = reinterpret_cast<const float2*>(z)[row0 * k1 + t];
+    sr[t] = w * v.x;
+    si[t] = edge ? 0.f : w * v.y;
   }
   __syncthreads();
   for (int t = threadIdx.x; t < nr * n1; t += blockDim.x) {
@@ -675,64 +738,101 @@ cudaError_t launch(void (*kernel)(P...), unsigned grid, int block,
   return cudaGetLastError();
 }
 
+// Call f(RowLog<L>{}) for the L of a power-of-two n1 = 2^(L+1), 2..2048.
 template <int L>
-cudaError_t launch_rows_r2c(const float* x, float* yr, float* yi,
-                            const float* tw1, int64_t rows,
-                            cudaStream_t st) {
-  using C = RowCfg<L>;
-  const size_t smem = sizeof(float2) * (C::RB * C::S + tw_entries<L>());
-  return launch(fft_rows_r2c_pow2<L>, row_blocks(rows, C::RB), NT, smem, st,
-                x, yr, yi, tw1, rows);
+struct RowLog {
+  static constexpr int value = L;
+};
+
+template <int L = 0, class F>
+cudaError_t with_row_log(int n1, F f) {
+  if constexpr (L > 10) {
+    return cudaErrorInvalidValue;
+  } else {
+    return n1 == 2 << L ? f(RowLog<L>{}) : with_row_log<L + 1>(n1, f);
+  }
 }
 
 cudaError_t rows_r2c_pow2(const float* x, float* yr, float* yi,
                           const float* tw1, int64_t rows, int n1,
                           cudaStream_t st) {
-  switch (ilog2(n1) - 1) {
-    case 0: return launch_rows_r2c<0>(x, yr, yi, tw1, rows, st);
-    case 1: return launch_rows_r2c<1>(x, yr, yi, tw1, rows, st);
-    case 2: return launch_rows_r2c<2>(x, yr, yi, tw1, rows, st);
-    case 3: return launch_rows_r2c<3>(x, yr, yi, tw1, rows, st);
-    case 4: return launch_rows_r2c<4>(x, yr, yi, tw1, rows, st);
-    case 5: return launch_rows_r2c<5>(x, yr, yi, tw1, rows, st);
-    case 6: return launch_rows_r2c<6>(x, yr, yi, tw1, rows, st);
-    case 7: return launch_rows_r2c<7>(x, yr, yi, tw1, rows, st);
-    case 8: return launch_rows_r2c<8>(x, yr, yi, tw1, rows, st);
-    case 9: return launch_rows_r2c<9>(x, yr, yi, tw1, rows, st);
-    case 10: return launch_rows_r2c<10>(x, yr, yi, tw1, rows, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return with_row_log(n1, [&](auto lg) {
+    constexpr int L = decltype(lg)::value;
+    using C = RowCfg<L>;
+    const size_t smem = sizeof(float2) * (C::RB * C::S + tw_entries<L>());
+    return launch(fft_rows_r2c_pow2<L>, row_blocks(rows, C::RB), NT, smem,
+                  st, x, yr, yi, tw1, rows);
+  });
 }
 
-template <int L0, int SIGN>
+cudaError_t rows_c2r_pow2(const float* s, float* x, const float* tw1,
+                          int64_t rows, int n1, float scale,
+                          cudaStream_t st) {
+  return with_row_log(n1, [&](auto lg) {
+    constexpr int L = decltype(lg)::value;
+    using C = RowCfg<L>;
+    const size_t smem = sizeof(float2) * (C::RB * C::S + tw_entries<L>());
+    return launch(fft_rows_c2r_pow2<L>, row_blocks(rows, C::RB), NT, smem,
+                  st, s, x, tw1, rows, scale);
+  });
+}
+
+template <int L0, int SIGN, bool IN_IL, bool OUT_IL>
 cudaError_t launch_cols_t(const float* in_r, const float* in_i, float* out_r,
                           float* out_i, const float* tw0, int64_t ncols,
                           int k1, cudaStream_t st) {
   using C = ColCfg<L0>;
   const size_t smem = sizeof(float2) * C::N0 * CS;
   const unsigned grid = static_cast<unsigned>((ncols + CS - 1) / CS);
-  return launch(fft_cols_pow2<L0, SIGN>, grid, C::NTC, smem, st, in_r, in_i,
-                out_r, out_i, tw0, ncols, k1);
+  return launch(fft_cols_pow2<L0, SIGN, IN_IL, OUT_IL>, grid, C::NTC, smem,
+                st, in_r, in_i, out_r, out_i, tw0, ncols, k1);
 }
 
-template <int SIGN>
+template <int SIGN, bool IN_IL, bool OUT_IL>
 cudaError_t launch_cols(const float* in_r, const float* in_i, float* out_r,
                         float* out_i, const float* tw0, int64_t B, int n0,
                         int k1, cudaStream_t st) {
   const int64_t ncols = B * k1;
   switch (n0) {
     case 128:
-      return launch_cols_t<7, SIGN>(in_r, in_i, out_r, out_i, tw0, ncols, k1,
-                                    st);
+      return launch_cols_t<7, SIGN, IN_IL, OUT_IL>(in_r, in_i, out_r, out_i,
+                                                   tw0, ncols, k1, st);
     case 256:
-      return launch_cols_t<8, SIGN>(in_r, in_i, out_r, out_i, tw0, ncols, k1,
-                                    st);
+      return launch_cols_t<8, SIGN, IN_IL, OUT_IL>(in_r, in_i, out_r, out_i,
+                                                   tw0, ncols, k1, st);
     case 512:
-      return launch_cols_t<9, SIGN>(in_r, in_i, out_r, out_i, tw0, ncols, k1,
-                                    st);
+      return launch_cols_t<9, SIGN, IN_IL, OUT_IL>(in_r, in_i, out_r, out_i,
+                                                   tw0, ncols, k1, st);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The inverse from the planar pair (yr, yi) or, IN_IL, the interleaved
+// complex array yr, through the scratch s of 2 B n0 (n1/2+1) floats.
+template <bool IN_IL>
+int irfft2(const float* yr, const float* yi, float* x, float* s,
+           const float* tw0, const float* tw1, int64_t B, int n0, int n1,
+           void* stream) {
+  if (!shape_ok(B, n0, n1)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int k1 = n1 / 2 + 1;
+  const int64_t rows = B * n0;
+  cudaError_t err = launch_cols<1, IN_IL, true>(yr, yi, s, nullptr, tw0, B,
+                                                n0, k1, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale = static_cast<float>(1.0 / (static_cast<double>(n0) * n1));
+  if (pow2(n1)) {
+    // the packed half-length transform is unnormalised: twice the scale
+    return static_cast<int>(
+        rows_c2r_pow2(s, x, tw1, rows, n1, 2.f * scale, st));
+  }
+  const int rb = rows_per_block(n1);
+  const size_t smem =
+      sizeof(float) * (2 * n1 + 2 * static_cast<size_t>(rb) * k1);
+  dft_rows_c2r<<<row_blocks(rows, rb), NT, smem, st>>>(s, x, tw1, rows, n1,
+                                                      rb, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -757,35 +857,26 @@ int rfft2_planar_launch(const float* x, float* yr, float* yi,
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      launch_cols<-1>(yr, yi, yr, yi, tw0, B, n0, n1 / 2 + 1, st));
+  return static_cast<int>(launch_cols<-1, false, false>(
+      yr, yi, yr, yi, tw0, B, n0, n1 / 2 + 1, st));
 }
 
-// yr, yi (B, n0, n1/2+1) -> x (B, n0, n1), through the scratch pair sr, si
-// of the input's shape; the inputs are not modified.
+// yr, yi (B, n0, n1/2+1) -> x (B, n0, n1), through the scratch s of
+// 2 B n0 (n1/2+1) floats; the inputs are not modified.
 int irfft2_planar_launch(const float* yr, const float* yi, float* x,
-                         float* sr, float* si, const float* tw0,
-                         const float* tw1, int64_t B, int n0, int n1,
-                         void* stream) {
-  if (!shape_ok(B, n0, n1)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int k1 = n1 / 2 + 1;
-  cudaError_t err = launch_cols<1>(yr, yi, sr, si, tw0, B, n0, k1, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t rows = B * n0;
-  const int rb = rows_per_block(n1);
-  const float scale = static_cast<float>(1.0 / (static_cast<double>(n0) * n1));
-  if (pow2(n1)) {
-    const size_t smem = sizeof(float) * (n1 + 2 * static_cast<size_t>(rb) * n1);
-    fft_rows_c2r<<<row_blocks(rows, rb), NT, smem, st>>>(
-        sr, si, x, tw1, rows, n1, ilog2(n1), rb, scale);
-  } else {
-    const size_t smem =
-        sizeof(float) * (2 * n1 + 2 * static_cast<size_t>(rb) * k1);
-    dft_rows_c2r<<<row_blocks(rows, rb), NT, smem, st>>>(sr, si, x, tw1,
-                                                         rows, n1, rb, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+                         float* s, const float* tw0, const float* tw1,
+                         int64_t B, int n0, int n1, void* stream) {
+  return irfft2<false>(yr, yi, x, s, tw0, tw1, B, n0, n1, stream);
+}
+
+// The same from one complex64 array y (B, n0, n1/2+1) of interleaved real
+// and imaginary parts, 8-byte aligned.
+int irfft2_spectrum_launch(const float* y, float* x, float* s,
+                           const float* tw0, const float* tw1, int64_t B,
+                           int n0, int n1, void* stream) {
+  if (reinterpret_cast<uintptr_t>(y) & 7)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return irfft2<true>(y, nullptr, x, s, tw0, tw1, B, n0, n1, stream);
 }
 
 }  // extern "C"

@@ -6,7 +6,9 @@ its Pallas kernels: at precision ``"highest"`` (the default, as
 ``mxufft``'s), a 2-D ``rfftn``/``irfftn`` over the last two axes of a
 float32 (or complex64) array whose size the kernels take
 (:func:`sporco_tpu_torch.ops.fft2_planar.supported`) runs
-``rfft2_planar``/``irfft2_planar`` (the rule of ``mxufft._pallas_2d_ok``).
+``rfft2_planar``/``irfft2_planar`` (the rule of ``mxufft._pallas_2d_ok``);
+a complex64 spectrum goes to ``irfft2_spectrum``, which reads it without
+splitting it into planes.
 :func:`use_planar_fft` chooses where: ``"auto"`` for CUDA tensors only,
 ``"always"`` also for CPU tensors (through the kernels' plain versions,
 as the CPU tests do), ``"never"``.  Spatial axes are trailing, as in the
@@ -131,10 +133,9 @@ def irfftn(a, s, axes=None):
     if (_planar_ok(a, s, axes) and a.shape[axes[-1]] == s[-1] // 2 + 1
             and a.shape[axes[-2]] == s[-2]):
         if a.is_complex():
-            yr, yi = a.real, a.imag
-        else:
-            yr, yi = a, torch.zeros_like(a)
-        return fft2_planar.irfft2_planar(yr, yi, s[-1],
+            return fft2_planar.irfft2_spectrum(a, s[-1],
+                                               precision=_PRECISION)
+        return fft2_planar.irfft2_planar(a, torch.zeros_like(a), s[-1],
                                          precision=_PRECISION)
     return torch.fft.irfftn(a, s=s, dim=axes)
 

@@ -6,6 +6,12 @@ Counterpart of ``rfft2_planar``/``irfft2_planar`` in
 
     rfft2_planar(x)            x (..., N0, N1) -> (yr, yi) (..., N0, N1//2+1)
     irfft2_planar(yr, yi, n1)  -> x (..., N0, n1)
+    irfft2_spectrum(y, n1)     complex64 y (..., N0, N1//2+1) -> x
+
+The last is the port's own entry for a complex64 half-spectrum: the
+kernel reads its real and imaginary parts where they lie, so the FFT
+dispatch (``ops.fft.irfftn``) hands a spectrum over without splitting it
+first.
 
 ``numpy.fft.rfftn``/``irfftn`` over the last two axes, for
 ``N0 = R*128`` with R in {1, 2, 4} and even ``2 <= N1 <= 2048``
@@ -32,15 +38,16 @@ import torch
 
 from sporco_tpu_torch._device import fp32_precision
 
-__all__ = ["rfft2_planar", "irfft2_planar", "rfft2_planar_plain",
-           "irfft2_planar_plain", "supported", "LAUNCHES",
-           "reset_launches"]
+__all__ = ["rfft2_planar", "irfft2_planar", "irfft2_spectrum",
+           "rfft2_planar_plain", "irfft2_planar_plain", "supported",
+           "LAUNCHES", "reset_launches"]
 
 _L = 128                   # radix-128 sub-transform length of the TPU kernel
 _RADICES = (1, 2, 4)       # N0 in {128, 256, 512}
 _MAX_N1 = 2048
 _PRECISIONS = ("default", "high", "highest")
-# launches of the CUDA kernels (not of the plain versions), by wrapper
+# launches of the CUDA kernels (not of the plain versions), by kernel:
+# irfft2_spectrum counts as irfft2_planar
 LAUNCHES = {"rfft2_planar": 0, "irfft2_planar": 0}
 
 
@@ -68,12 +75,15 @@ def _check_shape(n0, n1, precision):
 
 
 def _check_spectrum(yr, yi, n1, precision):
-    """The ``(n0, k1)`` of a planar half-spectrum for length ``n1``."""
+    """The ``(n0, k1)`` of a half-spectrum (planar ``yr``, ``yi``, or
+    complex ``yr`` with ``yi`` None) for length ``n1``."""
     n0, k1 = yr.shape[-2:]
     _check_shape(n0, n1, precision)
-    if k1 != n1 // 2 + 1 or yi.shape != yr.shape:
-        raise ValueError(f"half-spectrum of shape {tuple(yr.shape)} / "
-                         f"{tuple(yi.shape)} does not match n1 = {n1}")
+    if k1 != n1 // 2 + 1 or (yi is not None and yi.shape != yr.shape):
+        shapes = tuple(yr.shape) if yi is None else \
+            f"{tuple(yr.shape)} / {tuple(yi.shape)}"
+        raise ValueError(f"half-spectrum of shape {shapes} does not "
+                         f"match n1 = {n1}")
     return n0, k1
 
 
@@ -220,20 +230,24 @@ def _lib():
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.rfft2_planar_launch.argtypes = [vp] * 5 + [i64, i32, i32, vp]
         lib.rfft2_planar_launch.restype = ctypes.c_int
-        lib.irfft2_planar_launch.argtypes = [vp] * 7 + [i64, i32, i32, vp]
+        lib.irfft2_planar_launch.argtypes = [vp] * 6 + [i64, i32, i32, vp]
         lib.irfft2_planar_launch.restype = ctypes.c_int
+        lib.irfft2_spectrum_launch.argtypes = [vp] * 5 + [i64, i32, i32,
+                                                          vp]
+        lib.irfft2_spectrum_launch.restype = ctypes.c_int
     return lib
 
 
-def _device_of(name, *ts):
-    dev = ts[0].device
+def _device_of(name, *ts, dtype=torch.float32):
     for t in ts:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: inputs must be tensors")
+    dev = ts[0].device
+    for t in ts:
         if t.device != dev:
             raise ValueError(f"{name}: inputs are on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: inputs must be float32, got "
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: inputs must be {dtype}, got "
                             f"{t.dtype}")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"{name} runs on CUDA or CPU tensors, not "
@@ -241,11 +255,11 @@ def _device_of(name, *ts):
     return dev
 
 
-def _launch(lib, name, *args):
+def _launch(lib, name, *args, count=None):
     err = getattr(lib, f"{name}_launch")(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[count or name] += 1
 
 
 def rfft2_planar(x, precision="high"):
@@ -259,7 +273,7 @@ def rfft2_planar(x, precision="high"):
     _check_shape(n0, n1, precision)
     lib = _lib()
     lead = tuple(x.shape[:-2])
-    x = x.contiguous()
+    x = x.resolve_neg().contiguous()
     yr = torch.empty(lead + (n0, n1 // 2 + 1), dtype=torch.float32,
                      device=dev)
     yi = torch.empty_like(yr)
@@ -282,19 +296,43 @@ def irfft2_planar(yr, yi, n1, precision="high"):
     dev = _device_of("irfft2_planar", yr, yi)
     if dev.type == "cpu":
         return irfft2_planar_plain(yr, yi, n1, precision)
-    n0, k1 = _check_spectrum(yr, yi, n1, precision)
-    lib = _lib()
-    lead = tuple(yr.shape[:-2])
-    yr, yi = yr.contiguous(), yi.contiguous()
+    _check_spectrum(yr, yi, n1, precision)
+    yr, yi = yr.resolve_neg().contiguous(), yi.resolve_neg().contiguous()
+    return _irfft2_launch("irfft2_planar", (yr, yi), n1)
+
+
+def irfft2_spectrum(y, n1, precision="high"):
+    """:func:`irfft2_planar` of a complex64 half-spectrum ``y`` with last
+    axis ``n1//2+1``: the kernel reads ``y`` as it lies in memory, so
+    only a view it cannot read (conjugate or negative bit set, not
+    contiguous) is copied first.  On the CPU it is the plain version of
+    ``(y.real, y.imag)``."""
+    dev = _device_of("irfft2_spectrum", y, dtype=torch.complex64)
+    if dev.type == "cpu":
+        return irfft2_planar_plain(y.real, y.imag, n1, precision)
+    _check_spectrum(y, None, n1, precision)
+    y = y.resolve_conj().resolve_neg().contiguous()
+    return _irfft2_launch("irfft2_spectrum", (y,), n1)
+
+
+def _irfft2_launch(name, inputs, n1):
+    """Launch ``name`` on the contiguous CUDA half-spectrum ``inputs``
+    (planar or complex), into a new real array through a scratch array
+    of twice the spectrum's floats."""
+    dev = inputs[0].device
+    n0, k1 = inputs[0].shape[-2:]
+    lead = tuple(inputs[0].shape[:-2])
     x = torch.empty(lead + (n0, n1), dtype=torch.float32, device=dev)
-    b = yr.numel() // (n0 * k1)
+    b = x.numel() // (n0 * n1)
     if b == 0:
         return x
-    sr, si = torch.empty_like(yr), torch.empty_like(yi)
+    lib = _lib()
+    s = torch.empty(2 * b * n0 * k1, dtype=torch.float32, device=dev)
     key = _dev_key(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch(lib, "irfft2_planar", yr.data_ptr(), yi.data_ptr(), x.data_ptr(),
-                sr.data_ptr(), si.data_ptr(), _twiddles(n0, key).data_ptr(),
-                _twiddles(n1, key).data_ptr(), b, n0, n1, stream)
+        _launch(lib, name, *(t.data_ptr() for t in inputs), x.data_ptr(),
+                s.data_ptr(), _twiddles(n0, key).data_ptr(),
+                _twiddles(n1, key).data_ptr(), b, n0, n1, stream,
+                count="irfft2_planar")
     return x

@@ -341,6 +341,63 @@ def test_fft_kernels_count_launches_and_reject(dev):
     assert tfp.LAUNCHES == {"rfft2_planar": 1, "irfft2_planar": 1}
 
 
+@pytest.mark.parametrize("case,n1", [("complex", 64), ("conj", 64),
+                                     ("strided", 64), ("complex", 30),
+                                     ("conj", 512)])
+def test_spectrum_entry_equals_planar_call(dev, case, n1):
+    """The complex64 entry reads the spectrum where it lies and equals
+    the planar call on its ``.real``/``.imag`` bit for bit, one
+    ``irfft2_planar`` launch per call: a contiguous spectrum, a view with
+    the conjugate bit (the conjugated spectrum's result, as numpy), a
+    non-contiguous slice and an odd N1 (direct sums)."""
+    _, _, zr, zi, _ = _fft_refs(((2,), 256, n1), 7)
+    spec = (zr + 1j * zi).astype(np.complex64)
+    y = torch.tensor(spec, device=dev)
+    if case == "conj":
+        y, spec = y.conj(), np.conj(spec)
+        assert y.is_conj()
+    elif case == "strided":
+        wide = torch.zeros(y.shape[:-1] + (y.shape[-1] + 3,),
+                           dtype=y.dtype, device=dev)
+        wide[..., 1:-2] = y
+        y = wide[..., 1:-2]
+        assert not y.is_contiguous()
+    tfp.reset_launches()
+    got = tfp.irfft2_spectrum(y, n1)
+    assert tfp.LAUNCHES == {"rfft2_planar": 0, "irfft2_planar": 1}
+    assert torch.equal(got, tfp.irfft2_planar(y.real, y.imag, n1))
+    ref = np.fft.irfftn(spec.astype(np.complex128), s=(256, n1),
+                        axes=(-2, -1))
+    assert np.abs(got.cpu().numpy() - ref).max() < 3e-5
+
+
+def test_irfftn_reads_complex_spectrum_without_copy(dev):
+    """``ops.fft.irfftn`` on a contiguous complex64 spectrum runs the
+    inverse's own two kernels and nothing else on the card: no copy or
+    elementwise kernel splits the spectrum first."""
+    from torch.profiler import ProfilerActivity, profile
+    from sporco_tpu_torch.ops import fft as tsf
+    g = torch.Generator(device=dev).manual_seed(8)
+    spec = torch.randn((4, 256, 257), generator=g, dtype=torch.complex64,
+                       device=dev)
+    tsf.irfftn(spec, s=(256, 512))             # build, twiddle tables
+    torch.cuda.synchronize()
+    tfp.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        x = tsf.irfftn(spec, s=(256, 512))
+        torch.cuda.synchronize()
+    assert tfp.LAUNCHES == {"rfft2_planar": 0, "irfft2_planar": 1}
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("fft_cols_pow2" in n for n in names), names
+    assert any("fft_rows_c2r_pow2" in n for n in names), names
+    assert all("fft_cols_pow2" in n or "fft_rows_c2r_pow2" in n
+               for n in names), names
+    ref = torch.fft.irfft2(spec.cpu().to(torch.complex128), s=(256, 512))
+    assert float((x.cpu().double() - ref).abs().max()) < 3e-5
+
+
 # ---------------------------------------------------------------------------
 # The generic FFT paths
 

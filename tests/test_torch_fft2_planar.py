@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from sporco_tpu.ops import fft as jsf
 from sporco_tpu.ops import mxufft, pallas_fft
 from sporco_tpu_torch.ops import fft as tsf
 from sporco_tpu_torch.ops import fft2_planar as tfp
@@ -41,6 +42,18 @@ def planar_always():
         yield
     finally:
         tsf.use_planar_fft("auto")
+
+
+@pytest.fixture
+def mxu_always():
+    """The JAX package's 2-D transforms through its Pallas kernels on the
+    CPU (``use_mxu_fft("always")``, as ``tests/ops/test_mxufft.py``)."""
+    prev = jsf._MXU_MODE
+    jsf.use_mxu_fft("always")
+    try:
+        yield
+    finally:
+        jsf.use_mxu_fft(prev)
 
 
 # (lead, N0, N1): the JAX test shapes, lead dimensions, N1 = 2 and 2048
@@ -92,6 +105,104 @@ def test_inverse_matches_jax_kernel_and_numpy(interpret, shape):
     # the round trip of a real signal
     yr, yi = tfp.rfft2_planar(torch.tensor(x))
     assert np.abs(tfp.irfft2_planar(yr, yi, n1).numpy() - x).max() < 3e-5
+
+
+def _spectrum_case(zr, zi, case):
+    """The port's input to ``irfftn`` for ``case`` and the numpy array it
+    stands for: a contiguous complex64 spectrum, a view with the
+    conjugate bit set, a non-contiguous slice of a wider array, or a real
+    spectrum."""
+    spec = (zr + 1j * zi).astype(np.complex64)
+    if case == "complex":
+        return torch.tensor(spec), spec
+    if case == "conj":
+        t = torch.tensor(spec).conj()
+        assert t.is_conj()
+        return t, np.conj(spec)
+    if case == "strided":
+        wide = np.zeros(spec.shape[:-1] + (spec.shape[-1] + 3,),
+                        np.complex64)
+        wide[..., 1:-2] = spec
+        t = torch.tensor(wide)[..., 1:-2]
+        assert not t.is_contiguous()
+        return t, spec
+    return torch.tensor(zr), zr
+
+
+@pytest.mark.parametrize("case", ["complex", "conj", "strided", "real"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_irfftn_routes_match_jax_kernel_and_numpy(interpret, planar_always,
+                                                  mxu_always, monkeypatch,
+                                                  shape, case):
+    """``ops.fft.irfftn`` sends a complex64 spectrum, whatever its view,
+    to ``irfft2_spectrum`` and a real one to ``irfft2_planar``; both
+    against the JAX package's ``irfftn`` on its Pallas kernel and float64
+    numpy, with the tolerances of
+    :func:`test_inverse_matches_jax_kernel_and_numpy`."""
+    _, zr, zi = _data(shape)
+    n0, n1 = shape[1:]
+    a, spec = _spectrum_case(zr, zi, case)
+    calls = {"irfft2_spectrum": 0, "irfft2_planar": 0}
+    for name in calls:
+        def counted(*args, _fn=getattr(tfp, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(tfp, name, counted)
+    got = tsf.irfftn(a, s=(n0, n1), axes=(-2, -1)).numpy()
+    want = "irfft2_planar" if case == "real" else "irfft2_spectrum"
+    assert calls == {k: int(k == want) for k in calls}
+    ref = np.fft.irfftn(spec.astype(np.complex128), s=(n0, n1),
+                        axes=(-2, -1))
+    jgot = np.asarray(jsf.irfftn(jnp.asarray(spec), s=(n0, n1),
+                                 axes=(-2, -1)))
+    assert got.shape == ref.shape == jgot.shape
+    assert np.abs(got - ref).max() < 3e-5
+    assert np.abs(got - jgot).max() < 6e-5
+
+
+@pytest.mark.parametrize("case", ["complex", "conj", "strided"])
+def test_spectrum_entry_equals_planar_call(case):
+    """The complex64 entry gives the planar call on ``.real``/``.imag``
+    bit for bit (on the CPU both are the plain version), a conj-bit view
+    the conjugated spectrum's result, and an odd N1 (30) its direct
+    sums; the dispatch hands a contiguous spectrum over as it is, with no
+    copy before the entry."""
+    _, zr, zi = _data(((2,), 128, 30))
+    a, spec = _spectrum_case(zr, zi, case)
+    got = tfp.irfft2_spectrum(a, 30)
+    assert torch.equal(got, tfp.irfft2_planar(a.real, a.imag, 30))
+    ref = np.fft.irfftn(spec.astype(np.complex128), s=(128, 30),
+                        axes=(-2, -1))
+    assert np.abs(got.numpy() - ref).max() < 3e-5
+    seen = []
+
+    def entry(y, n1, precision="high"):
+        seen.append(y)
+        return got
+    tsf.use_planar_fft("always")
+    try:
+        orig, tfp.irfft2_spectrum = tfp.irfft2_spectrum, entry
+        assert tsf.irfftn(a, s=(128, 30)) is got
+    finally:
+        tfp.irfft2_spectrum = orig
+        tsf.use_planar_fft("auto")
+    assert len(seen) == 1 and seen[0] is a
+
+
+def test_spectrum_entry_rejects():
+    y = torch.zeros(2, 128, 17, dtype=torch.complex64)
+    with pytest.raises(TypeError):
+        tfp.irfft2_spectrum(y.real, 32)
+    with pytest.raises(TypeError):
+        tfp.irfft2_spectrum(y.to(torch.complex128), 32)
+    with pytest.raises(ValueError, match="does not match"):
+        tfp.irfft2_spectrum(y, 34)
+    with pytest.raises(ValueError, match="unsupported"):
+        tfp.irfft2_spectrum(torch.zeros(2, 96, 17, dtype=torch.complex64),
+                            32)
+    tfp.reset_launches()
+    assert tfp.irfft2_spectrum(y, 32).shape == (2, 128, 32)
+    assert tfp.LAUNCHES == {"rfft2_planar": 0, "irfft2_planar": 0}
 
 
 def test_plain_versions_take_both_precisions_and_reject():

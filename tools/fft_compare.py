@@ -8,15 +8,18 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
                                  [--variant NAME ...] [--rounds N]
 
 The builds are ``sporco_tpu_torch/csrc/fft2_planar.cu`` as it stands
-("change"), each ``--source`` (another version of that file, e.g. the
-parent commit's, written out with ``git show``), and each ``--variant``:
+("change"), each ``--source`` (another version of that file with the same
+C interface, e.g. the parent commit's, written out with ``git show``), and
+each ``--variant``:
 the current source with one design choice undone (see ``VARIANTS``).
 Each is compiled with the port's nvcc flags into ``build/compare/<name>/``
 and loaded through ctypes in place of the port's own library.  A round
 times every build in order and then in reverse (parent, change, change,
 parent), at the generic x-step's 64 planes of 512x512:
 
-- ``rfft2_planar`` and ``irfft2_planar`` by CUDA events around 10 calls;
+- ``rfft2_planar`` and ``irfft2_planar`` by CUDA events around 10 calls,
+  and the inverse as the FFT dispatch calls it on a complex64 spectrum
+  (``irfft2_spectrum``);
 - the device time of each of their kernels per call (``torch.profiler``);
 - ``torch.fft.rfft2``/``irfft2`` the same ways, and a device-to-device
   copy of the forward's input (the bytes of one pass) as the practical
@@ -60,6 +63,14 @@ VARIANTS = {
     # 16 points per thread at N0 = 512 (16 x 16 x 2, two exchanges)
     "points16": [("static constexpr int R = L0 >= 9 ? 32 : 16;",
                   "static constexpr int R = 16;")],
+    # the inverse's row pass in reverse block order (starting from the
+    # planes the column pass wrote first)
+    "rows_reverse": [(
+        "row_twiddles<L, 1, 0>(twp, tw);\n"
+        "  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * C::RB;",
+        "row_twiddles<L, 1, 0>(twp, tw);\n"
+        "  const int64_t row0 =\n"
+        "      static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * C::RB;")],
 }
 
 
@@ -82,8 +93,10 @@ def load(path):
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.rfft2_planar_launch.argtypes = [vp] * 5 + [i64, i32, i32, vp]
     lib.rfft2_planar_launch.restype = ctypes.c_int
-    lib.irfft2_planar_launch.argtypes = [vp] * 7 + [i64, i32, i32, vp]
+    lib.irfft2_planar_launch.argtypes = [vp] * 6 + [i64, i32, i32, vp]
     lib.irfft2_planar_launch.restype = ctypes.c_int
+    lib.irfft2_spectrum_launch.argtypes = [vp] * 5 + [i64, i32, i32, vp]
+    lib.irfft2_spectrum_launch.restype = ctypes.c_int
     return lib
 
 
@@ -98,11 +111,17 @@ def measure(name, lib, x, spec):
               float((got_i - ref.imag).abs().max())) / scale
     fwd = lambda: tfp.rfft2_planar(x)                     # noqa: E731
     inv = lambda: tfp.irfft2_planar(yr, yi, n1)           # noqa: E731
+    dispatch = lambda: tfp.irfft2_spectrum(spec, n1)      # noqa: E731
+    xref = torch.fft.irfft2(spec.to(torch.complex128), s=SHAPE[-2:])
     return {"build": name, "forward_rel_err": err,
+            "inverse_abs_err": float((inv() - xref).abs().max()),
+            "dispatch_abs_err": float((dispatch() - xref).abs().max()),
             "rfft2_planar_ms": cuda_ms(fwd, batch=BATCH),
             "irfft2_planar_ms": cuda_ms(inv, batch=BATCH),
+            "dispatch_ms": cuda_ms(dispatch, batch=BATCH),
             "rfft2_planar_kernels": device_ms_by_kernel(fwd),
-            "irfft2_planar_kernels": device_ms_by_kernel(inv)}
+            "irfft2_planar_kernels": device_ms_by_kernel(inv),
+            "dispatch_kernels": device_ms_by_kernel(dispatch)}
 
 
 def main(argv):
