@@ -29,16 +29,20 @@ Phases, each printing one JSON line on stdout:
 
 1. ``device``: the card's name and power limit, torch and CUDA versions;
 2. ``build``: the kernels' nvcc builds, one process per source, all
-   started together (seconds, ptxas report);
+   started together (seconds, ptxas report); for ``csc_iter`` and
+   ``pgm_iter`` their SASS by kernel (``cuobjdump``): it fails if ptxas
+   reports a stack frame or spill, or if the forward pass has no HGMMA;
 3. ``kernel``: ``csc_iter`` against its plain PyTorch version on the card
-   at the headline geometry over the flag grid, and both timed;
+   at the headline geometry over the flag grid (with each output's error
+   against a float64 run beside it), two launches bit for bit alike, the
+   adjoint's A bit for bit cuBLAS's, kernel and plain version timed, the
+   kernel also by pass (``torch.profiler``);
 4. ``parity``: 10 ADMM iterations of the headline problem on the card
    against the port on the CPU (plain version), stats row by row;
 5. ``solve``: the ADMM headline solve through ``ConvBPDN.solve()`` at FFT
    precision "high" (``bench.py``'s, the glue on ``torch.fft``); the
    ``csc_iter`` launch count must equal the iterations run;
-6. ``pgm_kernel``: ``pgm_iter`` against its plain version on the card at
-   the headline geometry over its flag grid, and both timed;
+6. ``pgm_kernel``: ``pgm_iter`` likewise, over its flag grid;
 7. ``pgm_parity``: 10 FISTA iterations on the card against the CPU,
    unmasked and with about 30% of the pixels masked out;
 8. ``pgm_solve``: the FISTA solve at precision "high"; the ``pgm_iter``
@@ -152,9 +156,10 @@ GRAD_MU = 10.0          # gradient penalty of the gradreg problem
 GRAD_LAYOUTS = [(128, 63), (200, 8)]
 ELASTIC_MU = 0.05       # l2 penalty of the elastic net
 
-# Kernel against plain version, both fp32 on the card: they differ only in
-# summation order (k = 256 for G2 @ Wa, k = 4096 for R1/R2), about 1e-6
-# relative; 1e-5 of each output's largest magnitude.
+# Kernel against plain version on the card: A = G2 @ Wa is fp32 FFMA in
+# both, summed over k = 256 in order (bit for bit alike); R1/R2 sum over
+# k = 4096 on the tensor cores as split products against cuBLAS's fp32
+# sums, about 1e-6 relative; 1e-5 of each output's largest magnitude.
 KERNEL_RTOL = 1e-5
 # Card (kernel) against CPU (plain version) over 10 iterations: the
 # tolerances of the CPU test of the port against the JAX package.
@@ -174,6 +179,10 @@ OBJ_AGREE = 1e-3
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+# bf16 tensor-core products per fp32 product in the split products of
+# csrc/csc_tiles.cuh (the six of order <= 2 of three-term splits)
+SPLIT_PASSES = 6
 PEAK_HBM_BYTES = 3.35e12
 # float operations per state element in each kernel's epilogue, beside
 # the 2*k of each product: csc_iter's update of Y and U and six sums;
@@ -249,22 +258,41 @@ def _bound_ms(flops, floats):
                                  else "bytes")
 
 
+def _split_bounds(pos, C, T, epi_flops, floats):
+    """The bounds of csc_iter/pgm_iter.  ``bound_ms``: all three products
+    as fp32-faithful splits on the tensor cores (SPLIT_PASSES bf16
+    products each at 989 TFLOP/s) and the epilogue in fp32, against the
+    bytes.  ``bound_as_built_ms``: the work as the kernel does it (the
+    adjoint G2 @ Wa in fp32 FFMA, the forward pair split on the tensor
+    cores; the forward needs the adjoint's output, so the two add).
+    ``bound_fp32_ms``: all in fp32 FFMA (the bound of PRs 4-10)."""
+    prod = 2 * pos * T * C
+    t_epi = epi_flops * pos * C / PEAK_FP32_FLOPS * 1e3
+    t_bytes = 4 * floats / PEAK_HBM_BYTES * 1e3
+    t_tensor = SPLIT_PASSES * 3 * prod / PEAK_BF16_FLOPS * 1e3 + t_epi
+    t_built = (prod / PEAK_FP32_FLOPS * 1e3 + t_epi
+               + SPLIT_PASSES * 2 * prod / PEAK_BF16_FLOPS * 1e3)
+    return {"bound_ms": max(t_tensor, t_bytes),
+            "bound_by": "operations" if t_tensor >= t_bytes else "bytes",
+            "bound_as_built_ms": max(t_built, t_bytes),
+            "bound_fp32_ms": _bound_ms(3 * prod + epi_flops * pos * C,
+                                       floats)[0]}
+
+
 def csc_iter_bound_ms(pos, C, T, emit_px, vectors):
-    """Least time of one csc_iter call (see :func:`_bound_ms`)."""
-    flops = 3 * 2 * pos * T * C + EPI_FLOPS * pos * C
+    """The bounds of one csc_iter call (see :func:`_split_bounds`)."""
     floats = (pos * T + 2 * pos * C + 2 * T * C            # G2 Y U Wa Wf
               + 2 * pos * C + 2 * pos * T + 6              # Yn Un R1 R2 sums
               + (pos * C if emit_px else 0) + (2 * C if vectors else 0))
-    return _bound_ms(flops, floats)
+    return _split_bounds(pos, C, T, EPI_FLOPS, floats)
 
 
 def pgm_iter_bound_ms(pos, C, T, vectors):
-    """Least time of one pgm_iter call (see :func:`_bound_ms`)."""
-    flops = 3 * 2 * pos * T * C + PGM_EPI_FLOPS * pos * C
+    """The bounds of one pgm_iter call (see :func:`_split_bounds`)."""
     floats = (pos * T + 2 * pos * C + 2 * T * C            # G2 Y Xprv Wa Wf
               + 2 * pos * C + 2 * pos * T + 2              # X Yn R1 RX sums
               + (2 * C if vectors else 0))
-    return _bound_ms(flops, floats)
+    return _split_bounds(pos, C, T, PGM_EPI_FLOPS, floats)
 
 
 def tail_bound_ms(R, C, vectors):
@@ -376,8 +404,100 @@ def headline_weights(dev, D):
     return Wf, Wa, ((N // PS) ** 2, PS * PS * M, Wa.shape[0])
 
 
+def float64_errors(names, got, ref, ref64):
+    """Each output's largest difference from a float64 run of the plain
+    version, relative to that output's largest magnitude there, for the
+    kernel and the plain version (a report beside the gate, which is the
+    plain version)."""
+    out = {"kernel": {}, "plain": {}}
+    for name, k, p, d in zip(names, got, ref, ref64):
+        scale = max(float(d.abs().max()), 1e-300)
+        out["kernel"][name] = float((k.double() - d).abs().max()) / scale
+        out["plain"][name] = float((p.double() - d).abs().max()) / scale
+    return out
+
+
+def check_repeatable(kernel, run):
+    """Two launches from the same inputs give the same bits, sums
+    included."""
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        if x is not None and not torch.equal(x, y):
+            raise AssertionError(f"{kernel}: two launches from the same "
+                                 "inputs differ")
+    return True
+
+
+def sass_counts(lib):
+    """Instructions of interest by kernel in a built library, from
+    ``cuobjdump -sass`` (beside nvcc)."""
+    tool = os.path.join(os.path.dirname(_nvcc.find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    counts, fn = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            fn = ln.split(":", 1)[1].strip()
+            for short in ("iter_main", "iter_fwd", "pgm_main", "pgm_fwd",
+                          "sums_kernel"):
+                if short in fn:
+                    fn = short
+            counts[fn] = {"HGMMA": 0, "HMMA": 0, "FFMA": 0, "LDGSTS": 0}
+        elif fn is not None:
+            op = ln.split("*/", 1)[-1].strip().split(" ")[0].split(".")[0]
+            if op in counts[fn]:
+                counts[fn][op] += 1
+    return counts
+
+
+def check_split_build(name):
+    """csc_iter/pgm_iter as built: no kernel spills or has a stack frame
+    (ptxas, when this run built the library), and the forward pass runs
+    its products on the tensor cores (HGMMA, wgmma, in its SASS)."""
+    info = _nvcc.BUILD_INFO[name]
+    for ln in info["log"].splitlines():
+        if "stack frame" in ln and any(
+                int(w) for w in ln.replace(",", " ").split() if w.isdigit()):
+            raise AssertionError(f"{name}: ptxas reports {ln.strip()!r}")
+    counts = sass_counts(info["path"])
+    fwd = "iter_fwd" if name == "csc_iter" else "pgm_fwd"
+    if not counts.get(fwd, {}).get("HGMMA"):
+        raise AssertionError(f"{name}: no HGMMA in {fwd}: {counts}")
+    return counts
+
+
+def adjoint_rounding(G2, Y0, U0, Wa, Wf, wf3, rlx, us, scale):
+    """Why csc_iter's adjoint is fp32 FFMA summed over k in order: the
+    share of A = G2 @ Wa that the kernel gives bit for bit as cuBLAS does
+    (read as PX at scale 0), and how far Un moves, relative to its scale,
+    when the plain version gets the correctly rounded A (the float64
+    product rounded once, fed as A @ I) in place of cuBLAS's: the most
+    accurate A there is, yet not cuBLAS's bits."""
+    def run(fn, g2, wa, sc, **kw):
+        return fn(g2, Y0.clone(), U0.clone(), wa, Wf, 0.0143, 1.0, rlx, us,
+                  sc, emit_px=True, **kw)
+    a_kernel = run(tci.csc_iter, G2, Wa, 0.0, wf_split=wf3)[0]
+    a_plain = run(tci.csc_iter_plain, G2, Wa, 0.0)[0]
+    a_exact = (G2.double() @ Wa.double()).float()
+    eye = torch.eye(a_exact.shape[1], device=G2.device)
+    un_plain = run(tci.csc_iter_plain, G2, Wa, scale)[2]
+    un_exact = run(tci.csc_iter_plain, a_exact, eye, scale)[2]
+    ulp = torch.abs(torch.nextafter(a_exact, torch.full_like(a_exact,
+                                                             math.inf))
+                    - a_exact)
+    return {"kernel_A_bits_as_cublas": float(
+                (a_kernel == a_plain).float().mean()),
+            "cublas_A_max_ulps": float(((a_plain - a_exact).abs()
+                                        / ulp).max()),
+            "un_rel_err_correctly_rounded_A": float(
+                (un_exact - un_plain).abs().max()
+                / un_plain.abs().max())}
+
+
 def phase_kernel(dev, D):
     Wf, Wa, (pos, C, T) = headline_weights(dev, D)
+    wf3 = tci.split_weight(Wf)
     g = torch.Generator(device=dev).manual_seed(1)
 
     def randn(*shape):
@@ -394,29 +514,45 @@ def phase_kernel(dev, D):
         for nonneg in (False, True):
             for vectors in (False, True):
                 thr, wl1 = (thr_v, wl1_v) if vectors else (0.0143, 1.0)
-                outs = []
-                for fn in (tci.csc_iter, tci.csc_iter_plain):
-                    Y, U = Y0.clone(), U0.clone()
-                    o = fn(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale,
-                           nonneg=nonneg, emit_px=emit_px)
-                    outs.append([t for t in o if t is not None])
+
+                def run(fn, dt=torch.float32):
+                    Y, U = Y0.to(dt, copy=True), U0.to(dt, copy=True)
+                    o = fn(G2.to(dt), Y, U, Wa.to(dt), Wf.to(dt), thr, wl1,
+                           rlx, us, scale, nonneg=nonneg, emit_px=emit_px)
+                    return [t for t in o if t is not None]
+                got = run(lambda *a, **k: tci.csc_iter(*a, **k,
+                                                       wf_split=wf3))
+                ref = run(tci.csc_iter_plain)
                 names = (["PX"] if emit_px else []) + ["Yn", "Un", "R1",
                                                        "R2", "sums"]
-                errs, ae = compare_outputs(
-                    "csc_iter", names, *outs,
-                    f"emit_px={emit_px} nonneg={nonneg} vectors={vectors}")
+                where = f"emit_px={emit_px} nonneg={nonneg} vectors={vectors}"
+                errs, ae = compare_outputs("csc_iter", names, got, ref,
+                                           where)
                 max_abs = max(max_abs, ae)
                 grid.append({"emit_px": emit_px, "nonneg": nonneg,
-                             "vectors": vectors, "rel_err": errs})
-    # time the main path's configuration
+                             "vectors": vectors, "rel_err": errs,
+                             "vs_float64": float64_errors(
+                                 names, got, ref,
+                                 run(tci.csc_iter_plain, torch.float64))})
+    adjoint = adjoint_rounding(G2, Y0, U0, Wa, Wf, wf3, rlx, us, scale)
+    if adjoint["kernel_A_bits_as_cublas"] < 1.0:
+        # the grid's Un gate holds only while A is cuBLAS's bit for bit
+        raise AssertionError(
+            "csc_iter: the adjoint's A is no longer cuBLAS's bit for bit "
+            f"({adjoint}); cuBLAS changed its summation order, and Un's "
+            f"{KERNEL_RTOL} gate against the plain version cannot hold")
+    # the main path's configuration: repeatable, timed, and by pass
     Y, U = Y0.clone(), U0.clone()
 
     def run(fn):
         return lambda: fn(G2, Y, U, Wa, Wf, 0.0143, 1.0, rlx, us, scale,
-                          nonneg=False, emit_px=False)
+                          nonneg=False, emit_px=False, wf_split=wf3)
+    check_repeatable("csc_iter", lambda: tci.csc_iter(
+        G2, Y0.clone(), U0.clone(), Wa, Wf, 0.0143, 1.0, rlx, us, scale,
+        emit_px=True, wf_split=wf3))
     kernel_ms = cuda_ms(run(tci.csc_iter))
+    pass_ms = device_ms_by_kernel(run(tci.csc_iter))
     plain_ms = cuda_ms(run(tci.csc_iter_plain))
-    bound_ms, bound_by = csc_iter_bound_ms(pos, C, T, False, False)
     # the fp32 rate cuBLAS reaches on this card for the kernel's two
     # product shapes (TF32 off): a check of the 67 TFLOP/s in the bound
     with fp32_precision():
@@ -425,10 +561,13 @@ def phase_kernel(dev, D):
     gflop = 2 * pos * T * C / 1e9
     return {"geometry": {"pos": pos, "C": C, "T": T},
             "tolerance_rel": KERNEL_RTOL, "grid": grid,
-            "max_abs_err": max_abs, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
+            "repeatable": True, "adjoint": adjoint, "max_abs_err": max_abs,
+            "kernel_ms": kernel_ms, "pass_ms": pass_ms,
+            "plain_ms": plain_ms,
+            **csc_iter_bound_ms(pos, C, T, False, False),
             "kernel_tflops": 3 * gflop / kernel_ms,
+            "forward_bf16_tflops": SPLIT_PASSES * 2 * gflop / pass_ms.get(
+                "iter_fwd", float("nan")),
             "cublas_fp32_tflops": {"G2@Wa": gflop / adj_ms,
                                    "Y@Wf": gflop / fwd_ms}}
 
@@ -492,6 +631,7 @@ def pgm_options(max_iter=PGM_ITERS):
 
 def phase_pgm_kernel(dev, D):
     Wf, Wa, (pos, C, T) = headline_weights(dev, D)
+    wf3 = tci.split_weight(Wf)
     g = torch.Generator(device=dev).manual_seed(2)
 
     def randn(*shape):
@@ -505,38 +645,54 @@ def phase_pgm_kernel(dev, D):
     thr_v = 0.01 + 0.02 * torch.rand(C, generator=g, device=dev)
     wl1_v = 0.5 + torch.rand(C, generator=g, device=dev)
     rL = 1.0 / PGM_L
+    names = ("X", "Yn", "R1", "RX", "sums")
     grid, max_abs = [], 0.0
     for nonneg in (False, True):
         for vectors in (False, True):
             for beta in (0.0, 0.7):
                 thr, wl1 = (thr_v, wl1_v) if vectors else (5e-4, 1.0)
-                outs = []
-                for fn in (tpi.pgm_iter, tpi.pgm_iter_plain):
-                    Y, X = Y0.clone(), X0.clone()
-                    outs.append(fn(G2, Y, X, Wa, Wf, thr, wl1, rL, beta,
-                                   nonneg=nonneg))
+
+                def run(fn, dt=torch.float32):
+                    return fn(G2.to(dt), Y0.to(dt, copy=True),
+                              X0.to(dt, copy=True), Wa.to(dt),
+                              Wf.to(dt), thr, wl1, rL, beta, nonneg=nonneg)
+                got = run(lambda *a, **k: tpi.pgm_iter(*a, **k,
+                                                       wf_split=wf3))
+                ref = run(tpi.pgm_iter_plain)
                 errs, ae = compare_outputs(
-                    "pgm_iter", ("X", "Yn", "R1", "RX", "sums"), *outs,
+                    "pgm_iter", names, got, ref,
                     f"nonneg={nonneg} vectors={vectors} beta={beta}")
                 max_abs = max(max_abs, ae)
-                nnz = float((outs[0][0] != 0).float().mean())
+                nnz = float((got[0] != 0).float().mean())
                 grid.append({"nonneg": nonneg, "vectors": vectors,
                              "beta": beta, "x_nonzero": nnz,
-                             "rel_err": errs})
-    # time the main path's configuration (scalar thr and wl1)
+                             "rel_err": errs,
+                             "vs_float64": float64_errors(
+                                 names, got, ref,
+                                 run(tpi.pgm_iter_plain, torch.float64))})
+    # the main path's configuration (scalar thr and wl1): repeatable,
+    # timed, and by pass
     Y, X = Y0.clone(), X0.clone()
 
     def run(fn):
-        return lambda: fn(G2, Y, X, Wa, Wf, 5e-4, 1.0, rL, 0.7)
+        return lambda: fn(G2, Y, X, Wa, Wf, 5e-4, 1.0, rL, 0.7,
+                          wf_split=wf3)
+    check_repeatable("pgm_iter", lambda: tpi.pgm_iter(
+        G2, Y0.clone(), X0.clone(), Wa, Wf, 5e-4, 1.0, rL, 0.7,
+        wf_split=wf3))
     kernel_ms = cuda_ms(run(tpi.pgm_iter))
+    pass_ms = device_ms_by_kernel(run(tpi.pgm_iter))
     plain_ms = cuda_ms(run(tpi.pgm_iter_plain))
-    bound_ms, bound_by = pgm_iter_bound_ms(pos, C, T, False)
     gflop = 2 * pos * T * C / 1e9
     return {"geometry": {"pos": pos, "C": C, "T": T},
             "tolerance_rel": KERNEL_RTOL, "grid": grid,
-            "max_abs_err": max_abs, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "kernel_tflops": 3 * gflop / kernel_ms}
+            "repeatable": True, "max_abs_err": max_abs,
+            "kernel_ms": kernel_ms, "pass_ms": pass_ms,
+            "plain_ms": plain_ms,
+            **pgm_iter_bound_ms(pos, C, T, False),
+            "kernel_tflops": 3 * gflop / kernel_ms,
+            "forward_bf16_tflops": SPLIT_PASSES * 2 * gflop / pass_ms.get(
+                "pgm_fwd", float("nan"))}
 
 
 def phase_pgm_parity(dev, D, S, lmbda):
@@ -1135,13 +1291,24 @@ def fft_entry(name, fft, generic, replaces, route=None):
 
 
 def kernel_entry(name, kern, solve, replaces, source=None):
-    return {"name": name, "route": "cuda",
-            "source": source or f"sporco_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": solve["launches"][name],
-            "max_abs_err": kern["max_abs_err"], "ms": kern["kernel_ms"],
-            "kernel_ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
-            "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-            "library_ms": None}
+    out = {"name": name, "route": "cuda",
+           "source": source or f"sporco_tpu_torch/csrc/{name}.cu",
+           "replaces": replaces, "launches": solve["launches"][name],
+           "max_abs_err": kern["max_abs_err"], "ms": kern["kernel_ms"],
+           "kernel_ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
+           "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
+           "library_ms": None}
+    for key in ("pass_ms", "bound_as_built_ms", "bound_fp32_ms"):
+        if key in kern:
+            out[key] = kern[key]
+    if "grid" in kern and "vs_float64" in kern["grid"][0]:
+        # the largest error against float64 over the grid, by output
+        out["vs_float64"] = {
+            who: {o: max(g["vs_float64"][who][o] for g in kern["grid"]
+                         if o in g["vs_float64"][who])
+                  for o in kern["grid"][-1]["vs_float64"][who]}
+            for who in ("kernel", "plain")}
+    return out
 
 
 def main(argv):
@@ -1177,6 +1344,8 @@ def main(argv):
                 "build_s": info["seconds"], "cached": info["cached"],
                 "ptxas": [ln for ln in info["log"].splitlines()
                           if "registers" in ln or "spill" in ln]}
+        for name in ("csc_iter", "pgm_iter"):
+            out[name]["sass"] = check_split_build(name)
         return out
     run_phase("build", build)
 

@@ -4,7 +4,8 @@
 // Replaces the TPU kernel `csc_iter` of sporco_tpu/ops/pallas_csc_iter.py
 // (`_iter_kernel`, launched by `_iter_call`).  Given the rolled adjoint
 // operand G2 (pos, T), the state Y, U (pos, C) and the polyphase weights
-// Wa (T, C), Wf (C, T), it computes in straight fp32:
+// Wa (T, C) and Wf (C, T), Wf given as its bf16 split Wf3 (see
+// csc_tiles.cuh), it computes, with products as accurate as fp32 sums:
 //
 //     A   = G2 @ Wa
 //     PX  = scale * (Y - us*U) + A
@@ -21,27 +22,29 @@
 // What bounds it.  At the headline problem (512x512 image, 64 8x8
 // filters) pos = 4096, C = 4096, T = 256: three products of
 // 4096 x 256 x 4096, 25.8 GFLOP per call, against about 0.29 GB that
-// must move (read G2, Y, U, Wa, Wf; write Yn, Un, R1, R2).  At the
-// H100 SXM's 67 TFLOP/s of fp32 FFMA and 3.35 TB/s that is 0.385 ms of
-// arithmetic against 0.087 ms of memory traffic: the kernel is bound by
-// fp32 operations.  The TPU splits each product into bf16 passes only
-// because Mosaic cannot lower f32 dots; here every product is fp32 FFMA
-// with fp32 accumulation, at least as accurate as the TPU's 4/3/3-pass
-// schedule (the forward product R1 needs about 5e-7 relative accuracy).
+// must move (read G2, Y, U, Wa, Wf; write Yn, Un, R1, R2).  In fp32 FFMA
+// at 67 TFLOP/s the products take 0.385 ms against 0.087 ms for the
+// bytes: the kernel is bound by operations.  The forward pair (two of
+// the three products) runs on the tensor cores as six bf16 products of
+// three-term splits, as accurate as fp32 sums, 103 GFLOP at
+// 989 TFLOP/s: 0.104 ms; the adjoint stays fp32 FFMA, 0.128 ms, because
+// Un cancels down to the threshold's magnitude and needs A bit for bit
+// as an fp32 sum in order gives it (csc_tiles.cuh says why).
 //
-// Design (simple first; TF32x3 on wgmma, TMA and fusing R1/R2 into the
-// first pass are later work; the tiles are in csc_tiles.cuh, shared with
-// pgm_iter.cu):
+// Design (the tiles are in csc_tiles.cuh, shared with pgm_iter.cu):
 //   1. iter_main: a 128x128-tile SGEMM of G2 @ Wa (8x8 outputs per
-//      thread, k-tiles of 8 in shared memory) whose epilogue runs the
-//      elementwise update on its own tile of Y and U.  Each element is
-//      read and written by one thread, and no other block reads it, so
-//      the in-place update is safe.  Each block writes one partial of
-//      each sum to a scratch buffer; there are no float atomics, so the
-//      sums do not change from run to run.
-//   2. iter_fwd: a 64x64-tile SGEMM over k = C that forms Yn - Un and Un
-//      while staging them in shared memory and accumulates R1 and R2 in
-//      one pass over Yn and Un.
+//      thread, k-tiles of 8 in shared memory, each output summed over k
+//      in order) whose epilogue runs the elementwise update on its own
+//      tile of Y and U.  Each element is read and written by one thread,
+//      and no other block reads it, so the in-place update is safe.  Each
+//      block writes one partial of each sum to a scratch buffer; there
+//      are no float atomics, so the sums do not change from run to run.
+//   2. iter_fwd: R1 and R2 on the tensor cores in one pass over k = C,
+//      64x128 tiles of 8 warps, forming Yn - Un and Un as their fragments
+//      load, so each Wf tile serves both; a ring of three k-tiles fed by
+//      cp.async.  The 128 blocks, one per SM, fill the card in one wave
+//      with the whole 4096-deep sum in each block: no split-k, no
+//      reduction.
 //   3. sums_kernel<6>: one block reduces the per-block partials in a fixed
 //      order, in double.
 // Ragged edges are masked, so any pos, C and T are accepted.  The
@@ -82,7 +85,7 @@ __device__ __forceinline__ void update(const Epi& p, float a, float y,
   s[5] += fabsf(px) * w;
 }
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
 iter_main(const float* __restrict__ G2, float* __restrict__ Y,
           float* __restrict__ U, const float* __restrict__ Wa,
           const float* __restrict__ thr_v, float thr_s,
@@ -145,19 +148,19 @@ iter_main(const float* __restrict__ G2, float* __restrict__ Y,
 
 // R1 stages Yn - Un, R2 stages Un.
 struct StageDiff {
-  __device__ __forceinline__ void operator()(float yn, float un, float& p,
-                                             float& q) const {
-    p = yn - un;
-    q = un;
+  __device__ __forceinline__ void operator()(float (&v)[2][8]) const {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[0][e] -= v[1][e];
   }
 };
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(F_NT, 1)
 iter_fwd(const float* __restrict__ Yn, const float* __restrict__ Un,
-         const float* __restrict__ Wf, float* __restrict__ R1,
+         const uint16_t* __restrict__ Wf3, float* __restrict__ R1,
          float* __restrict__ R2, int64_t pos, int64_t C, int64_t T,
          int vec) {
-  fwd_pair(Yn, Un, Wf, R1, R2, pos, C, T, vec, StageDiff());
+  extern __shared__ __align__(16) unsigned char smem[];
+  fwd_pair(smem, Yn, Un, Wf3, R1, R2, pos, C, T, vec, StageDiff());
 }
 
 }  // namespace
@@ -169,13 +172,14 @@ int64_t csc_iter_scratch_floats(int64_t pos, int64_t C) {
   return ceil_div(pos, A_BM) * ceil_div(C, A_BN) * NSUM;
 }
 
-// Launch the three kernels on `stream`.  thr_v / wl1_v may be null, in
-// which case the scalars thr_s / wl1_s apply to every channel; PX may be
-// null (not stored).  `vec` allows 16-byte accesses: the caller sets it
-// only when C and T are multiples of 4 and every pointer is 16-byte
-// aligned.  Returns a cudaError_t.
+// Launch the three kernels on `stream`.  Wf3 is the bf16 split of Wf,
+// (3, round_up(C, 32), round_up(T, 8)), zero-padded.  thr_v / wl1_v may
+// be null, in which case the scalars thr_s / wl1_s apply to every
+// channel; PX may be null (not stored).  `vec` allows 16-byte accesses:
+// the caller sets it only when C and T are multiples of 4 and every
+// pointer is 16-byte aligned.  Returns a cudaError_t.
 int csc_iter_launch(const float* G2, float* Y, float* U, const float* Wa,
-                    const float* Wf, const float* thr_v, float thr_s,
+                    const uint16_t* Wf3, const float* thr_v, float thr_s,
                     const float* wl1_v, float wl1_s, float rlx, float us,
                     float scale, int nonneg, int vec, float* PX, float* R1,
                     float* R2, float* part, float* sums, int64_t pos,
@@ -185,17 +189,20 @@ int csc_iter_launch(const float* G2, float* Y, float* U, const float* Wa,
   const int64_t g2x = ceil_div(pos, F_BM), g2y = ceil_div(T, F_BN);
   if (g1x > 0x7fffffff || g2x > 0x7fffffff || g1y > 65535 || g2y > 65535)
     return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      iter_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Epi p{rlx, us, scale, nonneg};
 
   iter_main<<<dim3((unsigned)g1x, (unsigned)g1y), NT, 0, st>>>(
       G2, Y, U, Wa, thr_v, thr_s, wl1_v, wl1_s, p, PX, part, pos, C, T,
       vec);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  iter_fwd<<<dim3((unsigned)g2x, (unsigned)g2y), NT, 0, st>>>(
-      Y, U, Wf, R1, R2, pos, C, T, vec);
+  iter_fwd<<<dim3((unsigned)g2x, (unsigned)g2y), F_NT, F_SMEM, st>>>(
+      Y, U, Wf3, R1, R2, pos, C, T, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

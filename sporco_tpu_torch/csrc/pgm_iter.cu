@@ -4,8 +4,9 @@
 // Replaces the TPU kernel `pgm_iter` of sporco_tpu/ops/pallas_csc_iter.py
 // (`_pgm_kernel`, launched by `_pgm_call`).  Given the rolled gradient
 // operand G2 (pos, T), the extrapolation point Y and the previous
-// iterate Xprv (pos, C) and the polyphase weights Wa (T, C), Wf (C, T),
-// it computes in straight fp32:
+// iterate Xprv (pos, C) and the polyphase weights Wa (T, C) and
+// Wf (C, T), Wf given as its bf16 split Wf3 (see csc_tiles.cuh), it
+// computes, with products as accurate as fp32 sums:
 //
 //     A   = G2 @ Wa
 //     V   = Y - rL * A                      (rL = 1/L)
@@ -20,17 +21,15 @@
 // What bounds it.  At the headline problem (512x512 image, 64 8x8
 // filters) pos = 4096, C = 4096, T = 256: three products of
 // 4096 x 256 x 4096, 25.8 GFLOP per call, against about 0.29 GB that
-// must move (read G2, Y, Xprv, Wa, Wf; write X, Yn, R1, RX).  At the
-// H100 SXM's 67 TFLOP/s of fp32 FFMA and 3.35 TB/s that is 0.385 ms of
-// arithmetic against 0.086 ms of memory traffic: the kernel is bound by
-// fp32 operations.  The TPU splits each product into bf16 passes only
-// because Mosaic cannot lower f32 dots; here every product is fp32 FFMA
-// with fp32 accumulation (R1 feeds a residual that cancels near
-// convergence and needs about 5e-7 relative accuracy, which rules out
-// TF32).
+// must move (read G2, Y, Xprv, Wa, Wf; write X, Yn, R1, RX).  In fp32
+// FFMA at 67 TFLOP/s the products take 0.385 ms against 0.086 ms for the
+// bytes: the kernel is bound by operations.  R1 feeds a residual that
+// cancels near convergence and needs products as accurate as fp32 sums:
+// the forward pair runs on the tensor cores as six bf16 products of
+// three-term splits, 103 GFLOP at 989 TFLOP/s: 0.104 ms; the adjoint
+// stays fp32 FFMA (0.128 ms), the tile csc_iter needs.
 //
-// Design (simple first; the tiles are in csc_tiles.cuh, shared with
-// csc_iter.cu, and TF32x3 on wgmma and TMA are later work):
+// Design (the tiles are in csc_tiles.cuh, shared with csc_iter.cu):
 //   1. pgm_main: a 128x128-tile SGEMM of G2 @ Wa (8x8 outputs per
 //      thread, k-tiles of 8 in shared memory) whose epilogue runs the
 //      FISTA update on its own tile of Y and Xprv.  Each element is read
@@ -38,10 +37,10 @@
 //      in-place update is safe.  Each block writes one partial of each
 //      sum to a scratch buffer; there are no float atomics, so the sums
 //      (which the stopping test reads) do not change from run to run.
-//   2. pgm_fwd: a 64x64-tile SGEMM over k = C that stages Yn and X in
-//      shared memory and accumulates R1 and RX in one pass, loading each
-//      Wf tile once for both.  A row of R1 needs all C channels of the
-//      updated Yn, so it follows pgm_main on the stream.
+//   2. pgm_fwd: R1 and RX on the tensor cores in one pass over k = C,
+//      64x128 tiles of 8 warps, loading each Wf tile once for both; 128
+//      blocks fill the card in one wave.  A row of R1 needs all C
+//      channels of the updated Yn, so it follows pgm_main on the stream.
 //   3. sums_kernel<2>: one block reduces the per-block partials in a fixed
 //      order, in double.
 // Ragged edges are masked, so any pos, C and T are accepted.  The
@@ -74,7 +73,7 @@ __device__ __forceinline__ void update(const Epi& p, float a, float y,
   s[1] += fabsf(x) * w;
 }
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
 pgm_main(const float* __restrict__ G2, float* __restrict__ Y,
          float* __restrict__ Xp, const float* __restrict__ Wa,
          const float* __restrict__ thr_v, float thr_s,
@@ -135,19 +134,16 @@ pgm_main(const float* __restrict__ G2, float* __restrict__ Y,
 
 // R1 stages Yn, RX stages X.
 struct StageSame {
-  __device__ __forceinline__ void operator()(float yn, float x, float& p,
-                                             float& q) const {
-    p = yn;
-    q = x;
-  }
+  __device__ __forceinline__ void operator()(float (&)[2][8]) const {}
 };
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(F_NT, 1)
 pgm_fwd(const float* __restrict__ Yn, const float* __restrict__ X,
-        const float* __restrict__ Wf, float* __restrict__ R1,
+        const uint16_t* __restrict__ Wf3, float* __restrict__ R1,
         float* __restrict__ RX, int64_t pos, int64_t C, int64_t T,
         int vec) {
-  fwd_pair(Yn, X, Wf, R1, RX, pos, C, T, vec, StageSame());
+  extern __shared__ __align__(16) unsigned char smem[];
+  fwd_pair(smem, Yn, X, Wf3, R1, RX, pos, C, T, vec, StageSame());
 }
 
 }  // namespace
@@ -159,13 +155,14 @@ int64_t pgm_iter_scratch_floats(int64_t pos, int64_t C) {
   return ceil_div(pos, A_BM) * ceil_div(C, A_BN) * NSUM;
 }
 
-// Launch the three kernels on `stream`.  thr_v / wl1_v may be null, in
-// which case the scalars thr_s / wl1_s apply to every channel.  `vec`
-// allows 16-byte accesses: the caller sets it only when C and T are
-// multiples of 4 and every pointer is 16-byte aligned.  Returns a
-// cudaError_t.
+// Launch the three kernels on `stream`.  Wf3 is the bf16 split of Wf,
+// (3, round_up(C, 32), round_up(T, 8)), zero-padded.  thr_v / wl1_v may
+// be null, in which case the scalars thr_s / wl1_s apply to every
+// channel.  `vec` allows 16-byte accesses: the caller sets it only when C
+// and T are multiples of 4 and every pointer is 16-byte aligned.  Returns
+// a cudaError_t.
 int pgm_iter_launch(const float* G2, float* Y, float* Xp, const float* Wa,
-                    const float* Wf, const float* thr_v, float thr_s,
+                    const uint16_t* Wf3, const float* thr_v, float thr_s,
                     const float* wl1_v, float wl1_s, float rL, float beta,
                     int nonneg, int vec, float* R1, float* RX, float* part,
                     float* sums, int64_t pos, int64_t C, int64_t T,
@@ -175,16 +172,19 @@ int pgm_iter_launch(const float* G2, float* Y, float* Xp, const float* Wa,
   const int64_t g2x = ceil_div(pos, F_BM), g2y = ceil_div(T, F_BN);
   if (g1x > 0x7fffffff || g2x > 0x7fffffff || g1y > 65535 || g2y > 65535)
     return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      pgm_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Epi p{rL, beta, nonneg};
 
   pgm_main<<<dim3((unsigned)g1x, (unsigned)g1y), NT, 0, st>>>(
       G2, Y, Xp, Wa, thr_v, thr_s, wl1_v, wl1_s, p, part, pos, C, T, vec);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  pgm_fwd<<<dim3((unsigned)g2x, (unsigned)g2y), NT, 0, st>>>(
-      Y, Xp, Wf, R1, RX, pos, C, T, vec);
+  pgm_fwd<<<dim3((unsigned)g2x, (unsigned)g2y), F_NT, F_SMEM, st>>>(
+      Y, Xp, Wf3, R1, RX, pos, C, T, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

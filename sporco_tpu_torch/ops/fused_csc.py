@@ -53,7 +53,7 @@ import torch
 from sporco_tpu_torch._device import fp32_precision
 from sporco_tpu_torch.ops import csc_tail
 from sporco_tpu_torch.ops import fft as sf
-from sporco_tpu_torch.ops.csc_iter import csc_iter
+from sporco_tpu_torch.ops.csc_iter import csc_iter, split_weight
 from sporco_tpu_torch.ops.csc_tail import tail_ops
 from sporco_tpu_torch.ops.pgm_iter import pgm_iter
 from sporco_tpu_torch.solvers import pgm as _pgm
@@ -455,6 +455,7 @@ def _cbpdn_fused_run(cfg, params, opts, state):
         R1 = (PY - PU).reshape(pos, C) @ Wf
         R2 = PU.reshape(pos, C) @ Wf
         Ta = (ja0 + 1) * (ja1 + 1) * PS * PS
+        wf_split = split_weight(Wf)     # the kernel's, once per solve
 
     def beta_scale(rho):
         """The x-step's ``beta`` and ``scale``: the elastic net's
@@ -492,7 +493,7 @@ def _cbpdn_fused_run(cfg, params, opts, state):
             _, _, _, R1, R2, sums = csc_iter(
                 G2.reshape(pos, Ta), PY.view(pos, C), PU.view(pos, C), Wa,
                 Wf, thr, wl1p, rlx, us, scale, nonneg=cfg.non_neg,
-                emit_px=False)
+                emit_px=False, wf_split=wf_split)
         else:
             # the XLA body: the x-step, then the tail on the packed state
             PUt = float(us) * PU
@@ -754,6 +755,7 @@ def _pgm_fused_kernel_run(cfg, params, opts, state):
     PX = pack_state(state.X)
     PY = pack_state(state.Y)
     R1 = PY.reshape(pos, C) @ Wf
+    wf_split = split_weight(Wf)         # the kernel's, once per solve
     nanv = f32(np.nan)
 
     while k - k0 < opts.max_iter and rsdl >= stop_tol(opts, k):
@@ -766,7 +768,8 @@ def _pgm_fused_kernel_run(cfg, params, opts, state):
         beta = (tprv - f32(1.0)) / t
         _, _, R1, RX, sums = pgm_iter(
             G2.reshape(pos, Ta), PY.view(pos, C), PX.view(pos, C), Wa, Wf,
-            _thr(aux, L), wl1p, f32(1.0) / L, beta, nonneg=cfg.non_neg)
+            _thr(aux, L), wl1p, f32(1.0) / L, beta, nonneg=cfg.non_neg,
+            wf_split=wf_split)
         if opts.fast_solve:
             host = sums.cpu().numpy()
             objv = (np.nan,) * 3

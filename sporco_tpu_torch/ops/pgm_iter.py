@@ -15,7 +15,9 @@ both (pos, C), and the polyphase weights ``Wa`` (T, C) and ``Wf``
     sums = [||X - Y||^2, sum |wl1 * X|]
 
 ``X`` is written into ``Xprv`` and ``Yn`` into ``Y`` in place (the JAX
-kernel's aliasing ``{2: 0, 1: 1}``).
+kernel's aliasing ``{2: 0, 1: 1}``).  The products run as in
+``csc_iter``: ``A`` in fp32 FFMA, ``R1``/``RX`` on the tensor cores with
+``Wf`` split by :func:`~sporco_tpu_torch.ops.csc_iter.split_weight`.
 
 :func:`pgm_iter` launches the kernel for tensors on a CUDA device and
 runs :func:`pgm_iter_plain` for tensors on the CPU; any other device
@@ -28,7 +30,8 @@ import numpy as np
 import torch
 
 from sporco_tpu_torch._device import fp32_precision
-from sporco_tpu_torch.ops.csc_iter import _as_channels, _check
+from sporco_tpu_torch.ops.csc_iter import (_as_channels, _check,
+                                           _check_split)
 
 __all__ = ["pgm_iter", "pgm_iter_plain", "LAUNCHES", "reset_launches"]
 
@@ -42,9 +45,11 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def pgm_iter_plain(G2, Y, Xprv, Wa, Wf, thr, wl1, rL, beta, nonneg=False):
+def pgm_iter_plain(G2, Y, Xprv, Wa, Wf, thr, wl1, rL, beta, nonneg=False,
+                   wf_split=None):
     """The plain PyTorch version of the kernel (same arguments and
-    results as :func:`pgm_iter`), with fp32 contractions pinned."""
+    results as :func:`pgm_iter`; ``wf_split`` is not read), with fp32
+    contractions pinned."""
     C = Y.shape[1]
     thr = _as_channels(thr, C, Y.device)
     wl1 = _as_channels(wl1, C, Y.device)
@@ -66,7 +71,7 @@ def pgm_iter_plain(G2, Y, Xprv, Wa, Wf, thr, wl1, rL, beta, nonneg=False):
     return Xprv, Y, r1, rx, sums
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 5                  # G2 Y Xprv Wa Wf
+_ARGTYPES = ([ctypes.c_void_p] * 5                  # G2 Y Xprv Wa Wf3
              + [ctypes.c_void_p, ctypes.c_float,     # thr_v, thr_s
                 ctypes.c_void_p, ctypes.c_float,     # wl1_v, wl1_s
                 ctypes.c_float, ctypes.c_float,      # rL, beta
@@ -86,10 +91,13 @@ def _lib():
     return lib
 
 
-def pgm_iter(G2, Y, Xprv, Wa, Wf, thr, wl1, rL, beta, nonneg=False):
+def pgm_iter(G2, Y, Xprv, Wa, Wf, thr, wl1, rL, beta, nonneg=False,
+             wf_split=None):
     """One fused FISTA iteration; returns ``(X, Yn, R1, RX, sums)`` with
     ``X is Xprv`` and ``Yn is Y`` (updated in place).  ``thr``/``wl1``
-    are numbers or tensors of one element or of shape ``(C,)``."""
+    are numbers or tensors of one element or of shape ``(C,)``.
+    ``wf_split`` is ``split_weight(Wf)``, which the kernel reads in place
+    of ``Wf`` (a solve makes it once); on CUDA tensors it is required."""
     dev = Y.device
     if dev.type == "cpu":
         return pgm_iter_plain(G2, Y, Xprv, Wa, Wf, thr, wl1, rL, beta,
@@ -108,6 +116,7 @@ def pgm_iter(G2, Y, Xprv, Wa, Wf, thr, wl1, rL, beta, nonneg=False):
     _check("Wf", Wf, (C, T), dev)
     if Y.data_ptr() == Xprv.data_ptr():
         raise ValueError("Y and Xprv must be distinct buffers")
+    Wf3 = _check_split(wf_split, Wf, dev)
     thr = _as_channels(thr, C, dev)
     wl1 = _as_channels(wl1, C, dev)
     vecs = [v.contiguous() if isinstance(v, torch.Tensor) else None
@@ -118,8 +127,7 @@ def pgm_iter(G2, Y, Xprv, Wa, Wf, thr, wl1, rL, beta, nonneg=False):
     part = torch.empty(lib.pgm_iter_scratch_floats(pos, C),
                        dtype=torch.float32, device=dev)
     sums = torch.empty(NSUM, dtype=torch.float32, device=dev)
-    ptrs = [G2, Y, Xprv, Wa, Wf, r1, rx] + [v for v in vecs
-                                            if v is not None]
+    ptrs = [G2, Y, Xprv, Wa, r1, rx] + [v for v in vecs if v is not None]
     vec = int(C % 4 == 0 and T % 4 == 0
               and all(t.data_ptr() % 16 == 0 for t in ptrs))
 
@@ -129,7 +137,7 @@ def pgm_iter(G2, Y, Xprv, Wa, Wf, thr, wl1, rL, beta, nonneg=False):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pgm_iter_launch(
-            ptr(G2), ptr(Y), ptr(Xprv), ptr(Wa), ptr(Wf),
+            ptr(G2), ptr(Y), ptr(Xprv), ptr(Wa), ptr(Wf3),
             ptr(vecs[0]), 0.0 if vecs[0] is not None else thr,
             ptr(vecs[1]), 0.0 if vecs[1] is not None else wl1,
             float(np.float32(rL)), float(np.float32(beta)),

@@ -54,13 +54,14 @@ def _inputs(pos, C, T, vectors, dev, seed=0):
 def _run(fn, args, nonneg, emit_px=True):
     G2, Y, U, Wa, Wf, thr, wl1 = args
     out = fn(G2, Y.clone(), U.clone(), Wa, Wf, thr, wl1, RLX, US, SCALE,
-             nonneg=nonneg, emit_px=emit_px)
+             nonneg=nonneg, emit_px=emit_px, wf_split=tci.split_weight(Wf))
     return [None if o is None else o.cpu() for o in out]
 
 
 # (pos, C, T): the small slice geometry, then ragged edges of every tile
-# size and a single element
-GEOMS = [(64, 256, 256), (100, 200, 60), (129, 131, 7), (1, 3, 1)]
+# size, a single element, and the headline problem's packed geometry
+GEOMS = [(64, 256, 256), (100, 200, 60), (129, 131, 7), (1, 3, 1),
+         (4096, 4096, 256)]
 
 
 @pytest.mark.parametrize("geom", GEOMS, ids=str)
@@ -89,10 +90,36 @@ def test_unaligned_buffers_take_scalar_path(dev):
     Yo, Uo = Yb[1:].view(pos, C), Ub[1:].view(pos, C)
     Yo.copy_(Y)
     Uo.copy_(U)
-    out = tci.csc_iter(G2, Yo, Uo, Wa, Wf, thr, wl1, RLX, US, SCALE)
+    out = tci.csc_iter(G2, Yo, Uo, Wa, Wf, thr, wl1, RLX, US, SCALE,
+                       wf_split=tci.split_weight(Wf))
     for a, b in zip(out[1:], ref[1:]):
         assert float((a.cpu() - b).abs().max()) <= \
             1e-5 * float(b.abs().max())
+
+
+def test_kernel_is_repeatable(dev):
+    """Two launches from the same inputs give the same bits, sums
+    included: no float atomics, fixed reduction orders."""
+    G2, Y, U, Wa, Wf, thr, wl1 = _inputs(4096, 4096, 256, True, dev)
+    wf3 = tci.split_weight(Wf)
+    a, b = [tci.csc_iter(G2, Y.clone(), U.clone(), Wa, Wf, thr, wl1, RLX,
+                         US, SCALE, wf_split=wf3) for _ in range(2)]
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_split_weight_on_card_matches_cpu(dev):
+    """The card's split of a weight is the CPU's bit for bit, and its
+    three terms add up to the weight in fp32."""
+    _, _, _, Wa, Wf, _, _ = _inputs(100, 200, 60, False, dev)
+    for W in (Wa, Wf):
+        got = tci.split_weight(W)
+        ref = tci.split_weight(W.cpu())
+        assert torch.equal(got.cpu().view(torch.int16),
+                           ref.view(torch.int16))
+        K, N = W.shape
+        back = (got[0].float() + got[1].float()) + got[2].float()
+        assert torch.equal(back[:K, :N], W)
 
 
 def test_counts_launches_and_updates_in_place(dev):
@@ -100,21 +127,32 @@ def test_counts_launches_and_updates_in_place(dev):
     G2, Y, U, Wa, Wf, thr, wl1 = args
     tci.reset_launches()
     _, yn, un, _, _, _ = tci.csc_iter(G2, Y, U, Wa, Wf, thr, wl1, RLX, US,
-                                      SCALE, emit_px=False)
+                                      SCALE, emit_px=False,
+                                      wf_split=tci.split_weight(Wf))
     assert tci.LAUNCHES["csc_iter"] == 1
     assert yn is Y and un is U
 
 
 def test_rejects_what_it_does_not_take(dev):
     G2, Y, U, Wa, Wf, thr, wl1 = _inputs(64, 256, 256, False, dev)
+    kw = {"wf_split": tci.split_weight(Wf)}
     with pytest.raises(ValueError):
-        tci.csc_iter(G2, Y, U, Wa.cpu(), Wf, thr, wl1, RLX, US, SCALE)
+        tci.csc_iter(G2, Y, U, Wa.cpu(), Wf, thr, wl1, RLX, US, SCALE, **kw)
     with pytest.raises(TypeError):
-        tci.csc_iter(G2.double(), Y, U, Wa, Wf, thr, wl1, RLX, US, SCALE)
+        tci.csc_iter(G2.double(), Y, U, Wa, Wf, thr, wl1, RLX, US, SCALE,
+                     **kw)
     with pytest.raises(ValueError):
-        tci.csc_iter(G2, Y, Y, Wa, Wf, thr, wl1, RLX, US, SCALE)
+        tci.csc_iter(G2, Y, Y, Wa, Wf, thr, wl1, RLX, US, SCALE, **kw)
     with pytest.raises(ValueError):
-        tci.csc_iter(G2, Y.t(), U, Wa, Wf, thr, wl1, RLX, US, SCALE)
+        tci.csc_iter(G2, Y.t(), U, Wa, Wf, thr, wl1, RLX, US, SCALE, **kw)
+    with pytest.raises(ValueError):     # no split of Wf
+        tci.csc_iter(G2, Y, U, Wa, Wf, thr, wl1, RLX, US, SCALE)
+    with pytest.raises(ValueError):     # the split of Wa, not of Wf
+        tci.csc_iter(G2, Y, U, Wa, Wf, thr, wl1, RLX, US, SCALE,
+                     wf_split=tci.split_weight(Wa[:, :128]))
+    with pytest.raises(TypeError):
+        tci.csc_iter(G2, Y, U, Wa, Wf, thr, wl1, RLX, US, SCALE,
+                     wf_split=tci.split_weight(Wf).float())
 
 
 def test_solve_on_card_matches_cpu(dev):
@@ -156,7 +194,7 @@ def _pgm_inputs(pos, C, T, vectors, dev, seed=1):
 def _pgm_run(fn, args, nonneg):
     G2, Y, Xprv, Wa, Wf, thr, wl1 = args
     out = fn(G2, Y.clone(), Xprv.clone(), Wa, Wf, thr, wl1, RL, BETA,
-             nonneg=nonneg)
+             nonneg=nonneg, wf_split=tci.split_weight(Wf))
     return [o.cpu() for o in out]
 
 
@@ -184,24 +222,39 @@ def test_pgm_unaligned_buffers_take_scalar_path(dev):
     Yo, Xo = Yb[1:].view(pos, C), Xb[1:].view(pos, C)
     Yo.copy_(Y)
     Xo.copy_(Xprv)
-    out = tpi.pgm_iter(G2, Yo, Xo, Wa, Wf, thr, wl1, RL, BETA)
+    out = tpi.pgm_iter(G2, Yo, Xo, Wa, Wf, thr, wl1, RL, BETA,
+                       wf_split=tci.split_weight(Wf))
     for a, b in zip(out, ref):
         assert float((a.cpu() - b).abs().max()) <= \
             1e-5 * float(b.abs().max())
 
 
+def test_pgm_kernel_is_repeatable(dev):
+    G2, Y, Xprv, Wa, Wf, thr, wl1 = _pgm_inputs(4096, 4096, 256, True, dev)
+    wf3 = tci.split_weight(Wf)
+    a, b = [tpi.pgm_iter(G2, Y.clone(), Xprv.clone(), Wa, Wf, thr, wl1, RL,
+                         BETA, wf_split=wf3) for _ in range(2)]
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
 def test_pgm_counts_launches_and_updates_in_place(dev):
     G2, Y, Xprv, Wa, Wf, thr, wl1 = _pgm_inputs(64, 256, 256, False, dev)
     tpi.reset_launches()
-    x, yn, _, _, _ = tpi.pgm_iter(G2, Y, Xprv, Wa, Wf, thr, wl1, RL, BETA)
+    wf3 = tci.split_weight(Wf)
+    x, yn, _, _, _ = tpi.pgm_iter(G2, Y, Xprv, Wa, Wf, thr, wl1, RL, BETA,
+                                  wf_split=wf3)
     assert tpi.LAUNCHES["pgm_iter"] == 1
     assert x is Xprv and yn is Y
     tpi.pgm_iter_plain(G2, Y, Xprv, Wa, Wf, thr, wl1, RL, BETA)
     assert tpi.LAUNCHES["pgm_iter"] == 1
     with pytest.raises(ValueError):
-        tpi.pgm_iter(G2, Y, Y, Wa, Wf, thr, wl1, RL, BETA)
+        tpi.pgm_iter(G2, Y, Y, Wa, Wf, thr, wl1, RL, BETA, wf_split=wf3)
+    with pytest.raises(ValueError):     # no split of Wf
+        tpi.pgm_iter(G2, Y, Xprv, Wa, Wf, thr, wl1, RL, BETA)
     with pytest.raises(TypeError):
-        tpi.pgm_iter(G2.double(), Y, Xprv, Wa, Wf, thr, wl1, RL, BETA)
+        tpi.pgm_iter(G2.double(), Y, Xprv, Wa, Wf, thr, wl1, RL, BETA,
+                     wf_split=wf3)
     assert tpi.LAUNCHES["pgm_iter"] == 1
 
 
