@@ -62,20 +62,27 @@ struct Epi {
 };
 
 // The elementwise ADMM update of one state element; accumulates the six
-// sums into s.
+// sums into s.  Each operation rounds on its own, in the plain version's
+// order (the _rn intrinsics keep nvcc from contracting a multiply and an
+// add into one FMA): Un = us*U + AX - Yn cancels down to the threshold's
+// size, so a PX or AX rounded once instead of twice, no less accurate,
+// still moves Un by ulps of AX, and over 12288 rows (three channels
+// folded) that passed 1e-5 of Un's scale against the plain version with
+// A bit for bit the same.
 __device__ __forceinline__ void update(const Epi& p, float a, float y,
                                        float u0, float th, float w,
                                        float& px, float& yn, float& un,
                                        float* s) {
-  const float u = p.us * u0;
-  px = p.scale * (y - u) + a;
-  const float ax = p.rlx * px + (1.f - p.rlx) * y;
-  const float axu = ax + u;
+  const float u = __fmul_rn(p.us, u0);
+  px = __fadd_rn(__fmul_rn(p.scale, __fsub_rn(y, u)), a);
+  const float ax =
+      __fadd_rn(__fmul_rn(p.rlx, px), __fmul_rn(1.f - p.rlx, y));
+  const float axu = __fadd_rn(ax, u);
   const float t = fabsf(axu) - th;
   const float m = (t > 0.f || t != t) ? t : 0.f;  // max(t, 0), NaN kept
   yn = axu != 0.f ? copysignf(m, axu) : 0.f;
   if (p.nonneg && yn < 0.f) yn = 0.f;
-  un = u + ax - yn;
+  un = __fsub_rn(axu, yn);
   const float d = px - yn, e = yn - y;
   s[0] += d * d;
   s[1] += e * e;
@@ -85,6 +92,11 @@ __device__ __forceinline__ void update(const Epi& p, float a, float y,
   s[5] += fabsf(px) * w;
 }
 
+// VW: thr and wl1 are (C,) vectors, else the scalars thr_s / wl1_s.  Two
+// instantiations keep the scalar case (the main path) from holding the
+// vectors' loads in registers: at 128 registers a thread (two blocks an
+// SM), with the epilogue rounded as above, one kernel for both spilled.
+template <bool VW>
 __global__ void __launch_bounds__(NT, 2)
 iter_main(const float* __restrict__ G2, float* __restrict__ Y,
           float* __restrict__ U, const float* __restrict__ Wa,
@@ -111,10 +123,10 @@ iter_main(const float* __restrict__ G2, float* __restrict__ Y,
         const float4 y4 = *reinterpret_cast<const float4*>(Y + idx);
         const float4 u4 = *reinterpret_cast<const float4*>(U + idx);
         const float4 th4 =
-            thr_v ? *reinterpret_cast<const float4*>(thr_v + c)
+            VW ? *reinterpret_cast<const float4*>(thr_v + c)
                   : make_float4(thr_s, thr_s, thr_s, thr_s);
         const float4 w4 =
-            wl1_v ? *reinterpret_cast<const float4*>(wl1_v + c)
+            VW ? *reinterpret_cast<const float4*>(wl1_v + c)
                   : make_float4(wl1_s, wl1_s, wl1_s, wl1_s);
         float4 px4, yn4, un4;
         update(p, acc[i][h * 4 + 0], y4.x, u4.x, th4.x, w4.x, px4.x,
@@ -134,8 +146,8 @@ iter_main(const float* __restrict__ G2, float* __restrict__ Y,
           if (c + j >= C) break;
           float px, yn, un;
           update(p, acc[i][h * 4 + j], Y[idx + j], U[idx + j],
-                 thr_v ? thr_v[c + j] : thr_s,
-                 wl1_v ? wl1_v[c + j] : wl1_s, px, yn, un, s);
+                 VW ? thr_v[c + j] : thr_s,
+                 VW ? wl1_v[c + j] : wl1_s, px, yn, un, s);
           Y[idx + j] = yn;
           U[idx + j] = un;
           if (PX) PX[idx + j] = px;
@@ -173,9 +185,9 @@ int64_t csc_iter_scratch_floats(int64_t pos, int64_t C) {
 }
 
 // Launch the three kernels on `stream`.  Wf3 is the bf16 split of Wf,
-// (3, round_up(C, 32), round_up(T, 8)), zero-padded.  thr_v / wl1_v may
-// be null, in which case the scalars thr_s / wl1_s apply to every
-// channel; PX may be null (not stored).  `vec` allows 16-byte accesses:
+// (3, round_up(C, 32), round_up(T, 8)), zero-padded.  thr_v and wl1_v
+// are both (C,) vectors or both null, in which case the scalars thr_s /
+// wl1_s apply to every channel; PX may be null (not stored).  `vec` allows 16-byte accesses:
 // the caller sets it only when C and T are multiples of 4 and every
 // pointer is 16-byte aligned.  Returns a cudaError_t.
 int csc_iter_launch(const float* G2, float* Y, float* U, const float* Wa,
@@ -184,7 +196,8 @@ int csc_iter_launch(const float* G2, float* Y, float* U, const float* Wa,
                     float scale, int nonneg, int vec, float* PX, float* R1,
                     float* R2, float* part, float* sums, int64_t pos,
                     int64_t C, int64_t T, void* stream) {
-  if (pos <= 0 || C <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  if (pos <= 0 || C <= 0 || T <= 0 || !thr_v != !wl1_v)
+    return (int)cudaErrorInvalidValue;
   const int64_t g1x = ceil_div(pos, A_BM), g1y = ceil_div(C, A_BN);
   const int64_t g2x = ceil_div(pos, F_BM), g2y = ceil_div(T, F_BN);
   if (g1x > 0x7fffffff || g2x > 0x7fffffff || g1y > 65535 || g2y > 65535)
@@ -195,9 +208,13 @@ int csc_iter_launch(const float* G2, float* Y, float* U, const float* Wa,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Epi p{rlx, us, scale, nonneg};
 
-  iter_main<<<dim3((unsigned)g1x, (unsigned)g1y), NT, 0, st>>>(
-      G2, Y, U, Wa, thr_v, thr_s, wl1_v, wl1_s, p, PX, part, pos, C, T,
-      vec);
+  const dim3 g1((unsigned)g1x, (unsigned)g1y);
+  if (thr_v)
+    iter_main<true><<<g1, NT, 0, st>>>(G2, Y, U, Wa, thr_v, thr_s, wl1_v,
+                                       wl1_s, p, PX, part, pos, C, T, vec);
+  else
+    iter_main<false><<<g1, NT, 0, st>>>(G2, Y, U, Wa, thr_v, thr_s, wl1_v,
+                                        wl1_s, p, PX, part, pos, C, T, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

@@ -5,24 +5,26 @@ Each variant (``l1``, ``elastic``, ``gradreg``) runs two ways, routed as
 the JAX package routes them:
 
 - the fused spatial-Woodbury driver (:mod:`sporco_tpu_torch.ops.fused_csc`)
-  for real single-channel 2-D float32 problems: ``l1`` and ``elastic``
-  with a scalar or per-filter ``L1Weight`` through the CUDA kernel
-  ``csc_iter``; ``gradreg``, and any variant with a spatially varying
-  ``L1Weight``, through the driver's ``body`` (a per-bin x-step for
-  ``gradreg``, whose transforms run ``rfft2_planar``/``irfft2_planar``,
-  then the tail kernel ``admm_tail`` or its torch ops);
+  for real 2-D float32 problems with a single-channel dictionary and
+  signal, a colour dictionary (``l1``/``elastic``, C = Cd in {2, 3},
+  shared coefficient maps: the rank-C Woodbury x-step) or, by channel
+  folding, a multi-channel signal with a single-channel dictionary:
+  ``l1`` and ``elastic`` with a scalar or per-filter ``L1Weight`` through
+  the CUDA kernel ``csc_iter``; ``gradreg``, and any variant with a
+  spatially varying ``L1Weight``, through the driver's ``body`` (a
+  per-bin x-step for ``gradreg``, whose transforms run
+  ``rfft2_planar``/``irfft2_planar``, then the tail kernel ``admm_tail``
+  or its torch ops);
 - the generic DFT-domain ADMM problem (``_csc_*`` below) on the generic
   driver :func:`sporco_tpu_torch.solvers.admm.admm_solve` for every other
-  single-channel-dictionary configuration (``fused=False``,
-  ``no_bndry``, ``lin_check``, ``obj_from_x=False``, float64, complex
-  inputs, other sizes, large supports, any K and C, 1-3 spatial dims).
-  Its x-step is one forward and one inverse 2-D FFT per iteration, which
-  run the CUDA kernels ``rfft2_planar``/``irfft2_planar`` where
-  :mod:`sporco_tpu_torch.ops.fft` dispatches them.
-
-Colour dictionaries and channel folding on the fused driver raise
-:class:`NotImplementedError` naming the ROADMAP item that will port
-them; there is no silent fallback.
+  configuration (``fused=False``, ``no_bndry``, ``lin_check``,
+  ``obj_from_x=False``, float64, complex inputs, other sizes, large
+  supports, any K and C, 1-3 spatial dims).  Its x-step is one forward
+  and one inverse FFT per iteration (2-D ones run the CUDA kernels
+  ``rfft2_planar``/``irfft2_planar`` where
+  :mod:`sporco_tpu_torch.ops.fft` dispatches them) around a per-bin
+  Sherman-Morrison solve, iterated over the channels for a colour
+  dictionary (``solvemdbi_ism``).
 """
 
 from dataclasses import dataclass
@@ -87,11 +89,16 @@ def _csc_setup(cfg, params):
     axes = _fftaxes(cri)
     Df = _fwd(cfg)(params["D"], s=cri.Nv, axes=axes)
     Sf = _fwd(cfg)(params["S"], axes=axes)
-    # rho-independent per-bin dictionary energy for the SM solve
-    DHD = torch.sum((Df * Df.conj()).real, dim=2, keepdim=True)
+    DSf = Df.conj() * Sf
     ft = scalar_type(params["D"].dtype)
-    aux = {"Df": Df, "Sf": Sf, "DSf": Df.conj() * Sf, "DHD": DHD,
-           "lmbda": ft(params["lmbda"]), "mu": ft(params["mu"])}
+    aux = {"Df": Df, "Sf": Sf, "lmbda": ft(params["lmbda"]),
+           "mu": ft(params["mu"])}
+    if cri.Cd > 1:
+        aux["DSf"] = torch.sum(DSf, dim=1, keepdim=True)
+    else:
+        # rho-independent per-bin dictionary energy for the SM solve
+        aux["DSf"] = DSf
+        aux["DHD"] = torch.sum((Df * Df.conj()).real, dim=2, keepdim=True)
     if cfg.variant == "gradreg":
         _, GHGf = gradient_filters(cri.dimN, cri.Nv,
                                    dtype=params["D"].dtype,
@@ -100,18 +107,26 @@ def _csc_setup(cfg, params):
     return aux
 
 
-def _sm_solve(cfg, aux, rho, b):
+def _sm_solve(cfg, aux, d_or_rho, b, diagonal=False):
     """Per-bin solve of ``(rho I + D^H D) x = b`` over the filter axis
-    (single-channel dictionary, ``sporco/admm/cbpdn.py:275-293``)."""
-    return sl.solvedbi_sm(aux["Df"], rho, b, axis=2, aah=aux["DHD"])
+    (or with a diagonal term), dispatching on the dictionary's channels
+    as ``sporco/admm/cbpdn.py:275-293``."""
+    Df = aux["Df"]
+    if cfg.cri.Cd == 1:
+        if diagonal:
+            return sl.solvedbd_sm(Df, d_or_rho, b, axis=2)
+        return sl.solvedbi_sm(Df, d_or_rho, b, axis=2, aah=aux["DHD"])
+    return sl.solvemdbi_ism(Df, d_or_rho, b, axisM=2, axisK=1)
 
 
 def _xrrs(cfg, aux, Xf, b, diag):
     """Inner linear-solve relative residual (LinSolveCheck,
     ``sporco/admm/cbpdn.py:283-293``) of ``(diag + D^H D) Xf = b``."""
     Df = aux["Df"]
-    DXf = torch.sum(Df * Xf, dim=2, keepdim=True)
-    return sl.rrs(Df.conj() * DXf + diag * Xf, b)
+    DHDXf = Df.conj() * torch.sum(Df * Xf, dim=2, keepdim=True)
+    if cfg.cri.Cd > 1:
+        DHDXf = torch.sum(DHDXf, dim=1, keepdim=True)
+    return sl.rrs(DHDXf + diag * Xf, b)
 
 
 def _csc_xstep(cfg, aux, params, state):
@@ -126,7 +141,7 @@ def _csc_xstep(cfg, aux, params, state):
     elif cfg.variant == "gradreg":
         # the diagonal mu GHGfW + rho (sporco/admm/cbpdn.py:1173-1201)
         diag = float(aux["mu"]) * aux["GHGfW"] + float(rho)
-        Xf = sl.solvedbd_sm(aux["Df"], diag, b, axis=2)
+        Xf = _sm_solve(cfg, aux, diag, b, diagonal=True)
     else:
         diag = float(rho)
         Xf = _sm_solve(cfg, aux, diag, b)
@@ -271,12 +286,12 @@ class ConvBPDN(ADMMModel):
     r"""ADMM CSC solver: ``argmin_x (1/2)||sum_m d_m * x_m - s||_2^2
     + lmbda sum_m ||x_m||_1`` (``sporco/admm/cbpdn.py:386``).
 
-    ``D`` has user shape ``dsz + (M,)``, ``S`` has ``Nv + [K]``; the
-    returned coefficient array has the reference's layout
-    ``Nv + (1, K, M)``.  Arguments are numpy arrays (or anything
-    ``numpy.asarray`` takes).  ``device=None`` means the CUDA device and
-    raises if there is none; pass ``device="cpu"`` for the CPU, where the
-    kernel runs as its plain PyTorch version.
+    ``D`` has user shape ``dsz + [Cd] + (M,)``, ``S`` has
+    ``Nv + [C] + [K]``; the returned coefficient array has the
+    reference's layout ``Nv + (Cx, K, M)``.  Arguments are numpy arrays
+    (or anything ``numpy.asarray`` takes).  ``device=None`` means the
+    CUDA device and raises if there is none; pass ``device="cpu"`` for
+    the CPU, where the kernel runs as its plain PyTorch version.
 
     Defaults mirror the reference: RelaxParam 1.8, AutoRho enabled with
     Period 1 + AutoScaling, rho = 50 lmbda + 1, lmbda = 0.1 max|D^H S|.
@@ -348,32 +363,23 @@ class ConvBPDN(ADMMModel):
     def _route(self, fused):
         """The fused driver's solve function, or None for the generic
         path, chosen as ``sporco_tpu.models.cbpdn.ConvBPDN.solve`` chooses:
-        the fused driver for what ``eligible`` takes (directly or by
-        channel folding), the generic path otherwise and always under
-        ``fused=False``; ``fused=True`` on any other configuration raises
-        :class:`ValueError`.  What neither port path has yet raises
-        :class:`NotImplementedError`."""
+        the fused driver for what ``eligible`` takes, channel folding
+        for what ``cfold_eligible`` takes, the generic path otherwise and
+        always under ``fused=False``; ``fused=True`` on any other
+        configuration raises :class:`ValueError`."""
         cfg, params, opts = self.cfg, self.params, self.opts
         if fused is not False:
             force = fused is True
-            if (fused_csc.eligible(cfg, params, opts,
-                                   force=force and self.cri.C <= 1)
-                    or fused_csc.cfold_eligible(cfg, params, opts,
-                                                force=force)):
-                reason = fused_csc.unsupported_reason(cfg, params, opts)
-                if reason is not None:
-                    raise NotImplementedError(reason)
+            if fused_csc.eligible(cfg, params, opts,
+                                  force=force and self.cri.C <= 1):
                 return fused_csc.cbpdn_solve
+            if fused_csc.cfold_eligible(cfg, params, opts, force=force):
+                return fused_csc.cbpdn_solve_cfold
             if force:
                 raise ValueError(
                     "fused=True requested, but this configuration is not "
                     "supported by the fused driver (directly or via "
                     "channel folding)")
-        if self.cri.Cd > 1:
-            raise NotImplementedError(
-                "the generic path's multi-channel dictionary solve "
-                "(solvemdbi_ism) is not ported yet (ROADMAP queue 1, "
-                "item 11)")
         return None
 
     def _solve_state(self):

@@ -4,23 +4,23 @@
 Routed as the JAX package routes them:
 
 - the fused packed-layout problem (:mod:`sporco_tpu_torch.ops.fused_csc`)
-  for single-channel 2-D float32 problems with PS-aligned even sizes,
-  supports up to 24 and no NoBndryCross, masked or not: the plain FISTA
-  configuration runs the CUDA kernel ``pgm_iter`` once per iteration,
-  backtracking, the step-size policies, the monotone variant and a
-  spatially varying ``L1Weight`` the generic PGM loop on the packed
-  problem;
+  for 2-D float32 problems with PS-aligned even sizes, supports up to 24
+  and no NoBndryCross, masked or not, with a single-channel dictionary
+  and signal, a colour dictionary (C = Cd in {2, 3}, shared coefficient
+  maps) or, by channel folding, a multi-channel signal with a
+  single-channel dictionary: the plain FISTA configuration runs the CUDA
+  kernel ``pgm_iter`` once per iteration, backtracking, the step-size
+  policies, the monotone variant and a spatially varying ``L1Weight``
+  the generic PGM loop on the packed problem;
 - the generic FFT problem (``_pcb_*`` below) on the generic PGM loop
-  for every other single-channel-dictionary configuration
-  (``fused=False``, ``no_bndry``, float64, other sizes, large supports,
-  1-3 spatial dims, multi-channel signals under ``fused=False``).  Its
-  gradient is one forward and one inverse 2-D FFT (three of each when
-  masked), which run the CUDA kernels ``rfft2_planar``/``irfft2_planar``
-  where :mod:`sporco_tpu_torch.ops.fft` dispatches them.
+  for every other configuration (``fused=False``, ``no_bndry``,
+  float64, other sizes, large supports, 1-3 spatial dims).  Its
+  gradient is one forward and one inverse FFT (three of each when
+  masked); 2-D ones run the CUDA kernels
+  ``rfft2_planar``/``irfft2_planar`` where :mod:`sporco_tpu_torch.ops.fft`
+  dispatches them.
 
-Colour dictionaries and channel folding raise
-:class:`NotImplementedError` naming the ROADMAP item that will port
-them.  As in the JAX package, complex ``D``/``S`` are cast to the real
+As in the JAX package, complex ``D``/``S`` are cast to the real
 ``dtype`` (their imaginary part is dropped).
 """
 
@@ -99,7 +99,10 @@ def _pcb_grad(cfg, aux, params, Y):
     if cfg.masked:
         Ry = sf.irfftn(Ryf, s=cri.Nv, axes=axes)
         Ryf = sf.rfftn(params["W"] ** 2 * Ry, axes=axes)
-    return sf.irfftn(aux["Df"].conj() * Ryf, s=cri.Nv, axes=axes)
+    gradf = aux["Df"].conj() * Ryf
+    if cri.Cd > 1:
+        gradf = torch.sum(gradf, dim=1, keepdim=True)
+    return sf.irfftn(gradf, s=cri.Nv, axes=axes)
 
 
 def _pcb_prox(cfg, aux, params, V, L):
@@ -138,6 +141,8 @@ def _pcb_hess(cfg, aux, params, V):
     axes = _cbpdn._fftaxes(cri)
     Vf = sf.rfftn(V, axes=axes)
     h = aux["Df"].conj() * torch.sum(aux["Df"] * Vf, dim=2, keepdim=True)
+    if cri.Cd > 1:
+        h = torch.sum(h, dim=1, keepdim=True)
     return sf.irfftn(h, s=cri.Nv, axes=axes)
 
 
@@ -157,14 +162,13 @@ class ConvBPDN(PGMModel):
     r"""CSC via PGM/FISTA: ``argmin_x (1/2)||sum_m d_m * x_m - s||_2^2
     + lmbda sum_m ||x_m||_1`` (``sporco/pgm/cbpdn.py:29``).
 
-    ``D`` has user shape ``dsz + (M,)``, ``S`` has ``Nv + [K]``; the
-    returned coefficient array has the reference's layout
-    ``Nv + (1, K, M)``.  Arguments are numpy arrays (or anything
-    ``numpy.asarray`` takes).  ``device=None`` means the CUDA device and
-    raises if there is none; pass ``device="cpu"`` for the CPU, where the
-    kernel runs as its plain PyTorch version.  Defaults: ``L = 500``,
-    ``lmbda = 0.1 max|D^H S|``.
-    """
+    ``D`` has user shape ``dsz + [Cd] + (M,)``, ``S`` has
+    ``Nv + [C] + [K]``; the returned coefficient array has the
+    reference's layout ``Nv + (Cx, K, M)``.  Arguments are numpy arrays
+    (or anything ``numpy.asarray`` takes).  ``device=None`` means the
+    CUDA device and raises if there is none; pass ``device="cpu"`` for
+    the CPU, where the kernel runs as its plain PyTorch version.
+    Defaults: ``L = 500``, ``lmbda = 0.1 max|D^H S|``."""
 
     # reference pgm.ConvBPDN option keys (sporco/pgm/cbpdn.py:95-98)
     REF_OPT_EXTRA = {
@@ -198,37 +202,30 @@ class ConvBPDN(PGMModel):
         self.params = params
         self.lmbda = params["lmbda"]
         self.problem = _CBPDN_PGM
-        self._fused = self._route(fused)
+        self._fused_solve = self._route(fused)
         L0 = opt.L if opt.L is not None else DEFAULT_L
         self.state = pgm_init_state(_pcb_xinit(self.cfg, params), self.opts,
                                     L0, len(self.STAT_NAMES))
         self._init_done()
 
     def _route(self, fused):
-        """Whether the solve runs the fused problem, chosen as
-        ``sporco_tpu.models.pgm.ConvBPDN.solve`` chooses: the fused
-        problem for what ``pgm_eligible`` takes (directly or by channel
-        folding), the generic FFT problem otherwise and always under
-        ``fused=False``.  What neither port path has yet raises
-        :class:`NotImplementedError`."""
+        """The fused problem's solve function, or None for the generic
+        FFT problem, chosen as ``sporco_tpu.models.pgm.ConvBPDN.solve``
+        chooses: the fused problem for what ``pgm_eligible`` takes,
+        channel folding for what ``pgm_cfold_eligible`` takes, the
+        generic problem otherwise and always under ``fused=False``."""
         cfg, opts = self.cfg, self.opts
-        if fused is not False and (
-                fused_csc.pgm_eligible(cfg, opts)
-                or fused_csc.pgm_cfold_eligible(cfg, self.params, opts)):
-            reason = fused_csc.pgm_unsupported_reason(cfg, opts)
-            if reason is not None:
-                raise NotImplementedError(reason)
-            return True
-        if self.cri.Cd > 1:
-            raise NotImplementedError(
-                "the generic FFT PGM problem with a colour dictionary is "
-                "not ported yet (ROADMAP queue 1, item 11)")
-        return False
+        if fused is not False:
+            if fused_csc.pgm_eligible(cfg, opts):
+                return fused_csc.pgm_cbpdn_solve
+            if fused_csc.pgm_cfold_eligible(cfg, self.params, opts):
+                return fused_csc.pgm_cbpdn_solve_cfold
+        return None
 
     def _solve_state(self):
-        if self._fused:
-            return fused_csc.pgm_cbpdn_solve(self.cfg, self.params,
-                                             self.opts, self.state)
+        if self._fused_solve is not None:
+            return self._fused_solve(self.cfg, self.params, self.opts,
+                                     self.state)
         return pgm_solve(self.problem, self.cfg, self.params, self.opts,
                          self.state)
 
@@ -253,7 +250,7 @@ class ConvBPDN(PGMModel):
 
     def reconstruct(self, X=None):
         """Reconstruct ``sum_m d_m * x_m`` in the user S layout
-        ``Nv + [K]``."""
+        ``Nv + [C] + [K]``."""
         return _cbpdn.reconstruct(self.params["D"], self.state.X, self.cri,
                                   X)
 

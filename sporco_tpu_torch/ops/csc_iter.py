@@ -205,6 +205,11 @@ def csc_iter(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale, nonneg=False,
     Wf3 = _check_split(wf_split, Wf, dev)
     thr = _as_channels(thr, C, dev)
     wl1 = _as_channels(wl1, C, dev)
+    if isinstance(thr, torch.Tensor) != isinstance(wl1, torch.Tensor):
+        # the kernel takes both as (C,) vectors or both as scalars
+        thr, wl1 = (v if isinstance(v, torch.Tensor) else
+                    torch.full((C,), v, dtype=torch.float32, device=dev)
+                    for v in (thr, wl1))
     vecs = [v.contiguous() if isinstance(v, torch.Tensor) else None
             for v in (thr, wl1)]
     lib = _lib()

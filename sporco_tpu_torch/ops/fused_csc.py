@@ -1,6 +1,5 @@
 """Fused spatial-Woodbury ConvBPDN ADMM driver and fused packed-layout
-FISTA problem (counterpart of ``sporco_tpu.ops.fused_csc``,
-single-channel part).
+FISTA problem (counterpart of ``sporco_tpu.ops.fused_csc``).
 
 The x-step of single-channel 2-D ConvBPDN is solved in space by the
 Woodbury identity::
@@ -28,6 +27,15 @@ bodies:
   relaxation, l1 prox, dual update and the six sums in one call of
   :func:`sporco_tpu_torch.ops.csc_tail.admm_tail` for a scalar or
   per-filter weight, as torch ops for a spatially varying one.
+
+A colour dictionary (Cd = C in {2, 3} channels, coefficient maps shared
+across them) keeps the state at the single-channel size; its products
+grow by Cd (``xstep_kernels`` of a (C, M, nd0, nd1) block) and the
+per-bin division becomes a Cd x Cd Hermitian solve (the rank-Cd
+Woodbury identity, :func:`spatial_xstep_mc`).  A multi-channel signal
+with a single-channel dictionary is C independent problems sharing D:
+:func:`cbpdn_solve_cfold` and :func:`pgm_cbpdn_solve_cfold` fold its
+channels into the batch axis, which is exact.
 
 The loop runs on the host and reads back one small vector per
 iteration (the six sums and the objective's spectral terms) for the
@@ -63,11 +71,11 @@ from sporco_tpu_torch.solvers.pgm import (PGMProblem, _momentum_update,
                                           stop_tol)
 from sporco_tpu_torch.utils.signal import gradient_filters
 
-__all__ = ["cbpdn_solve", "eligible", "cfold_eligible",
-           "unsupported_reason", "pgm_cbpdn_solve", "pgm_eligible",
-           "pgm_cfold_eligible", "pgm_unsupported_reason",
-           "xstep_kernels", "spatial_xstep", "poly_pack", "poly_unpack",
-           "pack_state", "unpack_state", "PS", "MAX_SUPPORT"]
+__all__ = ["cbpdn_solve", "cbpdn_solve_cfold", "eligible", "cfold_eligible",
+           "pgm_cbpdn_solve", "pgm_cbpdn_solve_cfold", "pgm_eligible",
+           "pgm_cfold_eligible", "xstep_kernels", "spatial_xstep",
+           "spatial_xstep_mc", "poly_pack", "poly_unpack", "pack_state",
+           "unpack_state", "PS", "MAX_SUPPORT"]
 
 PS = 8            # polyphase factor (spatial fold per axis)
 MAX_SUPPORT = 24  # largest filter support the spatial form beats FFT at
@@ -147,43 +155,50 @@ def _sel_adj(nd, ps):
 
 
 def _fwd_kernel(D, nd0, nd1, ps):
-    """HWIO kernel of ``R = sum_m d_m (*) yu_m`` in polyphase: input
-    channels (w0, w1, m), output channels (a0, a1).  The selectors are
-    0/1 with one nonzero term per output, so the einsum (in float64 on
-    the host) only moves entries of ``D``."""
-    M = D.shape[0]
+    """HWIO kernel of ``R_c = sum_m d_cm (*) yu_m`` in polyphase for a
+    (C, M, nd0, nd1) dictionary: input channels (w0, w1, m), output
+    channels (c, a0, a1).  The selectors are 0/1 with one nonzero term
+    per output (and per output of either pairwise contraction, so the
+    optimized einsum, in float64 on the host, only moves entries of
+    ``D``; the naive one loops over every index for about a second)."""
+    C, M = D.shape[:2]
     S0, J0 = _sel_fwd(nd0, ps)
     S1, J1 = _sel_fwd(nd1, ps)
-    ker = np.einsum("muv,akwu,blzv->klwzmab", D, S0, S1)
-    return ker.reshape(J0 + 1, J1 + 1, ps * ps * M, ps * ps), J0, J1
+    ker = np.einsum("cmuv,akwu,blzv->klwzmcab", D, S0, S1, optimize=True)
+    return ker.reshape(J0 + 1, J1 + 1, ps * ps * M, C * ps * ps), J0, J1
 
 
 def _adj_kernel(D, nd0, nd1, ps):
-    """HWIO kernel of ``(D^H G)_m = corr(G, d_m)`` in polyphase: input
-    channels (w0, w1), output channels (a0, a1, m)."""
-    M = D.shape[0]
+    """HWIO kernel of ``(D^H G)_m = sum_c corr(G_c, d_cm)`` in polyphase:
+    input channels (c, w0, w1), output channels (a0, a1, m)."""
+    C, M = D.shape[:2]
     S0, J0 = _sel_adj(nd0, ps)
     S1, J1 = _sel_adj(nd1, ps)
-    ker = np.einsum("muv,akwu,blzv->klwzabm", D, S0, S1)
-    return ker.reshape(J0 + 1, J1 + 1, ps * ps, ps * ps * M), J0, J1
+    ker = np.einsum("cmuv,akwu,blzv->klcwzabm", D, S0, S1, optimize=True)
+    return ker.reshape(J0 + 1, J1 + 1, C * ps * ps, ps * ps * M), J0, J1
 
 
 def xstep_kernels(Dsm, nd0, nd1, ps=PS):
     """Packed single-matmul weights for the spatial-Woodbury x-step.
 
-    ``Dsm`` is the spatial dictionary block ``(M, nd0, nd1)``.  Returns
-    ``(Wf, Wa, (jf0, jf1, ja0, ja1))``: the forward/adjoint polyphase
-    matmul weights (float32 tensors on ``Dsm``'s device) and their
-    circular-roll tap radii.
+    ``Dsm`` is the spatial dictionary block ``(M, nd0, nd1)``, or
+    ``(C, M, nd0, nd1)`` for a C-channel dictionary (``xstep_kernels_mc``
+    of the JAX package; C = 1 gives the same weights as the 3-D block).
+    Returns ``(Wf, Wa, (jf0, jf1, ja0, ja1))``: the forward/adjoint
+    polyphase matmul weights, ``Wf`` (ps^2 M, (jf0+1)(jf1+1) C ps^2) and
+    ``Wa`` ((ja0+1)(ja1+1) C ps^2, ps^2 M), as float32 tensors on
+    ``Dsm``'s device, and their circular-roll tap radii.
     """
     D = Dsm.detach().cpu().double().numpy()
-    M = D.shape[0]
+    if D.ndim == 3:
+        D = D[None]
+    C, M = D.shape[:2]
     kf, jf0, jf1 = _fwd_kernel(D, nd0, nd1, ps)
     ka, ja0, ja1 = _adj_kernel(D, nd0, nd1, ps)
-    C = ps * ps * M
+    Cs = ps * ps * M
     Wf = np.transpose(kf, (2, 0, 1, 3)).reshape(
-        C, (jf0 + 1) * (jf1 + 1) * ps * ps)
-    Wa = ka.reshape((ja0 + 1) * (ja1 + 1) * ps * ps, C)
+        Cs, (jf0 + 1) * (jf1 + 1) * C * ps * ps)
+    Wa = ka.reshape((ja0 + 1) * (ja1 + 1) * C * ps * ps, Cs)
 
     def dev(w):
         return torch.as_tensor(np.ascontiguousarray(w, np.float32),
@@ -191,12 +206,14 @@ def xstep_kernels(Dsm, nd0, nd1, ps=PS):
     return dev(Wf), dev(Wa), (jf0, jf1, ja0, ja1)
 
 
-def _fwd_combine(o, J0, J1, ps):
+def _fwd_combine(o, J0, J1, ps, C=1):
     """Epilogue of the forward polyphase conv: roll-and-sum the per-tap
-    matmul outputs ``o`` of shape (K, p0, p1, T*ps*ps)."""
+    matmul outputs ``o`` of shape (K, p0, p1, T*C*ps*ps) into the
+    channel-packed (K, p0, p1, C*ps*ps), channel order (c, w0, w1)
+    (``_fwd_combine_ch`` of the JAX package)."""
     K, p0, p1, _ = o.shape
     T = (J0 + 1) * (J1 + 1)
-    o = o.reshape(K, p0, p1, T, ps * ps)
+    o = o.reshape(K, p0, p1, T, C * ps * ps)
     out = 0.0
     for kx in range(J0 + 1):
         for ky in range(J1 + 1):
@@ -226,6 +243,74 @@ def _conv_adj_mm(Gp, Wa, J0, J1):
     return _adj_rolls(Gp, J0, J1) @ Wa
 
 
+def _pack_ch(A, ps=PS):
+    """(K, C, n0, n1) -> channel-packed (K, p0, p1, C*ps*ps), channel
+    order (c, w0, w1)."""
+    K, C, n0, n1 = A.shape
+    P = poly_pack(A, ps)                           # (K, C, p0, p1, ps^2)
+    return P.permute(0, 2, 3, 1, 4).reshape(K, n0 // ps, n1 // ps,
+                                            C * ps * ps)
+
+
+def _fwd_combine_mc(o, J0, J1, C, ps):
+    """Forward epilogue to the C-channel image (K, C, n0, n1)."""
+    K, p0, p1, _ = o.shape
+    out = _fwd_combine(o, J0, J1, ps, C)
+    out = out.reshape(K, p0, p1, C, ps * ps).permute(0, 3, 1, 2, 4)
+    return poly_unpack(out, ps)
+
+
+def _adj_rolls_mc(G, J0, J1, ps=PS):
+    """Adjoint prologue of a C-channel (K, C, n0, n1) operand: the rolls
+    of its channel-packed form, channel order (t, c, w0, w1) as the
+    C-channel ``Wa`` has it."""
+    return _adj_rolls(_pack_ch(G, ps), J0, J1)
+
+
+def _herm_solve(A, beta, B):
+    """Solve ``(A + beta I) g = B`` per frequency bin for a Hermitian
+    C x C ``A``, C in (1, 2, 3), by closed-form cofactors (the JAX
+    package's operation count; no batched LU).  ``A`` is (C, C, n0, k1)
+    complex, ``B`` (K, C, n0, k1) complex, ``beta`` a number."""
+    C = A.shape[0]
+    if C == 1:
+        return B / (A[0, 0] + beta)
+    if C == 2:
+        a, b = A[0, 0] + beta, A[0, 1]
+        c, d = A[1, 0], A[1, 1] + beta
+        det = a * d - b * c
+        g0 = (d * B[:, 0] - b * B[:, 1]) / det
+        g1 = (a * B[:, 1] - c * B[:, 0]) / det
+        return torch.stack([g0, g1], dim=1)
+    if C == 3:
+        a, b, c = A[0, 0] + beta, A[0, 1], A[0, 2]
+        d, e, f = A[1, 0], A[1, 1] + beta, A[1, 2]
+        g, h, i = A[2, 0], A[2, 1], A[2, 2] + beta
+        co00 = e * i - f * h
+        co01 = c * h - b * i
+        co02 = b * f - c * e
+        co10 = f * g - d * i
+        co11 = a * i - c * g
+        co12 = c * d - a * f
+        co20 = d * h - e * g
+        co21 = b * g - a * h
+        co22 = a * e - b * d
+        det = a * co00 + b * co10 + c * co20
+        B0, B1, B2 = B[:, 0], B[:, 1], B[:, 2]
+        g0 = (co00 * B0 + co01 * B1 + co02 * B2) / det
+        g1 = (co10 * B0 + co11 * B1 + co12 * B2) / det
+        g2 = (co20 * B0 + co21 * B1 + co22 * B2) / det
+        return torch.stack([g0, g1, g2], dim=1)
+    raise ValueError(f"unsupported channel count {C}")
+
+
+def _gram(Df):
+    """The per-bin Hermitian Gram ``D D^H`` (C, C, n0, k1) of a C-channel
+    dictionary spectrum (C, M, n0, k1), fp32 contractions pinned."""
+    with fp32_precision():
+        return torch.einsum("cmxy,dmxy->cdxy", Df, Df.conj())
+
+
 def spatial_xstep(Pyu, Wf, Wa, js, DHD, sfr, sfi, beta, scale, Nv):
     """The spatial-Woodbury CSC x-step in the packed polyphase layout.
 
@@ -247,6 +332,22 @@ def spatial_xstep(Pyu, Wf, Wa, js, DHD, sfr, sfi, beta, scale, Nv):
     G = sf.irfftn(torch.complex(gr, gi), s=Nv, axes=axes)
     PX = scale * Pyu + _conv_adj_mm(poly_pack(G), Wa, ja0, ja1)
     return PX, rfr, rfi, gr, gi
+
+
+def spatial_xstep_mc(Pyu, Wf, Wa, js, DDHf, Sf, beta, scale, Nv, C):
+    """The rank-C spatial-Woodbury x-step of a C-channel dictionary with
+    shared coefficient maps: ``x = scale * yu + D^H G`` with
+    ``(beta I_C + D D^H) Gf = Sf - scale * rfft(D yu)`` per bin.
+    ``DDHf`` is the per-bin Gram (C, C, n0, k1) and ``Sf`` the signal
+    spectrum (K, C, n0, k1).  Returns ``(PX, rf, Gf)``."""
+    jf0, jf1, ja0, ja1 = js
+    axes = (-2, -1)
+    R = _fwd_combine_mc(Pyu @ Wf, jf0, jf1, C, PS)     # (K, C, n0, n1)
+    rf = sf.rfftn(R, axes=axes)
+    Gf = _herm_solve(DDHf, float(beta), Sf - float(scale) * rf)
+    G = sf.irfftn(Gf, s=Nv, axes=axes)
+    PX = float(scale) * Pyu + _adj_rolls_mc(G, ja0, ja1) @ Wa
+    return PX, rf, Gf
 
 
 def _rfl2norm2_sq(sq, n1):
@@ -302,8 +403,7 @@ def eligible(cfg, params, opts, force=False):
     sizes, no NoBndryCross, LinSolveCheck or ``AuxVarObj``, and a scalar
     or per-filter ``GradWeight`` (the port has no AMS masking yet).  With
     ``force`` the support heuristic is lifted and a configuration
-    outside the rule raises :class:`ValueError`.  What the port's driver
-    lacks of these is :func:`unsupported_reason`."""
+    outside the rule raises :class:`ValueError`."""
     cri = cfg.cri
     mc_ok = cri.Cd > 1 and cfg.variant in ("l1", "elastic")
     structural = (cfg.real and cfg.variant in ("l1", "elastic", "gradreg")
@@ -351,15 +451,28 @@ def cfold_eligible(cfg, params, opts, force=False):
     return eligible(cfg2, params2, opts, force=force)
 
 
-def unsupported_reason(cfg, params, opts):
-    """None if the port's fused driver takes a configuration that
-    :func:`eligible` (or :func:`cfold_eligible`) admits, else what it
-    lacks and the ROADMAP item that ports it."""
-    cri = cfg.cri
-    if cri.Cd > 1 or cri.C > 1:
-        return ("multi-channel (colour) CSC on the fused driver is not "
-                "ported yet (ROADMAP queue 1, item 11)")
-    return None
+def _solve_folded(solve, cri, cfg2, params2, opts, state, names):
+    """Run ``solve`` on the channel-folded problem ``(cfg2, params2)``:
+    the state arrays ``names`` go from (K, C, M, ...) to (K*C, 1, M, ...)
+    and back."""
+    K2 = cri.K * cri.C
+
+    def fold(a):
+        return a.reshape((K2, 1) + tuple(a.shape[2:]))
+
+    def unfold(a):
+        return a.reshape((cri.K, cri.C) + tuple(a.shape[2:]))
+    out = solve(cfg2, params2, opts, state._replace(
+        **{n: fold(getattr(state, n)) for n in names}))
+    return out._replace(**{n: unfold(getattr(out, n)) for n in names})
+
+
+def cbpdn_solve_cfold(cfg, params, opts, state):
+    """Fused solve of a configuration that :func:`cfold_eligible` takes:
+    fold the channels into the batch axis, run :func:`cbpdn_solve`,
+    unfold the state."""
+    return _solve_folded(cbpdn_solve, cfg.cri, *_cfold(cfg, params), opts,
+                         state, ("X", "Y", "U"))
 
 
 # ---------------------------------------------------------------------------
@@ -369,9 +482,6 @@ def cbpdn_solve(cfg, params, opts, state):
     """Run (or resume) one fused solve call from ``state``; returns the
     final :class:`ADMMState` in the internal layout."""
     eligible(cfg, params, opts, force=True)
-    reason = unsupported_reason(cfg, params, opts)
-    if reason is not None:
-        raise NotImplementedError(reason)
     with fp32_precision(), torch.no_grad():
         return _cbpdn_fused_run(cfg, params, opts, state)
 
@@ -411,15 +521,22 @@ def _cbpdn_fused_run(cfg, params, opts, state):
     wl1p = _packed_l1_weight(params["wl1"], cri)
     spatial_w = isinstance(wl1p, torch.Tensor) and wl1p.ndim > 1
 
-    D = params["D"].reshape(M, nd0, nd1)
-    S = params["S"].reshape(K, n0, n1)
-    Df = sf.rfftn(D, s=cri.Nv, axes=axes)
-    DHD = torch.sum((Df * Df.conj()).real, dim=0)          # (n0, k1)
-    Sf = sf.rfftn(S, axes=axes)                            # (K, n0, k1)
-    sfr, sfi = Sf.real.contiguous(), Sf.imag.contiguous()
+    Cd = cri.Cd
+    if Cd > 1:
+        # colour dictionary (l1/elastic): the rank-Cd Woodbury x-step
+        D = params["D"].reshape(Cd, M, nd0, nd1)
+        Df = sf.rfftn(D, s=cri.Nv, axes=axes)           # (Cd, M, n0, k1)
+        DDHf = _gram(Df)
+        Sf = sf.rfftn(params["S"].reshape(K, Cd, n0, n1), axes=axes)
+    else:
+        D = params["D"].reshape(M, nd0, nd1)
+        Df = sf.rfftn(D, s=cri.Nv, axes=axes)
+        DHD = torch.sum((Df * Df.conj()).real, dim=0)      # (n0, k1)
+        Sf = sf.rfftn(params["S"].reshape(K, n0, n1), axes=axes)
+        sfr, sfi = Sf.real.contiguous(), Sf.imag.contiguous()
     if gradreg:
-        _, GHGf = gradient_filters(2, cri.Nv, dtype=S.dtype,
-                                   device=S.device)
+        _, GHGf = gradient_filters(2, cri.Nv, dtype=Sf.real.dtype,
+                                   device=Sf.device)
         wg = params["wgrd"]
         GHGfW = wg * GHGf if wg.ndim == 0 else wg.reshape(-1, 1, 1) * GHGf
     else:
@@ -454,7 +571,7 @@ def _cbpdn_fused_run(cfg, params, opts, state):
     if use_pk:
         R1 = (PY - PU).reshape(pos, C) @ Wf
         R2 = PU.reshape(pos, C) @ Wf
-        Ta = (ja0 + 1) * (ja1 + 1) * PS * PS
+        Ta = Wa.shape[0]        # (ja0 + 1)(ja1 + 1) Cd PS^2
         wf_split = split_weight(Wf)     # the kernel's, once per solve
 
     def beta_scale(rho):
@@ -465,6 +582,31 @@ def _cbpdn_fused_run(cfg, params, opts, state):
             return rho, f32(1.0)
         beta = rho + mu
         return beta, rho / beta
+
+    def xstep(Pyu, beta, scale):
+        """The spatial x-step (rank-1 or rank-Cd Woodbury): PX and the
+        spectral intermediates that :func:`data_fidelity` reads."""
+        if Cd > 1:
+            PX, rf, Gf = spatial_xstep_mc(Pyu, Wf, Wa, js, DDHf, Sf, beta,
+                                          scale, cri.Nv, Cd)
+            return PX, (rf, Gf)
+        PX, rfr, rfi, gr, gi = spatial_xstep(Pyu, Wf, Wa, js, DHD, sfr,
+                                             sfi, beta, scale, cri.Nv)
+        return PX, (rfr, rfi, gr, gi)
+
+    def data_fidelity(spec, scale):
+        """0.5 ||D x - s||^2 from the x-step's spectral intermediates:
+        ``DXf - Sf = scale rf + DHD g - Sf`` (rank-Cd: ``scale rf +
+        DDHf Gf - Sf``), no extra transform."""
+        if Cd > 1:
+            rf, Gf = spec
+            er = (float(scale) * rf
+                  + torch.sum(DDHf[None] * Gf[:, None], dim=2) - Sf)
+            return 0.5 * _rfl2norm2_sq((er * er.conj()).real, n1)
+        rfr, rfi, gr, gi = spec
+        er = rfr + DHD[None] * gr - sfr
+        ei = rfi + DHD[None] * gi - sfi
+        return 0.5 * _rfl2norm2_planar(er, ei, n1)
 
     def converged():
         return (r <= epri and s <= edua) or k - k0 >= opts.max_iter
@@ -480,16 +622,25 @@ def _cbpdn_fused_run(cfg, params, opts, state):
             beta, scale = beta_scale(rho)
             o2 = R1 + float(f32(1.0) - us) * R2
             o4 = o2.reshape(K, n0 // PS, n1 // PS, -1)
-            R = poly_unpack(_fwd_combine(o4, jf0, jf1, PS))
-            rf = sf.rfftn(R, axes=axes)
-            rfr, rfi = rf.real, rf.imag
-            if mu is not None:
-                rfr, rfi = float(scale) * rfr, float(scale) * rfi
-            den = 1.0 / (DHD[None] + float(beta))
-            gr = (sfr - rfr) * den
-            gi = (sfi - rfi) * den
-            G = sf.irfftn(torch.complex(gr, gi), s=cri.Nv, axes=axes)
-            G2 = _adj_rolls(poly_pack(G), ja0, ja1)
+            if Cd > 1:
+                rf = sf.rfftn(_fwd_combine_mc(o4, jf0, jf1, Cd, PS),
+                              axes=axes)
+                Gf = _herm_solve(DDHf, float(beta), Sf - float(scale) * rf)
+                G2 = _adj_rolls_mc(sf.irfftn(Gf, s=cri.Nv, axes=axes),
+                                   ja0, ja1)
+                spec = (rf, Gf)
+            else:
+                R = poly_unpack(_fwd_combine(o4, jf0, jf1, PS))
+                rf = sf.rfftn(R, axes=axes)
+                rfr, rfi = rf.real, rf.imag
+                if mu is not None:
+                    rfr, rfi = float(scale) * rfr, float(scale) * rfi
+                den = 1.0 / (DHD[None] + float(beta))
+                gr = (sfr - rfr) * den
+                gi = (sfi - rfi) * den
+                G = sf.irfftn(torch.complex(gr, gi), s=cri.Nv, axes=axes)
+                G2 = _adj_rolls(poly_pack(G), ja0, ja1)
+                spec = (rfr, rfi, gr, gi)
             _, _, _, R1, R2, sums = csc_iter(
                 G2.reshape(pos, Ta), PY.view(pos, C), PU.view(pos, C), Wa,
                 Wf, thr, wl1p, rlx, us, scale, nonneg=cfg.non_neg,
@@ -503,8 +654,7 @@ def _cbpdn_fused_run(cfg, params, opts, state):
                                          cri.Nv)
             else:
                 beta, scale = beta_scale(rho)
-                PX, rfr, rfi, gr, gi = spatial_xstep(
-                    Pyu, Wf, Wa, js, DHD, sfr, sfi, beta, scale, cri.Nv)
+                PX, spec = xstep(Pyu, beta, scale)
             if use_tail:
                 PY, PU, sums = csc_tail.admm_tail(
                     PX, PY, PU, thr, wl1p, rlx, nonneg=cfg.non_neg, us=us)
@@ -519,10 +669,7 @@ def _cbpdn_fused_run(cfg, params, opts, state):
                 extra = [0.5 * _rfl2norm2_planar(er, ei, n1),
                          0.5 * _rfl2norm2_sq(sqg, n1)]
         if not (opts.fast_solve or gradreg):
-            # DXf - Sf = scale rf + DHD g - Sf (free spectral identity)
-            er = rfr + DHD[None] * gr - sfr
-            ei = rfi + DHD[None] * gi - sfi
-            extra = [0.5 * _rfl2norm2_planar(er, ei, n1)]
+            extra = [data_fidelity(spec, scale)]
         # the one host read of the iteration
         host = torch.cat([sums] + [v.reshape(1) for v in extra]) \
             .cpu().numpy()
@@ -554,8 +701,7 @@ def _cbpdn_fused_run(cfg, params, opts, state):
         # The kernel loop never stores X; it is the x-step at the final
         # (Y, U, rho), which is what the next iteration (or a resumed
         # solve) computes.
-        PX = spatial_xstep(PY - float(us) * PU, Wf, Wa, js, DHD, sfr, sfi,
-                           *beta_scale(rho), cri.Nv)[0]
+        PX = xstep(PY - float(us) * PU, *beta_scale(rho))[0]
     shp = state.Y.shape
     return ADMMState(
         X=unpack_state(PX, M).reshape(shp),
@@ -573,20 +719,25 @@ def _cbpdn_fused_run(cfg, params, opts, state):
 # backtracking included) needs no FFT.
 
 def _pgm_aux(cfg, params):
+    """The packed problem's constants: the weights of a Cd-channel
+    dictionary (Cd = 1 or a colour dictionary), the signal and the
+    squared mask in the channel-packed layout (K, p0, p1, Cd*PS^2) in
+    which the residual lives."""
     cri = cfg.cri
     n0, n1 = cri.Nv
-    M, K = cri.M, cri.K
+    M, K, Cd = cri.M, cri.K, cri.Cd
     nd0, nd1 = cri.dsz[0], cri.dsz[1]
-    Wf, Wa, js = xstep_kernels(params["D"].reshape(M, nd0, nd1), nd0, nd1,
-                               PS)
-    aux = {"Wf": Wf, "Wa": Wa, "j": js,
-           "Sp": poly_pack(params["S"].reshape(K, n0, n1)),
+    Wf, Wa, js = xstep_kernels(params["D"].reshape(Cd, M, nd0, nd1), nd0,
+                               nd1, PS)
+    aux = {"Wf": Wf, "Wa": Wa, "j": js, "Cd": Cd,
+           "Sp": _pack_ch(params["S"].reshape(K, Cd, n0, n1)),
            "wl1p": _packed_l1_weight(params["wl1"], cri),
            "lmbda": f32(params["lmbda"])}
     if cfg.masked:
         W = params["W"]
-        Wm = W.reshape(W.shape[0], *W.shape[-2:]).expand(K, n0, n1)
-        aux["Wp2"] = poly_pack(Wm) ** 2
+        Wm = W.reshape(W.shape[0], W.shape[1], *W.shape[-2:]) \
+            .expand(K, Cd, n0, n1)
+        aux["Wp2"] = _pack_ch(Wm) ** 2
     return aux
 
 
@@ -604,7 +755,7 @@ def _packed_l1_weight(wl1, cri):
 
 def _pgm_resid(cfg, aux, Yp):
     jf0, jf1, _, _ = aux["j"]
-    return _fwd_combine(Yp @ aux["Wf"], jf0, jf1, PS) - aux["Sp"]
+    return _fwd_combine(Yp @ aux["Wf"], jf0, jf1, PS, aux["Cd"]) - aux["Sp"]
 
 
 def _pgm_grad(cfg, aux, params, Yp):
@@ -652,7 +803,7 @@ def _pgm_obfn(cfg, aux, params, Xp):
 
 def _pgm_hess(cfg, aux, params, Vp):
     jf0, jf1, ja0, ja1 = aux["j"]
-    Rp = _fwd_combine(Vp @ aux["Wf"], jf0, jf1, PS)
+    Rp = _fwd_combine(Vp @ aux["Wf"], jf0, jf1, PS, aux["Cd"])
     return _conv_adj_mm(Rp, aux["Wa"], ja0, ja1)
 
 
@@ -692,25 +843,32 @@ def pgm_cfold_eligible(cfg, params, opts):
     """Whether the JAX package runs this multi-channel-signal FISTA
     configuration on its fused problem by channel folding
     (``sporco_tpu.ops.fused_csc.pgm_cfold_eligible``)."""
-    cri = cfg.cri
-    if not _cfold_wl1_ok(cri, params["wl1"]):
+    if not _cfold_wl1_ok(cfg.cri, params["wl1"]):
         return False
-    cri2 = dataclasses.replace(cri, K=cri.K * cri.C, C=1, Cx=1)
-    return pgm_eligible(dataclasses.replace(cfg, cri=cri2), opts)
+    return pgm_eligible(_cfold(cfg, params)[0], opts)
 
 
-def pgm_unsupported_reason(cfg, opts):
-    """None if the port's fused FISTA problem takes a configuration that
-    :func:`pgm_eligible` (or :func:`pgm_cfold_eligible`) admits, else
-    what it lacks and the ROADMAP item that ports it."""
-    cri = cfg.cri
-    if cri.Cd > 1:
-        return ("a colour dictionary needs the rank-C packed problem, "
-                "which is not ported yet (ROADMAP queue 1, item 11)")
-    if cri.C > 1:
-        return ("a multi-channel signal needs channel folding (cfold), "
-                "which is not ported yet (ROADMAP queue 1, item 10)")
-    return None
+def _pgm_cfold(cfg, params):
+    """Fold the channel axis into the batch axis for the FISTA problem
+    (exact, as :func:`_cfold`); a mask with a batch or channel axis is
+    broadcast to (K, C) and folded alongside the signal, a spatial one
+    broadcasts as it is."""
+    cfg2, params2 = _cfold(cfg, params)
+    cri, Nv = cfg.cri, tuple(cfg.cri.Nv)
+    W = params["W"]
+    if W.shape[0] > 1 or W.shape[1] > 1:
+        W = W.expand((cri.K, cri.C, 1) + Nv).reshape(
+            (cri.K * cri.C, 1, 1) + Nv)
+    return cfg2, {**params2, "W": W}
+
+
+def pgm_cbpdn_solve_cfold(cfg, params, opts, state):
+    """Fused FISTA solve of a configuration that
+    :func:`pgm_cfold_eligible` takes: fold the channels into the batch
+    axis, run :func:`pgm_cbpdn_solve`, unfold the state."""
+    return _solve_folded(pgm_cbpdn_solve, cfg.cri,
+                         *_pgm_cfold(cfg, params), opts, state,
+                         ("X", "Y", "Xprv", "Gprv", "Zrb"))
 
 
 def _pgm_kernel_eligible(cfg, params, opts):
@@ -741,7 +899,8 @@ def _pgm_fused_kernel_run(cfg, params, opts, state):
     Wf, Wa, Sp, wl1p, lmbda = (aux[k] for k in ("Wf", "Wa", "Sp", "wl1p",
                                                 "lmbda"))
     jf0, jf1, ja0, ja1 = aux["j"]
-    Ta = (ja0 + 1) * (ja1 + 1) * PS * PS
+    Cd = aux["Cd"]
+    Ta = Wa.shape[0]            # (ja0 + 1)(ja1 + 1) Cd PS^2
     Wp2 = aux.get("Wp2")
 
     k0 = int(state.k)
@@ -759,7 +918,7 @@ def _pgm_fused_kernel_run(cfg, params, opts, state):
     nanv = f32(np.nan)
 
     while k - k0 < opts.max_iter and rsdl >= stop_tol(opts, k):
-        Rp = _fwd_combine(R1.reshape(K, p0, p1, -1), jf0, jf1, PS) - Sp
+        Rp = _fwd_combine(R1.reshape(K, p0, p1, -1), jf0, jf1, PS, Cd) - Sp
         if Wp2 is not None:
             Rp = Wp2 * Rp
         G2 = _adj_rolls(Rp, ja0, ja1)
@@ -774,8 +933,8 @@ def _pgm_fused_kernel_run(cfg, params, opts, state):
             host = sums.cpu().numpy()
             objv = (np.nan,) * 3
         else:
-            RpX = _fwd_combine(RX.reshape(K, p0, p1, -1), jf0, jf1,
-                               PS) - Sp
+            RpX = _fwd_combine(RX.reshape(K, p0, p1, -1), jf0, jf1, PS,
+                               Cd) - Sp
             sq = RpX * RpX if Wp2 is None else Wp2 * RpX ** 2
             f = 0.5 * torch.sum(sq)
             # the one host read of the iteration
@@ -804,9 +963,6 @@ def pgm_cbpdn_solve(cfg, params, opts, state):
     if not pgm_eligible(cfg, opts):
         raise ValueError("this configuration is not one of the fused "
                          "FISTA problem's (see pgm_eligible)")
-    reason = pgm_unsupported_reason(cfg, opts)
-    if reason is not None:
-        raise NotImplementedError(reason)
     with fp32_precision(), torch.no_grad():
         if _pgm_kernel_eligible(cfg, params, opts):
             return _pgm_fused_kernel_run(cfg, params, opts, state)

@@ -1,15 +1,15 @@
 """Linear-algebra helpers of the DFT-domain solvers (counterpart of
 ``sporco_tpu.ops.linalg``): broadcast inner products, the per-bin
-Sherman-Morrison solves of single-channel CSC and the relative residual
-``rrs``.  The multi-rank solve ``solvemdbi_ism`` (colour dictionaries)
-is not ported yet (ROADMAP queue 1, item 11)."""
+Sherman-Morrison solves of single-channel CSC, the iterated
+Sherman-Morrison solve of colour-dictionary CSC and the relative
+residual ``rrs``."""
 
 import torch
 
 from sporco_tpu_torch._device import fp32_precision
 
 __all__ = ["inner", "dot", "solvedbi_sm", "solvedbi_sm_c", "solvedbd_sm",
-           "solvedbd_sm_c", "rrs"]
+           "solvedbd_sm_c", "solvemdbi_ism", "rrs"]
 
 
 def inner(x, y, axis=-1):
@@ -61,6 +61,37 @@ def solvedbd_sm(ah, d, b, c=None, axis=-3):
     if c is None:
         c = solvedbd_sm_c(ah, a, d, axis)
     return (b - a * inner(c, b, axis=axis)) / d
+
+
+def solvemdbi_ism(ah, rho, b, axisM, axisK):
+    """Solve ``(rho I + sum_k a_k a_k^H) x = b`` by iterated
+    Sherman-Morrison over axis ``axisK`` (``sporco/linalg.py:370``):
+    the per-bin x-step of colour-dictionary CSC, with ``axisM`` the
+    filter axis and ``axisK`` the channel axis.  ``rho`` is a number or
+    a broadcastable tensor (a bin-dependent diagonal).  The recursion is
+    unrolled over the channels, O(K^2) inner products: for small K."""
+    axisM = axisM % ah.ndim
+    axisK = axisK % ah.ndim
+    K = ah.shape[axisK]
+    a = ah.conj()
+
+    def slk(x, k):
+        return x.narrow(axisK, k, 1)
+
+    gamma, delta = [], []
+    alpha = slk(a, 0) / rho
+    beta = b / rho
+    for k in range(K):
+        gamma.append(alpha)
+        delta.append(1.0 + inner(slk(ah, k), gamma[k], axis=axisM))
+        d = gamma[k] * inner(slk(ah, k), beta, axis=axisM)
+        beta = beta - d / delta[k]
+        if k < K - 1:
+            alpha = slk(a, k + 1) / rho
+            for j in range(k + 1):
+                d = gamma[j] * inner(slk(ah, j), alpha, axis=axisM)
+                alpha = alpha - d / delta[j]
+    return beta
 
 
 def rrs(ax, b):

@@ -280,13 +280,23 @@ def _outside(kind):
 
 @pytest.mark.parametrize("kind", ["colour_signal", "colour_dict"])
 def test_outside_slice_raises(kind):
-    """What the JAX package runs on its fused driver and the port's
-    fused driver lacks (channel folding, colour dictionaries) raises,
-    naming the ROADMAP item."""
+    """What the JAX package runs on its fused driver by channel folding
+    or with a colour dictionary, and the port's fused driver once
+    refused, now takes the JAX package's route with nothing raised:
+    channel folding, or the rank-C fused driver
+    (``tests/test_torch_colour.py`` holds the solves against the JAX
+    package)."""
+    from sporco_tpu.ops import fused_csc as jfc
+    from sporco_tpu_torch.ops import fused_csc as tfc
     kw = _outside(kind)
     D, S = kw.pop("D"), kw.pop("S")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        ConvBPDN(D, S, LMBDA, device="cpu", **kw)
+    jb = JConvBPDN(D, S, LMBDA, **kw)
+    tb = ConvBPDN(D, S, LMBDA, device="cpu", **kw)
+    folded = jfc.cfold_eligible(jb.cfg, jb.params, jb.opts)
+    assert folded == (kind == "colour_signal")
+    assert jfc.eligible(jb.cfg, jb.params, jb.opts) == (not folded)
+    assert tb._fused_solve is (tfc.cbpdn_solve_cfold if folded
+                               else tfc.cbpdn_solve)
 
 
 @pytest.mark.parametrize("kind", ["generic", "odd_size", "no_bndry",

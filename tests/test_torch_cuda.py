@@ -59,9 +59,11 @@ def _run(fn, args, nonneg, emit_px=True):
 
 
 # (pos, C, T): the small slice geometry, then ragged edges of every tile
-# size, a single element, and the headline problem's packed geometry
+# size, a single element, the headline problem's packed geometry, and the
+# colour geometries: a colour dictionary's 768 taps, and three image
+# channels folded into 12288 rows
 GEOMS = [(64, 256, 256), (100, 200, 60), (129, 131, 7), (1, 3, 1),
-         (4096, 4096, 256)]
+         (4096, 4096, 256), (4096, 4096, 768), (12288, 4096, 256)]
 
 
 @pytest.mark.parametrize("geom", GEOMS, ids=str)
@@ -670,6 +672,50 @@ def test_fused_variants_on_card_match_cpu(dev, kind):
                                    rtol=1e-4, err_msg=name)
     np.testing.assert_allclose(ia.PrimalRsdl, ib.PrimalRsdl, rtol=1e-3,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["colour_admm", "colour_elastic",
+                                  "colour_fista", "colour_fista_masked",
+                                  "folded_admm", "folded_fista_masked"])
+def test_colour_solves_on_card_match_cpu(dev, kind):
+    """Colour CSC at 64x64x3 with 8 filters, 15 iterations on the card
+    against the CPU: a colour dictionary (8x8x3) on fused ADMM (l1 and
+    elastic, csc_iter at T = 768) and fused FISTA (pgm_iter, unmasked and
+    with a per-channel mask), and a grey dictionary folded over the three
+    channels; one kernel launch per iteration."""
+    rng = np.random.default_rng(3)
+    S = rng.standard_normal((64, 64, 3)).astype(np.float32)
+    W = (rng.random((64, 64, 3)) >= 0.3).astype(np.float32)
+    if kind.startswith("colour"):
+        D = rng.standard_normal((8, 8, 3, 8)).astype(np.float32)
+        D /= np.sqrt((D ** 2).sum(axis=(0, 1, 2), keepdims=True))
+    else:
+        D, _ = _variant_problem(N=64)
+    kw = {"dimK": 0}
+    if kind.endswith("fista") or kind.endswith("masked"):
+        cls = tpgm.ConvBPDNMask if kind.endswith("masked") else \
+            tpgm.ConvBPDN
+        if kind.endswith("masked"):
+            kw["W"] = W
+        opt = cls.options(max_iter=15, rel_stop_tol=0.0, L=50.0)
+        counter, names = tpi, ("ObjFun", "DFid", "RegL1")
+    else:
+        cls = ConvElasticNet if kind == "colour_elastic" else ConvBPDN
+        if cls is ConvElasticNet:
+            kw["mu"] = 0.05
+        opt = cls.options(max_iter=15, rel_stop_tol=0.0)
+        counter, names = tci, ("ObjFun", "DFid", "RegL1", "Rho")
+    counter.reset_launches()
+    a = cls(D, S, 0.05, opt=opt, **kw)
+    Ya = a.solve().cpu().numpy()
+    assert sum(counter.LAUNCHES.values()) == 15
+    b = cls(D, S, 0.05, opt=opt, device="cpu", **kw)
+    Yb = b.solve().numpy()
+    assert np.abs(Ya - Yb).max() < 2e-4 * np.abs(Yb).max()
+    ia, ib = a.getitstat(), b.getitstat()
+    for name in names:
+        np.testing.assert_allclose(getattr(ia, name), getattr(ib, name),
+                                   rtol=1e-4, err_msg=name)
 
 
 @pytest.mark.parametrize("n,m", [(128, 63), (200, 8)], ids=str)

@@ -250,13 +250,19 @@ def test_fused_true_on_generic_configuration_raises_as_jax():
         jb.solve()
     with pytest.raises(ValueError, match="fused=True"):
         tcb.ConvBPDN(D, S, LMBDA, fused=True, device="cpu")
-    # colour dictionaries: NotImplementedError on either path
+    # colour dictionaries: the same rule (the rank-C fused driver needs
+    # PS-aligned sizes), and the generic path takes them
     Dc = np.random.default_rng(0).standard_normal((8, 8, 3, 4)) \
         .astype(np.float32)
     Sc = np.repeat(S[..., None], 3, axis=-1)
+    jc = jcb.ConvBPDN(Dc, Sc, LMBDA, dimK=0, fused=True)
+    with pytest.raises(ValueError, match="fused=True"):
+        jc.solve()
+    with pytest.raises(ValueError, match="fused=True"):
+        tcb.ConvBPDN(Dc, Sc, LMBDA, dimK=0, fused=True, device="cpu")
     for fused in ("auto", False):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tcb.ConvBPDN(Dc, Sc, LMBDA, dimK=0, fused=fused, device="cpu")
+        tc = tcb.ConvBPDN(Dc, Sc, LMBDA, dimK=0, fused=fused, device="cpu")
+        assert tc._fused_solve is None
 
 
 # ---------------------------------------------------------------------------
@@ -270,7 +276,7 @@ def _pgm_both(D, S, masked, opt, **kw):
     tb = tcls(D, S, LMBDA, opt=tcls.options(**opt), fused=False,
               device="cpu", **kw)
     tX = tb.solve().numpy()
-    assert not tb._fused
+    assert tb._fused_solve is None
     return jb, jX, tb, tX
 
 

@@ -550,7 +550,7 @@ def test_float64_scalars_follow_the_problem_type():
     tb = tpgm.ConvBPDN(D, S, LMBDA, opt=tpgm.ConvBPDN.options(**opt),
                        dtype=torch.float64, device="cpu")
     tb.solve()
-    assert not tb._fused
+    assert tb._fused_solve is None
     assert int(tb.state.k) == int(jb.state.k) == 20
     for name in ("t", "L", "rsdl", "Tk", "objprv"):
         v = getattr(tb.state, name)
@@ -623,13 +623,20 @@ def _outside(kind):
 @pytest.mark.parametrize("cls", ["ConvBPDN", "ConvBPDNMask"])
 @pytest.mark.parametrize("kind", ["colour_signal", "colour_dict"])
 def test_outside_slice_raises(cls, kind):
-    """What the JAX package runs on its fused problem and the port's
-    lacks (channel folding, colour dictionaries) raises, naming the
-    ROADMAP item."""
+    """What the JAX package runs on its fused problem by channel folding
+    or with a colour dictionary, and the port's fused problem once
+    refused, now takes the JAX package's route with nothing raised
+    (``tests/test_torch_colour.py`` holds the solves against the JAX
+    package)."""
     kw = _outside(kind)
     D, S = kw.pop("D"), kw.pop("S")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        getattr(tpgm, cls)(D, S, LMBDA, device="cpu", **kw)
+    jb = getattr(jpgm, cls)(D, S, LMBDA, **kw)
+    tb = getattr(tpgm, cls)(D, S, LMBDA, device="cpu", **kw)
+    folded = jfc.pgm_cfold_eligible(jb.cfg, jb.params, jb.opts)
+    assert folded == (kind == "colour_signal")
+    assert jfc.pgm_eligible(jb.cfg, jb.params, jb.opts) == (not folded)
+    assert tb._fused_solve is (tfc.pgm_cbpdn_solve_cfold if folded
+                               else tfc.pgm_cbpdn_solve)
 
 
 @pytest.mark.parametrize("cls", ["ConvBPDN", "ConvBPDNMask"])
@@ -656,7 +663,7 @@ def test_outside_fused_slice_solves_as_jax(cls, kind):
     jX = np.asarray(jb.solve())
     tb = tcls(D, S, LMBDA, opt=tcls.options(**opt), device="cpu", **kw)
     tX = tb.solve().numpy()
-    assert tb._fused == (kind == "complex")
+    assert (tb._fused_solve is not None) == (kind == "complex")
     _assert_close(jb, jX, tb, tX)
 
 
