@@ -30,7 +30,15 @@ The main paths are the headline problem of the repository, single-channel
   run ``csc_iter``/``pgm_iter`` at 768 taps after the rank-3 x-step's
   glue, and the headline dictionary on the colour image (``dimK=0``),
   whose fused solves fold the three channels into the batch (12288
-  packed rows).
+  packed rows);
+- and convolutional dictionary learning at ``bench.py``'s
+  ``_bench_cdlcns`` size (BASELINE configuration 5: 40 images of
+  128x128, 32 filters of 8x8, lmbda = 0.1): the consensus loop
+  ``sporco_tpu_torch.parallel.consensus.ConvBPDNDictLearn_Consensus``,
+  whose kernel stage runs ``csc_iter`` without its forward pair
+  (``emit_fwd=False``) at (pos, C, T) = (10240, 2048, 256) once an outer
+  iteration and whose transforms run ``rfft2_planar``/``irfft2_planar``
+  at 128x128, and ``ConvBPDNDictLearn`` on the fused ADMM x-step.
 
 Phases, each printing one JSON line on stdout:
 
@@ -109,7 +117,23 @@ Phases, each printing one JSON line on stdout:
 22. ``clr_pgm_solve``: the colour dictionary by FISTA, 250 iterations,
     fused (one ``pgm_iter`` per iteration) against generic;
 23. ``cfold_solve``: the folded problem, ADMM to 1e-3 and FISTA at 250
-    iterations, each fused against generic.
+    iterations, each fused against generic;
+24. ``cns_kernel``: ``csc_iter`` with ``emit_fwd=False`` at (10240, 2048,
+    256), the initial dictionary's weights, under ``clr_kernel``'s rules
+    (the adjoint probe, then the 1e-5 gate or Un against float64); its
+    profile must show ``iter_main`` and ``sums_kernel`` and no
+    ``iter_fwd``; timed beside the full form; the FFT kernels at 128x128
+    over 1280 and 40 planes against their plain versions, float64 and
+    ``torch.fft``;
+25. ``cns_parity``: 5 outer iterations of the kernel stage and of the
+    DFT-domain stage on the card against the CPU (D, Z, objective);
+26. ``cns_solve``: 50 outer iterations of each stage (kernel, spatial
+    with a per-filter ``L1Weight``, DFT-domain, masked with 80% of the
+    pixels kept): ms an outer iteration, the objective falls, unit-norm
+    filters, launches as the stage makes them, the unmasked stages'
+    objectives within 1e-3;
+27. ``cdl_solve``: ``ConvBPDNDictLearn`` (float32, ADMM x-step, consensus
+    CCMOD) for 20 outer iterations: one full ``csc_iter`` each.
 
 Each solve sets every kernel's launch count to 0 just before it and
 reads the counts just after.  Then a ``total`` line with the seconds the
@@ -117,13 +141,16 @@ run took, the ``{"kernels": [...]}`` line (the inverse's ``ms`` is that
 of ``irfftn`` on a complex64 spectrum, the call the solves make;
 ``planar_ms`` the planar entry's; ``csc_iter``/``pgm_iter`` also carry
 their numbers at the colour geometries and their launches in the colour
-solves), the ``nvidia-smi`` name and power limit line, and last
-``{"ok": true, "device": {...}}``.
+solves, ``csc_iter`` its ``emit_fwd=False`` form at the consensus
+geometry and its launches in the consensus and dictionary learning
+solves, the FFT kernels their numbers at 128x128), the ``nvidia-smi``
+name and power limit line, and last ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero without the ``ok`` line; so does a run past the
 time budget, or a machine without a CUDA device.
 ``--profile`` adds phases that run the fused ADMM, fused FISTA, generic
-ADMM and fused gradreg solves under ``torch.profiler`` and report the
-device's busy and idle share and its time by kernel.
+ADMM and fused gradreg solves and the consensus loop's kernel stage (50
+outer iterations) under ``torch.profiler`` and report the device's busy
+and idle share and its time by kernel.
 """
 
 import contextlib
@@ -140,6 +167,7 @@ import numpy as np
 import torch
 
 from sporco_tpu_torch._device import fp32_precision
+from sporco_tpu_torch.models import dictlrn as tdl
 from sporco_tpu_torch.models import pgm as tpgm
 from sporco_tpu_torch.models.cbpdn import (ConvBPDN, ConvBPDNGradReg,
                                            ConvElasticNet)
@@ -150,6 +178,7 @@ from sporco_tpu_torch.ops import fft as tsf
 from sporco_tpu_torch.ops import fft2_planar as tfp
 from sporco_tpu_torch.ops import pgm_iter as tpi
 from sporco_tpu_torch.ops.fused_csc import PS, xstep_kernels
+from sporco_tpu_torch.parallel import consensus as tcns
 
 BUDGET_S = 600          # hard limit for the whole script, build included
 
@@ -284,33 +313,38 @@ def _bound_ms(flops, floats):
                                  else "bytes")
 
 
-def _split_bounds(pos, C, T, epi_flops, floats):
-    """The bounds of csc_iter/pgm_iter.  ``bound_ms``: all three products
-    as fp32-faithful splits on the tensor cores (SPLIT_PASSES bf16
-    products each at 989 TFLOP/s) and the epilogue in fp32, against the
-    bytes.  ``bound_as_built_ms``: the work as the kernel does it (the
-    adjoint G2 @ Wa in fp32 FFMA, the forward pair split on the tensor
-    cores; the forward needs the adjoint's output, so the two add).
-    ``bound_fp32_ms``: all in fp32 FFMA (the bound of PRs 4-10)."""
+def _split_bounds(pos, C, T, epi_flops, floats, nfwd=2):
+    """The bounds of csc_iter/pgm_iter, with ``nfwd`` forward products
+    beside the adjoint (0 for csc_iter's ``emit_fwd=False``).
+    ``bound_ms``: every product as an fp32-faithful split on the tensor
+    cores (SPLIT_PASSES bf16 products each at 989 TFLOP/s) and the
+    epilogue in fp32, against the bytes.  ``bound_as_built_ms``: the work
+    as the kernel does it (the adjoint G2 @ Wa in fp32 FFMA, the forward
+    pair split on the tensor cores; the forward needs the adjoint's
+    output, so the two add).  ``bound_fp32_ms``: all in fp32 FFMA (the
+    bound of PRs 4-10)."""
     prod = 2 * pos * T * C
     t_epi = epi_flops * pos * C / PEAK_FP32_FLOPS * 1e3
     t_bytes = 4 * floats / PEAK_HBM_BYTES * 1e3
-    t_tensor = SPLIT_PASSES * 3 * prod / PEAK_BF16_FLOPS * 1e3 + t_epi
+    t_tensor = (SPLIT_PASSES * (1 + nfwd) * prod / PEAK_BF16_FLOPS * 1e3
+                + t_epi)
     t_built = (prod / PEAK_FP32_FLOPS * 1e3 + t_epi
-               + SPLIT_PASSES * 2 * prod / PEAK_BF16_FLOPS * 1e3)
+               + SPLIT_PASSES * nfwd * prod / PEAK_BF16_FLOPS * 1e3)
     return {"bound_ms": max(t_tensor, t_bytes),
             "bound_by": "operations" if t_tensor >= t_bytes else "bytes",
             "bound_as_built_ms": max(t_built, t_bytes),
-            "bound_fp32_ms": _bound_ms(3 * prod + epi_flops * pos * C,
-                                       floats)[0]}
+            "bound_fp32_ms": _bound_ms((1 + nfwd) * prod
+                                       + epi_flops * pos * C, floats)[0]}
 
 
-def csc_iter_bound_ms(pos, C, T, emit_px, vectors):
-    """The bounds of one csc_iter call (see :func:`_split_bounds`)."""
-    floats = (pos * T + 2 * pos * C + 2 * T * C            # G2 Y U Wa Wf
-              + 2 * pos * C + 2 * pos * T + 6              # Yn Un R1 R2 sums
+def csc_iter_bound_ms(pos, C, T, emit_px, vectors, emit_fwd=True):
+    """The bounds of one csc_iter call (see :func:`_split_bounds`); with
+    ``emit_fwd`` False no Wf read, no R1/R2 written, no forward pair."""
+    fwd = 1 if emit_fwd else 0
+    floats = (pos * T + 2 * pos * C + (1 + fwd) * T * C    # G2 Y U Wa Wf
+              + 2 * pos * C + 2 * fwd * pos * T + 6        # Yn Un R1 R2 sums
               + (pos * C if emit_px else 0) + (2 * C if vectors else 0))
-    return _split_bounds(pos, C, T, EPI_FLOPS, floats)
+    return _split_bounds(pos, C, T, EPI_FLOPS, floats, nfwd=2 * fwd)
 
 
 def pgm_iter_bound_ms(pos, C, T, vectors):
@@ -524,10 +558,12 @@ def adjoint_rounding(G2, Y0, U0, Wa, Wf, wf3, rlx, us, scale):
                 / un_plain.abs().max())}
 
 
-def check_csc_iter(dev, Wf, Wa, pos, headline, seed=1):
+def check_csc_iter(dev, Wf, Wa, pos, headline, seed=1, emit_fwd=True):
     """``csc_iter`` against its plain version on the card at (pos, C, T)
     over the flag grid, each output's error against a float64 run beside
-    it, two launches alike bit for bit, kernel and plain version timed.
+    it, two launches alike bit for bit, kernel and plain version timed;
+    with ``emit_fwd`` False all of it without the forward pair (the
+    consensus stage's form; then the full form is timed beside it).
 
     The adjoint probe runs first.  Un cancels from A's magnitude down to
     the threshold's, so it holds the 1e-5 gate against the cuBLAS plain
@@ -569,13 +605,18 @@ def check_csc_iter(dev, Wf, Wa, pos, headline, seed=1):
                 def run(fn, dt=torch.float32):
                     Y, U = Y0.to(dt, copy=True), U0.to(dt, copy=True)
                     o = fn(G2.to(dt), Y, U, Wa.to(dt), Wf.to(dt), thr, wl1,
-                           rlx, us, scale, nonneg=nonneg, emit_px=emit_px)
+                           rlx, us, scale, nonneg=nonneg, emit_px=emit_px,
+                           emit_fwd=emit_fwd)
+                    if not emit_fwd and (o[3] is not None
+                                         or o[4] is not None):
+                        raise AssertionError("csc_iter returned R1/R2 "
+                                             "with emit_fwd=False")
                     return [t for t in o if t is not None]
                 got = run(lambda *a, **k: tci.csc_iter(*a, **k,
                                                        wf_split=wf3))
                 ref = run(tci.csc_iter_plain)
-                names = (["PX"] if emit_px else []) + ["Yn", "Un", "R1",
-                                                       "R2", "sums"]
+                names = ((["PX"] if emit_px else []) + ["Yn", "Un"]
+                         + (["R1", "R2"] if emit_fwd else []) + ["sums"])
                 where = (f"(pos, C, T) = {(pos, C, T)} emit_px={emit_px} "
                          f"nonneg={nonneg} vectors={vectors}")
                 errs, ae = compare_outputs(
@@ -596,25 +637,51 @@ def check_csc_iter(dev, Wf, Wa, pos, headline, seed=1):
     # the main path's configuration: repeatable, timed, and by pass
     Y, U = Y0.clone(), U0.clone()
 
-    def run(fn):
+    def run(fn, fwd=emit_fwd):
         return lambda: fn(G2, Y, U, Wa, Wf, 0.0143, 1.0, rlx, us, scale,
-                          nonneg=False, emit_px=False, wf_split=wf3)
+                          nonneg=False, emit_px=False, wf_split=wf3,
+                          emit_fwd=fwd)
     check_repeatable("csc_iter", lambda: tci.csc_iter(
         G2, Y0.clone(), U0.clone(), Wa, Wf, 0.0143, 1.0, rlx, us, scale,
-        emit_px=True, wf_split=wf3))
-    kernel_ms = cuda_ms(run(tci.csc_iter))
+        emit_px=True, wf_split=wf3, emit_fwd=emit_fwd))
+    # without the forward pair a call is short enough that the wrapper's
+    # host time shows: timed over batches of calls, as the FFT kernels are
+    batch = 1 if emit_fwd else FFT_BATCH
+    kernel_ms = cuda_ms(run(tci.csc_iter), batch=batch)
     pass_ms = device_ms_by_kernel(run(tci.csc_iter))
-    plain_ms = cuda_ms(run(tci.csc_iter_plain))
+    plain_ms = cuda_ms(run(tci.csc_iter_plain), batch=batch)
     gflop = 2 * pos * T * C / 1e9
-    return {"geometry": {"pos": pos, "C": C, "T": T},
-            "tolerance_rel": KERNEL_RTOL, "adjoint": adjoint,
-            "un_rule": un_rule, "grid": grid, "repeatable": True,
-            "max_abs_err": max_abs, "kernel_ms": kernel_ms,
-            "pass_ms": pass_ms, "plain_ms": plain_ms,
-            **csc_iter_bound_ms(pos, C, T, False, False),
-            "kernel_tflops": 3 * gflop / kernel_ms,
-            "forward_bf16_tflops": SPLIT_PASSES * 2 * gflop / pass_ms.get(
-                "iter_fwd", float("nan"))}
+    out = {"geometry": {"pos": pos, "C": C, "T": T, "emit_fwd": emit_fwd},
+           "tolerance_rel": KERNEL_RTOL, "adjoint": adjoint,
+           "un_rule": un_rule, "grid": grid, "repeatable": True,
+           "max_abs_err": max_abs, "kernel_ms": kernel_ms,
+           "pass_ms": pass_ms, "plain_ms": plain_ms,
+           **csc_iter_bound_ms(pos, C, T, False, False, emit_fwd),
+           "kernel_tflops": (3 if emit_fwd else 1) * gflop / kernel_ms}
+    if emit_fwd:
+        out["forward_bf16_tflops"] = SPLIT_PASSES * 2 * gflop / pass_ms.get(
+            "iter_fwd", float("nan"))
+    else:
+        # the profile of the form: the adjoint pass and the sums, no
+        # forward pass; the full form timed beside it
+        passes = " ".join(pass_ms)
+        if "iter_fwd" in passes or not ("iter_main" in passes
+                                        and "sums_kernel" in passes):
+            raise AssertionError(f"csc_iter emit_fwd=False ran {pass_ms}, "
+                                 "not iter_main and sums_kernel alone")
+        out["full_ms"] = cuda_ms(run(tci.csc_iter, True), batch=batch)
+        # the wrapper's host time per call (enqueue only, no sync): where
+        # it exceeds the kernels' device time, the events time the host
+        call = run(tci.csc_iter)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            call()
+        out["host_ms"] = 1e3 * (time.perf_counter() - t0) / batch
+        torch.cuda.synchronize()
+        out["full_bound_ms"] = csc_iter_bound_ms(pos, C, T, False,
+                                                 False)["bound_ms"]
+    return out
 
 
 def phase_kernel(dev, D):
@@ -1483,6 +1550,226 @@ def phase_cfold_solve(dev, D, S3):
                 xshape)}
 
 
+# The consensus dictionary learning problem of bench.py's _bench_cdlcns
+# (BASELINE configuration 5): 40 images of 128x128, 32 filters of 8x8,
+# lmbda = 0.1, 50 outer iterations
+CN, CK, CND, CM, CLMBDA, CNS_ITERS = 128, 40, 8, 32, 0.1, 50
+CNS_PARITY_ITERS = 5
+CDL_ITERS = 20
+CNS_KEPT = 0.8           # share of pixels the masked problem keeps
+# card (kernels) against CPU (plain versions) over CNS_PARITY_ITERS outer
+# iterations: the float32 tolerances of the CPU tests of the DFT-domain
+# and spatial stages against the JAX package (D and Z of their scale,
+# the objective relative)
+CNS_PARITY = {"D": 1e-4, "Z": 1e-4, "objective": 1e-4}
+CNS_UNIT_NORM = 1e-5
+# FFT planes of the consensus loop at 128x128: K M (the coefficient maps)
+# and K (the signals)
+CNS_FFT_PLANES = (CK * CM, CK)
+
+
+def cdl_problem():
+    """The problem of ``bench.py``'s ``_bench_cdlcns``."""
+    rng = np.random.default_rng(0)
+    S = rng.standard_normal((CN, CN, CK)).astype(np.float32)
+    D0 = rng.standard_normal((CND, CND, CM)).astype(np.float32)
+    return D0, S, CLMBDA
+
+
+def fft_128(dev, B):
+    """Both FFT kernels on B planes of 128x128 against their plain
+    versions and float64 references (the fft_kernel phase's rules), and
+    kernel, plain version and torch.fft timed."""
+    n0 = n1 = CN
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((B, n0, n1), generator=g, device=dev)
+    yr, yi = tfp.rfft2_planar(x)
+    pr, pi = tfp.rfft2_planar_plain(x)
+    ref = torch.fft.rfft2(x.double())
+    sc = float(ref.abs().max())
+    zr = torch.randn(yr.shape, generator=g, device=dev)
+    zi = torch.randn(yr.shape, generator=g, device=dev)
+    xb = tfp.irfft2_planar(zr, zi, n1)
+    xp = tfp.irfft2_planar_plain(zr, zi, n1)
+    xref = torch.fft.irfft2(torch.complex(zr.double(), zi.double()).cpu(),
+                            s=(n0, n1)).to(dev)
+    errs = {"rfft2_planar": {"ref": max(_rel_err(yr, ref.real, sc),
+                                        _rel_err(yi, ref.imag, sc)),
+                             "plain": max(_rel_err(yr, pr, sc),
+                                          _rel_err(yi, pi, sc))},
+            "irfft2_planar": {"ref": _rel_err(xb, xref, 1.0),
+                              "plain": _rel_err(xb, xp, 1.0)}}
+    for name, tol in (("rfft2_planar", FFT_TOL["forward"]),
+                      ("irfft2_planar", FFT_TOL["inverse"])):
+        for key, e in errs[name].items():
+            lim = tol if key == "ref" else 2 * tol
+            if not e <= lim:
+                raise AssertionError(f"{name} differs from {key} by {e:.3e} "
+                                     f"(tolerance {lim:.0e}) at (B, N0, N1) "
+                                     f"= {(B, n0, n1)}")
+    lib = torch.fft.rfft2(x)
+    bound, by = fft_bound_ms(B, n0, n1)
+
+    def ms(fn):
+        return cuda_ms(fn, batch=FFT_BATCH)
+    out = {"shape": [B, n0, n1], "rel_err": errs,
+           "max_abs_err": {
+               "rfft2_planar": max(float((yr - pr).abs().max()),
+                                   float((yi - pi).abs().max())),
+               "irfft2_planar": float((xb - xp).abs().max())},
+           "rfft2_planar": {
+               "ms": ms(lambda: tfp.rfft2_planar(x)),
+               "plain_ms": ms(lambda: tfp.rfft2_planar_plain(x)),
+               "library_ms": ms(lambda: torch.fft.rfft2(x))},
+           "irfft2_planar": {
+               "planar_ms": ms(lambda: tfp.irfft2_planar(yr, yi, n1)),
+               # the call the loop makes: irfftn on a complex64 spectrum
+               "ms": ms(lambda: tsf.irfftn(lib, s=(n0, n1))),
+               "plain_ms": ms(lambda: tfp.irfft2_planar_plain(yr, yi, n1)),
+               "library_ms": ms(lambda: torch.fft.irfft2(lib, s=(n0, n1)))},
+           "bound_ms": bound, "bound_by": by}
+    for name in ("rfft2_planar", "irfft2_planar"):
+        out[name]["vs_library"] = out[name]["ms"] / out[name]["library_ms"]
+    return out
+
+
+def phase_cns_kernel(dev, D0):
+    """``csc_iter`` with ``emit_fwd=False`` at the consensus kernel
+    stage's geometry (10240, 2048, 256), with the weights of the initial
+    dictionary projected on the constraint set, under the rules of
+    :func:`check_csc_iter`; the FFT kernels at 128x128."""
+    Dn = D0 / np.sqrt((D0 ** 2).sum(axis=(0, 1), keepdims=True))
+    Wf, Wa, _ = xstep_kernels(torch.as_tensor(Dn).permute(2, 0, 1)
+                              .contiguous().to(dev), CND, CND, PS)
+    pos = CK * (CN // PS) ** 2
+    out = check_csc_iter(dev, Wf, Wa, pos, headline=False, emit_fwd=False)
+    out["fft"] = {f"B={B}": fft_128(dev, B) for B in CNS_FFT_PLANES}
+    return out
+
+
+def _cns_route(d):
+    return ("kernel" if d.cfg.kernel_x else "spatial" if d.cfg.fused_x
+            else "masked" if d.cfg.masked else "dft")
+
+
+def phase_cns_parity(dev, D0, S, lmbda):
+    """CNS_PARITY_ITERS outer iterations of the kernel stage and of the
+    DFT-domain stage on the card against the same on the CPU."""
+    out = {}
+    for label, fused in (("kernel", "auto"), ("dft", False)):
+        runs = []
+        for d in (dev, "cpu"):
+            c = tcns.ConvBPDNDictLearn_Consensus(
+                D0, S, lmbda, max_iter=CNS_PARITY_ITERS, fused=fused,
+                device=d)
+            if _cns_route(c) != label:
+                raise AssertionError(f"consensus with fused={fused} took "
+                                     f"the {_cns_route(c)} stage")
+            c.solve()
+            runs.append((c.getdict().cpu().numpy(),
+                         c.getcoef().cpu().numpy(), c.evaluate()[0]))
+        (Dg, Zg, og), (Dc, Zc, oc) = runs
+        errs = {"D": float(np.abs(Dg - Dc).max()),
+                "Z": float(np.abs(Zg - Zc).max() / np.abs(Zc).max()),
+                "objective": abs(og - oc) / abs(oc)}
+        for name, e in errs.items():
+            if not e <= CNS_PARITY[name]:
+                raise AssertionError(f"consensus {label} stage: {name} "
+                                     f"card against CPU {e:.3e} (tolerance "
+                                     f"{CNS_PARITY[name]:.0e})")
+        out[label] = {"rel_err": errs, "objective": og}
+    return {"iterations": CNS_PARITY_ITERS, "tolerance": CNS_PARITY, **out}
+
+
+def phase_cns_solve(dev, D0, S, lmbda):
+    """CNS_ITERS outer iterations on the card of each CSC stage: the
+    objective falls, the filters keep unit norm, and the launches are
+    those of the stage (csc_iter once per iteration in the kernel stage
+    only; per iteration 4 forward and 2 inverse transforms, masked 6 and
+    3); the unmasked stages end at the same objective."""
+    W = (np.random.default_rng(4).random(S.shape)
+         < CNS_KEPT).astype(np.float32)
+    cases = (("kernel", tcns.ConvBPDNDictLearn_Consensus, {}),
+             ("spatial", tcns.ConvBPDNDictLearn_Consensus,
+              {"wl1": np.ones((1, 1, 1, 1, CM), np.float32)}),
+             ("dft", tcns.ConvBPDNDictLearn_Consensus, {"fused": False}),
+             ("masked", tcns.ConvBPDNMaskDcplDictLearn_Consensus,
+              {"W": W}))
+    per_iter = {"kernel": (1, 4, 2), "spatial": (0, 4, 2), "dft": (0, 4, 2),
+                "masked": (0, 6, 3)}
+    out = {}
+    for label, cls, kw in cases:
+        d = cls(D0, S, lmbda, max_iter=CNS_ITERS, device=dev, **kw)
+        if _cns_route(d) != label:
+            raise AssertionError(f"consensus {label}: took the "
+                                 f"{_cns_route(d)} stage")
+        obj0 = d.evaluate()[0]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        d.step(CNS_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        obj1 = d.evaluate()[0]
+        n_csc, n_fwd, n_inv = per_iter[label]
+        expect_launches(f"consensus {label}, {CNS_ITERS} iterations",
+                        counts, csc_iter=n_csc * CNS_ITERS,
+                        rfft2_planar=n_fwd * CNS_ITERS,
+                        irfft2_planar=n_inv * CNS_ITERS)
+        D = d.getdict().cpu().numpy()
+        nrm = np.sqrt((D.astype(np.float64) ** 2).sum(axis=(0, 1)))
+        Z = d.getcoef()
+        if not (np.all(np.isfinite(D)) and bool(torch.isfinite(Z).all())
+                and obj1 < obj0):
+            raise AssertionError(f"consensus {label}: objective {obj0} -> "
+                                 f"{obj1}, or not finite")
+        if not np.abs(nrm - 1.0).max() <= CNS_UNIT_NORM:
+            raise AssertionError(f"consensus {label}: filter norms "
+                                 f"{nrm.min()}..{nrm.max()}")
+        out[label] = {"iterations": CNS_ITERS, "wall_s": wall,
+                      "ms_per_iter": 1e3 * wall / CNS_ITERS,
+                      "iters_per_s": CNS_ITERS / wall,
+                      "objective_before": obj0, "objective_after": obj1,
+                      "norm_err": float(np.abs(nrm - 1.0).max()),
+                      "launches": counts}
+    objs = [out[k]["objective_after"] for k in ("kernel", "spatial", "dft")]
+    spread = (max(objs) - min(objs)) / min(objs)
+    if not spread <= OBJ_AGREE:
+        raise AssertionError(f"consensus stages end at objectives {objs}")
+    out["objective_spread"] = spread
+    return out
+
+
+def phase_cdl_solve(dev, D0, S, lmbda):
+    """ConvBPDNDictLearn (float32, fused ADMM x-step, consensus CCMOD) for
+    CDL_ITERS outer iterations: one full csc_iter per outer iteration."""
+    d = tdl.ConvBPDNDictLearn(D0, S, lmbda, xmethod="admm", dmethod="cns",
+                              max_iter=CDL_ITERS, dtype=torch.float32,
+                              device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    D = d.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    if counts["csc_iter"] != CDL_ITERS or counts["pgm_iter"] \
+            or counts["admm_tail"]:
+        raise AssertionError(f"ConvBPDNDictLearn: launches {counts}, "
+                             f"expected {CDL_ITERS} csc_iter")
+    its = d.getitstat()
+    obj = its["XObjFun"]
+    if not (np.all(np.isfinite(obj)) and bool(torch.isfinite(D).all())
+            and len(obj) == CDL_ITERS):
+        raise AssertionError("ConvBPDNDictLearn: not finite")
+    return {"iterations": CDL_ITERS, "wall_s": wall,
+            "ms_per_iter": 1e3 * wall / CDL_ITERS,
+            "objective_first": float(obj[0]),
+            "objective": float(obj[-1]), "dfid": float(its["XDFid"][-1]),
+            "launches": counts}
+
+
 def phase_profile(dev, make_model):
     """A solve under ``torch.profiler``: device busy time (the sum of
     every kernel's and copy's time on the card) against the solve's wall
@@ -1509,7 +1796,8 @@ def phase_profile(dev, make_model):
                        getattr(e, "self_cuda_time_total", 0.0))
     busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
     top = sorted(on_dev, key=dev_us, reverse=True)[:16]
-    k = int(b.state.k)
+    k = b.j if isinstance(b, tcns.ConvBPDNDictLearn_Consensus) \
+        else int(b.state.k)
     return {"iterations": k, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "device_ms_per_iter": busy_ms / k,
@@ -1573,6 +1861,15 @@ def kernels_line(summary):
     launches in the fused colour solves."""
     csc = kernel_entry("csc_iter", summary["kernel"], summary["solve"],
                        "sporco_tpu/ops/pallas_csc_iter.py:276")
+    # the consensus loop's form (emit_fwd=False) and its launches
+    cns = geometry_entry(summary["cns_kernel"])
+    cns["full_ms"] = summary["cns_kernel"]["full_ms"]
+    cns["full_bound_ms"] = summary["cns_kernel"]["full_bound_ms"]
+    cns["host_ms"] = summary["cns_kernel"]["host_ms"]
+    csc["consensus"] = cns
+    csc["consensus_launches"] = \
+        summary["cns_solve"]["kernel"]["launches"]["csc_iter"]
+    csc["cdl_launches"] = summary["cdl_solve"]["launches"]["csc_iter"]
     pgm = kernel_entry("pgm_iter", summary["pgm_kernel"],
                        summary["pgm_solve"],
                        "sporco_tpu/ops/pallas_csc_iter.py:409")
@@ -1592,12 +1889,22 @@ def kernels_line(summary):
         entry["colour_launches"] = {
             label: counts[name] for label, counts in fused_launches.items()
             if counts[name]}
+    ffts = [fft_entry("rfft2_planar", summary["fft"], summary["generic"],
+                      "sporco_tpu/ops/pallas_fft.py:402"),
+            fft_entry("irfft2_planar", summary["fft"], summary["generic"],
+                      "sporco_tpu/ops/pallas_fft.py:433", route="irfftn")]
+    for entry in ffts:
+        # at 128x128 over the consensus loop's planes, and its launches
+        name = entry["name"]
+        entry["cdl_128"] = {
+            key: {**t[name], "bound_ms": t["bound_ms"],
+                  "bound_by": t["bound_by"],
+                  "max_abs_err": t["max_abs_err"][name]}
+            for key, t in summary["cns_kernel"]["fft"].items()}
+        entry["consensus_launches"] = \
+            summary["cns_solve"]["kernel"]["launches"][name]
     return {"kernels": [
-        csc, pgm,
-        fft_entry("rfft2_planar", summary["fft"], summary["generic"],
-                  "sporco_tpu/ops/pallas_fft.py:402"),
-        fft_entry("irfft2_planar", summary["fft"], summary["generic"],
-                  "sporco_tpu/ops/pallas_fft.py:433", route="irfftn"),
+        csc, pgm, *ffts,
         kernel_entry("admm_tail", summary["tail_kernel"],
                      summary["gradreg"],
                      "sporco_tpu/ops/pallas_csc_tail.py:105",
@@ -1686,6 +1993,14 @@ def main(argv):
         "clr_pgm_solve", lambda: phase_clr_pgm_solve(dev, Dc, S3))
     summary["cfold_solve"] = run_phase(
         "cfold_solve", lambda: phase_cfold_solve(dev, D, S3))
+    D0c, Sc, lc = cdl_problem()
+    summary["cns_kernel"] = run_phase("cns_kernel",
+                                      lambda: phase_cns_kernel(dev, D0c))
+    run_phase("cns_parity", lambda: phase_cns_parity(dev, D0c, Sc, lc))
+    summary["cns_solve"] = run_phase(
+        "cns_solve", lambda: phase_cns_solve(dev, D0c, Sc, lc))
+    summary["cdl_solve"] = run_phase(
+        "cdl_solve", lambda: phase_cdl_solve(dev, D0c, Sc, lc))
     if "--profile" in argv:
         def admm(**kw):
             return lambda: ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(
@@ -1701,6 +2016,9 @@ def main(argv):
             dev, lambda: ConvBPDNGradReg(
                 Dg, S, LMBDA, device=dev, **gkw,
                 opt=admm_options(ConvBPDNGradReg))))
+        run_phase("cns_profile", lambda: phase_profile(
+            dev, lambda: tcns.ConvBPDNDictLearn_Consensus(
+                D0c, Sc, lc, max_iter=CNS_ITERS, device=dev)))
     PHASE["name"] = "kernels"
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line(summary))

@@ -187,7 +187,10 @@ int64_t csc_iter_scratch_floats(int64_t pos, int64_t C) {
 // Launch the three kernels on `stream`.  Wf3 is the bf16 split of Wf,
 // (3, round_up(C, 32), round_up(T, 8)), zero-padded.  thr_v and wl1_v
 // are both (C,) vectors or both null, in which case the scalars thr_s /
-// wl1_s apply to every channel; PX may be null (not stored).  `vec` allows 16-byte accesses:
+// wl1_s apply to every channel; PX may be null (not stored).  With Wf3,
+// R1 and R2 all null the forward pair is skipped: iter_fwd is not
+// launched (the consensus CDL stage, whose dictionary changes before the
+// next forward product is needed).  `vec` allows 16-byte accesses:
 // the caller sets it only when C and T are multiples of 4 and every
 // pointer is 16-byte aligned.  Returns a cudaError_t.
 int csc_iter_launch(const float* G2, float* Y, float* U, const float* Wa,
@@ -196,15 +199,20 @@ int csc_iter_launch(const float* G2, float* Y, float* U, const float* Wa,
                     float scale, int nonneg, int vec, float* PX, float* R1,
                     float* R2, float* part, float* sums, int64_t pos,
                     int64_t C, int64_t T, void* stream) {
-  if (pos <= 0 || C <= 0 || T <= 0 || !thr_v != !wl1_v)
+  const bool fwd = Wf3 != nullptr;
+  if (pos <= 0 || C <= 0 || T <= 0 || !thr_v != !wl1_v ||
+      !R1 != !fwd || !R2 != !fwd)
     return (int)cudaErrorInvalidValue;
   const int64_t g1x = ceil_div(pos, A_BM), g1y = ceil_div(C, A_BN);
   const int64_t g2x = ceil_div(pos, F_BM), g2y = ceil_div(T, F_BN);
   if (g1x > 0x7fffffff || g2x > 0x7fffffff || g1y > 65535 || g2y > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(
-      iter_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
+  if (fwd) {
+    err = cudaFuncSetAttribute(
+        iter_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Epi p{rlx, us, scale, nonneg};
 
@@ -218,10 +226,12 @@ int csc_iter_launch(const float* G2, float* Y, float* U, const float* Wa,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  iter_fwd<<<dim3((unsigned)g2x, (unsigned)g2y), F_NT, F_SMEM, st>>>(
-      Y, U, Wf3, R1, R2, pos, C, T, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (fwd) {
+    iter_fwd<<<dim3((unsigned)g2x, (unsigned)g2y), F_NT, F_SMEM, st>>>(
+        Y, U, Wf3, R1, R2, pos, C, T, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
 
   sums_kernel<NSUM><<<1, NT, 0, st>>>(part, g1x * g1y, sums);
   return (int)cudaGetLastError();

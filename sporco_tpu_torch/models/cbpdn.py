@@ -235,10 +235,6 @@ def _max_abs_dhs(Di, Si, Nv):
     return float(torch.max(torch.abs(Df.conj() * Sf)))
 
 
-def _np_dtype(dtype):
-    return torch.empty((), dtype=dtype).numpy().dtype
-
-
 def _wgrd_internal(wgrd, cri, npdt):
     """GradWeight as a real array; a per-filter vector broadcasts on the
     M axis."""
@@ -262,7 +258,7 @@ def params_from_numpy(D, S, lmbda=None, wl1=1.0, dimK=None, dimN=2,
     real = not (np.iscomplexobj(D) or np.iscomplexobj(S))
     if not real:
         dtype = sf.complex_dtype(dtype)
-    npdt = _np_dtype(dtype)
+    npdt = sf.numpy_dtype(dtype)
     cri = cr.csc_index(D.shape, S.shape, dimK=dimK, dimN=dimN)
     dev = resolve_device(device)
     Di = cr.to_internal_D(torch.as_tensor(D.astype(npdt)),
@@ -273,12 +269,12 @@ def params_from_numpy(D, S, lmbda=None, wl1=1.0, dimK=None, dimN=2,
         with fp32_precision():
             lmbda = 0.1 * _max_abs_dhs(Di, Si, cri.Nv)
     rdt = sf.real_dtype(dtype)
-    wl1a = torch.as_tensor(np.asarray(wl1, _np_dtype(rdt)))
+    wl1a = torch.as_tensor(np.asarray(wl1, sf.numpy_dtype(rdt)))
     if wl1a.ndim > 0:
         wl1a = cr.l1_weight(wl1a, cri)
     params = {"D": Di, "S": Si, "lmbda": float(lmbda), "wl1": wl1a.to(dev),
               "mu": float(mu),
-              "wgrd": _wgrd_internal(wgrd, cri, _np_dtype(rdt)).to(dev)}
+              "wgrd": _wgrd_internal(wgrd, cri, sf.numpy_dtype(rdt)).to(dev)}
     return cri, params, real
 
 
@@ -328,8 +324,7 @@ class ConvBPDN(ADMMModel):
         self.device = resolve_device(device)
         if opt is None:
             opt = self.options()
-        if not isinstance(dtype, torch.dtype):
-            dtype = getattr(torch, np.dtype(dtype).name)
+        dtype = sf.torch_dtype(dtype)
         cri, params, real = params_from_numpy(D, S, lmbda, wl1, dimK, dimN,
                                               self.device, dtype, mu=mu,
                                               wgrd=wgrd)
@@ -353,7 +348,7 @@ class ConvBPDN(ADMMModel):
             if A is None:
                 return None
             return cr.to_internal_X(torch.as_tensor(
-                np.asarray(A).astype(_np_dtype(dtype))), cri) \
+                np.asarray(A).astype(sf.numpy_dtype(dtype))), cri) \
                 .contiguous().to(self.device)
         self.state = init_state(self.problem, self.cfg, self.params,
                                 self.opts, rho0, rho_xi, Y0=internal_x(Y0),
@@ -390,6 +385,28 @@ class ConvBPDN(ADMMModel):
 
     def getmin(self):
         return cr.from_internal_X(self.state.Y, self.cri)
+
+    def getcoef(self):
+        return self.getmin()
+
+    def getcoef_internal(self):
+        """The coefficients in the internal layout (the dictionary
+        learning loop)."""
+        return self.state.Y
+
+    def setdict(self, D=None, internal=None):
+        """Replace the dictionary between ``solve()`` calls: user-shaped
+        ``D``, or ``internal`` in the internal layout ``(1, Cd, M,
+        dsz...)``.  The state (Y, U, rho) is kept; the next solve derives
+        everything it needs from the new dictionary (the fused driver its
+        polyphase weights, their split and ``D^H D``)."""
+        if internal is None:
+            npdt = sf.numpy_dtype(self.opts.dtype)
+            internal = cr.to_internal_D(
+                torch.as_tensor(np.asarray(D).astype(npdt)), self.cri)
+        self.params = {**self.params,
+                       "D": internal.contiguous().to(self.device,
+                                                     self.opts.dtype)}
 
     def reconstruct(self, X=None):
         """Reconstruct ``sum_m d_m * x_m`` in the user S layout

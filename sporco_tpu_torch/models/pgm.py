@@ -64,7 +64,7 @@ def params_from_numpy(D, S, lmbda=None, wl1=1.0, W=None, dimK=None, dimN=2,
     for the models), and ``lmbda`` as a number (defaulting to
     ``0.1 max|D^H S|``).  Complex ``D``/``S`` lose their imaginary part,
     as ``jnp.asarray(D, dtype)`` drops it, so ``real`` is always True."""
-    npdt = _cbpdn._np_dtype(dtype)
+    npdt = sf.numpy_dtype(dtype)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", np.exceptions.ComplexWarning)
         D = np.asarray(D).astype(npdt)
@@ -191,8 +191,7 @@ class ConvBPDN(PGMModel):
         self.device = resolve_device(device)
         if opt is None:
             opt = self.options()
-        if not isinstance(dtype, torch.dtype):
-            dtype = getattr(torch, np.dtype(dtype).name)
+        dtype = sf.torch_dtype(dtype)
         self.opts = opt.replace(dtype=dtype)
         cri, params, _ = params_from_numpy(D, S, lmbda, wl1, W, dimK,
                                            dimN, self.device, dtype)

@@ -2,10 +2,12 @@
 with a plain C interface, loaded through ``ctypes``.
 
 Each source ``sporco_tpu_torch/csrc/<name>.cu`` is compiled on first use
-by one ``nvcc`` call for ``sm_90a`` into ``build/kernels/`` at the root
-of the checkout, named by a hash of the source, the shared headers
-(``csrc/*.cuh``) and the flags, so an unchanged source is never
-rebuilt.  A missing ``nvcc`` or a failed
+by one ``nvcc`` call for ``sm_90a`` into the build directory, named by a
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an unchanged source is never rebuilt.  The build directory is
+``$SPORCO_TPU_TORCH_BUILD_DIR`` where that is set (an installed copy of
+the package may not be able to write beside itself), else
+``build/kernels/`` at the root of the checkout.  A missing ``nvcc`` or a failed
 build raises with the compiler's output; there is no fallback.
 """
 
@@ -18,10 +20,24 @@ import sys
 import time
 from pathlib import Path
 
-__all__ = ["load", "build", "find_nvcc", "BUILD_INFO", "KERNELS"]
+__all__ = ["load", "build", "build_dir", "find_nvcc", "BUILD_INFO",
+           "KERNELS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD_DIR_ENV = "SPORCO_TPU_TORCH_BUILD_DIR"
+
+
+def build_dir():
+    """Where the libraries are built: ``$SPORCO_TPU_TORCH_BUILD_DIR`` if
+    set and not empty, else ``build/kernels/`` at the root of the
+    checkout."""
+    env = os.environ.get(BUILD_DIR_ENV)
+    if env:
+        return Path(env).expanduser().resolve()
+    return Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+
+BUILD_DIR = build_dir()
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

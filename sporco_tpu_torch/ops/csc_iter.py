@@ -21,7 +21,11 @@ runs the forward pair ``R1``/``R2`` on the tensor cores as six bf16
 products of three-term splits of each operand, as accurate as fp32 sums
 (see ``csrc/csc_tiles.cuh``): it splits the state while it loads it and
 takes ``Wf`` also as its split from :func:`split_weight`, which a solve
-makes once (the JAX package's ``Wf_split``).
+makes once (the JAX package's ``Wf_split``).  With ``emit_fwd=False`` the
+forward pair is skipped (its pass is not launched), ``R1``/``R2`` come
+back ``None`` and ``Wf`` may be ``None``: the consensus dictionary
+learning's CSC stage, whose dictionary changes before the next forward
+product is needed.
 
 :func:`csc_iter` launches the kernel for tensors on a CUDA device and
 runs :func:`csc_iter_plain` for tensors on the CPU; any other device
@@ -35,8 +39,8 @@ import torch
 
 from sporco_tpu_torch._device import fp32_precision
 
-__all__ = ["csc_iter", "csc_iter_plain", "split_weight", "LAUNCHES",
-           "reset_launches"]
+__all__ = ["csc_iter", "csc_iter_plain", "split_weight", "iter_supported",
+           "LAUNCHES", "reset_launches"]
 
 NSUM = 6
 # padding of the split weight, as csrc/csc_tiles.cuh reads it: rows to
@@ -51,6 +55,18 @@ LAUNCHES = {"csc_iter": 0}
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def iter_supported(pos, C, T):
+    """The JAX package's geometry rule for its TPU kernel
+    (``iter_supported`` of ``pallas_csc_iter``): C and T multiples of 128
+    and ``pos`` rows in blocks of 8 to 128 rows of at most 2 MB.  This
+    kernel runs any geometry; the rule only routes as the JAX package
+    routes (the consensus CSC stage)."""
+    if C % 128 or T % 128:
+        return False
+    return any(pos % br == 0 and br * C * 4 <= 2 << 20
+               for br in (128, 64, 32, 16, 8))
 
 
 def _as_channels(v, C, device):
@@ -89,7 +105,8 @@ def split_weight(W):
 
 
 def csc_iter_plain(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale,
-                   nonneg=False, emit_px=True, wf_split=None):
+                   nonneg=False, emit_px=True, wf_split=None,
+                   emit_fwd=True):
     """The plain PyTorch version of the kernel (same arguments and
     results as :func:`csc_iter`; ``wf_split`` is not read), with fp32
     contractions pinned."""
@@ -111,8 +128,8 @@ def csc_iter_plain(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale,
         if nonneg:
             yn = torch.clamp(yn, min=0.0)
         un = u + ax - yn
-        r1 = (yn - un) @ Wf
-        r2 = un @ Wf
+        r1 = (yn - un) @ Wf if emit_fwd else None
+        r2 = un @ Wf if emit_fwd else None
         d = px - yn
         e = yn - y
         sums = torch.stack([(d * d).sum(), (e * e).sum(), (px * px).sum(),
@@ -177,17 +194,19 @@ def _check_split(wf_split, Wf, dev):
 
 
 def csc_iter(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale, nonneg=False,
-             emit_px=True, wf_split=None):
+             emit_px=True, wf_split=None, emit_fwd=True):
     """One fused ADMM iteration; returns ``(PX, Yn, Un, R1, R2, sums)``
-    with ``Yn is Y`` and ``Un is U`` (updated in place) and ``PX`` None
-    unless ``emit_px``.  ``thr``/``wl1`` are numbers or tensors of one
-    element or of shape ``(C,)``.  ``wf_split`` is ``split_weight(Wf)``,
-    which the kernel reads in place of ``Wf`` (a solve makes it once); on
-    CUDA tensors it is required."""
+    with ``Yn is Y`` and ``Un is U`` (updated in place), ``PX`` None
+    unless ``emit_px`` and ``R1``/``R2`` None unless ``emit_fwd``.
+    ``thr``/``wl1`` are numbers or tensors of one element or of shape
+    ``(C,)``.  ``wf_split`` is ``split_weight(Wf)``, which the kernel
+    reads in place of ``Wf`` (a solve makes it once); on CUDA tensors it
+    is required when ``emit_fwd``, and neither is read otherwise."""
     dev = Y.device
     if dev.type == "cpu":
         return csc_iter_plain(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale,
-                              nonneg=nonneg, emit_px=emit_px)
+                              nonneg=nonneg, emit_px=emit_px,
+                              emit_fwd=emit_fwd)
     if dev.type != "cuda":
         raise ValueError(f"csc_iter runs on CUDA or CPU tensors, not "
                          f"{dev.type}")
@@ -199,10 +218,12 @@ def csc_iter(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale, nonneg=False,
     _check("Y", Y, (pos, C), dev)
     _check("U", U, (pos, C), dev)
     _check("Wa", Wa, (T, C), dev)
-    _check("Wf", Wf, (C, T), dev)
     if Y.data_ptr() == U.data_ptr():
         raise ValueError("Y and U must be distinct buffers")
-    Wf3 = _check_split(wf_split, Wf, dev)
+    Wf3 = r1 = r2 = None
+    if emit_fwd:
+        _check("Wf", Wf, (C, T), dev)
+        Wf3 = _check_split(wf_split, Wf, dev)
     thr = _as_channels(thr, C, dev)
     wl1 = _as_channels(wl1, C, dev)
     if isinstance(thr, torch.Tensor) != isinstance(wl1, torch.Tensor):
@@ -214,8 +235,9 @@ def csc_iter(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale, nonneg=False,
             for v in (thr, wl1)]
     lib = _lib()
     px = torch.empty_like(Y) if emit_px else None
-    r1 = torch.empty((pos, T), dtype=torch.float32, device=dev)
-    r2 = torch.empty_like(r1)
+    if emit_fwd:
+        r1 = torch.empty((pos, T), dtype=torch.float32, device=dev)
+        r2 = torch.empty_like(r1)
     part = torch.empty(lib.csc_iter_scratch_floats(pos, C),
                        dtype=torch.float32, device=dev)
     sums = torch.empty(NSUM, dtype=torch.float32, device=dev)

@@ -17,12 +17,14 @@ JAX package.
 
 import math
 
+import numpy as np
 import torch
 
 from sporco_tpu_torch.ops import fft2_planar
 
 __all__ = ["fftn", "ifftn", "rfftn", "irfftn", "fl2norm2", "rfl2norm2",
-           "fftconv", "complex_dtype", "real_dtype", "set_precision",
+           "fftconv", "complex_dtype", "real_dtype", "torch_dtype",
+           "numpy_dtype", "set_precision",
            "get_precision", "use_planar_fft"]
 
 _PRECISION = "highest"
@@ -65,6 +67,19 @@ def real_dtype(dtype):
     if not dtype.is_complex:
         return dtype
     return torch.float64 if dtype == torch.complex128 else torch.float32
+
+
+def torch_dtype(dtype):
+    """``dtype`` (a torch dtype, a numpy dtype or its name) as a torch
+    dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, np.dtype(dtype).name)
+
+
+def numpy_dtype(dtype):
+    """The numpy dtype of a torch ``dtype``."""
+    return torch.empty((), dtype=dtype).numpy().dtype
 
 
 def _norm_axes(a, s, axes):

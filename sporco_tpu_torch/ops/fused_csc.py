@@ -53,6 +53,7 @@ the step-size policies, the monotone variant and a spatially varying
 """
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -73,9 +74,9 @@ from sporco_tpu_torch.utils.signal import gradient_filters
 
 __all__ = ["cbpdn_solve", "cbpdn_solve_cfold", "eligible", "cfold_eligible",
            "pgm_cbpdn_solve", "pgm_cbpdn_solve_cfold", "pgm_eligible",
-           "pgm_cfold_eligible", "xstep_kernels", "spatial_xstep",
-           "spatial_xstep_mc", "poly_pack", "poly_unpack", "pack_state",
-           "unpack_state", "PS", "MAX_SUPPORT"]
+           "pgm_cfold_eligible", "consensus_eligible", "xstep_kernels",
+           "spatial_xstep", "spatial_xstep_mc", "poly_pack", "poly_unpack",
+           "pack_state", "unpack_state", "PS", "MAX_SUPPORT"]
 
 PS = 8            # polyphase factor (spatial fold per axis)
 MAX_SUPPORT = 24  # largest filter support the spatial form beats FFT at
@@ -178,6 +179,28 @@ def _adj_kernel(D, nd0, nd1, ps):
     return ker.reshape(J0 + 1, J1 + 1, C * ps * ps, ps * ps * M), J0, J1
 
 
+@functools.lru_cache(maxsize=None)
+def _weight_index(C, M, nd0, nd1, ps):
+    """Where each entry of the polyphase weights comes from: flat indices
+    into ``(0, D.ravel())`` of a (C, M, nd0, nd1) dictionary, 0 for the
+    zeros.  The selectors put one term of ``D`` in each entry, so the
+    einsums of :func:`_fwd_kernel`/:func:`_adj_kernel` on the indices
+    themselves (exact in float64) give the maps."""
+    idx = np.arange(1, C * M * nd0 * nd1 + 1, dtype=np.float64).reshape(
+        C, M, nd0, nd1)
+    kf, jf0, jf1 = _fwd_kernel(idx, nd0, nd1, ps)
+    ka, ja0, ja1 = _adj_kernel(idx, nd0, nd1, ps)
+    Cs = ps * ps * M
+    Wf = np.transpose(kf, (2, 0, 1, 3)).reshape(
+        Cs, (jf0 + 1) * (jf1 + 1) * C * ps * ps)
+    Wa = ka.reshape((ja0 + 1) * (ja1 + 1) * C * ps * ps, Cs)
+    return (np.rint(Wf).astype(np.int64), np.rint(Wa).astype(np.int64),
+            (jf0, jf1, ja0, ja1))
+
+
+_WEIGHT_INDEX_ON = {}
+
+
 def xstep_kernels(Dsm, nd0, nd1, ps=PS):
     """Packed single-matmul weights for the spatial-Woodbury x-step.
 
@@ -187,23 +210,21 @@ def xstep_kernels(Dsm, nd0, nd1, ps=PS):
     Returns ``(Wf, Wa, (jf0, jf1, ja0, ja1))``: the forward/adjoint
     polyphase matmul weights, ``Wf`` (ps^2 M, (jf0+1)(jf1+1) C ps^2) and
     ``Wa`` ((ja0+1)(ja1+1) C ps^2, ps^2 M), as float32 tensors on
-    ``Dsm``'s device, and their circular-roll tap radii.
+    ``Dsm``'s device, and their circular-roll tap radii.  The weights
+    are gathered from ``Dsm`` on its device (no host read: the consensus
+    loop builds them every iteration).
     """
-    D = Dsm.detach().cpu().double().numpy()
-    if D.ndim == 3:
-        D = D[None]
+    D = Dsm if Dsm.ndim == 4 else Dsm.unsqueeze(0)
     C, M = D.shape[:2]
-    kf, jf0, jf1 = _fwd_kernel(D, nd0, nd1, ps)
-    ka, ja0, ja1 = _adj_kernel(D, nd0, nd1, ps)
-    Cs = ps * ps * M
-    Wf = np.transpose(kf, (2, 0, 1, 3)).reshape(
-        Cs, (jf0 + 1) * (jf1 + 1) * C * ps * ps)
-    Wa = ka.reshape((ja0 + 1) * (ja1 + 1) * C * ps * ps, Cs)
-
-    def dev(w):
-        return torch.as_tensor(np.ascontiguousarray(w, np.float32),
-                               device=Dsm.device)
-    return dev(Wf), dev(Wa), (jf0, jf1, ja0, ja1)
+    key = (C, M, nd0, nd1, ps, str(D.device))
+    if key not in _WEIGHT_INDEX_ON:
+        fi, ai, js = _weight_index(C, M, nd0, nd1, ps)
+        _WEIGHT_INDEX_ON[key] = (torch.as_tensor(fi, device=D.device),
+                                 torch.as_tensor(ai, device=D.device), js)
+    fi, ai, js = _WEIGHT_INDEX_ON[key]
+    flat = torch.cat([D.new_zeros(1), D.detach().reshape(-1)]).to(
+        torch.float32)
+    return flat[fi], flat[ai], js
 
 
 def _fwd_combine(o, J0, J1, ps, C=1):
@@ -388,6 +409,15 @@ def _layout_ok(cri, nd0, nd1, dtype, force=False, allow_mc=False):
     if n0 % PS != 0 or n1 % PS != 0 or n1 % 2 != 0:
         return False
     return force or (nd0 <= MAX_SUPPORT and nd1 <= MAX_SUPPORT)
+
+
+def consensus_eligible(cri, dsz, dtype, masked):
+    """Whether the consensus dictionary learning loop may run its CSC
+    stage on the spatial x-step (``consensus_eligible`` of the JAX
+    package): unmasked, and a layout :func:`_layout_ok` takes, colour
+    dictionaries (Cd = C <= 3, shared coefficient maps) included."""
+    return not masked and _layout_ok(cri, dsz[0], dsz[1], dtype,
+                                     allow_mc=True)
 
 
 def _wl1_per_channel(wl1):

@@ -1,15 +1,15 @@
 """Linear-algebra helpers of the DFT-domain solvers (counterpart of
 ``sporco_tpu.ops.linalg``): broadcast inner products, the per-bin
 Sherman-Morrison solves of single-channel CSC, the iterated
-Sherman-Morrison solve of colour-dictionary CSC and the relative
-residual ``rrs``."""
+Sherman-Morrison solve of colour-dictionary CSC, conjugate gradient
+for the dictionary update's x-step and the relative residual ``rrs``."""
 
 import torch
 
 from sporco_tpu_torch._device import fp32_precision
 
 __all__ = ["inner", "dot", "solvedbi_sm", "solvedbi_sm_c", "solvedbd_sm",
-           "solvedbd_sm_c", "solvemdbi_ism", "rrs"]
+           "solvedbd_sm_c", "solvemdbi_ism", "cg", "solvemdbi_cg", "rrs"]
 
 
 def inner(x, y, axis=-1):
@@ -92,6 +92,54 @@ def solvemdbi_ism(ah, rho, b, axisM, axisK):
                 d = gamma[j] * inner(slk(ah, j), alpha, axis=axisM)
                 alpha = alpha - d / delta[j]
     return beta
+
+
+def cg(aop, b, x0=None, tol=1e-5, max_iter=1000, m_inv=None):
+    """Conjugate gradient for a Hermitian positive-definite operator
+    ``aop`` on tensors (``sporco/linalg.py:515``; the same recurrence and
+    stopping test as the JAX package's ``cg``).  The test reads one
+    scalar per iteration on the host.  Returns ``(x, k)`` with ``k`` the
+    number of iterations run, a Python int."""
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+
+    def dotp(u, v):
+        return torch.sum((u.conj() * v).real)
+
+    tiny = 1e-30
+    bn = torch.sqrt(dotp(b, b))
+    r = b - aop(x0)
+    z = m_inv(r) if m_inv is not None else r
+    x, p, rz = x0, z, dotp(r, z)
+    thr = tol * torch.clamp(bn, min=tiny)
+    k = 0
+    while k < max_iter and bool(torch.sqrt(dotp(r, r)) > thr):
+        ap = aop(p)
+        alpha = rz / torch.clamp(dotp(p, ap), min=tiny)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = m_inv(r) if m_inv is not None else r
+        rz_new = dotp(r, z)
+        beta = rz_new / torch.clamp(rz, min=tiny)
+        p = z + beta * p
+        rz = rz_new
+        k += 1
+    return x, k
+
+
+def solvemdbi_cg(ah, rho, b, axisM, axisK, tol=1e-5, max_iter=1000,
+                 x0=None):
+    """Solve ``(rho I + sum_k a_k a_k^H) x = b`` by conjugate gradient
+    (``sporco/linalg.py:515``), ``axisM`` the filter axis and ``axisK``
+    the axis summed over.  Returns ``(x, cgit)``."""
+    a = ah.conj()
+
+    def aop(u):
+        return rho * u + torch.sum(a * inner(ah, u, axis=axisM),
+                                   dim=axisK, keepdim=True)
+
+    with fp32_precision():
+        return cg(aop, b, x0=x0, tol=tol, max_iter=max_iter)
 
 
 def rrs(ax, b):

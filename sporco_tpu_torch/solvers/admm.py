@@ -161,7 +161,9 @@ def _zero_c(cfg, aux, params):
 class ADMMProblem:
     """One ADMM problem as plain functions (``sporco/admm/admm.py:
     672-775``).  ``cnst_a/cnst_at/cnst_b/cnst_c`` default to the
-    ``ADMMEqual`` constraint ``X - Y = 0``.  Signatures::
+    ``ADMMEqual`` constraint ``X - Y = 0``; ``rsdl_*``, where set,
+    replace the generic residuals and their normalisers (as the
+    consensus problems do).  Signatures::
 
         setup(cfg, params) -> aux
         xstep(cfg, aux, params, state) -> (X, xaux)
@@ -169,6 +171,10 @@ class ADMMProblem:
         obfn(cfg, aux, params, state, xaux) -> tuple of 0-d tensors
         cnst_a(cfg, aux, params, X) -> AX        (and cnst_at, cnst_b)
         cnst_c(cfg, aux, params) -> number or tensor
+        rsdl_r(cfg, aux, params, state, AXnr) -> primal residual tensor
+        rsdl_s(cfg, aux, params, state, Yprev) -> dual residual tensor
+        rsdl_rn(cfg, aux, params, state, AXnr) -> 0-d tensor
+        rsdl_sn(cfg, aux, params, state) -> 0-d tensor
         yinit/uinit/xinit(cfg, params) -> tensor
         extra_init(cfg, params) -> extra carry (kept in the state)
     """
@@ -180,6 +186,10 @@ class ADMMProblem:
     cnst_at: Callable = _identity
     cnst_b: Callable = _neg
     cnst_c: Callable = _zero_c
+    rsdl_r: Optional[Callable] = None
+    rsdl_s: Optional[Callable] = None
+    rsdl_rn: Optional[Callable] = None
+    rsdl_sn: Optional[Callable] = None
     yinit: Optional[Callable] = None
     uinit: Optional[Callable] = None
     xinit: Optional[Callable] = None
@@ -250,27 +260,50 @@ def _admm_run(prob, cfg, params, opts, state):
         BY = prob.cnst_b(cfg, aux, params, Y)
         U = st.U + AX + BY - c
         st2 = st._replace(X=X, Y=Y, U=U)
-        # residuals (sporco/admm/admm.py:462-486), squared, on the device
-        sv = prob.cnst_at(cfg, aux, params,
-                          prob.cnst_b(cfg, aux, params, Y - Yprev))
-        sq = [_sumsq(AXnr + BY - c), _sumsq(sv), _sumsq(AXnr), _sumsq(BY),
-              _sumsq(prob.cnst_at(cfg, aux, params, U))]
-        if isinstance(c, torch.Tensor):
-            sq.append(_sumsq(c))
+        # residuals (sporco/admm/admm.py:462-486), squared, on the device;
+        # a problem's rsdl_* hooks replace the generic ones
+        if prob.rsdl_r is not None:
+            rv = prob.rsdl_r(cfg, aux, params, st2, AXnr)
+        else:
+            rv = AXnr + BY - c
+        if prob.rsdl_s is not None:     # rho included
+            sv = prob.rsdl_s(cfg, aux, params, st2, Yprev)
+        else:
+            sv = prob.cnst_at(cfg, aux, params,
+                              prob.cnst_b(cfg, aux, params, Y - Yprev))
+        sq = [_sumsq(rv), _sumsq(sv)]
+        if prob.rsdl_rn is not None:
+            sq.append(prob.rsdl_rn(cfg, aux, params, st2, AXnr))
+        else:
+            sq += [_sumsq(AXnr), _sumsq(BY)]
+            if isinstance(c, torch.Tensor):
+                sq.append(_sumsq(c))
+        if prob.rsdl_sn is not None:
+            sq.append(prob.rsdl_sn(cfg, aux, params, st2))
+        else:
+            sq.append(_sumsq(prob.cnst_at(cfg, aux, params, U)))
+        nsq = len(sq)
         rtype = sq[0].dtype
+        sq = [v.reshape(()).to(rtype) for v in sq]
         if not (opts.fast_solve or prob.obfn is None):
             sq += [torch.as_tensor(o, dtype=rtype, device=X.device)
                    for o in prob.obfn(cfg, aux, params, st2, xaux)]
         # the one host read of the iteration
         host = torch.stack(sq).cpu().numpy().astype(ft)
         rnrm = np.sqrt(host[0])
-        snrm = rho * np.sqrt(host[1])
-        rn = np.maximum(np.sqrt(host[2]), np.sqrt(host[3]))
-        nsq = 5
-        if isinstance(c, torch.Tensor):
-            rn = np.maximum(rn, np.sqrt(host[5]))
-            nsq = 6
-        sn = rho * np.sqrt(host[4])
+        snrm = np.sqrt(host[1])
+        if prob.rsdl_s is None:
+            snrm = rho * snrm
+        if prob.rsdl_rn is not None:
+            rn = host[2]
+        else:
+            rn = np.maximum(np.sqrt(host[2]), np.sqrt(host[3]))
+            if isinstance(c, torch.Tensor):
+                rn = np.maximum(rn, np.sqrt(host[4]))
+        if prob.rsdl_sn is not None:
+            sn = host[nsq - 1]
+        else:
+            sn = rho * np.sqrt(host[nsq - 1])
         r, s, epri, edua = norm_residuals(ar, opts, nc, nx, rnrm, snrm, rn,
                                           sn, ft)
         objv = tuple(host[nsq:]) if len(host) > nsq else (np.nan,) * nobj

@@ -737,3 +737,98 @@ def test_fused_gradreg_runs_tail_kernel_at_any_layout(dev, n, m):
     assert np.abs(Ya - Yb).max() < 2e-4 * np.abs(Yb).max()
     np.testing.assert_allclose(a.getitstat().ObjFun, b.getitstat().ObjFun,
                                rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Dictionary learning: csc_iter without its forward pair, the consensus
+# loop and ConvBPDNDictLearn
+
+@pytest.mark.parametrize("geom", [(64, 512, 256), (100, 200, 60),
+                                  (10240, 2048, 256), (4096, 4096, 768)],
+                         ids=str)
+@pytest.mark.parametrize("vectors", [False, True])
+def test_kernel_without_forward_pair_matches_plain(dev, geom, vectors):
+    """emit_fwd=False: no R1/R2, PX/Yn/Un/sums within 1e-5 of the plain
+    version's (the full form's gate), Yn/Un bit for bit the full
+    form's."""
+    args = _inputs(*geom, vectors, dev, seed=5)
+    G2, Y, U, Wa, Wf, thr, wl1 = args
+    wf3 = tci.split_weight(Wf)
+
+    def run(fn, fwd, wf):
+        out = fn(G2, Y.clone(), U.clone(), Wa, wf, thr, wl1, RLX, US,
+                 SCALE, emit_px=True, wf_split=wf3 if fwd else None,
+                 emit_fwd=fwd)
+        return [None if o is None else o.cpu() for o in out]
+    tci.reset_launches()
+    got = run(tci.csc_iter, False, None)
+    assert tci.LAUNCHES["csc_iter"] == 1
+    full = run(tci.csc_iter, True, Wf)
+    ref = run(tci.csc_iter_plain, False, None)
+    assert got[3] is None and got[4] is None
+    for name, i in (("PX", 0), ("Yn", 1), ("Un", 2), ("sums", 5)):
+        scale = max(float(ref[i].abs().max()), 1e-30)
+        err = float((got[i] - ref[i]).abs().max()) / scale
+        assert err <= 1e-5, (name, err)
+        assert torch.equal(got[i], full[i]), name
+
+
+def _cns_problem(seed=0):
+    rng = np.random.default_rng(seed)
+    D0 = rng.standard_normal((5, 5, 8)).astype(np.float32)
+    S = rng.standard_normal((32, 32, 4)).astype(np.float32)
+    W = (rng.random(S.shape) < 0.8).astype(np.float32)
+    return D0, S, W
+
+
+@pytest.mark.parametrize("stage", ["kernel", "spatial", "dft", "masked"])
+def test_consensus_on_card_matches_cpu(dev, stage):
+    """5 outer iterations of each CSC stage, card against CPU: D and Z
+    within 1e-4 of their scale, the objective 1e-4 relative; the kernel
+    stage launches csc_iter once an iteration, the others never."""
+    from sporco_tpu_torch.parallel import consensus as tcn
+    D0, S, W = _cns_problem()
+    cls, kw = tcn.ConvBPDNDictLearn_Consensus, {}
+    if stage == "spatial":
+        kw = {"wl1": np.ones((1, 1, 1, 1, 8), np.float32)}
+    elif stage == "dft":
+        kw = {"fused": False}
+    elif stage == "masked":
+        cls, kw = tcn.ConvBPDNMaskDcplDictLearn_Consensus, {"W": W}
+    out = []
+    for d in (dev, "cpu"):
+        c = cls(D0, S, 0.1, max_iter=5, device=d, **kw)
+        tci.reset_launches()
+        c.solve()
+        if d == dev:
+            assert tci.LAUNCHES["csc_iter"] == (5 if stage == "kernel"
+                                                else 0)
+        out.append((c.getdict().cpu().numpy(), c.getcoef().cpu().numpy(),
+                    c.evaluate()[0]))
+    (Dg, Zg, og), (Dc, Zc, oc) = out
+    assert np.abs(Dg - Dc).max() <= 1e-4
+    assert np.abs(Zg - Zc).max() <= 1e-4 * np.abs(Zc).max()
+    assert abs(og - oc) <= 1e-4 * abs(oc)
+
+
+@pytest.mark.parametrize("xmethod", ["admm", "pgm"])
+def test_dictlearn_on_card_matches_cpu(dev, xmethod):
+    """ConvBPDNDictLearn on the fused x-step: one csc_iter (pgm_iter) per
+    outer iteration on the card, 5 outer iterations against the CPU."""
+    from sporco_tpu_torch.models import dictlrn as tdl
+    D0, S, _ = _cns_problem(1)
+    out = []
+    for d in (dev, "cpu"):
+        b = tdl.ConvBPDNDictLearn(D0, S, 0.1, xmethod=xmethod, max_iter=5,
+                                  dtype=torch.float32, device=d)
+        tci.reset_launches()
+        tpi.reset_launches()
+        b.solve()
+        if d == dev:
+            kern = tci if xmethod == "admm" else tpi
+            name = "csc_iter" if xmethod == "admm" else "pgm_iter"
+            assert kern.LAUNCHES[name] == 5
+        out.append((b.getdict().cpu().numpy(), b.getitstat()))
+    (Dg, ig), (Dc, ic) = out
+    assert np.abs(Dg - Dc).max() <= 1e-4
+    np.testing.assert_allclose(ig["XObjFun"], ic["XObjFun"], rtol=1e-4)

@@ -240,3 +240,60 @@ def test_chip_smoke_fails_without_cuda(alone, tmp_path):
     assert '"ok"' not in out.stdout and "{" not in out.stdout
     if alone:
         assert "sporco_tpu_torch" in out.stderr
+
+
+def test_build_dir_from_environment(monkeypatch, tmp_path):
+    """The build directory is $SPORCO_TPU_TORCH_BUILD_DIR where set, else
+    build/kernels/ in the checkout; resolving it builds nothing."""
+    monkeypatch.delenv(_nvcc.BUILD_DIR_ENV, raising=False)
+    assert _nvcc.build_dir() == ROOT / "build" / "kernels"
+    monkeypatch.setenv(_nvcc.BUILD_DIR_ENV, "")
+    assert _nvcc.build_dir() == ROOT / "build" / "kernels"
+    target = tmp_path / "elsewhere" / "kernels"
+    monkeypatch.setenv(_nvcc.BUILD_DIR_ENV, str(target))
+    assert _nvcc.build_dir() == target
+    # a fresh import takes it as its BUILD_DIR, and the libraries' paths
+    # lie there
+    code = ("from sporco_tpu_torch.ops import _nvcc\n"
+            "print(_nvcc.BUILD_DIR)\n"
+            "print(_nvcc._target('csc_iter')[1].parent)\n")
+    env = _env()
+    env[_nvcc.BUILD_DIR_ENV] = str(target)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [str(target)] * 2
+    assert not target.exists()
+
+
+def test_dictionary_learning_modules_are_covered():
+    rel = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for path in ("sporco_tpu_torch/models/ccmod.py",
+                 "sporco_tpu_torch/models/dictlrn.py",
+                 "sporco_tpu_torch/parallel/__init__.py",
+                 "sporco_tpu_torch/parallel/consensus.py"):
+        assert path in rel
+
+
+def test_dictionary_learning_entry_points_need_a_card(monkeypatch):
+    """Without a CUDA device the entry points raise unless the caller
+    asks for the CPU; they never fall back to it."""
+    import numpy as np
+    from sporco_tpu_torch.models import ccmod, dictlrn
+    from sporco_tpu_torch.parallel import consensus
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    D0 = rng.standard_normal((4, 4, 3))
+    S = rng.standard_normal((16, 16, 2))
+    Z = np.zeros((16, 16, 1, 2, 3))
+    makers = (
+        lambda **kw: ccmod.ConvCnstrMOD(Z, S, D0.shape, **kw),
+        lambda **kw: dictlrn.ConvBPDNDictLearn(D0, S, 0.1, **kw),
+        lambda **kw: consensus.ConvBPDNDictLearn_Consensus(D0, S, 0.1,
+                                                           **kw),
+        lambda **kw: consensus.ConvBPDNMaskDcplDictLearn_Consensus(
+            D0, S, 0.1, **kw))
+    for make in makers:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        assert make(device="cpu") is not None
