@@ -31,6 +31,11 @@ The main paths are the headline problem of the repository, single-channel
   glue, and the headline dictionary on the colour image (``dimK=0``),
   whose fused solves fold the three channels into the batch (12288
   packed rows);
+- masked CSC by Additive Mask Simulation through the accelerator API
+  (``accel.cbpdnmsk``, ``accel.cbpdngrdmsk``): the fused driver's ``body``
+  with the AMS form of ``admm_tail``, and the generic path;
+- the opt-in "mixed" matmul precision of the fused drivers, whose
+  kernels then compute their forward product R1 as one bf16 product;
 - and convolutional dictionary learning at ``bench.py``'s
   ``_bench_cdlcns`` size (BASELINE configuration 5: 40 images of
   128x128, 32 filters of 8x8, lmbda = 0.1): the consensus loop
@@ -38,11 +43,13 @@ The main paths are the headline problem of the repository, single-channel
   whose kernel stage runs ``csc_iter`` without its forward pair
   (``emit_fwd=False``) at (pos, C, T) = (10240, 2048, 256) once an outer
   iteration and whose transforms run ``rfft2_planar``/``irfft2_planar``
-  at 128x128, and ``ConvBPDNDictLearn`` on the fused ADMM x-step.
+  at 128x128, and ``ConvBPDNDictLearn`` on the fused ADMM x-step, and
+  on the fused FISTA x-step with the FISTA dictionary update.
 
 Phases, each printing one JSON line on stdout:
 
-1. ``device``: the card's name and power limit, torch and CUDA versions;
+1. ``device``: the card's name and power limit, torch and CUDA versions,
+   and ``accel.device_name()`` and ``accel.memory_info()``;
 2. ``build``: the kernels' nvcc builds, one process per source, all
    started together (seconds, ptxas report); for ``csc_iter`` and
    ``pgm_iter`` their SASS by kernel (``cuobjdump``): it fails if ptxas
@@ -133,7 +140,35 @@ Phases, each printing one JSON line on stdout:
     filters, launches as the stage makes them, the unmasked stages'
     objectives within 1e-3;
 27. ``cdl_solve``: ``ConvBPDNDictLearn`` (float32, ADMM x-step, consensus
-    CCMOD) for 20 outer iterations: one full ``csc_iter`` each.
+    CCMOD) for 20 outer iterations: one full ``csc_iter`` each;
+
+then masked CSC by Additive Mask Simulation on the headline image with
+a quarter of its pixels missing (the mask from
+``numpy.random.default_rng(0)``; 64 filters and the impulse map, packed
+state 4096x4160), the opt-in "mixed" precision and the FISTA dictionary
+update:
+
+28. ``ams_tail_kernel``: the AMS form of ``admm_tail`` against its plain
+    version at 4096x4160 with the headline mask and at ragged layouts,
+    over nonneg and us (PYn and PUn bit for bit); kernel, plain version
+    and the kernel's plain form timed on the same arrays;
+29. ``ams_parity``: 10 iterations of the masked problem on the fused
+    driver (``cbpdnmsk``'s ConvBPDN and ``cbpdngrdmsk``'s ConvBPDNGradReg,
+    mu = 0.05) on the card against the CPU;
+30. ``ams_solve``: both to 1e-3, fused (one AMS ``admm_tail`` an
+    iteration) and ``fused=False``, objectives within 1e-3; then
+    ``accel.cbpdnmsk``/``accel.cbpdngrdmsk`` each way, which must give
+    the models' coefficients and launches;
+31. ``mixed_kernel``: ``csc_iter``/``pgm_iter`` with R1 as one bf16
+    product at the headline geometry against their plain versions, R1
+    against the float64 product of its bf16-rounded operands, every
+    other output the "high" launch's bits; mixed and high timed in turns;
+32. ``mixed_solve``: fused ADMM to 1e-3 and fused FISTA (250 iterations)
+    under "mixed", against the "high" solves; 10 iterations on the card
+    against the CPU;
+33. ``cdl_pgm_solve``: ``ConvBPDNDictLearn(xmethod="pgm", dmethod="pgm")``
+    at ``cdl_solve``'s size, 20 outer iterations (one ``pgm_iter`` each),
+    and 3 on the card against the CPU.
 
 Each solve sets every kernel's launch count to 0 just before it and
 reads the counts just after.  Then a ``total`` line with the seconds the
@@ -143,14 +178,17 @@ of ``irfftn`` on a complex64 spectrum, the call the solves make;
 their numbers at the colour geometries and their launches in the colour
 solves, ``csc_iter`` its ``emit_fwd=False`` form at the consensus
 geometry and its launches in the consensus and dictionary learning
-solves, the FFT kernels their numbers at 128x128), the ``nvidia-smi``
-name and power limit line, and last ``{"ok": true, "device": {...}}``.
+solves, the FFT kernels their numbers at 128x128; the AMS form of
+``admm_tail`` and the "mixed" forms of ``csc_iter``/``pgm_iter`` are
+entries of their own, with their launches in the fused masked and mixed
+solves), the ``nvidia-smi`` name and power limit line, and last
+``{"ok": true, "device": {...}}``.
 Any failure exits non-zero without the ``ok`` line; so does a run past the
 time budget, or a machine without a CUDA device.
 ``--profile`` adds phases that run the fused ADMM, fused FISTA, generic
-ADMM and fused gradreg solves and the consensus loop's kernel stage (50
-outer iterations) under ``torch.profiler`` and report the device's busy
-and idle share and its time by kernel.
+ADMM, fused gradreg and fused masked (AMS) solves and the consensus
+loop's kernel stage (50 outer iterations) under ``torch.profiler`` and
+report the device's busy and idle share and its time by kernel.
 """
 
 import contextlib
@@ -166,16 +204,18 @@ import traceback
 import numpy as np
 import torch
 
+from sporco_tpu_torch import accel
 from sporco_tpu_torch._device import fp32_precision
 from sporco_tpu_torch.models import dictlrn as tdl
 from sporco_tpu_torch.models import pgm as tpgm
-from sporco_tpu_torch.models.cbpdn import (ConvBPDN, ConvBPDNGradReg,
-                                           ConvElasticNet)
+from sporco_tpu_torch.models.cbpdn import (AddMaskSim, ConvBPDN,
+                                           ConvBPDNGradReg, ConvElasticNet)
 from sporco_tpu_torch.ops import _nvcc
 from sporco_tpu_torch.ops import csc_iter as tci
 from sporco_tpu_torch.ops import csc_tail as tct
 from sporco_tpu_torch.ops import fft as tsf
 from sporco_tpu_torch.ops import fft2_planar as tfp
+from sporco_tpu_torch.ops import fused_csc as tfc
 from sporco_tpu_torch.ops import pgm_iter as tpi
 from sporco_tpu_torch.ops.fused_csc import PS, xstep_kernels
 from sporco_tpu_torch.parallel import consensus as tcns
@@ -313,7 +353,7 @@ def _bound_ms(flops, floats):
                                  else "bytes")
 
 
-def _split_bounds(pos, C, T, epi_flops, floats, nfwd=2):
+def _split_bounds(pos, C, T, epi_flops, floats, nfwd=2, mixed=False):
     """The bounds of csc_iter/pgm_iter, with ``nfwd`` forward products
     beside the adjoint (0 for csc_iter's ``emit_fwd=False``).
     ``bound_ms``: every product as an fp32-faithful split on the tensor
@@ -322,14 +362,17 @@ def _split_bounds(pos, C, T, epi_flops, floats, nfwd=2):
     as the kernel does it (the adjoint G2 @ Wa in fp32 FFMA, the forward
     pair split on the tensor cores; the forward needs the adjoint's
     output, so the two add).  ``bound_fp32_ms``: all in fp32 FFMA (the
-    bound of PRs 4-10)."""
+    bound of PRs 4-10).  ``mixed``: the first forward product (R1) as
+    one bf16 product, the others as before."""
     prod = 2 * pos * T * C
     t_epi = epi_flops * pos * C / PEAK_FP32_FLOPS * 1e3
     t_bytes = 4 * floats / PEAK_HBM_BYTES * 1e3
-    t_tensor = (SPLIT_PASSES * (1 + nfwd) * prod / PEAK_BF16_FLOPS * 1e3
+    fwd_passes = SPLIT_PASSES * nfwd - (SPLIT_PASSES - 1) * bool(
+        mixed and nfwd)
+    t_tensor = ((SPLIT_PASSES + fwd_passes) * prod / PEAK_BF16_FLOPS * 1e3
                 + t_epi)
     t_built = (prod / PEAK_FP32_FLOPS * 1e3 + t_epi
-               + SPLIT_PASSES * nfwd * prod / PEAK_BF16_FLOPS * 1e3)
+               + fwd_passes * prod / PEAK_BF16_FLOPS * 1e3)
     return {"bound_ms": max(t_tensor, t_bytes),
             "bound_by": "operations" if t_tensor >= t_bytes else "bytes",
             "bound_as_built_ms": max(t_built, t_bytes),
@@ -337,28 +380,31 @@ def _split_bounds(pos, C, T, epi_flops, floats, nfwd=2):
                                        + epi_flops * pos * C, floats)[0]}
 
 
-def csc_iter_bound_ms(pos, C, T, emit_px, vectors, emit_fwd=True):
+def csc_iter_bound_ms(pos, C, T, emit_px, vectors, emit_fwd=True,
+                      mixed=False):
     """The bounds of one csc_iter call (see :func:`_split_bounds`); with
     ``emit_fwd`` False no Wf read, no R1/R2 written, no forward pair."""
     fwd = 1 if emit_fwd else 0
     floats = (pos * T + 2 * pos * C + (1 + fwd) * T * C    # G2 Y U Wa Wf
               + 2 * pos * C + 2 * fwd * pos * T + 6        # Yn Un R1 R2 sums
               + (pos * C if emit_px else 0) + (2 * C if vectors else 0))
-    return _split_bounds(pos, C, T, EPI_FLOPS, floats, nfwd=2 * fwd)
+    return _split_bounds(pos, C, T, EPI_FLOPS, floats, nfwd=2 * fwd,
+                         mixed=mixed)
 
 
-def pgm_iter_bound_ms(pos, C, T, vectors):
+def pgm_iter_bound_ms(pos, C, T, vectors, mixed=False):
     """The bounds of one pgm_iter call (see :func:`_split_bounds`)."""
     floats = (pos * T + 2 * pos * C + 2 * T * C            # G2 Y Xprv Wa Wf
               + 2 * pos * C + 2 * pos * T + 2              # X Yn R1 RX sums
               + (2 * C if vectors else 0))
-    return _split_bounds(pos, C, T, PGM_EPI_FLOPS, floats)
+    return _split_bounds(pos, C, T, PGM_EPI_FLOPS, floats, mixed=mixed)
 
 
-def tail_bound_ms(R, C, vectors):
+def tail_bound_ms(R, C, vectors, mask_floats=0):
     """Least time of one admm_tail call: PX, PY and PU read once, PYn and
-    PUn written once (see :func:`_bound_ms`)."""
-    floats = 5 * R * C + 6 + (2 * C if vectors else 0)
+    PUn written once, and ``mask_floats`` of the AMS form's packed mask
+    (see :func:`_bound_ms`)."""
+    floats = 5 * R * C + 6 + (2 * C if vectors else 0) + mask_floats
     return _bound_ms(TAIL_FLOPS * R * C, floats)
 
 
@@ -1770,6 +1816,448 @@ def phase_cdl_solve(dev, D0, S, lmbda):
             "launches": counts}
 
 
+# ---------------------------------------------------------------------------
+# Masked CSC by Additive Mask Simulation, the "mixed" precision and the
+# FISTA dictionary update
+
+AMS_MISSING = 0.25      # share of the headline's pixels the mask drops
+# "mixed" rounds R1's operands to bf16 (8 bits, 4e-3 relative), and the
+# ADMM x-step's residual cancels: its solve may stall short of the
+# stopping tolerance (reported, not a failure); its final objective must
+# stay within 1e-2 of the "high" solve's
+MIXED_OBJ_AGREE = 1e-2
+AMS_MU = 0.05           # gradient penalty of cbpdngrdmsk (csc_accel.py)
+
+
+def ams_problem(S):
+    """The headline image with a quarter of its pixels missing: the mask
+    from ``numpy.random.default_rng(0)`` and the image it leaves."""
+    W = (np.random.default_rng(0).random((N, N))
+         >= AMS_MISSING).astype(np.float32)
+    return W, (S * W).astype(np.float32)
+
+
+def _ams_model(kind, D, Sm, W, dev, max_iter=MAX_ITER, rel_stop_tol=REL_TOL,
+               **kw):
+    """The model ``accel.cbpdnmsk`` (kind "l1") or ``accel.cbpdngrdmsk``
+    ("gradreg") builds: AddMaskSim over ConvBPDN or ConvBPDNGradReg."""
+    cls = ConvBPDN if kind == "l1" else ConvBPDNGradReg
+    if kind == "gradreg":
+        kw["mu"] = AMS_MU
+    return AddMaskSim(cls, D, Sm, W, LMBDA, device=dev,
+                      opt=admm_options(cls, max_iter, rel_stop_tol), **kw)
+
+
+def phase_ams_tail_kernel(dev, W):
+    """admm_tail's AMS form against its plain version at the masked
+    headline layout (4096 x 4160: 64 filters and the impulse map), with
+    the headline mask packed as the driver packs it, and at ragged ones
+    (the 16-byte path's 37 rows, a C off a multiple of 4, two impulse
+    maps), over nonneg and us; PYn and PUn must equal the plain
+    version's bit for bit, the sums 1e-5 relative.  Kernel and plain
+    version timed at the headline layout, beside the plain form of the
+    kernel on the same arrays."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    P = PS * PS
+    Wp_head = tfc.ams_mask(torch.as_tensor(W, device=dev).reshape(
+        1, 1, 1, N, N), 1, (N, N))
+
+    def arrays(R, Mt, nimp):
+        C = P * Mt
+        PX = torch.randn((R, C), generator=g, device=dev)
+        PY = torch.randn((R, C), generator=g, device=dev) * (
+            torch.rand((R, C), generator=g, device=dev) < 0.05)
+        PU = 0.01 * torch.randn((R, C), generator=g, device=dev)
+        wl1 = torch.ones(Mt, device=dev)
+        wl1[Mt - nimp:] = 0.0
+        wl1 = wl1.repeat(P).contiguous()
+        Wp = Wp_head if R == Wp_head.shape[0] else (
+            torch.rand((R, P), generator=g, device=dev) >= AMS_MISSING
+        ).float()
+        return PX, PY, PU, 0.0143 * wl1, wl1, Wp
+    shapes = [((N // PS) ** 2, M + 1, 1), (37, M + 1, 1), (25, 5, 1),
+              (64, 9, 2)]
+    grid, max_abs, sums_rel = [], 0.0, 0.0
+    for R, Mt, nimp in shapes:
+        PX, PY0, PU0, thr, wl1, Wp = arrays(R, Mt, nimp)
+        for nonneg in (False, True):
+            for us in (1.0, 0.9):
+                outs = [fn(PX, PY0.clone(), PU0.clone(), thr, wl1, 1.8,
+                           nonneg=nonneg, us=us, ams=(Wp, nimp))
+                        for fn in (tct.admm_tail, tct.admm_tail_plain)]
+                where = (f"(R, C) = {(R, P * Mt)} nimp={nimp} "
+                         f"nonneg={nonneg} us={us}")
+                errs, ae = compare_outputs(
+                    "admm_tail (AMS)", ("PYn", "PUn", "sums"), *outs, where)
+                for name, k, p in zip(("PYn", "PUn"), outs[0], outs[1]):
+                    if not torch.equal(k, p):
+                        raise AssertionError(
+                            f"admm_tail (AMS) {name} differs from the plain "
+                            f"version's bits at {where}")
+                srel = float(((outs[0][2] - outs[1][2]).abs()
+                              / outs[1][2].abs().clamp_min(1e-30)).max())
+                if srel > KERNEL_RTOL:
+                    raise AssertionError(f"admm_tail (AMS) sums differ by "
+                                         f"{srel:.3e} at {where}")
+                max_abs = max(max_abs, ae)
+                sums_rel = max(sums_rel, srel)
+                grid.append({"shape": [R, P * Mt], "nimp": nimp,
+                             "nonneg": nonneg, "us": us, "rel_err": errs,
+                             "sums_rel_err": srel})
+    R, Mt, nimp = shapes[0]
+    PX, PY, PU, thr, wl1, Wp = arrays(R, Mt, nimp)
+    C = P * Mt
+
+    def run(fn, ams=(Wp, nimp)):
+        return lambda: fn(PX, PY, PU, thr, wl1, 1.8, us=0.9, ams=ams)
+    kernel_ms = cuda_ms(run(tct.admm_tail), batch=10)
+    plain_form_ms = cuda_ms(run(tct.admm_tail, None), batch=10)
+    plain_ms = cuda_ms(run(tct.admm_tail_plain), batch=10)
+    bound_ms, bound_by = tail_bound_ms(R, C, True, mask_floats=R * P)
+    return {"tolerance_rel": KERNEL_RTOL, "grid": grid,
+            "max_abs_err": max_abs, "sums_max_rel_err": sums_rel,
+            "geometry": {"R": R, "C": C, "M": Mt, "nimp": nimp},
+            "mask_kept": float(Wp.mean()), "kernel_ms": kernel_ms,
+            "plain_form_kernel_ms": plain_form_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "achieved_gb_per_s": (5 * R * C + R * P) * 4 / kernel_ms / 1e6}
+
+
+def phase_ams_parity(dev, D, Sm, W):
+    """10 iterations of the masked headline problem (cbpdnmsk's and
+    cbpdngrdmsk's models, fused) on the card against the CPU."""
+    out = {}
+    for kind in ("l1", "gradreg"):
+        runs = []
+        for d in (dev, "cpu"):
+            b = _ams_model(kind, D, Sm, W, d, PARITY_ITERS, 0.0).cbpdn
+            Yd = b.solve()
+            runs.append((b.getitstat(), {"Y": Yd.cpu().numpy(),
+                                         "X": b.state.X.cpu().numpy()}))
+        names = ("ObjFun", "DFid", "RegL1", "Rho", "PrimalRsdl",
+                 "DualRsdl") + (("RegGrad",) if kind == "gradreg" else ())
+        out[kind] = compare_runs(f"AMS parity ({kind})", runs, names, PARITY)
+    return {"iterations": PARITY_ITERS, "rel_err": out, "tolerance": PARITY}
+
+
+def phase_ams_solve(dev, D, Sm, W):
+    """accel.cbpdnmsk and accel.cbpdngrdmsk on the masked headline to
+    1e-3, fused (one AMS admm_tail an iteration) and fused=False: the
+    models' solves (fused against generic within OBJ_AGREE), then each
+    accel call, which must give the model's coefficients and launches."""
+    out = {}
+    for kind in ("l1", "gradreg"):
+        def make(max_iter=MAX_ITER, **kw):
+            return _ams_model(kind, D, Sm, W, dev, max_iter, **kw).cbpdn
+        # fused: setup D, S (and the gradient filters), then per iteration
+        # the x-step's pair on one plane (l1) or 65 (gradreg), one tail
+        extra = 1 if kind == "gradreg" else 0
+        res = _variant_solves(
+            f"masked {kind}", make,
+            lambda k: dict(admm_tail=k, rfft2_planar=k + 2 + extra,
+                           irfft2_planar=k),
+            lambda k: dict(rfft2_planar=k + 2 + extra, irfft2_planar=k),
+            xshape=(N, N, 1, 1, M + 1))
+        fn = accel.cbpdnmsk if kind == "l1" else accel.cbpdngrdmsk
+        args = (D, Sm, W, LMBDA) + ((AMS_MU,) if kind == "gradreg" else ())
+        for route in ("fused", "generic"):
+            cls = ConvBPDN if kind == "l1" else ConvBPDNGradReg
+            kw = {} if route == "fused" else {"fused": False}
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            X = fn(*args, opt=admm_options(cls), **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launches()
+            ref = make(**kw)
+            Xm = ref.solve()[..., :M]
+            err = float((X - Xm).abs().max() / Xm.abs().max())
+            k = int(ref.state.k)
+            if counts != res[route]["launches"] or not err <= 1e-6 \
+                    or tuple(X.shape) != (N, N, 1, 1, M):
+                raise AssertionError(
+                    f"accel {kind} ({route}): launches {counts} against "
+                    f"the model's {res[route]['launches']}, coefficients "
+                    f"{err:.3e} from the model's")
+            res[route]["accel"] = {"wall_s": wall,
+                                   "ms_per_iter": 1e3 * wall / k,
+                                   "launches": counts,
+                                   "rel_diff_from_model": err}
+        out[kind] = res
+    out["launches"] = out["l1"]["launches"]
+    out["mask_missing"] = AMS_MISSING
+    return out
+
+
+def phase_mixed_kernel(dev, D):
+    """csc_iter and pgm_iter with the "mixed" R1 (one bf16 product) at the
+    headline geometry against their plain versions: every output but R1
+    within KERNEL_RTOL, and the "high" launch's bits; R1 within
+    KERNEL_RTOL of the float64 product of the kernel's own bf16-rounded
+    operands (where the kernel's Yn/Un differ from the plain version's
+    by an fp32 ulp, a bf16 rounding flips and R1 moves by a bf16 ulp of
+    one term; the plain version's R1 distance is reported beside); and
+    the time of the mixed and the high form in the same run."""
+    Wf, Wa, (pos, C, T) = headline_weights(dev, D)
+    wf3 = tci.split_weight(Wf)
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def sparse(*shape):
+        return randn(*shape) * (torch.rand(shape, generator=g, device=dev)
+                                < 0.05)
+    G2 = 0.1 * randn(pos, T)
+    Y0, U0, X0 = sparse(pos, C), 0.01 * randn(pos, C), sparse(pos, C)
+    bf = Wf.to(torch.bfloat16).double()
+    out, max_abs = {}, 0.0
+    specs = {
+        "csc_iter": (lambda fn, mixed: fn(
+            G2, Y0.clone(), U0.clone(), Wa, Wf, 0.0143, 1.0, 1.8, 0.9, 1.0,
+            emit_px=False, wf_split=wf3, mixed=mixed),
+            tci.csc_iter, tci.csc_iter_plain, ("Yn", "Un", "R1", "R2",
+                                               "sums"),
+            lambda o: o[0] - o[1]),
+        "pgm_iter": (lambda fn, mixed: fn(
+            G2, Y0.clone(), X0.clone(), Wa, Wf, 5e-4, 1.0, 1.0 / PGM_L, 0.7,
+            wf_split=wf3, mixed=mixed),
+            tpi.pgm_iter, tpi.pgm_iter_plain, ("X", "Yn", "R1", "RX",
+                                               "sums"),
+            lambda o: o[1])}
+    for name, (call, kern, plain, names, operand) in specs.items():
+        got = [t for t in call(kern, True) if t is not None]
+        high = [t for t in call(kern, False) if t is not None]
+        ref = [t for t in call(plain, True) if t is not None]
+        errs, ae = compare_outputs(f"{name} (mixed)", names, got, ref,
+                                   f"(pos, C, T) = {(pos, C, T)}",
+                                   float64_gated=("R1",))
+        i1 = names.index("R1")
+        for i, (a, b) in enumerate(zip(got, high)):
+            if i != i1 and not torch.equal(a, b):
+                raise AssertionError(f"{name} (mixed): {names[i]} differs "
+                                     "from the high launch's bits")
+        r64 = operand(got).to(torch.bfloat16).double() @ bf
+        scale = float(r64.abs().max())
+        r1_err = float((got[i1].double() - r64).abs().max()) / scale
+        if not r1_err <= KERNEL_RTOL:
+            raise AssertionError(f"{name} (mixed): R1 is {r1_err:.3e} from "
+                                 "the float64 product of its operands")
+        max_abs = max(max_abs, ae)
+        torch.cuda.synchronize()
+
+        def timed(fn, mixed):
+            Y, U = Y0.clone(), (U0 if name == "csc_iter" else X0).clone()
+            if name == "csc_iter":
+                return lambda: fn(G2, Y, U, Wa, Wf, 0.0143, 1.0, 1.8, 0.9,
+                                  1.0, emit_px=False, wf_split=wf3,
+                                  mixed=mixed)
+            return lambda: fn(G2, Y, U, Wa, Wf, 5e-4, 1.0, 1.0 / PGM_L, 0.7,
+                              wf_split=wf3, mixed=mixed)
+        # in turns: high, mixed, mixed, high
+        t = [cuda_ms(timed(kern, m)) for m in (False, True, True, False)]
+        bounds = (csc_iter_bound_ms(pos, C, T, False, False, mixed=True)
+                  if name == "csc_iter"
+                  else pgm_iter_bound_ms(pos, C, T, False, mixed=True))
+        out[name] = {
+            "geometry": {"pos": pos, "C": C, "T": T},
+            "rel_err": errs, "max_abs_err": ae,
+            "r1_vs_float64_of_bf16_operands": {
+                "kernel": r1_err,
+                "plain": float(
+                    (ref[i1].double() - operand(ref).to(torch.bfloat16)
+                     .double() @ bf).abs().max()) / scale},
+            "r1_rel_diff_from_high": float((got[i1] - high[i1]).abs().max()
+                                           / high[i1].abs().max()),
+            "kernel_ms": 0.5 * (t[1] + t[2]), "high_ms": 0.5 * (t[0] + t[3]),
+            "times_in_turn_ms": t,
+            "pass_ms": device_ms_by_kernel(timed(kern, True)),
+            "plain_ms": cuda_ms(timed(plain, True)), **bounds}
+    out["max_abs_err"] = max_abs
+    return out
+
+
+@contextlib.contextmanager
+def matmul_precision(mode):
+    prev = tfc.get_matmul_precision()
+    tfc.set_matmul_precision(mode)
+    try:
+        yield
+    finally:
+        tfc.set_matmul_precision(prev)
+
+
+def phase_mixed_solve(dev, D, S, lmbda, high, pgm_high):
+    """The fused ADMM solve to 1e-3 (or MAX_ITER iterations; whether it
+    converged is reported) and the fused FISTA solve (250 iterations)
+    under "mixed" at FFT precision "high", against the "high" solves of
+    the ``solve`` and ``pgm_solve`` phases (objectives within
+    MIXED_OBJ_AGREE); then 10 iterations
+    on the card against the CPU: FISTA at PGM_PARITY; ADMM's first four
+    rows at PARITY and the run within twice the CPU's own drift from
+    "mixed" to "high" (ADMM parts at bf16 rounding flips:
+    tests/test_torch_mixed.py)."""
+    out = {}
+    with matmul_precision("mixed"):
+        ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(max_iter=3),
+                 device=dev).solve()
+        b = ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(
+            max_iter=MAX_ITER, rel_stop_tol=REL_TOL), device=dev)
+        X, wall, counts = _timed_solve(b)
+        k = int(b.state.k)
+        expect_launches(f"a mixed ADMM solve of {k} iterations", counts,
+                        csc_iter=k)
+        its = b.getitstat()
+        obj = float(its.ObjFun[-1])
+        drift = abs(obj - high["final_objective"]) / high["final_objective"]
+        if not (bool(torch.isfinite(X).all())
+                and np.all(np.isfinite(its.ObjFun))
+                and drift <= MIXED_OBJ_AGREE):
+            raise AssertionError(f"mixed ADMM: objective {obj} against "
+                                 f"high's {high['final_objective']}")
+        out["admm"] = {"iterations": k, "high_iterations": high["iterations"],
+                       "converged": bool(
+                           its.PrimalRsdl[-1] <= its.EPrimal[-1]
+                           and its.DualRsdl[-1] <= its.EDual[-1]),
+                       "final_objective": obj,
+                       "high_objective": high["final_objective"],
+                       "objective_rel_diff_from_high": abs(
+                           obj - high["final_objective"])
+                       / high["final_objective"],
+                       "wall_s": wall, "ms_per_iter": 1e3 * wall / k,
+                       "high_ms_per_iter": high["ms_per_iter"],
+                       "launches": counts}
+        b = tpgm.ConvBPDN(D, S, lmbda, opt=pgm_options(), device=dev)
+        X, wall, counts = _timed_solve(b)
+        k = int(b.state.k)
+        expect_launches(f"a mixed FISTA solve of {k} iterations", counts,
+                        pgm_iter=k)
+        its = b.getitstat()
+        obj = float(its.ObjFun[-1])
+        if k != PGM_ITERS or not np.all(np.isfinite(its.ObjFun)) or not (
+                abs(obj - pgm_high["final_objective"])
+                <= MIXED_OBJ_AGREE * pgm_high["final_objective"]):
+            raise AssertionError(f"mixed FISTA: {k} iterations, objective "
+                                 f"{obj} against high's "
+                                 f"{pgm_high['final_objective']}")
+        out["fista"] = {"iterations": k, "final_objective": obj,
+                        "high_objective": pgm_high["final_objective"],
+                        "objective_rel_diff_from_high": abs(
+                            obj - pgm_high["final_objective"])
+                        / pgm_high["final_objective"],
+                        "wall_s": wall, "ms_per_iter": 1e3 * wall / k,
+                        "high_ms_per_iter": pgm_high["ms_per_iter"],
+                        "launches": counts}
+    # card against CPU, 10 iterations
+    runs = {}
+    for mode, where in (("mixed", dev), ("mixed", "cpu"), ("high", "cpu")):
+        with matmul_precision(mode):
+            b = ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(
+                max_iter=PARITY_ITERS, rel_stop_tol=0.0), device=where)
+            Y = b.solve()
+            runs[(mode, str(where))] = (b.getitstat(), Y.cpu().numpy(),
+                                        b.state.X.cpu().numpy())
+
+    def diffs(a, b):
+        (ia, Ya, Xa), (ib, Yb, Xb) = a, b
+        d = {n: float(np.max(np.abs(getattr(ia, n) - getattr(ib, n))
+                             / np.abs(getattr(ib, n))))
+             for n in ("ObjFun", "DFid", "RegL1", "Rho")}
+        d["Y"] = float(np.abs(Ya - Yb).max() / np.abs(Yb).max())
+        d["X"] = float(np.abs(Xa - Xb).max() / np.abs(Xb).max())
+        return d
+    card, cpu, cpu_high = (runs[("mixed", str(dev))], runs[("mixed", "cpu")],
+                           runs[("high", "cpu")])
+    first = {n: float(np.max(np.abs(getattr(card[0], n)[:4]
+                                    - getattr(cpu[0], n)[:4])
+                             / np.abs(getattr(cpu[0], n)[:4])))
+             for n in ("ObjFun", "DFid", "RegL1", "Rho")}
+    got, drift = diffs(card, cpu), diffs(cpu, cpu_high)
+    for n, e in first.items():
+        if not e <= PARITY[n]:
+            raise AssertionError(f"mixed ADMM parity: {n} of the first four "
+                                 f"rows differs by {e:.3e}")
+    for n, e in got.items():
+        if not e <= 2 * drift[n]:
+            raise AssertionError(f"mixed ADMM parity: {n} differs by "
+                                 f"{e:.3e}, twice the drift {drift[n]:.3e}")
+    pruns = []
+    with matmul_precision("mixed"):
+        for d in (dev, "cpu"):
+            b = tpgm.ConvBPDN(D, S, lmbda, opt=pgm_options(PARITY_ITERS),
+                              device=d)
+            X = b.solve()
+            pruns.append((b.getitstat(), {"X": X.cpu().numpy(),
+                                          "Y": b.state.Y.cpu().numpy()}))
+    out["parity"] = {
+        "iterations": PARITY_ITERS,
+        "admm": {"first_rows_rel_err": first, "rel_err": got,
+                 "cpu_drift_from_high": drift},
+        "fista": compare_runs("mixed FISTA parity", pruns,
+                              ("ObjFun", "DFid", "RegL1", "Rsdl"),
+                              PGM_PARITY)}
+    out["launches"] = {"csc_iter": out["admm"]["launches"]["csc_iter"],
+                       "pgm_iter": out["fista"]["launches"]["pgm_iter"]}
+    return out
+
+
+CDL_PGM_PARITY_ITERS = 3
+
+
+def phase_cdl_pgm_solve(dev, D0, S, lmbda):
+    """ConvBPDNDictLearn(xmethod="pgm", dmethod="pgm") at cdl_solve's size
+    (float32): 20 outer iterations on the card, one pgm_iter each (the
+    FISTA dictionary update runs its FFTs on the planar kernels); then 3
+    outer iterations on the card against the CPU."""
+    def make(max_iter, device):
+        return tdl.ConvBPDNDictLearn(D0, S, lmbda, xmethod="pgm",
+                                     dmethod="pgm", max_iter=max_iter,
+                                     dtype=torch.float32, device=device)
+    d = make(CDL_ITERS, dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    D = d.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    if counts["pgm_iter"] != CDL_ITERS or counts["csc_iter"] \
+            or counts["admm_tail"]:
+        raise AssertionError(f"ConvBPDNDictLearn (pgm, pgm): launches "
+                             f"{counts}, expected {CDL_ITERS} pgm_iter")
+    its = d.getitstat()
+    obj = its["XObjFun"]
+    if not (np.all(np.isfinite(obj)) and bool(torch.isfinite(D).all())
+            and len(obj) == CDL_ITERS):
+        raise AssertionError("ConvBPDNDictLearn (pgm, pgm): not finite")
+    nrm = D.double().pow(2).sum(dim=(0, 1)).sqrt()
+    unit = float((nrm - 1.0).abs().max())
+    if not unit <= CNS_UNIT_NORM:
+        raise AssertionError(f"filters not unit norm: {unit:.3e}")
+    out = []
+    for where in (dev, "cpu"):
+        c = make(CDL_PGM_PARITY_ITERS, where)
+        c.solve()
+        out.append((c.getdict().cpu().numpy(), c.getitstat()))
+    (Dg, ig), (Dc, ic) = out
+    errs = {"D": float(np.abs(Dg - Dc).max() / np.abs(Dc).max())}
+    for name in ("XObjFun", "DDFid"):
+        errs[name] = float(np.max(np.abs(ig[name] - ic[name])
+                                  / np.abs(ic[name])))
+    for name, e in errs.items():
+        if not e <= CNS_PARITY["objective"]:
+            raise AssertionError(f"ConvBPDNDictLearn (pgm, pgm) parity: "
+                                 f"{name} differs by {e:.3e}")
+    return {"iterations": CDL_ITERS, "wall_s": wall,
+            "ms_per_iter": 1e3 * wall / CDL_ITERS,
+            "objective_first": float(obj[0]), "objective": float(obj[-1]),
+            "dfid": float(its["XDFid"][-1]), "unit_norm_err": unit,
+            "launches": counts,
+            "parity": {"iterations": CDL_PGM_PARITY_ITERS, "rel_err": errs,
+                       "tolerance": CNS_PARITY["objective"]}}
+
+
 def phase_profile(dev, make_model):
     """A solve under ``torch.profiler``: device busy time (the sum of
     every kernel's and copy's time on the card) against the solve's wall
@@ -1903,12 +2391,36 @@ def kernels_line(summary):
             for key, t in summary["cns_kernel"]["fft"].items()}
         entry["consensus_launches"] = \
             summary["cns_solve"]["kernel"]["launches"][name]
+    # the forms this slice added, as entries of their own: the AMS tail
+    # (launches in the fused cbpdnmsk solve; cbpdngrdmsk's beside) and the
+    # "mixed" forward product (launches in the mixed fused solves)
+    ams = kernel_entry("admm_tail", summary["ams_tail_kernel"],
+                       summary["ams_solve"],
+                       "sporco_tpu/ops/pallas_csc_tail.py:105",
+                       source="sporco_tpu_torch/csrc/csc_tail.cu")
+    ams["name"] = "admm_tail (AMS form)"
+    ams["plain_form_kernel_ms"] = \
+        summary["ams_tail_kernel"]["plain_form_kernel_ms"]
+    ams["gradreg_launches"] = \
+        summary["ams_solve"]["gradreg"]["fused"]["launches"]["admm_tail"]
+    mixed = []
+    for name, line in (("csc_iter", 276), ("pgm_iter", 409)):
+        entry = kernel_entry(name, summary["mixed_kernel"][name],
+                             summary["mixed_solve"],
+                             f"sporco_tpu/ops/pallas_csc_iter.py:{line}")
+        entry["name"] = f"{name} (mixed form)"
+        entry["max_abs_err"] = summary["mixed_kernel"][name]["max_abs_err"]
+        for key in ("high_ms", "r1_vs_float64_of_bf16_operands"):
+            entry[key] = summary["mixed_kernel"][name][key]
+        mixed.append(entry)
+    pgm["cdl_pgm_launches"] = summary["cdl_pgm_solve"]["launches"]["pgm_iter"]
     return {"kernels": [
         csc, pgm, *ffts,
         kernel_entry("admm_tail", summary["tail_kernel"],
                      summary["gradreg"],
                      "sporco_tpu/ops/pallas_csc_tail.py:105",
-                     source="sporco_tpu_torch/csrc/csc_tail.cu")]}
+                     source="sporco_tpu_torch/csrc/csc_tail.cu"),
+        ams, *mixed]}
 
 
 def main(argv):
@@ -1933,7 +2445,9 @@ def main(argv):
     run_phase("device", lambda: {
         "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(), "torch": torch.__version__,
-        "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+        "cuda": torch.version.cuda, "python": sys.version.split()[0],
+        "accel": {"device_name": accel.device_name(),
+                  "memory_info": list(accel.memory_info())}})
 
     def build():
         _nvcc.build(_nvcc.KERNELS)
@@ -2001,6 +2515,20 @@ def main(argv):
         "cns_solve", lambda: phase_cns_solve(dev, D0c, Sc, lc))
     summary["cdl_solve"] = run_phase(
         "cdl_solve", lambda: phase_cdl_solve(dev, D0c, Sc, lc))
+    W, Sm = ams_problem(S)
+    summary["ams_tail_kernel"] = run_phase(
+        "ams_tail_kernel", lambda: phase_ams_tail_kernel(dev, W))
+    run_phase("ams_parity", lambda: phase_ams_parity(dev, D, Sm, W))
+    summary["ams_solve"] = run_phase(
+        "ams_solve", lambda: phase_ams_solve(dev, D, Sm, W))
+    summary["mixed_kernel"] = run_phase(
+        "mixed_kernel", lambda: phase_mixed_kernel(dev, D))
+    with fft_precision("high"):
+        summary["mixed_solve"] = run_phase(
+            "mixed_solve", lambda: phase_mixed_solve(
+                dev, D, S, lmbda, summary["solve"], summary["pgm_solve"]))
+    summary["cdl_pgm_solve"] = run_phase(
+        "cdl_pgm_solve", lambda: phase_cdl_pgm_solve(dev, D0c, Sc, lc))
     if "--profile" in argv:
         def admm(**kw):
             return lambda: ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(
@@ -2016,6 +2544,8 @@ def main(argv):
             dev, lambda: ConvBPDNGradReg(
                 Dg, S, LMBDA, device=dev, **gkw,
                 opt=admm_options(ConvBPDNGradReg))))
+        run_phase("ams_profile", lambda: phase_profile(
+            dev, lambda: _ams_model("l1", D, Sm, W, dev).cbpdn))
         run_phase("cns_profile", lambda: phase_profile(
             dev, lambda: tcns.ConvBPDNDictLearn_Consensus(
                 D0c, Sc, lc, max_iter=CNS_ITERS, device=dev)))

@@ -11,9 +11,18 @@ A second package beside the JAX reference.  Module names mirror
 - :mod:`sporco_tpu_torch.solvers`  -- the generic ADMM driver, options,
   state and AutoRho; the PGM (FISTA) options, state and loop.
 - :mod:`sporco_tpu_torch.models`   -- ``cbpdn.ConvBPDN``,
-  ``cbpdn.ConvElasticNet`` and ``cbpdn.ConvBPDNGradReg`` (ADMM),
-  ``pgm.ConvBPDN`` and ``pgm.ConvBPDNMask`` (FISTA), each on a fused
-  path and the generic FFT path.
+  ``cbpdn.ConvElasticNet`` and ``cbpdn.ConvBPDNGradReg`` (ADMM) and
+  masked CSC over them, ``cbpdn.AddMaskSim``; ``pgm.ConvBPDN`` and
+  ``pgm.ConvBPDNMask`` (FISTA), each on a fused path and the generic
+  FFT path; the dictionary updates ``ccmod.ConvCnstrMOD`` (ADMM) and
+  ``pgm.ConvCnstrMOD``/``pgm.ConvCnstrMODMask`` (FISTA), and dictionary
+  learning, ``dictlrn.ConvBPDNDictLearn``; all with checkpoints
+  (``save_state``/``load_state_file``).
+- :mod:`sporco_tpu_torch.accel`    -- the accelerator API, the
+  counterpart of the reference's ``sporco.cuda``: the solvers
+  ``cbpdn``, ``cbpdngrd``, ``cbpdnmsk`` and ``cbpdngrdmsk`` and the
+  device helpers.
+- :mod:`sporco_tpu_torch.parallel` -- consensus dictionary learning.
 - :mod:`sporco_tpu_torch.utils`    -- the timer and ``gradient_filters``.
 
 The package imports ``torch`` and never ``jax``.  Entry points run on

@@ -44,7 +44,10 @@
 //      load, so each Wf tile serves both; a ring of three k-tiles fed by
 //      cp.async.  The 128 blocks, one per SM, fill the card in one wave
 //      with the whole 4096-deep sum in each block: no split-k, no
-//      reduction.
+//      reduction.  iter_fwd<true> is the opt-in "mixed" form: R1 as one
+//      bf16 product of the operands rounded to nearest (fwd_passes = 1
+//      of the JAX package), 7 tensor-core products a k step instead of
+//      12; the default iter_fwd<false> is the code it was before.
 //   3. sums_kernel<6>: one block reduces the per-block partials in a fixed
 //      order, in double.
 // Ragged edges are masked, so any pos, C and T are accepted.  The
@@ -166,13 +169,28 @@ struct StageDiff {
   }
 };
 
+// MIXED: R1 as one bf16 product (the opt-in "mixed" precision).
+template <bool MIXED>
 __global__ void __launch_bounds__(F_NT, 1)
 iter_fwd(const float* __restrict__ Yn, const float* __restrict__ Un,
          const uint16_t* __restrict__ Wf3, float* __restrict__ R1,
          float* __restrict__ R2, int64_t pos, int64_t C, int64_t T,
          int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  fwd_pair(smem, Yn, Un, Wf3, R1, R2, pos, C, T, vec, StageDiff());
+  fwd_pair<MIXED>(smem, Yn, Un, Wf3, R1, R2, pos, C, T, vec, StageDiff());
+}
+
+template <bool MIXED>
+cudaError_t launch_fwd(dim3 grid, cudaStream_t st, const float* Yn,
+                       const float* Un, const uint16_t* Wf3, float* R1,
+                       float* R2, int64_t pos, int64_t C, int64_t T,
+                       int vec) {
+  cudaError_t err = cudaFuncSetAttribute(
+      iter_fwd<MIXED>, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (err != cudaSuccess) return err;
+  iter_fwd<MIXED><<<grid, F_NT, F_SMEM, st>>>(Yn, Un, Wf3, R1, R2, pos, C,
+                                              T, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -192,13 +210,14 @@ int64_t csc_iter_scratch_floats(int64_t pos, int64_t C) {
 // launched (the consensus CDL stage, whose dictionary changes before the
 // next forward product is needed).  `vec` allows 16-byte accesses:
 // the caller sets it only when C and T are multiples of 4 and every
-// pointer is 16-byte aligned.  Returns a cudaError_t.
+// pointer is 16-byte aligned.  `mixed` computes R1 as one bf16 product
+// (R2 keeps its six).  Returns a cudaError_t.
 int csc_iter_launch(const float* G2, float* Y, float* U, const float* Wa,
                     const uint16_t* Wf3, const float* thr_v, float thr_s,
                     const float* wl1_v, float wl1_s, float rlx, float us,
-                    float scale, int nonneg, int vec, float* PX, float* R1,
-                    float* R2, float* part, float* sums, int64_t pos,
-                    int64_t C, int64_t T, void* stream) {
+                    float scale, int nonneg, int vec, int mixed, float* PX,
+                    float* R1, float* R2, float* part, float* sums,
+                    int64_t pos, int64_t C, int64_t T, void* stream) {
   const bool fwd = Wf3 != nullptr;
   if (pos <= 0 || C <= 0 || T <= 0 || !thr_v != !wl1_v ||
       !R1 != !fwd || !R2 != !fwd)
@@ -208,11 +227,6 @@ int csc_iter_launch(const float* G2, float* Y, float* U, const float* Wa,
   if (g1x > 0x7fffffff || g2x > 0x7fffffff || g1y > 65535 || g2y > 65535)
     return (int)cudaErrorInvalidConfiguration;
   cudaError_t err;
-  if (fwd) {
-    err = cudaFuncSetAttribute(
-        iter_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
-    if (err != cudaSuccess) return (int)err;
-  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Epi p{rlx, us, scale, nonneg};
 
@@ -227,9 +241,10 @@ int csc_iter_launch(const float* G2, float* Y, float* U, const float* Wa,
   if (err != cudaSuccess) return (int)err;
 
   if (fwd) {
-    iter_fwd<<<dim3((unsigned)g2x, (unsigned)g2y), F_NT, F_SMEM, st>>>(
-        Y, U, Wf3, R1, R2, pos, C, T, vec);
-    err = cudaGetLastError();
+    const dim3 g2((unsigned)g2x, (unsigned)g2y);
+    err = mixed ? launch_fwd<true>(g2, st, Y, U, Wf3, R1, R2, pos, C, T, vec)
+                : launch_fwd<false>(g2, st, Y, U, Wf3, R1, R2, pos, C, T,
+                                    vec);
     if (err != cudaSuccess) return (int)err;
   }
 

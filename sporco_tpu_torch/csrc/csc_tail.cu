@@ -17,6 +17,17 @@
 // each element is read and then written by the one thread that owns it.
 // `thr` and `wl1` are (C,) vectors or scalars applied to every channel.
 //
+// The AMS form (Additive Mask Simulation, the masked solves' tail;
+// `select` at sporco_tpu/ops/fused_csc.py:816-817): the packed channel
+// c holds filter c mod M of polyphase phase c / M, and on the last `nimp`
+// filters (the impulse maps) PYn = (1 - w) * axu replaces the shrunk
+// value, after `nonneg` as there; w = Wp[row, c / M] is the fidelity
+// mask, passed packed once per solve as (R, C / M) so that it costs one
+// read of 4 bytes per impulse element (about 1 MB at the headline, where
+// a full (R, C) mask would add 68 MB a call).  The sums run over every
+// column as before.  It is a template flag: the plain launch compiles to
+// the code it had without it.
+//
 // What bounds it.  At the headline problem (512x512 image, 64 filters)
 // R = 4096 and C = 4096: three 67.1 MB arrays in and two out, 335 MB,
 // against about 26 operations per element (0.44 GFLOP).  At the H100
@@ -59,9 +70,12 @@ struct Tail {
 // and PUn equal the plain version's bit for bit: PUn = pu + ax - PYn
 // cancels to the size of thr while ax is of the size of PX, so one
 // contracted rounding of ax would show in PUn magnified by |PX| / thr.
+// AMS: on an impulse map (`imp`) PYn is (1 - wm) * axu.
+template <bool AMS>
 __device__ __forceinline__ void tail1(const Tail& p, float px, float py,
-                                      float u0, float th, float w,
-                                      float& yn, float& un, double* s) {
+                                      float u0, float th, float w, bool imp,
+                                      float wm, float& yn, float& un,
+                                      double* s) {
   const float pu = __fmul_rn(p.us, u0);
   const float ax = __fadd_rn(__fmul_rn(p.rlx, px), __fmul_rn(p.rlx1, py));
   const float axu = __fadd_rn(ax, pu);
@@ -69,6 +83,7 @@ __device__ __forceinline__ void tail1(const Tail& p, float px, float py,
   const float m = (t > 0.f || t != t) ? t : 0.f;  // max(t, 0), NaN kept
   yn = axu != 0.f ? copysignf(m, axu) : 0.f;
   if (p.nonneg && yn < 0.f) yn = 0.f;
+  if (AMS && imp) yn = __fmul_rn(__fsub_rn(1.f, wm), axu);
   un = __fsub_rn(__fadd_rn(pu, ax), yn);
   const double d = __fsub_rn(px, yn), e = __fsub_rn(yn, py);
   const double x = px, y = yn, u = un;
@@ -80,11 +95,35 @@ __device__ __forceinline__ void tail1(const Tail& p, float px, float py,
   s[5] += fabs(x) * (double)w;
 }
 
+// The AMS form's mask: Wp is (R, C / M), null in the plain form.
+struct Ams {
+  const float* Wp;
+  int64_t M, nimp, C;
+};
+
+// Columns c..c+3 of row r under the AMS form: which are impulse maps
+// (filter c mod M among the last nimp) and their mask values.  One 32-bit
+// division per group of four (C < 2^31 for any state that fits the card).
+__device__ __forceinline__ void ams_group(const Ams& a, int64_t r, int64_t c,
+                                          int cnt, bool (&im)[4],
+                                          float (&wm)[4]) {
+  const int M = (int)a.M;
+  int q = (int)c / M, m = (int)c - q * M;
+  const float* row = a.Wp + r * (a.C / a.M);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    im[j] = j < cnt && m >= M - (int)a.nimp;
+    wm[j] = im[j] ? row[q] : 0.f;
+    if (++m == M) m = 0, ++q;
+  }
+}
+
+template <bool AMS>
 __global__ void __launch_bounds__(NT)
 tail_main(const float* __restrict__ PX, float* __restrict__ PY,
           float* __restrict__ PU, const float* __restrict__ thr_v,
           float thr_s, const float* __restrict__ wl1_v, float wl1_s,
-          Tail p, double* __restrict__ part, int64_t n, int64_t C,
+          Tail p, Ams a, double* __restrict__ part, int64_t n, int64_t C,
           int vec) {
   double s[NSUM] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   const int64_t stride = (int64_t)gridDim.x * NT;
@@ -95,6 +134,9 @@ tail_main(const float* __restrict__ PX, float* __restrict__ PY,
     if (vec) {
       // C % 4 == 0: the four elements share a row, columns c..c+3
       const int64_t c = i % C;
+      bool im[4] = {false, false, false, false};
+      float wm[4] = {0.f, 0.f, 0.f, 0.f};
+      if (AMS) ams_group(a, i / C, c, 4, im, wm);
       const float4 x4 = *reinterpret_cast<const float4*>(PX + i);
       const float4 y4 = *reinterpret_cast<const float4*>(PY + i);
       const float4 u4 = *reinterpret_cast<const float4*>(PU + i);
@@ -105,19 +147,26 @@ tail_main(const float* __restrict__ PX, float* __restrict__ PY,
           ? *reinterpret_cast<const float4*>(wl1_v + c)
           : make_float4(wl1_s, wl1_s, wl1_s, wl1_s);
       float4 yn4, un4;
-      tail1(p, x4.x, y4.x, u4.x, th4.x, w4.x, yn4.x, un4.x, s);
-      tail1(p, x4.y, y4.y, u4.y, th4.y, w4.y, yn4.y, un4.y, s);
-      tail1(p, x4.z, y4.z, u4.z, th4.z, w4.z, yn4.z, un4.z, s);
-      tail1(p, x4.w, y4.w, u4.w, th4.w, w4.w, yn4.w, un4.w, s);
+      tail1<AMS>(p, x4.x, y4.x, u4.x, th4.x, w4.x, im[0], wm[0], yn4.x,
+                 un4.x, s);
+      tail1<AMS>(p, x4.y, y4.y, u4.y, th4.y, w4.y, im[1], wm[1], yn4.y,
+                 un4.y, s);
+      tail1<AMS>(p, x4.z, y4.z, u4.z, th4.z, w4.z, im[2], wm[2], yn4.z,
+                 un4.z, s);
+      tail1<AMS>(p, x4.w, y4.w, u4.w, th4.w, w4.w, im[3], wm[3], yn4.w,
+                 un4.w, s);
       *reinterpret_cast<float4*>(PY + i) = yn4;
       *reinterpret_cast<float4*>(PU + i) = un4;
     } else {
       for (int j = 0; j < 4 && i + j < n; ++j) {
         const int64_t c = (i + j) % C;
+        bool im[4] = {false, false, false, false};
+        float wm[4] = {0.f, 0.f, 0.f, 0.f};
+        if (AMS) ams_group(a, (i + j) / C, c, 1, im, wm);
         float yn, un;
-        tail1(p, PX[i + j], PY[i + j], PU[i + j],
-              thr_v ? thr_v[c] : thr_s, wl1_v ? wl1_v[c] : wl1_s, yn, un,
-              s);
+        tail1<AMS>(p, PX[i + j], PY[i + j], PU[i + j],
+                   thr_v ? thr_v[c] : thr_s, wl1_v ? wl1_v[c] : wl1_s,
+                   im[0], wm[0], yn, un, s);
         PY[i + j] = yn;
         PU[i + j] = un;
       }
@@ -181,21 +230,30 @@ int64_t csc_tail_scratch_doubles(int64_t n) {
 // PYn and PUn.  thr_v / wl1_v may be null, in which case the scalars
 // thr_s / wl1_s apply to every channel.  `vec` allows 16-byte accesses:
 // the caller sets it only when C is a multiple of 4 and every pointer is
-// 16-byte aligned.  Returns a cudaError_t.
+// 16-byte aligned.  With Wp not null the AMS form runs: the last `nimp`
+// of every M columns are impulse maps and Wp is the (R, C / M) packed
+// mask (M must divide C).  Returns a cudaError_t.
 int csc_tail_launch(const float* PX, float* PY, float* PU,
                     const float* thr_v, float thr_s, const float* wl1_v,
                     float wl1_s, float rlx, float us, int nonneg, int vec,
-                    double* part, float* sums, int64_t R, int64_t C,
-                    void* stream) {
+                    const float* Wp, int64_t M, int64_t nimp, double* part,
+                    float* sums, int64_t R, int64_t C, void* stream) {
   if (R <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  if (Wp && (M <= 0 || C % M != 0 || nimp <= 0 || nimp > M))
+    return (int)cudaErrorInvalidValue;
   const int64_t n = R * C;
   const int64_t nblk = tail_blocks(n);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Tail p{rlx, 1.f - rlx, us, nonneg};
+  const Ams a{Wp, M, nimp, C};
+  const int v = vec && C % 4 == 0;
 
-  tail_main<<<(unsigned)nblk, NT, 0, st>>>(PX, PY, PU, thr_v, thr_s, wl1_v,
-                                           wl1_s, p, part, n, C,
-                                           vec && C % 4 == 0);
+  if (Wp)
+    tail_main<true><<<(unsigned)nblk, NT, 0, st>>>(
+        PX, PY, PU, thr_v, thr_s, wl1_v, wl1_s, p, a, part, n, C, v);
+  else
+    tail_main<false><<<(unsigned)nblk, NT, 0, st>>>(
+        PX, PY, PU, thr_v, thr_s, wl1_v, wl1_s, p, a, part, n, C, v);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

@@ -39,6 +39,11 @@
 // fp32 sum rounds.  (Chains over a 32-deep k-tile ran 0.005-0.009 ms
 // faster, but moved the elastic-net solve 1.6e-6 from its generic solve's
 // objective; one chain over the whole sum is 1.4e-5 from float64.)
+// The "mixed" form (MIXED = true, the opt-in precision of the fused
+// drivers) keeps only a1b1 for the first product (R1): one bf16 product
+// of the operands rounded to nearest, per 16-deep k step, promoted into
+// the fp32 sum as above; the second product keeps its six.  The default
+// form compiles to the same code as before the flag existed.
 // The state operands are split in registers as each warp loads its
 // fragments (wgmma takes A from registers; a warpgroup owns its rows, so
 // each element is split once per column half); Wf, constant over a
@@ -325,8 +330,9 @@ __device__ __forceinline__ int b_off(int k, int c8) {
 
 // The A fragments of k-step kk of a ring slot, staged and split:
 // af[product][term][register], register j holding rows r + 8 (j & 1),
-// columns 2t + 8 (j >> 1) and the next one, r = (warp & 3)*16 + g.
-template <class Stage>
+// columns 2t + 8 (j >> 1) and the next one, r = (warp & 3)*16 + g.  With
+// MIXED the first product's operand is rounded once (term 0 alone).
+template <bool MIXED, class Stage>
 __device__ __forceinline__ void fwd_frags(const unsigned char* slot, int kk,
                                           Stage stage,
                                           uint32_t (&af)[2][3][4]) {
@@ -348,14 +354,20 @@ __device__ __forceinline__ void fwd_frags(const unsigned char* slot, int kk,
 #pragma unroll
   for (int s = 0; s < 2; ++s)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      split3(v[s][2 * j], v[s][2 * j + 1], af[s][0][j], af[s][1][j],
-             af[s][2][j]);
+    for (int j = 0; j < 4; ++j) {
+      if (MIXED && s == 0)
+        af[0][0][j] = bf16x2_rn(v[0][2 * j], v[0][2 * j + 1]);
+      else
+        split3(v[s][2 * j], v[s][2 * j + 1], af[s][0][j], af[s][1][j],
+               af[s][2][j]);
+    }
 }
 
 // Issue the six products of k-step kk of a ring slot for both products
 // into the chains c[s], each from zero, smallest first; the warpgroup
-// warp >> 2 multiplies by its 64-column half of the Wf terms.
+// warp >> 2 multiplies by its 64-column half of the Wf terms.  With MIXED
+// the first product's chain is the one product a1b1.
+template <bool MIXED>
 __device__ __forceinline__ void fwd_issue(const unsigned char* slot, int kk,
                                           const uint32_t (&af)[2][3][4],
                                           float (&c)[2][32]) {
@@ -367,6 +379,10 @@ __device__ __forceinline__ void fwd_issue(const unsigned char* slot, int kk,
   wgmma_fence();
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
+    if (MIXED && s == 0) {
+      wgmma_first(c[0], af[0][0], bd[0]);
+      continue;
+    }
     wgmma_first(c[s], af[s][2], bd[0]);
     wgmma_acc(c[s], af[s][1], bd[1]);
     wgmma_acc(c[s], af[s][0], bd[2]);
@@ -397,8 +413,8 @@ __device__ __forceinline__ void fwd_promote(float (&c)[2][32],
 // 64x128 tile (blockIdx.x, blockIdx.y) of the (pos, T) outputs; A and B
 // are (pos, C), Wf is given by its split Wf3 (3, Cp, Tp).  `smem` holds
 // F_SMEM bytes of dynamic shared memory.  `vec`: C and T are multiples of
-// 4 and A, B, R1, R2 16-byte aligned.
-template <class Stage>
+// 4 and A, B, R1, R2 16-byte aligned.  MIXED: R1 as one bf16 product.
+template <bool MIXED, class Stage>
 __device__ __forceinline__ void fwd_pair(unsigned char* smem,
                                          const float* __restrict__ A,
                                          const float* __restrict__ B,
@@ -492,11 +508,11 @@ __device__ __forceinline__ void fwd_pair(unsigned char* smem,
     if (kt + F_AHEAD < nk) load(kt + F_AHEAD);
     cp_async_commit();
     const unsigned char* slot = smem + (kt % F_STAGES) * F_STAGE_BYTES;
-    fwd_frags(slot, 0, stage, af0);
-    fwd_issue(slot, 0, af0, ch);
-    fwd_frags(slot, 1, stage, af1);
+    fwd_frags<MIXED>(slot, 0, stage, af0);
+    fwd_issue<MIXED>(slot, 0, af0, ch);
+    fwd_frags<MIXED>(slot, 1, stage, af1);
     fwd_promote(ch, acc);
-    fwd_issue(slot, 1, af1, ch);
+    fwd_issue<MIXED>(slot, 1, af1, ch);
     fwd_promote(ch, acc);
   }
   cp_async_wait<0>();

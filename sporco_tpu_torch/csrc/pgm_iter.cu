@@ -41,6 +41,7 @@
 //      64x128 tiles of 8 warps, loading each Wf tile once for both; 128
 //      blocks fill the card in one wave.  A row of R1 needs all C
 //      channels of the updated Yn, so it follows pgm_main on the stream.
+//      pgm_fwd<true> is the opt-in "mixed" form: R1 as one bf16 product.
 //   3. sums_kernel<2>: one block reduces the per-block partials in a fixed
 //      order, in double.
 // Ragged edges are masked, so any pos, C and T are accepted.  The
@@ -137,13 +138,28 @@ struct StageSame {
   __device__ __forceinline__ void operator()(float (&)[2][8]) const {}
 };
 
+// MIXED: R1 as one bf16 product (the opt-in "mixed" precision).
+template <bool MIXED>
 __global__ void __launch_bounds__(F_NT, 1)
 pgm_fwd(const float* __restrict__ Yn, const float* __restrict__ X,
         const uint16_t* __restrict__ Wf3, float* __restrict__ R1,
         float* __restrict__ RX, int64_t pos, int64_t C, int64_t T,
         int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  fwd_pair(smem, Yn, X, Wf3, R1, RX, pos, C, T, vec, StageSame());
+  fwd_pair<MIXED>(smem, Yn, X, Wf3, R1, RX, pos, C, T, vec, StageSame());
+}
+
+template <bool MIXED>
+cudaError_t launch_fwd(dim3 grid, cudaStream_t st, const float* Yn,
+                       const float* X, const uint16_t* Wf3, float* R1,
+                       float* RX, int64_t pos, int64_t C, int64_t T,
+                       int vec) {
+  cudaError_t err = cudaFuncSetAttribute(
+      pgm_fwd<MIXED>, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (err != cudaSuccess) return err;
+  pgm_fwd<MIXED><<<grid, F_NT, F_SMEM, st>>>(Yn, X, Wf3, R1, RX, pos, C, T,
+                                             vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -159,33 +175,32 @@ int64_t pgm_iter_scratch_floats(int64_t pos, int64_t C) {
 // (3, round_up(C, 32), round_up(T, 8)), zero-padded.  thr_v / wl1_v may
 // be null, in which case the scalars thr_s / wl1_s apply to every
 // channel.  `vec` allows 16-byte accesses: the caller sets it only when C
-// and T are multiples of 4 and every pointer is 16-byte aligned.  Returns
-// a cudaError_t.
+// and T are multiples of 4 and every pointer is 16-byte aligned.  `mixed`
+// computes R1 as one bf16 product (RX keeps its six).  Returns a
+// cudaError_t.
 int pgm_iter_launch(const float* G2, float* Y, float* Xp, const float* Wa,
                     const uint16_t* Wf3, const float* thr_v, float thr_s,
                     const float* wl1_v, float wl1_s, float rL, float beta,
-                    int nonneg, int vec, float* R1, float* RX, float* part,
-                    float* sums, int64_t pos, int64_t C, int64_t T,
-                    void* stream) {
+                    int nonneg, int vec, int mixed, float* R1, float* RX,
+                    float* part, float* sums, int64_t pos, int64_t C,
+                    int64_t T, void* stream) {
   if (pos <= 0 || C <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   const int64_t g1x = ceil_div(pos, A_BM), g1y = ceil_div(C, A_BN);
   const int64_t g2x = ceil_div(pos, F_BM), g2y = ceil_div(T, F_BN);
   if (g1x > 0x7fffffff || g2x > 0x7fffffff || g1y > 65535 || g2y > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(
-      pgm_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Epi p{rL, beta, nonneg};
 
   pgm_main<<<dim3((unsigned)g1x, (unsigned)g1y), NT, 0, st>>>(
       G2, Y, Xp, Wa, thr_v, thr_s, wl1_v, wl1_s, p, part, pos, C, T, vec);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  pgm_fwd<<<dim3((unsigned)g2x, (unsigned)g2y), F_NT, F_SMEM, st>>>(
-      Y, Xp, Wf3, R1, RX, pos, C, T, vec);
-  err = cudaGetLastError();
+  const dim3 g2((unsigned)g2x, (unsigned)g2y);
+  err = mixed ? launch_fwd<true>(g2, st, Y, Xp, Wf3, R1, RX, pos, C, T, vec)
+              : launch_fwd<false>(g2, st, Y, Xp, Wf3, R1, RX, pos, C, T,
+                                  vec);
   if (err != cudaSuccess) return (int)err;
 
   sums_kernel<NSUM><<<1, NT, 0, st>>>(part, g1x * g1y, sums);

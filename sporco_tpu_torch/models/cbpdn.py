@@ -1,5 +1,6 @@
 """Convolutional sparse coding via ADMM: ``ConvBPDN``, ``ConvElasticNet``
-and ``ConvBPDNGradReg`` (counterpart of ``sporco_tpu.models.cbpdn``).
+and ``ConvBPDNGradReg``, and masked CSC over any of them by Additive Mask
+Simulation, ``AddMaskSim`` (counterpart of ``sporco_tpu.models.cbpdn``).
 
 Each variant (``l1``, ``elastic``, ``gradreg``) runs two ways, routed as
 the JAX package routes them:
@@ -25,8 +26,16 @@ the JAX package routes them:
   :mod:`sporco_tpu_torch.ops.fft` dispatches them) around a per-bin
   Sherman-Morrison solve, iterated over the channels for a colour
   dictionary (``solvemdbi_ism``).
+
+Under AMS (``CSCConfig.ams_nimp > 0``) the last ``ams_nimp`` filters are
+impulses whose maps take the unshrunk ``(1 - Wams) (AX + U)`` in the
+y-step; the fused driver takes a single-channel problem with one
+impulse (its ``body`` and the AMS form of ``admm_tail``), the generic
+path every other (a colour dictionary, a grey dictionary on a colour
+image, ``fused=False``).
 """
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -45,8 +54,8 @@ from sporco_tpu_torch.solvers.admm import (ADMMOpts, ADMMProblem,
                                            scalar_type)
 from sporco_tpu_torch.utils.signal import gradient_filters
 
-__all__ = ["ConvBPDN", "ConvElasticNet", "ConvBPDNGradReg", "CSCConfig",
-           "params_from_numpy", "reconstruct"]
+__all__ = ["ConvBPDN", "ConvElasticNet", "ConvBPDNGradReg", "AddMaskSim",
+           "CSCConfig", "params_from_numpy", "reconstruct"]
 
 
 @dataclass(frozen=True)
@@ -57,6 +66,7 @@ class CSCConfig:
     no_bndry: bool = False
     obj_from_x: bool = True
     lin_check: bool = False
+    ams_nimp: int = 0         # > 0: the last ams_nimp filters are AMS impulses
     real: bool = True
 
 
@@ -172,7 +182,15 @@ def _apply_masks(cfg, Y):
 
 def _csc_ystep(cfg, aux, params, state, AXU):
     thr = float(aux["lmbda"] / state.rho)
-    return _apply_masks(cfg, sp.prox_l1(AXU, thr * params["wl1"]))
+    Y = _apply_masks(cfg, sp.prox_l1(AXU, thr * params["wl1"]))
+    if cfg.ams_nimp:
+        # Additive Mask Simulation: the impulse maps take the unshrunk
+        # (1 - W)(AX + U), absorbing the residual where the mask is zero
+        # (sporco/admm/cbpdn.py:2392-2404)
+        ni = cfg.ams_nimp
+        Yams = (1.0 - params["Wams"]) * AXU[:, :, -ni:]
+        Y = torch.cat([Y[:, :, :-ni], Yams], dim=2)
+    return Y
 
 
 def _csc_dfd(cfg, aux, fvarf):
@@ -338,6 +356,7 @@ class ConvBPDN(ADMMModel):
         self.params = params
         self.lmbda = lm = params["lmbda"]
         self.problem = _CSC_PROBLEMS[self.VARIANT]
+        self._fused = fused
         self._fused_solve = self._route(fused)
         rho0 = opt.rho if opt.rho is not None else 50.0 * lm + 1.0
         rho_xi = (opt.auto_rho.rsdl_target
@@ -376,6 +395,14 @@ class ConvBPDN(ADMMModel):
                     "supported by the fused driver (directly or via "
                     "channel folding)")
         return None
+
+    def set_ams(self, nimp, Wams):
+        """Make the last ``nimp`` filters AMS impulses with the internal
+        fidelity mask ``Wams`` and route the solve again (AddMaskSim)."""
+        self.cfg = dataclasses.replace(self.cfg, ams_nimp=nimp)
+        self.params = {**self.params, "Wams": Wams.to(self.device,
+                                                      self.opts.dtype)}
+        self._fused_solve = self._route(self._fused)
 
     def _solve_state(self):
         if self._fused_solve is None:
@@ -438,13 +465,103 @@ class ConvBPDNGradReg(ConvBPDN):
                          **kw)
 
 
+class AddMaskSim:
+    """Additive Mask Simulation (wohlberg-2016-boundary): a masked CSC
+    problem solved by any class of this module with one impulse filter
+    per dictionary channel appended; the impulse maps absorb the
+    residual where the mask is zero (``sporco/admm/cbpdn.py:2287-2483``;
+    ``sporco_tpu.models.cbpdn.AddMaskSim``).
+
+    Usage: ``AddMaskSim(ConvBPDN, D, S, W, lmbda, opt=..., device=...)``;
+    the remaining arguments go to the inner class.  ``W`` is the fidelity
+    mask in the layout of ``S`` (``Nv + [C] + [K]``, singleton axes
+    broadcast).  ``L1Weight`` in a reference-style option dict is lifted
+    out, so that the impulse maps can be given weight 0; a per-filter
+    weight of length M is padded.
+    """
+
+    def __init__(self, cbpdnclass, D, S, W, *args, dtype=torch.float32,
+                 **kwargs):
+        opt = kwargs.get("opt")
+        if isinstance(opt, dict) and "L1Weight" in opt:
+            opt = dict(opt)
+            # an explicit wl1 wins over the dict key, as in refopts
+            kwargs.setdefault("wl1", opt.pop("L1Weight"))
+            kwargs["opt"] = opt
+        npdt = sf.numpy_dtype(sf.torch_dtype(dtype))
+        D = np.asarray(D).astype(npdt)
+        S = np.asarray(S).astype(npdt)
+        W = np.asarray(W).astype(npdt)
+        dimN = kwargs.get("dimN", 2)
+        cri = cr.csc_index(D.shape, S.shape, dimK=kwargs.get("dimK"),
+                           dimN=dimN)
+        self.cri = cri
+        nimp = cri.Cd
+        if cri.dimCd == 0:
+            imp = np.zeros(D.shape[:dimN] + (1,), npdt)
+            imp[(0,) * dimN + (0,)] = 1.0
+        else:
+            imp = np.zeros(D.shape[:dimN] + (cri.Cd, cri.Cd), npdt)
+            for c in range(cri.Cd):
+                imp[(0,) * dimN + (c, c)] = 1.0
+        self.M = D.shape[-1]
+        # the mask in the internal layout (K|1, C|1, 1, Nv); a
+        # multi-channel mask addresses the per-channel impulse maps of a
+        # colour dictionary, so its C axis moves to the M slot
+        # (sporco/admm/cbpdn.py:2347-2353)
+        Wi = cr.fidelity_mask(torch.as_tensor(W), cri)
+        if cri.Cd > 1 and Wi.shape[1] > 1:
+            Wi = Wi.transpose(1, 2)              # (K|1, 1, Cd, Nv)
+        # the l1 weight zeroed on the impulse maps, in the user layout
+        # Nv + (C, K, M + nimp); a per-filter array of length M is padded
+        user_wl1 = np.asarray(kwargs.pop("wl1", 1.0), npdt)
+        if user_wl1.ndim and user_wl1.shape[-1] == self.M:
+            user_wl1 = np.concatenate(
+                [user_wl1, np.ones(user_wl1.shape[:-1] + (nimp,), npdt)],
+                axis=-1)
+        wl1 = np.ones((1,) * (dimN + 2) + (self.M + nimp,), npdt) * user_wl1
+        wl1[..., self.M:] = 0.0
+        self.cbpdn = cbpdnclass(np.concatenate([D, imp], axis=-1), S, *args,
+                                wl1=wl1, dtype=dtype, **kwargs)
+        self.cbpdn.set_ams(nimp, Wi.contiguous())
+        self.Wams = self.cbpdn.params["Wams"]
+        self.timer = self.cbpdn.timer
+
+    def solve(self):
+        """Solve; returns the coefficients of the M dictionary filters
+        (the impulse maps dropped) in the reference's layout."""
+        return self.cbpdn.solve()[..., :self.M]
+
+    def getcoef(self):
+        return self.cbpdn.getcoef()[..., :self.M]
+
+    def getitstat(self):
+        return self.cbpdn.getitstat()
+
+    @property
+    def itstat(self):
+        return self.cbpdn.itstat
+
+    def reconstruct(self, X=None):
+        """The reconstruction from the dictionary filters' maps alone
+        (the impulse maps zeroed), in the user S layout."""
+        if X is None:
+            X = self.getcoef()
+        X = X if isinstance(X, torch.Tensor) else torch.as_tensor(
+            np.asarray(X))
+        full = torch.cat([X, X.new_zeros(X.shape[:-1] + (self.cri.Cd,))],
+                         dim=-1)
+        return self.cbpdn.reconstruct(full)
+
+
 def reconstruct(Di, Xi, cri, X=None):
     """``sum_m d_m * x_m`` in the user S layout ``Nv + [C] + [K]`` for the
     internal dictionary ``Di`` and coefficients ``Xi``, or the
     reference-layout coefficients ``X`` when given."""
     if X is not None:
-        Xi = cr.to_internal_X(torch.as_tensor(np.asarray(X)), cri) \
-            .to(Di.device)
+        if not isinstance(X, torch.Tensor):
+            X = torch.as_tensor(np.asarray(X))
+        Xi = cr.to_internal_X(X.to(Di.device), cri)
     axes = _fftaxes(cri)
     with fp32_precision():
         if Di.is_complex() or Xi.is_complex():

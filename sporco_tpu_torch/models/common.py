@@ -1,8 +1,12 @@
 """Shared machinery for model classes (counterpart of
 ``sporco_tpu.models.common``): a thin stateful shell holding
 ``(cfg, params, opts, state)`` around a functional solver core, for ADMM
-and for PGM models."""
+and for PGM models, with checkpoints (``save_state``/``load_state_file``,
+``.npz`` files in the JAX package's layout, so that either package
+resumes the other's), a chunked solve with a callback and the stats
+table."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -28,6 +32,74 @@ def _state_dict(state):
         else:
             out[k] = np.array(v, copy=True)
     return out
+
+
+def _leaves(x):
+    """The leaves of ``x`` in JAX's pytree order: a tuple or list by
+    position, a dict by sorted key, ``None`` none, anything else one."""
+    if x is None:
+        return []
+    if isinstance(x, (tuple, list)):
+        return [v for e in x for v in _leaves(e)]
+    if isinstance(x, dict):
+        return [v for k in sorted(x) for v in _leaves(x[k])]
+    return [x]
+
+
+def _unflatten(like, it):
+    """``like``'s structure filled from the iterator of leaves ``it``."""
+    if like is None:
+        return None
+    if isinstance(like, (tuple, list)):
+        return type(like)(_unflatten(e, it) for e in like)
+    if isinstance(like, dict):
+        return {k: _unflatten(like[k], it) for k in sorted(like)}
+    return next(it)
+
+
+def _numpy(v):
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def _save_pytree(path, state):
+    """Write a solver state to an ``.npz`` file as the JAX package's
+    ``_save_pytree`` does: its leaves, in the state's field order, as
+    ``leaf0``, ``leaf1``, ... beside their count ``__n__``."""
+    leaves = _leaves(tuple(state))
+    np.savez(path, __n__=len(leaves),
+             **{f"leaf{i}": _numpy(v) for i, v in enumerate(leaves)})
+
+
+def _load_pytree(path, like):
+    """The fields of a state written by :func:`_save_pytree` (by either
+    package) as a dict of numpy arrays, given a state ``like`` of the
+    same structure."""
+    with np.load(path) as npz:
+        n = int(npz["__n__"])
+        if n != len(_leaves(tuple(like))):
+            raise ValueError(f"{path} holds {n} leaves; this model's state "
+                             f"has {len(_leaves(tuple(like)))}")
+        leaves = iter([npz[f"leaf{i}"] for i in range(n)])
+        return dict(zip(like._fields, _unflatten(tuple(like), leaves)))
+
+
+def _display_stats(its, file=None):
+    """Print an :class:`IterStats` as a table, as the JAX package's
+    ``_display_stats`` prints it."""
+    names = list(its._names)
+    widths = [max(9, len(n) + 1) for n in names]
+    hdr = "".join(n.rjust(w) for n, w in zip(names, widths))
+    print(hdr, file=file)
+    print("-" * len(hdr), file=file)
+    for i in range(len(its)):
+        row = []
+        for name, w in zip(names, widths):
+            v = getattr(its, name)[i]
+            row.append((str(int(v)) if name == "Iter" else f"{v:.2e}")
+                       .rjust(w))
+        print("".join(row), file=file)
 
 
 class _Model:
@@ -78,6 +150,42 @@ class _Model:
     def load_state(self, d):
         """Restore a snapshot written by :meth:`state_dict`."""
         self.load_state_dict_numpy(d)
+
+    def save_state(self, path):
+        """Checkpoint the solver state to an ``.npz`` file in the JAX
+        package's layout (the state's fields in order, the arrays in the
+        internal layout): the JAX package's ``load_state_file`` resumes
+        it, and so does this one."""
+        _save_pytree(path, self.state)
+
+    def load_state_file(self, path):
+        """Restore a checkpoint written by :meth:`save_state` of either
+        package; the arrays go to the model's device."""
+        self.load_state_dict_numpy(_load_pytree(path, self.state))
+
+    def solve_chunked(self, callback, chunk=10, max_chunks=None):
+        """Solve in chunks of ``chunk`` iterations, calling
+        ``callback(model)`` after each (the reference's per-iteration
+        ``Callback`` option, ``sporco/admm/admm.py:148``, at chunk
+        granularity); a callback that returns True stops the solve.
+        Returns the minimiser."""
+        opts = self.opts
+        nch = (-(-opts.max_iter // chunk) if max_chunks is None
+               else max_chunks)
+        self.opts = dataclasses.replace(opts, max_iter=chunk)
+        try:
+            for _ in range(nch):
+                self.solve()
+                if callback(self):
+                    break
+        finally:
+            self.opts = opts
+        return self.getmin()
+
+    def display(self, file=None):
+        """Print the stats of the most recent solve as a table (the
+        reference's Verbose display, ``sporco/common.py:230``)."""
+        _display_stats(self.getitstat(), file=file)
 
     def _tensor(self, a, dtype=torch.float32):
         """A numpy array as a new tensor of ``dtype`` on the model's

@@ -11,7 +11,8 @@ Transfers stay in the internal layout.  The x-step is ``ConvBPDN`` (or
 ``ConvBPDNGradReg`` with ``mu > 0``) by ADMM, or ``pgm.ConvBPDN`` by
 FISTA; at a fused-eligible geometry it runs its fused driver and so one
 launch of ``csc_iter`` (or ``pgm_iter``) per outer iteration.  The
-d-step is ``ConvCnstrMOD`` by ``ism``, ``cg`` or ``cns``.
+d-step is ``ConvCnstrMOD`` by ADMM (``ism``, ``cg`` or ``cns``) or by
+FISTA (``pgm``, :class:`sporco_tpu_torch.models.pgm.ConvCnstrMOD`).
 
 The fused consensus loop lives in :mod:`sporco_tpu_torch.parallel.consensus`.
 """
@@ -132,7 +133,7 @@ class DictLearn:
 class ConvBPDNDictLearn(DictLearn):
     r"""Convolutional dictionary learning: a CSC solver (``xmethod``
     ``'admm'`` or ``'pgm'``) alternating with a convolutional dictionary
-    update (``dmethod`` ``'ism'``, ``'cg'`` or ``'cns'``)
+    update (``dmethod`` ``'ism'``, ``'cg'``, ``'cns'`` or ``'pgm'``)
     (``dictlrn/cbpdndl.py:31-229,231``).  ``mu > 0`` makes the ADMM
     x-step ``ConvBPDNGradReg``.  ``dsz`` may be a multi-scale size spec,
     ``D0`` then the largest support zero-padded.  ``device=None`` means
@@ -144,11 +145,7 @@ class ConvBPDNDictLearn(DictLearn):
                  xopt=None, dopt=None, zero_mean=False,
                  dtype=torch.float64, dsz=None, mu=0.0, wgrd=1.0,
                  device=None):
-        if dmethod == "pgm":
-            raise NotImplementedError(
-                "dmethod='pgm' needs the FISTA ConvCnstrMOD, which the port "
-                "does not have yet (ROADMAP.md queue 1, entry 5)")
-        if dmethod not in ("ism", "cg", "cns"):
+        if dmethod not in ("ism", "cg", "cns", "pgm"):
             raise ValueError(f"unknown dmethod {dmethod!r}")
         if xmethod not in ("admm", "pgm"):
             raise ValueError(f"unknown xmethod {xmethod!r}")
@@ -171,9 +168,10 @@ class ConvBPDNDictLearn(DictLearn):
             xopt = _sub_opts(xcls, subs["CBPDN"], xopt, xkw)
             if xkw and xkw["wgrd"] is not None:
                 wgrd = xkw["wgrd"]
+            dcls = (_pgm.ConvCnstrMOD if dmethod == "pgm"
+                    else _ccmod.ConvCnstrMODBase)
             zm = {"zero_mean": None}
-            dopt = _sub_opts(_ccmod.ConvCnstrMODBase, subs["CCMOD"], dopt,
-                             zm)
+            dopt = _sub_opts(dcls, subs["CCMOD"], dopt, zm)
             if zm["zero_mean"] is not None:
                 zero_mean = zm["zero_mean"]
         # every inner solve runs its one iteration, even where the stale
@@ -216,16 +214,27 @@ class ConvBPDNDictLearn(DictLearn):
             xstep = _pgm.ConvBPDN(D0u, S, lmbda, opt=xopt, dimK=dimK,
                                   dimN=dimN, dtype=dtype, device=device)
 
-        dopt_ = (_ccmod.ConvCnstrMODBase.options(max_iter=1,
-                                                 rel_stop_tol=0.0)
-                 if dopt is None else dopt.replace(max_iter=1))
-        dstep = _ccmod.ConvCnstrMOD(None, S, dsz, opt=dopt_, method=dmethod,
-                                    dimK=dimK, dimN=dimN, D0=D0u,
-                                    zero_mean=zero_mean, dtype=dtype,
-                                    device=device)
-        # warm start: Y0 = the padded D0 (dictlrn/cbpdndl.py:452-456)
-        dstep.state = dstep.state._replace(
-            Y=cr.zpad(D0i, dstep.cri.Nv).to(device))
+        if dmethod == "pgm":
+            dopt_ = (_pgm.ConvCnstrMOD.options(max_iter=1, rel_stop_tol=0.0)
+                     if dopt is None else dopt.replace(max_iter=1))
+            dstep = _pgm.ConvCnstrMOD(None, S, dsz, opt=dopt_, dimK=dimK,
+                                      dimN=dimN, D0=D0u,
+                                      zero_mean=zero_mean, dtype=dtype,
+                                      device=device)
+            dstep.setcoef(torch.zeros(xstep.cri.shpX, dtype=dtype),
+                          internal=True)
+        else:
+            dopt_ = (_ccmod.ConvCnstrMODBase.options(max_iter=1,
+                                                     rel_stop_tol=0.0)
+                     if dopt is None else dopt.replace(max_iter=1))
+            dstep = _ccmod.ConvCnstrMOD(None, S, dsz, opt=dopt_,
+                                        method=dmethod, dimK=dimK,
+                                        dimN=dimN, D0=D0u,
+                                        zero_mean=zero_mean, dtype=dtype,
+                                        device=device)
+            # warm start: Y0 = the padded D0 (dictlrn/cbpdndl.py:452-456)
+            dstep.state = dstep.state._replace(
+                Y=cr.zpad(D0i, dstep.cri.Nv).to(device))
         super().__init__(xstep, dstep, max_iter=max_iter)
 
     def post_xstep(self):

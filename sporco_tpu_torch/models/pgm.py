@@ -1,5 +1,6 @@
-"""Convolutional sparse coding via PGM (FISTA): ``ConvBPDN`` and
-``ConvBPDNMask`` (counterpart of ``sporco_tpu.models.pgm``).
+"""Convolutional sparse coding via PGM (FISTA), ``ConvBPDN`` and
+``ConvBPDNMask``, and the FISTA dictionary update, ``ConvCnstrMOD`` and
+``ConvCnstrMODMask`` (counterpart of ``sporco_tpu.models.pgm``).
 
 Routed as the JAX package routes them:
 
@@ -22,6 +23,12 @@ Routed as the JAX package routes them:
 
 As in the JAX package, complex ``D``/``S`` are cast to the real
 ``dtype`` (their imaginary part is dropped).
+
+The dictionary update ``argmin_D (1/2) sum_k ||sum_m x_km * d_m -
+s_k||^2`` over unit-norm filters of the ``dsz`` support
+(``sporco/pgm/ccmod.py:28,408``) runs on the generic PGM loop in the DFT
+domain: its gradient is one forward and one inverse FFT (three of each
+when masked), its prox the projection ``Pcn``.
 """
 
 import warnings
@@ -41,7 +48,8 @@ from sporco_tpu_torch.solvers.admm import scalar_type
 from sporco_tpu_torch.solvers.pgm import (PGMOpts, PGMProblem, pgm_init_state,
                                           pgm_solve)
 
-__all__ = ["ConvBPDN", "ConvBPDNMask", "PGMCSCConfig", "params_from_numpy",
+__all__ = ["ConvBPDN", "ConvBPDNMask", "ConvCnstrMOD", "ConvCnstrMODMask",
+           "PGMCSCConfig", "PGMCCMODConfig", "params_from_numpy",
            "DEFAULT_L"]
 
 DEFAULT_L = 500.0     # sporco/pgm/cbpdn.py:98
@@ -261,3 +269,170 @@ class ConvBPDNMask(ConvBPDN):
 
     def __init__(self, D, S, lmbda=None, W=None, opt=None, **kw):
         super().__init__(D, S, lmbda=lmbda, W=W, opt=opt, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The convolutional dictionary update by FISTA (``sporco/pgm/ccmod.py``)
+
+@dataclass(frozen=True)
+class PGMCCMODConfig:
+    cri: cr.CDUIndex
+    zero_mean: bool = False
+    masked: bool = False
+
+
+def _ccm_axes(cfg):
+    return _cbpdn._fftaxes(cfg.cri)
+
+
+def _ccm_setup(cfg, params):
+    axes = _ccm_axes(cfg)
+    return {"Zf": sf.rfftn(params["Z"], axes=axes),
+            "Sf": sf.rfftn(params["S"], axes=axes)}
+
+
+def _ccm_Rf(cfg, aux, Df):
+    """``sum_m z_km * d_m - s_k`` in the DFT domain, per signal."""
+    return torch.sum(aux["Zf"] * Df, dim=2, keepdim=True) - aux["Sf"]
+
+
+def _ccm_grad(cfg, aux, params, Y):
+    cri = cfg.cri
+    axes = _ccm_axes(cfg)
+    Ryf = _ccm_Rf(cfg, aux, sf.rfftn(Y, axes=axes))
+    if cfg.masked:
+        Ry = sf.irfftn(Ryf, s=cri.Nv, axes=axes)
+        Ryf = sf.rfftn(params["W"] ** 2 * Ry, axes=axes)
+    gradf = torch.sum(aux["Zf"].conj() * Ryf, dim=0, keepdim=True)
+    return sf.irfftn(gradf, s=cri.Nv, axes=axes)
+
+
+def _ccm_pcn(cfg, V):
+    return cr.Pcn(V, cfg.cri.dsz, cfg.cri.Nv, dimN=cfg.cri.dimN,
+                  zm=cfg.zero_mean)
+
+
+def _ccm_prox(cfg, aux, params, V, L):
+    return _ccm_pcn(cfg, V)
+
+
+def _ccm_f(cfg, aux, params, X):
+    cri = cfg.cri
+    axes = _ccm_axes(cfg)
+    Rf = _ccm_Rf(cfg, aux, sf.rfftn(X, axes=axes))
+    if cfg.masked:
+        R = sf.irfftn(Rf, s=cri.Nv, axes=axes)
+        return 0.5 * torch.sum((params["W"] * R) ** 2)
+    return 0.5 * sf.rfl2norm2(Rf, cri.Nv, axis=axes)
+
+
+def _ccm_g(cfg, aux, params, X):
+    return torch.linalg.vector_norm((_ccm_pcn(cfg, X) - X).reshape(-1))
+
+
+def _ccm_obfn(cfg, aux, params, X):
+    return (_ccm_f(cfg, aux, params, X), _ccm_g(cfg, aux, params, X))
+
+
+def _ccm_xinit(cfg, params):
+    return params["D0"]
+
+
+_CCMOD_PGM = PGMProblem(setup=_ccm_setup, grad_f=_ccm_grad,
+                        prox_g=_ccm_prox, obfn_f=_ccm_f, obfn_g=_ccm_g,
+                        obfn=_ccm_obfn, xinit=_ccm_xinit,
+                        stat_names=("DFid", "Cnstr"))
+
+
+class ConvCnstrMOD(PGMModel):
+    r"""Convolutional constrained MOD via PGM (``sporco/pgm/ccmod.py:28``):
+    the dictionary update ``argmin_D (1/2) sum_k ||sum_m x_km * d_m -
+    s_k||^2`` with ``d_m`` in the unit-norm set of support ``dsz``.
+    ``Z`` is in the reference's coefficient layout ``Nv + (Cx, K, M)``
+    (or None: zeros until :meth:`setcoef`), ``S`` in ``Nv + [C] + [K]``,
+    ``D0`` in the dictionary layout.  ``solve()`` returns the
+    full-support dictionary in the internal layout, as the JAX package's
+    does; :meth:`getdict` the user layout.  Default ``L = 14 K``
+    (``sporco/pgm/ccmod.py:221``).  ``device=None`` means the CUDA
+    device and raises without one; ``device="cpu"`` runs on the CPU."""
+
+    # reference pgm.ConvCnstrMOD option keys (sporco/pgm/ccmod.py:93)
+    REF_OPT_EXTRA = {"ZeroMean": ("k", "zero_mean")}
+
+    MASKED = False
+    STAT_NAMES = ("DFid", "Cnstr")
+
+    @staticmethod
+    def options(**kw):
+        return PGMOpts(**kw)
+
+    def __init__(self, Z, S, dsz, opt=None, dimK=None, dimN=2, D0=None,
+                 W=None, zero_mean=False, dtype=torch.float32, device=None):
+        super().__init__()
+        self.device = resolve_device(device)
+        if opt is None:
+            opt = self.options()
+        dtype = sf.torch_dtype(dtype)
+        npdt = sf.numpy_dtype(dtype)
+        S = np.asarray(S).astype(npdt)
+        cri = cr.cdu_index(dsz, S.shape, dimK=dimK, dimN=dimN)
+        self.cri = cri
+        csc_like = cri.csc_like()
+        Si = cr.to_internal_S(torch.as_tensor(S), cri)
+        Zi = cr.to_internal_X(torch.as_tensor(np.asarray(Z).astype(npdt)),
+                              csc_like) if Z is not None \
+            else torch.zeros(cri.shpX, dtype=dtype)
+        D0i = torch.zeros(cri.shpD, dtype=dtype) if D0 is None \
+            else cr.zpad(cr.to_internal_D(torch.as_tensor(
+                np.asarray(D0).astype(npdt)), csc_like), cri.Nv)
+        Wm = torch.ones((1,) * (3 + cri.dimN), dtype=dtype) if W is None \
+            else cr.fidelity_mask(torch.as_tensor(np.asarray(W).astype(
+                npdt)), cri)
+        self.cfg = PGMCCMODConfig(cri=cri, zero_mean=zero_mean,
+                                  masked=self.MASKED)
+        self.opts = opt.replace(dtype=dtype)
+
+        def dev(t):
+            return t.contiguous().to(self.device, dtype)
+        self.params = {"Z": dev(Zi), "S": dev(Si), "D0": dev(D0i),
+                       "W": dev(Wm)}
+        self.problem = _CCMOD_PGM
+        L0 = opt.L if opt.L is not None else 14.0 * cri.K
+        self.state = pgm_init_state(self.params["D0"], self.opts, L0,
+                                    len(self.STAT_NAMES))
+        self._init_done()
+
+    def _solve_state(self):
+        return pgm_solve(self.problem, self.cfg, self.params, self.opts,
+                         self.state)
+
+    def getdict(self, crop=True):
+        """The dictionary in the user layout ``dsz + [Cd] + (M,)``, cropped
+        to the filter support unless ``crop`` is False."""
+        D = self.state.X
+        if crop:
+            D = cr.bcrop(D, self.cri.dsz, self.cri.dimN)
+        return cr.from_internal_D(D, self.cri)
+
+    def getdict_internal(self):
+        """The full-support dictionary in the internal layout (the
+        dictionary learning loop)."""
+        return self.state.X
+
+    def setcoef(self, Z, internal=False):
+        """Replace the coefficients: reference layout ``Nv + (Cx, K, M)``,
+        or with ``internal`` the internal ``(K, Cx, M, Nv...)``."""
+        if not internal:
+            Z = cr.to_internal_X(torch.as_tensor(np.asarray(Z).astype(
+                sf.numpy_dtype(self.opts.dtype))), self.cri.csc_like())
+        self.params = {**self.params,
+                       "Z": Z.contiguous().to(self.device, self.opts.dtype)}
+
+
+class ConvCnstrMODMask(ConvCnstrMOD):
+    r"""Masked convolutional MOD via PGM (``sporco/pgm/ccmod.py:408``):
+    the data term is ``(1/2) ||W (sum_m x_m * d_m - s)||^2``."""
+    MASKED = True
+
+    def __init__(self, Z, S, dsz, W=None, **kw):
+        super().__init__(Z, S, dsz, W=W, **kw)

@@ -25,7 +25,10 @@ makes once (the JAX package's ``Wf_split``).  With ``emit_fwd=False`` the
 forward pair is skipped (its pass is not launched), ``R1``/``R2`` come
 back ``None`` and ``Wf`` may be ``None``: the consensus dictionary
 learning's CSC stage, whose dictionary changes before the next forward
-product is needed.
+product is needed.  With ``mixed=True`` (the fused drivers' opt-in
+"mixed" precision) ``R1`` is one bf16 product of the operands rounded to
+nearest, with fp32 sums (``fwd_passes=1`` of the JAX package); ``R2``
+and ``A`` are as above.
 
 :func:`csc_iter` launches the kernel for tensors on a CUDA device and
 runs :func:`csc_iter_plain` for tensors on the CPU; any other device
@@ -40,7 +43,7 @@ import torch
 from sporco_tpu_torch._device import fp32_precision
 
 __all__ = ["csc_iter", "csc_iter_plain", "split_weight", "iter_supported",
-           "LAUNCHES", "reset_launches"]
+           "bf16_product", "LAUNCHES", "reset_launches"]
 
 NSUM = 6
 # padding of the split weight, as csrc/csc_tiles.cuh reads it: rows to
@@ -104,9 +107,16 @@ def split_weight(W):
     return out
 
 
+def bf16_product(x, W):
+    """``bf16(x) @ bf16(W)`` with float32 sums: the "mixed" forward
+    product (each operand rounded to nearest bf16; the products of two
+    bf16 values are exact in float32)."""
+    return x.to(torch.bfloat16).float() @ W.to(torch.bfloat16).float()
+
+
 def csc_iter_plain(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale,
                    nonneg=False, emit_px=True, wf_split=None,
-                   emit_fwd=True):
+                   emit_fwd=True, mixed=False):
     """The plain PyTorch version of the kernel (same arguments and
     results as :func:`csc_iter`; ``wf_split`` is not read), with fp32
     contractions pinned."""
@@ -128,7 +138,12 @@ def csc_iter_plain(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale,
         if nonneg:
             yn = torch.clamp(yn, min=0.0)
         un = u + ax - yn
-        r1 = (yn - un) @ Wf if emit_fwd else None
+        if not emit_fwd:
+            r1 = None
+        elif mixed:
+            r1 = bf16_product(yn - un, Wf)
+        else:
+            r1 = (yn - un) @ Wf
         r2 = un @ Wf if emit_fwd else None
         d = px - yn
         e = yn - y
@@ -144,7 +159,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 5                  # G2 Y U Wa Wf3
              + [ctypes.c_void_p, ctypes.c_float,     # thr_v, thr_s
                 ctypes.c_void_p, ctypes.c_float,     # wl1_v, wl1_s
                 ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                ctypes.c_int, ctypes.c_int]          # nonneg, vec
+                ctypes.c_int, ctypes.c_int,          # nonneg, vec
+                ctypes.c_int]                        # mixed
              + [ctypes.c_void_p] * 5                 # PX R1 R2 part sums
              + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
 
@@ -194,19 +210,20 @@ def _check_split(wf_split, Wf, dev):
 
 
 def csc_iter(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale, nonneg=False,
-             emit_px=True, wf_split=None, emit_fwd=True):
+             emit_px=True, wf_split=None, emit_fwd=True, mixed=False):
     """One fused ADMM iteration; returns ``(PX, Yn, Un, R1, R2, sums)``
     with ``Yn is Y`` and ``Un is U`` (updated in place), ``PX`` None
     unless ``emit_px`` and ``R1``/``R2`` None unless ``emit_fwd``.
     ``thr``/``wl1`` are numbers or tensors of one element or of shape
     ``(C,)``.  ``wf_split`` is ``split_weight(Wf)``, which the kernel
     reads in place of ``Wf`` (a solve makes it once); on CUDA tensors it
-    is required when ``emit_fwd``, and neither is read otherwise."""
+    is required when ``emit_fwd``, and neither is read otherwise.
+    ``mixed``: ``R1`` as one bf16 product."""
     dev = Y.device
     if dev.type == "cpu":
         return csc_iter_plain(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale,
                               nonneg=nonneg, emit_px=emit_px,
-                              emit_fwd=emit_fwd)
+                              emit_fwd=emit_fwd, mixed=mixed)
     if dev.type != "cuda":
         raise ValueError(f"csc_iter runs on CUDA or CPU tensors, not "
                          f"{dev.type}")
@@ -255,7 +272,7 @@ def csc_iter(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale, nonneg=False,
             ptr(vecs[0]), 0.0 if vecs[0] is not None else thr,
             ptr(vecs[1]), 0.0 if vecs[1] is not None else wl1,
             float(rlx), float(us), float(scale), int(bool(nonneg)), vec,
-            ptr(px), ptr(r1), ptr(r2), ptr(part), ptr(sums),
+            int(bool(mixed)), ptr(px), ptr(r1), ptr(r2), ptr(part), ptr(sums),
             pos, C, T, stream)
     if err != 0:
         raise RuntimeError(f"csc_iter kernel launch failed: CUDA error "

@@ -13,6 +13,14 @@ the packed layout ``(..., C)`` (the true dual is ``us * PU``)::
 
 ``PYn`` and ``PUn`` are written into ``PY`` and ``PU`` in place.
 
+The AMS form (``ams=(Wp, nimp)``, Additive Mask Simulation; the select
+of ``sporco_tpu/ops/fused_csc.py:816-817``): packed channel ``c`` holds
+filter ``c mod M`` of polyphase phase ``c // M`` with ``M = C //
+Wp.shape[-1]``, and on the last ``nimp`` filters, the impulse maps,
+``PYn = (1 - Wp[row, c // M]) * (AX + us*PU)`` replaces the shrunk value
+(after ``nonneg``).  ``Wp`` is the fidelity mask packed once per solve
+as ``(R, PS^2)``; the sums run over every column.
+
 The JAX package ships its kernel switched off (``enabled = False``) and
 sends it only the layouts of its TPU block rule (``tail_eligible``): on
 its TPU, XLA's fusion of the same op chain was faster.  Eager PyTorch
@@ -46,13 +54,44 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def tail_ops(PX, PY, PU, thr, wl1, rlx, nonneg=False):
+def _ams_select(yn, axu, Wp, nimp):
+    """The AMS select: the last ``nimp`` of every ``M = C // P`` packed
+    channels take ``(1 - Wp) * axu``, ``Wp`` of shape ``(R, P)``."""
+    shape = yn.shape
+    C = shape[-1]
+    R, P = Wp.shape
+    if C % P or yn.numel() != R * C:
+        raise ValueError(f"AMS mask of shape {tuple(Wp.shape)} does not "
+                         f"fit a packed state of shape {tuple(shape)}")
+    M = C // P
+    sel = torch.zeros(M, dtype=torch.bool, device=yn.device)
+    sel[M - nimp:] = True
+    imp = (1.0 - Wp)[:, :, None] * axu.reshape(R, P, M)
+    return torch.where(sel, imp, yn.reshape(R, P, M)).reshape(shape)
+
+
+def _check_ams(ams, R, C, dev):
+    """``ams`` as ``(Wp, M, nimp)`` for the kernel, checked."""
+    Wp, nimp = ams
+    if not isinstance(Wp, torch.Tensor) or Wp.ndim != 2 \
+            or Wp.shape[0] != R or Wp.shape[1] < 1 or C % Wp.shape[1]:
+        raise ValueError(f"the AMS mask must be a ({R}, P) tensor with P "
+                         f"dividing {C}")
+    _check("Wp", Wp, (R, Wp.shape[1]), dev)
+    M = C // Wp.shape[1]
+    if not 0 < int(nimp) <= M:
+        raise ValueError(f"nimp must be in 1..{M}, got {nimp}")
+    return Wp, M, int(nimp)
+
+
+def tail_ops(PX, PY, PU, thr, wl1, rlx, nonneg=False, ams=None):
     """The tail as torch ops on the true dual ``PU``: returns new
     ``(PYn, PUn, sums)``.  ``thr`` and ``wl1`` are numbers or tensors that
     broadcast against the packed arrays, a spatially varying weight field
-    included.  The arithmetic of the kernel's plain version, and the
-    fused driver's tail for a spatially varying weight, which the kernel
-    does not take (the JAX package's XLA tail)."""
+    included; ``ams`` is ``None`` or ``(Wp, nimp)`` (the AMS form).  The
+    arithmetic of the kernel's plain version, and the fused driver's
+    tail for a spatially varying weight, which the kernel does not take
+    (the JAX package's XLA tail)."""
     # the scalars in float32, as the kernel (and the TPU kernel) has them
     rlx = np.float32(rlx)
     rlx1 = float(np.float32(1.0) - rlx)
@@ -61,6 +100,8 @@ def tail_ops(PX, PY, PU, thr, wl1, rlx, nonneg=False):
     yn = torch.sign(axu) * torch.clamp(axu.abs() - thr, min=0.0)
     if nonneg:
         yn = torch.clamp(yn, min=0.0)
+    if ams is not None:
+        yn = _ams_select(yn, axu, *ams)
     un = PU + ax - yn
     d = PX - yn
     e = yn - PY
@@ -70,14 +111,15 @@ def tail_ops(PX, PY, PU, thr, wl1, rlx, nonneg=False):
     return yn, un, sums
 
 
-def admm_tail_plain(PX, PY, PU, thr, wl1, rlx, nonneg=False, us=1.0):
+def admm_tail_plain(PX, PY, PU, thr, wl1, rlx, nonneg=False, us=1.0,
+                    ams=None):
     """The plain PyTorch version of the kernel (same arguments and
     results as :func:`admm_tail`)."""
     C = PX.shape[-1]
     thr = _as_channels(thr, C, PX.device)
     wl1 = _as_channels(wl1, C, PX.device)
     yn, un, sums = tail_ops(PX, PY, float(np.float32(us)) * PU, thr, wl1,
-                            rlx, nonneg=nonneg)
+                            rlx, nonneg=nonneg, ams=ams)
     PY.copy_(yn)
     PU.copy_(un)
     return PY, PU, sums
@@ -88,6 +130,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 3                    # PX PY PU
                 ctypes.c_void_p, ctypes.c_float,      # wl1_v, wl1_s
                 ctypes.c_float, ctypes.c_float,       # rlx, us
                 ctypes.c_int, ctypes.c_int]           # nonneg, vec
+             + [ctypes.c_void_p, ctypes.c_int64,      # Wp, M, nimp
+                ctypes.c_int64]
              + [ctypes.c_void_p] * 2                  # part sums
              + [ctypes.c_int64] * 2 + [ctypes.c_void_p])
 
@@ -103,16 +147,18 @@ def _lib():
     return lib
 
 
-def admm_tail(PX, PY, PU, thr, wl1, rlx, nonneg=False, us=1.0):
+def admm_tail(PX, PY, PU, thr, wl1, rlx, nonneg=False, us=1.0, ams=None):
     """One pass of relaxation, l1 prox, dual update and the six sums.
     ``PX``, ``PY`` and ``PU`` share a packed shape ``(..., C)``;
     ``thr``/``wl1`` are numbers or tensors of one element or of shape
-    ``(C,)``; ``us`` scales ``PU`` on load.  Returns ``(PYn, PUn, sums)``
-    with ``PYn is PY`` and ``PUn is PU`` (updated in place)."""
+    ``(C,)``; ``us`` scales ``PU`` on load; ``ams`` is ``None`` or
+    ``(Wp, nimp)`` with ``Wp`` a contiguous float32 ``(R, P)`` mask, ``P``
+    dividing ``C`` (the AMS form).  Returns ``(PYn, PUn, sums)`` with
+    ``PYn is PY`` and ``PUn is PU`` (updated in place)."""
     dev = PY.device
     if dev.type == "cpu":
         return admm_tail_plain(PX, PY, PU, thr, wl1, rlx, nonneg=nonneg,
-                               us=us)
+                               us=us, ams=ams)
     if dev.type != "cuda":
         raise ValueError(f"admm_tail runs on CUDA or CPU tensors, not "
                          f"{dev.type}")
@@ -127,6 +173,8 @@ def admm_tail(PX, PY, PU, thr, wl1, rlx, nonneg=False, us=1.0):
         raise ValueError("PX, PY and PU must be distinct buffers")
     C = shape[-1]
     R = PY.numel() // C
+    Wp, Ma, nimp = (None, 0, 0) if ams is None \
+        else _check_ams(ams, R, C, dev)
     thr = _as_channels(thr, C, dev)
     wl1 = _as_channels(wl1, C, dev)
     vecs = [v.contiguous() if isinstance(v, torch.Tensor) else None
@@ -148,7 +196,8 @@ def admm_tail(PX, PY, PU, thr, wl1, rlx, nonneg=False, us=1.0):
             ptr(vecs[0]), 0.0 if vecs[0] is not None else thr,
             ptr(vecs[1]), 0.0 if vecs[1] is not None else wl1,
             float(np.float32(rlx)), float(np.float32(us)),
-            int(bool(nonneg)), vec, ptr(part), ptr(sums), R, C, stream)
+            int(bool(nonneg)), vec, ptr(Wp), Ma, nimp, ptr(part),
+            ptr(sums), R, C, stream)
     if err != 0:
         raise RuntimeError(f"admm_tail kernel launch failed: CUDA error "
                            f"{err}")

@@ -21,12 +21,22 @@ bodies:
   deferred through the factor ``us`` and folded into that product by
   linearity: ``(Y - us U) @ Wf = R1 + (1 - us) R2``.  X is rebuilt after
   the loop as the x-step at the final ``(Y, U, rho)``.
-- ``body`` (``gradreg``, and any variant with a spatially varying
-  ``L1Weight``): the x-step (the spatial one, or for ``gradreg`` a
-  per-bin solve over the M-channel half-spectrum), then the tail of
-  relaxation, l1 prox, dual update and the six sums in one call of
-  :func:`sporco_tpu_torch.ops.csc_tail.admm_tail` for a scalar or
-  per-filter weight, as torch ops for a spatially varying one.
+- ``body`` (``gradreg``, any variant with a spatially varying
+  ``L1Weight``, and every AMS-masked solve): the x-step (the spatial
+  one, or for ``gradreg`` a per-bin solve over the M-channel
+  half-spectrum), then the tail of relaxation, l1 prox, dual update and
+  the six sums in one call of :func:`sporco_tpu_torch.ops.csc_tail.admm_tail`
+  for a scalar or per-filter weight, as torch ops for a spatially
+  varying one.  Under Additive Mask Simulation (``cfg.ams_nimp``, the
+  last filter an impulse) the tail takes its AMS form: the impulse map
+  takes ``(1 - W) (AX + U)`` with the mask packed once per solve.
+
+The matmul precision (:func:`set_matmul_precision`): "high", the
+default, keeps every product fp32-faithful; the opt-in "mixed" computes
+the kernels' forward product ``R1`` (``csc_iter`` and ``pgm_iter``) as
+one bf16 product, as the JAX package's ``fwd_passes = 1``.  The XLA-side
+products of the JAX package's ``body`` ignore "mixed" off the TPU (an
+fp32 dot there is exact), and so do the port's torch products.
 
 A colour dictionary (Cd = C in {2, 3} channels, coefficient maps shared
 across them) keeps the state at the single-channel size; its products
@@ -73,6 +83,7 @@ from sporco_tpu_torch.solvers.pgm import (PGMProblem, _momentum_update,
 from sporco_tpu_torch.utils.signal import gradient_filters
 
 __all__ = ["cbpdn_solve", "cbpdn_solve_cfold", "eligible", "cfold_eligible",
+           "set_matmul_precision", "get_matmul_precision", "ams_mask",
            "pgm_cbpdn_solve", "pgm_cbpdn_solve_cfold", "pgm_eligible",
            "pgm_cfold_eligible", "consensus_eligible", "xstep_kernels",
            "spatial_xstep", "spatial_xstep_mc", "poly_pack", "poly_unpack",
@@ -82,6 +93,24 @@ PS = 8            # polyphase factor (spatial fold per axis)
 MAX_SUPPORT = 24  # largest filter support the spatial form beats FFT at
 
 f32 = np.float32
+
+# The matmul precision of the kernels' forward product R1: "high" (six
+# bf16 products of three-term splits, as accurate as fp32 sums) or the
+# opt-in "mixed" (one bf16 product; sporco_tpu/ops/fused_csc.py:60-86).
+_MATMUL_PRECISION = "high"
+
+
+def set_matmul_precision(mode):
+    """Select the fused drivers' forward-product precision: "high"
+    (default, fp32-faithful) or "mixed" (R1 as one bf16 product)."""
+    global _MATMUL_PRECISION
+    if mode not in ("high", "mixed"):
+        raise ValueError("mode must be 'high' or 'mixed'")
+    _MATMUL_PRECISION = mode
+
+
+def get_matmul_precision():
+    return _MATMUL_PRECISION
 
 
 # ---------------------------------------------------------------------------
@@ -428,17 +457,19 @@ def _wl1_per_channel(wl1):
 def eligible(cfg, params, opts, force=False):
     """Whether the JAX package sends this ConvBPDN configuration to its
     fused driver (``sporco_tpu.ops.fused_csc.eligible``): real
-    single-channel (or colour-dictionary ``l1``/``elastic``) 2-D float32
-    ``l1``, ``elastic`` or ``gradreg`` problems with PS-aligned even
-    sizes, no NoBndryCross, LinSolveCheck or ``AuxVarObj``, and a scalar
-    or per-filter ``GradWeight`` (the port has no AMS masking yet).  With
-    ``force`` the support heuristic is lifted and a configuration
-    outside the rule raises :class:`ValueError`."""
+    single-channel (or colour-dictionary ``l1``/``elastic`` without AMS)
+    2-D float32 ``l1``, ``elastic`` or ``gradreg`` problems with
+    PS-aligned even sizes, no NoBndryCross, LinSolveCheck or
+    ``AuxVarObj``, at most one AMS impulse filter, and a scalar or
+    per-filter ``GradWeight``.  With ``force`` the support heuristic is
+    lifted and a configuration outside the rule raises
+    :class:`ValueError`."""
     cri = cfg.cri
-    mc_ok = cri.Cd > 1 and cfg.variant in ("l1", "elastic")
+    mc_ok = (cri.Cd > 1 and cfg.variant in ("l1", "elastic")
+             and not cfg.ams_nimp)
     structural = (cfg.real and cfg.variant in ("l1", "elastic", "gradreg")
                   and not cfg.no_bndry and not cfg.lin_check
-                  and cfg.obj_from_x
+                  and cfg.obj_from_x and cfg.ams_nimp in (0, 1)
                   and (cri.Cd == 1 or mc_ok)
                   and _layout_ok(cri, cri.dsz[0], cri.dsz[1], opts.dtype,
                                  force=force, allow_mc=mc_ok))
@@ -474,8 +505,9 @@ def _cfold_wl1_ok(cri, wl1):
 def cfold_eligible(cfg, params, opts, force=False):
     """Whether the JAX package runs this multi-channel-signal
     configuration on its fused driver by channel folding
-    (``sporco_tpu.ops.fused_csc.cfold_eligible``)."""
-    if not _cfold_wl1_ok(cfg.cri, params["wl1"]):
+    (``sporco_tpu.ops.fused_csc.cfold_eligible``): never under AMS,
+    whose mask addresses per-channel impulse maps."""
+    if cfg.ams_nimp or not _cfold_wl1_ok(cfg.cri, params["wl1"]):
         return False
     cfg2, params2 = _cfold(cfg, params)
     return eligible(cfg2, params2, opts, force=force)
@@ -550,6 +582,10 @@ def _cbpdn_fused_run(cfg, params, opts, state):
         else None
     wl1p = _packed_l1_weight(params["wl1"], cri)
     spatial_w = isinstance(wl1p, torch.Tensor) and wl1p.ndim > 1
+    # AMS: the last filter is the impulse; its map takes (1 - W)(AX + U)
+    ams = (ams_mask(params["Wams"], K, cri.Nv), cfg.ams_nimp) \
+        if cfg.ams_nimp else None
+    mixed = _MATMUL_PRECISION == "mixed"
 
     Cd = cri.Cd
     if Cd > 1:
@@ -578,7 +614,8 @@ def _cbpdn_fused_run(cfg, params, opts, state):
     # The JAX package's routing, except that the port runs csc_iter
     # whatever iter_supported says and runs the tail kernel at any layout
     # (ROADMAP "Kernel routing (deliberate)").
-    use_pk = cfg.variant in ("l1", "elastic") and not spatial_w
+    use_pk = (cfg.variant in ("l1", "elastic") and not spatial_w
+              and not cfg.ams_nimp)
     use_tail = not use_pk and not spatial_w
 
     k0 = int(state.k)
@@ -674,7 +711,7 @@ def _cbpdn_fused_run(cfg, params, opts, state):
             _, _, _, R1, R2, sums = csc_iter(
                 G2.reshape(pos, Ta), PY.view(pos, C), PU.view(pos, C), Wa,
                 Wf, thr, wl1p, rlx, us, scale, nonneg=cfg.non_neg,
-                emit_px=False, wf_split=wf_split)
+                emit_px=False, wf_split=wf_split, mixed=mixed)
         else:
             # the XLA body: the x-step, then the tail on the packed state
             PUt = float(us) * PU
@@ -687,10 +724,11 @@ def _cbpdn_fused_run(cfg, params, opts, state):
                 PX, spec = xstep(Pyu, beta, scale)
             if use_tail:
                 PY, PU, sums = csc_tail.admm_tail(
-                    PX, PY, PU, thr, wl1p, rlx, nonneg=cfg.non_neg, us=us)
+                    PX, PY, PU, thr, wl1p, rlx, nonneg=cfg.non_neg, us=us,
+                    ams=ams)
             else:
                 PY, PU, sums = tail_ops(PX, PY, PUt, thr, wl1p, rlx,
-                                        nonneg=cfg.non_neg)
+                                        nonneg=cfg.non_neg, ams=ams)
             if gradreg and not opts.fast_solve:
                 DXf = torch.sum(Df[None] * Xfg, dim=1)
                 er = DXf.real - sfr
@@ -769,6 +807,16 @@ def _pgm_aux(cfg, params):
             .expand(K, Cd, n0, n1)
         aux["Wp2"] = _pack_ch(Wm) ** 2
     return aux
+
+
+def ams_mask(Wams, K, Nv):
+    """The AMS fidelity mask of a single-channel problem, ``(K|1, 1, 1,
+    N0, N1)`` in the internal layout, packed once per solve as the
+    tail's ``(K * N0/PS * N1/PS, PS^2)``: the mask of each packed row and
+    polyphase phase, the same for every filter (the JAX package's ``Wp``
+    at ``sporco_tpu/ops/fused_csc.py:645-653`` repeats it over M)."""
+    W = Wams.reshape(Wams.shape[0], *Nv).expand(K, *Nv)
+    return poly_pack(W.to(torch.float32)).reshape(-1, PS * PS).contiguous()
 
 
 def _packed_l1_weight(wl1, cri):
@@ -945,6 +993,7 @@ def _pgm_fused_kernel_run(cfg, params, opts, state):
     PY = pack_state(state.Y)
     R1 = PY.reshape(pos, C) @ Wf
     wf_split = split_weight(Wf)         # the kernel's, once per solve
+    mixed = _MATMUL_PRECISION == "mixed"
     nanv = f32(np.nan)
 
     while k - k0 < opts.max_iter and rsdl >= stop_tol(opts, k):
@@ -958,7 +1007,7 @@ def _pgm_fused_kernel_run(cfg, params, opts, state):
         _, _, R1, RX, sums = pgm_iter(
             G2.reshape(pos, Ta), PY.view(pos, C), PX.view(pos, C), Wa, Wf,
             _thr(aux, L), wl1p, f32(1.0) / L, beta, nonneg=cfg.non_neg,
-            wf_split=wf_split)
+            wf_split=wf_split, mixed=mixed)
         if opts.fast_solve:
             host = sums.cpu().numpy()
             objv = (np.nan,) * 3

@@ -18,6 +18,7 @@ both (pos, C), and the polyphase weights ``Wa`` (T, C) and ``Wf``
 kernel's aliasing ``{2: 0, 1: 1}``).  The products run as in
 ``csc_iter``: ``A`` in fp32 FFMA, ``R1``/``RX`` on the tensor cores with
 ``Wf`` split by :func:`~sporco_tpu_torch.ops.csc_iter.split_weight`.
+With ``mixed=True`` ``R1`` is one bf16 product, as in ``csc_iter``.
 
 :func:`pgm_iter` launches the kernel for tensors on a CUDA device and
 runs :func:`pgm_iter_plain` for tensors on the CPU; any other device
@@ -31,7 +32,7 @@ import torch
 
 from sporco_tpu_torch._device import fp32_precision
 from sporco_tpu_torch.ops.csc_iter import (_as_channels, _check,
-                                           _check_split)
+                                           _check_split, bf16_product)
 
 __all__ = ["pgm_iter", "pgm_iter_plain", "LAUNCHES", "reset_launches"]
 
@@ -46,7 +47,7 @@ def reset_launches():
 
 
 def pgm_iter_plain(G2, Y, Xprv, Wa, Wf, thr, wl1, rL, beta, nonneg=False,
-                   wf_split=None):
+                   wf_split=None, mixed=False):
     """The plain PyTorch version of the kernel (same arguments and
     results as :func:`pgm_iter`; ``wf_split`` is not read), with fp32
     contractions pinned."""
@@ -62,7 +63,7 @@ def pgm_iter_plain(G2, Y, Xprv, Wa, Wf, thr, wl1, rL, beta, nonneg=False,
         if nonneg:
             x = torch.clamp(x, min=0.0)
         yn = x + beta * (x - Xprv)
-        r1 = yn @ Wf
+        r1 = bf16_product(yn, Wf) if mixed else yn @ Wf
         rx = x @ Wf
         d = x - Y
         sums = torch.stack([(d * d).sum(), (x.abs() * wl1).sum()])
@@ -75,7 +76,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 5                  # G2 Y Xprv Wa Wf3
              + [ctypes.c_void_p, ctypes.c_float,     # thr_v, thr_s
                 ctypes.c_void_p, ctypes.c_float,     # wl1_v, wl1_s
                 ctypes.c_float, ctypes.c_float,      # rL, beta
-                ctypes.c_int, ctypes.c_int]          # nonneg, vec
+                ctypes.c_int, ctypes.c_int,          # nonneg, vec
+                ctypes.c_int]                        # mixed
              + [ctypes.c_void_p] * 4                 # R1 RX part sums
              + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
 
@@ -92,16 +94,17 @@ def _lib():
 
 
 def pgm_iter(G2, Y, Xprv, Wa, Wf, thr, wl1, rL, beta, nonneg=False,
-             wf_split=None):
+             wf_split=None, mixed=False):
     """One fused FISTA iteration; returns ``(X, Yn, R1, RX, sums)`` with
     ``X is Xprv`` and ``Yn is Y`` (updated in place).  ``thr``/``wl1``
     are numbers or tensors of one element or of shape ``(C,)``.
     ``wf_split`` is ``split_weight(Wf)``, which the kernel reads in place
-    of ``Wf`` (a solve makes it once); on CUDA tensors it is required."""
+    of ``Wf`` (a solve makes it once); on CUDA tensors it is required.
+    ``mixed``: ``R1`` as one bf16 product."""
     dev = Y.device
     if dev.type == "cpu":
         return pgm_iter_plain(G2, Y, Xprv, Wa, Wf, thr, wl1, rL, beta,
-                              nonneg=nonneg)
+                              nonneg=nonneg, mixed=mixed)
     if dev.type != "cuda":
         raise ValueError(f"pgm_iter runs on CUDA or CPU tensors, not "
                          f"{dev.type}")
@@ -141,8 +144,8 @@ def pgm_iter(G2, Y, Xprv, Wa, Wf, thr, wl1, rL, beta, nonneg=False,
             ptr(vecs[0]), 0.0 if vecs[0] is not None else thr,
             ptr(vecs[1]), 0.0 if vecs[1] is not None else wl1,
             float(np.float32(rL)), float(np.float32(beta)),
-            int(bool(nonneg)), vec, ptr(r1), ptr(rx), ptr(part), ptr(sums),
-            pos, C, T, stream)
+            int(bool(nonneg)), vec, int(bool(mixed)), ptr(r1), ptr(rx),
+            ptr(part), ptr(sums), pos, C, T, stream)
     if err != 0:
         raise RuntimeError(f"pgm_iter kernel launch failed: CUDA error "
                            f"{err}")

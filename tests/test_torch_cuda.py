@@ -832,3 +832,198 @@ def test_dictlearn_on_card_matches_cpu(dev, xmethod):
     (Dg, ig), (Dc, ic) = out
     assert np.abs(Dg - Dc).max() <= 1e-4
     np.testing.assert_allclose(ig["XObjFun"], ic["XObjFun"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The AMS form of the tail kernel, the "mixed" forward product, masked CSC,
+# the accelerator API and the FISTA dictionary update
+
+# (R, M, nimp): the headline packed layout with the impulse map (C = 64 *
+# 65 = 4160, 16-byte path), a per-image mask's rows, a C off a multiple
+# of 4 (scalar path), several impulse maps
+AMS_GEOMS = [(4096, 65, 1), (2 * 64, 9, 1), (37, 65, 1), (25, 5, 2)]
+
+
+def _ams_inputs(R, M, dev, seed=7):
+    g = torch.Generator().manual_seed(seed)
+    P = 64
+    C = P * M
+    PX = torch.randn(R, C, generator=g)
+    PY = torch.randn(R, C, generator=g) * (torch.rand(R, C, generator=g)
+                                           < 0.1)
+    PU = 0.1 * torch.randn(R, C, generator=g)
+    Wp = (torch.rand(R, P, generator=g) > 0.25).float()
+    wl1 = torch.ones(M)
+    wl1[-1] = 0.0
+    wl1 = wl1.repeat(P)
+    return [t.to(dev) for t in (PX, PY, PU, Wp, 0.3 * wl1, wl1)]
+
+
+@pytest.mark.parametrize("geom", AMS_GEOMS, ids=str)
+@pytest.mark.parametrize("nonneg", [False, True])
+@pytest.mark.parametrize("us", [1.0, 0.7])
+def test_tail_kernel_ams_matches_plain(dev, geom, nonneg, us):
+    """The AMS form against its plain version: PYn and PUn bit for bit
+    (every operation rounds on its own in both), the sums to 1e-5
+    relative; the impulse maps hold (1 - w)(AX + U)."""
+    R, M, nimp = geom
+    PX, PY, PU, Wp, thr, wl1 = _ams_inputs(R, M, dev)
+    out = []
+    for fn in (tct.admm_tail, tct.admm_tail_plain):
+        o = fn(PX, PY.clone(), PU.clone(), thr, wl1, RLX, nonneg=nonneg,
+               us=us, ams=(Wp, nimp))
+        out.append([t.cpu() for t in o])
+    (yk, uk, sk), (yp, up, sp) = out
+    assert torch.equal(yk, yp) and torch.equal(uk, up)
+    np.testing.assert_allclose(sk.numpy(), sp.numpy(), rtol=1e-5)
+    plain = tct.admm_tail_plain(PX, PY.clone(), PU.clone(), thr, wl1, RLX,
+                                nonneg=nonneg, us=us)[0].cpu()
+    imp = yk.reshape(R, 64, M)[:, :, M - nimp:]
+    assert not torch.equal(imp, plain.reshape(R, 64, M)[:, :, M - nimp:])
+    assert torch.equal(yk.reshape(R, 64, M)[:, :, :M - nimp],
+                       plain.reshape(R, 64, M)[:, :, :M - nimp])
+
+
+def test_tail_kernel_ams_off_is_unchanged(dev):
+    """ams=None launches the plain form: the same bits as before."""
+    PX, PY, PU, Wp, thr, wl1 = _ams_inputs(256, 8, dev)
+    a = tct.admm_tail(PX, PY.clone(), PU.clone(), thr, wl1, RLX)
+    b = tct.admm_tail_plain(PX, PY.clone(), PU.clone(), thr, wl1, RLX)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    with pytest.raises(ValueError):
+        tct.admm_tail(PX, PY.clone(), PU.clone(), thr, wl1, RLX,
+                      ams=(Wp[:, :5].contiguous(), 1))
+
+
+@pytest.mark.parametrize("geom", [(64, 256, 256), (129, 131, 7),
+                                  (4096, 4096, 256)], ids=str)
+def test_mixed_forward_matches_plain(dev, geom):
+    """``mixed=True``: R1 (csc_iter) and R1 (pgm_iter) as one bf16
+    product: the kernel's and the plain version's R1 each within 1e-5 of
+    the float64 product of their own bf16-rounded operands (the kernel's
+    Yn/Un may differ from the plain version's by fp32 ulps where cuBLAS
+    sums A in another order, and a bf16 rounding then flips); every
+    other output the "high" launch's bits."""
+    args = _inputs(*geom, False, dev)
+    G2, Y, U, Wa, Wf, thr, wl1 = args
+    wf3 = tci.split_weight(Wf)
+    wb = Wf.to(torch.bfloat16).double().cpu()
+
+    def csc(fn, mixed):
+        o = fn(G2, Y.clone(), U.clone(), Wa, Wf, thr, wl1, RLX, US, SCALE,
+               emit_px=True, wf_split=wf3, mixed=mixed)
+        return [t.cpu() for t in o]
+
+    def pgm(fn, mixed):
+        o = fn(G2, Y.clone(), U.clone(), Wa, Wf, thr, wl1, 0.05, 0.3,
+               wf_split=wf3, mixed=mixed)
+        return [t.cpu() for t in o]
+    for run, r1, operand in ((csc, 3, lambda o: o[1] - o[2]),
+                             (pgm, 2, lambda o: o[1])):
+        kern = tci.csc_iter if run is csc else tpi.pgm_iter
+        plain = tci.csc_iter_plain if run is csc else tpi.pgm_iter_plain
+        km, kh, pm = run(kern, True), run(kern, False), run(plain, True)
+        for out in (km, pm):
+            want = operand(out).to(torch.bfloat16).double() @ wb
+            scale = float(want.abs().max())
+            assert float((out[r1].double() - want).abs().max()) \
+                <= 1e-5 * scale
+        assert float((kh[r1] - km[r1]).abs().max()) > 1e-4 * scale
+        for i, (a, b) in enumerate(zip(km, kh)):
+            if i != r1:
+                assert torch.equal(a, b), i
+
+
+def _ams_problem(N=64, M=8, seed=0):
+    D, S = _variant_problem(N=N, M=M, seed=seed)
+    W = (np.random.default_rng(seed + 1).random((N, N)) > 0.25).astype(
+        np.float32)
+    return D, S, W
+
+
+@pytest.mark.parametrize("cls", ["ConvBPDN", "ConvBPDNGradReg"])
+def test_ams_solve_on_card_matches_cpu(dev, cls):
+    """AddMaskSim fused, 15 iterations: one AMS tail launch an
+    iteration, card against CPU at the fused variants' tolerances."""
+    from sporco_tpu_torch.models import cbpdn as tcb
+    D, S, W = _ams_problem()
+    kcls = getattr(tcb, cls)
+    kw = {"mu": 0.05} if cls == "ConvBPDNGradReg" else {}
+    opt = kcls.options(max_iter=15, rel_stop_tol=0.0)
+    out = []
+    for d in (dev, "cpu"):
+        tci.reset_launches()
+        tct.reset_launches()
+        b = tcb.AddMaskSim(kcls, D, S, W, 0.05, opt=opt, device=d, **kw)
+        Y = b.solve().cpu().numpy()
+        if d == dev:
+            assert tct.LAUNCHES["admm_tail"] == 15
+            assert tci.LAUNCHES["csc_iter"] == 0
+        out.append((Y, b.getitstat()))
+    (Ya, ia), (Yb, ib) = out
+    assert np.abs(Ya - Yb).max() < 2e-4 * np.abs(Yb).max()
+    for name in ("ObjFun", "DFid", "RegL1", "Rho"):
+        np.testing.assert_allclose(getattr(ia, name), getattr(ib, name),
+                                   rtol=1e-4, err_msg=name)
+
+
+def test_device_helpers_with_card(dev):
+    from sporco_tpu_torch import accel
+    assert accel.device_count() == torch.cuda.device_count() >= 1
+    assert accel.current_device() == torch.cuda.current_device()
+    assert accel.current_device(0) == 0
+    assert accel.device_name() == torch.cuda.get_device_name(0)
+    free, total = accel.memory_info()
+    assert 0 < free <= total
+
+
+@pytest.mark.parametrize("name", ["cbpdn", "cbpdngrd", "cbpdnmsk",
+                                  "cbpdngrdmsk"])
+def test_accel_solvers_run_on_the_card_by_default(dev, name):
+    """No device: the card; the result within 2e-4 of the CPU solve's
+    scale."""
+    from sporco_tpu_torch import accel
+    D, S, W = _ams_problem()
+    args = {"cbpdn": (D, S, 0.05), "cbpdngrd": (D, S, 0.05, 0.05),
+            "cbpdnmsk": (D, S, W, 0.05),
+            "cbpdngrdmsk": (D, S, W, 0.05, 0.05)}[name]
+    opt = {"MaxMainIter": 12, "RelStopTol": 0.0}
+    got = getattr(accel, name)(*args, opt=dict(opt))
+    assert got.device.type == "cuda"
+    want = getattr(accel, name)(*args, opt=dict(opt), device="cpu")
+    assert float((got.cpu() - want).abs().max()) \
+        <= 2e-4 * float(want.abs().max())
+
+
+def test_dictlearn_pgm_dstep_on_card_matches_cpu(dev):
+    """ConvBPDNDictLearn with the FISTA dictionary update (dmethod='pgm'),
+    5 outer iterations, card against CPU."""
+    from sporco_tpu_torch.models import dictlrn as tdl
+    D0, S, _ = _cns_problem(1)
+    out = []
+    for d in (dev, "cpu"):
+        b = tdl.ConvBPDNDictLearn(D0, S, 0.1, xmethod="pgm", dmethod="pgm",
+                                  max_iter=5, dtype=torch.float32, device=d)
+        b.solve()
+        out.append((b.getdict().cpu().numpy(), b.getitstat()))
+    (Dg, ig), (Dc, ic) = out
+    assert np.abs(Dg - Dc).max() <= 1e-4
+    np.testing.assert_allclose(ig["XObjFun"], ic["XObjFun"], rtol=1e-4)
+    np.testing.assert_allclose(ig["DDFid"], ic["DDFid"], rtol=1e-4)
+
+
+def test_reconstruct_takes_card_tensors(dev):
+    """``reconstruct(X)`` with X a tensor on the card (as ``getcoef``
+    returns it; ``numpy.asarray`` of a CUDA tensor raises), and the AMS
+    reconstruction from the dictionary filters' maps, against the CPU."""
+    from sporco_tpu_torch.models import cbpdn as tcb
+    D, S, W = _ams_problem()
+    out = []
+    for d in (dev, "cpu"):
+        a = tcb.AddMaskSim(tcb.ConvBPDN, D, S, W, 0.05, device=d,
+                           opt=tcb.ConvBPDN.options(max_iter=5))
+        a.solve()
+        b = a.cbpdn
+        out.append((a.reconstruct().cpu(), b.reconstruct(b.getcoef()).cpu()))
+    for g, c in zip(*out):
+        assert float((g - c).abs().max()) <= 2e-4 * float(c.abs().max())

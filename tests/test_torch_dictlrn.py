@@ -1,7 +1,8 @@
 """The port's ConvBPDNDictLearn against the JAX package's on the same
 numpy problems, over 5 outer iterations: the ADMM x-step with the
-``ism``, ``cg`` and ``cns`` dictionary updates, the FISTA x-step with
-``cns``, the gradient-regularised x-step (``mu > 0``), a multi-scale
+``ism``, ``cg``, ``cns`` and FISTA (``pgm``) dictionary updates, the
+FISTA x-step with ``cns`` and ``pgm``, the gradient-regularised x-step
+(``mu > 0``), a multi-scale
 ``dsz`` and one float32 case at a geometry the fused drivers take (the
 port's fused x-step on ``csc_iter``'s plain version against the JAX
 fused driver with its Pallas kernel in interpret mode).
@@ -15,6 +16,11 @@ instead be as close to the JAX package's float64 run as the JAX float32
 run is (within 1.5 times its distance): the d-step's ``DFid`` there is
 a residual 2e-4 of the signal's energy, and the JAX float32 run itself
 is 1e-4 of it away from float64.
+
+The FISTA dictionary update on its own, ``pgm.ConvCnstrMOD`` and
+``ConvCnstrMODMask`` (mirroring ``tests/models/test_pgm.py:240`` and
+``tests/models/test_dictlrn.py:96``), is held to the same float64
+tolerances over 30 iterations.
 """
 
 import numpy as np
@@ -23,9 +29,11 @@ import torch
 
 from sporco_tpu import refopts as jrefopts
 from sporco_tpu.models import dictlrn as jd
+from sporco_tpu.models import pgm as jpgm
 from sporco_tpu.ops import pallas_csc_iter as pki
 from sporco_tpu_torch import refopts as trefopts
 from sporco_tpu_torch.models import dictlrn as td
+from sporco_tpu_torch.models import pgm as tpgm
 from sporco_tpu_torch.ops import fused_csc as tfc
 
 torch.set_num_threads(2)
@@ -83,7 +91,8 @@ def _pair(D0, S, dt, **kw):
 @pytest.mark.parametrize("xmethod,dmethod,mu",
                          [("admm", "ism", 0.0), ("admm", "cg", 0.0),
                           ("admm", "cns", 0.0), ("pgm", "cns", 0.0),
-                          ("admm", "cns", 0.1)])
+                          ("admm", "cns", 0.1), ("admm", "pgm", 0.0),
+                          ("pgm", "pgm", 0.0)])
 def test_dictlearn_matches_jax(xmethod, dmethod, mu):
     D0, S = _problem()
     a, b = _pair(D0, S, np.float64, xmethod=xmethod, dmethod=dmethod, mu=mu)
@@ -180,6 +189,63 @@ def test_ref_dl_opt_matches_jax():
 
 
 def test_dmethod_pgm_raises():
+    """``dmethod='pgm'`` no longer raises: it builds the FISTA dictionary
+    update; an unknown ``dmethod`` raises, as in the JAX package."""
     D0, S = _problem()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        td.ConvBPDNDictLearn(D0, S, LMBDA, dmethod="pgm", device="cpu")
+    d = td.ConvBPDNDictLearn(D0, S, LMBDA, dmethod="pgm", device="cpu")
+    assert isinstance(d.dstep, tpgm.ConvCnstrMOD)
+    with pytest.raises(ValueError, match="dmethod"):
+        td.ConvBPDNDictLearn(D0, S, LMBDA, dmethod="bogus", device="cpu")
+
+
+def _ccmod_problem(seed=5, N=16, Nd=4, M=4, K=3):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((N, N, 1, K, M)) * (rng.random(
+        (N, N, 1, K, M)) < 0.1)
+    S = rng.standard_normal((N, N, K))
+    D0 = rng.standard_normal((Nd, Nd, M))
+    return X, S, D0, (Nd, Nd, M)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_pgm_ccmod_matches_jax(masked):
+    """``pgm.ConvCnstrMOD``/``ConvCnstrMODMask`` (float64, 30 iterations,
+    default L = 14 K) against the JAX package's: stats rows and the
+    dictionary, at the float64 tolerances above."""
+    X, S, D0, dsz = _ccmod_problem()
+    kw = dict(D0=D0, zero_mean=True)
+    if masked:
+        kw["W"] = (np.random.default_rng(6).random(S.shape) > 0.2
+                   ).astype(np.float64)
+    jcls = jpgm.ConvCnstrMODMask if masked else jpgm.ConvCnstrMOD
+    tcls = tpgm.ConvCnstrMODMask if masked else tpgm.ConvCnstrMOD
+    opt = dict(max_iter=30, rel_stop_tol=0.0)
+    a = jcls(X, S, dsz, opt=jcls.options(**opt), dtype=np.float64, **kw)
+    full = np.asarray(a.solve())
+    b = tcls(X, S, dsz, opt=tcls.options(**opt), dtype=np.float64,
+             device="cpu", **kw)
+    np.testing.assert_allclose(b.solve().numpy(), full, rtol=0,
+                               atol=TOL[np.float64] * np.abs(full).max())
+    Da, Db = np.asarray(a.getdict()), b.getdict().numpy()
+    assert Db.shape == Da.shape == D0.shape
+    np.testing.assert_allclose(Db, Da, rtol=0,
+                               atol=TOL[np.float64] * np.abs(Da).max())
+    ia, ib = a.getitstat(), b.getitstat()
+    assert ib._names == ia._names
+    for name in ia._names:
+        if name == "Cnstr":
+            np.testing.assert_allclose(ib.Cnstr, ia.Cnstr, rtol=0,
+                                       atol=ZERO_ATOL[np.float64])
+            continue
+        np.testing.assert_allclose(getattr(ib, name), getattr(ia, name),
+                                   rtol=ROW_TOL[np.float64],
+                                   atol=ZERO_ATOL[np.float64],
+                                   equal_nan=True, err_msg=name)
+    nrm = np.sqrt((Db ** 2).sum(axis=(0, 1)))
+    np.testing.assert_allclose(nrm, 1.0, atol=1e-8)
+    # setcoef in both layouts gives the same solve
+    c = tcls(None, S, dsz, opt=tcls.options(**opt), dtype=np.float64,
+             device="cpu", **kw)
+    c.setcoef(b.params["Z"], internal=True)
+    c.solve()
+    np.testing.assert_array_equal(c.getdict().numpy(), Db)
