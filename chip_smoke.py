@@ -44,7 +44,17 @@ The main paths are the headline problem of the repository, single-channel
   (``emit_fwd=False``) at (pos, C, T) = (10240, 2048, 256) once an outer
   iteration and whose transforms run ``rfft2_planar``/``irfft2_planar``
   at 128x128, and ``ConvBPDNDictLearn`` on the fused ADMM x-step, and
-  on the fused FISTA x-step with the FISTA dictionary update.
+  on the fused FISTA x-step with the FISTA dictionary update;
+- and BASELINE configurations 1-3 at their full size (``bench.py``'s
+  ``_bench_bpdn``, ``_bench_bpdn_batch``, ``_bench_tvl2`` and
+  ``_bench_rpca``): the dense BPDN models of ``models/bpdn.py`` on a
+  512x512 dictionary (K = 1 and 256 signals), whose x-step is two
+  products with a Gram eigendecomposition made once; the four TV models,
+  denoising at 256x256 and deconvolution at 512x512
+  (``examples/tv_deconv.py``'s problem), whose deconvolution x-step runs
+  its 2-D transforms of X on ``rfft2_planar``/``irfft2_planar``; Robust
+  PCA at 512x512 with the randomized and the full SVD; and the generic
+  ``DictLearn`` alternation over port models on the card.
 
 Phases, each printing one JSON line on stdout:
 
@@ -168,7 +178,38 @@ update:
     against the CPU;
 33. ``cdl_pgm_solve``: ``ConvBPDNDictLearn(xmethod="pgm", dmethod="pgm")``
     at ``cdl_solve``'s size, 20 outer iterations (one ``pgm_iter`` each),
-    and 3 on the card against the CPU.
+    and 3 on the card against the CPU;
+
+then BASELINE configurations 1-3 and the generic dictionary learning:
+
+34. ``bpdn_parity``: each BPDN model (``BPDN``, ``BPDNJoint``,
+    ``ElasticNet``, ``BPDNProjL1``, ``MinL1InL2Ball``) on the 512x512
+    problem and ``BPDN`` on its 256 signals, 10 iterations in float64,
+    card against CPU (rows to 1e-6, X and Y to 1e-8 of their scale);
+35. ``bpdn_solve``: each in float32 to 1e-3: iterations, objective, ms an
+    iteration (three solves), X's recovery error against x0 (``BPDN`` and
+    ``BPDNProjL1`` below 1e-2, converged), the final objective within
+    ``DENSE_OBJ_AGREE`` of the CPU's solve (``BPDNProjL1``'s, which goes
+    to 0, within ``PROJL1_DFID_AGREE`` of ||S||^2), no kernel launched;
+36. ``tv_parity``: the four TV models, 10 iterations card against CPU in
+    float64 and in float32;
+37. ``tv_solve``: each in float32 at its size: iterations, objective, ms
+    an iteration (three solves), PSNR above the input's, the final
+    objective within ``TV_OBJ_AGREE`` of the CPU's; the deconvolutions
+    ``rfft2_planar`` k + 4 and ``irfft2_planar`` 3k (TVL2) or 2k (TVL1)
+    times, the denoisers no kernel;
+38. ``rpca_parity``: Robust PCA, 10 iterations in float64 card against
+    CPU, the randomized SVD with the same sketch on both sides and the
+    full SVD;
+39. ``rpca_solve``: both in float32 to 1e-3: the low-rank and the sparse
+    part recovered within 1e-2, ms an iteration (three solves), the
+    randomized solve's objective within ``RPCA_OBJ_AGREE`` of the CPU's
+    with the same sketch;
+40. ``dictlrn_handover``: the generic ``DictLearn`` over ``ConvBPDN`` and
+    the consensus ``ConvCnstrMOD`` at the headline size, 3 outer
+    iterations of 5 inner ones on the card (its hand-overs pass card
+    tensors): 15 ``csc_iter``, filters in the unit ball, against the
+    CPU within 2e-4.
 
 Each solve sets every kernel's launch count to 0 just before it and
 reads the counts just after.  Then a ``total`` line with the seconds the
@@ -178,7 +219,8 @@ of ``irfftn`` on a complex64 spectrum, the call the solves make;
 their numbers at the colour geometries and their launches in the colour
 solves, ``csc_iter`` its ``emit_fwd=False`` form at the consensus
 geometry and its launches in the consensus and dictionary learning
-solves, the FFT kernels their numbers at 128x128; the AMS form of
+solves, the FFT kernels their numbers at 128x128 and their launches in
+the TV deconvolution solves; the AMS form of
 ``admm_tail`` and the "mixed" forms of ``csc_iter``/``pgm_iter`` are
 entries of their own, with their launches in the fused masked and mixed
 solves), the ``nvidia-smi`` name and power limit line, and last
@@ -186,9 +228,11 @@ solves), the ``nvidia-smi`` name and power limit line, and last
 Any failure exits non-zero without the ``ok`` line; so does a run past the
 time budget, or a machine without a CUDA device.
 ``--profile`` adds phases that run the fused ADMM, fused FISTA, generic
-ADMM, fused gradreg and fused masked (AMS) solves and the consensus
-loop's kernel stage (50 outer iterations) under ``torch.profiler`` and
-report the device's busy and idle share and its time by kernel.
+ADMM, fused gradreg and fused masked (AMS) solves, the consensus loop's
+kernel stage (50 outer iterations), and BPDN on 256 signals,
+``TVL2Denoise``, ``TVL2Deconv`` and the randomized Robust PCA, under
+``torch.profiler`` and report the device's busy and idle share and its
+time by kernel.
 """
 
 import contextlib
@@ -206,8 +250,12 @@ import torch
 
 from sporco_tpu_torch import accel
 from sporco_tpu_torch._device import fp32_precision
+from sporco_tpu_torch.models import bpdn as tbpdn
+from sporco_tpu_torch.models import ccmod as tccmod
 from sporco_tpu_torch.models import dictlrn as tdl
 from sporco_tpu_torch.models import pgm as tpgm
+from sporco_tpu_torch.models import rpca as trpca
+from sporco_tpu_torch.models import tv as ttv
 from sporco_tpu_torch.models.cbpdn import (AddMaskSim, ConvBPDN,
                                            ConvBPDNGradReg, ConvElasticNet)
 from sporco_tpu_torch.ops import _nvcc
@@ -2258,6 +2306,556 @@ def phase_cdl_pgm_solve(dev, D0, S, lmbda):
                        "tolerance": CNS_PARITY["objective"]}}
 
 
+# ---------------------------------------------------------------------------
+# BASELINE configurations 1-3: dense BPDN, TV and Robust PCA, and the
+# generic dictionary learning alternation
+
+BPDN_N, BPDN_M, BPDN_K, BPDN_NNZ = 512, 512, 256, 32   # bench.py:265-318
+BPDN_LMBDA, BPDN_MU = 1e-2, 1e-2
+BPDN_ITERS, DENSE_TOL = 500, 1e-3
+TV_N, TV_LMBDA, TV_ITERS = 256, 0.05, 500              # bench.py:321-343
+TVL1_LMBDA = 0.8                                       # examples/tv_deconv.py
+TVD_N, TVD_LMBDA, TVD_ITERS, TVD_TOL = 512, 5e-3, 200, 1e-4
+# TVL1Deconv's lmbda on the same problem: an l1 data term's subgradient
+# is 1 where the l2 term's is the noise (0.02), so the l2 lmbda 5e-3
+# corresponds to about 0.25; 0.2 from a sweep (tools/dense_cpu_study.py
+# tvl1): PSNR 22.5 -> 43.0 dB, where 5e-3 gives 9.0 dB
+TVL1D_LMBDA = 0.2
+RPCA_N, RPCA_R, RPCA_RANK, RPCA_ITERS = 512, 8, 16, 200  # bench.py:346-377
+HANDOVER_OUTER, HANDOVER_INNER = 3, 5
+# card against CPU over 10 iterations in float64: the stats rows are
+# float32 in both (agree to rtol 1e-6), X and Y within 1e-8 of their
+# scale (the CPU tests' float64 tolerance); in float32 the TV models at
+# the CPU tests' tolerances (the dense models' residual rows move by
+# about 1e-3 for a change of the Gram product's rounding at 512x512:
+# their float32 runs are held by their final objectives instead)
+F64_PARITY = {"X": 1e-8, "rows": 1e-6, "zero": 1e-12}
+# a float32 solve on the card against the same solve on the CPU, each
+# limit between the card's largest difference from the CPU and the spread
+# that moving S by one ulp gives two CPU solves (tools/dense_cpu_study.py
+# ulp, at these sizes; the card an H100).  The BPDN models' final
+# objectives: the card 2.5e-3 off (BPDN K = 1), one ulp up to 5.6e-3
+# (ElasticNet) and 4.9e-3 (BPDN K = 1), while their float64 runs agree to
+# 1e-13: the square Gaussian dictionary's small singular values amplify
+# float32 rounding
+DENSE_OBJ_AGREE = 4e-3
+# BPDNProjL1's objective, DFid, goes to 0 (x0 lies in the l1 ball), so it
+# is held absolutely, over ||S||^2: the card 9.2e-10 off, one ulp 1.0e-9
+PROJL1_DFID_AGREE = 1e-9
+# the TV models' final objectives: the card 1.2e-7 off (TVL1Deconv, one
+# float32 ulp of its objective; the others equal), one ulp of S up to
+# 5.3e-7 (TVL2Deconv); Robust PCA's (randomized): the card 4.5e-7 off,
+# one ulp of S 7.9e-7
+TV_OBJ_AGREE = 5e-7
+RPCA_OBJ_AGREE = 6e-7
+TV_PARITY = {"X": 2e-4, "ObjFun": 1e-4, "DFid": 1e-4, "RegTV": 1e-4,
+             "Rho": 1e-4, "PrimalRsdl": 1e-3, "DualRsdl": 1e-3,
+             "GSRelRes": 1e-3, "zero": 1e-4}
+
+
+def bpdn_problem(K, seed=0):
+    """``bench.py``'s ``_bench_bpdn`` (K = 1) and ``_bench_bpdn_batch``:
+    a 512x512 Gaussian dictionary, x0 32-sparse per signal, S = D x0."""
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((BPDN_N, BPDN_M)).astype(np.float32)
+    x0 = np.zeros((BPDN_M, K), np.float32)
+    if K == 1:
+        x0[rng.choice(BPDN_M, BPDN_NNZ, replace=False)] = \
+            rng.standard_normal((BPDN_NNZ, 1))
+    else:
+        for k in range(K):
+            x0[rng.choice(BPDN_M, BPDN_NNZ, replace=False), k] = \
+                rng.standard_normal(BPDN_NNZ)
+    return D, (D @ x0).astype(np.float32), x0
+
+
+def bpdn_models(D, S, x0):
+    """Each model of ``models/bpdn.py`` on (D, S): name -> (class,
+    arguments beside D and S)."""
+    return {
+        "BPDN": (tbpdn.BPDN, {"lmbda": BPDN_LMBDA}),
+        "BPDNJoint": (tbpdn.BPDNJoint, {"lmbda": BPDN_LMBDA,
+                                        "mu": BPDN_MU}),
+        "ElasticNet": (tbpdn.ElasticNet, {"lmbda": BPDN_LMBDA,
+                                          "mu": BPDN_MU}),
+        "BPDNProjL1": (tbpdn.BPDNProjL1,
+                       {"gamma": float(np.abs(x0).sum(axis=0).max())}),
+        "MinL1InL2Ball": (tbpdn.MinL1InL2Ball,
+                          {"epsilon": 1e-2 * float(np.linalg.norm(S))}),
+    }
+
+
+def tv_example(n):
+    """``examples/tv_deconv.py``'s problem at n x n: the two-level square,
+    its 5x5 box blur with noise at 0.02, and its salt and pepper
+    corruption (5% each)."""
+    rng = np.random.default_rng(12345)
+    img = np.zeros((n, n), np.float32)
+    img[n // 4:3 * n // 4, n // 4:3 * n // 4] = 1.0
+    img[3 * n // 8:5 * n // 8, 3 * n // 8:5 * n // 8] = 0.5
+    h = np.ones((5, 5), np.float32) / 25.0
+    blurred = np.fft.irfft2(np.fft.rfft2(img) * np.fft.rfft2(h, s=(n, n)),
+                            s=(n, n))
+    noisy = (blurred + 0.02 * rng.standard_normal((n, n))).astype(
+        np.float32)
+    sp = img.copy()
+    m = rng.random((n, n))
+    sp[m < 0.05] = 0.0
+    sp[m > 0.95] = 1.0
+    return img, h, noisy, sp.astype(np.float32)
+
+
+def tv_problems():
+    """name -> (class, positional arguments, options, the clean image):
+    ``TVL2Denoise`` on ``bench.py``'s square with noise at 0.1,
+    ``TVL1Denoise`` on the example's salt and pepper image at 256x256,
+    the deconvolutions on the example's blurred image at 512x512
+    (``TVL1Deconv`` at ``TVL1D_LMBDA``)."""
+    rng = np.random.default_rng(0)
+    sq = np.zeros((TV_N, TV_N), np.float32)
+    sq[TV_N // 4:3 * TV_N // 4, TV_N // 4:3 * TV_N // 4] = 1.0
+    Sd = sq + 0.1 * rng.standard_normal((TV_N, TV_N)).astype(np.float32)
+    img_s, _, _, sp = tv_example(TV_N)
+    img, h, noisy, _ = tv_example(TVD_N)
+    den = {"max_iter": TV_ITERS, "rel_stop_tol": DENSE_TOL}
+    dcn = {"max_iter": TVD_ITERS, "rel_stop_tol": TVD_TOL}
+    return {
+        "TVL2Denoise": (ttv.TVL2Denoise, (Sd, TV_LMBDA), den, sq),
+        "TVL1Denoise": (ttv.TVL1Denoise, (sp, TVL1_LMBDA),
+                        {"max_iter": 200, "rel_stop_tol": TVD_TOL}, img_s),
+        "TVL2Deconv": (ttv.TVL2Deconv, (h, noisy, TVD_LMBDA), dcn, img),
+        "TVL1Deconv": (ttv.TVL1Deconv, (h, noisy, TVL1D_LMBDA), dcn, img),
+    }
+
+
+def rpca_problem(seed=0):
+    """``bench.py``'s ``_bench_rpca``: rank 8 plus 10% sparse outliers at
+    scale 5, 512x512."""
+    rng = np.random.default_rng(seed)
+    L = rng.standard_normal((RPCA_N, RPCA_R)) @ rng.standard_normal(
+        (RPCA_R, RPCA_N))
+    Ssp = (rng.random((RPCA_N, RPCA_N)) > 0.9) \
+        * rng.standard_normal((RPCA_N, RPCA_N)) * 5
+    return (L + Ssp).astype(np.float32), L, Ssp
+
+
+def psnr(ref, x):
+    """Peak signal-to-noise ratio of ``x`` against ``ref`` in dB, the
+    peak the range of ``ref``."""
+    mse = float(np.mean((np.asarray(x, np.float64) - ref) ** 2))
+    return 10.0 * math.log10(float(np.ptp(ref)) ** 2 / mse)
+
+
+def _state_arrays(b):
+    """X and (each block of) Y of a model's state, as numpy arrays."""
+    Y = b.state.Y if isinstance(b.state.Y, tuple) else (b.state.Y,)
+    out = {"X": b.state.X.cpu().numpy()}
+    for i, y in enumerate(Y):
+        out[f"Y{i}"] = y.cpu().numpy()
+    return out
+
+
+def _rel_rows(a, c, zero):
+    """The largest relative difference of two stats columns, where a row
+    equal in both counts 0, and so does a row where both are within
+    ``zero`` times the column's largest value of 0: a quantity that is 0
+    up to rounding (the TV-l1 deconvolution's DualRsdl of a first
+    iteration whose y-step leaves Y at 0: 1.5e-14 of the column's
+    largest in float64, 4.9e-5 in float32, on the CPU)."""
+    a, c = np.asarray(a, np.float64), np.asarray(c, np.float64)
+    floor = zero * np.abs(c).max()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return float(np.max(np.where(
+            (a == c) | (np.maximum(np.abs(a), np.abs(c)) <= floor), 0.0,
+            np.abs(a - c) / np.abs(c))))
+
+
+def f64_parity(label, dev, make):
+    """``make(device)`` (a float64 model of 10 iterations) solved on the
+    card and on the CPU: every stats row to rtol 1e-6 (``XSlvRelRes``,
+    rounding noise, within 1e-12; a ``Cnstr`` at zero skipped; an entry
+    within 1e-12 of its column's largest on both sides counts as equal),
+    X and Y within 1e-8 of their scale."""
+    runs = []
+    for d in (dev, "cpu"):
+        b = make(d)
+        b.solve()
+        runs.append((b.getitstat(), _state_arrays(b)))
+    (ig, ag), (ic, ac) = runs
+    if len(ig) != PARITY_ITERS or len(ic) != PARITY_ITERS:
+        raise AssertionError(f"{label}: not {PARITY_ITERS} iterations")
+    errs = {}
+    for name in ig._names[1:]:
+        a, c = getattr(ig, name), getattr(ic, name)
+        if name == "Cnstr" and np.abs(c).max() < 1e-6 * \
+                np.abs(ac["X"]).max():
+            continue        # the distance to a constraint set: zero
+        if name == "XSlvRelRes":
+            # the per-bin solve's relative residual: rounding, about
+            # 1e-16; held absolutely, as in the CPU tests
+            errs[name] = float(np.abs(a - c).max())
+            if not errs[name] <= 1e-12:
+                raise AssertionError(f"{label}: {name} differs by "
+                                     f"{errs[name]:.3e}")
+            continue
+        errs[name] = _rel_rows(a, c, F64_PARITY["zero"])
+        if not errs[name] <= F64_PARITY["rows"]:
+            raise AssertionError(f"{label}: {name} differs by "
+                                 f"{errs[name]:.3e}")
+    for name in ag:
+        errs[name] = float(np.abs(ag[name] - ac[name]).max()
+                           / max(np.abs(ac[name]).max(), 1e-30))
+        if not errs[name] <= F64_PARITY["X"]:
+            raise AssertionError(f"{label}: {name} differs by "
+                                 f"{errs[name]:.3e}")
+    return errs
+
+
+def _timed(b):
+    """Solve ``b`` with the launch counts reset just before and read just
+    after; returns the wall seconds and the counts."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    b.solve()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, launches()
+
+
+def _solve_record(b, wall, counts, max_iter):
+    its = b.getitstat()
+    k = len(its)
+    if not (np.all(np.isfinite(its._arr[:, 1:-5]))
+            and all(bool(torch.isfinite(v).all())
+                    for v in _tree_leaves(b.state.X, b.state.Y))):
+        raise AssertionError(f"{type(b).__name__}: not finite")
+    return {"iterations": k, "converged": k < max_iter,
+            "final_objective": float(its._arr[-1, 1]),
+            "objective_name": its._names[1], "wall_s": wall,
+            "ms_per_iter": 1e3 * wall / k, "rho": float(its.Rho[-1]),
+            "launches": counts}
+
+
+def _repeat_ms(make, reps=2):
+    """ms an iteration of ``reps`` more solves, each of a fresh model
+    ``make()``: the spread of the host-bound loops' times within a run."""
+    out = []
+    for _ in range(reps):
+        b = make()
+        wall, _ = _timed(b)
+        out.append(1e3 * wall / len(b.getitstat()))
+    return out
+
+
+def _tree_leaves(*ts):
+    return [v for t in ts for v in (t if isinstance(t, tuple) else (t,))]
+
+
+def phase_bpdn_parity(dev):
+    """Each BPDN model on (D, S) of ``_bench_bpdn``, 10 iterations in
+    float64, card against CPU; BPDN also on the 256 signals."""
+    errs = {}
+    for K in (1, BPDN_K):
+        D, S, x0 = bpdn_problem(K)
+        for name, (cls, kw) in bpdn_models(D, S, x0).items():
+            if K > 1 and name != "BPDN":
+                continue
+            label = f"{name} K={K}"
+            errs[label] = f64_parity(label, dev, lambda d: cls(
+                D, S, opt=cls.options(max_iter=PARITY_ITERS,
+                                      rel_stop_tol=0.0),
+                dtype=torch.float64, device=d, **kw))
+    return {"iterations": PARITY_ITERS, "dtype": "float64",
+            "rel_err": errs, "tolerance": F64_PARITY}
+
+
+def phase_bpdn_solve(dev):
+    """Each BPDN model at BASELINE configuration 1's size in float32 to
+    1e-3 (500 iterations at most): iterations, objective, ms an
+    iteration (and that of two more solves) and X's recovery error
+    against x0 on the card (BPDN and BPDNProjL1 converged and within
+    1e-2); the final objective within DENSE_OBJ_AGREE of the same solve
+    on the CPU (BPDNProjL1's, DFid, which goes to 0, within
+    PROJL1_DFID_AGREE of ||S||^2)."""
+    out = {}
+    for K in (1, BPDN_K):
+        D, S, x0 = bpdn_problem(K)
+        # warm-up: cuBLAS and cuSOLVER handles
+        tbpdn.BPDN(D, S, BPDN_LMBDA, opt=tbpdn.BPDN.options(max_iter=3),
+                   device=dev).solve()
+        for name, (cls, kw) in bpdn_models(D, S, x0).items():
+            if K > 1 and name != "BPDN":
+                continue
+            opt = cls.options(max_iter=BPDN_ITERS, rel_stop_tol=DENSE_TOL)
+            b = cls(D, S, opt=opt, device=dev, **kw)
+            wall, counts = _timed(b)
+            rec = _solve_record(b, wall, counts, BPDN_ITERS)
+            rec["ms_per_iter_repeats"] = _repeat_ms(
+                lambda: cls(D, S, opt=opt, device=dev, **kw))
+            expect_launches(f"{name} K={K}", counts)
+            X = b.getmin().cpu().numpy()
+            if X.shape != x0.shape:
+                raise AssertionError(f"{name}: X of shape {X.shape}")
+            rec["recovery_rel_err"] = float(np.linalg.norm(X - x0)
+                                            / np.linalg.norm(x0))
+            c = cls(D, S, opt=opt, device="cpu", **kw)
+            c.solve()
+            ic = c.getitstat()
+            rec["cpu_iterations"] = len(ic)
+            rec["cpu_final_objective"] = float(ic._arr[-1, 1])
+            diff = abs(rec["final_objective"] - rec["cpu_final_objective"])
+            if name == "BPDNProjL1":
+                # its objective is DFid, which goes to 0 (x0 lies in the
+                # l1 ball): held over ||S||^2
+                agree = diff / float(np.sum(S.astype(np.float64) ** 2))
+                rec["objective_diff_over_S2"] = agree
+                limit = PROJL1_DFID_AGREE
+            else:
+                agree = diff / abs(rec["cpu_final_objective"])
+                rec["objective_rel_diff"] = agree
+                limit = DENSE_OBJ_AGREE
+            if not agree <= limit:
+                raise AssertionError(f"{name} K={K}: objective "
+                                     f"{rec['final_objective']} against "
+                                     f"the CPU's "
+                                     f"{rec['cpu_final_objective']}")
+            out[f"{name} K={K}"] = rec
+    for key in ("BPDN K=1", f"BPDN K={BPDN_K}", "BPDNProjL1 K=1"):
+        r = out[key]
+        if not (r["converged"] and r["recovery_rel_err"] < 1e-2):
+            raise AssertionError(f"{key}: {r['iterations']} iterations, "
+                                 f"recovery {r['recovery_rel_err']:.3e}")
+    out[f"BPDN K={BPDN_K}"]["problem_iters_per_s"] = \
+        BPDN_K * 1e3 / out[f"BPDN K={BPDN_K}"]["ms_per_iter"]
+    return out
+
+
+def phase_tv_parity(dev):
+    """The four TV models at their BASELINE sizes, 10 iterations card
+    against CPU: in float64 (rows 1e-6, X and Y 1e-8), and in float32 at
+    the CPU tests' tolerances (the deconvolutions' transforms of X on
+    the FFT kernels on the card, on torch.fft on the CPU)."""
+    errs = {}
+    for name, (cls, args, _, _) in tv_problems().items():
+        opt = cls.options(max_iter=PARITY_ITERS, rel_stop_tol=0.0)
+        errs[f"{name} float64"] = f64_parity(name, dev, lambda d: cls(
+            *args, opt=opt, dtype=torch.float64, device=d))
+        runs = []
+        for d in (dev, "cpu"):
+            b = cls(*args, opt=opt, device=d)
+            b.solve()
+            runs.append((b.getitstat(), _state_arrays(b)))
+        (ig, ag), (ic, ac) = runs
+        e32 = {n: _rel_rows(getattr(ig, n), getattr(ic, n),
+                            TV_PARITY["zero"])
+               for n in ig._names if n in TV_PARITY}
+        e32.update({n: float(np.abs(ag[n] - ac[n]).max()
+                             / np.abs(ac[n]).max()) for n in ag})
+        for n, e in e32.items():
+            tol = TV_PARITY["X" if n in ag else n]
+            if not e <= tol:
+                raise AssertionError(f"{name} float32 parity: {n} differs "
+                                     f"by {e:.3e} (tolerance {tol:.0e})")
+        errs[f"{name} float32"] = e32
+    return {"iterations": PARITY_ITERS, "rel_err": errs,
+            "tolerance": {"float64": F64_PARITY, "float32": TV_PARITY}}
+
+
+def phase_tv_solve(dev):
+    """The four TV models at their BASELINE sizes in float32 on the card:
+    iterations, objective, ms an iteration (and that of two more solves),
+    PSNR against the clean image above the input's, the final objective
+    within TV_OBJ_AGREE of the CPU's; the
+    deconvolutions launch ``rfft2_planar`` k + 4 times (the set-up's 4)
+    and ``irfft2_planar`` 3k (TVL2) or 2k (TVL1) times, the denoisers no
+    kernel."""
+    out = {}
+    for name, (cls, args, okw, clean) in tv_problems().items():
+        cls(*args, opt=cls.options(max_iter=3), device=dev).solve()
+        b = cls(*args, opt=cls.options(**okw), device=dev)
+        wall, counts = _timed(b)
+        rec = _solve_record(b, wall, counts, okw["max_iter"])
+        rec["ms_per_iter_repeats"] = _repeat_ms(
+            lambda: cls(*args, opt=cls.options(**okw), device=dev))
+        k = rec["iterations"]
+        if name == "TVL2Deconv":
+            expect_launches(name, counts, rfft2_planar=k + 4,
+                            irfft2_planar=3 * k)
+        elif name == "TVL1Deconv":
+            expect_launches(name, counts, rfft2_planar=k + 4,
+                            irfft2_planar=2 * k)
+        else:
+            expect_launches(name, counts)
+        X = b.getmin().cpu().numpy()
+        S = args[-2]
+        rec["psnr_input_db"] = psnr(clean, S)
+        rec["psnr_db"] = psnr(clean, X)
+        if not rec["psnr_db"] > rec["psnr_input_db"]:
+            raise AssertionError(f"{name}: PSNR {rec['psnr_db']:.2f} dB "
+                                 f"not above the input's "
+                                 f"{rec['psnr_input_db']:.2f}")
+        c = cls(*args, opt=cls.options(**okw), device="cpu")
+        c.solve()
+        ic = c.getitstat()
+        rec["cpu_iterations"] = len(ic)
+        rec["cpu_final_objective"] = float(ic.ObjFun[-1])
+        agree = abs(rec["final_objective"] - rec["cpu_final_objective"]) \
+            / abs(rec["cpu_final_objective"])
+        rec["objective_rel_diff"] = agree
+        if not agree <= TV_OBJ_AGREE:
+            raise AssertionError(f"{name}: objective "
+                                 f"{rec['final_objective']} against the "
+                                 f"CPU's {rec['cpu_final_objective']}")
+        out[name] = rec
+    return out
+
+
+def _rpca_sketch():
+    return torch.randn(RPCA_N, RPCA_RANK + 10,
+                       generator=torch.Generator().manual_seed(0))
+
+
+def phase_rpca_parity(dev):
+    """Robust PCA at 512x512, 10 iterations in float64 card against CPU,
+    the randomized SVD (the same sketch on both sides) and the full
+    SVD."""
+    S, _, _ = rpca_problem()
+    sk = _rpca_sketch().double()
+    errs = {}
+    for label, kw in (("randomized", {"svd_rank": RPCA_RANK,
+                                      "sketch": sk}),
+                      ("full", {})):
+        errs[label] = f64_parity(f"RobustPCA {label}", dev, lambda d: (
+            trpca.RobustPCA(S, opt=trpca.RobustPCA.options(
+                max_iter=PARITY_ITERS, rel_stop_tol=0.0),
+                dtype=torch.float64, device=d, **kw)))
+    return {"iterations": PARITY_ITERS, "dtype": "float64",
+            "rel_err": errs, "tolerance": F64_PARITY}
+
+
+def phase_rpca_solve(dev):
+    """BASELINE configuration 3 in float32 on the card: the randomized SVD
+    (rank 16, the model's default sketch) and the full SVD, to 1e-3 (200
+    iterations at most): iterations, objective, ms an iteration and the
+    recovery of the low-rank and the sparse part, and the ms an
+    iteration of two more solves; the randomized solve's final objective
+    within RPCA_OBJ_AGREE of the CPU's with the same sketch."""
+    S, L, Ssp = rpca_problem()
+    out = {}
+    opt = trpca.RobustPCA.options(max_iter=RPCA_ITERS,
+                                  rel_stop_tol=DENSE_TOL)
+    for label, kw in (("randomized", {"svd_rank": RPCA_RANK}),
+                      ("full", {})):
+        trpca.RobustPCA(S, opt=trpca.RobustPCA.options(max_iter=3),
+                        device=dev, **kw).solve()
+        b = trpca.RobustPCA(S, opt=opt, device=dev, **kw)
+        wall, counts = _timed(b)
+        rec = _solve_record(b, wall, counts, RPCA_ITERS)
+        rec["ms_per_iter_repeats"] = _repeat_ms(
+            lambda: trpca.RobustPCA(S, opt=opt, device=dev, **kw))
+        expect_launches(f"RobustPCA {label}", counts)
+        X, Y = (t.cpu().numpy() for t in (b.state.X, b.state.Y))
+        rec["lowrank_rel_err"] = float(np.linalg.norm(X - L)
+                                       / np.linalg.norm(L))
+        rec["sparse_rel_err"] = float(np.linalg.norm(Y - Ssp)
+                                      / np.linalg.norm(Ssp))
+        if not (rec["lowrank_rel_err"] < 1e-2
+                and rec["sparse_rel_err"] < 1e-2):
+            raise AssertionError(f"RobustPCA {label}: recovery "
+                                 f"{rec['lowrank_rel_err']:.3e}, "
+                                 f"{rec['sparse_rel_err']:.3e}")
+        if label == "randomized":
+            c = trpca.RobustPCA(S, opt=opt, device="cpu", **kw,
+                                sketch=b.params["sketch"].cpu())
+            c.solve()
+            ic = c.getitstat()
+            rec["cpu_iterations"] = len(ic)
+            rec["cpu_final_objective"] = float(ic.ObjFun[-1])
+            agree = abs(rec["final_objective"]
+                        - rec["cpu_final_objective"]) \
+                / abs(rec["cpu_final_objective"])
+            rec["objective_rel_diff"] = agree
+            if not agree <= RPCA_OBJ_AGREE:
+                raise AssertionError(
+                    f"RobustPCA: objective {rec['final_objective']} "
+                    f"against the CPU's {rec['cpu_final_objective']}")
+        out[label] = rec
+    return out
+
+
+def dense_profile_models(dev):
+    """profile phase name -> a maker of the float32 model it profiles: BPDN
+    on the 256 signals, ``TVL2Denoise``, ``TVL2Deconv`` and the
+    randomized Robust PCA, as their solve phases run them."""
+    D, S, _ = bpdn_problem(BPDN_K)
+    tv = tv_problems()
+
+    def tvm(name):
+        cls, args, okw, _ = tv[name]
+        return lambda: cls(*args, opt=cls.options(**okw), device=dev)
+    Sr, _, _ = rpca_problem()
+    return {
+        "bpdn_profile": lambda: tbpdn.BPDN(
+            D, S, BPDN_LMBDA, device=dev, opt=tbpdn.BPDN.options(
+                max_iter=BPDN_ITERS, rel_stop_tol=DENSE_TOL)),
+        "tvl2den_profile": tvm("TVL2Denoise"),
+        "tvl2dcn_profile": tvm("TVL2Deconv"),
+        "rpca_profile": lambda: trpca.RobustPCA(
+            Sr, svd_rank=RPCA_RANK, device=dev,
+            opt=trpca.RobustPCA.options(max_iter=RPCA_ITERS,
+                                        rel_stop_tol=DENSE_TOL))}
+
+
+def phase_dictlrn_handover(dev, D, S, lmbda):
+    """The generic ``DictLearn`` alternation over port models on the card
+    at the headline size (ConvBPDN, fused, and the consensus CCMOD, each
+    5 iterations an outer iteration): its user-layout hand-overs take
+    the models' own card tensors.  3 outer iterations: one csc_iter an
+    inner ADMM iteration, finite, filters in the unit ball, and the
+    dictionary and coefficients within 2e-4 of their scale of the same
+    run on the CPU."""
+    def make(d):
+        x = ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(
+            max_iter=HANDOVER_INNER, rel_stop_tol=0.0), device=d)
+        z0 = np.zeros(S.shape[:2] + (1, 1, D.shape[-1]), np.float32)
+        dstep = tccmod.ConvCnstrMOD(
+            z0, S, D.shape, method="cns", device=d,
+            opt=tccmod.ConvCnstrMODBase.options(max_iter=HANDOVER_INNER,
+                                               rel_stop_tol=0.0))
+        return tdl.DictLearn(x, dstep, max_iter=HANDOVER_OUTER)
+    b = make(dev)
+    wall, counts = _timed(b)
+    want = HANDOVER_OUTER * HANDOVER_INNER
+    if counts["csc_iter"] != want:
+        raise AssertionError(f"DictLearn: launches {counts}, expected "
+                             f"{want} csc_iter")
+    Dl, Xl = b.getdict(), b.getcoef()
+    if Dl.device != Xl.device or Dl.device.type != torch.device(dev).type:
+        raise AssertionError("DictLearn: the results left the card")
+    if not (bool(torch.isfinite(Dl).all()) and bool(torch.isfinite(Xl)
+                                                    .all())):
+        raise AssertionError("DictLearn: not finite")
+    nrm = float(Dl.double().pow(2).sum(dim=(0, 1)).sqrt().max())
+    if not nrm <= 1.0 + 1e-5:
+        raise AssertionError(f"DictLearn: a filter of norm {nrm}")
+    c = make("cpu")
+    c.solve()
+    errs = {}
+    for key, g, r in (("D", Dl, c.getdict()), ("X", Xl, c.getcoef())):
+        g, r = g.cpu().numpy(), r.numpy()
+        errs[key] = float(np.abs(g - r).max() / np.abs(r).max())
+        if not errs[key] <= 2e-4:
+            raise AssertionError(f"DictLearn: {key} differs from the CPU "
+                                 f"run by {errs[key]:.3e}")
+    its = b.getitstat()
+    return {"outer_iterations": HANDOVER_OUTER,
+            "inner_iterations": HANDOVER_INNER, "wall_s": wall,
+            "ms_per_outer_iter": 1e3 * wall / HANDOVER_OUTER,
+            "x_objective": its["XObjFun"].tolist(),
+            "d_dfid": its["DDFid"].tolist(), "max_filter_norm": nrm,
+            "rel_err_vs_cpu": errs, "launches": counts}
+
+
 def phase_profile(dev, make_model):
     """A solve under ``torch.profiler``: device busy time (the sum of
     every kernel's and copy's time on the card) against the solve's wall
@@ -2391,6 +2989,10 @@ def kernels_line(summary):
             for key, t in summary["cns_kernel"]["fft"].items()}
         entry["consensus_launches"] = \
             summary["cns_solve"]["kernel"]["launches"][name]
+        # the TV deconvolution solves' transforms of X
+        entry["tv_deconv_launches"] = {
+            model: summary["tv_solve"][model]["launches"][name]
+            for model in ("TVL2Deconv", "TVL1Deconv")}
     # the forms this slice added, as entries of their own: the AMS tail
     # (launches in the fused cbpdnmsk solve; cbpdngrdmsk's beside) and the
     # "mixed" forward product (launches in the mixed fused solves)
@@ -2414,6 +3016,8 @@ def kernels_line(summary):
             entry[key] = summary["mixed_kernel"][name][key]
         mixed.append(entry)
     pgm["cdl_pgm_launches"] = summary["cdl_pgm_solve"]["launches"]["pgm_iter"]
+    csc["handover_launches"] = \
+        summary["dictlrn_handover"]["launches"]["csc_iter"]
     return {"kernels": [
         csc, pgm, *ffts,
         kernel_entry("admm_tail", summary["tail_kernel"],
@@ -2529,6 +3133,17 @@ def main(argv):
                 dev, D, S, lmbda, summary["solve"], summary["pgm_solve"]))
     summary["cdl_pgm_solve"] = run_phase(
         "cdl_pgm_solve", lambda: phase_cdl_pgm_solve(dev, D0c, Sc, lc))
+    run_phase("bpdn_parity", lambda: phase_bpdn_parity(dev))
+    summary["bpdn_solve"] = run_phase("bpdn_solve",
+                                      lambda: phase_bpdn_solve(dev))
+    run_phase("tv_parity", lambda: phase_tv_parity(dev))
+    summary["tv_solve"] = run_phase("tv_solve", lambda: phase_tv_solve(dev))
+    run_phase("rpca_parity", lambda: phase_rpca_parity(dev))
+    summary["rpca_solve"] = run_phase("rpca_solve",
+                                      lambda: phase_rpca_solve(dev))
+    summary["dictlrn_handover"] = run_phase(
+        "dictlrn_handover",
+        lambda: phase_dictlrn_handover(dev, D, S, lmbda))
     if "--profile" in argv:
         def admm(**kw):
             return lambda: ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(
@@ -2549,6 +3164,8 @@ def main(argv):
         run_phase("cns_profile", lambda: phase_profile(
             dev, lambda: tcns.ConvBPDNDictLearn_Consensus(
                 D0c, Sc, lc, max_iter=CNS_ITERS, device=dev)))
+        for name, make in dense_profile_models(dev).items():
+            run_phase(name, lambda: phase_profile(dev, make))
     PHASE["name"] = "kernels"
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line(summary))

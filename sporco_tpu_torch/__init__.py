@@ -4,8 +4,9 @@ A second package beside the JAX reference.  Module names mirror
 ``sporco_tpu`` so that every piece has an obvious counterpart:
 
 - :mod:`sporco_tpu_torch.cnvrep`   -- problem dimensions and layouts.
-- :mod:`sporco_tpu_torch.ops`      -- FFT glue and its dispatch, prox and
-  linear-algebra helpers, the fused ConvBPDN ADMM driver and FISTA
+- :mod:`sporco_tpu_torch.ops`      -- FFT glue and its dispatch, the
+  proximal operators, linear-algebra helpers (the per-bin solves and the
+  dense Gram, Cholesky and LU solves), the fused ConvBPDN ADMM driver and FISTA
   problem, and the hand-written CUDA kernels (``csc_iter``,
   ``pgm_iter``, ``rfft2_planar``/``irfft2_planar``, ``admm_tail``).
 - :mod:`sporco_tpu_torch.solvers`  -- the generic ADMM driver, options,
@@ -16,14 +17,18 @@ A second package beside the JAX reference.  Module names mirror
   ``pgm.ConvBPDNMask`` (FISTA), each on a fused path and the generic
   FFT path; the dictionary updates ``ccmod.ConvCnstrMOD`` (ADMM) and
   ``pgm.ConvCnstrMOD``/``pgm.ConvCnstrMODMask`` (FISTA), and dictionary
-  learning, ``dictlrn.ConvBPDNDictLearn``; all with checkpoints
+  learning, ``dictlrn.ConvBPDNDictLearn`` and the generic
+  ``dictlrn.DictLearn``; the dense BPDN models of ``bpdn`` (``BPDN``,
+  ``BPDNJoint``, ``ElasticNet``, ``BPDNProjL1``, ``MinL1InL2Ball``), the
+  TV models of ``tv`` and ``rpca.RobustPCA``; all with checkpoints
   (``save_state``/``load_state_file``).
 - :mod:`sporco_tpu_torch.accel`    -- the accelerator API, the
   counterpart of the reference's ``sporco.cuda``: the solvers
   ``cbpdn``, ``cbpdngrd``, ``cbpdnmsk`` and ``cbpdngrdmsk`` and the
   device helpers.
 - :mod:`sporco_tpu_torch.parallel` -- consensus dictionary learning.
-- :mod:`sporco_tpu_torch.utils`    -- the timer and ``gradient_filters``.
+- :mod:`sporco_tpu_torch.utils`    -- the timer, ``zpad``, ``grad``/``gradT``
+  and ``gradient_filters``.
 
 The package imports ``torch`` and never ``jax``.  Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``; on the CPU

@@ -44,7 +44,8 @@ import torch
 from sporco_tpu_torch import cnvrep as cr
 from sporco_tpu_torch import refopts
 from sporco_tpu_torch._device import fp32_precision, resolve_device
-from sporco_tpu_torch.models.common import ADMMModel, default_rho_xi
+from sporco_tpu_torch.models.common import (ADMMModel, default_rho_xi,
+                                            user_tensor)
 from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import fused_csc
 from sporco_tpu_torch.ops import linalg as sl
@@ -424,13 +425,13 @@ class ConvBPDN(ADMMModel):
     def setdict(self, D=None, internal=None):
         """Replace the dictionary between ``solve()`` calls: user-shaped
         ``D``, or ``internal`` in the internal layout ``(1, Cd, M,
-        dsz...)``.  The state (Y, U, rho) is kept; the next solve derives
-        everything it needs from the new dictionary (the fused driver its
-        polyphase weights, their split and ``D^H D``)."""
+        dsz...)``; a tensor (on any device) is taken as it is.  The state
+        (Y, U, rho) is kept; the next solve derives everything it needs
+        from the new dictionary (the fused driver its polyphase weights,
+        their split and ``D^H D``)."""
         if internal is None:
-            npdt = sf.numpy_dtype(self.opts.dtype)
             internal = cr.to_internal_D(
-                torch.as_tensor(np.asarray(D).astype(npdt)), self.cri)
+                user_tensor(D, self.opts.dtype, self.device), self.cri)
         self.params = {**self.params,
                        "D": internal.contiguous().to(self.device,
                                                      self.opts.dtype)}

@@ -28,7 +28,7 @@ import torch
 from sporco_tpu_torch import cnvrep as cr
 from sporco_tpu_torch import refopts
 from sporco_tpu_torch._device import resolve_device
-from sporco_tpu_torch.models.common import ADMMModel
+from sporco_tpu_torch.models.common import ADMMModel, user_tensor
 from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import linalg as sl
 from sporco_tpu_torch.solvers.admm import (ADMMOpts, ADMMProblem,
@@ -323,11 +323,12 @@ class ConvCnstrMODBase(ADMMModel):
     def setcoef(self, Z, internal=False):
         """Replace the coefficients (the dictionary learning loop):
         reference layout ``Nv + (Cx, K, M)``, or with ``internal`` the
-        internal ``(K, Cx, M, Nv...)``."""
+        internal ``(K, Cx, M, Nv...)``; a tensor (on any device) is taken
+        as it is."""
         cri = self.cri
         if not internal:
-            Z = cr.to_internal_X(torch.as_tensor(np.asarray(Z).astype(
-                sf.numpy_dtype(self.opts.dtype))), cri.csc_like())
+            Z = cr.to_internal_X(user_tensor(Z, self.opts.dtype,
+                                             self.device), cri.csc_like())
         if cri.Cd == 1 and cri.C > 1:
             Z = Z.reshape((cri.C * cri.K, 1) + tuple(Z.shape[2:]))
         self.params = {**self.params,

@@ -13,11 +13,24 @@ import numpy as np
 import torch
 
 from sporco_tpu_torch import refopts
+from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.solvers import admm as _admm
 from sporco_tpu_torch.solvers import pgm as _pgm
 from sporco_tpu_torch.utils.timer import Timer
 
-__all__ = ["ADMMModel", "PGMModel", "default_rho_xi"]
+__all__ = ["ADMMModel", "PGMModel", "default_rho_xi", "user_tensor"]
+
+
+def user_tensor(a, dtype, device):
+    """A caller's array as a new tensor of ``dtype`` on ``device``: a
+    tensor as it is (on any device, the port's own card tensors too),
+    anything else through ``numpy.asarray``.  A copy in either case, so
+    the model never shares memory with the caller (a hand-over passes a
+    view of another model's state)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device=device, dtype=dtype, copy=True)
+    return torch.as_tensor(
+        np.asarray(a).astype(sf.numpy_dtype(dtype))).to(device)
 
 
 def _state_dict(state):
@@ -188,8 +201,10 @@ class _Model:
         _display_stats(self.getitstat(), file=file)
 
     def _tensor(self, a, dtype=torch.float32):
-        """A numpy array as a new tensor of ``dtype`` on the model's
-        device."""
+        """A numpy array (or a tuple of them) as a new tensor (a tuple of
+        them) of ``dtype`` on the model's device."""
+        if isinstance(a, (tuple, list)):
+            return tuple(self._tensor(e, dtype) for e in a)
         return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
 
 
@@ -251,9 +266,10 @@ class ADMMModel(_Model):
         """Load a solver state given as numpy arrays: the port's own
         :meth:`state_dict`, or the JAX package's ``state_dict()`` after
         ``numpy.asarray`` of each entry, from the fused or the generic
-        path.  X, Y and U are in the internal ``(K, Cx, M, N0, N1)``
-        layout in both packages and take the problem's dtype; the
-        scalars take its scalar type."""
+        path.  X, Y and U are in the internal layout in both packages
+        (a CSC model's ``(K, Cx, M, N0, N1)``; a tuple of arrays for a
+        problem with two constraint blocks) and take the problem's
+        dtype; the scalars take its scalar type."""
         ft = _admm.scalar_type(self.opts.dtype)
         dt = self.opts.dtype
         self.state = _admm.ADMMState(

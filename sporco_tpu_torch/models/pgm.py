@@ -40,7 +40,7 @@ import torch
 from sporco_tpu_torch import cnvrep as cr
 from sporco_tpu_torch._device import resolve_device
 from sporco_tpu_torch.models import cbpdn as _cbpdn
-from sporco_tpu_torch.models.common import PGMModel
+from sporco_tpu_torch.models.common import PGMModel, user_tensor
 from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import fused_csc
 from sporco_tpu_torch.ops import prox as sp
@@ -247,10 +247,11 @@ class ConvBPDN(PGMModel):
 
     def setdict(self, D=None, internal=None):
         """Replace the dictionary: user-shaped ``D``, or ``internal`` in
-        the internal layout ``(1, Cd, M, dsz...)``."""
+        the internal layout ``(1, Cd, M, dsz...)``; a tensor (on any
+        device) is taken as it is, and D takes the model's dtype."""
         if internal is None:
             internal = cr.to_internal_D(
-                torch.as_tensor(np.asarray(D, np.float32)), self.cri)
+                user_tensor(D, self.opts.dtype, self.device), self.cri)
         self.params = {**self.params,
                        "D": internal.contiguous().to(self.device,
                                                      self.opts.dtype)}
@@ -421,10 +422,12 @@ class ConvCnstrMOD(PGMModel):
 
     def setcoef(self, Z, internal=False):
         """Replace the coefficients: reference layout ``Nv + (Cx, K, M)``,
-        or with ``internal`` the internal ``(K, Cx, M, Nv...)``."""
+        or with ``internal`` the internal ``(K, Cx, M, Nv...)``; a tensor
+        (on any device) is taken as it is."""
         if not internal:
-            Z = cr.to_internal_X(torch.as_tensor(np.asarray(Z).astype(
-                sf.numpy_dtype(self.opts.dtype))), self.cri.csc_like())
+            Z = cr.to_internal_X(user_tensor(Z, self.opts.dtype,
+                                             self.device),
+                                 self.cri.csc_like())
         self.params = {**self.params,
                        "Z": Z.contiguous().to(self.device, self.opts.dtype)}
 

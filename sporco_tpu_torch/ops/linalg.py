@@ -2,14 +2,24 @@
 ``sporco_tpu.ops.linalg``): broadcast inner products, the per-bin
 Sherman-Morrison solves of single-channel CSC, the iterated
 Sherman-Morrison solve of colour-dictionary CSC, conjugate gradient
-for the dictionary update's x-step and the relative residual ``rrs``."""
+for the dictionary update's x-step, the dense solves of ``A^T A + rho I``
+and ``A A^T + rho I`` (by an eigendecomposition of the Gram matrix that
+serves every rho, by Cholesky and by LU, all on ``torch.linalg``) and the
+relative residual ``rrs``."""
+
+from typing import NamedTuple
 
 import torch
 
 from sporco_tpu_torch._device import fp32_precision
 
 __all__ = ["inner", "dot", "solvedbi_sm", "solvedbi_sm_c", "solvedbd_sm",
-           "solvedbd_sm_c", "solvemdbi_ism", "cg", "solvemdbi_cg", "rrs"]
+           "solvedbd_sm_c", "solvemdbi_ism", "cg", "solvemdbi_cg",
+           "GramEigFactor", "gram_eig_factor", "gram_solve_atai",
+           "gram_solve_atai_split", "gram_solve_aati",
+           "gram_solve_aati_split", "cho_factor", "cho_solve_ATAI",
+           "cho_solve_AATI", "lu_factor", "lu_solve_ATAI", "lu_solve_AATI",
+           "rrs"]
 
 
 def inner(x, y, axis=-1):
@@ -140,6 +150,157 @@ def solvemdbi_cg(ah, rho, b, axisM, axisK, tol=1e-5, max_iter=1000,
 
     with fp32_precision():
         return cg(aop, b, x0=x0, tol=tol, max_iter=max_iter)
+
+
+# ---------------------------------------------------------------------------
+# Dense solves of the BPDN x-step (``sporco/linalg.py:583-777``)
+
+class GramEigFactor(NamedTuple):
+    """Eigendecomposition of the Gram matrix ``A^T A`` (``of_ata``) or
+    ``A A^T``: ``(G + rho I)^{-1}`` for any rho is two products, so
+    AutoRho needs no new factorisation."""
+    evecs: torch.Tensor     # eigenvectors, columns
+    evals: torch.Tensor     # eigenvalues, ascending
+    a: torch.Tensor         # the operator (n, m)
+    of_ata: bool
+
+
+def gram_eig_factor(a, of_ata=None):
+    """Eigendecompose ``A^T A`` or ``A A^T``, whichever is smaller
+    (``sporco/linalg.py:698``), in the operator's precision, as the JAX
+    package does; the Gram product in full fp32.  On the card cuSOLVER
+    orders and signs the eigenvectors otherwise than LAPACK; the solves
+    do not depend on that."""
+    n, m = a.shape
+    if of_ata is None:
+        of_ata = n >= m
+    with fp32_precision():
+        g = a.T @ a if of_ata else a @ a.T
+    evals, evecs = torch.linalg.eigh(g)
+    rdt = a.real.dtype if a.is_complex() else a.dtype
+    return GramEigFactor(evecs.to(a.dtype), evals.to(rdt), a, of_ata)
+
+
+def gram_solve_atai(f, rho, b):
+    """Solve ``(A^T A + rho I) x = b`` with a :class:`GramEigFactor`, by
+    the matrix inversion lemma where it is of ``A A^T``
+    (``sporco/linalg.py:739``)."""
+    with fp32_precision():
+        if f.of_ata:
+            w = f.evecs.T @ b
+            return f.evecs @ (w / (f.evals[:, None] + rho))
+        ab = f.a @ b
+        w = f.evecs.T @ ab
+        t = f.evecs @ (w / (f.evals[:, None] + rho))
+        return (b - f.a.T @ t) / rho
+
+
+def gram_solve_atai_split(f, rho, s, v):
+    """Solve ``(A^T A + rho I) x = A^T s + rho v`` with the right-hand
+    side in split form.  For a wide ``A`` (factor of ``A A^T``) it takes
+    ``x = v + A^T (A A^T + rho I)^{-1} (s - A v)``, whose intermediates
+    stay at the data's scale, where the inversion lemma's
+    ``(b - A^T t) / rho`` cancels in float32."""
+    with fp32_precision():
+        if f.of_ata:
+            b = f.a.T @ s + rho * v
+            w = f.evecs.T @ b
+            return f.evecs @ (w / (f.evals[:, None] + rho))
+        r = s - f.a @ v
+        t = f.evecs @ ((f.evecs.T @ r) / (f.evals[:, None] + rho))
+        return v + f.a.T @ t
+
+
+def gram_solve_aati_split(f, rho, s, v):
+    """Solve ``x (A A^T + rho I) = s A^T + rho v`` (systems from the
+    right) with the right-hand side in split form:
+    ``x = v + ((s - v A) (A^T A + rho I)^{-1}) A^T`` for a factor of
+    ``A^T A``."""
+    with fp32_precision():
+        if not f.of_ata:
+            b = s @ f.a.T + rho * v
+            w = b @ f.evecs
+            return (w / (f.evals[None, :] + rho)) @ f.evecs.T
+        r = s - v @ f.a
+        t = ((r @ f.evecs) / (f.evals[None, :] + rho)) @ f.evecs.T
+        return v + t @ f.a.T
+
+
+def gram_solve_aati(f, rho, b):
+    """Solve ``x (A A^T + rho I) = b`` (``sporco/linalg.py:777``)."""
+    with fp32_precision():
+        if not f.of_ata:
+            w = b @ f.evecs
+            return (w / (f.evals[None, :] + rho)) @ f.evecs.T
+        ba = b @ f.a
+        w = ba @ f.evecs
+        t = (w / (f.evals[None, :] + rho)) @ f.evecs.T
+        return (b - t @ f.a.T) / rho
+
+
+def _gram_rho(a, rho):
+    """``A^T A + rho I`` or ``A A^T + rho I``, whichever is smaller."""
+    n, m = a.shape
+    eye = torch.eye(min(n, m), dtype=a.dtype, device=a.device)
+    with fp32_precision():
+        return (a.T @ a if n >= m else a @ a.T) + rho * eye
+
+
+def cho_factor(a, rho, lower=False):
+    """Cholesky factor of ``A^T A + rho I`` or ``A A^T + rho I``,
+    whichever is smaller (``sporco/linalg.py:698``): ``(c, lower)``, ``c``
+    the lower or the upper triangular factor."""
+    g = _gram_rho(a, rho)
+    return torch.linalg.cholesky(g, upper=not lower), lower
+
+
+def _cho_solve(c, lwr, b):
+    return torch.cholesky_solve(b, c, upper=not lwr)
+
+
+def cho_solve_ATAI(a, rho, b, c, lwr=False):
+    """Solve ``(A^T A + rho I) x = b`` with :func:`cho_factor`'s ``c``
+    (``sporco/linalg.py:739``)."""
+    n, m = a.shape
+    with fp32_precision():
+        if n >= m:
+            return _cho_solve(c, lwr, b)
+        return (b - a.T @ _cho_solve(c, lwr, a @ b)) / rho
+
+
+def cho_solve_AATI(a, rho, b, c, lwr=False):
+    """Solve ``x (A A^T + rho I) = b`` with :func:`cho_factor`'s ``c``
+    (``sporco/linalg.py:777``)."""
+    n, m = a.shape
+    with fp32_precision():
+        if n < m:
+            return _cho_solve(c, lwr, b.T).T
+        return (b - _cho_solve(c, lwr, (b @ a).T).T @ a.T) / rho
+
+
+def lu_factor(a, rho):
+    """LU factorisation ``(LU, pivots)`` of ``A^T A + rho I`` or
+    ``A A^T + rho I`` (``sporco/linalg.py:583``)."""
+    return torch.linalg.lu_factor(_gram_rho(a, rho))
+
+
+def lu_solve_ATAI(a, rho, b, lu_piv):
+    """Solve ``(A^T A + rho I) x = b`` with :func:`lu_factor`'s output."""
+    n, m = a.shape
+    with fp32_precision():
+        if n >= m:
+            return torch.linalg.lu_solve(*lu_piv, b)
+        return (b - a.T @ torch.linalg.lu_solve(*lu_piv, a @ b)) / rho
+
+
+def lu_solve_AATI(a, rho, b, lu_piv):
+    """Solve ``x (A A^T + rho I) = b`` with :func:`lu_factor`'s output."""
+    n, m = a.shape
+    with fp32_precision():
+        if n < m:
+            return torch.linalg.lu_solve(*lu_piv, b.T).T
+        return (b - torch.linalg.lu_solve(*lu_piv, (b @ a).T).T @ a.T) \
+            / rho
 
 
 def rrs(ax, b):

@@ -10,6 +10,11 @@ complex128 problem).  All scalar arithmetic is done in that type, in
 the same order as the JAX package, so that the AutoRho decisions and
 the stopping test match it.  The generic driver :func:`admm_solve`
 reads one small vector back from the device per iteration.
+
+X, Y and U are each a tensor or a tuple of tensors (a problem with more
+than one constraint block, such as ``MinL1InL2Ball``): the driver's
+arithmetic maps over the tuple's entries, as the JAX package's tree
+helpers do, and its norms sum over them.
 """
 
 import math
@@ -23,7 +28,7 @@ from sporco_tpu_torch._device import fp32_precision
 
 __all__ = ["AutoRhoOpts", "ADMMOpts", "ADMMProblem", "ADMMState",
            "IterStats", "admm_solve", "init_state", "iterstats",
-           "stat_names"]
+           "stat_names", "tree_norm"]
 
 f32 = np.float32
 
@@ -60,9 +65,9 @@ class ADMMOpts:
 
 
 class ADMMState(NamedTuple):
-    """Full ADMM solver state.  ``X``/``Y``/``U`` are tensors on the
-    solve's device; the rest are host scalars and the host stats buffer
-    of shape ``(max_iter, nstat)``."""
+    """Full ADMM solver state.  ``X``/``Y``/``U`` are tensors (or tuples
+    of tensors) on the solve's device; the rest are host scalars and the
+    host stats buffer of shape ``(max_iter, nstat)``."""
     X: Any
     Y: Any
     U: Any
@@ -143,6 +148,54 @@ def norm_residuals(ar, opts, nc, nx, rnrm, snrm, rn, sn, ft=f32):
 
 
 # ---------------------------------------------------------------------------
+# Arithmetic over a tensor or a tuple of tensors (the JAX package's tree
+# helpers, ``sporco_tpu/solvers/admm.py:181-222``)
+
+def _tmap(f, *trees):
+    """``f`` applied entry by entry over congruent tuples, or to the
+    tensors themselves."""
+    if isinstance(trees[0], tuple):
+        return tuple(_tmap(f, *ls) for ls in zip(*trees))
+    return f(*trees)
+
+
+def _tleaves(t):
+    return [v for e in t for v in _tleaves(e)] if isinstance(t, tuple) \
+        else [t]
+
+
+def _tree_size(t):
+    return sum(v.numel() for v in _tleaves(t))
+
+
+def _sumsq(x):
+    """``sum |x|^2`` as a real 0-d tensor."""
+    return torch.sum(x.abs() ** 2 if x.is_complex() else x * x)
+
+
+def tree_sumsq(t):
+    """``sum |x|^2`` over every tensor of ``t``, a real 0-d tensor."""
+    leaves = _tleaves(t)
+    out = _sumsq(leaves[0])
+    for v in leaves[1:]:
+        out = out + _sumsq(v)
+    return out
+
+
+def tree_norm(t):
+    """Frobenius norm over every tensor of ``t`` (complex-aware)."""
+    return torch.sqrt(tree_sumsq(t))
+
+
+def _with_c(f, c, *trees):
+    """``f(c_entry, *entries)`` mapped over ``trees``, where ``c`` is a
+    number or tensor (the same for every entry) or a congruent tuple."""
+    if isinstance(c, tuple):
+        return _tmap(f, c, *trees)
+    return _tmap(lambda *ls: f(c, *ls), *trees)
+
+
+# ---------------------------------------------------------------------------
 # The problem protocol and the generic driver
 
 def _identity(cfg, aux, params, v):
@@ -150,7 +203,7 @@ def _identity(cfg, aux, params, v):
 
 
 def _neg(cfg, aux, params, v):
-    return -v
+    return _tmap(lambda a: -a, v)
 
 
 def _zero_c(cfg, aux, params):
@@ -210,18 +263,14 @@ def init_state(prob, cfg, params, opts, rho0, rho_xi=1.0, Y0=None,
         raise ValueError("problem must provide yinit/uinit or caller "
                          "must pass Y0/U0")
     ft = scalar_type(opts.dtype)
-    X0 = prob.xinit(cfg, params) if prob.xinit else torch.zeros_like(Y0)
+    X0 = prob.xinit(cfg, params) if prob.xinit \
+        else _tmap(torch.zeros_like, Y0)
     nstat = 1 + len(prob.stat_names) + 5
     return ADMMState(
         X=X0, Y=Y0, U=U0, rho=ft(rho0), rho_xi=ft(rho_xi), k=np.int32(0),
         r=ft(np.inf), s=ft(np.inf), epri=ft(0.0), edua=ft(0.0),
         stats=np.full((opts.max_iter, nstat), np.nan, np.float32),
         extra=prob.extra_init(cfg, params) if prob.extra_init else ())
-
-
-def _sumsq(x):
-    """``sum |x|^2`` as a real 0-d tensor."""
-    return torch.sum(x.abs() ** 2 if x.is_complex() else x * x)
 
 
 def _admm_run(prob, cfg, params, opts, state):
@@ -234,8 +283,8 @@ def _admm_run(prob, cfg, params, opts, state):
     ft = scalar_type(opts.dtype)
     st = state
     k0 = int(st.k)
-    nc = math.sqrt(st.Y.numel())
-    nx = math.sqrt(st.X.numel())
+    nc = math.sqrt(_tree_size(st.Y))
+    nx = math.sqrt(_tree_size(st.X))
     nobj = len(prob.stat_names)
     stats = np.array(st.stats, np.float32, copy=True)
     if stats.shape[0] != opts.max_iter:
@@ -255,38 +304,41 @@ def _admm_run(prob, cfg, params, opts, state):
             AX = AXnr
         else:
             BY = prob.cnst_b(cfg, aux, params, st.Y)
-            AX = rlx * AXnr - (1 - rlx) * (BY - c)
-        Y = prob.ystep(cfg, aux, params, st._replace(X=X), AX + st.U)
+            AX = _with_c(lambda cl, a, b: rlx * a - (1 - rlx) * (b - cl),
+                         c, AXnr, BY)
+        Y = prob.ystep(cfg, aux, params, st._replace(X=X),
+                       _tmap(lambda a, u: a + u, AX, st.U))
         BY = prob.cnst_b(cfg, aux, params, Y)
-        U = st.U + AX + BY - c
+        U = _with_c(lambda cl, u, a, b: u + a + b - cl, c, st.U, AX, BY)
         st2 = st._replace(X=X, Y=Y, U=U)
         # residuals (sporco/admm/admm.py:462-486), squared, on the device;
         # a problem's rsdl_* hooks replace the generic ones
         if prob.rsdl_r is not None:
             rv = prob.rsdl_r(cfg, aux, params, st2, AXnr)
         else:
-            rv = AXnr + BY - c
+            rv = _with_c(lambda cl, a, b: a + b - cl, c, AXnr, BY)
         if prob.rsdl_s is not None:     # rho included
             sv = prob.rsdl_s(cfg, aux, params, st2, Yprev)
         else:
-            sv = prob.cnst_at(cfg, aux, params,
-                              prob.cnst_b(cfg, aux, params, Y - Yprev))
-        sq = [_sumsq(rv), _sumsq(sv)]
+            sv = prob.cnst_at(cfg, aux, params, prob.cnst_b(
+                cfg, aux, params, _tmap(lambda a, b: a - b, Y, Yprev)))
+        c_tensor = isinstance(c, (torch.Tensor, tuple))
+        sq = [tree_sumsq(rv), tree_sumsq(sv)]
         if prob.rsdl_rn is not None:
             sq.append(prob.rsdl_rn(cfg, aux, params, st2, AXnr))
         else:
-            sq += [_sumsq(AXnr), _sumsq(BY)]
-            if isinstance(c, torch.Tensor):
-                sq.append(_sumsq(c))
+            sq += [tree_sumsq(AXnr), tree_sumsq(BY)]
+            if c_tensor:
+                sq.append(tree_sumsq(c))
         if prob.rsdl_sn is not None:
             sq.append(prob.rsdl_sn(cfg, aux, params, st2))
         else:
-            sq.append(_sumsq(prob.cnst_at(cfg, aux, params, U)))
+            sq.append(tree_sumsq(prob.cnst_at(cfg, aux, params, U)))
         nsq = len(sq)
         rtype = sq[0].dtype
         sq = [v.reshape(()).to(rtype) for v in sq]
         if not (opts.fast_solve or prob.obfn is None):
-            sq += [torch.as_tensor(o, dtype=rtype, device=X.device)
+            sq += [torch.as_tensor(o, dtype=rtype, device=sq[0].device)
                    for o in prob.obfn(cfg, aux, params, st2, xaux)]
         # the one host read of the iteration
         host = torch.stack(sq).cpu().numpy().astype(ft)
@@ -298,7 +350,7 @@ def _admm_run(prob, cfg, params, opts, state):
             rn = host[2]
         else:
             rn = np.maximum(np.sqrt(host[2]), np.sqrt(host[3]))
-            if isinstance(c, torch.Tensor):
+            if c_tensor:
                 rn = np.maximum(rn, np.sqrt(host[4]))
         if prob.rsdl_sn is not None:
             sn = host[nsq - 1]
@@ -314,7 +366,7 @@ def _admm_run(prob, cfg, params, opts, state):
                   f"s {s:.3e}  rho {rho:.3e}")
         rsf = _rsf(ar, k, r, s, st.rho_xi, ft)
         if rsf != 1.0:
-            U = U / float(rsf)
+            U = _tmap(lambda u: u / float(rsf), U)
         st = st2._replace(U=U, rho=ft(rho * rsf), k=np.int32(k + 1), r=r,
                           s=s, epri=epri, edua=edua)
     return st._replace(stats=stats)

@@ -1,13 +1,39 @@
 """Signal-processing helpers (counterpart of ``sporco_tpu.utils.signal``):
-the DFT-domain gradient filters of the gradient-regularised CSC
-problems."""
+the forward difference and its transpose, and the DFT-domain gradient
+filters of the gradient-regularised CSC problems."""
 
 import numpy as np
 import torch
 
 from sporco_tpu_torch.ops import fft as sf
 
-__all__ = ["gradient_filters"]
+__all__ = ["grad", "gradT", "gradient_filters"]
+
+
+def grad(x, axis, zero_pad=False):
+    """Forward difference along ``axis`` (``sporco/signal.py:115``): with
+    ``zero_pad=False`` the circular difference with its last entry set to
+    zero (R^N -> R^N), with ``zero_pad=True`` the difference of ``x``
+    padded by a zero at each end (R^N -> R^{N+1})."""
+    axis = axis % x.ndim
+    if zero_pad:
+        z = torch.zeros_like(x.narrow(axis, 0, 1))
+        return torch.diff(x, dim=axis, prepend=z, append=z)
+    xg = torch.roll(x, -1, dims=axis) - x
+    xg.narrow(axis, x.shape[axis] - 1, 1).zero_()
+    return xg
+
+
+def gradT(x, axis, zero_pad=False):
+    """Transpose of :func:`grad` (``sporco/signal.py:172``)."""
+    axis = axis % x.ndim
+    if zero_pad:
+        return -torch.diff(x, dim=axis)
+    n = x.shape[axis]
+    xg = torch.roll(x, 1, dims=axis) - x
+    xg.narrow(axis, 0, 1).copy_(-x.narrow(axis, 0, 1))
+    xg.narrow(axis, n - 1, 1).copy_(x.narrow(axis, n - 2, 1))
+    return xg
 
 
 def gradient_filters(axes_ndim, axshp, dtype=torch.float32, real=True,

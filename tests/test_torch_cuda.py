@@ -1027,3 +1027,100 @@ def test_reconstruct_takes_card_tensors(dev):
         out.append((a.reconstruct().cpu(), b.reconstruct(b.getcoef()).cpu()))
     for g, c in zip(*out):
         assert float((g - c).abs().max()) <= 2e-4 * float(c.abs().max())
+
+
+def test_generic_dictlearn_on_card_matches_cpu(dev):
+    """The generic ``DictLearn`` over port models on the card: its
+    user-layout hand-overs (``setcoef``/``setdict``) take the models' own
+    card tensors; 3 outer iterations against the CPU."""
+    from sporco_tpu_torch.models import ccmod as tcc
+    from sporco_tpu_torch.models import dictlrn as tdl
+    D0, S = _variant_problem(N=64, M=8)
+    out = []
+    for d in (dev, "cpu"):
+        x = ConvBPDN(D0, S, 0.05, opt=ConvBPDN.options(
+            max_iter=5, rel_stop_tol=0.0), device=d)
+        z0 = np.zeros(S.shape[:2] + (1, 1, D0.shape[-1]), np.float32)
+        dstep = tcc.ConvCnstrMOD(z0, S, D0.shape, method="cns", device=d,
+                                 opt=tcc.ConvCnstrMODBase.options(
+                                     max_iter=5, rel_stop_tol=0.0))
+        b = tdl.DictLearn(x, dstep, max_iter=3)
+        Dl = b.solve()
+        assert Dl.device.type == torch.device(d).type
+        out.append((Dl.cpu().numpy(), b.getcoef().cpu().numpy()))
+    (Dg, Xg), (Dc, Xc) = out
+    assert np.abs(Dg - Dc).max() <= 2e-4 * np.abs(Dc).max()
+    assert np.abs(Xg - Xc).max() <= 2e-4 * np.abs(Xc).max()
+
+
+def _dense_cases():
+    rng = np.random.default_rng(0)
+    D = rng.standard_normal((64, 96)).astype(np.float32)
+    x0 = np.zeros((96, 4), np.float32)
+    for k in range(4):
+        x0[rng.choice(96, 6, replace=False), k] = rng.standard_normal(6)
+    Sb = D @ x0
+    img = np.zeros((128, 128), np.float32)
+    img[32:96, 32:96] = 1.0
+    St = img + 0.1 * rng.standard_normal((128, 128)).astype(np.float32)
+    L = rng.standard_normal((64, 3)) @ rng.standard_normal((3, 64))
+    Sr = (L + (rng.random((64, 64)) > 0.9) * rng.standard_normal(
+        (64, 64)) * 5).astype(np.float32)
+    blur = np.ones((5, 5), np.float32) / 25
+    return {
+        "BPDN": ("bpdn", (D, Sb), {"lmbda": 1e-2}),
+        "MinL1InL2Ball": ("bpdn", (D, Sb), {"epsilon": 0.05}),
+        "TVL2Denoise": ("tv", (St, 0.05), {}),
+        "TVL1Deconv": ("tv", (blur, St, 5e-3), {}),
+        "RobustPCA": ("rpca", (Sr,), {"svd_rank": 6}),
+    }
+
+
+@pytest.mark.parametrize("name", ["BPDN", "MinL1InL2Ball", "TVL2Denoise",
+                                  "TVL1Deconv", "RobustPCA"])
+def test_dense_and_tv_models_on_card_match_cpu(dev, name):
+    """10 iterations of the BPDN, TV and Robust PCA models on the card
+    against the CPU (the CPU tests' float32 tolerances; RobustPCA with
+    the same sketch on both sides)."""
+    import importlib
+    mod, args, kw = _dense_cases()[name]
+    cls = getattr(importlib.import_module(
+        f"sporco_tpu_torch.models.{mod}"), name)
+    opt = cls.options(max_iter=10, rel_stop_tol=0.0)
+    if name == "RobustPCA":
+        kw = {**kw, "sketch": torch.randn(
+            64, 16, generator=torch.Generator().manual_seed(0))}
+    out = []
+    for d in (dev, "cpu"):
+        b = cls(*args, opt=opt, device=d, **kw)
+        b.solve()
+        out.append((b.state.X.cpu().numpy(), b.getitstat()))
+    (Xg, ig), (Xc, ic) = out
+    assert np.abs(Xg - Xc).max() <= 2e-4 * np.abs(Xc).max()
+    for col in ig._names[1:]:
+        rtol = 1e-3 if ("Rsdl" in col or "RelRes" in col
+                        or col == "Cnstr") else 1e-4
+        if col == "XSlvRelRes":
+            np.testing.assert_allclose(getattr(ig, col), getattr(ic, col),
+                                       rtol=0, atol=1e-5)
+        elif col != "Cnstr" or name == "RobustPCA":
+            np.testing.assert_allclose(getattr(ig, col), getattr(ic, col),
+                                       rtol=rtol, err_msg=col)
+
+
+@pytest.mark.parametrize("name,inverse", [("TVL2Deconv", 3),
+                                          ("TVL1Deconv", 2)])
+def test_tv_deconv_launches_fft_kernels(dev, name, inverse):
+    """At 128x128 the deconvolution x-step's 2-D transforms of X launch
+    the planar FFT kernels: 4 forward in the set-up, then per iteration
+    1 forward and ``inverse`` inverse."""
+    from sporco_tpu_torch.models import tv as ttv
+    _, (blur, St, lm), _ = _dense_cases()["TVL1Deconv"]
+    cls = getattr(ttv, name)
+    b = cls(blur, St, lm, opt=cls.options(max_iter=7, rel_stop_tol=0.0),
+            device=dev)
+    tfp.reset_launches()
+    b.solve()
+    torch.cuda.synchronize()
+    assert tfp.LAUNCHES == {"rfft2_planar": 7 + 4,
+                            "irfft2_planar": inverse * 7}

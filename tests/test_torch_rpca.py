@@ -1,0 +1,154 @@
+"""The port's ``models.rpca.RobustPCA`` on the CPU against the JAX
+package's on the same seeded numpy problem: ``bench.py``'s
+``_bench_rpca`` at 48x48, rank 3 plus 10% sparse outliers at scale 5.
+
+The full SVD needs nothing more: ``u diag(s) v^T`` does not depend on
+the SVD's sign conventions.  The randomized SVD is given the JAX
+package's sketch (``jax.random.normal(PRNGKey(0), (n, r + 10))``, which
+the port cannot draw), so both run the same subspace iteration.
+
+Tolerances: float64, the same iteration count, every row to rtol 1e-6
+(float32 rows, equal in practice), X and Y within 1e-8 of their scale;
+float32, 10 iterations, ObjFun, NrmNuc, NrmL1 and Rho rows to rtol 1e-4,
+the residuals and ``Cnstr`` (a residual norm) to rtol 1e-3, X and Y
+within 2e-4; float32 solved to 1e-3, the iteration count within one, X
+and Y within 2e-4 and the last ObjFun to rtol 1e-4 (over the whole run
+Rho parts by up to 3e-4: AutoRho's scaling follows the float32 residual
+ratio, as in ``tests/test_torch_bpdn.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sporco_tpu.models import rpca as jr
+from sporco_tpu_torch.models import rpca as tr
+
+torch.set_num_threads(2)
+
+RANK = 6
+RSDL = ("PrimalRsdl", "DualRsdl", "Cnstr")
+
+
+def _problem(N=48, r=3, seed=0):
+    rng = np.random.default_rng(seed)
+    L = rng.standard_normal((N, r)) @ rng.standard_normal((r, N))
+    Ssp = (rng.random((N, N)) > 0.9) * rng.standard_normal((N, N)) * 5
+    return (L + Ssp).astype(np.float32), L, Ssp
+
+
+def _jax_sketch(S, rank, dtype):
+    return np.asarray(jax.random.normal(
+        jax.random.PRNGKey(0), (S.shape[1], rank + 10), jnp.dtype(dtype)))
+
+
+def _pair(S, dtype, rank, max_iter, tol):
+    a = jr.RobustPCA(S, opt=jr.RobustPCA.options(max_iter=max_iter,
+                                                 rel_stop_tol=tol),
+                     dtype=dtype, svd_rank=rank)
+    a.solve()
+    kw = {} if rank is None else {"sketch": _jax_sketch(S, rank, dtype)}
+    b = tr.RobustPCA(S, opt=tr.RobustPCA.options(max_iter=max_iter,
+                                                 rel_stop_tol=tol),
+                     dtype=dtype, svd_rank=rank, device="cpu", **kw)
+    X, Y = b.solve()
+    assert X is b.state.X and Y is b.state.Y
+    return a, b
+
+
+def _assert_states(a, b, rel):
+    for jx, tx in ((a.state.X, b.state.X), (a.state.Y, b.state.Y)):
+        jx, tx = np.asarray(jx), tx.numpy()
+        assert tx.shape == jx.shape and tx.dtype == jx.dtype
+        assert np.abs(tx - jx).max() <= rel * np.abs(jx).max()
+
+
+def _assert_rows(a, b, rtol, rsdl_rtol):
+    ja, ta = a.getitstat(), b.getitstat()
+    assert ta._names == ja._names and len(ta) == len(ja)
+    for name in ja._names:
+        np.testing.assert_allclose(getattr(ta, name), getattr(ja, name),
+                                   err_msg=name,
+                                   rtol=rsdl_rtol if name in RSDL else rtol)
+
+
+@pytest.mark.parametrize("rank", [None, RANK], ids=["full", "randomized"])
+def test_float64_solve_matches_jax(rank):
+    S, L, Ssp = _problem()
+    a, b = _pair(S, "float64", rank, 200, 1e-3)
+    assert len(b.getitstat()) < 200
+    _assert_rows(a, b, 1e-6, 1e-6)
+    _assert_states(a, b, 1e-8)
+    # the low-rank and the sparse part are recovered
+    assert np.abs(b.state.X.numpy() - L).max() < 1e-2 * np.abs(L).max()
+    assert np.abs(b.state.Y.numpy() - Ssp).max() < 1e-2 * np.abs(Ssp).max()
+
+
+@pytest.mark.parametrize("rank", [None, RANK], ids=["full", "randomized"])
+def test_float32_iterations_match_jax(rank):
+    S, _, _ = _problem()
+    a, b = _pair(S, "float32", rank, 10, 0.0)
+    _assert_rows(a, b, 1e-4, 1e-3)
+    _assert_states(a, b, 2e-4)
+
+
+@pytest.mark.parametrize("rank", [None, RANK], ids=["full", "randomized"])
+def test_float32_solve_matches_jax(rank):
+    S, _, _ = _problem()
+    a, b = _pair(S, "float32", rank, 200, 1e-3)
+    ja, ta = a.getitstat(), b.getitstat()
+    assert abs(len(ja) - len(ta)) <= 1 and len(ta) < 200
+    np.testing.assert_allclose(ta.ObjFun[-1], ja.ObjFun[-1], rtol=1e-4)
+    _assert_states(a, b, 2e-4)
+
+
+def test_default_sketch_and_options():
+    """Without ``sketch`` the model draws one from a generator seeded 0
+    (the same for two models), and an explicit ``sketch`` is used as
+    given; a reference option dict; the default lmbda."""
+    S, L, _ = _problem()
+    opt = {"MaxMainIter": 200, "RelStopTol": 1e-3, "fEvalX": True,
+           "AutoRho": {"RsdlRatio": 1.5}}
+    b = tr.RobustPCA(S, opt=dict(opt), svd_rank=RANK, device="cpu")
+    c = tr.RobustPCA(S, opt=dict(opt), svd_rank=RANK, device="cpu")
+    sk = np.random.default_rng(1).standard_normal((48, RANK + 10))
+    d = tr.RobustPCA(S, opt=dict(opt), svd_rank=RANK, sketch=sk,
+                     device="cpu")
+    assert b.params["sketch"].shape == (48, RANK + 10)
+    assert torch.equal(b.params["sketch"], c.params["sketch"])
+    torch.testing.assert_close(d.params["sketch"],
+                               torch.tensor(sk, dtype=torch.float32),
+                               rtol=0, atol=0)
+    assert b.lmbda == 48 ** -0.5 and b.opts.auto_rho.rsdl_ratio == 1.5
+    X, _ = b.solve()
+    assert np.abs(X.numpy() - L).max() < 1e-2 * np.abs(L).max()
+    a = jr.RobustPCA(S, opt=dict(opt))
+    assert a.opts.auto_rho.rsdl_ratio == b.opts.auto_rho.rsdl_ratio
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_checkpoint_resumes_across_packages(writer, tmp_path):
+    """A state file of either package resumes in the other: 6 iterations,
+    then 6 more (float64, randomized SVD with the JAX sketch)."""
+    S, _, _ = _problem()
+    a, b = _pair(S, "float64", RANK, 6, 0.0)
+    path = str(tmp_path / "state.npz")
+    (a if writer == "jax" else b).save_state(path)
+    if writer == "jax":
+        b = tr.RobustPCA(S, opt=tr.RobustPCA.options(max_iter=6,
+                                                     rel_stop_tol=0.0),
+                         dtype="float64", svd_rank=RANK, device="cpu",
+                         sketch=_jax_sketch(S, RANK, "float64"))
+        b.load_state_file(path)
+    else:
+        a = jr.RobustPCA(S, opt=jr.RobustPCA.options(max_iter=6,
+                                                     rel_stop_tol=0.0),
+                         dtype="float64", svd_rank=RANK)
+        a.load_state_file(path)
+    a.solve()
+    b.solve()
+    assert int(a.state.k) == int(b.state.k) == 12
+    _assert_rows(a, b, 1e-6, 1e-6)
+    _assert_states(a, b, 1e-8)
