@@ -54,7 +54,19 @@ The main paths are the headline problem of the repository, single-channel
   (``examples/tv_deconv.py``'s problem), whose deconvolution x-step runs
   its 2-D transforms of X on ``rfft2_planar``/``irfft2_planar``; Robust
   PCA at 512x512 with the randomized and the full SVD; and the generic
-  ``DictLearn`` alternation over port models on the card.
+  ``DictLearn`` alternation over port models on the card;
+- and masked, online and patch dictionary learning: the two-block CSC
+  models ``ConvBPDNMaskDcpl`` (the masked headline), ``ConvL1L1Grd``
+  (``examples/csc_impulse_denoise.py``'s configuration on the headline
+  image with salt-and-pepper noise) and ``ConvMinL1InL2Ball``
+  (``examples/csc_minl1.py``'s on the headline image with Gaussian
+  noise), whose transforms run ``rfft2_planar``/``irfft2_planar``;
+  ``ConvBPDNMaskDictLearn`` at the consensus geometry with the masked
+  dictionary updates of ``models/ccmodmd.py`` and the FISTA pair (its
+  masked x-step on ``pgm_iter``); online CDL over five 512x512 samples,
+  whose plain x-step runs the fused driver and ``csc_iter``; and the
+  dense FISTA models and the learners on vectors (``BPDNDictLearn``,
+  ``WeightedBPDNDictLearn``) on every 8x8 patch of a 256x256 image.
 
 Phases, each printing one JSON line on stdout:
 
@@ -209,7 +221,45 @@ then BASELINE configurations 1-3 and the generic dictionary learning:
     the consensus ``ConvCnstrMOD`` at the headline size, 3 outer
     iterations of 5 inner ones on the card (its hand-overs pass card
     tensors): 15 ``csc_iter``, filters in the unit ball, against the
-    CPU within 2e-4.
+    CPU within 2e-4;
+
+then masked, online and patch dictionary learning:
+
+41. ``maskdcpl_parity``: ``ConvBPDNMaskDcpl``, ``ConvL1L1Grd`` and
+    ``ConvMinL1InL2Ball``, 10 iterations in float64 card against CPU
+    (rows 1e-6; X, DX, Y0 and Y1 1e-8 of their scale);
+42. ``maskdcpl_solve``: each in float32 to 1e-3 (500 iterations at
+    most): iterations, objective, ms an iteration (three solves),
+    ``rfft2_planar`` 3k + 1 and ``irfft2_planar`` 3k (``ConvL1L1Grd`` 4k
+    + 2 and 4k), no other kernel;
+43. ``mdl_parity``: ``ConvBPDNMaskDictLearn`` at the consensus geometry
+    (the masked stage's mask), xmethod/dmethod admm/cns, admm/ism,
+    admm/cg and pgm/pgm, 5 outer iterations in float64 card against CPU
+    (every column 1e-6, D and Z 1e-8);
+44. ``mdl_solve``: each pair 50 outer iterations in float32: ms an outer
+    iteration, filters in the unit ball within 1e-5, the x-step
+    objective lower at the end than at the start (admm/cns and pgm/pgm,
+    whose objective rises again in the JAX package too: its least value),
+    the launches of ``mdl_launches`` (pgm/pgm one ``pgm_iter`` an outer
+    iteration);
+45. ``online_solve``: ``OnlineConvBPDNDictLearn`` and its masked form over
+    five 512x512 samples (``headline_problem`` seeds 0-4, the masked
+    form with ``ams_problem``'s mask) at lmbda 0.05, 50 x-step
+    iterations a sample: ms a sample, the plain x-step on the fused
+    driver with ``csc_iter`` once an x-step iteration, the FFT kernels
+    as the x-steps and the d-step make them, eta decreasing, unit-norm
+    filters; then 2 samples of 3 x-step iterations in float64, card
+    against CPU (every column 1e-6, D and Z 1e-8);
+46. ``dense_dl_parity``: the dense FISTA ``BPDN`` (K = 1 and 256) and
+    ``WeightedBPDN`` at L 1.01 ||D||^2, ``cmod.CnstrMOD`` and
+    ``pgm.CnstrMOD`` on BASELINE configuration 1's problem, 10
+    iterations, and ``BPDNDictLearn`` and ``WeightedBPDNDictLearn`` on
+    the patch problem (64 x 62001, 128 atoms), 5 outer iterations, in
+    float64 card against CPU;
+47. ``dense_dl_solve``: the same in float32: the models to 1e-3
+    (iterations, objective, ms an iteration over three solves), the
+    learners 50 outer iterations (ms an outer iteration, atoms of unit
+    norm within 1e-5); no kernel launched.
 
 Each solve sets every kernel's launch count to 0 just before it and
 reads the counts just after.  Then a ``total`` line with the seconds the
@@ -220,7 +270,10 @@ their numbers at the colour geometries and their launches in the colour
 solves, ``csc_iter`` its ``emit_fwd=False`` form at the consensus
 geometry and its launches in the consensus and dictionary learning
 solves, the FFT kernels their numbers at 128x128 and their launches in
-the TV deconvolution solves; the AMS form of
+the TV deconvolution solves, and, of this slice, ``csc_iter`` its
+launches in the online solve, ``pgm_iter`` in the masked FISTA learner,
+the FFT kernels in the two-block, masked learner and online solves; the
+AMS form of
 ``admm_tail`` and the "mixed" forms of ``csc_iter``/``pgm_iter`` are
 entries of their own, with their launches in the fused masked and mixed
 solves), the ``nvidia-smi`` name and power limit line, and last
@@ -230,12 +283,15 @@ time budget, or a machine without a CUDA device.
 ``--profile`` adds phases that run the fused ADMM, fused FISTA, generic
 ADMM, fused gradreg and fused masked (AMS) solves, the consensus loop's
 kernel stage (50 outer iterations), and BPDN on 256 signals,
-``TVL2Denoise``, ``TVL2Deconv`` and the randomized Robust PCA, under
+``TVL2Denoise``, ``TVL2Deconv`` and the randomized Robust PCA, the
+``ConvBPDNMaskDcpl`` solve and one outer iteration of
+``ConvBPDNMaskDictLearn`` (admm/cns and pgm/pgm), under
 ``torch.profiler`` and report the device's busy and idle share and its
 time by kernel.
 """
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -251,7 +307,9 @@ import torch
 from sporco_tpu_torch import accel
 from sporco_tpu_torch._device import fp32_precision
 from sporco_tpu_torch.models import bpdn as tbpdn
+from sporco_tpu_torch.models import cbpdn as tcbpdn
 from sporco_tpu_torch.models import ccmod as tccmod
+from sporco_tpu_torch.models import cmod as tcmod
 from sporco_tpu_torch.models import dictlrn as tdl
 from sporco_tpu_torch.models import pgm as tpgm
 from sporco_tpu_torch.models import rpca as trpca
@@ -2447,11 +2505,14 @@ def psnr(ref, x):
 
 
 def _state_arrays(b):
-    """X and (each block of) Y of a model's state, as numpy arrays."""
-    Y = b.state.Y if isinstance(b.state.Y, tuple) else (b.state.Y,)
-    out = {"X": b.state.X.cpu().numpy()}
-    for i, y in enumerate(Y):
-        out[f"Y{i}"] = y.cpu().numpy()
+    """(Each block of) X and Y of a model's state, as numpy arrays (a
+    two-block X as ``X`` and ``X1``)."""
+    out = {}
+    for name, v in (("X", b.state.X), ("Y", b.state.Y)):
+        blocks = v if isinstance(v, tuple) else (v,)
+        for i, a in enumerate(blocks):
+            key = name if name == "X" and i == 0 else f"{name}{i}"
+            out[key] = a.cpu().numpy()
     return out
 
 
@@ -2463,10 +2524,11 @@ def _rel_rows(a, c, zero):
     iteration whose y-step leaves Y at 0: 1.5e-14 of the column's
     largest in float64, 4.9e-5 in float32, on the CPU)."""
     a, c = np.asarray(a, np.float64), np.asarray(c, np.float64)
-    floor = zero * np.abs(c).max()
+    floor = zero * np.nanmax(np.abs(c)) if np.isfinite(c).any() else 0.0
     with np.errstate(divide="ignore", invalid="ignore"):
         return float(np.max(np.where(
-            (a == c) | (np.maximum(np.abs(a), np.abs(c)) <= floor), 0.0,
+            (a == c) | (np.isnan(a) & np.isnan(c))
+            | (np.maximum(np.abs(a), np.abs(c)) <= floor), 0.0,
             np.abs(a - c) / np.abs(c))))
 
 
@@ -2856,6 +2918,487 @@ def phase_dictlrn_handover(dev, D, S, lmbda):
             "rel_err_vs_cpu": errs, "launches": counts}
 
 
+# ---------------------------------------------------------------------------
+# Masked, online and patch dictionary learning: the two-block CSC models,
+# ConvBPDNMaskDictLearn, online CDL and the dense learners
+
+# ConvL1L1Grd at examples/csc_impulse_denoise.py:41 (lmbda 3e-2, mu 0.1,
+# an impulse filter whose map carries the smooth part, with the gradient
+# penalty on it alone and no l1 weight) on the headline image with
+# salt-and-pepper noise at the example's density 0.2; ConvMinL1InL2Ball
+# at examples/csc_minl1.py:32 (epsilon = 1.1 sigma N) on the headline
+# image with Gaussian noise sigma
+L1L1_LMBDA, L1L1_MU, SPN_FRC = 3e-2, 0.1, 0.2
+MINL1_SIGMA = 0.1
+ONLINE_SAMPLES, ONLINE_LMBDA = 5, 0.05
+ONLINE_PARITY_SAMPLES, ONLINE_PARITY_ITERS = 2, 3
+MDL_PAIRS = (("admm", "cns"), ("admm", "ism"), ("admm", "cg"),
+             ("pgm", "pgm"))
+MDL_CG_ITERS = 10
+# the pairs whose float32 x-step objective, one inner iteration an outer
+# one, falls and then rises over CNS_ITERS outer iterations at this
+# geometry in the JAX package too (on the CPU: (admm, cns) 51815 ->
+# least 23823 at 37 -> 82034, while the masked consensus d-step's
+# AutoRho multiplies rho every outer iteration, 40 -> 1.2e16; (pgm, pgm)
+# 235481 -> least 40725 at 14 -> 273936, FISTA at the default L = 14 K,
+# in float64 as well; tools/dense_cpu_study.py mdl jax): their gate is
+# the least objective below the first
+MDL_RISE = (("admm", "cns"), ("pgm", "pgm"))
+# the dense learners: every 8x8 patch at stride 1 of a 256x256 image,
+# zero-mean, 128 atoms, lmbda 0.1
+DDL_IMG, DDL_PATCH, DDL_ATOMS, DDL_LMBDA = 256, 8, 128, 0.1
+DDL_ITERS, DDL_PARITY_ITERS = 50, 5
+UNIT_NORM = 1e-5
+
+
+def impulse_problem(S):
+    """The headline image with salt-and-pepper noise (density SPN_FRC,
+    half each to the image's minimum and maximum; the draw from
+    ``numpy.random.default_rng(1)``) and the example's dictionary: the
+    headline filters and an impulse, with its l1 and gradient weights."""
+    m = np.random.default_rng(1).random(S.shape)
+    Sn = S.copy()
+    Sn[m < SPN_FRC / 2] = S.min()
+    Sn[m > 1.0 - SPN_FRC / 2] = S.max()
+    wl1 = np.ones((1, 1, 1, 1, M + 1), np.float32)
+    wl1[..., -1] = 0.0
+    wgrd = np.zeros(M + 1, np.float32)
+    wgrd[-1] = 1.0
+    return Sn.astype(np.float32), wl1, wgrd
+
+
+def impulse_dict(D):
+    imp = np.zeros((ND, ND, 1), np.float32)
+    imp[0, 0, 0] = 1.0
+    return np.concatenate([D, imp], axis=-1)
+
+
+def two_block_models(D, S, W, Sm):
+    """name -> (class, positional arguments, keyword arguments, the
+    launches per iteration and in the set-up of rfft2_planar and
+    irfft2_planar): ConvBPDNMaskDcpl on the masked headline,
+    ConvL1L1Grd on its impulse-noise image, ConvMinL1InL2Ball on its
+    Gaussian-noise image.  The x-step is 2 forward and 2 inverse
+    transforms an iteration; the dual residual rho A^T U 1 and 1
+    (ConvL1L1Grd: its standard residual and its normaliser, 2 and 2);
+    the set-up transforms the dictionary (ConvL1L1Grd: and the gradient
+    filters)."""
+    Sn, wl1, wgrd = impulse_problem(S)
+    Sg = (S + MINL1_SIGMA * np.random.default_rng(2).standard_normal(
+        S.shape)).astype(np.float32)
+    return {
+        "ConvBPDNMaskDcpl": (tcbpdn.ConvBPDNMaskDcpl, (D, Sm, LMBDA),
+                             {"W": W}, (3, 1)),
+        "ConvL1L1Grd": (tcbpdn.ConvL1L1Grd, (impulse_dict(D), Sn,
+                                             L1L1_LMBDA),
+                        {"mu": L1L1_MU, "wl1": wl1, "wgrd": wgrd}, (4, 2)),
+        "ConvMinL1InL2Ball": (tcbpdn.ConvMinL1InL2Ball,
+                              (D, Sg, 1.1 * MINL1_SIGMA * N), {}, (3, 1)),
+    }
+
+
+def phase_maskdcpl_parity(dev, D, S, W, Sm):
+    """Each two-block model, 10 iterations in float64, card against
+    CPU (rows 1e-6, X, DX, Y0 and Y1 within 1e-8 of their scale)."""
+    errs = {}
+    for name, (cls, args, kw, _) in two_block_models(D, S, W, Sm).items():
+        errs[name] = f64_parity(name, dev, lambda d: cls(
+            *args, opt=cls.options(max_iter=PARITY_ITERS, rel_stop_tol=0.0),
+            dtype=torch.float64, device=d, **kw))
+    return {"iterations": PARITY_ITERS, "dtype": "float64",
+            "rel_err": errs, "tolerance": F64_PARITY}
+
+
+def phase_maskdcpl_solve(dev, D, S, W, Sm):
+    """Each two-block model in float32 to 1e-3 (500 iterations at most):
+    iterations, objective, ms an iteration (three solves); the FFT
+    kernels' launches as ``two_block_models`` predicts them, no other
+    kernel; ConvBPDNMaskDcpl's objective beside AddMaskSim's on the same
+    image (a different problem: reported, not gated)."""
+    out = {}
+    for name, (cls, args, kw, (per, setup)) in two_block_models(
+            D, S, W, Sm).items():
+        opt = cls.options(max_iter=MAX_ITER, rel_stop_tol=REL_TOL)
+        cls(*args, opt=cls.options(max_iter=3), device=dev, **kw).solve()
+        b = cls(*args, opt=opt, device=dev, **kw)
+        wall, counts = _timed(b)
+        rec = _solve_record(b, wall, counts, MAX_ITER)
+        rec["ms_per_iter_repeats"] = _repeat_ms(
+            lambda: cls(*args, opt=opt, device=dev, **kw))
+        k = rec["iterations"]
+        expect_launches(name, counts, rfft2_planar=per * k + setup,
+                        irfft2_planar=per * k)
+        X = b.getmin()
+        if tuple(X.shape[-1:]) != (args[0].shape[-1],):
+            raise AssertionError(f"{name}: coefficients of shape "
+                                 f"{tuple(X.shape)}")
+        if name == "ConvMinL1InL2Ball":
+            its = b.getitstat()
+            rec["constraint_violation"] = float(its.Cnstr[-1])
+            rec["epsilon"] = args[2]
+        out[name] = rec
+    return out
+
+
+def mdl_mask(S):
+    """The mask of the consensus masked stage: CNS_KEPT of the pixels
+    (``numpy.random.default_rng(4)``)."""
+    return (np.random.default_rng(4).random(S.shape)
+            < CNS_KEPT).astype(np.float32)
+
+
+def _learner_arrays(d):
+    """The dictionary and the coefficients (online CDL: the last
+    sample's) of a learner, as numpy arrays."""
+    Z = d.getcoef() if hasattr(d, "getcoef") else d.xstep.getcoef()
+    return {"D": d.getdict().cpu().numpy(), "Z": Z.cpu().numpy()}
+
+
+def learner_parity(label, dev, make, run=lambda d: d.solve()):
+    """``make(device)`` (a float64 learner) run by ``run`` on the card
+    and on the CPU: every itstat column to rtol 1e-6 (a ``Cnstr`` or
+    ``XSlvRelRes`` column, rounding noise, within 1e-10 absolutely; an
+    entry within 1e-12 of its column's largest on both sides counts as
+    equal), and its arrays within 1e-8 of their scale."""
+    out = []
+    for d in (dev, "cpu"):
+        m = make(d)
+        run(m)
+        out.append((m.getitstat(), _learner_arrays(m)))
+    (ig, ag), (ic, ac) = out
+    errs = {}
+    for name in ic:
+        a, c = np.asarray(ig[name]), np.asarray(ic[name])
+        if name.endswith("Cnstr") or name.endswith("XSlvRelRes"):
+            e = float(np.nanmax(np.abs(a - c))) if np.isfinite(c).any() \
+                else 0.0
+            lim = 1e-10
+        else:
+            e, lim = _rel_rows(a, c, F64_PARITY["zero"]), F64_PARITY["rows"]
+        errs[name] = e
+        if not e <= lim:
+            raise AssertionError(f"{label}: {name} differs by {e:.3e}")
+    for name in ac:
+        errs[name] = float(np.abs(ag[name] - ac[name]).max()
+                           / max(np.abs(ac[name]).max(), 1e-30))
+        if not errs[name] <= F64_PARITY["X"]:
+            raise AssertionError(f"{label}: {name} differs by "
+                                 f"{errs[name]:.3e}")
+    return errs
+
+
+def _mdl(D0, S, W, lmbda, xm, dm, dev, max_iter, dtype=torch.float32):
+    return tdl.ConvBPDNMaskDictLearn(D0, S, lmbda, W=W, xmethod=xm,
+                                     dmethod=dm, max_iter=max_iter,
+                                     dtype=dtype, device=dev)
+
+
+def _fixed_cg(d):
+    """The CG d-step at a fixed MDL_CG_ITERS iterations (tolerance 0): at
+    its default tolerance a rounding difference can move its stopping
+    test by one iteration, which parts card and CPU by 1e-6 of DualRsdl
+    (my first chip run)."""
+    if d.dmethod == "cg":
+        d.dstep.cfg = dataclasses.replace(d.dstep.cfg, cg_tol=0.0,
+                                          cg_max_iter=MDL_CG_ITERS)
+    return d
+
+
+def phase_mdl_parity(dev, D0, S, lmbda):
+    """ConvBPDNMaskDictLearn at the consensus geometry, each method pair
+    of MDL_PAIRS, CNS_PARITY_ITERS outer iterations in float64, card
+    against CPU (the CG d-step at MDL_CG_ITERS iterations)."""
+    W = mdl_mask(S)
+    errs = {f"{xm}/{dm}": learner_parity(
+        f"ConvBPDNMaskDictLearn ({xm}, {dm})", dev,
+        lambda d: _fixed_cg(_mdl(D0, S, W, lmbda, xm, dm, d,
+                                 CNS_PARITY_ITERS, torch.float64)))
+        for xm, dm in MDL_PAIRS}
+    return {"outer_iterations": CNS_PARITY_ITERS, "dtype": "float64",
+            "cg_iterations": MDL_CG_ITERS, "rel_err": errs,
+            "tolerance": F64_PARITY}
+
+
+def mdl_launches(xm, dm):
+    """The kernels one outer iteration of ConvBPDNMaskDictLearn launches
+    at the consensus geometry in float32: the ADMM x-step (one two-block
+    iteration) 4 forward and 3 inverse transforms (the set-up's
+    dictionary, the x-step's 2 and 2, rho A^T U); the FISTA x-step one
+    ``pgm_iter`` on its fused masked problem; the ``cns`` d-step 4 and 2
+    (the set-up's Z and S, the x-step's 2 and 2), ``ism``/``cg`` 6 and 4
+    (also the standard dual residual and its normaliser), the FISTA
+    d-step 5 and 3 (the set-up's 2, the masked gradient's 2 and 2, the
+    masked objective's 1 and 1)."""
+    x = {"admm": (0, 4, 3), "pgm": (1, 0, 0)}[xm]
+    d = {"cns": (4, 2), "ism": (6, 4), "cg": (6, 4), "pgm": (5, 3)}[dm]
+    return {"pgm_iter": x[0], "rfft2_planar": x[1] + d[0],
+            "irfft2_planar": x[2] + d[1]}
+
+
+def phase_mdl_solve(dev, D0, S, lmbda):
+    """CNS_ITERS outer iterations of each method pair in float32 on the
+    card: ms an outer iteration, filters in the unit ball within
+    UNIT_NORM, the x-step objective lower at the last outer iteration
+    than at the first (for the pairs of MDL_RISE its least value), and
+    the launches of ``mdl_launches``."""
+    W = mdl_mask(S)
+    out = {}
+    for xm, dm in MDL_PAIRS:
+        label = f"{xm}/{dm}"
+        _mdl(D0, S, W, lmbda, xm, dm, dev, 2).solve()
+        d = _mdl(D0, S, W, lmbda, xm, dm, dev, CNS_ITERS)
+        if xm == "pgm" and d.xstep._fused_solve is None:
+            raise AssertionError(f"ConvBPDNMaskDictLearn ({label}): the "
+                                 "FISTA x-step is not fused")
+        wall, counts = _timed(d)
+        per = mdl_launches(xm, dm)
+        expect_launches(f"ConvBPDNMaskDictLearn ({label})", counts,
+                        **{k: v * CNS_ITERS for k, v in per.items()})
+        its = d.getitstat()
+        obj = its["XObjFun"]
+        Dl = d.getdict().cpu().double()
+        nrm = Dl.pow(2).sum(dim=(0, 1)).sqrt().numpy()
+        if not (np.all(np.isfinite(obj)) and bool(torch.isfinite(Dl).all())
+                and len(obj) == CNS_ITERS):
+            raise AssertionError(f"ConvBPDNMaskDictLearn ({label}): not "
+                                 "finite")
+        if not nrm.max() <= 1.0 + UNIT_NORM:
+            raise AssertionError(f"ConvBPDNMaskDictLearn ({label}): a "
+                                 f"filter of norm {nrm.max()}")
+        end = obj.min() if (xm, dm) in MDL_RISE else obj[-1]
+        if not end < obj[0]:
+            raise AssertionError(f"ConvBPDNMaskDictLearn ({label}): x-step "
+                                 f"objective {obj[0]} -> {obj[-1]} (least "
+                                 f"{obj.min()})")
+        out[label] = {"outer_iterations": CNS_ITERS, "wall_s": wall,
+                      "ms_per_outer_iter": 1e3 * wall / CNS_ITERS,
+                      "x_objective_first": float(obj[0]),
+                      "x_objective_least": float(obj.min()),
+                      "x_objective_least_at": int(np.argmin(obj)),
+                      "x_objective": float(obj[-1]),
+                      "d_dfid": float(its["DDFid"][-1]),
+                      "max_filter_norm": float(nrm.max()),
+                      "launches": counts}
+    return out
+
+
+def online_samples():
+    """Five images built like ``headline_problem``'s (seeds 0-4) and the
+    masked form's mask, ``ams_problem``'s."""
+    imgs = [headline_problem(seed)[1] for seed in range(ONLINE_SAMPLES)]
+    W = ams_problem(imgs[0])[0]
+    return imgs, W
+
+
+def _online_run(d, imgs, W, masked):
+    """Feed the samples; returns each x-step's iteration count."""
+    iters = []
+    for S in imgs:
+        if masked:
+            d.solve((S * W).astype(S.dtype), W=W)
+        else:
+            d.solve(S)
+        iters.append(int(d.xstep.state.k))
+    return iters
+
+
+def phase_online_solve(dev, D, imgs, W):
+    """Online CDL, plain and masked, over ONLINE_SAMPLES 512x512 samples
+    at lmbda ONLINE_LMBDA with the default 50 x-step iterations, float32
+    on the card: ms a sample; the plain form's x-step on the fused
+    driver, ``csc_iter`` launched once an x-step iteration, the FFT
+    kernels as the x-steps and the d-step make them (plain: k + 3 and
+    k + 1 an x-step of k iterations, masked 3k + 1 and 3k, and the
+    d-step 3 and 1); eta decays, filters of unit norm.  Then
+    ONLINE_PARITY_SAMPLES samples of ONLINE_PARITY_ITERS x-step
+    iterations in float64, card against CPU: every column (``XObjFun``
+    among them) and the dictionary at ``mdl_parity``'s limits."""
+    out = {}
+    for masked in (False, True):
+        cls = (tdl.OnlineConvBPDNMaskDictLearn if masked
+               else tdl.OnlineConvBPDNDictLearn)
+        label = cls.__name__
+        warm = cls(D, ONLINE_LMBDA, device=dev, cbpdn_opt=(
+            tcbpdn.ConvBPDNMaskDcpl if masked else ConvBPDN).options(
+                max_iter=3))
+        _online_run(warm, imgs[:1], W, masked)
+        d = cls(D, ONLINE_LMBDA, device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        iters = _online_run(d, imgs, W, masked)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        k, n = sum(iters), len(iters)
+        if masked:
+            want = dict(rfft2_planar=3 * k + 4 * n,
+                        irfft2_planar=3 * k + n)
+        else:
+            if d.xstep._fused_solve is not tfc.cbpdn_solve:
+                raise AssertionError(f"{label}: the x-step is not fused")
+            want = dict(csc_iter=k, rfft2_planar=k + 6 * n,
+                        irfft2_planar=k + 2 * n)
+        expect_launches(label, counts, **want)
+        its = d.getitstat()
+        eta = its["Eta"]
+        Dl = d.getdict().cpu().double()
+        nrm = Dl.pow(2).sum(dim=(0, 1)).sqrt().numpy()
+        if not (np.all(np.diff(eta) < 0) and np.all(np.isfinite(
+                its["XObjFun"])) and np.abs(nrm - 1.0).max() <= UNIT_NORM):
+            raise AssertionError(f"{label}: eta {eta}, filter norms "
+                                 f"{nrm.min()}..{nrm.max()}")
+        errs = learner_parity(
+            f"{label} float64", dev,
+            lambda dv: cls(D, ONLINE_LMBDA, dtype=torch.float64, device=dv,
+                           cbpdn_opt=(tcbpdn.ConvBPDNMaskDcpl if masked
+                                      else ConvBPDN).options(
+                               max_iter=ONLINE_PARITY_ITERS)),
+            lambda m: _online_run(m, imgs[:ONLINE_PARITY_SAMPLES], W,
+                                  masked))
+        out[label] = {"samples": n, "xstep_iterations": iters,
+                      "wall_s": wall, "ms_per_sample": 1e3 * wall / n,
+                      "ms_per_xstep_iter": 1e3 * wall / k,
+                      "x_objective": its["XObjFun"].tolist(),
+                      "eta": eta.tolist(), "launches": counts,
+                      "parity": {"samples": ONLINE_PARITY_SAMPLES,
+                                 "xstep_iterations": ONLINE_PARITY_ITERS,
+                                 "rel_err": errs}}
+    return out
+
+
+def patch_problem(seed=0):
+    """Every DDL_PATCH x DDL_PATCH patch at stride 1 of a DDL_IMG square
+    image (smoothed noise with noise on top, from the seed), zero-mean
+    per patch, as (64, 62001) columns, and an initial dictionary of
+    DDL_ATOMS normal columns; the weight of the weighted learner
+    uniform on [0.5, 1.5]."""
+    from scipy.ndimage import gaussian_filter
+    from numpy.lib.stride_tricks import sliding_window_view
+    rng = np.random.default_rng(seed)
+    img = gaussian_filter(rng.standard_normal((DDL_IMG, DDL_IMG)), 2.0)
+    img = 5.0 * img + 0.1 * rng.standard_normal(img.shape)
+    P = sliding_window_view(img, (DDL_PATCH, DDL_PATCH))
+    S = P.reshape(-1, DDL_PATCH * DDL_PATCH).T
+    S = (S - S.mean(axis=0, keepdims=True)).astype(np.float32)
+    D0 = rng.standard_normal((DDL_PATCH ** 2, DDL_ATOMS)).astype(np.float32)
+    Wt = rng.uniform(0.5, 1.5, S.shape).astype(np.float32)
+    return S, D0, Wt
+
+
+def dense_fista_models():
+    """name -> maker(device, dtype, opt keywords) of the dense FISTA
+    models and the ADMM and FISTA CnstrMOD on BASELINE configuration 1's
+    problem: BPDN (K = 1 and 256) and WeightedBPDN (K = 256) at L 1.01
+    times D's largest squared singular value (the default L = 500 is
+    below it: 2.0e3 for this D), CnstrMOD learning D back from x0 and S
+    (K = 256) from a normalised normal D0."""
+    D1, S1, _ = bpdn_problem(1)
+    D, S, x0 = bpdn_problem(BPDN_K)
+    L = 1.01 * float(np.linalg.norm(D.astype(np.float64), 2)) ** 2
+    Wt = np.random.default_rng(5).uniform(0.5, 1.5, S.shape).astype(
+        np.float32)
+    D0 = np.random.default_rng(6).standard_normal(D.shape)
+    D0 = (D0 / np.linalg.norm(D0, axis=0)).astype(np.float32)
+
+    def bp(cls, Dm, Sm, **kw):
+        return lambda d, dt, o: cls(Dm, Sm, BPDN_LMBDA, device=d, dtype=dt,
+                                    opt=cls.options(L=L, **o), **kw)
+
+    def cm(cls, **kw):
+        return lambda d, dt, o: cls(x0, S, D0=D0, device=d, dtype=dt,
+                                    opt=cls.options(**o), **kw)
+    return {"pgm.BPDN K=1": bp(tpgm.BPDN, D1, S1),
+            f"pgm.BPDN K={BPDN_K}": bp(tpgm.BPDN, D, S),
+            f"pgm.WeightedBPDN K={BPDN_K}": bp(tpgm.WeightedBPDN, D, S,
+                                               W=Wt),
+            "cmod.CnstrMOD": cm(tcmod.CnstrMOD),
+            "pgm.CnstrMOD": cm(tpgm.CnstrMOD)}
+
+
+def _ddl(cls, S, D0, Wt, dev, max_iter, dtype=torch.float32):
+    kw = {"W": Wt} if cls is tdl.WeightedBPDNDictLearn else {}
+    return cls(D0, S, DDL_LMBDA, max_iter=max_iter, dtype=dtype,
+               device=dev, **kw)
+
+
+DDL_CLASSES = (tdl.BPDNDictLearn, tdl.WeightedBPDNDictLearn)
+
+
+def phase_dense_dl_parity(dev):
+    """The dense FISTA models and both CnstrMODs, 10 iterations in
+    float64, card against CPU; the two learners, DDL_PARITY_ITERS outer
+    iterations on the patch problem."""
+    errs = {}
+    for name, make in dense_fista_models().items():
+        errs[name] = f64_parity(name, dev, lambda d: make(
+            d, torch.float64, dict(max_iter=PARITY_ITERS,
+                                   rel_stop_tol=0.0)))
+    S, D0, Wt = patch_problem()
+    for cls in DDL_CLASSES:
+        errs[cls.__name__] = learner_parity(
+            cls.__name__, dev, lambda d: _ddl(cls, S, D0, Wt, d,
+                                              DDL_PARITY_ITERS,
+                                              torch.float64))
+    return {"iterations": PARITY_ITERS,
+            "outer_iterations": DDL_PARITY_ITERS, "dtype": "float64",
+            "rel_err": errs, "tolerance": F64_PARITY}
+
+
+def phase_dense_dl_solve(dev):
+    """In float32 on the card: the dense FISTA models and both CnstrMODs
+    to 1e-3 (500 iterations at most; iterations, objective, ms an
+    iteration over three solves), and each learner DDL_ITERS outer
+    iterations on the patch problem (ms an outer iteration, atoms of
+    unit norm within UNIT_NORM); no kernel launched."""
+    out = {}
+    for name, make in dense_fista_models().items():
+        o = dict(max_iter=BPDN_ITERS, rel_stop_tol=DENSE_TOL)
+        make(dev, torch.float32, dict(max_iter=3)).solve()
+        b = make(dev, torch.float32, o)
+        wall, counts = _timed(b)
+        its = b.getitstat()
+        k = len(its)
+        expect_launches(name, counts)
+        X = b.state.X
+        if not (np.all(np.isfinite(its._arr[:, 1:3]))
+                and bool(torch.isfinite(X).all())):
+            raise AssertionError(f"{name}: not finite")
+        rec = {"iterations": k, "converged": k < BPDN_ITERS,
+               "final_objective": float(its._arr[-1, 1]),
+               "objective_name": its._names[1], "wall_s": wall,
+               "ms_per_iter": 1e3 * wall / k, "launches": counts}
+        rec["ms_per_iter_repeats"] = _repeat_ms(
+            lambda: make(dev, torch.float32, o))
+        if "CnstrMOD" in name:
+            nrm = b.getdict().double().pow(2).sum(dim=0).sqrt()
+            rec["max_norm_err"] = float((nrm - 1.0).abs().max())
+        out[name] = rec
+    S, D0, Wt = patch_problem()
+    for cls in DDL_CLASSES:
+        _ddl(cls, S, D0, Wt, dev, 2).solve()
+        d = _ddl(cls, S, D0, Wt, dev, DDL_ITERS)
+        wall, counts = _timed(d)
+        expect_launches(cls.__name__, counts)
+        its = d.getitstat()
+        Dl = d.getdict().double()
+        nrm = Dl.pow(2).sum(dim=0).sqrt().cpu().numpy()
+        obj = its["XObjFun"]
+        if not (np.all(np.isfinite(obj)) and bool(torch.isfinite(Dl).all())
+                and np.abs(nrm - 1.0).max() <= UNIT_NORM):
+            raise AssertionError(f"{cls.__name__}: atom norms "
+                                 f"{nrm.min()}..{nrm.max()}, or not finite")
+        out[cls.__name__] = {
+            "outer_iterations": DDL_ITERS, "signals": S.shape[1],
+            "wall_s": wall, "ms_per_outer_iter": 1e3 * wall / DDL_ITERS,
+            "x_objective_first": float(obj[0]),
+            "x_objective": float(obj[-1]),
+            "d_dfid": float(its["DDFid"][-1]),
+            "max_norm_err": float(np.abs(nrm - 1.0).max()),
+            "launches": counts}
+    return out
+
+
 def phase_profile(dev, make_model):
     """A solve under ``torch.profiler``: device busy time (the sum of
     every kernel's and copy's time on the card) against the solve's wall
@@ -2882,8 +3425,7 @@ def phase_profile(dev, make_model):
                        getattr(e, "self_cuda_time_total", 0.0))
     busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
     top = sorted(on_dev, key=dev_us, reverse=True)[:16]
-    k = b.j if isinstance(b, tcns.ConvBPDNDictLearn_Consensus) \
-        else int(b.state.k)
+    k = b.j if hasattr(b, "j") else int(b.state.k)
     return {"iterations": k, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "device_ms_per_iter": busy_ms / k,
@@ -2938,6 +3480,26 @@ def kernel_entry(name, kern, solve, replaces, source=None):
                   for o in kern["grid"][-1]["vs_float64"][who]}
             for who in ("kernel", "plain")}
     return out
+
+
+def dictlrn_launches(summary, csc, pgm, ffts):
+    """Add to the kernels line's entries their launches on the masked,
+    online and patch dictionary learning paths: online CDL's fused x-step
+    (``csc_iter``), the masked learner's fused FISTA x-step
+    (``pgm_iter``), and the FFT kernels in the two-block CSC, masked
+    learner and online solves, by model."""
+    def by_model(phase, name):
+        return {label: rec["launches"][name]
+                for label, rec in summary[phase].items()
+                if isinstance(rec, dict) and "launches" in rec}
+    csc["online_launches"] = by_model("online_solve", "csc_iter")[
+        "OnlineConvBPDNDictLearn"]
+    pgm["mdl_launches"] = by_model("mdl_solve", "pgm_iter")["pgm/pgm"]
+    for entry in ffts:
+        for phase, key in (("maskdcpl_solve", "maskdcpl_launches"),
+                           ("mdl_solve", "mdl_launches"),
+                           ("online_solve", "online_launches")):
+            entry[key] = by_model(phase, entry["name"])
 
 
 def kernels_line(summary):
@@ -3018,6 +3580,7 @@ def kernels_line(summary):
     pgm["cdl_pgm_launches"] = summary["cdl_pgm_solve"]["launches"]["pgm_iter"]
     csc["handover_launches"] = \
         summary["dictlrn_handover"]["launches"]["csc_iter"]
+    dictlrn_launches(summary, csc, pgm, ffts)
     return {"kernels": [
         csc, pgm, *ffts,
         kernel_entry("admm_tail", summary["tail_kernel"],
@@ -3144,6 +3707,19 @@ def main(argv):
     summary["dictlrn_handover"] = run_phase(
         "dictlrn_handover",
         lambda: phase_dictlrn_handover(dev, D, S, lmbda))
+    run_phase("maskdcpl_parity",
+              lambda: phase_maskdcpl_parity(dev, D, S, W, Sm))
+    summary["maskdcpl_solve"] = run_phase(
+        "maskdcpl_solve", lambda: phase_maskdcpl_solve(dev, D, S, W, Sm))
+    run_phase("mdl_parity", lambda: phase_mdl_parity(dev, D0c, Sc, lc))
+    summary["mdl_solve"] = run_phase(
+        "mdl_solve", lambda: phase_mdl_solve(dev, D0c, Sc, lc))
+    imgs, Wo = online_samples()
+    summary["online_solve"] = run_phase(
+        "online_solve", lambda: phase_online_solve(dev, D, imgs, Wo))
+    run_phase("dense_dl_parity", lambda: phase_dense_dl_parity(dev))
+    summary["dense_dl_solve"] = run_phase(
+        "dense_dl_solve", lambda: phase_dense_dl_solve(dev))
     if "--profile" in argv:
         def admm(**kw):
             return lambda: ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(
@@ -3166,6 +3742,14 @@ def main(argv):
                 D0c, Sc, lc, max_iter=CNS_ITERS, device=dev)))
         for name, make in dense_profile_models(dev).items():
             run_phase(name, lambda: phase_profile(dev, make))
+        cls, args, kw, _ = two_block_models(D, S, W, Sm)["ConvBPDNMaskDcpl"]
+        run_phase("maskdcpl_profile", lambda: phase_profile(
+            dev, lambda: cls(*args, device=dev, **kw, opt=cls.options(
+                max_iter=MAX_ITER, rel_stop_tol=REL_TOL))))
+        Wc = mdl_mask(Sc)
+        for xm, dm in (("admm", "cns"), ("pgm", "pgm")):
+            run_phase(f"mdl_{xm}_{dm}_profile", lambda: phase_profile(
+                dev, lambda: _mdl(D0c, Sc, Wc, lc, xm, dm, dev, 1)))
     PHASE["name"] = "kernels"
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line(summary))

@@ -1,6 +1,8 @@
 """Convolutional sparse coding via ADMM: ``ConvBPDN``, ``ConvElasticNet``
-and ``ConvBPDNGradReg``, and masked CSC over any of them by Additive Mask
-Simulation, ``AddMaskSim`` (counterpart of ``sporco_tpu.models.cbpdn``).
+and ``ConvBPDNGradReg``, masked CSC over any of them by Additive Mask
+Simulation, ``AddMaskSim``, and the two-block models ``ConvBPDNMaskDcpl``,
+``ConvL1L1Grd`` and ``ConvMinL1InL2Ball`` (counterpart of
+``sporco_tpu.models.cbpdn``).
 
 Each variant (``l1``, ``elastic``, ``gradreg``) runs two ways, routed as
 the JAX package routes them:
@@ -27,6 +29,12 @@ the JAX package routes them:
   Sherman-Morrison solve, iterated over the channels for a colour
   dictionary (``solvemdbi_ism``).
 
+The two-block models split ``(D; I) x = (y0 + s; y1)`` (``CSC2Config``
+and the ``_csc2_*`` functions) on the generic driver, whose tuple state
+carries the pairs; their x-step is 2 forward and 2 inverse FFTs an
+iteration and their dual residual 1 and 1 more, on the FFT kernels at
+the sizes :mod:`sporco_tpu_torch.ops.fft` dispatches.
+
 Under AMS (``CSCConfig.ams_nimp > 0``) the last ``ams_nimp`` filters are
 impulses whose maps take the unshrunk ``(1 - Wams) (AX + U)`` in the
 y-step; the fused driver takes a single-channel problem with one
@@ -36,6 +44,7 @@ image, ``fused=False``).
 """
 
 import dataclasses
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -52,11 +61,13 @@ from sporco_tpu_torch.ops import linalg as sl
 from sporco_tpu_torch.ops import prox as sp
 from sporco_tpu_torch.solvers.admm import (ADMMOpts, ADMMProblem,
                                            AutoRhoOpts, init_state,
-                                           scalar_type)
+                                           scalar_type, tree_norm)
 from sporco_tpu_torch.utils.signal import gradient_filters
 
-__all__ = ["ConvBPDN", "ConvElasticNet", "ConvBPDNGradReg", "AddMaskSim",
-           "CSCConfig", "params_from_numpy", "reconstruct"]
+__all__ = ["ConvBPDN", "ConvElasticNet", "ConvBPDNGradReg",
+           "ConvBPDNMaskDcpl", "ConvL1L1Grd", "ConvMinL1InL2Ball",
+           "AddMaskSim", "CSCConfig", "CSC2Config", "params_from_numpy",
+           "reconstruct"]
 
 
 @dataclass(frozen=True)
@@ -263,17 +274,25 @@ def _wgrd_internal(wgrd, cri, npdt):
     return w
 
 
+def host_array(a):
+    """A caller's array as a numpy array: a tensor (on any device) through
+    the host, anything else through ``numpy.asarray``."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def params_from_numpy(D, S, lmbda=None, wl1=1.0, dimK=None, dimN=2,
                       device=None, dtype=torch.float32, mu=0.0, wgrd=1.0):
     """The port's problem from the same user-shaped arrays the JAX
-    constructor takes.  Returns ``(cri, params, real)``: ``params`` holds
+    constructor takes (numpy arrays or tensors).  Returns ``(cri, params, real)``: ``params`` holds
     the internal-layout ``D``/``S`` in ``dtype`` (its complex counterpart
     when ``D`` or ``S`` is complex) and ``wl1`` and ``wgrd`` (GradWeight)
     in the real type, as tensors on ``device`` (``None``: the CUDA
     device, as for the models), and ``lmbda`` and ``mu`` as numbers
     (``lmbda`` defaulting to ``0.1 max|D^H S|``)."""
-    D = np.asarray(D)
-    S = np.asarray(S)
+    D = host_array(D)
+    S = host_array(S)
     real = not (np.iscomplexobj(D) or np.iscomplexobj(S))
     if not real:
         dtype = sf.complex_dtype(dtype)
@@ -466,6 +485,316 @@ class ConvBPDNGradReg(ConvBPDN):
                          **kw)
 
 
+# ---------------------------------------------------------------------------
+# Two-block constrained CSC: (D; I) x = (y0 + s; y1), the blocks a pair
+# (signal-shaped y0, coefficient-shaped y1) that the generic driver maps
+# over (``sporco_tpu.models.cbpdn``, ``sporco/admm/cbpdn.py:1401``)
+
+@dataclass(frozen=True)
+class CSC2Config:
+    cri: cr.CSCIndex
+    variant: str = "maskdcpl"   # maskdcpl | l1l1grd | minl2ball
+    non_neg: bool = False
+    no_bndry: bool = False
+
+
+def _csc2_setup(cfg, params):
+    cri = cfg.cri
+    Df = sf.rfftn(params["D"], s=cri.Nv, axes=_fftaxes(cri))
+    ft = scalar_type(params["D"].dtype)
+    aux = {"Df": Df, "lmbda": ft(params["lmbda"]), "mu": ft(params["mu"])}
+    if cri.Cd == 1:
+        aux["DHD"] = torch.sum((Df * Df.conj()).real, dim=2, keepdim=True)
+    if cfg.variant == "l1l1grd":
+        _, GHGf = gradient_filters(cri.dimN, cri.Nv,
+                                   dtype=params["D"].dtype,
+                                   device=params["D"].device)
+        aux["GHGfW"] = params["wgrd"] * GHGf
+    return aux
+
+
+def _dh(cfg, aux, Vf):
+    """``D^H`` of a signal-shaped spectrum, summed over the channels of a
+    multi-channel dictionary."""
+    DhV = aux["Df"].conj() * Vf
+    if cfg.cri.Cd > 1:
+        DhV = torch.sum(DhV, dim=1, keepdim=True)
+    return DhV
+
+
+def _csc2_xstep(cfg, aux, params, state):
+    cri = cfg.cri
+    axes = _fftaxes(cri)
+    Y0, Y1 = state.Y
+    U0, U1 = state.U
+    Df = aux["Df"]
+    YU0f = sf.rfftn(Y0 - U0 + params["S"], axes=axes)
+    YU1f = sf.rfftn(Y1 - U1, axes=axes)
+    b = _dh(cfg, aux, YU0f) + YU1f
+    if cfg.variant == "l1l1grd":
+        d = float(aux["mu"] / state.rho) * aux["GHGfW"] + 1.0
+        Xf = _sm_solve(cfg, aux, d, b, diagonal=(cri.Cd == 1))
+    else:
+        Xf = _sm_solve(cfg, aux, 1.0, b)
+    X = sf.irfftn(Xf, s=cri.Nv, axes=axes)
+    DX = sf.irfftn(torch.sum(Df * Xf, dim=2, keepdim=True), s=cri.Nv,
+                   axes=axes)
+    # the primal variable carries (X, DX), so cnst_a needs no transform
+    return (X, DX), {"Xf": Xf}
+
+
+def _csc2_cnst_a(cfg, aux, params, XDX):
+    X, DX = XDX
+    return (DX, X)
+
+
+def _csc2_cnst_at(cfg, aux, params, V):
+    cri = cfg.cri
+    axes = _fftaxes(cri)
+    V0, V1 = V
+    DTV0 = sf.irfftn(_dh(cfg, aux, sf.rfftn(V0, axes=axes)), s=cri.Nv,
+                     axes=axes)
+    return DTV0 + V1
+
+
+def _csc2_cnst_b(cfg, aux, params, Y):
+    return (-Y[0], -Y[1])
+
+
+def _csc2_cnst_c(cfg, aux, params):
+    # a zero that broadcasts over the coefficient block (the JAX
+    # package's 0 S[..., :1, :1] takes S's channel axis, which a
+    # multi-channel dictionary's single-channel maps do not have)
+    S = params["S"]
+    return (S, S.new_zeros((1,) * S.ndim))
+
+
+def _csc2_ball_axes(cfg):
+    """The axes of ``minl2ball``'s ball: the spatial ones, per signal and
+    channel (``sporco/admm/cbpdn.py:2019-2021``)."""
+    return tuple(range(3, 3 + cfg.cri.dimN))
+
+
+def _csc2_ystep(cfg, aux, params, state, AXU):
+    rho = state.rho
+    A0, A1 = AXU
+    v0 = A0 - params["S"]
+    if cfg.variant == "minl2ball":
+        Y0 = sp.proj_l2(v0, params["epsilon"], axis=_csc2_ball_axes(cfg))
+    elif cfg.variant == "l1l1grd":
+        Y0 = sp.prox_l1(v0, params["W"] / float(rho))
+    else:       # the prox of (1/2)||W y0||^2
+        Y0 = float(rho) * v0 / (params["W"] ** 2 + float(rho))
+    Y1 = sp.prox_l1(A1, float(aux["lmbda"] / rho) * params["wl1"])
+    Y1 = _apply_masks(CSCConfig(cri=cfg.cri, non_neg=cfg.non_neg,
+                                no_bndry=cfg.no_bndry), Y1)
+    return (Y0, Y1)
+
+
+def _csc2_obfn(cfg, aux, params, state, xaux):
+    X, DX = state.X
+    err = DX - params["S"]
+    rl1 = torch.sum(torch.abs(params["wl1"] * X))
+    if cfg.variant == "minl2ball":
+        prj = sp.proj_l2(err, params["epsilon"], axis=_csc2_ball_axes(cfg))
+        return (rl1, torch.linalg.vector_norm((prj - err).reshape(-1)))
+    lmbda = float(aux["lmbda"])
+    if cfg.variant == "l1l1grd":
+        dfd = torch.sum(torch.abs(params["W"] * err))
+        rgr = 0.5 * sf.rfl2norm2(torch.sqrt(aux["GHGfW"]) * xaux["Xf"],
+                                 cfg.cri.Nv, axis=_fftaxes(cfg.cri))
+        return (dfd + lmbda * rl1 + float(aux["mu"]) * rgr, dfd, rl1, rgr)
+    dfd = 0.5 * torch.sum((params["W"] * err) ** 2)
+    return (dfd + lmbda * rl1, dfd, rl1)
+
+
+def _csc2_zeros(cfg, params, *shapes):
+    S = params["S"]
+    return tuple(torch.zeros(shp, dtype=S.dtype, device=S.device)
+                 for shp in shapes)
+
+
+def _csc2_yinit(cfg, params):
+    return _csc2_zeros(cfg, params, cfg.cri.shpS, cfg.cri.shpX)
+
+
+def _csc2_xinit(cfg, params):
+    return _csc2_zeros(cfg, params, cfg.cri.shpX, cfg.cri.shpS)
+
+
+def _csc2_rsdl_s(cfg, aux, params, state, Yprev):
+    """The reference's two-block dual residual ``rho A^T U``
+    (``sporco/admm/cbpdn.py:1814``), not the standard ``rho A^T B(Y -
+    Yprev)``; ``l1l1grd`` keeps the standard form
+    (``sporco/admm/cbpdn.py:2753``)."""
+    return float(state.rho) * _csc2_cnst_at(cfg, aux, params, state.U)
+
+
+def _csc2_rsdl_sn(cfg, aux, params, state):
+    return float(state.rho) * tree_norm(state.U)
+
+
+_CSC2_STATS = {
+    "maskdcpl": ("ObjFun", "DFid", "RegL1"),
+    "l1l1grd": ("ObjFun", "DFid", "RegL1", "RegGrad"),
+    "minl2ball": ("ObjFun", "Cnstr"),
+}
+
+_CSC2_PROBLEMS = {
+    v: ADMMProblem(setup=_csc2_setup, xstep=_csc2_xstep,
+                   ystep=_csc2_ystep, obfn=_csc2_obfn,
+                   cnst_a=_csc2_cnst_a, cnst_at=_csc2_cnst_at,
+                   cnst_b=_csc2_cnst_b, cnst_c=_csc2_cnst_c,
+                   yinit=_csc2_yinit, uinit=_csc2_yinit,
+                   xinit=_csc2_xinit, stat_names=names,
+                   rsdl_s=None if v == "l1l1grd" else _csc2_rsdl_s,
+                   rsdl_sn=None if v == "l1l1grd" else _csc2_rsdl_sn)
+    for v, names in _CSC2_STATS.items()
+}
+
+
+class ConvBPDNMaskDcpl(ADMMModel):
+    r"""CSC with a spatial mask by mask decoupling:
+    ``argmin_x (1/2)||W(sum_m d_m * x_m - s)||_2^2 + lmbda ||x||_1``
+    (``sporco/admm/cbpdn.py:2066``), the two-block splitting ``(D; I) x
+    = (y0 + s; y1)`` on the generic driver.  ``W`` is the fidelity mask
+    in the layout of ``S`` (``Nv + [C] + [K]``, singleton axes
+    broadcast).  Arguments are numpy arrays or tensors; ``device=None``
+    means the CUDA device and raises without one, ``device="cpu"`` runs
+    on the CPU.  ``Y0``/``U0`` warm starts are pairs in the internal
+    layout (signal-shaped, coefficient-shaped).
+
+    Defaults as the reference: RelaxParam 1.8, rho 1, AutoRho off,
+    lmbda ``0.1 max|D^H S|``.  ``solve()`` returns the thresholded
+    coefficients ``Y1``; :meth:`reconstruct` by default the carried
+    ``D X`` (``sporco/admm/cbpdn.py:1770``)."""
+
+    VARIANT = "maskdcpl"
+    STAT_NAMES = _CSC2_STATS["maskdcpl"]
+
+    # reference ConvTwoBlockCnstrnt/ConvBPDNMaskDcpl option keys
+    # (sporco/admm/cbpdn.py:1493-1516,2131-2136)
+    REF_OPT_EXTRA = {
+        **refopts._ADMM_EQUAL,
+        "AuxVarObj": refopts.IGNORE,
+        "HighMemSolve": refopts.IGNORE,
+        "LinSolveCheck": refopts.WARN,
+        "NonNegCoef": ("k", "non_neg"),
+        "NoBndryCross": ("k", "no_bndry"),
+        "L1Weight": ("k", "wl1"),
+    }
+
+    @staticmethod
+    def options(**kw):
+        ar = kw.pop("auto_rho", AutoRhoOpts(enabled=False))
+        base = dict(relax_param=1.8, auto_rho=ar, rho=1.0)
+        base.update(kw)
+        return ADMMOpts(**base)
+
+    def __init__(self, D, S, lmbda=None, W=None, opt=None, dimK=None,
+                 dimN=2, wl1=1.0, mu=0.0, wgrd=1.0, epsilon=None,
+                 non_neg=False, no_bndry=False, dtype=torch.float32,
+                 Y0=None, U0=None, device=None):
+        super().__init__()
+        self.device = resolve_device(device)
+        if opt is None:
+            opt = self.options()
+        dtype = sf.torch_dtype(dtype)
+        npdt = sf.numpy_dtype(dtype)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", np.exceptions.ComplexWarning)
+            D = host_array(D).astype(npdt)
+            S = host_array(S).astype(npdt)
+        cri, params, _ = params_from_numpy(D, S, lmbda, wl1, dimK, dimN,
+                                           self.device, dtype, mu=mu,
+                                           wgrd=wgrd)
+        self.cri = cri
+        Wm = torch.ones((1,) * (3 + cri.dimN), dtype=dtype) if W is None \
+            else cr.fidelity_mask(torch.as_tensor(
+                host_array(W).astype(npdt)), cri)
+        ft = scalar_type(dtype)
+        params["W"] = Wm.contiguous().to(self.device)
+        params["epsilon"] = ft(0.0 if epsilon is None else epsilon)
+        self.params = params
+        self.lmbda = params["lmbda"]
+        self.cfg = CSC2Config(cri=cri, variant=self.VARIANT,
+                              non_neg=non_neg, no_bndry=no_bndry)
+        self.opts = opt.replace(dtype=dtype)
+        self.problem = _CSC2_PROBLEMS[self.VARIANT]
+        rho0 = opt.rho if opt.rho is not None else 1.0
+        rho_xi = (opt.auto_rho.rsdl_target
+                  if opt.auto_rho.rsdl_target is not None else 1.0)
+
+        def pair(A):
+            return None if A is None else tuple(
+                user_tensor(a, dtype, self.device) for a in A)
+        self.state = init_state(self.problem, self.cfg, self.params,
+                                self.opts, rho0, rho_xi, Y0=pair(Y0),
+                                U0=pair(U0))
+        self._init_done()
+
+    def getmin(self):
+        return cr.from_internal_X(self.state.Y[1], self.cri)
+
+    def getcoef(self):
+        return self.getmin()
+
+    def getcoef_internal(self):
+        """The coefficient block ``Y1`` in the internal layout (the
+        dictionary learning loops)."""
+        return self.state.Y[1]
+
+    def reconstruct(self, X=None):
+        """``sum_m d_m * x_m`` in the user S layout ``Nv + [C] + [K]``:
+        by default the ``D X`` the state carries, else from the
+        reference-layout coefficients ``X``."""
+        if X is None:
+            return internal_S_to_user(self.state.X[1], self.cri)
+        return reconstruct(self.params["D"], None, self.cri, X)
+
+
+class ConvL1L1Grd(ConvBPDNMaskDcpl):
+    r"""CSC with an l1 data term, l1 sparsity and a gradient penalty:
+    ``||W(Dx - s)||_1 + lmbda ||x||_1 + (mu/2) sum_i ||G_i x||_2^2``
+    (``sporco/admm/cbpdn.py:2488``); its x-step is the diagonal solve
+    ``solvedbd_sm`` with ``(mu / rho) GHGfW + 1``."""
+
+    VARIANT = "l1l1grd"
+    STAT_NAMES = _CSC2_STATS["l1l1grd"]
+    REF_OPT_EXTRA = {"GradWeight": ("k", "wgrd")}
+
+    def __init__(self, D, S, lmbda, mu=0.0, W=None, opt=None, **kw):
+        super().__init__(D, S, lmbda=lmbda, mu=mu, W=W, opt=opt, **kw)
+
+
+class ConvMinL1InL2Ball(ConvBPDNMaskDcpl):
+    r"""Minimise ``||x||_1`` subject to ``||Dx - s||_2 <= epsilon``
+    (``sporco/admm/cbpdn.py:1830``); the ball is taken per signal and
+    channel over the spatial axes.  Defaults as the reference: rho 1,
+    AutoRho on with Period 10."""
+
+    VARIANT = "minl2ball"
+    STAT_NAMES = _CSC2_STATS["minl2ball"]
+
+    @staticmethod
+    def options(**kw):
+        ar = kw.pop("auto_rho", AutoRhoOpts(enabled=True, period=10,
+                                            auto_scaling=True,
+                                            scaling=1000.0,
+                                            rsdl_ratio=1.2,
+                                            rsdl_target=1.0))
+        base = dict(relax_param=1.8, auto_rho=ar, rho=1.0)
+        base.update(kw)
+        return ADMMOpts(**base)
+
+    def __init__(self, D, S, epsilon, opt=None, **kw):
+        if opt is None:
+            opt = self.options()
+        if opt.rho is None:
+            opt = opt.replace(rho=1.0)
+        super().__init__(D, S, lmbda=1.0, epsilon=epsilon, opt=opt, **kw)
+
+
 class AddMaskSim:
     """Additive Mask Simulation (wohlberg-2016-boundary): a masked CSC
     problem solved by any class of this module with one impulse filter
@@ -573,7 +902,12 @@ def reconstruct(Di, Xi, cri, X=None):
             DXf = torch.sum(sf.rfftn(Di, s=cri.Nv, axes=axes)
                             * sf.rfftn(Xi, axes=axes), dim=2, keepdim=True)
             Si = sf.irfftn(DXf, s=cri.Nv, axes=axes)
-    # internal (K, C, 1, Nv...) -> Nv + [C] + [K]
+    return internal_S_to_user(Si, cri)
+
+
+def internal_S_to_user(Si, cri):
+    """Internal ``(K, C, 1, Nv...)`` -> the user layout ``Nv + [C] +
+    [K]``."""
     S = Si[:, :, 0].permute(tuple(range(2, 2 + cri.dimN)) + (1, 0))
     if cri.dimK == 0:
         S = S.squeeze(-1)

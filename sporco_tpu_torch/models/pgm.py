@@ -1,6 +1,9 @@
-"""Convolutional sparse coding via PGM (FISTA), ``ConvBPDN`` and
-``ConvBPDNMask``, and the FISTA dictionary update, ``ConvCnstrMOD`` and
-``ConvCnstrMODMask`` (counterpart of ``sporco_tpu.models.pgm``).
+"""Sparse coding and dictionary updates via PGM (FISTA), counterpart of
+``sporco_tpu.models.pgm``: convolutional ``ConvBPDN`` and
+``ConvBPDNMask``, the FISTA dictionary update ``ConvCnstrMOD`` and
+``ConvCnstrMODMask``, and the dense ``BPDN``, ``WeightedBPDN``,
+``CnstrMOD`` and ``WeightedCnstrMOD`` (products on cuBLAS in full fp32
+on the generic PGM loop).
 
 Routed as the JAX package routes them:
 
@@ -38,8 +41,9 @@ import numpy as np
 import torch
 
 from sporco_tpu_torch import cnvrep as cr
-from sporco_tpu_torch._device import resolve_device
+from sporco_tpu_torch._device import fp32_precision, resolve_device
 from sporco_tpu_torch.models import cbpdn as _cbpdn
+from sporco_tpu_torch.models.cmod import random_dict
 from sporco_tpu_torch.models.common import PGMModel, user_tensor
 from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import fused_csc
@@ -48,9 +52,10 @@ from sporco_tpu_torch.solvers.admm import scalar_type
 from sporco_tpu_torch.solvers.pgm import (PGMOpts, PGMProblem, pgm_init_state,
                                           pgm_solve)
 
-__all__ = ["ConvBPDN", "ConvBPDNMask", "ConvCnstrMOD", "ConvCnstrMODMask",
-           "PGMCSCConfig", "PGMCCMODConfig", "params_from_numpy",
-           "DEFAULT_L"]
+__all__ = ["BPDN", "WeightedBPDN", "ConvBPDN", "ConvBPDNMask", "CnstrMOD",
+           "WeightedCnstrMOD", "ConvCnstrMOD", "ConvCnstrMODMask",
+           "PGMBPDNConfig", "PGMCMODConfig", "PGMCSCConfig",
+           "PGMCCMODConfig", "params_from_numpy", "DEFAULT_L"]
 
 DEFAULT_L = 500.0     # sporco/pgm/cbpdn.py:98
 
@@ -75,8 +80,8 @@ def params_from_numpy(D, S, lmbda=None, wl1=1.0, W=None, dimK=None, dimN=2,
     npdt = sf.numpy_dtype(dtype)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", np.exceptions.ComplexWarning)
-        D = np.asarray(D).astype(npdt)
-        S = np.asarray(S).astype(npdt)
+        D = _cbpdn.host_array(D).astype(npdt)
+        S = _cbpdn.host_array(S).astype(npdt)
     cri, params, _ = _cbpdn.params_from_numpy(D, S, lmbda, wl1, dimK, dimN,
                                               device, dtype)
     Wm = torch.ones((1,) * (3 + cri.dimN), dtype=dtype) if W is None \
@@ -439,3 +444,279 @@ class ConvCnstrMODMask(ConvCnstrMOD):
 
     def __init__(self, Z, S, dsz, W=None, **kw):
         super().__init__(Z, S, dsz, W=W, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Dense BPDN by FISTA: argmin_x (1/2)||Dx - s||_2^2 + lmbda ||x||_1, with a
+# weighted l2 data term in WeightedBPDN (``sporco/pgm/bpdn.py:26,248``)
+
+@dataclass(frozen=True)
+class PGMBPDNConfig:
+    non_neg: bool = False
+    weighted: bool = False
+
+
+def _mm_setup(cfg, params):
+    return {}
+
+
+def _bp_residual(cfg, params, X):
+    R = params["D"] @ X - params["S"]
+    return params["W"] * R if cfg.weighted else R
+
+
+def _bp_grad(cfg, aux, params, Y):
+    return params["D"].T @ _bp_residual(cfg, params, Y)
+
+
+def _bp_prox(cfg, aux, params, V, L):
+    U = sp.prox_l1(V, float(params["lmbda"] / L) * params["wl1"])
+    return torch.clamp(U, min=0.0) if cfg.non_neg else U
+
+
+def _bp_f(cfg, aux, params, X):
+    R = params["D"] @ X - params["S"]
+    if cfg.weighted:
+        return 0.5 * torch.sum(params["W"] * R ** 2)
+    return 0.5 * torch.sum(R ** 2)
+
+
+def _bp_reg(params, X):
+    return torch.sum(torch.abs(params["wl1"] * X))
+
+
+def _bp_g(cfg, aux, params, X):
+    return float(params["lmbda"]) * _bp_reg(params, X)
+
+
+def _bp_hess(cfg, aux, params, V):
+    DV = params["D"] @ V
+    return params["D"].T @ (params["W"] * DV if cfg.weighted else DV)
+
+
+def _bp_xinit(cfg, params):
+    return torch.zeros((params["D"].shape[1], params["S"].shape[1]),
+                       dtype=params["S"].dtype, device=params["S"].device)
+
+
+def _bp_obfn(cfg, aux, params, X):
+    # RegL1 reported unscaled (sporco/pgm/bpdn.py:214-220)
+    f = _bp_f(cfg, aux, params, X)
+    reg = _bp_reg(params, X)
+    return (f + float(params["lmbda"]) * reg, f, reg)
+
+
+_BPDN_PGM = PGMProblem(setup=_mm_setup, grad_f=_bp_grad, prox_g=_bp_prox,
+                       obfn_f=_bp_f, obfn_g=_bp_g, hessian_f=_bp_hess,
+                       xinit=_bp_xinit, obfn=_bp_obfn,
+                       stat_names=("ObjFun", "DFid", "RegL1"))
+
+
+def _dense_weight(W, dtype, device, column=False):
+    """A weight (None: 1) as a tensor; with ``column`` a vector becomes a
+    column, weighting the rows of every signal."""
+    W = user_tensor(1.0 if W is None else W, dtype, device)
+    return W[:, None] if column and W.ndim == 1 else W
+
+
+class BPDN(PGMModel):
+    r"""Dense BPDN by PGM/FISTA (``sporco/pgm/bpdn.py:26``).  ``D`` is
+    (N, M) and ``S`` (N, K) or (N,): numpy arrays or tensors; the
+    solution ``X`` is (M, K), a tensor on the model's device.  Defaults:
+    ``L = 500`` (``sporco/pgm/bpdn.py:88``), lmbda ``0.1 max|D^T S|``.
+    ``device=None`` means the CUDA device and raises without one;
+    ``device="cpu"`` runs on the CPU."""
+
+    # reference pgm.BPDN option keys (sporco/pgm/bpdn.py:87-88)
+    REF_OPT_EXTRA = {
+        "NonNegCoef": ("k", "non_neg"),
+        "L1Weight": ("k", "wl1"),
+    }
+
+    WEIGHTED = False
+    STAT_NAMES = ("ObjFun", "DFid", "RegL1")
+
+    @staticmethod
+    def options(**kw):
+        return PGMOpts(**kw)
+
+    def __init__(self, D, S, lmbda=None, opt=None, wl1=1.0, W=None,
+                 non_neg=False, dtype=torch.float32, device=None):
+        super().__init__()
+        self.device = resolve_device(device)
+        if opt is None:
+            opt = self.options()
+        dtype = sf.torch_dtype(dtype)
+        D = user_tensor(D, dtype, self.device)
+        S = user_tensor(S, dtype, self.device)
+        if S.ndim == 1:
+            S = S[:, None]
+        if lmbda is None:
+            with fp32_precision():
+                lmbda = 0.1 * float(torch.max(torch.abs(D.T @ S)))
+        self.lmbda = lmbda
+        self.cfg = PGMBPDNConfig(non_neg=non_neg, weighted=self.WEIGHTED)
+        self.opts = opt.replace(dtype=dtype)
+        self.params = {"D": D, "S": S, "lmbda": scalar_type(dtype)(lmbda),
+                       "wl1": user_tensor(wl1, dtype, self.device),
+                       "W": _dense_weight(W, dtype, self.device, True)}
+        self.problem = _BPDN_PGM
+        L0 = opt.L if opt.L is not None else DEFAULT_L
+        self.state = pgm_init_state(_bp_xinit(self.cfg, self.params),
+                                    self.opts, L0, len(self.STAT_NAMES))
+        self._init_done()
+
+    def _solve_state(self):
+        return pgm_solve(self.problem, self.cfg, self.params, self.opts,
+                         self.state)
+
+    def getcoef(self):
+        return self.state.X
+
+    def reconstruct(self, X=None):
+        """``D X``, with the model's coefficients by default."""
+        if X is None:
+            X = self.state.X
+        with fp32_precision():
+            return self.params["D"] @ user_tensor(X, self.opts.dtype,
+                                                  self.device)
+
+
+class WeightedBPDN(BPDN):
+    r"""BPDN with a weighted l2 data term ``(1/2)||W^(1/2) (Dx - s)||^2``
+    (``sporco/pgm/bpdn.py:248``)."""
+    WEIGHTED = True
+
+    def __init__(self, D, S, lmbda=None, W=None, opt=None, **kw):
+        super().__init__(D, S, lmbda=lmbda, W=W, opt=opt, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The dense dictionary update by FISTA (``sporco/pgm/cmod.py:24,238``)
+
+@dataclass(frozen=True)
+class PGMCMODConfig:
+    zero_mean: bool = False
+    non_neg: bool = False
+    weighted: bool = False
+
+
+def _cm_proj(cfg, D):
+    """The unit-column-norm projection (``sporco/admm/cmod.py:286-339``),
+    after the column means (``zero_mean``) and the negative entries
+    (``non_neg``) are taken out."""
+    if cfg.zero_mean:
+        D = D - torch.mean(D, dim=0, keepdim=True)
+    if cfg.non_neg:
+        D = torch.clamp(D, min=0.0)
+    n = torch.sqrt(torch.sum(D ** 2, dim=0, keepdim=True))
+    return D / torch.where(n == 0.0, torch.ones_like(n), n)
+
+
+def _cm_residual(cfg, params, X):
+    R = X @ params["Z"] - params["S"]
+    return params["W"] * R if cfg.weighted else R
+
+
+def _cm_grad(cfg, aux, params, Y):
+    return _cm_residual(cfg, params, Y) @ params["Z"].T
+
+
+def _cm_prox(cfg, aux, params, V, L):
+    return _cm_proj(cfg, V)
+
+
+def _cm_f(cfg, aux, params, X):
+    R = X @ params["Z"] - params["S"]
+    if cfg.weighted:
+        return 0.5 * torch.sum(params["W"] * R ** 2)
+    return 0.5 * torch.sum(R ** 2)
+
+
+def _cm_g(cfg, aux, params, X):
+    return torch.linalg.vector_norm((_cm_proj(cfg, X) - X).reshape(-1))
+
+
+def _cm_hess(cfg, aux, params, V):
+    VZ = V @ params["Z"]
+    return (params["W"] * VZ if cfg.weighted else VZ) @ params["Z"].T
+
+
+def _cm_obfn(cfg, aux, params, X):
+    return (_cm_f(cfg, aux, params, X), _cm_g(cfg, aux, params, X))
+
+
+_CMOD_PGM = PGMProblem(setup=_mm_setup, grad_f=_cm_grad, prox_g=_cm_prox,
+                       obfn_f=_cm_f, obfn_g=_cm_g, hessian_f=_cm_hess,
+                       obfn=_cm_obfn, xinit=lambda cfg, params: params["D0"],
+                       stat_names=("DFid", "Cnstr"))
+
+
+class CnstrMOD(PGMModel):
+    r"""The constrained MOD dictionary update by PGM
+    (``sporco/pgm/cmod.py:24``): ``argmin_D (1/2)||D Z - S||_2^2`` over
+    unit-norm columns.  ``Z`` is (M, K), ``S`` (N, K); ``D0=None`` draws
+    the initial dictionary with
+    :func:`sporco_tpu_torch.models.cmod.random_dict` (the JAX package's
+    draw from ``PRNGKey(0)`` cannot be reproduced: pass it as ``D0``).
+    Default ``L = 500``.  ``device=None`` means the CUDA device and
+    raises without one; ``device="cpu"`` runs on the CPU."""
+
+    # reference pgm.CnstrMOD option keys (sporco/pgm/cmod.py:86-87)
+    REF_OPT_EXTRA = {
+        "ZeroMean": ("k", "zero_mean"),
+        "NonNegCoef": ("k", "non_neg"),
+    }
+
+    WEIGHTED = False
+    STAT_NAMES = ("DFid", "Cnstr")
+
+    @staticmethod
+    def options(**kw):
+        return PGMOpts(**kw)
+
+    def __init__(self, Z, S, dsz=None, opt=None, D0=None, W=None,
+                 zero_mean=False, non_neg=False, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.device = resolve_device(device)
+        if opt is None:
+            opt = self.options()
+        dtype = sf.torch_dtype(dtype)
+        Z = user_tensor(Z, dtype, self.device)
+        S = user_tensor(S, dtype, self.device)
+        M = Z.shape[0] if dsz is None else dsz[-1]
+        D0 = random_dict(S.shape[0], M, dtype, self.device) if D0 is None \
+            else user_tensor(D0, dtype, self.device)
+        self.cfg = PGMCMODConfig(zero_mean=zero_mean, non_neg=non_neg,
+                                 weighted=self.WEIGHTED)
+        self.opts = opt.replace(dtype=dtype)
+        self.params = {"Z": Z, "S": S, "D0": D0,
+                       "W": _dense_weight(W, dtype, self.device)}
+        self.problem = _CMOD_PGM
+        L0 = opt.L if opt.L is not None else DEFAULT_L
+        self.state = pgm_init_state(D0, self.opts, L0,
+                                    len(self.STAT_NAMES))
+        self._init_done()
+
+    def _solve_state(self):
+        return pgm_solve(self.problem, self.cfg, self.params, self.opts,
+                         self.state)
+
+    def getdict(self):
+        return self.state.X
+
+    def setcoef(self, Z):
+        """Replace the coefficients; a tensor (on any device) is taken as
+        it is."""
+        self.params = {**self.params,
+                       "Z": user_tensor(Z, self.opts.dtype, self.device)}
+
+
+class WeightedCnstrMOD(CnstrMOD):
+    r"""The constrained MOD update with a weighted l2 data term
+    (``sporco/pgm/cmod.py:238``)."""
+    WEIGHTED = True
+
+    def __init__(self, Z, S, W=None, **kw):
+        super().__init__(Z, S, W=W, **kw)

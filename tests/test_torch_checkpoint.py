@@ -23,9 +23,11 @@ import jax
 from scipy.ndimage import gaussian_filter
 
 from sporco_tpu.models import cbpdn as jm
+from sporco_tpu.models import ccmodmd as jmd
 from sporco_tpu.models import pgm as jpgm
 from sporco_tpu.ops import pallas_csc_iter as pki
 from sporco_tpu_torch.models import cbpdn as tm
+from sporco_tpu_torch.models import ccmodmd as tmd
 from sporco_tpu_torch.models import common as tcommon
 from sporco_tpu_torch.models import pgm as tpgm
 
@@ -73,6 +75,13 @@ CASES = {
                     ("ObjFun", "DFid", "RegL1", "L"), ("Rsdl",)),
     "fista_generic": (jpgm.ConvBPDN, tpgm.ConvBPDN, {"fused": False},
                       ("ObjFun", "DFid", "RegL1", "L"), ("Rsdl",)),
+    # the two-block problem: X, Y and U are pairs, written in the JAX
+    # leaf order
+    "maskdcpl": (jm.ConvBPDNMaskDcpl, tm.ConvBPDNMaskDcpl,
+                 {"W": (np.random.default_rng(3).random((32, 32))
+                        > 0.25).astype(np.float32)},
+                 ("ObjFun", "DFid", "RegL1", "Rho"),
+                 ("PrimalRsdl", "DualRsdl")),
 }
 
 
@@ -223,3 +232,47 @@ def test_leaves_follow_jax_pytree_order():
     assert tcommon._leaves(x) == jax.tree_util.tree_leaves(x)
     back = tcommon._unflatten(x, iter([10, 30, 20, 40]))
     assert back == (10, {"a": (30, None), "b": 20}, [40])
+
+
+def _ccmodmd(pkg, method):
+    """A masked CCMOD model (float64) of ``method`` on a small seeded
+    problem, ITERS iterations a solve."""
+    rng = np.random.default_rng(7)
+    S = rng.standard_normal((16, 16, 3))
+    Z = rng.standard_normal((16, 16, 1, 3, 4)) * (rng.random(
+        (16, 16, 1, 3, 4)) < 0.2)
+    W = (rng.random(S.shape) > 0.25).astype(np.float64)
+    D0 = rng.standard_normal((4, 4, 4))
+    mod = jmd if pkg == "jax" else tmd
+    kw = {} if pkg == "jax" else {"device": "cpu"}
+    return mod.ConvCnstrMODMaskDcpl(
+        Z, S, W, (4, 4, 4), method=method, D0=D0, dtype=np.float64,
+        opt=mod.ConvCnstrMODMaskDcplOptions(method=method, max_iter=ITERS,
+                                            rel_stop_tol=0.0), **kw)
+
+
+@pytest.mark.parametrize("method", ["cns", "ism"])
+def test_ccmodmd_checkpoint_across_packages(method, tmp_path):
+    """A masked CCMOD state (pairs in X, Y and U) written by either
+    package resumes in the other to the rows and dictionary of a resume
+    in the writing package (float64: rows rtol 1e-6, D 1e-8)."""
+    for writer, reader in (("jax", "port"), ("port", "jax")):
+        w = _ccmodmd(writer, method)
+        w.solve()
+        path = str(tmp_path / f"{writer}_{method}.npz")
+        w.save_state(path)
+        runs = []
+        for pkg in (writer, reader):
+            m = _ccmodmd(pkg, method)
+            m.load_state_file(path)
+            assert int(m.state.k) == ITERS
+            m.solve()
+            D = m.getdict()
+            runs.append((m.getitstat(), np.asarray(
+                D.numpy() if isinstance(D, torch.Tensor) else D)))
+        (iw, Dw), (ir, Dr) = runs
+        assert len(iw) == len(ir) == ITERS
+        for name in ("DFid", "PrimalRsdl", "DualRsdl", "Rho"):
+            np.testing.assert_allclose(getattr(ir, name), getattr(iw, name),
+                                       rtol=1e-6, err_msg=name)
+        np.testing.assert_allclose(Dr, Dw, rtol=0, atol=1e-8)

@@ -1124,3 +1124,154 @@ def test_tv_deconv_launches_fft_kernels(dev, name, inverse):
     torch.cuda.synchronize()
     assert tfp.LAUNCHES == {"rfft2_planar": 7 + 4,
                             "irfft2_planar": inverse * 7}
+
+
+def _new_model_cases():
+    """name -> maker(device) of a float64 model of this slice (10
+    iterations, or 3 outer iterations / 2 samples for the learners), on
+    small seeded problems."""
+    from sporco_tpu_torch.models import cbpdn as tcb
+    from sporco_tpu_torch.models import ccmodmd as tmd
+    from sporco_tpu_torch.models import cmod as tcm
+    from sporco_tpu_torch.models import dictlrn as tdl
+    rng = np.random.default_rng(11)
+    D = rng.standard_normal((4, 4, 6))
+    S = rng.standard_normal((32, 32, 2))
+    W = (rng.random(S.shape) > 0.25).astype(np.float64)
+    Z = rng.standard_normal((32, 32, 1, 2, 6)) * (rng.random(
+        (32, 32, 1, 2, 6)) < 0.1)
+    Dd = rng.standard_normal((16, 24))
+    Xd = rng.standard_normal((24, 40)) * (rng.random((24, 40)) < 0.2)
+    Sd = Dd @ Xd
+    Wd = rng.uniform(0.5, 1.5, Sd.shape)
+    f64 = {"dtype": torch.float64}
+
+    def opt(cls, n=10):
+        return {"opt": cls.options(max_iter=n, rel_stop_tol=0.0)}
+
+    def md(method):
+        o = tmd.ConvCnstrMODMaskDcplOptions(method=method, max_iter=10,
+                                            rel_stop_tol=0.0)
+        return lambda d: tmd.ConvCnstrMODMaskDcpl(
+            Z, S, W, D.shape, method=method, D0=D, opt=o, device=d, **f64)
+    return {
+        "ConvBPDNMaskDcpl": lambda d: tcb.ConvBPDNMaskDcpl(
+            D, S, 0.1, W=W, device=d, **opt(tcb.ConvBPDNMaskDcpl), **f64),
+        "ConvL1L1Grd": lambda d: tcb.ConvL1L1Grd(
+            D, S, 0.1, mu=0.1, W=W, device=d, **opt(tcb.ConvL1L1Grd),
+            **f64),
+        "ConvMinL1InL2Ball": lambda d: tcb.ConvMinL1InL2Ball(
+            D, S, 5.0, device=d, **opt(tcb.ConvMinL1InL2Ball), **f64),
+        "ccmodmd cns": md("cns"), "ccmodmd ism": md("ism"),
+        "ccmodmd cg": md("cg"),
+        "cmod.CnstrMOD": lambda d: tcm.CnstrMOD(
+            Xd, Sd, D0=Dd, device=d, **opt(tcm.CnstrMOD), **f64),
+        "pgm.BPDN": lambda d: tpgm.BPDN(Dd, Sd, 0.1, device=d,
+                                        **opt(tpgm.BPDN), **f64),
+        "pgm.WeightedBPDN": lambda d: tpgm.WeightedBPDN(
+            Dd, Sd, 0.1, W=Wd, device=d, **opt(tpgm.BPDN), **f64),
+        "pgm.CnstrMOD": lambda d: tpgm.CnstrMOD(
+            Xd, Sd, D0=Dd, device=d, **opt(tpgm.CnstrMOD), **f64),
+        "pgm.WeightedCnstrMOD": lambda d: tpgm.WeightedCnstrMOD(
+            Xd, Sd, W=Wd, D0=Dd, device=d, **opt(tpgm.CnstrMOD), **f64),
+        "ConvBPDNMaskDictLearn admm": lambda d: tdl.ConvBPDNMaskDictLearn(
+            D, S, 0.1, W=W, max_iter=3, device=d),
+        "ConvBPDNMaskDictLearn pgm": lambda d: tdl.ConvBPDNMaskDictLearn(
+            D, S, 0.1, W=W, xmethod="pgm", dmethod="pgm", max_iter=3,
+            device=d),
+        "OnlineConvBPDNDictLearn": lambda d: tdl.OnlineConvBPDNDictLearn(
+            D, 0.1, device=d, **f64),
+        "OnlineConvBPDNMaskDictLearn":
+            lambda d: tdl.OnlineConvBPDNMaskDictLearn(D, 0.1, device=d,
+                                                      **f64),
+        "BPDNDictLearn": lambda d: tdl.BPDNDictLearn(
+            Dd, Sd, 0.1, max_iter=3, device=d),
+        "WeightedBPDNDictLearn": lambda d: tdl.WeightedBPDNDictLearn(
+            Dd, Sd, 0.1, W=Wd, max_iter=3, device=d),
+    }, S, W
+
+
+def _arrays(b):
+    """The solution arrays of a model or a learner, as numpy."""
+    def np_(t):
+        return t.detach().cpu().numpy()
+    if hasattr(b, "getdict"):
+        return [np_(b.getdict())]
+    if isinstance(b.state.X, tuple):
+        return [np_(t) for t in b.state.X + b.state.Y]
+    return [np_(b.state.X)]
+
+
+def _columns(b):
+    its = b.getitstat()
+    if isinstance(its, dict):
+        return its
+    return {n: getattr(its, n) for n in its._names}
+
+
+SLICE_MODELS = ["ConvBPDNMaskDcpl", "ConvL1L1Grd", "ConvMinL1InL2Ball",
+                "ccmodmd cns", "ccmodmd ism", "ccmodmd cg",
+                "cmod.CnstrMOD", "pgm.BPDN", "pgm.WeightedBPDN",
+                "pgm.CnstrMOD", "pgm.WeightedCnstrMOD",
+                "ConvBPDNMaskDictLearn admm", "ConvBPDNMaskDictLearn pgm",
+                "OnlineConvBPDNDictLearn", "OnlineConvBPDNMaskDictLearn",
+                "BPDNDictLearn", "WeightedBPDNDictLearn"]
+
+
+@pytest.mark.parametrize("name", SLICE_MODELS)
+def test_slice_models_on_card_match_cpu(dev, name):
+    """Each model of the masked, online and patch dictionary learning
+    slice in float64 on the card against the CPU: every stats column
+    rtol 1e-6 (a column at zero up to rounding, within 1e-12 of its
+    largest value, counts as equal) and the solution within 1e-8 of its
+    scale."""
+    cases, S, W = _new_model_cases()
+    out = []
+    for d in (dev, "cpu"):
+        b = cases[name](d)
+        if name.startswith("Online"):
+            for k in range(2):
+                kw = {"W": W[..., k]} if "Mask" in name else {}
+                b.solve(S[..., k], **kw)
+        else:
+            b.solve()
+        out.append((_columns(b), _arrays(b)))
+    (cg, ag), (cc, ac) = out
+    assert sorted(cg) == sorted(cc)
+    for col in cg:
+        g, c = np.asarray(cg[col], np.float64), np.asarray(cc[col],
+                                                           np.float64)
+        if col.endswith("XSlvRelRes") or col.endswith("Cnstr"):
+            np.testing.assert_allclose(g, c, rtol=0, atol=1e-10)
+            continue
+        floor = (1e-12 * np.nanmax(np.abs(c)) if np.isfinite(c).any()
+                 else 0.0)
+        near0 = np.maximum(np.abs(g), np.abs(c)) <= floor
+        np.testing.assert_allclose(np.where(near0, 0, g),
+                                   np.where(near0, 0, c), rtol=1e-6,
+                                   equal_nan=True, err_msg=col)
+    for g, c in zip(ag, ac):
+        assert np.abs(g - c).max() <= 1e-8 * max(np.abs(c).max(), 1e-30)
+
+
+@pytest.mark.parametrize("name,per,setup", [("ConvBPDNMaskDcpl", 3, 1),
+                                            ("ConvL1L1Grd", 4, 2),
+                                            ("ConvMinL1InL2Ball", 3, 1)])
+def test_two_block_csc_launches_fft_kernels(dev, name, per, setup):
+    """At 128x128 in float32 the two-block x-step's transforms launch the
+    planar FFT kernels: per iteration ``per`` forward and inverse, and
+    ``setup`` forward in the set-up."""
+    from sporco_tpu_torch.models import cbpdn as tcb
+    rng = np.random.default_rng(12)
+    D = rng.standard_normal((8, 8, 4)).astype(np.float32)
+    S = rng.standard_normal((128, 128)).astype(np.float32)
+    cls = getattr(tcb, name)
+    arg = {"epsilon": 50.0} if name == "ConvMinL1InL2Ball" else {
+        "lmbda": 0.1}
+    b = cls(D, S, opt=cls.options(max_iter=7, rel_stop_tol=0.0),
+            device=dev, **arg)
+    tfp.reset_launches()
+    b.solve()
+    torch.cuda.synchronize()
+    assert tfp.LAUNCHES == {"rfft2_planar": per * 7 + setup,
+                            "irfft2_planar": per * 7}

@@ -9,13 +9,15 @@ It imports ``chip_smoke.py``, cuts the headline problem to 64x64 with 8
 filters, the consensus problem to 4 images of 32x32 with 8 filters, the
 dense BPDN problem to a 64x96 dictionary (8 signals for the batch), the
 TV images to 64x64 (denoising) and 128x128 (deconvolution) and Robust
-PCA to 64x64 of rank 3 (sketch rank 6), and runs the named phases
+PCA to 64x64 of rank 3 (sketch rank 6), the dictionary learning
+phases' problems as ``at_cut`` says, and runs the named phases
 (default: every phase it knows, in ``PHASES``'s order) with
 ``device="cpu"``: the kernels' wrappers then
 run their plain versions, each call of which is counted as the launch
 the card would make, so the phases' launch checks on ``csc_iter``,
-``pgm_iter`` and ``admm_tail`` hold as on the card (the FFT kernels run
-only on the card: their counts are not checked).  CUDA events,
+``pgm_iter`` and ``admm_tail`` hold as on the card.  The FFT kernels'
+counts are checked in the phases of ``PLANAR_PHASES`` only, which run at
+128x128 with the planar route on for CPU tensors.  CUDA events,
 synchronisation and the profiler are replaced by stubs: every kernel
 time a phase reports is NaN, and its wall times are the CPU's.  The
 rehearsal finds wrong paths, arguments, shapes and control flow before
@@ -37,6 +39,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke as cs  # noqa: E402
 from sporco_tpu_torch.ops import csc_iter as tci  # noqa: E402
 from sporco_tpu_torch.ops import csc_tail as tct  # noqa: E402
+from sporco_tpu_torch.ops import fft as tsf  # noqa: E402
+from sporco_tpu_torch.ops import fft2_planar as tfp  # noqa: E402
 from sporco_tpu_torch.ops import pgm_iter as tpi  # noqa: E402
 
 # the phases it runs, in chip_smoke.py's order (mixed_solve compares
@@ -44,10 +48,20 @@ from sporco_tpu_torch.ops import pgm_iter as tpi  # noqa: E402
 PHASES = ("solve", "pgm_solve", "ams_tail_kernel", "ams_parity",
           "ams_solve", "mixed_kernel", "mixed_solve", "cdl_pgm_solve",
           "bpdn_parity", "bpdn_solve", "tv_parity", "tv_solve",
-          "rpca_parity", "rpca_solve", "dictlrn_handover")
+          "rpca_parity", "rpca_solve", "dictlrn_handover",
+          "maskdcpl_parity", "maskdcpl_solve", "mdl_parity", "mdl_solve",
+          "online_solve", "dense_dl_parity", "dense_dl_solve")
+# the phases of the masked, online and patch dictionary learning slice,
+# run at sizes the FFT kernels take (128x128) with the planar route on
+# for CPU tensors, so that their FFT launch checks hold here too
+PLANAR_PHASES = ("maskdcpl_parity", "maskdcpl_solve", "mdl_parity",
+                 "mdl_solve", "online_solve")
 COUNTED = ((tci, "csc_iter", "csc_iter_plain"),
            (tpi, "pgm_iter", "pgm_iter_plain"),
            (tct, "admm_tail", "admm_tail_plain"))
+FFT_COUNTED = ((tfp, "rfft2_planar", "rfft2_planar_plain"),
+               (tfp, "irfft2_planar", "irfft2_planar_plain"))
+CHECK_FFT = {"on": False}
 
 
 def _counting(mod, name, plain):
@@ -60,7 +74,8 @@ def _counting(mod, name, plain):
 
 
 def _expect(label, counts, **want):
-    got = {name: counts[name] for _, name, _ in COUNTED}
+    checked = COUNTED + (FFT_COUNTED if CHECK_FFT["on"] else ())
+    got = {name: counts[name] for _, name, _ in checked}
     if got != {name: want.get(name, 0) for name in got}:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
 
@@ -77,7 +92,7 @@ def setup():
     cs.device_ms_by_kernel = lambda fn, reps=10, tries=3: {}
     cs.expect_launches = _expect
     cs.accel._device = lambda dev, device: "cpu"
-    for args in COUNTED:
+    for args in COUNTED + FFT_COUNTED:
         _counting(*args)
 
 
@@ -113,12 +128,48 @@ def main(argv):
         "dictlrn_handover": lambda: cs.phase_dictlrn_handover(dev, D, S,
                                                               lmbda),
     }
+    # the dictionary learning phases at 128x128: the headline cut to 4
+    # filters, the consensus problem to 2 images of 128x128 with 4
+    # filters, 2 online samples, the patch problem to a 32x32 image (625
+    # patches) and 16 atoms; the sizes are set for these phases alone
+    cut = {"N": 128, "M": 4, "CN": 128, "CK": 2, "CM": 4,
+           "ONLINE_SAMPLES": 2, "DDL_IMG": 32, "DDL_ATOMS": 16}
+
+    def at_cut(phase):
+        def run():
+            saved = {k: getattr(cs, k) for k in cut}
+            for k, v in cut.items():
+                setattr(cs, k, v)
+            try:
+                D2, S2, _ = cs.headline_problem()
+                W2, Sm2 = cs.ams_problem(S2)
+                D0c2, Sc2, lc2 = cs.cdl_problem()
+                imgs, Wo = cs.online_samples()
+                args = {"maskdcpl": (dev, D2, S2, W2, Sm2),
+                        "mdl": (dev, D0c2, Sc2, lc2),
+                        "online": (dev, D2, imgs, Wo),
+                        "dense": (dev,)}[phase.split("_")[0]]
+                return getattr(cs, f"phase_{phase}")(*args)
+            finally:
+                for k, v in saved.items():
+                    setattr(cs, k, v)
+        return run
+    runs.update({name: at_cut(name) for name in (
+        "maskdcpl_parity", "maskdcpl_solve", "mdl_parity", "mdl_solve",
+        "online_solve", "dense_dl_parity", "dense_dl_solve")})
     if "mixed_solve" in names:
         names = [n for n in PHASES
                  if n in names or n in ("solve", "pgm_solve")]
     for name in names:
         t0 = time.perf_counter()
-        done[name] = runs[name]()
+        planar = name in PLANAR_PHASES
+        CHECK_FFT["on"] = planar
+        tsf.use_planar_fft("always" if planar else "auto")
+        try:
+            done[name] = runs[name]()
+        finally:
+            tsf.use_planar_fft("auto")
+            CHECK_FFT["on"] = False
         print(json.dumps({"phase": name, "cpu_seconds":
                           time.perf_counter() - t0, **done[name]}),
               flush=True)

@@ -6,6 +6,7 @@ Run from the root of a checkout:
 
     python3 tools/dense_cpu_study.py ulp [MODEL ...]
     python3 tools/dense_cpu_study.py tvl1 [LMBDA ...]
+    python3 tools/dense_cpu_study.py mdl [jax]
 
 ``ulp`` solves each dense model of ``chip_smoke.py``'s ``bpdn_solve``,
 ``tv_solve`` and ``rpca_solve`` (randomized SVD) in float32 on the CPU,
@@ -28,7 +29,16 @@ objective over the last 50 iterations, the first and last primal and
 dual residuals and the PSNR against the clean image beside the
 input's.
 
-Prints one JSON line per model or lmbda.  Uses 4 CPU threads.
+``mdl`` runs ``ConvBPDNMaskDictLearn`` as ``chip_smoke.py``'s
+``mdl_solve`` does (the consensus geometry, the masked stage's mask, 50
+outer iterations of each method pair, float32), then in float64 at 2
+images of 128x128 with 4 filters, and prints the x-step objective's
+first, least and last value, where the least falls, and the d-step's
+rho (or FISTA's L) at the first and last outer iteration; with ``jax``
+the JAX package runs each beside the port (it then needs the JAX
+package; about 15 minutes).
+
+Prints one JSON line per model, lmbda or learner.  Uses 4 CPU threads.
 """
 
 import json
@@ -137,11 +147,50 @@ def tvl1(lmbdas):
             "psnr_db": cs.psnr(img, X)}), flush=True)
 
 
+def _mdl_record(pkg, dtype, xm, dm, its):
+    f = np.asarray(its["XObjFun"], np.float64)
+    rho = its.get("DRho", its.get("DL"))
+    return {"package": pkg, "dtype": dtype, "pair": f"{xm}/{dm}",
+            "outer_iterations": len(f), "objective_first": float(f[0]),
+            "objective_least": float(f.min()),
+            "least_at": int(np.argmin(f)), "objective_last": float(f[-1]),
+            "d_rho_or_L_first_last": [float(rho[0]), float(rho[-1])]}
+
+
+def mdl(args):
+    """``ConvBPDNMaskDictLearn`` as ``chip_smoke.py``'s ``mdl_solve``
+    runs it (float32, CNS_ITERS outer iterations, each pair of
+    MDL_PAIRS), then in float64 at 2 images of 128x128 with 4 filters;
+    with ``jax`` the JAX package on the same problems beside the port."""
+    pkgs = ["port"] + (["jax"] if "jax" in args else [])
+    if "jax" in pkgs:
+        import jax
+        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_enable_x64", True)
+        from sporco_tpu.models import dictlrn as jd
+    for dtype, cut in (("float32", None), ("float64", (128, 2, 4))):
+        if cut is not None:
+            cs.CN, cs.CK, cs.CM = cut
+        D0, S, lmbda = cs.cdl_problem()
+        W = cs.mdl_mask(S)
+        for xm, dm in cs.MDL_PAIRS:
+            for pkg in pkgs:
+                kw = dict(W=W, xmethod=xm, dmethod=dm,
+                          max_iter=cs.CNS_ITERS, dtype=dtype)
+                d = (jd.ConvBPDNMaskDictLearn(D0, S, lmbda, **kw)
+                     if pkg == "jax" else
+                     cs.tdl.ConvBPDNMaskDictLearn(D0, S, lmbda,
+                                                  device="cpu", **kw))
+                d.solve()
+                print(json.dumps(_mdl_record(pkg, dtype, xm, dm,
+                                             d.getitstat())), flush=True)
+
+
 def main(argv):
-    if not argv or argv[0] not in ("ulp", "tvl1"):
+    if not argv or argv[0] not in ("ulp", "tvl1", "mdl"):
         raise SystemExit(__doc__)
     torch.set_num_threads(4)
-    {"ulp": ulp, "tvl1": tvl1}[argv[0]](argv[1:])
+    {"ulp": ulp, "tvl1": tvl1, "mdl": mdl}[argv[0]](argv[1:])
     return 0
 
 
