@@ -66,7 +66,19 @@ The main paths are the headline problem of the repository, single-channel
   masked x-step on ``pgm_iter``); online CDL over five 512x512 samples,
   whose plain x-step runs the fused driver and ``csc_iter``; and the
   dense FISTA models and the learners on vectors (``BPDNDictLearn``,
-  ``WeightedBPDNDictLearn``) on every 8x8 patch of a 256x256 image.
+  ``WeightedBPDNDictLearn``) on every 8x8 patch of a 256x256 image;
+- and the rest of the CSC models, each on its example's problem at
+  512x512 with the headline's filters: ``ConvBPDNJoint`` on a colour
+  image, ``ConvBPDNProjL1`` on ``S = D * X0``, ``MultiDictConvBPDN`` over
+  the headline and its 3x3-blurred view (two 64-filter dictionaries, a
+  colour dictionary with C = 2 on the fused driver and ``csc_iter``),
+  ``ConvBPDNInhib`` with 8 groups of 8 filters, the three CSC-TV models,
+  the four product-dictionary models on a colour image (``B`` the PCA
+  of its pixels or the channel DCT), ``PPP``, ``PPPConsensus`` and
+  ``PPPPGM`` on ``tv_example``'s blurred square with a Tikhonov prior
+  written with ``ops.fft`` (and ``host_prior`` once) and ``SplineL1``
+  through outliers: every 2-D float32 transform of theirs runs
+  ``rfft2_planar``/``irfft2_planar``.
 
 Phases, each printing one JSON line on stdout:
 
@@ -133,7 +145,9 @@ Phases, each printing one JSON line on stdout:
     ``admm_tail``), against the generic solve;
 19. ``clr_kernel``: ``csc_iter`` and ``pgm_iter`` as in ``kernel`` at the
     colour geometries, (pos, C, T) = (4096, 4096, 768) with the colour
-    dictionary's weights and (12288, 4096, 256) with the headline's; the
+    dictionary's weights and (12288, 4096, 256) with the headline's, and
+    ``csc_iter`` at (4096, 4096, 512) with MultiDictConvBPDN's weights
+    (the headline's filters and their 3x3-blurred copies, Cd = 2); the
     adjoint probe first, which sets the rule for ``csc_iter``'s Un (the
     plain version at 1e-5 while A is cuBLAS's bit for bit, else float64,
     :func:`check_csc_iter`);
@@ -226,16 +240,17 @@ then BASELINE configurations 1-3 and the generic dictionary learning:
 then masked, online and patch dictionary learning:
 
 41. ``maskdcpl_parity``: ``ConvBPDNMaskDcpl``, ``ConvL1L1Grd`` and
-    ``ConvMinL1InL2Ball``, 10 iterations in float64 card against CPU
-    (rows 1e-6; X, DX, Y0 and Y1 1e-8 of their scale);
+    ``ConvMinL1InL2Ball`` on a MASKDCPL_PARITY_N crop,
+    MASKDCPL_PARITY_ITERS iterations in float64 card against CPU (rows
+    1e-6; X, DX, Y0 and Y1 1e-8 of their scale);
 42. ``maskdcpl_solve``: each in float32 to 1e-3 (500 iterations at
     most): iterations, objective, ms an iteration (three solves),
     ``rfft2_planar`` 3k + 1 and ``irfft2_planar`` 3k (``ConvL1L1Grd`` 4k
     + 2 and 4k), no other kernel;
 43. ``mdl_parity``: ``ConvBPDNMaskDictLearn`` at the consensus geometry
     (the masked stage's mask), xmethod/dmethod admm/cns, admm/ism,
-    admm/cg and pgm/pgm, 5 outer iterations in float64 card against CPU
-    (every column 1e-6, D and Z 1e-8);
+    admm/cg and pgm/pgm, MDL_PARITY_ITERS outer iterations in float64
+    card against CPU (every column 1e-6, D and Z 1e-8);
 44. ``mdl_solve``: each pair 50 outer iterations in float32: ms an outer
     iteration, filters in the unit ball within 1e-5, the x-step
     objective lower at the end than at the start (admm/cns and pgm/pgm,
@@ -259,7 +274,30 @@ then masked, online and patch dictionary learning:
 47. ``dense_dl_solve``: the same in float32: the models to 1e-3
     (iterations, objective, ms an iteration over three solves), the
     learners 50 outer iterations (ms an outer iteration, atoms of unit
-    norm within 1e-5); no kernel launched.
+    norm within 1e-5); no kernel launched;
+
+then the rest of the CSC models, a pair of phases for each family of
+``REST_FAMILIES`` (``csc_variants``, ``inhib``, ``csctv``, ``pdcsc``,
+``ppp``, ``spline``; the problems of ``rest_problems``):
+
+48-59. ``<family>_parity``: each model of the family, REST_PARITY_ITERS
+    iterations in float64 on a REST_PARITY_N crop of its problem, card
+    against CPU (rows 1e-6, every array 1e-8 of its scale);
+    ``csc_variants_parity`` also MultiDictConvBPDN in float32 on the
+    fused driver at 512x512, 10 iterations through ``csc_iter`` against
+    the CPU's plain version (``clr_parity``'s tolerances);
+    ``<family>_solve``: each in float32 at 512x512 to its example's
+    tolerance or fixed count (iterations, objective, ms an iteration,
+    and that of two more solves of REST_REPEAT_ITERS iterations), the
+    launches ``rest_problems`` predicts from the code,
+    and the quality gate where the example has one (PSNR above the
+    input's for ConvBPDNJoint, the l1 fidelity product models and the
+    Plug-and-Play models; Y in the l1 ball for ConvBPDNProjL1; the views'
+    and the product models' reconstruction error; inhibition's
+    reconstruction error and fewer active coefficients than ConvBPDN's;
+    the spline's fit through outliers; none for the TV models, whose
+    example has none); ``ppp_solve`` also runs PPP with a numpy prior
+    through ``host_prior``, within 1e-4 of the device prior's X.
 
 Each solve sets every kernel's launch count to 0 just before it and
 reads the counts just after.  Then a ``total`` line with the seconds the
@@ -272,7 +310,9 @@ geometry and its launches in the consensus and dictionary learning
 solves, the FFT kernels their numbers at 128x128 and their launches in
 the TV deconvolution solves, and, of this slice, ``csc_iter`` its
 launches in the online solve, ``pgm_iter`` in the masked FISTA learner,
-the FFT kernels in the two-block, masked learner and online solves; the
+the FFT kernels in the two-block, masked learner and online solves, and
+of the last slice ``csc_iter`` its launches in MultiDictConvBPDN's solve
+and the FFT kernels in every model's solve (``csc_rest_launches``); the
 AMS form of
 ``admm_tail`` and the "mixed" forms of ``csc_iter``/``pgm_iter`` are
 entries of their own, with their launches in the fused masked and mixed
@@ -285,8 +325,9 @@ ADMM, fused gradreg and fused masked (AMS) solves, the consensus loop's
 kernel stage (50 outer iterations), and BPDN on 256 signals,
 ``TVL2Denoise``, ``TVL2Deconv`` and the randomized Robust PCA, the
 ``ConvBPDNMaskDcpl`` solve and one outer iteration of
-``ConvBPDNMaskDictLearn`` (admm/cns and pgm/pgm), under
-``torch.profiler`` and report the device's busy and idle share and its
+``ConvBPDNMaskDictLearn`` (admm/cns and pgm/pgm), and ``ConvBPDNJoint``,
+``ConvBPDNScalarTV``, ``ConvProdDictL1L1Grd`` and ``PPP`` at 512x512,
+under ``torch.profiler`` and report the device's busy and idle share and its
 time by kernel.
 """
 
@@ -408,14 +449,16 @@ def _over_budget(signum, frame):
     os._exit(3)
 
 
-def headline_problem(seed=0):
-    """The problem of ``bench.py``'s ``_headline_problem``."""
+def headline_problem(seed=0, n=None):
+    """The problem of ``bench.py``'s ``_headline_problem`` (at n x n, N
+    by default)."""
     from scipy.ndimage import gaussian_filter
+    n = n or N
     rng = np.random.default_rng(seed)
     D = rng.standard_normal((ND, ND, M)).astype(np.float32)
     D /= np.sqrt((D ** 2).sum(axis=(0, 1), keepdims=True))
-    S = gaussian_filter(rng.standard_normal((N, N)), 8.0) * 5.0
-    S += 0.1 * rng.standard_normal((N, N))
+    S = gaussian_filter(rng.standard_normal((n, n)), 8.0) * 5.0
+    S += 0.1 * rng.standard_normal((n, n))
     return D, S.astype(np.float32), LMBDA
 
 
@@ -1531,27 +1574,35 @@ def phase_wl1_spatial_solve(dev, D, S):
         lambda k: dict(rfft2_planar=k + 2, irfft2_planar=k))
 
 
-def colour_problem(seed=1):
-    """The colour problems' data: a 512x512x3 image, three channels of
-    the headline's smoothed noise, and 64 filters of 8x8x3 from a normal
-    draw, each normalised (the shape of the dictionary pack's
-    ``RGB:8x8x3x64``)."""
+def colour_problem(seed=1, n=None):
+    """The colour problems' data: a 512x512x3 image (n x n x 3, N by
+    default), three channels of the headline's smoothed noise, and 64
+    filters of 8x8x3 from a normal draw, each normalised (the shape of
+    the dictionary pack's ``RGB:8x8x3x64``)."""
     from scipy.ndimage import gaussian_filter
+    n = n or N
     rng = np.random.default_rng(seed)
     Dc = rng.standard_normal((ND, ND, 3, M)).astype(np.float32)
     Dc /= np.sqrt((Dc ** 2).sum(axis=(0, 1, 2), keepdims=True))
-    S = np.stack([gaussian_filter(rng.standard_normal((N, N)), 8.0) * 5.0
-                  + 0.1 * rng.standard_normal((N, N)) for _ in range(3)],
+    S = np.stack([gaussian_filter(rng.standard_normal((n, n)), 8.0) * 5.0
+                  + 0.1 * rng.standard_normal((n, n)) for _ in range(3)],
                  axis=-1)
     return Dc, S.astype(np.float32)
+
+
+def colour_weights(dev, Dc):
+    """``xstep_kernels`` of a (ND, ND, C, M) dictionary."""
+    return xstep_kernels(torch.as_tensor(Dc).permute(2, 3, 0, 1)
+                         .contiguous().to(dev), ND, ND, PS)[:2]
 
 
 def phase_clr_kernel(dev, D, Dc):
     """Both packed-state kernels at the colour geometries: T = 768 taps
     (the colour dictionary's weights) and pos = 12288 rows (three image
-    channels folded into the batch, the headline weights)."""
-    Wfc, Wac, _ = xstep_kernels(torch.as_tensor(Dc).permute(2, 3, 0, 1)
-                                .contiguous().to(dev), ND, ND, PS)
+    channels folded into the batch, the headline weights); ``csc_iter``
+    also at T = 512 with MultiDictConvBPDN's weights (Cd = 2, the
+    dictionary its fused solve in ``csc_variants_solve`` builds)."""
+    Wfc, Wac = colour_weights(dev, Dc)
     Wf, Wa, (pos, _, _) = headline_weights(dev, D)
     out = {}
     for label, (wf, wa, p) in (("colour_dict", (Wfc, Wac, pos)),
@@ -1559,6 +1610,9 @@ def phase_clr_kernel(dev, D, Dc):
         out[label] = {"csc_iter": check_csc_iter(dev, wf, wa, p,
                                                  headline=False),
                       "pgm_iter": check_pgm_iter(dev, wf, wa, p)}
+    Wfm, Wam = colour_weights(dev, multidict_dict(D))
+    out["multidict"] = {"csc_iter": check_csc_iter(dev, Wfm, Wam, pos,
+                                                   headline=False)}
     return out
 
 
@@ -2532,9 +2586,9 @@ def _rel_rows(a, c, zero):
             np.abs(a - c) / np.abs(c))))
 
 
-def f64_parity(label, dev, make):
-    """``make(device)`` (a float64 model of 10 iterations) solved on the
-    card and on the CPU: every stats row to rtol 1e-6 (``XSlvRelRes``,
+def f64_parity(label, dev, make, iters=PARITY_ITERS):
+    """``make(device)`` (a float64 model of ``iters`` iterations) solved
+    on the card and on the CPU: every stats row to rtol 1e-6 (``XSlvRelRes``,
     rounding noise, within 1e-12; a ``Cnstr`` at zero skipped; an entry
     within 1e-12 of its column's largest on both sides counts as equal),
     X and Y within 1e-8 of their scale."""
@@ -2544,8 +2598,8 @@ def f64_parity(label, dev, make):
         b.solve()
         runs.append((b.getitstat(), _state_arrays(b)))
     (ig, ag), (ic, ac) = runs
-    if len(ig) != PARITY_ITERS or len(ic) != PARITY_ITERS:
-        raise AssertionError(f"{label}: not {PARITY_ITERS} iterations")
+    if len(ig) != iters or len(ic) != iters:
+        raise AssertionError(f"{label}: not {iters} iterations")
     errs = {}
     for name in ig._names[1:]:
         a, c = getattr(ig, name), getattr(ic, name)
@@ -2554,8 +2608,12 @@ def f64_parity(label, dev, make):
             continue        # the distance to a constraint set: zero
         if name == "XSlvRelRes":
             # the per-bin solve's relative residual: rounding, about
-            # 1e-16; held absolutely, as in the CPU tests
-            errs[name] = float(np.abs(a - c).max())
+            # 1e-16; held absolutely, as in the CPU tests (NaN on both
+            # sides where LinSolveCheck is off)
+            if not np.array_equal(np.isnan(a), np.isnan(c)):
+                raise AssertionError(f"{label}: {name} is NaN on one side")
+            errs[name] = (float(np.nanmax(np.abs(a - c)))
+                          if np.isfinite(c).any() else 0.0)
             if not errs[name] <= 1e-12:
                 raise AssertionError(f"{label}: {name} differs by "
                                      f"{errs[name]:.3e}")
@@ -2935,6 +2993,11 @@ ONLINE_PARITY_SAMPLES, ONLINE_PARITY_ITERS = 2, 3
 MDL_PAIRS = (("admm", "cns"), ("admm", "ism"), ("admm", "cg"),
              ("pgm", "pgm"))
 MDL_CG_ITERS = 10
+# the depth of the two-block models' and the masked learner's float64
+# card-against-CPU checks (a crop, and fewer iterations than PARITY_ITERS
+# and CNS_PARITY_ITERS), to keep the script in its time (PERF.md, 4)
+MASKDCPL_PARITY_N, MASKDCPL_PARITY_ITERS = 256, 3
+MDL_PARITY_ITERS = 2
 # the pairs whose float32 x-step objective, one inner iteration an outer
 # one, falls and then rises over CNS_ITERS outer iterations at this
 # geometry in the JAX package too (on the CPU: (admm, cns) 51815 ->
@@ -2993,19 +3056,24 @@ def two_block_models(D, S, W, Sm):
                                              L1L1_LMBDA),
                         {"mu": L1L1_MU, "wl1": wl1, "wgrd": wgrd}, (4, 2)),
         "ConvMinL1InL2Ball": (tcbpdn.ConvMinL1InL2Ball,
-                              (D, Sg, 1.1 * MINL1_SIGMA * N), {}, (3, 1)),
+                              (D, Sg, 1.1 * MINL1_SIGMA * S.shape[0]), {},
+                              (3, 1)),
     }
 
 
 def phase_maskdcpl_parity(dev, D, S, W, Sm):
-    """Each two-block model, 10 iterations in float64, card against
-    CPU (rows 1e-6, X, DX, Y0 and Y1 within 1e-8 of their scale)."""
+    """Each two-block model on the MASKDCPL_PARITY_N crop of its problem
+    (the top left of S, W and Sm), MASKDCPL_PARITY_ITERS iterations in
+    float64, card against CPU (rows 1e-6, X, DX, Y0 and Y1 within 1e-8
+    of their scale)."""
     errs = {}
+    k, n = MASKDCPL_PARITY_ITERS, MASKDCPL_PARITY_N
+    S, W, Sm = (a[:n, :n] for a in (S, W, Sm))
     for name, (cls, args, kw, _) in two_block_models(D, S, W, Sm).items():
         errs[name] = f64_parity(name, dev, lambda d: cls(
-            *args, opt=cls.options(max_iter=PARITY_ITERS, rel_stop_tol=0.0),
-            dtype=torch.float64, device=d, **kw))
-    return {"iterations": PARITY_ITERS, "dtype": "float64",
+            *args, opt=cls.options(max_iter=k, rel_stop_tol=0.0),
+            dtype=torch.float64, device=d, **kw), iters=k)
+    return {"iterations": k, "side": S.shape[0], "dtype": "float64",
             "rel_err": errs, "tolerance": F64_PARITY}
 
 
@@ -3106,15 +3174,15 @@ def _fixed_cg(d):
 
 def phase_mdl_parity(dev, D0, S, lmbda):
     """ConvBPDNMaskDictLearn at the consensus geometry, each method pair
-    of MDL_PAIRS, CNS_PARITY_ITERS outer iterations in float64, card
+    of MDL_PAIRS, MDL_PARITY_ITERS outer iterations in float64, card
     against CPU (the CG d-step at MDL_CG_ITERS iterations)."""
     W = mdl_mask(S)
     errs = {f"{xm}/{dm}": learner_parity(
         f"ConvBPDNMaskDictLearn ({xm}, {dm})", dev,
         lambda d: _fixed_cg(_mdl(D0, S, W, lmbda, xm, dm, d,
-                                 CNS_PARITY_ITERS, torch.float64)))
+                                 MDL_PARITY_ITERS, torch.float64)))
         for xm, dm in MDL_PAIRS}
-    return {"outer_iterations": CNS_PARITY_ITERS, "dtype": "float64",
+    return {"outer_iterations": MDL_PARITY_ITERS, "dtype": "float64",
             "cg_iterations": MDL_CG_ITERS, "rel_err": errs,
             "tolerance": F64_PARITY}
 
@@ -3399,6 +3467,478 @@ def phase_dense_dl_solve(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The rest of the CSC models: ConvBPDNJoint, ConvBPDNProjL1,
+# MultiDictConvBPDN, ConvBPDNInhib, CSC with TV, product-dictionary CSC,
+# Plug-and-Play and the l1 spline, each problem of its example at
+# 512x512; the float64 card-against-CPU checks on a REST_PARITY_N crop
+
+REST_FAMILIES = ("csc_variants", "inhib", "csctv", "pdcsc", "ppp", "spline")
+# the float64 card-against-CPU checks' side and iterations: at 512x512,
+# or over 10 iterations, their CPU runs put the script past its time
+# (PERF.md, 4)
+REST_PARITY_N, REST_PARITY_ITERS = 256, 3
+REST_REPEAT_ITERS = 30  # iterations of the two repeat solves that time ms
+JOINT_MU = 0.02         # examples/csc_joint_color.py
+PROJL1_DENSITY, PROJL1_NOISE, PROJL1_FRAC = 24 / (64 * 64 * 8), 0.01, 0.9
+PROJL1_TOL = 1e-4       # examples/csc_constrained.py
+INHIB_MU, INHIB_WHN, INHIB_GROUP = 0.5, 8, 8    # examples/csc_inhibition.py
+INHIB_ITERS = 100       # a fixed count, as the example (the residuals
+#                         stall: tests/test_torch_cbpdnin.py)
+TV_MU = 0.02            # examples/csc_tv.py
+PD_LMBDA, PD_JOINT_MU = 0.05, 0.02              # csc_product_dict.py
+PDG_LMBDA, PDG_MU, PDG_MU2, PDG_RHO = 1.4, 9.0, 2e-2, 10.0
+PDG_ITERS, PDG_FRC = 60, 0.2    # csc_impulse_pd_dct.py (a fixed count:
+#                                 the dual residual stalls by design)
+PPP_RHO, PPP_LAM, PPP_ITERS = 0.05, 0.02, 100   # ppp_denoise.py
+PPPPGM_L, PPPPGM_TOL = 1.0, 1e-5                # ppp_pgm.py
+SPLINE_LMBDA, SPLINE_ITERS, SPLINE_TOL = 0.1, 250, 5e-4
+SPLINE_OUTLIERS = 20 / 64 ** 2  # misc_spline_demosaic.py's 20 of 64x64
+# the reconstruction error below which the examples' CSC solves pass
+# (examples/csc_multidict.py, csc_product_dict.py); inhibition is held
+# to the same
+REC_ERR = 0.8
+
+
+def _box_blur(a, k, n):
+    """``a``'s two leading axes circularly convolved with the k x k box."""
+    h = np.ones((k, k)) / k ** 2
+    hf = np.fft.rfft2(h, s=(n, n))
+    hf = hf.reshape(hf.shape + (1,) * (a.ndim - 2))
+    return np.fft.irfft2(np.fft.rfft2(a, axes=(0, 1)) * hf, s=(n, n),
+                         axes=(0, 1))
+
+
+def multidict_dict(D):
+    """MultiDictConvBPDN's two dictionaries, the headline's filters and
+    their 3x3 box blur, stacked on the channel axis as the model stacks
+    them: (ND, ND, 2, M)."""
+    return np.stack([D, _box_blur(D, 3, ND).astype(np.float32)], axis=2)
+
+
+def _unit(img):
+    return ((img - img.min()) / np.ptp(img)).astype(np.float32)
+
+
+def _rec_err(rec, ref):
+    return float(np.linalg.norm(rec - ref) / np.linalg.norm(ref))
+
+
+def _csc_sum(D, X, n):
+    """sum_m d_m * x_m, circular, for (ND, ND, M) filters and (n, n, M)
+    maps."""
+    return np.fft.irfft2((np.fft.rfft2(X, axes=(0, 1))
+                          * np.fft.rfft2(D, s=(n, n), axes=(0, 1))).sum(-1),
+                         s=(n, n))
+
+
+def ppp_problem(n):
+    """``tv_example``'s blurred square at n x n (the 5x5 box, noise 0.02)
+    as Plug-and-Play problems, the data term by the DFT and a Tikhonov
+    gradient smoother as the prior, written with the port's ops.fft:
+    the clean and noisy images, the smoother's DFT-domain weight ``G``
+    and, for each model, ``make(device, dtype, max_iter, tol)`` (PPP's
+    also takes another ``prior``)."""
+    from sporco_tpu_torch.models import ppp
+    img, h, noisy, _ = tv_example(n)
+    gr = np.zeros((n, n))
+    gr[0, 0], gr[1, 0] = -1, 1
+    gc = np.zeros((n, n))
+    gc[0, 0], gc[0, 1] = -1, 1
+    consts = {"A": np.fft.rfft2(h, s=(n, n)), "F": np.fft.rfft2(noisy),
+              "G": np.abs(np.fft.rfft2(gr)) ** 2
+              + np.abs(np.fft.rfft2(gc)) ** 2}
+
+    def fns(d, dt):
+        cdt = tsf.complex_dtype(tsf.torch_dtype(dt))
+        A, F = (torch.as_tensor(consts[k]).to(d, cdt) for k in "AF")
+        G = torch.as_tensor(consts["G"]).to(d, tsf.torch_dtype(dt))
+
+        def f(x):
+            return 0.5 * (abs(A * tsf.rfftn(x) - F) ** 2).sum() / x.numel()
+
+        def proxf(x, rho):
+            return tsf.irfftn((A.conj() * F + rho * tsf.rfftn(x))
+                              / (abs(A) ** 2 + rho), (n, n))
+
+        def prior(x, rho):
+            return tsf.irfftn(tsf.rfftn(x) / (1.0 + (PPP_LAM / rho) * G),
+                              (n, n))
+
+        def gradf(x):
+            return tsf.irfftn(A.conj() * (A * tsf.rfftn(x) - F), (n, n))
+        return f, proxf, prior, gradf
+
+    def opt(cls, it, tol, **kw):
+        return cls.options(max_iter=it, rel_stop_tol=tol, **kw)
+
+    def make_ppp(d, dt, it, tol, prior=None):
+        f, proxf, tik, _ = fns(d, dt)
+        return ppp.PPP((n, n), f, proxf, prior or tik, dtype=dt, device=d,
+                       opt=opt(ppp.PPP, it, tol, rho=PPP_RHO))
+
+    def make_pppc(d, dt, it, tol):
+        _, proxf, prior, _ = fns(d, dt)
+        return ppp.PPPConsensus((n, n), [proxf, prior], dtype=dt, device=d,
+                                opt=opt(ppp.PPPConsensus, it, tol,
+                                        rho=PPP_RHO))
+
+    def make_pppg(d, dt, it, tol):
+        f, _, prior, gradf = fns(d, dt)
+        return ppp.PPPPGM((n, n), f, gradf, prior, dtype=dt, device=d,
+                          opt=opt(ppp.PPPPGM, it, tol, L=PPPPGM_L))
+    return {"img": img, "noisy": noisy, "G": consts["G"], "PPP": make_ppp,
+            "PPPConsensus": make_pppc, "PPPPGM": make_pppg}
+
+
+_REST = {}
+
+
+def rest_problems(n):
+    """The problems of this slice at n x n, from seeds: name -> (family,
+    ``make(device, dtype, max_iter, tol)``, the launches a solve of k
+    iterations must make, the quality gate ``gate(model) -> dict`` (an
+    AssertionError where it fails), the iterations and tolerance of a
+    whole solve).  Each family's problem is its example's, with the
+    headline's filters (64 of 8x8) and images."""
+    if (n, M) in _REST:
+        return _REST[(n, M)]
+    from sporco_tpu_torch.models import cbpdnin, cbpdntv, pdcsc
+    from sporco_tpu_torch.models import spline
+    from sporco_tpu_torch.ops import linalg as tla
+    from sporco_tpu_torch.utils import signal as tsig
+    D, S, _ = headline_problem(n=n)
+    _, S3 = colour_problem(n=n)
+    rng = np.random.default_rng(7)
+    out = {}
+
+    def opt(cls, max_iter, tol, **kw):
+        return cls.options(max_iter=max_iter, rel_stop_tol=tol, **kw)
+
+    def none(b):
+        return {}
+
+    def psnr_gate(label, ref, noisy, rec):
+        got, base = psnr(ref, rec), psnr(ref, noisy)
+        if not got > base:
+            raise AssertionError(f"{label}: PSNR {got} not above the "
+                                 f"input's {base}")
+        return {"psnr": got, "psnr_input": base}
+
+    # -- csc_variants
+    S3n = S3 + 0.1 * rng.standard_normal(S3.shape).astype(np.float32)
+
+    def joint_gate(b):
+        return psnr_gate("ConvBPDNJoint", S3, S3n,
+                         b.reconstruct().cpu().numpy())
+    out["ConvBPDNJoint"] = ("csc_variants", lambda d, dt, it, tol:
+                            tcbpdn.ConvBPDNJoint(
+                                D, S3n, LMBDA, JOINT_MU, dimK=0, dtype=dt,
+                                device=d, opt=opt(tcbpdn.ConvBPDNJoint, it,
+                                                  tol)),
+                            lambda k: {"rfft2_planar": k + 2,
+                                       "irfft2_planar": k}, joint_gate,
+                            MAX_ITER, REL_TOL)
+    X0 = np.zeros((n, n, M))
+    nnz = max(1, int(round(PROJL1_DENSITY * X0.size)))
+    X0.ravel()[rng.choice(X0.size, nnz, replace=False)] = rng.uniform(
+        1.0, 2.0, nnz)
+    Sp = (_csc_sum(D, X0, n) + PROJL1_NOISE * rng.standard_normal(
+        (n, n))).astype(np.float32)
+    gamma = PROJL1_FRAC * float(np.abs(X0).sum())
+
+    def projl1_gate(b):
+        l1 = float(b.getmin().abs().sum())
+        if not l1 <= gamma * (1 + 1e-5):
+            raise AssertionError(f"ConvBPDNProjL1: ||Y||_1 {l1} over "
+                                 f"gamma {gamma}")
+        return {"l1": l1, "gamma": gamma}
+    out["ConvBPDNProjL1"] = ("csc_variants", lambda d, dt, it, tol:
+                             tcbpdn.ConvBPDNProjL1(
+                                 D, Sp, gamma, dtype=dt, device=d,
+                                 opt=opt(tcbpdn.ConvBPDNProjL1, it, tol)),
+                             lambda k: {"rfft2_planar": k + 2,
+                                        "irfft2_planar": k}, projl1_gate,
+                             MAX_ITER, PROJL1_TOL)
+    # the second view: the image and the filters under a 3x3 box blur
+    Dmd = multidict_dict(D)
+    S1 = _box_blur(S, 3, n).astype(np.float32)
+
+    def multidict_gate(b):
+        errs = [_rec_err(b.reconstruct(k).cpu().numpy().squeeze(), ref)
+                for k, ref in enumerate((S, S1))]
+        if not max(errs) < REC_ERR:
+            raise AssertionError(f"MultiDictConvBPDN: errors {errs}")
+        return {"rel_err_views": errs}
+    out["MultiDictConvBPDN"] = ("csc_variants", lambda d, dt, it, tol:
+                                tcbpdn.MultiDictConvBPDN(
+                                    ConvBPDN, [Dmd[:, :, 0], Dmd[:, :, 1]],
+                                    [S, S1], LMBDA, dtype=dt, device=d,
+                                    opt=opt(ConvBPDN, it, tol)),
+                                lambda k: {"csc_iter": k,
+                                           "rfft2_planar": k + 3,
+                                           "irfft2_planar": k + 1},
+                                multidict_gate, MAX_ITER, REL_TOL)
+    # -- inhib: 8 groups of 8 filters, lateral inhibition; the example
+    # sets it beside ConvBPDN of the same lambda and iterations
+    Wg = np.kron(np.eye(M // INHIB_GROUP), np.ones((1, INHIB_GROUP)))
+
+    def inhib_gate(b):
+        X = b.getmin()
+        err = _rec_err(_csc_sum(D, X.cpu().numpy().reshape(n, n, M), n), S)
+        plain = ConvBPDN(D, S, LMBDA, device=X.device, opt=opt(
+            ConvBPDN, INHIB_ITERS, 0.0))
+        plain.solve()
+        nz = int((X.abs() > 1e-3).sum())
+        nz_plain = int((plain.getmin().abs() > 1e-3).sum())
+        if not (err < REC_ERR and nz < nz_plain):
+            raise AssertionError(
+                f"ConvBPDNInhib: error {err}, {nz} active coefficients "
+                f"(ConvBPDN {nz_plain})")
+        return {"rel_err": err, "nonzeros": nz,
+                "nonzeros_convbpdn": nz_plain}
+    out["ConvBPDNInhib"] = ("inhib", lambda d, dt, it, tol:
+                            cbpdnin.ConvBPDNInhib(
+                                D, S, Wg=Wg, Whn=INHIB_WHN, lmbda=LMBDA,
+                                mu=INHIB_MU, dtype=dt, device=d,
+                                opt=opt(cbpdnin.ConvBPDNInhib, it, tol)),
+                            lambda k: {"rfft2_planar": 2 * k + 2,
+                                       "irfft2_planar": 2 * k}, inhib_gate,
+                            INHIB_ITERS, 0.0)
+    # -- csctv (the example prints its solves and checks nothing)
+    for name in ("ConvBPDNScalarTV", "ConvBPDNVectorTV", "ConvBPDNRecTV"):
+        cls = getattr(cbpdntv, name)
+        fwd = 4 if name == "ConvBPDNRecTV" else 3
+        out[name] = ("csctv", lambda d, dt, it, tol, cls=cls: cls(
+            D, S, LMBDA, TV_MU, dtype=dt, device=d, opt=opt(cls, it, tol)),
+            lambda k, fwd=fwd: {"rfft2_planar": fwd * k + 3,
+                                "irfft2_planar": 4 * k}, none, MAX_ITER,
+            REL_TOL)
+    # -- pdcsc: the colour image in [0, 1]; B from the PCA of its pixels
+    # (or the channel DCT); the plain forms on its high-pass part, the
+    # l1 fidelity forms on its salt-and-pepper corruption with an impulse
+    # filter carrying the smooth part
+    imc = _unit(S3)
+    pix = torch.as_tensor(imc.reshape(-1, 3).T.astype(np.float64))
+    Bpca = tla.pca(pix)[0].numpy().astype(np.float32)
+    # the orthonormal DCT-II basis of the three channels, atoms in columns
+    Bdct = tsf._dct_matrix(3, torch.float32, "cpu").T.numpy()
+    _, sh = tsig.tikhonov_filter(imc.transpose(2, 0, 1), 5.0)
+    sh = sh.numpy().transpose(1, 2, 0)
+    spn = tsig.spnoise(imc, PDG_FRC, u=rng.random(imc.shape)).numpy()
+    imp = np.zeros((ND, ND, 1), np.float32)
+    imp[0, 0, 0] = 1.0
+    Di = np.concatenate([D, imp], axis=-1)
+    wl1 = np.ones((1, 1, 1, 1, M + 1), np.float32)
+    wl1[..., -1] = 0.0
+    wgrd = np.zeros(M + 1, np.float32)
+    wgrd[-1] = 1.0
+
+    def pd_rec(b):
+        return b.reconstruct()[0, :, 0].cpu().numpy().transpose(1, 2, 0)
+
+    def pd_gate(b):
+        err = _rec_err(pd_rec(b), sh)
+        if not err < REC_ERR:
+            raise AssertionError(f"product dictionary: error {err}")
+        return {"rel_err": err}
+
+    def pdg_gate(b):
+        return psnr_gate("product dictionary l1", imc, spn, pd_rec(b))
+    for name, B, kw in (("ConvProdDictBPDN", Bpca, {}),
+                        ("ConvProdDictBPDNJoint", Bpca,
+                         {"mu": PD_JOINT_MU})):
+        cls = getattr(pdcsc, name)
+        out[name] = ("pdcsc", lambda d, dt, it, tol, cls=cls, B=B, kw=kw:
+                     cls(D, B, sh, PD_LMBDA, dimK=0, dtype=dt, device=d,
+                         opt=opt(cls, it, tol), **kw),
+                     lambda k: {"rfft2_planar": k + 2, "irfft2_planar": k},
+                     pd_gate, MAX_ITER, REL_TOL)
+    for name, B, kw in (("ConvProdDictL1L1Grd", Bdct, {}),
+                        ("ConvProdDictL1L1GrdJoint", Bpca,
+                         {"mu2": PDG_MU2})):
+        cls = getattr(pdcsc, name)
+        out[name] = ("pdcsc", lambda d, dt, it, tol, cls=cls, B=B, kw=kw:
+                     cls(Di, B, spn, PDG_LMBDA, mu=PDG_MU, dimK=0, wl1=wl1,
+                         wgrd=wgrd, dtype=dt, device=d,
+                         opt=opt(cls, it, tol, rho=PDG_RHO), **kw),
+                     lambda k: {"rfft2_planar": 3 * k + 2,
+                                "irfft2_planar": 3 * k},
+                     pdg_gate, PDG_ITERS, 0.0)
+    # -- ppp
+    pp = ppp_problem(n)
+
+    def ppp_gate(b):
+        return psnr_gate("PPP", pp["img"], pp["noisy"],
+                         b.getmin().cpu().numpy())
+    for name, want, tol in (
+            ("PPP", lambda k: {"rfft2_planar": 3 * k,
+                               "irfft2_planar": 2 * k}, REL_TOL),
+            ("PPPConsensus", lambda k: {"rfft2_planar": 2 * k,
+                                        "irfft2_planar": 2 * k}, REL_TOL),
+            ("PPPPGM", lambda k: {"rfft2_planar": 3 * k,
+                                  "irfft2_planar": 2 * k}, PPPPGM_TOL)):
+        out[name] = ("ppp", pp[name], want, ppp_gate, PPP_ITERS, tol)
+    # -- spline: cos x cos y with outliers, DFidWeight 0 on them
+    x = np.cos(np.linspace(0, np.pi, n))[np.newaxis, :]
+    U = x * x.T
+    V = rng.standard_normal((n, n))
+    L = max(1, int(round(SPLINE_OUTLIERS * V.size)))
+    V[np.abs(V) < np.sort(np.abs(V).ravel())[V.size - L]] = 0
+    Ssp = (U + V).astype(np.float32)
+    Wdf = (V == 0).astype(np.float32)
+
+    def spline_gate(b):
+        fit = float(np.mean((b.getmin().cpu().numpy() - U) ** 2))
+        base = float(np.mean((Ssp - U) ** 2))
+        if not fit < base:
+            raise AssertionError(f"SplineL1: fit mse {fit} not below the "
+                                 f"input's {base}")
+        return {"fit_mse": fit, "input_mse": base}
+    out["SplineL1"] = ("spline", lambda d, dt, it, tol: spline.SplineL1(
+        Ssp, SPLINE_LMBDA, Wdf=Wdf, dtype=dt, device=d,
+        opt=opt(spline.SplineL1, it, tol)), lambda k: {}, spline_gate,
+        SPLINE_ITERS, SPLINE_TOL)
+    _REST[(n, M)] = out
+    return out
+
+
+REST_PROFILED = ("ConvBPDNJoint", "ConvBPDNScalarTV", "ConvProdDictL1L1Grd",
+                 "PPP")
+
+
+def rest_profiles(dev, run_phase):
+    """``--profile``'s phases of the last slice: a float32 solve of
+    REST_REPEAT_ITERS iterations of each model of REST_PROFILED."""
+    probs = rest_problems(N)
+    for name in REST_PROFILED:
+        make = probs[name][1]
+        run_phase(f"{name}_profile", lambda: phase_profile(
+            dev, lambda: make(dev, "float32", REST_REPEAT_ITERS, 0.0)))
+
+
+def _model(b):
+    """The model a wrapper holds (MultiDictConvBPDN's ConvBPDN)."""
+    return getattr(b, "cbpdn", b)
+
+
+def multidict_f32_parity(dev, make):
+    """MultiDictConvBPDN in float32, 10 iterations on the fused driver:
+    ``csc_iter`` at Cd = 2 on the card against its plain version on the
+    CPU, with ``clr_parity``'s tolerances."""
+    label = "MultiDictConvBPDN float32"
+    k = PARITY_ITERS
+    runs = []
+    for d in (dev, "cpu"):
+        b = make(d, "float32", k, 0.0)
+        if d is dev:
+            counts = _timed(b)[1]
+            expect_launches(label, counts, csc_iter=k, rfft2_planar=k + 3,
+                            irfft2_planar=k + 1)
+        else:
+            b.solve()
+        m = _model(b)
+        runs.append((b.getitstat(), {"Y": m.state.Y.cpu().numpy(),
+                                     "X": m.state.X.cpu().numpy()}))
+    return compare_runs(label, runs, ("ObjFun", "DFid", "RegL1", "Rho",
+                                      "PrimalRsdl", "DualRsdl"), PARITY)
+
+
+def phase_rest_parity(dev, family):
+    """Each model of ``family``, REST_PARITY_ITERS iterations in float64
+    on the REST_PARITY_N crop, card against CPU (rows 1e-6; X, Y and every
+    block within 1e-8 of their scale); for ``csc_variants`` also
+    MultiDictConvBPDN's fused float32 solve at N x N through ``csc_iter``
+    (``multidict_f32_parity``)."""
+    errs = {}
+    for name, (fam, make, *_rest) in rest_problems(REST_PARITY_N).items():
+        if fam != family:
+            continue
+        errs[name] = f64_parity(name, dev, lambda d: _model(make(
+            d, "float64", REST_PARITY_ITERS, 0.0)), iters=REST_PARITY_ITERS)
+    out = {"iterations": REST_PARITY_ITERS, "dtype": "float64",
+           "side": REST_PARITY_N, "rel_err": errs, "tolerance": F64_PARITY}
+    if family == "csc_variants":
+        out["multidict_float32"] = {
+            "iterations": PARITY_ITERS, "side": N, "tolerance": PARITY,
+            "rel_err": multidict_f32_parity(
+                dev, rest_problems(N)["MultiDictConvBPDN"][1])}
+    return out
+
+
+def _rest_record(b, wall, counts, max_iter):
+    its = b.getitstat()
+    k = len(its)
+    names = its._names
+    arr = its._arr
+    nobj = len(_model(b).STAT_NAMES)
+    cols = [i for i in range(1, 1 + nobj) if names[i] != "XSlvRelRes"]
+    if not (np.all(np.isfinite(arr[:, cols]))
+            and all(bool(torch.isfinite(v).all()) for v in _tree_leaves(
+                _model(b).state.X, _model(b).state.Y))):
+        raise AssertionError(f"{type(b).__name__}: not finite")
+    return {"iterations": k, "converged": k < max_iter,
+            "final_objective": float(arr[-1, 1]),
+            "objective_name": names[1], "wall_s": wall,
+            "ms_per_iter": 1e3 * wall / k, "launches": counts}
+
+
+def phase_rest_solve(dev, family):
+    """Each model of ``family`` at N x N in float32 to its example's
+    tolerance (or a fixed count): iterations, objective, ms an iteration
+    (this solve's and two more of REST_REPEAT_ITERS iterations each), the
+    launches predicted from the code (``rest_problems``) and the quality
+    gate; ``ppp`` also runs ``host_prior`` once."""
+    out = {}
+    for name, (fam, make, want, gate, max_iter, tol) in rest_problems(
+            N).items():
+        if fam != family:
+            continue
+        make(dev, "float32", 3, 0.0).solve()
+        b = make(dev, "float32", max_iter, tol)
+        wall, counts = _timed(b)
+        rec = _rest_record(b, wall, counts, max_iter)
+        expect_launches(name, counts, **want(rec["iterations"]))
+        reps = []
+        for _ in range(2):
+            r = make(dev, "float32", REST_REPEAT_ITERS, 0.0)
+            w, _ = _timed(r)
+            reps.append(1e3 * w / len(r.getitstat()))
+        rec["ms_per_iter_repeats"] = reps
+        rec["repeat_iterations"] = REST_REPEAT_ITERS
+        rec.update(gate(b))
+        out[name] = rec
+    if family == "ppp":
+        out["host_prior"] = _host_prior_run(dev, ppp_problem(N))
+    return out
+
+
+def _host_prior_run(dev, pp):
+    """PPP with its prior as a numpy function through ``host_prior`` (each
+    call a round trip through the host: the same Tikhonov smoother by
+    ``numpy.fft`` in float64), 10 iterations, against the prior on the
+    card: X within 1e-4 of its scale; the transforms left on the card are
+    the data prox's and f's (2 forward, 1 inverse an iteration)."""
+    from sporco_tpu_torch.models import ppp
+    k = PARITY_ITERS
+    b = pp["PPP"](dev, "float32", k, 0.0)
+    b.solve()
+
+    def numpy_prior(x):
+        xf = np.fft.rfft2(x) / (1.0 + (PPP_LAM / PPP_RHO) * pp["G"])
+        return np.fft.irfft2(xf, s=x.shape).astype(x.dtype)
+    h = pp["PPP"](dev, "float32", k, 0.0, prior=ppp.host_prior(numpy_prior))
+    wall, counts = _timed(h)
+    expect_launches("host_prior", counts, rfft2_planar=2 * k,
+                    irfft2_planar=k)
+    Xd, Xh = b.getmin(), h.getmin()
+    err = float((Xd - Xh).abs().max() / Xd.abs().max())
+    if not err <= 1e-4:
+        raise AssertionError(f"host_prior: X differs by {err:.3e}")
+    return {"iterations": k, "rel_err_vs_device_prior": err,
+            "ms_per_iter": 1e3 * wall / k, "launches": counts}
+
+
 def phase_profile(dev, make_model):
     """A solve under ``torch.profiler``: device busy time (the sum of
     every kernel's and copy's time on the card) against the solve's wall
@@ -3502,6 +4042,20 @@ def dictlrn_launches(summary, csc, pgm, ffts):
             entry[key] = by_model(phase, entry["name"])
 
 
+def rest_launches(summary, csc, ffts):
+    """Add to the kernels line's entries their launches in this slice's
+    solves: ``csc_iter`` in MultiDictConvBPDN's fused colour solve, the
+    FFT kernels in every model's solve, by model."""
+    csc["multidict_launches"] = summary["csc_variants_solve"][
+        "MultiDictConvBPDN"]["launches"]["csc_iter"]
+    for entry in ffts:
+        entry["csc_rest_launches"] = {
+            model: rec["launches"][entry["name"]]
+            for family in REST_FAMILIES
+            for model, rec in summary[f"{family}_solve"].items()
+            if isinstance(rec, dict) and "launches" in rec}
+
+
 def kernels_line(summary):
     """The ``{"kernels": [...]}`` line from the phases' results: each
     kernel's headline numbers and main-path launches; ``csc_iter`` and
@@ -3532,8 +4086,9 @@ def kernels_line(summary):
     for entry in (csc, pgm):
         name = entry["name"]
         entry["colour_geometries"] = {
-            label: geometry_entry(summary["clr_kernel"][label][name])
-            for label in ("colour_dict", "folded")}
+            label: geometry_entry(kern[name])
+            for label, kern in summary["clr_kernel"].items()
+            if isinstance(kern, dict) and name in kern}
         entry["colour_launches"] = {
             label: counts[name] for label, counts in fused_launches.items()
             if counts[name]}
@@ -3581,6 +4136,7 @@ def kernels_line(summary):
     csc["handover_launches"] = \
         summary["dictlrn_handover"]["launches"]["csc_iter"]
     dictlrn_launches(summary, csc, pgm, ffts)
+    rest_launches(summary, csc, ffts)
     return {"kernels": [
         csc, pgm, *ffts,
         kernel_entry("admm_tail", summary["tail_kernel"],
@@ -3720,6 +4276,11 @@ def main(argv):
     run_phase("dense_dl_parity", lambda: phase_dense_dl_parity(dev))
     summary["dense_dl_solve"] = run_phase(
         "dense_dl_solve", lambda: phase_dense_dl_solve(dev))
+    for family in REST_FAMILIES:
+        run_phase(f"{family}_parity",
+                  lambda: phase_rest_parity(dev, family))
+        summary[f"{family}_solve"] = run_phase(
+            f"{family}_solve", lambda: phase_rest_solve(dev, family))
     if "--profile" in argv:
         def admm(**kw):
             return lambda: ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(
@@ -3750,6 +4311,7 @@ def main(argv):
         for xm, dm in (("admm", "cns"), ("pgm", "pgm")):
             run_phase(f"mdl_{xm}_{dm}_profile", lambda: phase_profile(
                 dev, lambda: _mdl(D0c, Sc, Wc, lc, xm, dm, dev, 1)))
+        rest_profiles(dev, run_phase)
     PHASE["name"] = "kernels"
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line(summary))

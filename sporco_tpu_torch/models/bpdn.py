@@ -18,7 +18,7 @@ import torch
 from sporco_tpu_torch import refopts
 from sporco_tpu_torch._device import fp32_precision, resolve_device
 from sporco_tpu_torch.models.common import (ADMMModel, default_rho_xi,
-                                            user_tensor)
+                                            user_tensor, warm_start)
 from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import linalg as sl
 from sporco_tpu_torch.ops import prox as sp
@@ -113,10 +113,6 @@ def _dense(D, S, dtype, device):
     return D, S
 
 
-def _warm(A, dtype, device):
-    return None if A is None else user_tensor(A, dtype, device)
-
-
 def _bpdn_options(rsdl_target=None, **kw):
     """ADMM options with the BPDN family's defaults: RelaxParam 1.8,
     AutoRho enabled with AutoScaling, Scaling 1000, RsdlRatio 1.2,
@@ -190,8 +186,8 @@ class BPDN(ADMMModel):
                   else default_rho_xi(lmbda))
         self.state = init_state(self.problem, self.cfg, self.params,
                                 self.opts, rho0, rho_xi,
-                                Y0=_warm(Y0, dtype, self.device),
-                                U0=_warm(U0, dtype, self.device))
+                                Y0=warm_start(Y0, dtype, self.device),
+                                U0=warm_start(U0, dtype, self.device))
         self._init_done()
 
     def getmin(self):

@@ -1,8 +1,9 @@
-"""Convolutional sparse coding via ADMM: ``ConvBPDN``, ``ConvElasticNet``
-and ``ConvBPDNGradReg``, masked CSC over any of them by Additive Mask
-Simulation, ``AddMaskSim``, and the two-block models ``ConvBPDNMaskDcpl``,
-``ConvL1L1Grd`` and ``ConvMinL1InL2Ball`` (counterpart of
-``sporco_tpu.models.cbpdn``).
+"""Convolutional sparse coding via ADMM: ``ConvBPDN``, ``ConvBPDNJoint``,
+``ConvElasticNet``, ``ConvBPDNGradReg`` and ``ConvBPDNProjL1``, masked CSC
+over any of them by Additive Mask Simulation, ``AddMaskSim``, joint
+coding against several dictionaries, ``MultiDictConvBPDN``, and the
+two-block models ``ConvBPDNMaskDcpl``, ``ConvL1L1Grd`` and
+``ConvMinL1InL2Ball`` (counterpart of ``sporco_tpu.models.cbpdn``).
 
 Each variant (``l1``, ``elastic``, ``gradreg``) runs two ways, routed as
 the JAX package routes them:
@@ -20,7 +21,7 @@ the JAX package routes them:
   or its torch ops);
 - the generic DFT-domain ADMM problem (``_csc_*`` below) on the generic
   driver :func:`sporco_tpu_torch.solvers.admm.admm_solve` for every other
-  configuration (``fused=False``, ``no_bndry``, ``lin_check``,
+  configuration (the ``joint`` and ``projl1`` variants, ``fused=False``, ``no_bndry``, ``lin_check``,
   ``obj_from_x=False``, float64, complex inputs, other sizes, large
   supports, any K and C, 1-3 spatial dims).  Its x-step is one forward
   and one inverse FFT per iteration (2-D ones run the CUDA kernels
@@ -64,16 +65,16 @@ from sporco_tpu_torch.solvers.admm import (ADMMOpts, ADMMProblem,
                                            scalar_type, tree_norm)
 from sporco_tpu_torch.utils.signal import gradient_filters
 
-__all__ = ["ConvBPDN", "ConvElasticNet", "ConvBPDNGradReg",
-           "ConvBPDNMaskDcpl", "ConvL1L1Grd", "ConvMinL1InL2Ball",
-           "AddMaskSim", "CSCConfig", "CSC2Config", "params_from_numpy",
-           "reconstruct"]
+__all__ = ["ConvBPDN", "ConvBPDNJoint", "ConvElasticNet", "ConvBPDNGradReg",
+           "ConvBPDNProjL1", "ConvBPDNMaskDcpl", "ConvL1L1Grd",
+           "ConvMinL1InL2Ball", "AddMaskSim", "MultiDictConvBPDN",
+           "CSCConfig", "CSC2Config", "params_from_numpy", "reconstruct"]
 
 
 @dataclass(frozen=True)
 class CSCConfig:
     cri: cr.CSCIndex
-    variant: str = "l1"       # l1 | elastic | gradreg
+    variant: str = "l1"       # l1 | joint | elastic | gradreg | projl1
     non_neg: bool = False
     no_bndry: bool = False
     obj_from_x: bool = True
@@ -192,9 +193,24 @@ def _apply_masks(cfg, Y):
     return Y
 
 
+def _projl1_axes(cfg):
+    """The axes of ``projl1``'s l1 ball: the filters and the spatial
+    axes, per signal and channel (``sporco/admm/cbpdn.py:1373``)."""
+    return (2,) + tuple(range(3, 3 + cfg.cri.dimN))
+
+
 def _csc_ystep(cfg, aux, params, state, AXU):
     thr = float(aux["lmbda"] / state.rho)
-    Y = _apply_masks(cfg, sp.prox_l1(AXU, thr * params["wl1"]))
+    if cfg.variant == "projl1":
+        Y = sp.proj_l1(AXU, params["gamma"], axis=_projl1_axes(cfg))
+    elif cfg.variant == "joint":
+        # l1 and l2,1 over the channels (sporco/admm/cbpdn.py:760)
+        Y = sp.prox_sl1l2(AXU, thr * params["wl1"],
+                          float(aux["mu"] / state.rho) * params["wl21"],
+                          axis=1)
+    else:
+        Y = sp.prox_l1(AXU, thr * params["wl1"])
+    Y = _apply_masks(cfg, Y)
     if cfg.ams_nimp:
         # Additive Mask Simulation: the impulse maps take the unshrunk
         # (1 - W)(AX + U), absorbing the residual where the mask is zero
@@ -220,9 +236,16 @@ def _csc_obfn(cfg, aux, params, state, xaux):
         fvarf = _fwd(cfg)(state.Y, axes=_fftaxes(cfg.cri))
         gvar = state.Y
     dfd = _csc_dfd(cfg, aux, fvarf)
-    rl1 = torch.sum(torch.abs(params["wl1"] * gvar))
     xr = xaux["xrrs"] if cfg.lin_check else np.nan
+    if cfg.variant == "projl1":
+        prj = sp.proj_l1(gvar, params["gamma"], axis=_projl1_axes(cfg))
+        return (dfd, torch.linalg.vector_norm((prj - gvar).reshape(-1)), xr)
+    rl1 = torch.sum(torch.abs(params["wl1"] * gvar))
     lmbda, mu = float(aux["lmbda"]), float(aux["mu"])
+    if cfg.variant == "joint":
+        rl21 = torch.sum(params["wl21"] * torch.sqrt(
+            torch.sum(torch.abs(gvar) ** 2, dim=1)))
+        return (dfd + lmbda * rl1 + mu * rl21, dfd, rl1, rl21, xr)
     if cfg.variant == "elastic":
         rl2 = 0.5 * torch.sum(gvar ** 2)
         return (dfd + lmbda * rl1 + mu * rl2, dfd, rl1, rl2, xr)
@@ -240,8 +263,10 @@ def _csc_yinit(cfg, params):
 
 _STATS = {
     "l1": ("ObjFun", "DFid", "RegL1", "XSlvRelRes"),
+    "joint": ("ObjFun", "DFid", "RegL1", "RegL21", "XSlvRelRes"),
     "elastic": ("ObjFun", "DFid", "RegL1", "RegL2", "XSlvRelRes"),
     "gradreg": ("ObjFun", "DFid", "RegL1", "RegGrad", "XSlvRelRes"),
+    "projl1": ("DFid", "Cnstr", "XSlvRelRes"),
 }
 
 _CSC_PROBLEMS = {
@@ -355,9 +380,10 @@ class ConvBPDN(ADMMModel):
         return ADMMOpts(**base)
 
     def __init__(self, D, S, lmbda=None, opt=None, dimK=None, dimN=2,
-                 wl1=1.0, mu=0.0, wgrd=1.0, non_neg=False, no_bndry=False,
-                 lin_check=False, dtype=torch.float32, Y0=None, U0=None,
-                 fused="auto", obj_from_x=True, device=None):
+                 wl1=1.0, mu=0.0, wl21=1.0, wgrd=1.0, gamma=None,
+                 non_neg=False, no_bndry=False, lin_check=False,
+                 dtype=torch.float32, Y0=None, U0=None, fused="auto",
+                 obj_from_x=True, device=None):
         super().__init__()
         self.device = resolve_device(device)
         if opt is None:
@@ -367,6 +393,11 @@ class ConvBPDN(ADMMModel):
                                               self.device, dtype, mu=mu,
                                               wgrd=wgrd)
         dtype = params["S"].dtype
+        rnp = sf.numpy_dtype(sf.real_dtype(dtype))
+        params["wl21"] = torch.as_tensor(np.asarray(wl21, rnp)).to(
+            self.device)
+        params["gamma"] = scalar_type(dtype)(0.0 if gamma is None
+                                             else gamma)
         self.opts = opt.replace(dtype=dtype)
         self.cri = cri
         self.cfg = CSCConfig(cri=cri, variant=self.VARIANT,
@@ -461,6 +492,21 @@ class ConvBPDN(ADMMModel):
         return reconstruct(self.params["D"], self.state.Y, self.cri, X)
 
 
+class ConvBPDNJoint(ConvBPDN):
+    r"""CSC with joint sparsity over the channels: adds ``mu ||X||_{2,1}``
+    with the l2 norm over the channel axis of the coefficient maps
+    (``sporco/admm/cbpdn.py:636``); its y-step is the l1 shrinkage
+    followed by the group shrinkage over the channels.  ``wl21`` is the
+    L21Weight (a scalar, or an array broadcast against the coefficient
+    maps without their channel axis)."""
+    VARIANT = "joint"
+    STAT_NAMES = _STATS["joint"]
+    REF_OPT_EXTRA = {"L21Weight": ("k", "wl21")}
+
+    def __init__(self, D, S, lmbda=None, mu=0.0, opt=None, **kw):
+        super().__init__(D, S, lmbda=lmbda, mu=mu, opt=opt, **kw)
+
+
 class ConvElasticNet(ConvBPDN):
     r"""CSC elastic net: adds ``(mu/2)||x||_2^2``; the per-bin solve uses
     ``mu + rho`` (``sporco/admm/cbpdn.py:813,948-975``)."""
@@ -483,6 +529,35 @@ class ConvBPDNGradReg(ConvBPDN):
     def __init__(self, D, S, lmbda=None, mu=0.0, opt=None, wgrd=1.0, **kw):
         super().__init__(D, S, lmbda=lmbda, mu=mu, opt=opt, wgrd=wgrd,
                          **kw)
+
+
+class ConvBPDNProjL1(ConvBPDN):
+    r"""CSC with an l1-ball constraint: ``argmin_x (1/2)||sum_m d_m * x_m
+    - s||_2^2`` subject to ``||x||_1 <= gamma`` per signal and channel
+    (``sporco/admm/cbpdn.py:1220,1373``); its y-step is the projection
+    onto the ball over the filter and spatial axes.  Defaults as the
+    reference: RelaxParam 1.8, rho 1, AutoRho on with Period 1,
+    AutoScaling, scaling 1000, RsdlRatio 1.2 and RsdlTarget 1."""
+    VARIANT = "projl1"
+    STAT_NAMES = _STATS["projl1"]
+
+    @staticmethod
+    def options(**kw):
+        ar = kw.pop("auto_rho", AutoRhoOpts(enabled=True, period=1,
+                                            auto_scaling=True,
+                                            scaling=1000.0,
+                                            rsdl_ratio=1.2,
+                                            rsdl_target=1.0))
+        base = dict(relax_param=1.8, auto_rho=ar)
+        base.update(kw)
+        return ADMMOpts(**base)
+
+    def __init__(self, D, S, gamma, opt=None, **kw):
+        if opt is None:
+            opt = self.options()
+        if opt.rho is None:
+            opt = opt.replace(rho=1.0)
+        super().__init__(D, S, lmbda=1.0, gamma=gamma, opt=opt, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -882,6 +957,72 @@ class AddMaskSim:
         full = torch.cat([X, X.new_zeros(X.shape[:-1] + (self.cri.Cd,))],
                          dim=-1)
         return self.cbpdn.reconstruct(full)
+
+
+class MultiDictConvBPDN:
+    """Joint sparse coding of several signals against several
+    dictionaries with shared coefficient maps
+    (``sporco/admm/cbpdn.py:2779``): the dictionaries are stacked on the
+    channel axis (each zero-padded to the largest support), so that
+    ``argmin_x sum_b (1/2)||D_b x - s_b||^2 + lmbda ||x||_1`` is one
+    multi-channel problem of ``cbpdnclass``, routed as that class routes
+    it (two single-channel dictionaries: a colour dictionary with
+    C = Cd = 2, which the fused driver takes).
+
+    Usage: ``MultiDictConvBPDN(ConvBPDN, [D0, D1], [S0, S1], lmbda,
+    opt=..., device=...)``; the dictionaries and signals are numpy
+    arrays (or tensors) in the reference's layouts.
+    """
+
+    def __init__(self, cbpdnclass, D, S, *args, dtype=torch.float32,
+                 **kwargs):
+        D = [host_array(d) for d in D]
+        S = [host_array(v) for v in S]
+        dimN = kwargs.get("dimN", 2)
+        dimC = D[0].ndim - dimN - 1
+        M = D[0].shape[-1]
+        chn = [1] * len(D) if dimC == 0 else [d.shape[dimN] for d in D]
+        C = int(np.sum(chn))
+        dsz = np.zeros(dimN, dtype=int)
+        for d in D:
+            dsz = np.maximum(dsz, d.shape[:dimN])
+        Dm = np.zeros(tuple(dsz.tolist()) + (C, M))
+        chncs = np.cumsum(np.asarray([0] + chn))
+        slc0 = (slice(None),) * dimN + (np.newaxis,) * (1 - dimC)
+        for b, d in enumerate(D):
+            slc1 = tuple([slice(0, n) for n in d.shape[:dimN]]
+                         + [slice(chncs[b], chncs[b + 1])])
+            Dm[slc1] = d[slc0]
+        Sm = np.concatenate([v[slc0] for v in S], axis=dimN + dimC)
+        self.cbpdn = cbpdnclass(Dm, Sm, *args, dtype=dtype, **kwargs)
+        self.dimN = dimN
+        self.chn = chn
+        self.chncs = chncs
+        self.C = C
+        self.timer = self.cbpdn.timer
+
+    def solve(self):
+        return self.cbpdn.solve()
+
+    def getcoef(self):
+        return self.cbpdn.getcoef()
+
+    def getitstat(self):
+        return self.cbpdn.getitstat()
+
+    @property
+    def itstat(self):
+        return self.cbpdn.itstat
+
+    def reconstruct(self, b=None, X=None):
+        """The reconstruction against dictionary ``b``, or against all of
+        them, stacked on the channel axis, when ``b`` is None."""
+        full = self.cbpdn.reconstruct(X)
+        if b is None:
+            return full
+        sl_ = (slice(None),) * self.dimN + \
+            (slice(int(self.chncs[b]), int(self.chncs[b + 1])),)
+        return full[sl_]
 
 
 def reconstruct(Di, Xi, cri, X=None):

@@ -18,7 +18,8 @@ from sporco_tpu_torch.solvers import admm as _admm
 from sporco_tpu_torch.solvers import pgm as _pgm
 from sporco_tpu_torch.utils.timer import Timer
 
-__all__ = ["ADMMModel", "PGMModel", "default_rho_xi", "user_tensor"]
+__all__ = ["ADMMModel", "PGMModel", "default_rho_xi", "user_tensor",
+           "warm_start"]
 
 
 def user_tensor(a, dtype, device):
@@ -33,6 +34,17 @@ def user_tensor(a, dtype, device):
         np.asarray(a).astype(sf.numpy_dtype(dtype))).to(device)
 
 
+def warm_start(A, dtype, device):
+    """A warm start ``Y0``/``U0`` in the internal layout as
+    :func:`user_tensor` copies, a tuple of them for a problem with
+    several blocks; None stays None."""
+    if A is None:
+        return None
+    if isinstance(A, (tuple, list)):
+        return tuple(user_tensor(a, dtype, device) for a in A)
+    return user_tensor(A, dtype, device)
+
+
 def _state_dict(state):
     """A solver state as numpy arrays (the layout of the JAX package's
     ``state_dict()``)."""
@@ -41,7 +53,7 @@ def _state_dict(state):
         if isinstance(v, torch.Tensor):
             out[k] = v.detach().cpu().numpy()
         elif k == "extra":
-            out[k] = v
+            out[k] = _unflatten(v, iter([_numpy(e) for e in _leaves(v)]))
         else:
             out[k] = np.array(v, copy=True)
     return out
@@ -279,7 +291,14 @@ class ADMMModel(_Model):
             r=ft(d["r"]), s=ft(d["s"]), epri=ft(d["epri"]),
             edua=ft(d["edua"]),
             stats=np.array(d["stats"], np.float32, copy=True),
-            extra=d.get("extra", ()))
+            extra=self._extra_tensors(d.get("extra", ())))
+
+    def _extra_tensors(self, extra):
+        """A problem's extra carry (the inhibition weights of
+        ``ConvBPDNInhib``) with each array as a tensor of the problem's
+        dtype on the model's device, in the carry's structure."""
+        return _unflatten(extra, iter([self._tensor(e, self.opts.dtype)
+                                       for e in _leaves(extra)]))
 
 
 def default_rho_xi(lmbda):

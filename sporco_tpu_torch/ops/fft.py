@@ -8,7 +8,9 @@ float32 (or complex64) array whose size the kernels take
 (:func:`sporco_tpu_torch.ops.fft2_planar.supported`) runs
 ``rfft2_planar``/``irfft2_planar`` (the rule of ``mxufft._pallas_2d_ok``);
 a complex64 spectrum goes to ``irfft2_spectrum``, which reads it without
-splitting it into planes.
+splitting it into planes.  The orthonormal DCT-II of the spline solver
+(:func:`dctii`/:func:`idctii`) is a product with the DCT matrix along
+each axis.
 :func:`use_planar_fft` chooses where: ``"auto"`` for CUDA tensors only,
 ``"always"`` also for CPU tensors (through the kernels' plain versions,
 as the CPU tests do), ``"never"``.  Spatial axes are trailing, as in the
@@ -20,12 +22,13 @@ import math
 import numpy as np
 import torch
 
+from sporco_tpu_torch._device import fp32_precision
 from sporco_tpu_torch.ops import fft2_planar
 
 __all__ = ["fftn", "ifftn", "rfftn", "irfftn", "fl2norm2", "rfl2norm2",
-           "fftconv", "complex_dtype", "real_dtype", "torch_dtype",
-           "numpy_dtype", "set_precision",
-           "get_precision", "use_planar_fft"]
+           "fftconv", "dctii", "idctii", "complex_dtype", "real_dtype",
+           "torch_dtype", "numpy_dtype", "set_precision", "get_precision",
+           "use_planar_fft"]
 
 _PRECISION = "highest"
 _PLANAR_MODE = "auto"
@@ -169,6 +172,47 @@ def fftconv(a, b, axes=None, origin=None):
     if origin is not None:
         ab = torch.roll(ab, tuple(-o for o in origin), dims=axes)
     return ab
+
+
+_DCT_MATRICES = {}
+
+
+def _dct_matrix(n, dtype, device):
+    """The orthonormal DCT-II matrix of length ``n``, ``C[k, j] =
+    sqrt((2 - [k == 0]) / n) cos(pi (2 j + 1) k / (2 n))``, made in
+    float64 and kept per (n, dtype, device)."""
+    key = (n, dtype, str(device))
+    if key not in _DCT_MATRICES:
+        k = np.arange(n)[:, None]
+        c = np.cos(np.pi * (2 * np.arange(n)[None, :] + 1) * k / (2 * n))
+        c *= np.sqrt(2.0 / n)
+        c[0] /= np.sqrt(2.0)
+        _DCT_MATRICES[key] = torch.as_tensor(c, dtype=dtype).to(device)
+    return _DCT_MATRICES[key]
+
+
+def _dct_axes(x, axes, inverse):
+    if axes is None:
+        axes = tuple(range(x.ndim))
+    with fp32_precision():
+        for ax in axes:
+            c = _dct_matrix(x.shape[ax], x.dtype, x.device)
+            x = torch.movedim(torch.movedim(x, ax, -1)
+                              @ (c if inverse else c.T), -1, ax)
+    return x
+
+
+def dctii(x, axes=None):
+    """Orthonormal multi-dimensional DCT-II over ``axes`` (all by
+    default), as ``scipy.fft.dctn(x, type=2, norm="ortho")``: the spline
+    solver's transform."""
+    return _dct_axes(x, axes, inverse=False)
+
+
+def idctii(x, axes=None):
+    """Orthonormal multi-dimensional inverse DCT-II (the DCT-III), the
+    inverse of :func:`dctii`."""
+    return _dct_axes(x, axes, inverse=True)
 
 
 def fl2norm2(xf, axis=None):

@@ -4,14 +4,18 @@ Sherman-Morrison solves of single-channel CSC, the iterated
 Sherman-Morrison solve of colour-dictionary CSC, conjugate gradient
 for the dictionary update's x-step, the dense solves of ``A^T A + rho I``
 and ``A A^T + rho I`` (by an eigendecomposition of the Gram matrix that
-serves every rho, by Cholesky and by LU, all on ``torch.linalg``) and the
-relative residual ``rrs``."""
+serves every rho, by Cholesky and by LU, all on ``torch.linalg``), the
+relative residual ``rrs``, the explicit-inverse solve ``solvemdbi_rsm``
+and the helpers of validation and of product dictionaries: ``valid_adjoint``,
+``block_circulant``, ``solve_symmetric_sylvester``, ``pca``, ``nkp``,
+``kpsvd`` and ``proj_l2ball``."""
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from sporco_tpu_torch._device import fp32_precision
+from sporco_tpu_torch._device import fp32_precision, resolve_device
 
 __all__ = ["inner", "dot", "solvedbi_sm", "solvedbi_sm_c", "solvedbd_sm",
            "solvedbd_sm_c", "solvemdbi_ism", "cg", "solvemdbi_cg",
@@ -19,7 +23,9 @@ __all__ = ["inner", "dot", "solvedbi_sm", "solvedbi_sm_c", "solvedbd_sm",
            "gram_solve_atai_split", "gram_solve_aati",
            "gram_solve_aati_split", "cho_factor", "cho_solve_ATAI",
            "cho_solve_AATI", "lu_factor", "lu_solve_ATAI", "lu_solve_AATI",
-           "rrs"]
+           "rrs", "solvemdbi_rsm", "valid_adjoint", "block_circulant",
+           "solve_symmetric_sylvester", "pca", "nkp", "kpsvd",
+           "proj_l2ball"]
 
 
 def inner(x, y, axis=-1):
@@ -312,3 +318,138 @@ def rrs(ax, b):
     zero = nrm == 0.0
     return torch.where(zero, torch.where(dv == 0.0, 0.0, torch.inf),
                        dv / torch.where(zero, 1.0, nrm))
+
+
+# ---------------------------------------------------------------------------
+# The explicit-inverse solve, validation and product-dictionary helpers
+# (``sporco/linalg.py:147-1037``)
+
+def solvemdbi_rsm(ah, rho, b, axisK=None, dimN=2):
+    """Solve ``(rho I + sum_k a_k a_k^H) x = b`` by building the per-pixel
+    M x M inverse with K Sherman-Morrison updates
+    (``sporco/linalg.py:448``).  ``ah`` has shape ``(..., K, M)`` (the
+    rank terms on the second last axis, the system on the last, pixels
+    on the leading axes, broadcast) and ``b`` ``(..., M)``; ``axisK`` and
+    ``dimN`` are accepted for the reference's call surface only."""
+    del axisK, dimN
+    K, M = ah.shape[-2:]
+    a = ah.conj()
+    ainv = torch.eye(M, dtype=ah.dtype, device=ah.device) * (1.0 / rho)
+    with fp32_precision():
+        for k in range(K):
+            ak, ahk = a[..., k, :], ah[..., k, :]
+            aia = torch.einsum("...ij,...j->...i", ainv, ak)
+            ahai = torch.einsum("...j,...ji->...i", ahk, ainv)
+            denom = 1.0 + torch.sum(ahk * aia, dim=-1, keepdim=True)
+            ainv = ainv - aia[..., :, None] * ahai[..., None, :] \
+                / denom[..., None]
+        return torch.einsum("...ij,...j->...i", ainv, b)
+
+
+def valid_adjoint(aop, atop, ashape, atshape, eps=1e-7, seed=0,
+                  dtype=torch.float64, device=None):
+    """Random-vector adjoint test ``<y, A x> == <A^T y, x>``
+    (``sporco/linalg.py:147``), the vectors standard normal from a
+    ``torch.Generator`` seeded with ``seed`` and moved to ``device``
+    (the CUDA device unless ``"cpu"`` is asked for).  Returns the
+    relative error if ``eps`` is None, else whether it is below ``eps``."""
+    device = resolve_device(device)
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn(tuple(ashape), generator=g, dtype=dtype).to(device)
+    v = torch.randn(tuple(atshape), generator=g, dtype=dtype).to(device)
+    yax = torch.sum(v.conj() * aop(u)).real
+    atyx = torch.sum(atop(v).conj() * u).real
+    err = float(torch.abs(yax - atyx)
+                / torch.maximum(torch.abs(yax), torch.abs(atyx)))
+    return err if eps is None else err < eps
+
+
+def block_circulant(a):
+    """The dense block-circulant matrix of a sequence of equal blocks
+    (``sporco/linalg.py:204``), for validation."""
+    blocks = [torch.as_tensor(np.asarray(x)) if not isinstance(
+        x, torch.Tensor) else x for x in a]
+    r, c = blocks[0].shape
+    nb = len(blocks)
+    out = blocks[0].new_zeros((nb * r, nb * c))
+    for k in range(nb):
+        for j in range(nb):
+            kl = (k + j) % nb
+            out[r * kl:r * (kl + 1), c * k:c * (k + 1)] = blocks[j]
+    return out
+
+
+def solve_symmetric_sylvester(A, B, c, alpha):
+    """Solve ``A X B + alpha X = C`` for symmetric ``A`` and ``B`` by
+    their eigendecompositions (``sporco/linalg.py:815``).  ``A`` and
+    ``B`` are each a matrix, an ``(evals, evecs)`` pair or a vector (a
+    diagonal)."""
+    def eig_of(m):
+        if isinstance(m, tuple):
+            return m
+        if m.ndim == 1:
+            return m, None
+        return torch.linalg.eigh(m)
+
+    with fp32_precision():
+        wa, va = eig_of(A)
+        wb, vb = eig_of(B)
+        ct = c
+        if va is not None:
+            ct = va.T @ ct
+        if vb is not None:
+            ct = ct @ vb
+        xt = ct / (wa[:, None] * wb[None, :] + alpha)
+        if va is not None:
+            xt = va @ xt
+        if vb is not None:
+            xt = xt @ vb.T
+        return xt
+
+
+def pca(u, centre=False):
+    """PCA basis of the columns of ``u`` (``sporco/linalg.py:914``):
+    ``(B, S, C)``, the basis vectors the columns of ``B`` in order of
+    descending variance, ``S`` their eigenvalues and ``C`` the mean
+    column (or None without ``centre``)."""
+    c = None
+    if centre:
+        c = torch.mean(u, dim=1, keepdim=True)
+        u = u - c
+    with fp32_precision():
+        w, v = torch.linalg.eigh(u @ u.T / u.shape[1])
+    return torch.flip(v, dims=(1,)), torch.flip(w, dims=(0,)), c
+
+
+def _kron_rearrange(a, bshape, cshape):
+    """The Van Loan-Pitsianis rearrangement ``R(A)``, under which the
+    nearest Kronecker product is a rank-1 approximation."""
+    br, bc = bshape
+    cr, cc = cshape
+    return a.reshape(br, cr, bc, cc).permute(0, 2, 1, 3).reshape(
+        br * bc, cr * cc)
+
+
+def nkp(a, bshape, cshape):
+    """The nearest Kronecker product ``(B, C)``, minimising ``||A - B
+    kron C||_F`` (``sporco/linalg.py:949``)."""
+    u, s, vt = torch.linalg.svd(_kron_rearrange(a, bshape, cshape),
+                                full_matrices=False)
+    sq = torch.sqrt(s[0])
+    return sq * u[:, 0].reshape(bshape), sq * vt[0, :].reshape(cshape)
+
+
+def kpsvd(a, bshape, cshape):
+    """The Kronecker product SVD (``sporco/linalg.py:990``): ``(S, B,
+    C)`` with ``A = sum_k S[k] B[..., k] kron C[..., k]``."""
+    u, s, vt = torch.linalg.svd(_kron_rearrange(a, bshape, cshape),
+                                full_matrices=False)
+    return (s, u.T.reshape(-1, *bshape).permute(1, 2, 0),
+            vt.reshape(-1, *cshape).permute(1, 2, 0))
+
+
+def proj_l2ball(b, s, r, axes=None):
+    """Projection of ``b`` onto the l2 ball of radius ``r`` about ``s``
+    (``sporco/linalg.py:1037``)."""
+    from sporco_tpu_torch.ops.prox import proj_l2
+    return s + proj_l2(b - s, r, axis=axes)

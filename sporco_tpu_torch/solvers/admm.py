@@ -230,6 +230,8 @@ class ADMMProblem:
         rsdl_sn(cfg, aux, params, state) -> 0-d tensor
         yinit/uinit/xinit(cfg, params) -> tensor
         extra_init(cfg, params) -> extra carry (kept in the state)
+        update_extra(cfg, aux, params, state, xaux) -> new extra carry,
+            after the u-step, before the residuals and the objective
     """
     setup: Callable
     xstep: Callable
@@ -247,6 +249,7 @@ class ADMMProblem:
     uinit: Optional[Callable] = None
     xinit: Optional[Callable] = None
     extra_init: Optional[Callable] = None
+    update_extra: Optional[Callable] = None
     stat_names: Tuple[str, ...] = ("Obj", "F", "G")
 
 
@@ -311,6 +314,9 @@ def _admm_run(prob, cfg, params, opts, state):
         BY = prob.cnst_b(cfg, aux, params, Y)
         U = _with_c(lambda cl, u, a, b: u + a + b - cl, c, st.U, AX, BY)
         st2 = st._replace(X=X, Y=Y, U=U)
+        if prob.update_extra is not None:
+            st2 = st2._replace(
+                extra=prob.update_extra(cfg, aux, params, st2, xaux))
         # residuals (sporco/admm/admm.py:462-486), squared, on the device;
         # a problem's rsdl_* hooks replace the generic ones
         if prob.rsdl_r is not None:

@@ -1275,3 +1275,186 @@ def test_two_block_csc_launches_fft_kernels(dev, name, per, setup):
     torch.cuda.synchronize()
     assert tfp.LAUNCHES == {"rfft2_planar": per * 7 + setup,
                             "irfft2_planar": per * 7}
+
+
+def _csc_rest_cases(dt="float64", n=32):
+    """Every model of the rest of the CSC models (of dtype ``dt``, 10
+    iterations) as ``make(device)``, on small seeded n x n problems: the
+    variants and MultiDict, inhibition, the three TV models, the four
+    product dictionary models, the three Plug-and-Play models and the l1
+    spline."""
+    from sporco_tpu_torch.models import cbpdn as tcb
+    from sporco_tpu_torch.models import cbpdnin, cbpdntv, pdcsc, ppp, spline
+    from sporco_tpu_torch.ops import fft as tsf
+    rng = np.random.default_rng(21)
+    M = 6
+    D = rng.standard_normal((4, 4, M))
+    D /= np.sqrt((D ** 2).sum(axis=(0, 1)))
+    S = rng.standard_normal((n, n))
+    S3 = rng.standard_normal((n, n, 3))
+    Wg = np.kron(np.eye(M // 2), np.ones((1, 2)))
+    B = np.linalg.qr(rng.standard_normal((3, 3)))[0]
+    cdt = torch.complex128 if dt == "float64" else torch.complex64
+
+    def o(cls, **kw):
+        return cls.options(max_iter=10, rel_stop_tol=0.0, **kw)
+
+    def tv(name):
+        cls = getattr(cbpdntv, name)
+        return lambda d: cls(D, S3, 0.05, 0.02, dimK=0, dtype=dt,
+                             device=d, opt=o(cls))
+
+    def pd(name, **kw):
+        cls = getattr(pdcsc, name)
+        return lambda d: cls(D, B, S3, 0.1, dimK=0, dtype=dt, device=d,
+                             opt=o(cls), **kw)
+    krn = np.ones((5, 5)) / 25.0
+    Af = torch.as_tensor(np.fft.rfftn(krn, s=(n, n), axes=(0, 1))).to(cdt)
+    Sf = torch.as_tensor(np.fft.rfftn(S)).to(cdt)
+
+    def ppp_fns(d):
+        A, F = Af.to(d), Sf.to(d)
+
+        def f(x):
+            return 0.5 * (abs(A * tsf.rfftn(x) - F) ** 2).sum() / x.numel()
+
+        def proxf(x, rho):
+            return tsf.irfftn((A.conj() * F + rho * tsf.rfftn(x))
+                              / (abs(A) ** 2 + rho), (n, n))
+
+        def prior(x, rho):
+            return x / (1.0 + 0.1 / rho)
+
+        def gradf(x):
+            return tsf.irfftn(A.conj() * (A * tsf.rfftn(x) - F), (n, n))
+        return f, proxf, prior, gradf
+
+    def ppp_make(name):
+        def make(d):
+            f, proxf, prior, gradf = ppp_fns(d)
+            if name == "PPP":
+                return ppp.PPP((n, n), f, proxf, prior, dtype=dt, device=d,
+                               opt=o(ppp.PPP))
+            if name == "PPPConsensus":
+                return ppp.PPPConsensus((n, n), [proxf, prior], dtype=dt,
+                                        device=d, opt=o(ppp.PPPConsensus))
+            return ppp.PPPPGM((n, n), f, gradf, prior, dtype=dt, device=d,
+                              opt=o(ppp.PPPPGM, L=1.0))
+        return make
+    return {
+        "ConvBPDNJoint": lambda d: tcb.ConvBPDNJoint(
+            D, S3, 0.1, 0.05, dimK=0, dtype=dt, device=d,
+            opt=o(tcb.ConvBPDNJoint)),
+        "ConvBPDNProjL1": lambda d: tcb.ConvBPDNProjL1(
+            D, S, 5.0, dtype=dt, device=d, opt=o(tcb.ConvBPDNProjL1)),
+        "MultiDictConvBPDN": lambda d: tcb.MultiDictConvBPDN(
+            tcb.ConvBPDN, [D, D[::-1]], [S, S3[..., 0]], 0.1, dtype=dt,
+            device=d, opt=o(tcb.ConvBPDN)).cbpdn,
+        "ConvBPDNInhib": lambda d: cbpdnin.ConvBPDNInhib(
+            D, S, Wg=Wg, Whn=4, lmbda=0.05, mu=0.5, gamma=0.1, dtype=dt,
+            device=d, opt=o(cbpdnin.ConvBPDNInhib)),
+        **{name: tv(name) for name in ("ConvBPDNScalarTV",
+                                       "ConvBPDNVectorTV",
+                                       "ConvBPDNRecTV")},
+        "ConvProdDictBPDN": pd("ConvProdDictBPDN"),
+        "ConvProdDictBPDNJoint": pd("ConvProdDictBPDNJoint", mu=0.05),
+        "ConvProdDictL1L1Grd": pd("ConvProdDictL1L1Grd", mu=0.5),
+        "ConvProdDictL1L1GrdJoint": pd("ConvProdDictL1L1GrdJoint", mu=0.5,
+                                       mu2=0.05),
+        **{name: ppp_make(name) for name in ("PPP", "PPPConsensus",
+                                             "PPPPGM")},
+        "SplineL1": lambda d: spline.SplineL1(
+            S, 0.1, Wdf=(np.abs(S) < 2).astype(float), dtype=dt, device=d,
+            opt=o(spline.SplineL1)),
+    }
+
+
+CSC_REST_MODELS = ["ConvBPDNJoint", "ConvBPDNProjL1", "MultiDictConvBPDN",
+                   "ConvBPDNInhib", "ConvBPDNScalarTV", "ConvBPDNVectorTV",
+                   "ConvBPDNRecTV", "ConvProdDictBPDN",
+                   "ConvProdDictBPDNJoint", "ConvProdDictL1L1Grd",
+                   "ConvProdDictL1L1GrdJoint", "PPP", "PPPConsensus",
+                   "PPPPGM", "SplineL1"]
+
+
+@pytest.mark.parametrize("name", CSC_REST_MODELS)
+def test_csc_rest_models_on_card_match_cpu(dev, name):
+    """Each of the rest of the CSC models (one case per model of each
+    family) in float64 on the card against the CPU over 10 iterations:
+    every stats column rtol 1e-6 (a column at zero up to rounding, within
+    1e-12 of its largest value, counts as equal) and the state within
+    1e-8 of its scale."""
+    make = _csc_rest_cases()[name]
+
+    def leaves(v):
+        return list(v) if isinstance(v, tuple) else [v]
+    out = []
+    for d in (dev, "cpu"):
+        b = make(d)
+        b.solve()
+        out.append((_columns(b), [
+            t.detach().cpu().numpy()
+            for t in leaves(b.state.X) + leaves(b.state.Y)]))
+    (cg, ag), (cc, ac) = out
+    assert sorted(cg) == sorted(cc)
+    for col in cg:
+        g, c = np.asarray(cg[col], np.float64), np.asarray(cc[col],
+                                                           np.float64)
+        if col.endswith("XSlvRelRes"):
+            np.testing.assert_allclose(g, c, rtol=0, atol=1e-10)
+            continue
+        floor = (1e-12 * np.nanmax(np.abs(c)) if np.isfinite(c).any()
+                 else 0.0)
+        near0 = np.maximum(np.abs(g), np.abs(c)) <= floor
+        np.testing.assert_allclose(np.where(near0, 0, g),
+                                   np.where(near0, 0, c), rtol=1e-6,
+                                   equal_nan=True, err_msg=col)
+    for g, c in zip(ag, ac):
+        assert np.abs(g - c).max() <= 1e-8 * max(np.abs(c).max(), 1e-30)
+
+
+# the stats columns held at 1e-3 in float32 (residuals), as the CPU tests
+# of these models against the JAX package hold them
+F32_RSDL = ("PrimalRsdl", "DualRsdl", "EPrimal", "EDual", "Cnstr", "Rsdl")
+
+
+@pytest.mark.parametrize("name", [m for m in CSC_REST_MODELS
+                                  if m != "SplineL1"])
+def test_csc_rest_models_float32_through_kernels_match_cpu(dev, name):
+    """Each of the rest of the CSC models but the spline (which runs no
+    kernel) in float32 at 128x128, 10 iterations, on the card through
+    the FFT kernels (and MultiDictConvBPDN's fused solve through
+    ``csc_iter`` at Cd = 2) against the CPU's plain versions: the
+    objective rows rtol 1e-4, the residuals 1e-3, the state within 2e-4
+    of its scale (the float32 tolerances of the CPU tests against the
+    JAX package)."""
+    make = _csc_rest_cases("float32", 128)[name]
+
+    def leaves(v):
+        return list(v) if isinstance(v, tuple) else [v]
+    out = []
+    for d in (dev, "cpu"):
+        b = make(d)
+        tci.reset_launches()
+        tfp.reset_launches()
+        b.solve()
+        if d is dev:
+            assert tfp.LAUNCHES["rfft2_planar"] > 0
+            assert tfp.LAUNCHES["irfft2_planar"] > 0
+            assert tci.LAUNCHES["csc_iter"] == (
+                10 if name == "MultiDictConvBPDN" else 0)
+        out.append((_columns(b), [
+            t.detach().cpu().numpy()
+            for t in leaves(b.state.X) + leaves(b.state.Y)]))
+    (cg, ag), (cc, ac) = out
+    assert sorted(cg) == sorted(cc)
+    for col in cg:
+        if col.endswith("XSlvRelRes"):
+            continue
+        g, c = np.asarray(cg[col], np.float64), np.asarray(cc[col],
+                                                           np.float64)
+        rtol = 1e-3 if col in F32_RSDL else 1e-4
+        np.testing.assert_allclose(g, c, rtol=rtol, atol=1e-30,
+                                   equal_nan=True, err_msg=col)
+    for g, c in zip(ag, ac):
+        assert np.abs(g - c).max() <= 2e-4 * max(np.abs(c).max(), 1e-30)

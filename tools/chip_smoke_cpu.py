@@ -10,7 +10,8 @@ filters, the consensus problem to 4 images of 32x32 with 8 filters, the
 dense BPDN problem to a 64x96 dictionary (8 signals for the batch), the
 TV images to 64x64 (denoising) and 128x128 (deconvolution) and Robust
 PCA to 64x64 of rank 3 (sketch rank 6), the dictionary learning
-phases' problems as ``at_cut`` says, and runs the named phases
+phases' problems as ``at_cut`` says and the rest of the CSC models'
+as ``at_rest_cut`` says, and runs the named phases
 (default: every phase it knows, in ``PHASES``'s order) with
 ``device="cpu"``: the kernels' wrappers then
 run their plain versions, each call of which is counted as the launch
@@ -50,12 +51,15 @@ PHASES = ("solve", "pgm_solve", "ams_tail_kernel", "ams_parity",
           "bpdn_parity", "bpdn_solve", "tv_parity", "tv_solve",
           "rpca_parity", "rpca_solve", "dictlrn_handover",
           "maskdcpl_parity", "maskdcpl_solve", "mdl_parity", "mdl_solve",
-          "online_solve", "dense_dl_parity", "dense_dl_solve")
+          "online_solve", "dense_dl_parity", "dense_dl_solve",
+          *(f"{f}_{p}" for f in cs.REST_FAMILIES
+            for p in ("parity", "solve")))
 # the phases of the masked, online and patch dictionary learning slice,
 # run at sizes the FFT kernels take (128x128) with the planar route on
 # for CPU tensors, so that their FFT launch checks hold here too
 PLANAR_PHASES = ("maskdcpl_parity", "maskdcpl_solve", "mdl_parity",
-                 "mdl_solve", "online_solve")
+                 "mdl_solve", "online_solve",
+                 *(f"{f}_solve" for f in cs.REST_FAMILIES))
 COUNTED = ((tci, "csc_iter", "csc_iter_plain"),
            (tpi, "pgm_iter", "pgm_iter_plain"),
            (tct, "admm_tail", "admm_tail_plain"))
@@ -157,6 +161,25 @@ def main(argv):
     runs.update({name: at_cut(name) for name in (
         "maskdcpl_parity", "maskdcpl_solve", "mdl_parity", "mdl_solve",
         "online_solve", "dense_dl_parity", "dense_dl_solve")})
+    # the rest of the CSC models at 128x128 with 8 filters (one lateral
+    # inhibition group), the float64 parity crop 64x64
+    rest_cut = {"N": 128, "M": 8, "REST_PARITY_N": 64}
+
+    def at_rest_cut(phase):
+        family, kind = phase.rsplit("_", 1)
+
+        def run():
+            saved = {k: getattr(cs, k) for k in rest_cut}
+            for k, v in rest_cut.items():
+                setattr(cs, k, v)
+            try:
+                return getattr(cs, f"phase_rest_{kind}")(dev, family)
+            finally:
+                for k, v in saved.items():
+                    setattr(cs, k, v)
+        return run
+    runs.update({f"{f}_{p}": at_rest_cut(f"{f}_{p}")
+                 for f in cs.REST_FAMILIES for p in ("parity", "solve")})
     if "mixed_solve" in names:
         names = [n for n in PHASES
                  if n in names or n in ("solve", "pgm_solve")]
