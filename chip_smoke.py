@@ -299,6 +299,31 @@ then the rest of the CSC models, a pair of phases for each family of
     example has none); ``ppp_solve`` also runs PPP with a numpy prior
     through ``host_prior``, within 1e-4 of the device prior's X.
 
+Then the parallel paths (``parallel/`` on ``torch.distributed``) in a
+world of one rank over NCCL, initialised in this process on
+``tcp://127.0.0.1`` and destroyed after (no fallback to gloo or the
+CPU):
+
+60. ``par_parity``: ParConvBPDN (16 filter groups) in float64 on the
+    REST_PARITY_N crop of the headline, card against CPU; then its
+    ``mesh=`` form (the group sums through NCCL) against ``mesh=None``
+    on the card, float32, 10 iterations at 512x512 (rows 1e-5);
+61. ``par_solve``: ParConvBPDN to 1e-3 on the headline and on
+    ``examples/csc_parallel.py``'s image masked through 30% of its pixels
+    (the data pack's 64 filters):
+    iterations, objective, ms an iteration, ``rfft2_planar`` 2k + 1 and
+    ``irfft2_planar`` 2k, the reconstruction error below 0.8, the masked
+    reconstruction's PSNR above the masked input's;
+62. ``cns_sharded``: ``launch.consensus_cdl`` on the mesh against the
+    unsharded loop at the consensus geometry, 10 outer iterations (D
+    within 1e-5 of its scale, the same launches: ``csc_iter`` once an
+    outer iteration), then ms an outer iteration of each over 50;
+63. ``spatial``: ``cbpdn_nsharded`` on the headline against
+    ``ConvBPDN(fused=False)`` and ``tvl2deconv_nsharded`` against
+    ``TVL2Deconv`` (iterations within one, the first 10 rows at the
+    parity tolerances or X within 2e-4), ms an iteration of each;
+64. ``grid_search``: ``launch.grid_search`` finds (0.3, 0) with value 0.
+
 Each solve sets every kernel's launch count to 0 just before it and
 reads the counts just after.  Then a ``total`` line with the seconds the
 run took, the ``{"kernels": [...]}`` line (the inverse's ``ms`` is that
@@ -312,7 +337,10 @@ the TV deconvolution solves, and, of this slice, ``csc_iter`` its
 launches in the online solve, ``pgm_iter`` in the masked FISTA learner,
 the FFT kernels in the two-block, masked learner and online solves, and
 of the last slice ``csc_iter`` its launches in MultiDictConvBPDN's solve
-and the FFT kernels in every model's solve (``csc_rest_launches``); the
+and the FFT kernels in every model's solve (``csc_rest_launches``), of
+the parallel slice ``csc_iter`` and the FFT kernels their launches in
+the sharded consensus (``sharded_consensus_launches``) and the FFT
+kernels in ParConvBPDN's solves (``parcbpdn_launches``); the
 AMS form of
 ``admm_tail`` and the "mixed" forms of ``csc_iter``/``pgm_iter`` are
 entries of their own, with their launches in the fused masked and mixed
@@ -3973,6 +4001,311 @@ def phase_profile(dev, make_model):
                      "count": e.count} for e in top]}
 
 
+# ---------------------------------------------------------------------------
+# parallel/ on torch.distributed and ParConvBPDN: every distributed path
+# at world size 1 over NCCL (one card), in one process group
+
+PAR_NGRP = 16           # ParConvBPDN's filter groups (its default)
+PAR_MAX_ITER = 1000     # no AutoRho: the masked solve needs more than 500
+PAR_MASK_MISSING, PAR_MASK_LMBDA = 0.3, 2e-2    # examples/csc_parallel.py
+PAR_MESH_ITERS = 10     # the mesh= model against mesh=None, float32
+PAR_MESH_ROWS = 1e-5
+CNS_SHARDED_ITERS = 10  # the world-size-1 sharded consensus against the
+CNS_SHARDED_D = 1e-5    # unsharded loop: D of its scale, float32
+SPATIAL_X = 2e-4        # the row-sharded TV deconvolution's X of scale
+SPATIAL_ROWS = 10       # cbpdn_nsharded's first rows held at PARITY
+GRID_FN_MIN = (0.3, 0.0)
+
+
+@contextlib.contextmanager
+def dist_world(dev):
+    """A world of one rank for the distributed phases, initialised in
+    this process (``tcp://127.0.0.1`` on a free port) and destroyed
+    after: NCCL on the card, with no fallback; gloo only where ``dev`` is
+    the CPU (``tools/chip_smoke_cpu.py``).  Yields its 1 x 1 mesh."""
+    import socket
+    import torch.distributed as dist
+    from sporco_tpu_torch.parallel import launch
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    cpu = torch.device(dev).type == "cpu"
+    launch.initialize(f"tcp://127.0.0.1:{port}", 1, 0,
+                      device="cpu" if cpu else None,
+                      local_rank=None if cpu else 0)
+    try:
+        want = "gloo" if cpu else "nccl"
+        if dist.get_backend() != want:
+            raise AssertionError(f"process group on {dist.get_backend()}, "
+                                 f"not {want}")
+        yield launch.global_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def par_problems():
+    """name -> (D, S, W, lmbda, the clean image): ParConvBPDN on the
+    headline, and ``examples/csc_parallel.py``'s masked problem at N x N
+    (its smooth image through PAR_MASK_MISSING of the pixels, at its
+    lmbda) with the data pack's 64 learned 8x8 filters (the example takes
+    16 of the pack's 32: the headline's random filters cannot inpaint
+    its smoothed noise)."""
+    from sporco_tpu_torch.utils.util import convdicts
+    D, S, lmbda = headline_problem()
+    x = np.linspace(-1, 1, N, dtype=np.float32)
+    img = (0.5 + 0.45 * np.sin(4 * np.pi * np.outer(x, x))).astype(
+        np.float32)
+    W = (np.random.default_rng(12345).random(img.shape)
+         >= PAR_MASK_MISSING).astype(np.float32)
+    Dp = convdicts()["G:8x8x64"][..., :M].astype(np.float32)
+    return {"headline": (D, S, None, lmbda, S),
+            "masked": (Dp, W * img, W, PAR_MASK_LMBDA, img)}
+
+
+def _par(D, S, W, lmbda, dev, max_iter, rel_stop_tol=REL_TOL,
+         dtype=torch.float32, mesh=None):
+    from sporco_tpu_torch.models.parcbpdn import ParConvBPDN
+    return ParConvBPDN(D, S, lmbda, W=W, ngrp=PAR_NGRP, dtype=dtype,
+                       opt=ParConvBPDN.options(max_iter=max_iter,
+                                               rel_stop_tol=rel_stop_tol),
+                       device=None if mesh is not None else dev, mesh=mesh)
+
+
+def _par_arrays(b):
+    return {name: b.state[i].cpu().numpy()
+            for i, name in ((0, "Y0"), (2, "Y1"), (4, "X"), (5, "DX"))}
+
+
+def par_rows(label, runs, rows_tol, arr_tol, zero):
+    """Two ParConvBPDN runs (``[(itstat, arrays), ...]``, the second the
+    reference): every stats row within ``rows_tol`` (``_rel_rows``), every
+    array within ``arr_tol`` of its scale."""
+    (ig, ag), (ic, ac) = runs
+    if len(ig) != len(ic):
+        raise AssertionError(f"{label}: {len(ig)} against {len(ic)} "
+                             "iterations")
+    errs = {name: _rel_rows(getattr(ig, name), getattr(ic, name), zero)
+            for name in ig._names[1:]}
+    bad = {k: v for k, v in errs.items() if not v <= rows_tol}
+    for name in ag:
+        errs[name] = float(np.abs(ag[name] - ac[name]).max()
+                           / max(np.abs(ac[name]).max(), 1e-30))
+        if not errs[name] <= arr_tol:
+            bad[name] = errs[name]
+    if bad:
+        raise AssertionError(f"{label}: {bad} past {rows_tol:.0e} (rows), "
+                             f"{arr_tol:.0e} (arrays)")
+    return errs
+
+
+def phase_par_parity(dev, mesh):
+    """ParConvBPDN in float64 on the REST_PARITY_N crop of the headline,
+    REST_PARITY_ITERS iterations, card against CPU (F64_PARITY, as the
+    ``<family>_parity`` phases); then the mesh= model (its filter groups on the
+    world-size-1 "filter" axis, the sums through NCCL) against mesh=None
+    on the card, float32, PAR_MESH_ITERS iterations at full size: rows
+    within PAR_MESH_ROWS."""
+    D, S, _, lmbda, _ = par_problems()["headline"]
+    n = REST_PARITY_N
+    runs = []
+    for d in (dev, "cpu"):
+        b = _par(D, S[:n, :n], None, lmbda, d, REST_PARITY_ITERS, 0.0,
+                 torch.float64)
+        b.solve()
+        runs.append((b.getitstat(), _par_arrays(b)))
+    f64 = par_rows("ParConvBPDN float64", runs, F64_PARITY["rows"],
+                   F64_PARITY["X"], F64_PARITY["zero"])
+    runs = []
+    for m in (mesh, None):
+        b = _par(D, S, None, lmbda, dev, PAR_MESH_ITERS, 0.0, mesh=m)
+        wall, counts = _timed(b)
+        expect_launches("ParConvBPDN mesh" if m else "ParConvBPDN", counts,
+                        rfft2_planar=2 * PAR_MESH_ITERS + 1,
+                        irfft2_planar=2 * PAR_MESH_ITERS)
+        runs.append((b.getitstat(), _par_arrays(b)))
+    mesh_errs = par_rows("ParConvBPDN mesh= against mesh=None", runs,
+                         PAR_MESH_ROWS, PARITY["X"], 0.0)
+    return {"float64": {"iterations": REST_PARITY_ITERS, "side": n,
+                        "rel_err": f64, "tolerance": F64_PARITY},
+            "mesh": {"iterations": PAR_MESH_ITERS, "side": N,
+                     "rel_err": mesh_errs, "rows_tolerance": PAR_MESH_ROWS}}
+
+
+def phase_par_solve(dev):
+    """ParConvBPDN (PAR_NGRP groups) in float32 to REL_TOL on the
+    headline and masked through PAR_MASK_MISSING of its pixels
+    (``examples/csc_parallel.py``): iterations, objective, ms an
+    iteration; ``rfft2_planar`` 2k + 1 and ``irfft2_planar`` 2k launches
+    (Y0 - U0 and Y1 - U1, X and DX an iteration; D once a solve); the
+    reconstruction error below REC_ERR, and for the masked problem the
+    reconstruction's PSNR above the masked input's."""
+    out = {}
+    for name, (D, S, W, lmbda, clean) in par_problems().items():
+        _par(D, S, W, lmbda, dev, 3).solve()
+        b = _par(D, S, W, lmbda, dev, PAR_MAX_ITER)
+        wall, counts = _timed(b)
+        its = b.getitstat()
+        k = len(its)
+        expect_launches(f"ParConvBPDN {name}", counts,
+                        rfft2_planar=2 * k + 1, irfft2_planar=2 * k)
+        rec = b.reconstruct().cpu().numpy()
+        if not (np.all(np.isfinite(its._arr)) and np.all(np.isfinite(rec))):
+            raise AssertionError(f"ParConvBPDN {name}: not finite")
+        r = {"iterations": k, "converged": k < PAR_MAX_ITER,
+             "final_objective": float(its.ObjFun[-1]), "wall_s": wall,
+             "ms_per_iter": 1e3 * wall / k, "launches": counts,
+             "rec_err": _rec_err(rec, clean)}
+        if not r["rec_err"] < REC_ERR:
+            raise AssertionError(f"ParConvBPDN {name}: reconstruction "
+                                 f"error {r['rec_err']:.3f}")
+        if W is not None:
+            r["psnr_input_db"] = psnr(clean, S)
+            r["psnr_db"] = psnr(clean, rec)
+            if not r["psnr_db"] > r["psnr_input_db"]:
+                raise AssertionError(
+                    f"ParConvBPDN masked: PSNR {r['psnr_db']:.2f} dB not "
+                    f"above the input's {r['psnr_input_db']:.2f}")
+        out[name] = r
+    return out
+
+
+def phase_cns_sharded(dev, mesh, D0, S, lmbda):
+    """``launch.consensus_cdl`` on the world-size-1 mesh (the consensus
+    mean an NCCL all-reduce) against the unsharded loop on the card,
+    CNS_SHARDED_ITERS outer iterations in float32: D within
+    CNS_SHARDED_D of its scale and the same launches (the kernel stage:
+    ``csc_iter`` once, 4 forward and 2 inverse transforms an outer
+    iteration); then ms an outer iteration of each over CNS_ITERS more."""
+    from sporco_tpu_torch.parallel import launch
+    out, Ds = {}, {}
+    for label in ("sharded", "unsharded"):
+        d = (launch.consensus_cdl(D0, S, lmbda, mesh=mesh,
+                                  max_iter=CNS_SHARDED_ITERS)
+             if label == "sharded" else tcns.ConvBPDNDictLearn_Consensus(
+                 D0, S, lmbda, max_iter=CNS_SHARDED_ITERS, device=dev))
+        if _cns_route(d) != "kernel":
+            raise AssertionError(f"consensus {label}: took the "
+                                 f"{_cns_route(d)} stage")
+        torch.cuda.synchronize()
+        reset_launches()
+        d.step(CNS_SHARDED_ITERS)
+        torch.cuda.synchronize()
+        counts = launches()
+        expect_launches(f"consensus {label}", counts,
+                        csc_iter=CNS_SHARDED_ITERS,
+                        rfft2_planar=4 * CNS_SHARDED_ITERS,
+                        irfft2_planar=2 * CNS_SHARDED_ITERS)
+        Ds[label] = d.getdict().cpu().numpy()
+        reset_launches()
+        t0 = time.perf_counter()
+        d.step(CNS_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        timed = launches()
+        expect_launches(f"consensus {label}, timed", timed,
+                        csc_iter=CNS_ITERS, rfft2_planar=4 * CNS_ITERS,
+                        irfft2_planar=2 * CNS_ITERS)
+        out[label] = {"launches": counts, "timed_iterations": CNS_ITERS,
+                      "timed_launches": timed,
+                      "ms_per_iter": 1e3 * wall / CNS_ITERS,
+                      "objective": d.evaluate()[0]}
+    err = float(np.abs(Ds["sharded"] - Ds["unsharded"]).max()
+                / np.abs(Ds["unsharded"]).max())
+    if not err <= CNS_SHARDED_D:
+        raise AssertionError(f"sharded consensus D differs from the "
+                             f"unsharded loop's by {err:.3e}")
+    out["D_rel_err"] = err
+    out["iterations"] = CNS_SHARDED_ITERS
+    return out
+
+
+def phase_spatial(dev, mesh, D, S, lmbda):
+    """The row-sharded solvers at world size 1 (their transforms and sums
+    through NCCL): ``cbpdn_nsharded`` on the headline against
+    ``ConvBPDN(fused=False)`` on the card (iterations within one, the
+    first SPATIAL_ROWS stats rows at PARITY's tolerances, the final
+    objectives within OBJ_AGREE) and ``tvl2deconv_nsharded`` against
+    ``TVL2Deconv`` on ``tv_problems()``'s deconvolution (iterations
+    within one, X within SPATIAL_X of its scale); ms an iteration of
+    each.  No kernel of the port runs in the sharded solvers."""
+    from sporco_tpu_torch.parallel import spatial
+    out = {}
+    opt = ConvBPDN.options(max_iter=MAX_ITER, rel_stop_tol=REL_TOL)
+    c = ConvBPDN(D, S, lmbda, opt=opt, fused=False, device=dev)
+    wall_c, _ = _timed(c)
+    ic = c.getitstat()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    X, stats, k = spatial.cbpdn_nsharded(D, S, lmbda, mesh, opt=opt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect_launches("cbpdn_nsharded", launches())
+    names = ("ObjFun", "DFid", "RegL1", "PrimalRsdl", "DualRsdl", "Rho")
+    cols = (1, 2, 3, 4, 5, 8)
+    n = min(SPATIAL_ROWS, k, len(ic))
+    errs = {}
+    for name, j in zip(names, cols):
+        ref = getattr(ic, name)[:n]
+        errs[name] = float(np.max(np.abs(stats[:n, j] - ref) / np.abs(ref)))
+        if not errs[name] <= PARITY[name]:
+            raise AssertionError(f"cbpdn_nsharded {name} differs by "
+                                 f"{errs[name]:.3e}")
+    agree = abs(float(stats[-1, 1]) - float(ic.ObjFun[-1])) \
+        / abs(float(ic.ObjFun[-1]))
+    if abs(k - len(ic)) > 1 or not agree <= OBJ_AGREE or \
+            not bool(torch.isfinite(X).all()):
+        raise AssertionError(f"cbpdn_nsharded: {k} iterations, objective "
+                             f"{stats[-1, 1]} against {len(ic)}, "
+                             f"{ic.ObjFun[-1]}")
+    out["cbpdn"] = {"iterations": k, "reference_iterations": len(ic),
+                    "final_objective": float(stats[-1, 1]),
+                    "objective_rel_diff": agree, "rel_err": errs,
+                    "ms_per_iter": 1e3 * wall / k,
+                    "reference_ms_per_iter": 1e3 * wall_c / len(ic)}
+    cls, (h, noisy, lm), okw, _ = tv_problems()["TVL2Deconv"]
+    b = cls(h, noisy, lm, opt=cls.options(**okw), device=dev)
+    wall_b, _ = _timed(b)
+    kb = len(b.getitstat())
+    Xb = b.getmin().cpu().numpy().squeeze()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    Xt, kt, r, s = spatial.tvl2deconv_nsharded(h, noisy, lm, mesh,
+                                               opt=cls.options(**okw))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect_launches("tvl2deconv_nsharded", launches())
+    xe = float(np.abs(Xt.cpu().numpy() - Xb).max() / np.abs(Xb).max())
+    if abs(kt - kb) > 1 or not xe <= SPATIAL_X:
+        raise AssertionError(f"tvl2deconv_nsharded: {kt} iterations "
+                             f"against {kb}, X differs by {xe:.3e}")
+    out["tvl2deconv"] = {"iterations": kt, "reference_iterations": kb,
+                         "X_rel_err": xe, "ms_per_iter": 1e3 * wall / kt,
+                         "reference_ms_per_iter": 1e3 * wall_b / kb}
+    return out
+
+
+def grid_fn(p):
+    """``tests/parallel/_launch_child.py``'s function: least at (0.3,
+    0)."""
+    return (p[0] - 0.3) ** 2 + abs(p[1])
+
+
+def phase_grid_search(mesh):
+    """``launch.grid_search`` at world size 1 (its slots exchanged by an
+    NCCL all-gather): it finds GRID_FN_MIN with value 0."""
+    from sporco_tpu_torch.parallel import launch
+    grid = (np.linspace(0, 1, 11), np.array([-1.0, 0.0, 2.0]))
+    prm, val, vals = launch.grid_search(grid_fn, grid)
+    if not (abs(prm[0] - GRID_FN_MIN[0]) < 1e-12
+            and prm[1] == GRID_FN_MIN[1] and abs(val) < 1e-12
+            and vals.shape == (11, 3)):
+        raise AssertionError(f"grid search found {prm}, {val}")
+    return {"best": list(prm), "value": val, "points": int(vals.size)}
+
+
 def fft_entry(name, fft, generic, replaces, route=None):
     """A FFT kernel's entry, its time from the call the solves make:
     ``route`` names the timing of that call where it is not the planar
@@ -4053,6 +4386,21 @@ def rest_launches(summary, csc, ffts):
             model: rec["launches"][entry["name"]]
             for family in REST_FAMILIES
             for model, rec in summary[f"{family}_solve"].items()
+            if isinstance(rec, dict) and "launches" in rec}
+
+
+def par_launches(summary, csc, ffts):
+    """Add to the kernels line's entries their launches in the parallel
+    slice's solves: ``csc_iter`` and the FFT kernels in the world-size-1
+    sharded consensus (CNS_SHARDED_ITERS outer iterations), the FFT
+    kernels in ParConvBPDN's solves."""
+    sharded = summary["cns_sharded"]["sharded"]["launches"]
+    csc["sharded_consensus_launches"] = sharded["csc_iter"]
+    for entry in ffts:
+        entry["sharded_consensus_launches"] = sharded[entry["name"]]
+        entry["parcbpdn_launches"] = {
+            name: rec["launches"][entry["name"]]
+            for name, rec in summary["par_solve"].items()
             if isinstance(rec, dict) and "launches" in rec}
 
 
@@ -4137,6 +4485,7 @@ def kernels_line(summary):
         summary["dictlrn_handover"]["launches"]["csc_iter"]
     dictlrn_launches(summary, csc, pgm, ffts)
     rest_launches(summary, csc, ffts)
+    par_launches(summary, csc, ffts)
     return {"kernels": [
         csc, pgm, *ffts,
         kernel_entry("admm_tail", summary["tail_kernel"],
@@ -4281,6 +4630,16 @@ def main(argv):
                   lambda: phase_rest_parity(dev, family))
         summary[f"{family}_solve"] = run_phase(
             f"{family}_solve", lambda: phase_rest_solve(dev, family))
+    with dist_world(dev) as mesh:
+        run_phase("par_parity", lambda: phase_par_parity(dev, mesh))
+        summary["par_solve"] = run_phase("par_solve",
+                                         lambda: phase_par_solve(dev))
+        summary["cns_sharded"] = run_phase(
+            "cns_sharded",
+            lambda: phase_cns_sharded(dev, mesh, D0c, Sc, lc))
+        summary["spatial"] = run_phase(
+            "spatial", lambda: phase_spatial(dev, mesh, D, S, lmbda))
+        run_phase("grid_search", lambda: phase_grid_search(mesh))
     if "--profile" in argv:
         def admm(**kw):
             return lambda: ConvBPDN(D, S, lmbda, opt=ConvBPDN.options(

@@ -20,15 +20,23 @@ A second package beside the JAX reference.  Module names mirror
   learning, ``dictlrn.ConvBPDNDictLearn`` and the generic
   ``dictlrn.DictLearn``; the dense BPDN models of ``bpdn`` (``BPDN``,
   ``BPDNJoint``, ``ElasticNet``, ``BPDNProjL1``, ``MinL1InL2Ball``), the
-  TV models of ``tv`` and ``rpca.RobustPCA``; all with checkpoints
+  TV models of ``tv`` and ``rpca.RobustPCA``, the filter-parallel
+  ``parcbpdn.ParConvBPDN``; all with checkpoints
   (``save_state``/``load_state_file``).
 - :mod:`sporco_tpu_torch.accel`    -- the accelerator API, the
   counterpart of the reference's ``sporco.cuda``: the solvers
   ``cbpdn``, ``cbpdngrd``, ``cbpdnmsk`` and ``cbpdngrdmsk`` and the
   device helpers.
-- :mod:`sporco_tpu_torch.parallel` -- consensus dictionary learning.
-- :mod:`sporco_tpu_torch.utils`    -- the timer, ``zpad``, ``grad``/``gradT``
-  and ``gradient_filters``.
+- :mod:`sporco_tpu_torch.parallel` -- the parallel paths on
+  ``torch.distributed`` (NCCL on the cards, gloo on CPU ranks): ``mesh``
+  and ``launch`` (process groups, the ``("data", "filter")`` mesh, the
+  multi-process grid search), consensus dictionary learning on one
+  device or sharded over the ``"data"`` ranks, ``gridsearch`` (serial and
+  ``torch.func.vmap``) and ``spatial`` (the row-sharded FFT and the
+  row-sharded ConvBPDN and TV deconvolution).
+- :mod:`sporco_tpu_torch.utils`    -- array helpers, signal processing
+  and image metrics, the timers, interpolation, example data and
+  dictionary tiling, plotting.
 
 The package imports ``torch`` and never ``jax``.  Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``; on the CPU

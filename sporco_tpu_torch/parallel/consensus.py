@@ -30,10 +30,17 @@ As in the reference there is no residual test and no adaptive rho
 (``prlcnscdl.py:319-323``): ``step(n)`` runs ``n`` outer iterations and
 reads nothing back from the device.  The JAX package carries the dual as
 planar real/imaginary arrays; :meth:`load_state_numpy` and
-:meth:`state_numpy` convert.  Sharding over several devices
-(``mesh``, ``process_local_batch``) is not ported yet.
+:meth:`state_numpy` convert.
+
+With a ``mesh`` (:mod:`sporco_tpu_torch.parallel.mesh`) the signals
+shard over its ``"data"`` ranks: each rank holds its block of K of the
+signals, of the state and (masked) of W, and runs the outer iteration
+on it; the consensus mean over the signals becomes an ``all_reduce``
+(sum) over the ``"data"`` group divided by the global number of
+blocks, after which every rank holds the same dictionary.
 """
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,14 +53,12 @@ from sporco_tpu_torch.ops import fused_csc as fc
 from sporco_tpu_torch.ops import linalg as sl
 from sporco_tpu_torch.ops import prox as sp
 from sporco_tpu_torch.ops.csc_iter import csc_iter, iter_supported
+from sporco_tpu_torch.parallel.mesh import (all_reduce_sum, axis_size,
+                                            mesh_device, shard_batch)
 from sporco_tpu_torch.utils.timer import Timer
 
 __all__ = ["ConvBPDNDictLearn_Consensus",
            "ConvBPDNMaskDcplDictLearn_Consensus"]
-
-_SHARDING = ("sharded consensus dictionary learning (mesh, "
-             "process_local_batch) needs torch.distributed, which the port "
-             "does not have yet (ROADMAP.md queue 1, entry 6)")
 
 
 @dataclass(frozen=True)
@@ -66,6 +71,7 @@ class _CnsConfig:
     relax_d: float = 1.8
     fused_x: bool = False    # spatial-Woodbury CSC x-step
     kernel_x: bool = False   # the csc_iter stage: ZY/ZU carried packed
+    ndata: int = 1           # "data" ranks the signals shard over
 
 
 def _fftaxes(cri):
@@ -205,16 +211,23 @@ def _body(cfg, p, st):
     # to space.  A single-channel dictionary with multi-channel signals
     # has one block per signal and channel (ccmod.py:270-280) ---
     blk = (0, 1) if (Cd == 1 and cri.C > 1) else (0,)
-    Dmean = sf.irfftn(torch.mean(DAXf + DUf, dim=blk, keepdim=True),
-                      s=Nv, axes=axes)
+    if p["group"] is None:
+        Dsum = torch.mean(DAXf + DUf, dim=blk, keepdim=True)
+    else:
+        # sharded: the blocks of every "data" rank
+        nblk = cfg.ndata * int(np.prod([DAXf.shape[a] for a in blk]))
+        Dsum = all_reduce_sum(torch.sum(DAXf + DUf, dim=blk, keepdim=True),
+                              p["group"]) / nblk
+    Dmean = sf.irfftn(Dsum, s=Nv, axes=axes)
     DYn = cr.Pcn(Dmean, cfg.dsz, Nv, dimN=cri.dimN, zm=cfg.zero_mean)
     DUf = DUf + DAXf - sf.rfftn(DYn, axes=axes)
     return ZY, ZU, ZY0, ZU0, DYn, DUf
 
 
-def _objective(D, Z, S, lmbda, wl1, dimN):
+def _objective(D, Z, S, lmbda, wl1, dimN, group=None):
     """The functional over all signals (``prlcnscdl.py:623-652``):
-    ``(obj, dfd, reg)`` as 0-d tensors."""
+    ``(obj, dfd, reg)`` as 0-d tensors; the two sums all-reduced over
+    ``group`` where the signals are sharded."""
     axes = tuple(range(-dimN, 0))
     Nv = tuple(S.shape[-dimN:])
     Df = sf.rfftn(D, s=Nv, axes=axes)
@@ -222,12 +235,15 @@ def _objective(D, Z, S, lmbda, wl1, dimN):
         - sf.rfftn(S, axes=axes)
     dfd = 0.5 * sf.rfl2norm2(Ef, Nv, axis=axes)
     reg = torch.sum(torch.abs(wl1 * Z))
+    if group is not None:
+        dfd, reg = all_reduce_sum(torch.stack([dfd, reg.to(dfd.dtype)]),
+                                  group)
     return dfd + lmbda * reg, dfd, reg
 
 
 class ConvBPDNDictLearn_Consensus:
     r"""Consensus convolutional dictionary learning
-    (``sporco/dictlrn/prlcnscdl.py:275``) on one device.
+    (``sporco/dictlrn/prlcnscdl.py:275``), on one device or sharded.
 
     ``D0`` has user shape ``dsz + [Cd] + (M,)`` and ``S``
     ``Nv + [C] + [K]``, both numpy arrays.  ``solve()`` runs ``max_iter``
@@ -237,6 +253,17 @@ class ConvBPDNDictLearn_Consensus:
     configuration (see the module docstring): ``fused=False`` forces the
     DFT-domain stage, ``fused=True`` lets a colour dictionary take the
     spatial x-step, which ``"auto"`` keeps for single-channel ones.
+
+    With a ``mesh`` the rank runs on its mesh device and holds the
+    ``"data"`` block of K of ``S`` (given whole: each rank takes its
+    block), ``W`` and a K-shaped ``wl1``.  With ``process_local_batch``
+    and more than one rank, ``S`` (and ``W`` where it has a K axis) is
+    this rank's own chunk, the global K is the chunk's times the
+    ``"data"`` size, and ``S`` needs an explicit K axis.  ``rho_d``
+    defaults to the global K.  ``getdict()`` is the same on every rank;
+    ``getcoef()``, :meth:`state_numpy` and :meth:`load_state_numpy` are
+    the rank's block; ``evaluate()`` is over all signals.  The kernel
+    stage is chosen by the same rule on the rank's block.
     """
 
     MASKED = False
@@ -246,43 +273,71 @@ class ConvBPDNDictLearn_Consensus:
                  rho_d=None, relax=1.8, wl1=1.0, mesh=None,
                  dtype=torch.float32, fused="auto",
                  process_local_batch=False, device=None):
-        if mesh is not None or process_local_batch:
-            raise NotImplementedError(_SHARDING)
         self.timer = Timer(["init", "solve"])
         self.timer.start("init")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh_device(mesh) if mesh is not None
+                       else resolve_device(device))
+        P = axis_size(mesh, "data")
         dtype = sf.torch_dtype(dtype)
         npdt = sf.numpy_dtype(dtype)
         D0 = np.asarray(D0).astype(npdt)
         S = np.asarray(S).astype(npdt)
         dsz = D0.shape
-        cri = cr.cdu_index(tuple(dsz), S.shape, dimK=dimK, dimN=dimN)
+        local = (process_local_batch and torch.distributed.is_initialized()
+                 and torch.distributed.get_world_size() > 1)
+        if local:
+            # each rank passes its own chunk of the signals
+            # (prlcnscdl.py:69-130): the global K is the chunks' sum
+            if mesh is None:
+                raise ValueError("process_local_batch requires a global "
+                                 "mesh")
+            cri_loc = cr.cdu_index(tuple(dsz), S.shape, dimK=dimK,
+                                   dimN=dimN)
+            if cri_loc.dimK == 0:
+                raise ValueError("process-local batching requires an "
+                                 "explicit K axis in S")
+            cri = dataclasses.replace(cri_loc, K=cri_loc.K * P)
+        else:
+            cri = cr.cdu_index(tuple(dsz), S.shape, dimK=dimK, dimN=dimN)
+            if cri.K % P != 0:
+                raise ValueError(f"K ({cri.K}) does not divide over {P} "
+                                 "data ranks")
+            cri_loc = dataclasses.replace(cri, K=cri.K // P)
         self.cri = cri
         self.max_iter = max_iter
         self.dtype = dtype
         dev = self.device
         csc_like = cri.csc_like(dsz[:dimN])
-        Si = cr.to_internal_S(torch.as_tensor(S), cri).contiguous().to(dev)
+
+        def block(t):
+            # this rank's K block of an internal array given whole
+            if mesh is None or local or t.shape[0] != cri.K or P == 1:
+                return t.contiguous().to(dev)
+            return shard_batch(mesh, t, 0)
+        Si = block(cr.to_internal_S(torch.as_tensor(S),
+                                    cri_loc if local else cri))
         D0i = cr.Pcn(cr.to_internal_D(torch.as_tensor(D0), csc_like),
                      tuple(dsz), cri.Nv, dimN=dimN, zm=zero_mean).to(dev)
         # the route, by configuration alone: a colour dictionary takes
         # the spatial x-step only when asked (fused=True)
-        fx = (fc.consensus_eligible(cri, dsz, dtype, self.MASKED)
+        fx = (fc.consensus_eligible(cri_loc, dsz, dtype, self.MASKED)
               and (fused is True or (fused is not False and cri.Cd == 1)))
         PS = fc.PS
         kx = False
         if fx and np.ndim(wl1) == 0:
-            pos = cri.K * (cri.Nv[0] // PS) * (cri.Nv[1] // PS)
+            pos = cri_loc.K * (cri.Nv[0] // PS) * (cri.Nv[1] // PS)
             T = ((-(-(dsz[0] - 1) // PS) + 1) * (-(-(dsz[1] - 1) // PS) + 1)
                  * cri.Cd * PS * PS)
             kx = iter_supported(pos, PS * PS * cri.M, T)
-        self.cfg = _CnsConfig(cri=cri, dsz=tuple(dsz), zero_mean=zero_mean,
-                              masked=self.MASKED, relax_x=relax,
-                              relax_d=relax, fused_x=fx, kernel_x=kx)
+        self.cfg = _CnsConfig(cri=cri_loc, dsz=tuple(dsz),
+                              zero_mean=zero_mean, masked=self.MASKED,
+                              relax_x=relax, relax_d=relax, fused_x=fx,
+                              kernel_x=kx, ndata=P)
         ft = np.float64 if dtype == torch.float64 else np.float32
         if np.ndim(wl1) > 0:
-            wl1a = cr.l1_weight(torch.as_tensor(np.asarray(wl1, ft)),
-                                csc_like).to(dev)
+            wl1a = block(cr.l1_weight(torch.as_tensor(np.asarray(wl1, ft)),
+                                      csc_like))
         else:
             wl1a = float(ft(wl1))
         if self.MASKED:
@@ -299,14 +354,16 @@ class ConvBPDNDictLearn_Consensus:
             # the shrinkage threshold (lmbda / rho_x) wl1
             "thr": (float(ft(lr * ft(wl1a))) if not torch.is_tensor(wl1a)
                     else float(lr) * wl1a),
+            "group": None if mesh is None else mesh.get_group("data"),
         }
         if self.MASKED:
             Wm = (torch.ones((1,) * (3 + dimN), dtype=dtype) if W is None
                   else cr.fidelity_mask(torch.as_tensor(
-                      np.asarray(W).astype(npdt)), cri))
-            self.params["W"] = Wm.contiguous().to(dev)
+                      np.asarray(W).astype(npdt)),
+                      cri_loc if local else cri))
+            self.params["W"] = block(Wm)
 
-        K, M = cri.K, cri.M
+        K, M = cri_loc.K, cri.M
         if kx:
             shpX = (K, cri.Nv[0] // PS, cri.Nv[1] // PS, PS * PS * M)
         else:
@@ -357,17 +414,18 @@ class ConvBPDNDictLearn_Consensus:
 
     def getcoef(self):
         """The coefficient maps in the reference layout
-        ``Nv + (Cx, K, M)``."""
+        ``Nv + (Cx, K, M)``: this rank's K block where sharded."""
         return cr.from_internal_X(self._coef_internal(),
-                                  self.cri.csc_like(self.cfg.dsz))
+                                  self.cfg.cri.csc_like(self.cfg.dsz))
 
     def evaluate(self):
-        """``(objective, data fidelity, l1 term)`` over all signals, as
-        floats."""
+        """``(objective, data fidelity, l1 term)`` over all signals (an
+        all-reduce where sharded), as floats."""
         p = self.params
         with fp32_precision(), torch.no_grad():
             out = _objective(self.state[4], self._coef_internal(), p["S"],
-                             p["lmbda"], p["wl1"], self.cri.dimN)
+                             p["lmbda"], p["wl1"], self.cri.dimN,
+                             p["group"])
         return tuple(float(v) for v in out)
 
     def load_state_numpy(self, state):
@@ -388,7 +446,7 @@ class ConvBPDNDictLearn_Consensus:
                 return fc.pack_state(a)
             if packed and not self.cfg.kernel_x:
                 return fc.unpack_state(a, self.cri.M).reshape(
-                    (self.cri.K, self.cri.Cx, self.cri.M)
+                    (self.cfg.cri.K, self.cri.Cx, self.cri.M)
                     + tuple(self.cri.Nv)).contiguous()
             return a.contiguous()
         self.state = (coef(ZY), coef(ZU), t(ZY0), t(ZU0), t(DY),

@@ -1,8 +1,9 @@
-"""Multi-label cumulative timers (copy of ``sporco_tpu.utils.timer``)."""
+"""Multi-label cumulative timers and their context manager (copy of
+``sporco_tpu.utils.timer``)."""
 
 import time
 
-__all__ = ["Timer"]
+__all__ = ["Timer", "ContextTimer"]
 
 
 class Timer:
@@ -66,3 +67,36 @@ class Timer:
 
     def __str__(self):
         return ", ".join(f"{k}: {self.elapsed(k):.3f}s" for k in self.td)
+
+
+class ContextTimer:
+    """Context-manager wrapper around :class:`Timer`
+    (``sporco/util.py:808``); with ``action='StopStart'`` the labelled
+    timers are *stopped* inside the block (for excluding sections)."""
+
+    def __init__(self, timer=None, label=None, action="StartStop"):
+        if action not in ("StartStop", "StopStart"):
+            raise ValueError(f"Unrecognised action {action!r}")
+        self.timer = timer if timer is not None else Timer()
+        self.label = label if label is not None else list(
+            self.timer.td.keys()) or "main"
+        self.action = action
+
+    def __enter__(self):
+        if self.action == "StartStop":
+            self.timer.start(self.label)
+        else:
+            self.timer.stop(self.label)
+        return self
+
+    def __exit__(self, exc_type, exc_value, traceback):
+        if self.action == "StartStop":
+            self.timer.stop(self.label)
+        else:
+            self.timer.start(self.label)
+        return exc_type is None
+
+    def elapsed(self, total=True):
+        lbl = self.label if not isinstance(self.label, (list, tuple)) \
+            else self.label[0]
+        return self.timer.elapsed(lbl, total=total)

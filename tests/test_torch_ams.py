@@ -306,8 +306,10 @@ def test_admm_tail_plain_ams_matches_jax_tail(K, M, nonneg):
                                   jnp.asarray(sel.reshape(-1)))
     Wp = tfc.ams_mask(torch.as_tensor(W), K, (N, N))
     assert tuple(Wp.shape) == (R, PS * PS)
+    # copies: the tail writes PY and PU in place, and the JAX arrays may
+    # share the numpy buffers and be computed after this call
     tY, tU, tsums = tct.admm_tail_plain(
-        torch.as_tensor(PX), torch.as_tensor(PY), torch.as_tensor(PU),
+        torch.as_tensor(PX), torch.tensor(PY), torch.tensor(PU),
         torch.as_tensor(thr), torch.as_tensor(wl1p), rlx, nonneg=nonneg,
         us=us, ams=(Wp, 1))
     np.testing.assert_array_equal(tY.numpy(), np.asarray(jY))

@@ -131,8 +131,16 @@ def test_kernel_rule_routes_as_jax():
 
 
 def test_sharding_options_raise():
+    """A mesh must be a DeviceMesh (``parallel.mesh.make_mesh``); without
+    a process group of several ranks ``process_local_batch`` changes
+    nothing, as in the JAX package with one process.  The multi-rank
+    raises are in ``tests/test_torch_parallel_consensus.py``."""
     D0, S = _problem(1)
-    for kw in ({"mesh": object()}, {"process_local_batch": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcn.ConvBPDNDictLearn_Consensus(D0, S, LMBDA, device="cpu",
-                                            **kw)
+    with pytest.raises(TypeError, match="make_mesh"):
+        tcn.ConvBPDNDictLearn_Consensus(D0, S, LMBDA, device="cpu",
+                                        mesh=object())
+    a, b = (tcn.ConvBPDNDictLearn_Consensus(D0, S, LMBDA, device="cpu",
+                                            max_iter=2,
+                                            process_local_batch=pl)
+            for pl in (False, True))
+    assert torch.equal(a.solve(), b.solve())

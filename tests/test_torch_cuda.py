@@ -6,6 +6,8 @@ the suite's conftest (which imports JAX) left out:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1152,8 +1154,15 @@ def _new_model_cases():
     def md(method):
         o = tmd.ConvCnstrMODMaskDcplOptions(method=method, max_iter=10,
                                             rel_stop_tol=0.0)
+        # CG at 1e-10: at its default 1e-3 both devices run the same CG
+        # counts, but its 33-iteration iterate carries rounding up to
+        # 1e-7..1e-6 of scale, a one-ulp move of S on the CPU alone
+        # included (tools/ccmodmd_cg_counts.py;
+        # test_ccmodmd_cg_default_tolerance_counts_equal_on_card)
+        cg = {"cg_tol": 1e-10} if method == "cg" else {}
         return lambda d: tmd.ConvCnstrMODMaskDcpl(
-            Z, S, W, D.shape, method=method, D0=D, opt=o, device=d, **f64)
+            Z, S, W, D.shape, method=method, D0=D, opt=o, device=d, **cg,
+            **f64)
     return {
         "ConvBPDNMaskDcpl": lambda d: tcb.ConvBPDNMaskDcpl(
             D, S, 0.1, W=W, device=d, **opt(tcb.ConvBPDNMaskDcpl), **f64),
@@ -1252,6 +1261,33 @@ def test_slice_models_on_card_match_cpu(dev, name):
                                    equal_nan=True, err_msg=col)
     for g, c in zip(ag, ac):
         assert np.abs(g - c).max() <= 1e-8 * max(np.abs(c).max(), 1e-30)
+
+
+def test_ccmodmd_cg_default_tolerance_counts_equal_on_card(dev):
+    """At the default CG tolerance (1e-3) the masked CCMOD's CG d-step
+    stops at the same iteration on the card and on the CPU in every
+    x-step of the 10 iterations: the two parted by 1.1e-7 of scale there
+    through rounding inside CG, not through its stopping test."""
+    from sporco_tpu_torch.models import ccmodmd as tmd
+    cases, _, _ = _new_model_cases()
+    counts = []
+    orig = tmd.sl.solvemdbi_cg
+    for d in (dev, "cpu"):
+        b = cases["ccmodmd cg"](d)
+        b.cfg = dataclasses.replace(b.cfg, cg_tol=1e-3)
+        seen = []
+
+        def counted(*a, **k):
+            x, n = orig(*a, **k)
+            seen.append(int(n))
+            return x, n
+        tmd.sl.solvemdbi_cg = counted
+        try:
+            b.solve()
+        finally:
+            tmd.sl.solvemdbi_cg = orig
+        counts.append(seen)
+    assert len(counts[0]) == 10 and counts[0] == counts[1]
 
 
 @pytest.mark.parametrize("name,per,setup", [("ConvBPDNMaskDcpl", 3, 1),
@@ -1458,3 +1494,114 @@ def test_csc_rest_models_float32_through_kernels_match_cpu(dev, name):
                                    equal_nan=True, err_msg=col)
     for g, c in zip(ag, ac):
         assert np.abs(g - c).max() <= 2e-4 * max(np.abs(c).max(), 1e-30)
+
+
+# --- parallel/ and ParConvBPDN -------------------------------------------
+
+@pytest.fixture
+def nccl_mesh():
+    """A world of one rank over NCCL in this process (``tcp://127.0.0.1``
+    on a free port), its 1 x 1 mesh; destroyed after the test."""
+    import socket
+    import torch.distributed as dist
+    from sporco_tpu_torch.parallel import launch
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    launch.initialize(f"tcp://127.0.0.1:{port}", 1, 0, local_rank=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        yield launch.global_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def _par_model(d, dtype, n, masked=False, mesh=None, iters=10):
+    from sporco_tpu_torch.models.parcbpdn import ParConvBPDN
+    rng = np.random.default_rng(13)
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    D = rng.standard_normal((5, 5, 8)).astype(npdt)
+    S = rng.standard_normal((n, n)).astype(npdt)
+    W = (rng.random((n, n)) > 0.3).astype(npdt) if masked else None
+    return ParConvBPDN(D, S, 0.1, W=W, ngrp=4, dtype=dtype,
+                       device=None if mesh is not None else d, mesh=mesh,
+                       opt=ParConvBPDN.options(max_iter=iters,
+                                               rel_stop_tol=0.0))
+
+
+def _par_out(b):
+    return b.getitstat()._arr.astype(np.float64), [
+        b.state[i].detach().cpu().numpy() for i in (0, 2, 4, 5)]
+
+
+@pytest.mark.parametrize("case", ["plain", "masked", "mesh"])
+def test_parcbpdn_on_card_matches_cpu(dev, case, request):
+    """ParConvBPDN in float64 at 32x32, 10 iterations, on the card (with
+    ``mesh=``: its four groups on a world-size-1 NCCL mesh) against the
+    CPU: every stats row rtol 1e-6, Y0, Y1, X and DX within 1e-8 of their
+    scale."""
+    mesh = request.getfixturevalue("nccl_mesh") if case == "mesh" else None
+    out = []
+    for d, m in ((dev, mesh), ("cpu", None)):
+        b = _par_model(d, torch.float64, 32, case == "masked", m)
+        b.solve()
+        out.append(_par_out(b))
+    (rg, ag), (rc, ac) = out
+    np.testing.assert_allclose(rg, rc, rtol=1e-6, atol=1e-30)
+    for g, c in zip(ag, ac):
+        assert np.abs(g - c).max() <= 1e-8 * max(np.abs(c).max(), 1e-30)
+
+
+def test_parcbpdn_float32_through_kernels_matches_cpu(dev):
+    """ParConvBPDN in float32 at 128x128 (the FFT kernels' size), 10
+    iterations: on the card ``rfft2_planar`` 2k + 1 and ``irfft2_planar``
+    2k launches; against the CPU the objective rows rtol 1e-4, the
+    residuals 1e-3, the state within 2e-4 of its scale."""
+    out = []
+    for d in (dev, "cpu"):
+        b = _par_model(d, torch.float32, 128, masked=True)
+        tfp.reset_launches()
+        b.solve()
+        if d is dev:
+            torch.cuda.synchronize()
+            assert tfp.LAUNCHES == {"rfft2_planar": 21, "irfft2_planar": 20}
+        out.append(_par_out(b))
+    (rg, ag), (rc, ac) = out
+    for j in range(1, rg.shape[1]):
+        rtol = 1e-3 if j in (4, 5, 6, 7) else 1e-4
+        np.testing.assert_allclose(rg[:, j], rc[:, j], rtol=rtol, atol=1e-30)
+    for g, c in zip(ag, ac):
+        assert np.abs(g - c).max() <= 2e-4 * max(np.abs(c).max(), 1e-30)
+
+
+@pytest.mark.parametrize("dtype,n", [(torch.float64, 32),
+                                     (torch.float32, 128)])
+def test_sharded_consensus_on_card_matches_cpu(dev, nccl_mesh, dtype, n):
+    """The consensus loop on a world-size-1 NCCL mesh on the card (the
+    consensus mean an NCCL all-reduce) against the unsharded loop on the
+    CPU, 5 outer iterations: in float64 at 32x32 D within 1e-8 of its
+    scale and the objective 1e-8 relative; in float32 at 128x128 through
+    the kernels (``csc_iter`` once an outer iteration, the FFT kernels 4
+    and 2) D and the objective within 1e-4."""
+    from sporco_tpu_torch.parallel import consensus as tcn
+    rng = np.random.default_rng(17)
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    D0 = rng.standard_normal((8, 8, 8)).astype(npdt)
+    S = rng.standard_normal((n, n, 4)).astype(npdt)
+    a = tcn.ConvBPDNDictLearn_Consensus(D0, S, 0.1, mesh=nccl_mesh,
+                                        max_iter=5, dtype=dtype)
+    c = tcn.ConvBPDNDictLearn_Consensus(D0, S, 0.1, max_iter=5, dtype=dtype,
+                                        device="cpu")
+    assert a.cfg.kernel_x == c.cfg.kernel_x == (dtype == torch.float32)
+    tci.reset_launches()
+    tfp.reset_launches()
+    Da = a.solve().cpu().numpy()
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert tci.LAUNCHES["csc_iter"] == 5
+        assert tfp.LAUNCHES == {"rfft2_planar": 20, "irfft2_planar": 10}
+    Dc = c.solve().numpy()
+    tol = 1e-8 if dtype == torch.float64 else 1e-4
+    assert np.abs(Da - Dc).max() <= tol * np.abs(Dc).max()
+    np.testing.assert_allclose(a.evaluate(), c.evaluate(), rtol=tol)

@@ -10,8 +10,10 @@ filters, the consensus problem to 4 images of 32x32 with 8 filters, the
 dense BPDN problem to a 64x96 dictionary (8 signals for the batch), the
 TV images to 64x64 (denoising) and 128x128 (deconvolution) and Robust
 PCA to 64x64 of rank 3 (sketch rank 6), the dictionary learning
-phases' problems as ``at_cut`` says and the rest of the CSC models'
-as ``at_rest_cut`` says, and runs the named phases
+phases' problems as ``at_cut`` says, the rest of the CSC models'
+as ``at_rest_cut`` says and the parallel phases' as ``at_par`` says (in
+a one-rank gloo world where the card runs NCCL), and runs the named
+phases
 (default: every phase it knows, in ``PHASES``'s order) with
 ``device="cpu"``: the kernels' wrappers then
 run their plain versions, each call of which is counted as the launch
@@ -26,6 +28,7 @@ a chip call, and measures nothing of a device.  Prints one JSON line
 per phase.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -44,6 +47,9 @@ from sporco_tpu_torch.ops import fft as tsf  # noqa: E402
 from sporco_tpu_torch.ops import fft2_planar as tfp  # noqa: E402
 from sporco_tpu_torch.ops import pgm_iter as tpi  # noqa: E402
 
+# the parallel phases, in a one-rank gloo world (dist_world on the CPU)
+PAR_PHASES = ("par_parity", "par_solve", "cns_sharded", "spatial",
+              "grid_search")
 # the phases it runs, in chip_smoke.py's order (mixed_solve compares
 # with solve and pgm_solve, which run first whenever it runs)
 PHASES = ("solve", "pgm_solve", "ams_tail_kernel", "ams_parity",
@@ -53,13 +59,15 @@ PHASES = ("solve", "pgm_solve", "ams_tail_kernel", "ams_parity",
           "maskdcpl_parity", "maskdcpl_solve", "mdl_parity", "mdl_solve",
           "online_solve", "dense_dl_parity", "dense_dl_solve",
           *(f"{f}_{p}" for f in cs.REST_FAMILIES
-            for p in ("parity", "solve")))
+            for p in ("parity", "solve")),
+          *PAR_PHASES)
 # the phases of the masked, online and patch dictionary learning slice,
 # run at sizes the FFT kernels take (128x128) with the planar route on
 # for CPU tensors, so that their FFT launch checks hold here too
 PLANAR_PHASES = ("maskdcpl_parity", "maskdcpl_solve", "mdl_parity",
                  "mdl_solve", "online_solve",
-                 *(f"{f}_solve" for f in cs.REST_FAMILIES))
+                 *(f"{f}_solve" for f in cs.REST_FAMILIES),
+                 "par_parity", "par_solve")
 COUNTED = ((tci, "csc_iter", "csc_iter_plain"),
            (tpi, "pgm_iter", "pgm_iter_plain"),
            (tct, "admm_tail", "admm_tail_plain"))
@@ -180,6 +188,36 @@ def main(argv):
         return run
     runs.update({f"{f}_{p}": at_rest_cut(f"{f}_{p}")
                  for f in cs.REST_FAMILIES for p in ("parity", "solve")})
+    # the parallel phases: ParConvBPDN at 128x128 with 8 filters (so 8
+    # groups), its float64 crop 64x64, the rest at the cut above; one
+    # gloo world of one rank for all of them
+    par_cut = {"N": 128, "M": 8, "REST_PARITY_N": 64}
+    world = contextlib.ExitStack()
+    mesh = {}
+
+    def at_par(phase):
+        def run():
+            if "mesh" not in mesh:
+                mesh["mesh"] = world.enter_context(cs.dist_world(dev))
+            m = mesh["mesh"]
+            saved = {k: getattr(cs, k) for k in par_cut}
+            for k, v in par_cut.items():
+                setattr(cs, k, v)
+            try:
+                D2, S2, l2 = cs.headline_problem()
+                return {"par_parity": lambda: cs.phase_par_parity(dev, m),
+                        "par_solve": lambda: cs.phase_par_solve(dev),
+                        "cns_sharded": lambda: cs.phase_cns_sharded(
+                            dev, m, D0c, Sc, lc),
+                        "spatial": lambda: cs.phase_spatial(
+                            dev, m, D2, S2, l2),
+                        "grid_search": lambda: cs.phase_grid_search(m),
+                        }[phase]()
+            finally:
+                for k, v in saved.items():
+                    setattr(cs, k, v)
+        return run
+    runs.update({name: at_par(name) for name in PAR_PHASES})
     if "mixed_solve" in names:
         names = [n for n in PHASES
                  if n in names or n in ("solve", "pgm_solve")]
@@ -196,6 +234,7 @@ def main(argv):
         print(json.dumps({"phase": name, "cpu_seconds":
                           time.perf_counter() - t0, **done[name]}),
               flush=True)
+    world.close()
     return 0
 
 
