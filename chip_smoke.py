@@ -346,6 +346,16 @@ AMS form of
 entries of their own, with their launches in the fused masked and mixed
 solves), the ``nvidia-smi`` name and power limit line, and last
 ``{"ok": true, "device": {...}}``.
+The fused ADMM and FISTA solves run their loop on the card
+(``sporco_tpu_torch/ops/device_loop.py``): one iteration captured as a
+CUDA graph and replayed in blocks of 8, one host read a block; each
+fused solve phase (``solve``, ``pgm_solve``, the fused side of
+``generic_solve``, ``gradreg_solve``, ``elastic_solve``,
+``wl1_spatial_solve``, ``clr_solve``, ``clr_pgm_solve``, ``cfold_solve``,
+``ams_solve``, ``mixed_solve``) reports its ``host_reads`` and fails if
+the loop was not captured or made more than ``ceil(k / 8) + 2`` reads
+for k iterations; the ``--profile`` phases report them beside the idle
+share.
 Any failure exits non-zero without the ``ok`` line; so does a run past the
 time budget, or a machine without a CUDA device.
 ``--profile`` adds phases that run the fused ADMM, fused FISTA, generic
@@ -388,6 +398,7 @@ from sporco_tpu_torch.models.cbpdn import (AddMaskSim, ConvBPDN,
 from sporco_tpu_torch.ops import _nvcc
 from sporco_tpu_torch.ops import csc_iter as tci
 from sporco_tpu_torch.ops import csc_tail as tct
+from sporco_tpu_torch.ops import device_loop
 from sporco_tpu_torch.ops import fft as tsf
 from sporco_tpu_torch.ops import fft2_planar as tfp
 from sporco_tpu_torch.ops import fused_csc as tfc
@@ -465,6 +476,9 @@ PGM_EPI_FLOPS = 15
 TAIL_FLOPS = 26
 
 PHASE = {"name": "start"}
+# the fused solves' device loop must run as a captured CUDA graph (the
+# CPU rehearsal, tools/chip_smoke_cpu.py, runs it eagerly)
+LOOP_GRAPH = True
 
 
 def emit(obj):
@@ -498,6 +512,15 @@ def nvidia_smi():
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def device_scalars(dev, *vals):
+    """The flag live (1) and ``vals`` as 0-d float32 tensors on the card,
+    made once: a kernel timed with them is launched as the fused loop
+    launches it (its scalar block stacked on the card), not through the
+    eager route's copy of numbers from pinned memory."""
+    return [torch.tensor(float(np.float32(v)), device=dev)
+            for v in (1.0,) + vals]
 
 
 def cuda_ms(fn, reps=20, warmup=3, batch=1):
@@ -599,10 +622,30 @@ def reset_launches():
     tpi.reset_launches()
     tfp.reset_launches()
     tct.reset_launches()
+    device_loop.LAST.clear()
 
 
 def launches():
     return {**tci.LAUNCHES, **tpi.LAUNCHES, **tfp.LAUNCHES, **tct.LAUNCHES}
+
+
+def loop_reads(label, k):
+    """The last fused solve's device loop (``ops/device_loop.py``): it
+    ran as a CUDA graph (captured in this call, or kept from an earlier
+    call of the same geometry), and made at most one host read a block
+    of 8 iterations and the final one, with one to spare (set-up), or the
+    phase fails.  Returns the loop's record (``host_reads`` and the
+    rest)."""
+    last = dict(device_loop.LAST)
+    limit = math.ceil(k / device_loop.UNROLL) + 2
+    if not last or last["live"] != k or (LOOP_GRAPH
+                                         and not last["graph"]):
+        raise AssertionError(f"{label}: the device loop's record {last} "
+                             f"is not a captured run of {k} iterations")
+    if last["host_reads"] > limit:
+        raise AssertionError(f"{label}: {last['host_reads']} host reads "
+                             f"for {k} iterations (at most {limit})")
+    return last
 
 
 def expect_launches(label, counts, **want):
@@ -860,16 +903,26 @@ def check_csc_iter(dev, Wf, Wa, pos, headline, seed=1, emit_fwd=True):
     # the main path's configuration: repeatable, timed, and by pass
     Y, U = Y0.clone(), U0.clone()
 
+    dvals = device_scalars(G2.device, 0.0143, us, scale)
+
     def run(fn, fwd=emit_fwd):
+        # the kernel with its scalars on the card, the plain version (which
+        # would read a flag on the card) with numbers
+        if fn is tci.csc_iter:
+            live, thr_t, us_t, scale_t = dvals
+            return lambda: fn(G2, Y, U, Wa, Wf, thr_t, 1.0, rlx, us_t,
+                              scale_t, nonneg=False, emit_px=False,
+                              wf_split=wf3, emit_fwd=fwd, live=live)
         return lambda: fn(G2, Y, U, Wa, Wf, 0.0143, 1.0, rlx, us, scale,
                           nonneg=False, emit_px=False, wf_split=wf3,
                           emit_fwd=fwd)
     check_repeatable("csc_iter", lambda: tci.csc_iter(
         G2, Y0.clone(), U0.clone(), Wa, Wf, 0.0143, 1.0, rlx, us, scale,
         emit_px=True, wf_split=wf3, emit_fwd=emit_fwd))
-    # without the forward pair a call is short enough that the wrapper's
-    # host time shows: timed over batches of calls, as the FFT kernels are
-    batch = 1 if emit_fwd else FFT_BATCH
+    # timed over batches of calls, as the FFT kernels are: the wrapper's
+    # host time then overlaps the kernels of the call before, and the
+    # events time the kernels, not the enqueue of the first
+    batch = FFT_BATCH
     kernel_ms = cuda_ms(run(tci.csc_iter), batch=batch)
     pass_ms = device_ms_by_kernel(run(tci.csc_iter))
     plain_ms = cuda_ms(run(tci.csc_iter_plain), batch=batch)
@@ -955,6 +1008,7 @@ def phase_solve(dev, D, S, lmbda):
     k = int(b.state.k)
     expect_launches(f"an ADMM solve of {k} iterations", counts,
                     csc_iter=k)
+    loop = loop_reads(f"an ADMM solve of {k} iterations", k)
     if tuple(X.shape) != (N, N, 1, 1, M):
         raise AssertionError(f"coefficients have shape {tuple(X.shape)}")
     for name, t in (("Y", X), ("X", b.state.X), ("U", b.state.U)):
@@ -973,7 +1027,8 @@ def phase_solve(dev, D, S, lmbda):
             "final_objective": float(its.ObjFun[-1]),
             "final_dfid": float(its.DFid[-1]),
             "final_rho": float(its.Rho[-1]), "nonzero_fraction": nnz,
-            "launches": counts}
+            "launches": counts, "host_reads": loop["host_reads"],
+            "device_loop": loop}
 
 
 def pgm_options(max_iter=PGM_ITERS):
@@ -1031,15 +1086,24 @@ def check_pgm_iter(dev, Wf, Wa, pos, seed=2):
     # timed, and by pass
     Y, X = Y0.clone(), X0.clone()
 
+    dvals = device_scalars(G2.device, 5e-4, rL, 0.7)
+
     def run(fn):
+        # the kernel with its scalars on the card, the plain version with
+        # numbers (as csc_iter's)
+        if fn is tpi.pgm_iter:
+            live, thr_t, rl_t, beta_t = dvals
+            return lambda: fn(G2, Y, X, Wa, Wf, thr_t, 1.0, rl_t, beta_t,
+                              wf_split=wf3, live=live)
         return lambda: fn(G2, Y, X, Wa, Wf, 5e-4, 1.0, rL, 0.7,
                           wf_split=wf3)
     check_repeatable("pgm_iter", lambda: tpi.pgm_iter(
         G2, Y0.clone(), X0.clone(), Wa, Wf, 5e-4, 1.0, rL, 0.7,
         wf_split=wf3))
-    kernel_ms = cuda_ms(run(tpi.pgm_iter))
+    # in batches of calls, as csc_iter's
+    kernel_ms = cuda_ms(run(tpi.pgm_iter), batch=FFT_BATCH)
     pass_ms = device_ms_by_kernel(run(tpi.pgm_iter))
-    plain_ms = cuda_ms(run(tpi.pgm_iter_plain))
+    plain_ms = cuda_ms(run(tpi.pgm_iter_plain), batch=FFT_BATCH)
     gflop = 2 * pos * T * C / 1e9
     return {"geometry": {"pos": pos, "C": C, "T": T},
             "tolerance_rel": KERNEL_RTOL, "grid": grid,
@@ -1096,6 +1160,7 @@ def phase_pgm_solve(dev, D, S, lmbda):
         raise AssertionError(f"a FISTA solve of {k} iterations")
     expect_launches(f"a FISTA solve of {k} iterations", counts,
                     pgm_iter=k)
+    loop = loop_reads(f"a FISTA solve of {k} iterations", k)
     if tuple(X.shape) != (N, N, 1, 1, M):
         raise AssertionError(f"coefficients have shape {tuple(X.shape)}")
     for name in ("X", "Y", "Xprv"):
@@ -1110,18 +1175,20 @@ def phase_pgm_solve(dev, D, S, lmbda):
             "final_objective": float(its.ObjFun[-1]),
             "final_dfid": float(its.DFid[-1]),
             "final_rsdl": float(its.Rsdl[-1]), "nonzero_fraction": nnz,
-            "launches": counts}
+            "launches": counts, "host_reads": loop["host_reads"],
+            "device_loop": loop}
 
 
 def _rel_err(a, b, scale):
     return float((a - b).abs().max()) / scale
 
 
-def device_ms_by_kernel(fn, reps=10, tries=3):
+def device_ms_by_kernel(fn, reps=10, tries=3, need=()):
     """Device time per call of ``fn`` by kernel name, from
     ``torch.profiler`` over ``reps`` calls.  A profile that saw no device
-    event at all (it happens now and then in a long run of profiles) is
-    taken again, up to ``tries`` times."""
+    event at all, or fewer than ``reps`` launches of a kernel whose name
+    holds a string of ``need`` (the profiler drops events now and then in
+    a long run of profiles), is taken again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile as tprof
     for _ in range(tries):
         torch.cuda.synchronize()
@@ -1132,7 +1199,8 @@ def device_ms_by_kernel(fn, reps=10, tries=3):
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
+        if events and all(sum(e.count for e in events if n in e.key) >= reps
+                          for n in need):
             break
     out = {}
     for e in events:
@@ -1151,8 +1219,10 @@ def fft_pass_split(x, yr, yi):
     complex64 spectrum, with their device time."""
     n1 = x.shape[-1]
     spec = torch.complex(yr, yi)
-    fwd = device_ms_by_kernel(lambda: tfp.rfft2_planar(x))
-    inv = device_ms_by_kernel(lambda: tfp.irfft2_planar(yr, yi, n1))
+    fwd = device_ms_by_kernel(lambda: tfp.rfft2_planar(x),
+                              need=("fft_rows_r2c_pow2", "fft_cols_pow2"))
+    inv = device_ms_by_kernel(lambda: tfp.irfft2_planar(yr, yi, n1),
+                              need=("fft_rows_c2r_pow2", "fft_cols_pow2"))
     libs = {"rfft2_planar": device_ms_by_kernel(lambda: torch.fft.rfft2(x)),
             "irfft2_planar": device_ms_by_kernel(
                 lambda: torch.fft.irfft2(spec, s=x.shape[-2:]))}
@@ -1330,6 +1400,8 @@ def phase_generic_solve(dev, D, S, lmbda, fused):
     expect_launches(f"a fused ADMM solve of {kf} iterations at highest",
                     counts_f, csc_iter=kf, rfft2_planar=kf + 3,
                     irfft2_planar=kf + 1)
+    loop_f = loop_reads(f"a fused ADMM solve of {kf} iterations at "
+                        "highest", kf)
     return {"iterations": k, "wall_s": wall, "iters_per_s": k / wall,
             "ms_per_iter": 1e3 * wall / k, "final_objective": obj,
             "fused_final_objective": fused["final_objective"],
@@ -1339,7 +1411,9 @@ def phase_generic_solve(dev, D, S, lmbda, fused):
             "fused_highest": {"iterations": kf, "wall_s": wall_f,
                               "final_objective": float(
                                   bf.getitstat().ObjFun[-1]),
-                              "launches": counts_f}}
+                              "launches": counts_f,
+                              "host_reads": loop_f["host_reads"],
+                              "device_loop": loop_f}}
 
 
 def phase_pgm_generic_solve(dev, D, S, lmbda):
@@ -1426,7 +1500,14 @@ def phase_tail_kernel(dev):
     R, C = TAIL_SHAPES[0]
     PX, PY, PU, thr_v, wl1_v = arrays(R, C)
 
+    live, us_t = device_scalars(PX.device, 0.9)
+
     def run(fn):
+        # the kernel with us on the card, the plain version with a number
+        # (as csc_iter's)
+        if fn is tct.admm_tail:
+            return lambda: fn(PX, PY, PU, thr_v, wl1_v, 1.8, us=us_t,
+                              live=live)
         return lambda: fn(PX, PY, PU, thr_v, wl1_v, 1.8, us=0.9)
     kernel_ms = cuda_ms(run(tct.admm_tail), batch=10)
     plain_ms = cuda_ms(run(tct.admm_tail_plain), batch=10)
@@ -1507,13 +1588,13 @@ def phase_gradreg_layout(dev, D, S):
     return out
 
 
-def _variant_solves(label, make, fused_want, generic_want,
-                    xshape=(N, N, 1, 1, M)):
+def _variant_solves(label, make, fused_want, generic_want, xshape=None):
     """A fused solve and the generic solve (``fused=False``) of the same
     problem, each timed after a 3-iteration warm-up; the launches of each
     must be ``fused_want(k)`` / ``generic_want(k)``, the coefficients of
     shape ``xshape``, the final objectives must agree within OBJ_AGREE,
     and both must reach the stopping tolerance."""
+    xshape = xshape or (N, N, 1, 1, M)
     out = {}
     for route, want in (("fused", fused_want), ("generic", generic_want)):
         kw = {} if route == "fused" else {"fused": False}
@@ -1524,6 +1605,8 @@ def _variant_solves(label, make, fused_want, generic_want,
         k = int(b.state.k)
         expect_launches(f"a {route} {label} solve of {k} iterations",
                         counts, **want(k))
+        loop = (loop_reads(f"a fused {label} solve of {k} iterations", k)
+                if route == "fused" else {})
         if tuple(X.shape) != xshape or not all(
                 bool(torch.isfinite(t).all()) for t in (X, b.state.X,
                                                        b.state.U)):
@@ -1546,7 +1629,9 @@ def _variant_solves(label, make, fused_want, generic_want,
                       "final_rho": float(its.Rho[-1]),
                       "nonzero_fraction": float(
                           (b.state.Y != 0).float().mean()),
-                      "launches": counts}
+                      "launches": counts, **({"host_reads": loop[
+                          "host_reads"], "device_loop": loop}
+                                             if loop else {})}
     fo, go = out["fused"]["final_objective"], out["generic"]["final_objective"]
     agree = abs(fo - go) / abs(go)
     if not agree <= OBJ_AGREE:
@@ -1724,6 +1809,8 @@ def _fista_solves(label, make, fused_want, generic_want, xshape):
         if k != PGM_ITERS:
             raise AssertionError(f"{route} {label} ran {k} iterations")
         expect_launches(f"a {route} {label} solve", counts, **want(k))
+        loop = (loop_reads(f"a fused {label} solve", k)
+                if route == "fused" else {})
         if tuple(X.shape) != xshape or not bool(torch.isfinite(X).all()):
             raise AssertionError(f"{route} {label}: bad shape or not "
                                  "finite")
@@ -1736,7 +1823,9 @@ def _fista_solves(label, make, fused_want, generic_want, xshape):
                       "final_objective": float(its.ObjFun[-1]),
                       "final_rsdl": float(its.Rsdl[-1]),
                       "nonzero_fraction": float((X != 0).float().mean()),
-                      "launches": counts}
+                      "launches": counts, **({"host_reads": loop[
+                          "host_reads"], "device_loop": loop}
+                                             if loop else {})}
     fo, go = out["fused"]["final_objective"], out["generic"]["final_objective"]
     agree = abs(fo - go) / abs(go)
     if not agree <= OBJ_AGREE:
@@ -2296,6 +2385,7 @@ def phase_mixed_solve(dev, D, S, lmbda, high, pgm_high):
         k = int(b.state.k)
         expect_launches(f"a mixed ADMM solve of {k} iterations", counts,
                         csc_iter=k)
+        loop = loop_reads(f"a mixed ADMM solve of {k} iterations", k)
         its = b.getitstat()
         obj = float(its.ObjFun[-1])
         drift = abs(obj - high["final_objective"]) / high["final_objective"]
@@ -2315,12 +2405,14 @@ def phase_mixed_solve(dev, D, S, lmbda, high, pgm_high):
                        / high["final_objective"],
                        "wall_s": wall, "ms_per_iter": 1e3 * wall / k,
                        "high_ms_per_iter": high["ms_per_iter"],
-                       "launches": counts}
+                       "launches": counts,
+                       "host_reads": loop["host_reads"]}
         b = tpgm.ConvBPDN(D, S, lmbda, opt=pgm_options(), device=dev)
         X, wall, counts = _timed_solve(b)
         k = int(b.state.k)
         expect_launches(f"a mixed FISTA solve of {k} iterations", counts,
                         pgm_iter=k)
+        loop = loop_reads(f"a mixed FISTA solve of {k} iterations", k)
         its = b.getitstat()
         obj = float(its.ObjFun[-1])
         if k != PGM_ITERS or not np.all(np.isfinite(its.ObjFun)) or not (
@@ -2336,7 +2428,8 @@ def phase_mixed_solve(dev, D, S, lmbda, high, pgm_high):
                         / pgm_high["final_objective"],
                         "wall_s": wall, "ms_per_iter": 1e3 * wall / k,
                         "high_ms_per_iter": pgm_high["ms_per_iter"],
-                        "launches": counts}
+                        "launches": counts,
+                        "host_reads": loop["host_reads"]}
     # card against CPU, 10 iterations
     runs = {}
     for mode, where in (("mixed", dev), ("mixed", "cpu"), ("high", "cpu")):
@@ -3976,6 +4069,7 @@ def phase_profile(dev, make_model):
     from torch.profiler import ProfilerActivity, profile as tprof
     b = make_model()
     torch.cuda.synchronize()
+    device_loop.LAST.clear()
     with tprof(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3994,9 +4088,15 @@ def phase_profile(dev, make_model):
     busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
     top = sorted(on_dev, key=dev_us, reverse=True)[:16]
     k = b.j if hasattr(b, "j") else int(b.state.k)
+    # the fused drivers' device loop: its host reads (the generic drivers
+    # run no device loop)
+    loop = dict(device_loop.LAST) if device_loop.LAST.get(
+        "live") == k else {}
     return {"iterations": k, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "device_ms_per_iter": busy_ms / k,
+            "wall_ms_per_iter": wall_ms / k,
+            "host_reads": loop.get("host_reads"),
             "top": [{"name": e.key[:70], "device_ms": dev_us(e) / 1e3,
                      "count": e.count} for e in top]}
 

@@ -17,7 +17,13 @@
 // and the six sums ||PX-Yn||^2, ||Yn-Y||^2, ||PX||^2, ||Yn||^2, ||Un||^2,
 // sum |wl1*PX|.  Yn and Un overwrite Y and U in place; PX is stored only
 // when the caller passes a buffer for it.  `thr` and `wl1` are scalars or
-// (C,) vectors.
+// (C,) vectors.  The scalars that change from one iteration to the next
+// (thr's scalar, us, scale) and the flag `live` come from a float32
+// block in device memory, `scal` = [live, thr_s, us, scale], so that the
+// fused driver's loop can run as a captured CUDA graph; where live is 0
+// no kernel writes anything (Y, U, PX, R1, R2, the sums) and the launch
+// is not counted.  rlx, wl1's scalar and nonneg, fixed over a solve, are
+// passed by value.
 //
 // What bounds it.  At the headline problem (512x512 image, 64 8x8
 // filters) pos = 4096, C = 4096, T = 256: three products of
@@ -59,9 +65,28 @@ namespace {
 
 constexpr int NSUM = 6;
 
+// The update's scalars fixed over a solve, passed by value.
 struct Epi {
-  float rlx, us, scale;
+  float rlx;
   int nonneg;
+};
+
+// Where iter_main reads the scalar block [live, thr_s, us, scale] at
+// each use, so that no value stays in a register across the epilogue
+// (the kernel sits at its 128-register bound, and three values held
+// there spilled): the scalar-weight instantiation through the read-only
+// cache from device memory, the vector one from a volatile copy in
+// shared memory.  Each is the form that ptxas compiles without a spill
+// for that instantiation (the other one spilled).
+struct ScalGlobal {
+  const float* __restrict__ g;
+  __device__ __forceinline__ float operator[](int i) const {
+    return __ldg(g + i);
+  }
+};
+struct ScalShared {
+  const volatile float* s;
+  __device__ __forceinline__ float operator[](int i) const { return s[i]; }
 };
 
 // The elementwise ADMM update of one state element; accumulates the six
@@ -72,12 +97,13 @@ struct Epi {
 // still moves Un by ulps of AX, and over 12288 rows (three channels
 // folded) that passed 1e-5 of Un's scale against the plain version with
 // A bit for bit the same.
-__device__ __forceinline__ void update(const Epi& p, float a, float y,
-                                       float u0, float th, float w,
-                                       float& px, float& yn, float& un,
-                                       float* s) {
-  const float u = __fmul_rn(p.us, u0);
-  px = __fadd_rn(__fmul_rn(p.scale, __fsub_rn(y, u)), a);
+template <class Scal>
+__device__ __forceinline__ void update(const Epi& p, const Scal& sc,
+                                       float a, float y, float u0,
+                                       float th, float w, float& px,
+                                       float& yn, float& un, float* s) {
+  const float u = __fmul_rn(sc[2], u0);
+  px = __fadd_rn(__fmul_rn(sc[3], __fsub_rn(y, u)), a);
   const float ax =
       __fadd_rn(__fmul_rn(p.rlx, px), __fmul_rn(1.f - p.rlx, y));
   const float axu = __fadd_rn(ax, u);
@@ -95,18 +121,16 @@ __device__ __forceinline__ void update(const Epi& p, float a, float y,
   s[5] += fabsf(px) * w;
 }
 
-// VW: thr and wl1 are (C,) vectors, else the scalars thr_s / wl1_s.  Two
-// instantiations keep the scalar case (the main path) from holding the
-// vectors' loads in registers: at 128 registers a thread (two blocks an
-// SM), with the epilogue rounded as above, one kernel for both spilled.
-template <bool VW>
-__global__ void __launch_bounds__(NT, 2)
-iter_main(const float* __restrict__ G2, float* __restrict__ Y,
-          float* __restrict__ U, const float* __restrict__ Wa,
-          const float* __restrict__ thr_v, float thr_s,
-          const float* __restrict__ wl1_v, float wl1_s, Epi p,
-          float* __restrict__ PX, float* __restrict__ part, int64_t pos,
-          int64_t C, int64_t T, int vec) {
+// The product and the epilogue of iter_main, reading the scalar block
+// through `sc`.
+template <bool VW, class Scal>
+__device__ __forceinline__ void iter_body(
+    const float* __restrict__ G2, float* __restrict__ Y,
+    float* __restrict__ U, const float* __restrict__ Wa,
+    const float* __restrict__ thr_v, const float* __restrict__ wl1_v,
+    float wl1_s, const Scal& sc, const Epi& p, float* __restrict__ PX,
+    float* __restrict__ part, int64_t pos, int64_t C, int64_t T,
+    int vec) {
   float acc[8][8];
   adj_tile(G2, Wa, pos, C, T, vec, acc);
 
@@ -125,6 +149,7 @@ iter_main(const float* __restrict__ G2, float* __restrict__ Y,
       if (vec && c + 3 < C) {
         const float4 y4 = *reinterpret_cast<const float4*>(Y + idx);
         const float4 u4 = *reinterpret_cast<const float4*>(U + idx);
+        const float thr_s = VW ? 0.f : sc[1];
         const float4 th4 =
             VW ? *reinterpret_cast<const float4*>(thr_v + c)
                   : make_float4(thr_s, thr_s, thr_s, thr_s);
@@ -132,13 +157,13 @@ iter_main(const float* __restrict__ G2, float* __restrict__ Y,
             VW ? *reinterpret_cast<const float4*>(wl1_v + c)
                   : make_float4(wl1_s, wl1_s, wl1_s, wl1_s);
         float4 px4, yn4, un4;
-        update(p, acc[i][h * 4 + 0], y4.x, u4.x, th4.x, w4.x, px4.x,
+        update(p, sc, acc[i][h * 4 + 0], y4.x, u4.x, th4.x, w4.x, px4.x,
                yn4.x, un4.x, s);
-        update(p, acc[i][h * 4 + 1], y4.y, u4.y, th4.y, w4.y, px4.y,
+        update(p, sc, acc[i][h * 4 + 1], y4.y, u4.y, th4.y, w4.y, px4.y,
                yn4.y, un4.y, s);
-        update(p, acc[i][h * 4 + 2], y4.z, u4.z, th4.z, w4.z, px4.z,
+        update(p, sc, acc[i][h * 4 + 2], y4.z, u4.z, th4.z, w4.z, px4.z,
                yn4.z, un4.z, s);
-        update(p, acc[i][h * 4 + 3], y4.w, u4.w, th4.w, w4.w, px4.w,
+        update(p, sc, acc[i][h * 4 + 3], y4.w, u4.w, th4.w, w4.w, px4.w,
                yn4.w, un4.w, s);
         *reinterpret_cast<float4*>(Y + idx) = yn4;
         *reinterpret_cast<float4*>(U + idx) = un4;
@@ -148,8 +173,8 @@ iter_main(const float* __restrict__ G2, float* __restrict__ Y,
         for (int j = 0; j < 4; ++j) {
           if (c + j >= C) break;
           float px, yn, un;
-          update(p, acc[i][h * 4 + j], Y[idx + j], U[idx + j],
-                 VW ? thr_v[c + j] : thr_s,
+          update(p, sc, acc[i][h * 4 + j], Y[idx + j], U[idx + j],
+                 VW ? thr_v[c + j] : sc[1],
                  VW ? wl1_v[c + j] : wl1_s, px, yn, un, s);
           Y[idx + j] = yn;
           U[idx + j] = un;
@@ -159,6 +184,36 @@ iter_main(const float* __restrict__ G2, float* __restrict__ Y,
     }
   }
   block_partials<NSUM>(s, part);
+}
+
+// VW: thr and wl1 are (C,) vectors, else the scalars thr_s / wl1_s.  Two
+// instantiations keep the scalar case (the main path) from holding the
+// vectors' loads in registers: at 128 registers a thread (two blocks an
+// SM), with the epilogue rounded as above, one kernel for both spilled.
+// Each reads the scalar block its own way (ScalGlobal, ScalShared) and
+// returns before any write where `live` is 0.
+template <bool VW>
+__global__ void __launch_bounds__(NT, 2)
+iter_main(const float* __restrict__ G2, float* __restrict__ Y,
+          float* __restrict__ U, const float* __restrict__ Wa,
+          const float* __restrict__ thr_v, const float* __restrict__ wl1_v,
+          float wl1_s, const float* __restrict__ scal, Epi p,
+          float* __restrict__ PX, float* __restrict__ part, int64_t pos,
+          int64_t C, int64_t T, int vec) {
+  if constexpr (VW) {
+    __shared__ float sc_s[4];
+    if (threadIdx.x < 4) sc_s[threadIdx.x] = scal[threadIdx.x];
+    __syncthreads();
+    const ScalShared sc{sc_s};
+    if (sc[0] == 0.f) return;
+    iter_body<VW>(G2, Y, U, Wa, thr_v, wl1_v, wl1_s, sc, p, PX, part, pos,
+                  C, T, vec);
+  } else {
+    const ScalGlobal sc{scal};
+    if (sc[0] == 0.f) return;
+    iter_body<VW>(G2, Y, U, Wa, thr_v, wl1_v, wl1_s, sc, p, PX, part, pos,
+                  C, T, vec);
+  }
 }
 
 // R1 stages Yn - Un, R2 stages Un.
@@ -174,8 +229,9 @@ template <bool MIXED>
 __global__ void __launch_bounds__(F_NT, 1)
 iter_fwd(const float* __restrict__ Yn, const float* __restrict__ Un,
          const uint16_t* __restrict__ Wf3, float* __restrict__ R1,
-         float* __restrict__ R2, int64_t pos, int64_t C, int64_t T,
-         int vec) {
+         float* __restrict__ R2, const float* __restrict__ scal,
+         int64_t pos, int64_t C, int64_t T, int vec) {
+  if (!launch_live(scal)) return;
   extern __shared__ __align__(16) unsigned char smem[];
   fwd_pair<MIXED>(smem, Yn, Un, Wf3, R1, R2, pos, C, T, vec, StageDiff());
 }
@@ -183,13 +239,13 @@ iter_fwd(const float* __restrict__ Yn, const float* __restrict__ Un,
 template <bool MIXED>
 cudaError_t launch_fwd(dim3 grid, cudaStream_t st, const float* Yn,
                        const float* Un, const uint16_t* Wf3, float* R1,
-                       float* R2, int64_t pos, int64_t C, int64_t T,
-                       int vec) {
+                       float* R2, const float* scal, int64_t pos,
+                       int64_t C, int64_t T, int vec) {
   cudaError_t err = cudaFuncSetAttribute(
       iter_fwd<MIXED>, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
   if (err != cudaSuccess) return err;
-  iter_fwd<MIXED><<<grid, F_NT, F_SMEM, st>>>(Yn, Un, Wf3, R1, R2, pos, C,
-                                              T, vec);
+  iter_fwd<MIXED><<<grid, F_NT, F_SMEM, st>>>(Yn, Un, Wf3, R1, R2, scal,
+                                              pos, C, T, vec);
   return cudaGetLastError();
 }
 
@@ -203,9 +259,11 @@ int64_t csc_iter_scratch_floats(int64_t pos, int64_t C) {
 }
 
 // Launch the three kernels on `stream`.  Wf3 is the bf16 split of Wf,
-// (3, round_up(C, 32), round_up(T, 8)), zero-padded.  thr_v and wl1_v
-// are both (C,) vectors or both null, in which case the scalars thr_s /
-// wl1_s apply to every channel; PX may be null (not stored).  With Wf3,
+// (3, round_up(C, 32), round_up(T, 8)), zero-padded.  `scal` is the
+// float32 block [live, thr_s, us, scale] in device memory; `cnt` (may be
+// null) an int32 counter that gains 1 if live.  thr_v and wl1_v are both
+// (C,) vectors or both null, in which case the scalars thr_s / wl1_s
+// apply to every channel; PX may be null (not stored).  With Wf3,
 // R1 and R2 all null the forward pair is skipped: iter_fwd is not
 // launched (the consensus CDL stage, whose dictionary changes before the
 // next forward product is needed).  `vec` allows 16-byte accesses:
@@ -213,14 +271,15 @@ int64_t csc_iter_scratch_floats(int64_t pos, int64_t C) {
 // pointer is 16-byte aligned.  `mixed` computes R1 as one bf16 product
 // (R2 keeps its six).  Returns a cudaError_t.
 int csc_iter_launch(const float* G2, float* Y, float* U, const float* Wa,
-                    const uint16_t* Wf3, const float* thr_v, float thr_s,
-                    const float* wl1_v, float wl1_s, float rlx, float us,
-                    float scale, int nonneg, int vec, int mixed, float* PX,
+                    const uint16_t* Wf3, const float* thr_v,
+                    const float* wl1_v, float wl1_s, const float* scal,
+                    float rlx, int nonneg, int vec, int mixed, float* PX,
                     float* R1, float* R2, float* part, float* sums,
-                    int64_t pos, int64_t C, int64_t T, void* stream) {
+                    int* cnt, int64_t pos, int64_t C, int64_t T,
+                    void* stream) {
   const bool fwd = Wf3 != nullptr;
   if (pos <= 0 || C <= 0 || T <= 0 || !thr_v != !wl1_v ||
-      !R1 != !fwd || !R2 != !fwd)
+      !R1 != !fwd || !R2 != !fwd || !scal)
     return (int)cudaErrorInvalidValue;
   const int64_t g1x = ceil_div(pos, A_BM), g1y = ceil_div(C, A_BN);
   const int64_t g2x = ceil_div(pos, F_BM), g2y = ceil_div(T, F_BN);
@@ -228,27 +287,29 @@ int csc_iter_launch(const float* G2, float* Y, float* U, const float* Wa,
     return (int)cudaErrorInvalidConfiguration;
   cudaError_t err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Epi p{rlx, us, scale, nonneg};
+  const Epi p{rlx, nonneg};
 
   const dim3 g1((unsigned)g1x, (unsigned)g1y);
   if (thr_v)
-    iter_main<true><<<g1, NT, 0, st>>>(G2, Y, U, Wa, thr_v, thr_s, wl1_v,
-                                       wl1_s, p, PX, part, pos, C, T, vec);
+    iter_main<true><<<g1, NT, 0, st>>>(G2, Y, U, Wa, thr_v, wl1_v, wl1_s,
+                                       scal, p, PX, part, pos, C, T, vec);
   else
-    iter_main<false><<<g1, NT, 0, st>>>(G2, Y, U, Wa, thr_v, thr_s, wl1_v,
-                                        wl1_s, p, PX, part, pos, C, T, vec);
+    iter_main<false><<<g1, NT, 0, st>>>(G2, Y, U, Wa, thr_v, wl1_v, wl1_s,
+                                        scal, p, PX, part, pos, C, T,
+                                        vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   if (fwd) {
     const dim3 g2((unsigned)g2x, (unsigned)g2y);
-    err = mixed ? launch_fwd<true>(g2, st, Y, U, Wf3, R1, R2, pos, C, T, vec)
-                : launch_fwd<false>(g2, st, Y, U, Wf3, R1, R2, pos, C, T,
-                                    vec);
+    err = mixed ? launch_fwd<true>(g2, st, Y, U, Wf3, R1, R2, scal, pos, C,
+                                   T, vec)
+                : launch_fwd<false>(g2, st, Y, U, Wf3, R1, R2, scal, pos, C,
+                                    T, vec);
     if (err != cudaSuccess) return (int)err;
   }
 
-  sums_kernel<NSUM><<<1, NT, 0, st>>>(part, g1x * g1y, sums);
+  sums_kernel<NSUM><<<1, NT, 0, st>>>(part, g1x * g1y, sums, scal, cnt);
   return (int)cudaGetLastError();
 }
 

@@ -16,6 +16,13 @@
 // ||PUn||^2, sum |wl1[c]*PX|.  PYn and PUn overwrite PY and PU in place:
 // each element is read and then written by the one thread that owns it.
 // `thr` and `wl1` are (C,) vectors or scalars applied to every channel.
+// The scalars that change from one iteration to the next (thr's scalar,
+// us) and the flag `live` come from a float32 block in device memory,
+// `scal` = [live, thr_s, us, unused], so that the fused driver's loop can
+// run as a captured CUDA graph: every block reads it at its start, and
+// where live is 0 neither kernel writes anything (PY, PU, the partials,
+// the sums) and the launch is not counted.  rlx, wl1's scalar and nonneg
+// are passed by value.
 //
 // The AMS form (Additive Mask Simulation, the masked solves' tail;
 // `select` at sporco_tpu/ops/fused_csc.py:816-817): the packed channel
@@ -122,9 +129,12 @@ template <bool AMS>
 __global__ void __launch_bounds__(NT)
 tail_main(const float* __restrict__ PX, float* __restrict__ PY,
           float* __restrict__ PU, const float* __restrict__ thr_v,
-          float thr_s, const float* __restrict__ wl1_v, float wl1_s,
-          Tail p, Ams a, double* __restrict__ part, int64_t n, int64_t C,
-          int vec) {
+          const float* __restrict__ wl1_v, float wl1_s,
+          const float* __restrict__ scal, Tail p, Ams a,
+          double* __restrict__ part, int64_t n, int64_t C, int vec) {
+  if (__ldg(scal) == 0.f) return;
+  const float thr_s = __ldg(scal + 1);
+  p.us = __ldg(scal + 2);
   double s[NSUM] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   const int64_t stride = (int64_t)gridDim.x * NT;
   const int64_t ngroup = (n + 3) / 4;
@@ -194,9 +204,12 @@ tail_main(const float* __restrict__ PX, float* __restrict__ PY,
 
 __global__ void __launch_bounds__(NT)
 tail_sums(const double* __restrict__ part, int64_t nblk,
-          float* __restrict__ sums) {
+          float* __restrict__ sums, const float* __restrict__ scal,
+          int* __restrict__ cnt) {
+  if (__ldg(scal) == 0.f) return;
   __shared__ double red[NT];
   const int tid = threadIdx.x;
+  if (tid == 0 && cnt) *cnt += 1;
   for (int q = 0; q < NSUM; ++q) {
     double v = 0.0;
     for (int64_t b = tid; b < nblk; b += NT) v += part[b * NSUM + q];
@@ -227,37 +240,40 @@ int64_t csc_tail_scratch_doubles(int64_t n) {
 }
 
 // Launch the two kernels on `stream`.  PY and PU are overwritten with
-// PYn and PUn.  thr_v / wl1_v may be null, in which case the scalars
-// thr_s / wl1_s apply to every channel.  `vec` allows 16-byte accesses:
+// PYn and PUn.  `scal` is the float32 block [live, thr_s, us, unused]
+// in device memory; `cnt` (may be null) an int32 counter that gains 1 if
+// live.  thr_v / wl1_v may be null, in which case the scalars thr_s /
+// wl1_s apply to every channel.  `vec` allows 16-byte accesses:
 // the caller sets it only when C is a multiple of 4 and every pointer is
 // 16-byte aligned.  With Wp not null the AMS form runs: the last `nimp`
 // of every M columns are impulse maps and Wp is the (R, C / M) packed
 // mask (M must divide C).  Returns a cudaError_t.
 int csc_tail_launch(const float* PX, float* PY, float* PU,
-                    const float* thr_v, float thr_s, const float* wl1_v,
-                    float wl1_s, float rlx, float us, int nonneg, int vec,
+                    const float* thr_v, const float* wl1_v, float wl1_s,
+                    const float* scal, float rlx, int nonneg, int vec,
                     const float* Wp, int64_t M, int64_t nimp, double* part,
-                    float* sums, int64_t R, int64_t C, void* stream) {
-  if (R <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+                    float* sums, int* cnt, int64_t R, int64_t C,
+                    void* stream) {
+  if (R <= 0 || C <= 0 || !scal) return (int)cudaErrorInvalidValue;
   if (Wp && (M <= 0 || C % M != 0 || nimp <= 0 || nimp > M))
     return (int)cudaErrorInvalidValue;
   const int64_t n = R * C;
   const int64_t nblk = tail_blocks(n);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Tail p{rlx, 1.f - rlx, us, nonneg};
+  const Tail p{rlx, 1.f - rlx, 0.f, nonneg};  // us from scal
   const Ams a{Wp, M, nimp, C};
   const int v = vec && C % 4 == 0;
 
   if (Wp)
     tail_main<true><<<(unsigned)nblk, NT, 0, st>>>(
-        PX, PY, PU, thr_v, thr_s, wl1_v, wl1_s, p, a, part, n, C, v);
+        PX, PY, PU, thr_v, wl1_v, wl1_s, scal, p, a, part, n, C, v);
   else
     tail_main<false><<<(unsigned)nblk, NT, 0, st>>>(
-        PX, PY, PU, thr_v, thr_s, wl1_v, wl1_s, p, a, part, n, C, v);
+        PX, PY, PU, thr_v, wl1_v, wl1_s, scal, p, a, part, n, C, v);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  tail_sums<<<1, NT, 0, st>>>(part, nblk, sums);
+  tail_sums<<<1, NT, 0, st>>>(part, nblk, sums, scal, cnt);
   return (int)cudaGetLastError();
 }
 

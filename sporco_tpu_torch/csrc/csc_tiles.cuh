@@ -14,7 +14,8 @@
 //                  in a fixed order.
 //   sums_kernel    one block reduces the block partials in a fixed
 //                  order, in double: the sums do not change from run to
-//                  run, which the stopping tests need.
+//                  run, which the stopping tests need; it also counts
+//                  the launch (launch_live, the scalar block).
 //
 // Why the adjoint stays on FFMA.  Summed over k in order with one
 // rounding per term, A is bit for bit the A of cuBLAS's fp32 product,
@@ -566,12 +567,27 @@ __device__ __forceinline__ void block_partials(const float (&s)[NSUM],
   }
 }
 
+// The launch's changing scalars are a float32 block in device memory,
+// `scal[0]` the flag `live` (the device loop's guard: an iteration after
+// convergence launches the kernels all the same, and they must change
+// nothing) and the kernel's own scalars after it, so that a captured CUDA
+// graph reads this iteration's values.  Every block reads it once at its
+// start and returns before any write when `live` is 0.
+__device__ __forceinline__ bool launch_live(const float* __restrict__ scal) {
+  return __ldg(scal) != 0.f;
+}
+
+// The last kernel of a launch also counts it: `cnt` (null: not counted)
+// gains 1 where `live` is set.  A dead launch leaves `sums` as it was.
 template <int NSUM>
 __global__ void __launch_bounds__(NT)
 sums_kernel(const float* __restrict__ part, int64_t nblk,
-            float* __restrict__ sums) {
+            float* __restrict__ sums, const float* __restrict__ scal,
+            int* __restrict__ cnt) {
+  if (!launch_live(scal)) return;
   __shared__ double red[NT];
   const int tid = threadIdx.x;
+  if (tid == 0 && cnt) *cnt += 1;
   for (int q = 0; q < NSUM; ++q) {
     double v = 0.0;
     for (int64_t b = tid; b < nblk; b += NT) v += part[b * NSUM + q];

@@ -371,6 +371,21 @@ __device__ __forceinline__ void row_passes(float2 (&v)[RowCfg<L>::R],
   }
 }
 
+// The fused drivers' device loop (sporco_tpu_torch/ops/device_loop.py)
+// launches the transforms of an iteration that may be dead (run after
+// convergence, inside a replayed CUDA graph).  `gate` (null: always live)
+// is the loop's flag `live` in device memory: every block reads it first
+// and returns before any write where it is 0.  `cnt` (null: not counted)
+// is the loop's int32 launch counter, which the last kernel of a live
+// launch advances by 1.
+__device__ __forceinline__ bool gate_dead(const float* gate) {
+  return gate != nullptr && __ldg(gate) == 0.f;
+}
+
+__device__ __forceinline__ void gate_count(int* cnt) {
+  if (cnt != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *cnt += 1;
+}
+
 // rows of shared memory in the padded layout: element e of a block's
 // RB K1 consecutive values is row e / K1, bin e mod K1
 template <int L>
@@ -384,7 +399,8 @@ template <int L>
 __global__ void __launch_bounds__(NT)
 fft_rows_r2c_pow2(const float* __restrict__ x, float* __restrict__ yr,
                   float* __restrict__ yi, const float* __restrict__ tw,
-                  int64_t rows) {
+                  int64_t rows, const float* __restrict__ gate) {
+  if (gate_dead(gate)) return;
   using C = RowCfg<L>;
   extern __shared__ float2 smem2[];
   float2* twp = smem2 + C::RB * C::S;
@@ -468,7 +484,10 @@ fft_rows_r2c_pow2(const float* __restrict__ x, float* __restrict__ yr,
 template <int L>
 __global__ void __launch_bounds__(NT)
 fft_rows_c2r_pow2(const float* __restrict__ s, float* __restrict__ x,
-                  const float* __restrict__ tw, int64_t rows, float scale) {
+                  const float* __restrict__ tw, int64_t rows, float scale,
+                  const float* __restrict__ gate, int* __restrict__ cnt) {
+  if (gate_dead(gate)) return;
+  gate_count(cnt);
   using C = RowCfg<L>;
   extern __shared__ float2 smem2[];
   float2* twp = smem2 + C::RB * C::S;
@@ -593,7 +612,9 @@ template <int L0, int SIGN, bool IN_IL, bool OUT_IL>
 __global__ void __launch_bounds__(ColCfg<L0>::NTC)
 fft_cols_pow2(const float* in_r, const float* in_i, float* out_r,
               float* out_i, const float* __restrict__ tw, int64_t ncols,
-              int k1) {
+              int k1, const float* __restrict__ gate, int* __restrict__ cnt) {
+  if (gate_dead(gate)) return;
+  gate_count(cnt);
   using C = ColCfg<L0>;
   extern __shared__ float2 smem2[];
   const int c = threadIdx.x % CS, j = threadIdx.x / CS;
@@ -633,7 +654,8 @@ __device__ __forceinline__ void load_twiddles(float* twc, float* tws,
 // Row pass, forward, any other even n1: a direct DFT per output bin.
 __global__ void __launch_bounds__(NT)
 dft_rows_r2c(const float* x, float* yr, float* yi, const float* tw,
-             int64_t rows, int n1, int rb) {
+             int64_t rows, int n1, int rb, const float* __restrict__ gate) {
+  if (gate_dead(gate)) return;
   extern __shared__ float sm[];
   float* twc = sm;
   float* tws = twc + n1;
@@ -668,7 +690,10 @@ dft_rows_r2c(const float* x, float* yr, float* yi, const float* tw,
 // from the interleaved scratch z.
 __global__ void __launch_bounds__(NT)
 dft_rows_c2r(const float* z, float* x, const float* tw, int64_t rows, int n1,
-             int rb, float scale) {
+             int rb, float scale, const float* __restrict__ gate,
+             int* __restrict__ cnt) {
+  if (gate_dead(gate)) return;
+  gate_count(cnt);
   extern __shared__ float sm[];
   float* twc = sm;
   float* tws = twc + n1;
@@ -755,54 +780,56 @@ cudaError_t with_row_log(int n1, F f) {
 
 cudaError_t rows_r2c_pow2(const float* x, float* yr, float* yi,
                           const float* tw1, int64_t rows, int n1,
-                          cudaStream_t st) {
+                          const float* gate, cudaStream_t st) {
   return with_row_log(n1, [&](auto lg) {
     constexpr int L = decltype(lg)::value;
     using C = RowCfg<L>;
     const size_t smem = sizeof(float2) * (C::RB * C::S + tw_entries<L>());
     return launch(fft_rows_r2c_pow2<L>, row_blocks(rows, C::RB), NT, smem,
-                  st, x, yr, yi, tw1, rows);
+                  st, x, yr, yi, tw1, rows, gate);
   });
 }
 
 cudaError_t rows_c2r_pow2(const float* s, float* x, const float* tw1,
                           int64_t rows, int n1, float scale,
-                          cudaStream_t st) {
+                          const float* gate, int* cnt, cudaStream_t st) {
   return with_row_log(n1, [&](auto lg) {
     constexpr int L = decltype(lg)::value;
     using C = RowCfg<L>;
     const size_t smem = sizeof(float2) * (C::RB * C::S + tw_entries<L>());
     return launch(fft_rows_c2r_pow2<L>, row_blocks(rows, C::RB), NT, smem,
-                  st, s, x, tw1, rows, scale);
+                  st, s, x, tw1, rows, scale, gate, cnt);
   });
 }
 
 template <int L0, int SIGN, bool IN_IL, bool OUT_IL>
 cudaError_t launch_cols_t(const float* in_r, const float* in_i, float* out_r,
                           float* out_i, const float* tw0, int64_t ncols,
-                          int k1, cudaStream_t st) {
+                          int k1, const float* gate, int* cnt,
+                          cudaStream_t st) {
   using C = ColCfg<L0>;
   const size_t smem = sizeof(float2) * C::N0 * CS;
   const unsigned grid = static_cast<unsigned>((ncols + CS - 1) / CS);
   return launch(fft_cols_pow2<L0, SIGN, IN_IL, OUT_IL>, grid, C::NTC, smem,
-                st, in_r, in_i, out_r, out_i, tw0, ncols, k1);
+                st, in_r, in_i, out_r, out_i, tw0, ncols, k1, gate, cnt);
 }
 
 template <int SIGN, bool IN_IL, bool OUT_IL>
 cudaError_t launch_cols(const float* in_r, const float* in_i, float* out_r,
                         float* out_i, const float* tw0, int64_t B, int n0,
-                        int k1, cudaStream_t st) {
+                        int k1, const float* gate, int* cnt,
+                        cudaStream_t st) {
   const int64_t ncols = B * k1;
   switch (n0) {
     case 128:
-      return launch_cols_t<7, SIGN, IN_IL, OUT_IL>(in_r, in_i, out_r, out_i,
-                                                   tw0, ncols, k1, st);
+      return launch_cols_t<7, SIGN, IN_IL, OUT_IL>(
+          in_r, in_i, out_r, out_i, tw0, ncols, k1, gate, cnt, st);
     case 256:
-      return launch_cols_t<8, SIGN, IN_IL, OUT_IL>(in_r, in_i, out_r, out_i,
-                                                   tw0, ncols, k1, st);
+      return launch_cols_t<8, SIGN, IN_IL, OUT_IL>(
+          in_r, in_i, out_r, out_i, tw0, ncols, k1, gate, cnt, st);
     case 512:
-      return launch_cols_t<9, SIGN, IN_IL, OUT_IL>(in_r, in_i, out_r, out_i,
-                                                   tw0, ncols, k1, st);
+      return launch_cols_t<9, SIGN, IN_IL, OUT_IL>(
+          in_r, in_i, out_r, out_i, tw0, ncols, k1, gate, cnt, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -813,25 +840,25 @@ cudaError_t launch_cols(const float* in_r, const float* in_i, float* out_r,
 template <bool IN_IL>
 int irfft2(const float* yr, const float* yi, float* x, float* s,
            const float* tw0, const float* tw1, int64_t B, int n0, int n1,
-           void* stream) {
+           const float* gate, int* cnt, void* stream) {
   if (!shape_ok(B, n0, n1)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int k1 = n1 / 2 + 1;
   const int64_t rows = B * n0;
   cudaError_t err = launch_cols<1, IN_IL, true>(yr, yi, s, nullptr, tw0, B,
-                                                n0, k1, st);
+                                                n0, k1, gate, nullptr, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale = static_cast<float>(1.0 / (static_cast<double>(n0) * n1));
   if (pow2(n1)) {
     // the packed half-length transform is unnormalised: twice the scale
     return static_cast<int>(
-        rows_c2r_pow2(s, x, tw1, rows, n1, 2.f * scale, st));
+        rows_c2r_pow2(s, x, tw1, rows, n1, 2.f * scale, gate, cnt, st));
   }
   const int rb = rows_per_block(n1);
   const size_t smem =
       sizeof(float) * (2 * n1 + 2 * static_cast<size_t>(rb) * k1);
   dft_rows_c2r<<<row_blocks(rows, rb), NT, smem, st>>>(s, x, tw1, rows, n1,
-                                                      rb, scale);
+                                                      rb, scale, gate, cnt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -840,43 +867,49 @@ int irfft2(const float* yr, const float* yi, float* x, float* s,
 extern "C" {
 
 // x (B, n0, n1) -> yr, yi (B, n0, n1/2+1); tw0 (2, n0), tw1 (2, n1).
+// Each launch takes the device loop's `gate` and `cnt` (both may be null;
+// see gate_dead).
 int rfft2_planar_launch(const float* x, float* yr, float* yi,
                         const float* tw0, const float* tw1, int64_t B,
-                        int n0, int n1, void* stream) {
+                        int n0, int n1, const float* gate, int* cnt,
+                        void* stream) {
   if (!shape_ok(B, n0, n1)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t rows = B * n0;
   cudaError_t err;
   if (pow2(n1)) {
-    err = rows_r2c_pow2(x, yr, yi, tw1, rows, n1, st);
+    err = rows_r2c_pow2(x, yr, yi, tw1, rows, n1, gate, st);
   } else {
     const int rb = rows_per_block(n1);
     const size_t smem = sizeof(float) * (2 * n1 + static_cast<size_t>(rb) * n1);
     dft_rows_r2c<<<row_blocks(rows, rb), NT, smem, st>>>(x, yr, yi, tw1,
-                                                         rows, n1, rb);
+                                                         rows, n1, rb, gate);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_cols<-1, false, false>(
-      yr, yi, yr, yi, tw0, B, n0, n1 / 2 + 1, st));
+      yr, yi, yr, yi, tw0, B, n0, n1 / 2 + 1, gate, cnt, st));
 }
 
 // yr, yi (B, n0, n1/2+1) -> x (B, n0, n1), through the scratch s of
 // 2 B n0 (n1/2+1) floats; the inputs are not modified.
 int irfft2_planar_launch(const float* yr, const float* yi, float* x,
                          float* s, const float* tw0, const float* tw1,
-                         int64_t B, int n0, int n1, void* stream) {
-  return irfft2<false>(yr, yi, x, s, tw0, tw1, B, n0, n1, stream);
+                         int64_t B, int n0, int n1, const float* gate,
+                         int* cnt, void* stream) {
+  return irfft2<false>(yr, yi, x, s, tw0, tw1, B, n0, n1, gate, cnt, stream);
 }
 
 // The same from one complex64 array y (B, n0, n1/2+1) of interleaved real
 // and imaginary parts, 8-byte aligned.
 int irfft2_spectrum_launch(const float* y, float* x, float* s,
                            const float* tw0, const float* tw1, int64_t B,
-                           int n0, int n1, void* stream) {
+                           int n0, int n1, const float* gate, int* cnt,
+                           void* stream) {
   if (reinterpret_cast<uintptr_t>(y) & 7)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  return irfft2<true>(y, nullptr, x, s, tw0, tw1, B, n0, n1, stream);
+  return irfft2<true>(y, nullptr, x, s, tw0, tw1, B, n0, n1, gate, cnt,
+                      stream);
 }
 
 }  // extern "C"

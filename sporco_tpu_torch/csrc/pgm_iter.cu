@@ -16,7 +16,12 @@
 //
 // and the two sums ||X - Y||^2 (with the old Y: the fixed-point
 // residual) and sum |X| * wl1.  X overwrites Xprv and Yn overwrites Y in
-// place.  `thr` and `wl1` are scalars or (C,) vectors.
+// place.  `thr` and `wl1` are scalars or (C,) vectors.  The scalars that
+// change from one iteration to the next (thr's scalar, rL, beta) and the
+// flag `live` come from a float32 block in device memory, `scal` =
+// [live, thr_s, rL, beta] (see csc_iter.cu): where live is 0 no kernel
+// writes anything (Xprv, Y, R1, RX, the sums) and the launch is not
+// counted.  wl1's scalar and nonneg are passed by value.
 //
 // What bounds it.  At the headline problem (512x512 image, 64 8x8
 // filters) pos = 4096, C = 4096, T = 256: three products of
@@ -77,12 +82,19 @@ __device__ __forceinline__ void update(const Epi& p, float a, float y,
 __global__ void __launch_bounds__(NT, 2)
 pgm_main(const float* __restrict__ G2, float* __restrict__ Y,
          float* __restrict__ Xp, const float* __restrict__ Wa,
-         const float* __restrict__ thr_v, float thr_s,
-         const float* __restrict__ wl1_v, float wl1_s, Epi p,
+         const float* __restrict__ thr_v, const float* __restrict__ wl1_v,
+         float wl1_s, const float* __restrict__ scal, int nonneg,
          float* __restrict__ part, int64_t pos, int64_t C, int64_t T,
          int vec) {
+  // the scalar block, read once, kept in shared memory (as iter_main)
+  __shared__ float sc[4];
+  if (threadIdx.x < 4) sc[threadIdx.x] = scal[threadIdx.x];
+  __syncthreads();
+  if (sc[0] == 0.f) return;
   float acc[8][8];
   adj_tile(G2, Wa, pos, C, T, vec, acc);
+  const Epi p{sc[2], sc[3], nonneg};
+  const float thr_s = sc[1];
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int64_t row0 = (int64_t)blockIdx.x * A_BM;
@@ -143,8 +155,9 @@ template <bool MIXED>
 __global__ void __launch_bounds__(F_NT, 1)
 pgm_fwd(const float* __restrict__ Yn, const float* __restrict__ X,
         const uint16_t* __restrict__ Wf3, float* __restrict__ R1,
-        float* __restrict__ RX, int64_t pos, int64_t C, int64_t T,
-        int vec) {
+        float* __restrict__ RX, const float* __restrict__ scal,
+        int64_t pos, int64_t C, int64_t T, int vec) {
+  if (!launch_live(scal)) return;
   extern __shared__ __align__(16) unsigned char smem[];
   fwd_pair<MIXED>(smem, Yn, X, Wf3, R1, RX, pos, C, T, vec, StageSame());
 }
@@ -152,13 +165,13 @@ pgm_fwd(const float* __restrict__ Yn, const float* __restrict__ X,
 template <bool MIXED>
 cudaError_t launch_fwd(dim3 grid, cudaStream_t st, const float* Yn,
                        const float* X, const uint16_t* Wf3, float* R1,
-                       float* RX, int64_t pos, int64_t C, int64_t T,
-                       int vec) {
+                       float* RX, const float* scal, int64_t pos, int64_t C,
+                       int64_t T, int vec) {
   cudaError_t err = cudaFuncSetAttribute(
       pgm_fwd<MIXED>, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
   if (err != cudaSuccess) return err;
-  pgm_fwd<MIXED><<<grid, F_NT, F_SMEM, st>>>(Yn, X, Wf3, R1, RX, pos, C, T,
-                                             vec);
+  pgm_fwd<MIXED><<<grid, F_NT, F_SMEM, st>>>(Yn, X, Wf3, R1, RX, scal, pos,
+                                             C, T, vec);
   return cudaGetLastError();
 }
 
@@ -172,38 +185,42 @@ int64_t pgm_iter_scratch_floats(int64_t pos, int64_t C) {
 }
 
 // Launch the three kernels on `stream`.  Wf3 is the bf16 split of Wf,
-// (3, round_up(C, 32), round_up(T, 8)), zero-padded.  thr_v / wl1_v may
-// be null, in which case the scalars thr_s / wl1_s apply to every
+// (3, round_up(C, 32), round_up(T, 8)), zero-padded.  `scal` is the
+// float32 block [live, thr_s, rL, beta] in device memory; `cnt` (may be
+// null) an int32 counter that gains 1 if live.  thr_v / wl1_v may be
+// null, in which case the scalars thr_s / wl1_s apply to every
 // channel.  `vec` allows 16-byte accesses: the caller sets it only when C
 // and T are multiples of 4 and every pointer is 16-byte aligned.  `mixed`
 // computes R1 as one bf16 product (RX keeps its six).  Returns a
 // cudaError_t.
 int pgm_iter_launch(const float* G2, float* Y, float* Xp, const float* Wa,
-                    const uint16_t* Wf3, const float* thr_v, float thr_s,
-                    const float* wl1_v, float wl1_s, float rL, float beta,
+                    const uint16_t* Wf3, const float* thr_v,
+                    const float* wl1_v, float wl1_s, const float* scal,
                     int nonneg, int vec, int mixed, float* R1, float* RX,
-                    float* part, float* sums, int64_t pos, int64_t C,
-                    int64_t T, void* stream) {
-  if (pos <= 0 || C <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+                    float* part, float* sums, int* cnt, int64_t pos,
+                    int64_t C, int64_t T, void* stream) {
+  if (pos <= 0 || C <= 0 || T <= 0 || !scal)
+    return (int)cudaErrorInvalidValue;
   const int64_t g1x = ceil_div(pos, A_BM), g1y = ceil_div(C, A_BN);
   const int64_t g2x = ceil_div(pos, F_BM), g2y = ceil_div(T, F_BN);
   if (g1x > 0x7fffffff || g2x > 0x7fffffff || g1y > 65535 || g2y > 65535)
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Epi p{rL, beta, nonneg};
 
   pgm_main<<<dim3((unsigned)g1x, (unsigned)g1y), NT, 0, st>>>(
-      G2, Y, Xp, Wa, thr_v, thr_s, wl1_v, wl1_s, p, part, pos, C, T, vec);
+      G2, Y, Xp, Wa, thr_v, wl1_v, wl1_s, scal, nonneg, part, pos, C, T,
+      vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const dim3 g2((unsigned)g2x, (unsigned)g2y);
-  err = mixed ? launch_fwd<true>(g2, st, Y, Xp, Wf3, R1, RX, pos, C, T, vec)
-              : launch_fwd<false>(g2, st, Y, Xp, Wf3, R1, RX, pos, C, T,
-                                  vec);
+  err = mixed ? launch_fwd<true>(g2, st, Y, Xp, Wf3, R1, RX, scal, pos, C,
+                                 T, vec)
+              : launch_fwd<false>(g2, st, Y, Xp, Wf3, R1, RX, scal, pos, C,
+                                  T, vec);
   if (err != cudaSuccess) return (int)err;
 
-  sums_kernel<NSUM><<<1, NT, 0, st>>>(part, g1x * g1y, sums);
+  sums_kernel<NSUM><<<1, NT, 0, st>>>(part, g1x * g1y, sums, scal, cnt);
   return (int)cudaGetLastError();
 }
 

@@ -30,6 +30,14 @@ product is needed.  With ``mixed=True`` (the fused drivers' opt-in
 nearest, with fp32 sums (``fwd_passes=1`` of the JAX package); ``R2``
 and ``A`` are as above.
 
+The scalars that change from one iteration to the next (``thr`` as a
+scalar, ``us``, ``scale``) reach the kernel in a float32 block in device
+memory (:func:`scalar_block`) with a flag ``live``, so that the fused
+drivers' loop can run as a captured CUDA graph
+(:mod:`sporco_tpu_torch.ops.device_loop`): where ``live`` is 0 the
+kernel writes nothing (the state, the outputs given in ``out``, the
+sums) and a ``counter`` on the device is not advanced.
+
 :func:`csc_iter` launches the kernel for tensors on a CUDA device and
 runs :func:`csc_iter_plain` for tensors on the CPU; any other device
 raises.
@@ -43,7 +51,7 @@ import torch
 from sporco_tpu_torch._device import fp32_precision
 
 __all__ = ["csc_iter", "csc_iter_plain", "split_weight", "iter_supported",
-           "bf16_product", "LAUNCHES", "reset_launches"]
+           "bf16_product", "scalar_block", "LAUNCHES", "reset_launches"]
 
 NSUM = 6
 # padding of the split weight, as csrc/csc_tiles.cuh reads it: rows to
@@ -84,6 +92,103 @@ def _as_channels(v, C, device):
     return float(v)
 
 
+def split_thr(thr, C, device):
+    """``thr`` as ``(thr_s, thr_v)``: a scalar (a number or a one-element
+    tensor, which goes to the scalar block) and None, or 0.0 and the
+    float32 ``(C,)`` vector."""
+    if isinstance(thr, torch.Tensor) and thr.numel() != 1:
+        return 0.0, _as_channels(thr, C, device)
+    if isinstance(thr, torch.Tensor):
+        return thr.reshape(()), None
+    return float(thr), None
+
+
+def scalar_block(device, live, *vals):
+    """The kernels' float32 block ``[live, *vals]`` on ``device``
+    (``live`` None means 1; at most four entries).  The values are
+    numbers or 0-d tensors: from tensors (the fused drivers' device loop,
+    under CUDA-graph capture) it is a stack on the device; from numbers on
+    a CUDA device, a slot of :class:`_PinnedRing`, one copy that does not
+    wait on the stream."""
+    items = (1.0 if live is None else live,) + tuple(vals)
+    if not any(isinstance(v, torch.Tensor) for v in items):
+        vals32 = [float(np.float32(v)) for v in items]
+        if device.type == "cpu":
+            return torch.tensor(vals32, dtype=torch.float32)
+        return _PinnedRing.of(device).put(vals32)
+    return torch.stack([
+        v.reshape(()).to(device, torch.float32)
+        if isinstance(v, torch.Tensor)
+        else torch.full((), float(np.float32(v)), dtype=torch.float32,
+                        device=device) for v in items])
+
+
+class _PinnedRing:
+    """The scalar blocks of eager launches on one device and stream: a
+    ring of ``SLOTS`` slots of four floats in pinned host memory and its
+    twin on the device.  A launch writes its numbers into the next host
+    slot and copies it to the device slot on the stream, without waiting;
+    the host slot is written again only once the event recorded after
+    its last copy has passed, and the device slot is overwritten by a
+    copy queued on the same stream after every kernel that read it."""
+
+    SLOTS = 64
+    _rings = {}
+
+    def __init__(self, device, stream):
+        self.stream = stream
+        self.host = torch.zeros((self.SLOTS, 4), dtype=torch.float32,
+                                pin_memory=True)
+        self.host_np = self.host.numpy()
+        self.dev = torch.zeros((self.SLOTS, 4), dtype=torch.float32,
+                               device=device)
+        self.done = [None] * self.SLOTS
+        self.i = 0
+
+    @classmethod
+    def of(cls, device):
+        stream = torch.cuda.current_stream(device)
+        key = (str(stream.device), stream.cuda_stream)
+        ring = cls._rings.get(key)
+        if ring is None:
+            ring = cls._rings[key] = cls(stream.device, stream)
+        return ring
+
+    def put(self, vals):
+        i, n = self.i, len(vals)
+        self.i = (i + 1) % self.SLOTS
+        if self.done[i] is not None:
+            self.done[i].synchronize()
+        self.host_np[i, :n] = vals
+        out = self.dev[i, :n]
+        out.copy_(self.host[i, :n], non_blocking=True)
+        self.done[i] = torch.cuda.Event()
+        self.done[i].record(self.stream)
+        return out
+
+
+def is_live(live):
+    """Whether a launch on CPU tensors does its work: ``live`` is None or
+    a nonzero 0-d CPU tensor (the plain versions' counterpart of the
+    kernels' early return)."""
+    return live is None or bool(live)
+
+
+def _as_vectors(thr_s, thr_v, wl1, C, device):
+    """Both weights as (C,) vectors when either is one: the kernel takes
+    both as vectors or both as scalars."""
+    if (thr_v is None) == (not isinstance(wl1, torch.Tensor)):
+        return thr_s, thr_v, wl1
+    if thr_v is None:
+        thr_v = (thr_s.reshape(1).to(device, torch.float32).expand(C)
+                 if isinstance(thr_s, torch.Tensor)
+                 else torch.full((C,), thr_s, dtype=torch.float32,
+                                 device=device))
+        return 0.0, thr_v.contiguous(), wl1
+    return thr_s, thr_v, torch.full((C,), wl1, dtype=torch.float32,
+                                    device=device)
+
+
 def _round_up(n, m):
     return -(-n // m) * m
 
@@ -114,54 +219,80 @@ def bf16_product(x, W):
     return x.to(torch.bfloat16).float() @ W.to(torch.bfloat16).float()
 
 
+def _outputs(out, Y, pos, T, emit_px, emit_fwd):
+    """The output buffers ``(PX, R1, R2, sums)``: ``out`` = ``(R1, R2,
+    sums)`` given by the caller (R1/R2 None without ``emit_fwd``), which
+    a dead launch leaves as they were, or new ones (R1/R2 of ``T``
+    columns, the width of ``Wf``)."""
+    px = torch.empty_like(Y) if emit_px else None
+    if out is not None:
+        r1, r2, sums = out
+        return px, r1, r2, sums
+    r1 = r2 = None
+    if emit_fwd:
+        r1 = torch.empty((pos, T), dtype=torch.float32, device=Y.device)
+        r2 = torch.empty_like(r1)
+    return px, r1, r2, torch.empty(NSUM, dtype=torch.float32,
+                                   device=Y.device)
+
+
 def csc_iter_plain(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale,
                    nonneg=False, emit_px=True, wf_split=None,
-                   emit_fwd=True, mixed=False):
+                   emit_fwd=True, mixed=False, live=None, counter=None,
+                   out=None):
     """The plain PyTorch version of the kernel (same arguments and
-    results as :func:`csc_iter`; ``wf_split`` is not read), with fp32
-    contractions pinned."""
+    results as :func:`csc_iter`; ``wf_split`` and ``counter`` are not
+    read), with fp32 contractions pinned.  It reads its scalars from the
+    same float32 block as the kernel, and with ``live`` 0 it writes
+    nothing."""
     C = Y.shape[1]
-    thr = _as_channels(thr, C, Y.device)
+    thr_s, thr_v = split_thr(thr, C, Y.device)
     wl1 = _as_channels(wl1, C, Y.device)
     # the scalars in float32, as the kernel (and the TPU kernel) has them
-    rlx, us, scale = (np.float32(v) for v in (rlx, us, scale))
+    scal = scalar_block(Y.device, live, thr_s, us, scale)
+    px, r1, r2, sums = _outputs(out, Y, Y.shape[0],
+                                Wf.shape[1] if emit_fwd else 0, emit_px,
+                                emit_fwd)
+    if live is not None and not bool(scal[0]):
+        return px, Y, U, r1, r2, sums
+    _, thr_s, us, scale = scal
+    thr = thr_s if thr_v is None else thr_v
+    rlx = np.float32(rlx)
     rlx1 = float(np.float32(1.0) - rlx)
-    rlx, us, scale = float(rlx), float(us), float(scale)
+    rlx = float(rlx)
     with fp32_precision():
         a = G2 @ Wa
         y = Y
         u = us * U
-        px = scale * (y - u) + a
-        ax = rlx * px + rlx1 * y
+        pxv = scale * (y - u) + a
+        ax = rlx * pxv + rlx1 * y
         axu = ax + u
         yn = torch.sign(axu) * torch.clamp(axu.abs() - thr, min=0.0)
         if nonneg:
             yn = torch.clamp(yn, min=0.0)
         un = u + ax - yn
-        if not emit_fwd:
-            r1 = None
-        elif mixed:
-            r1 = bf16_product(yn - un, Wf)
-        else:
-            r1 = (yn - un) @ Wf
-        r2 = un @ Wf if emit_fwd else None
-        d = px - yn
+        if emit_fwd:
+            r1.copy_(bf16_product(yn - un, Wf) if mixed else (yn - un) @ Wf)
+            r2.copy_(un @ Wf)
+        d = pxv - yn
         e = yn - y
-        sums = torch.stack([(d * d).sum(), (e * e).sum(), (px * px).sum(),
-                            (yn * yn).sum(), (un * un).sum(),
-                            (px.abs() * wl1).sum()])
+        sums.copy_(torch.stack([(d * d).sum(), (e * e).sum(),
+                                (pxv * pxv).sum(), (yn * yn).sum(),
+                                (un * un).sum(), (pxv.abs() * wl1).sum()]))
+    if emit_px:
+        px.copy_(pxv)
     Y.copy_(yn)
     U.copy_(un)
-    return (px if emit_px else None), Y, U, r1, r2, sums
+    return px, Y, U, r1, r2, sums
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 5                  # G2 Y U Wa Wf3
-             + [ctypes.c_void_p, ctypes.c_float,     # thr_v, thr_s
-                ctypes.c_void_p, ctypes.c_float,     # wl1_v, wl1_s
-                ctypes.c_float, ctypes.c_float, ctypes.c_float,
+             + [ctypes.c_void_p, ctypes.c_void_p,    # thr_v, wl1_v
+                ctypes.c_float, ctypes.c_void_p,     # wl1_s, scal
+                ctypes.c_float,                      # rlx
                 ctypes.c_int, ctypes.c_int,          # nonneg, vec
                 ctypes.c_int]                        # mixed
-             + [ctypes.c_void_p] * 5                 # PX R1 R2 part sums
+             + [ctypes.c_void_p] * 6                 # PX R1 R2 part sums cnt
              + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
 
 
@@ -209,21 +340,47 @@ def _check_split(wf_split, Wf, dev):
     return wf_split
 
 
+def check_counter(counter, dev):
+    """``counter``: None or a one-element int32 tensor on ``dev``."""
+    if counter is not None and (
+            not isinstance(counter, torch.Tensor)
+            or counter.dtype != torch.int32 or counter.numel() != 1
+            or counter.device != dev):
+        raise ValueError(f"counter must be a one-element int32 tensor on "
+                         f"{dev}")
+
+
 def csc_iter(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale, nonneg=False,
-             emit_px=True, wf_split=None, emit_fwd=True, mixed=False):
+             emit_px=True, wf_split=None, emit_fwd=True, mixed=False,
+             live=None, counter=None, out=None):
     """One fused ADMM iteration; returns ``(PX, Yn, Un, R1, R2, sums)``
     with ``Yn is Y`` and ``Un is U`` (updated in place), ``PX`` None
     unless ``emit_px`` and ``R1``/``R2`` None unless ``emit_fwd``.
-    ``thr``/``wl1`` are numbers or tensors of one element or of shape
-    ``(C,)``.  ``wf_split`` is ``split_weight(Wf)``, which the kernel
-    reads in place of ``Wf`` (a solve makes it once); on CUDA tensors it
-    is required when ``emit_fwd``, and neither is read otherwise.
-    ``mixed``: ``R1`` as one bf16 product."""
+    ``thr`` is a number, a one-element tensor or a ``(C,)`` tensor,
+    ``wl1`` a number or a tensor of one element or of shape ``(C,)``;
+    ``us`` and ``scale`` are numbers or 0-d tensors.  The kernel reads
+    the scalars that change over a solve from device memory
+    (:func:`scalar_block`), so a launch with 0-d tensors there can be
+    captured into a CUDA graph.  ``live`` (a 0-d tensor on the device, or
+    None for 1): where it is 0 the launch writes nothing.  ``counter`` (a
+    one-element int32 tensor on the device, or None): the kernel adds 1
+    to it if ``live``, and the launch is then not counted in
+    ``LAUNCHES``.  ``out`` = ``(R1, R2, sums)``: buffers for the outputs
+    (R1/R2 None without ``emit_fwd``), else new ones.  ``wf_split`` is
+    ``split_weight(Wf)``, which the kernel reads in place of ``Wf`` (a
+    solve makes it once); on CUDA tensors it is required when
+    ``emit_fwd``, and neither is read otherwise.  ``mixed``: ``R1`` as one
+    bf16 product."""
     dev = Y.device
     if dev.type == "cpu":
+        if not is_live(live):
+            px, r1, r2, sums = _outputs(
+                out, Y, Y.shape[0], Wf.shape[1] if emit_fwd else 0,
+                emit_px, emit_fwd)
+            return px, Y, U, r1, r2, sums
         return csc_iter_plain(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale,
                               nonneg=nonneg, emit_px=emit_px,
-                              emit_fwd=emit_fwd, mixed=mixed)
+                              emit_fwd=emit_fwd, mixed=mixed, out=out)
     if dev.type != "cuda":
         raise ValueError(f"csc_iter runs on CUDA or CPU tensors, not "
                          f"{dev.type}")
@@ -237,27 +394,25 @@ def csc_iter(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale, nonneg=False,
     _check("Wa", Wa, (T, C), dev)
     if Y.data_ptr() == U.data_ptr():
         raise ValueError("Y and U must be distinct buffers")
-    Wf3 = r1 = r2 = None
+    Wf3 = None
     if emit_fwd:
         _check("Wf", Wf, (C, T), dev)
         Wf3 = _check_split(wf_split, Wf, dev)
-    thr = _as_channels(thr, C, dev)
+    check_counter(counter, dev)
+    thr_s, thr_v = split_thr(thr, C, dev)
     wl1 = _as_channels(wl1, C, dev)
-    if isinstance(thr, torch.Tensor) != isinstance(wl1, torch.Tensor):
-        # the kernel takes both as (C,) vectors or both as scalars
-        thr, wl1 = (v if isinstance(v, torch.Tensor) else
-                    torch.full((C,), v, dtype=torch.float32, device=dev)
-                    for v in (thr, wl1))
+    thr_s, thr_v, wl1 = _as_vectors(thr_s, thr_v, wl1, C, dev)
+    scal = scalar_block(dev, live, thr_s, us, scale)
     vecs = [v.contiguous() if isinstance(v, torch.Tensor) else None
-            for v in (thr, wl1)]
+            for v in (thr_v, wl1)]
     lib = _lib()
-    px = torch.empty_like(Y) if emit_px else None
+    px, r1, r2, sums = _outputs(out, Y, pos, T, emit_px, emit_fwd)
     if emit_fwd:
-        r1 = torch.empty((pos, T), dtype=torch.float32, device=dev)
-        r2 = torch.empty_like(r1)
+        _check("R1", r1, (pos, T), dev)
+        _check("R2", r2, (pos, T), dev)
+    _check("sums", sums, (NSUM,), dev)
     part = torch.empty(lib.csc_iter_scratch_floats(pos, C),
                        dtype=torch.float32, device=dev)
-    sums = torch.empty(NSUM, dtype=torch.float32, device=dev)
     ptrs = [G2, Y, U, Wa, px, r1, r2] + [v for v in vecs if v is not None]
     vec = int(C % 4 == 0 and T % 4 == 0
               and all(t is None or t.data_ptr() % 16 == 0 for t in ptrs))
@@ -268,14 +423,14 @@ def csc_iter(G2, Y, U, Wa, Wf, thr, wl1, rlx, us, scale, nonneg=False,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.csc_iter_launch(
-            ptr(G2), ptr(Y), ptr(U), ptr(Wa), ptr(Wf3),
-            ptr(vecs[0]), 0.0 if vecs[0] is not None else thr,
-            ptr(vecs[1]), 0.0 if vecs[1] is not None else wl1,
-            float(rlx), float(us), float(scale), int(bool(nonneg)), vec,
-            int(bool(mixed)), ptr(px), ptr(r1), ptr(r2), ptr(part), ptr(sums),
-            pos, C, T, stream)
+            ptr(G2), ptr(Y), ptr(U), ptr(Wa), ptr(Wf3), ptr(vecs[0]),
+            ptr(vecs[1]), 0.0 if vecs[1] is not None else wl1, ptr(scal),
+            float(np.float32(rlx)), int(bool(nonneg)), vec,
+            int(bool(mixed)), ptr(px), ptr(r1), ptr(r2), ptr(part),
+            ptr(sums), ptr(counter), pos, C, T, stream)
     if err != 0:
         raise RuntimeError(f"csc_iter kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["csc_iter"] += 1
+    if counter is None:
+        LAUNCHES["csc_iter"] += 1
     return px, Y, U, r1, r2, sums

@@ -11,7 +11,9 @@ the packed layout ``(..., C)`` (the true dual is ``us * PU``)::
     sums = [||PX-PYn||^2, ||PYn-PY||^2, ||PX||^2, ||PYn||^2, ||PUn||^2,
             sum |wl1*PX|]
 
-``PYn`` and ``PUn`` are written into ``PY`` and ``PU`` in place.
+``PYn`` and ``PUn`` are written into ``PY`` and ``PU`` in place.  The
+kernel reads ``thr``'s scalar, ``us`` and the flag ``live`` from a
+float32 block in device memory, as ``csc_iter`` does.
 
 The AMS form (``ams=(Wp, nimp)``, Additive Mask Simulation; the select
 of ``sporco_tpu/ops/fused_csc.py:816-817``): packed channel ``c`` holds
@@ -39,7 +41,9 @@ import ctypes
 import numpy as np
 import torch
 
-from sporco_tpu_torch.ops.csc_iter import _as_channels, _check
+from sporco_tpu_torch.ops.csc_iter import (_as_channels, _check,
+                                           check_counter, is_live,
+                                           scalar_block, split_thr)
 
 __all__ = ["admm_tail", "admm_tail_plain", "tail_ops", "LAUNCHES",
            "reset_launches"]
@@ -112,27 +116,43 @@ def tail_ops(PX, PY, PU, thr, wl1, rlx, nonneg=False, ams=None):
 
 
 def admm_tail_plain(PX, PY, PU, thr, wl1, rlx, nonneg=False, us=1.0,
-                    ams=None):
+                    ams=None, live=None, counter=None, out=None):
     """The plain PyTorch version of the kernel (same arguments and
-    results as :func:`admm_tail`)."""
+    results as :func:`admm_tail`; ``counter`` is not read).  It reads its
+    scalars from the same float32 block as the kernel, and with ``live``
+    0 it writes nothing."""
     C = PX.shape[-1]
-    thr = _as_channels(thr, C, PX.device)
+    thr_s, thr_v = split_thr(thr, C, PX.device)
     wl1 = _as_channels(wl1, C, PX.device)
-    yn, un, sums = tail_ops(PX, PY, float(np.float32(us)) * PU, thr, wl1,
-                            rlx, nonneg=nonneg, ams=ams)
+    scal = scalar_block(PX.device, live, thr_s, us, 0.0)
+    sums = _sums_buffer(out, PX.device)
+    if live is not None and not bool(scal[0]):
+        return PY, PU, sums
+    _, thr_s, us, _ = scal
+    yn, un, s = tail_ops(PX, PY, us * PU, thr_s if thr_v is None else thr_v,
+                         wl1, rlx, nonneg=nonneg, ams=ams)
     PY.copy_(yn)
     PU.copy_(un)
+    sums.copy_(s)
     return PY, PU, sums
 
 
+def _sums_buffer(out, device):
+    """The sums' buffer: ``out`` given by the caller, which a dead
+    launch leaves as it was, or a new one."""
+    if out is not None:
+        return out
+    return torch.empty(NSUM, dtype=torch.float32, device=device)
+
+
 _ARGTYPES = ([ctypes.c_void_p] * 3                    # PX PY PU
-             + [ctypes.c_void_p, ctypes.c_float,      # thr_v, thr_s
-                ctypes.c_void_p, ctypes.c_float,      # wl1_v, wl1_s
-                ctypes.c_float, ctypes.c_float,       # rlx, us
+             + [ctypes.c_void_p, ctypes.c_void_p,     # thr_v, wl1_v
+                ctypes.c_float, ctypes.c_void_p,      # wl1_s, scal
+                ctypes.c_float,                       # rlx
                 ctypes.c_int, ctypes.c_int]           # nonneg, vec
              + [ctypes.c_void_p, ctypes.c_int64,      # Wp, M, nimp
                 ctypes.c_int64]
-             + [ctypes.c_void_p] * 2                  # part sums
+             + [ctypes.c_void_p] * 3                  # part sums cnt
              + [ctypes.c_int64] * 2 + [ctypes.c_void_p])
 
 
@@ -147,18 +167,25 @@ def _lib():
     return lib
 
 
-def admm_tail(PX, PY, PU, thr, wl1, rlx, nonneg=False, us=1.0, ams=None):
+def admm_tail(PX, PY, PU, thr, wl1, rlx, nonneg=False, us=1.0, ams=None,
+              live=None, counter=None, out=None):
     """One pass of relaxation, l1 prox, dual update and the six sums.
     ``PX``, ``PY`` and ``PU`` share a packed shape ``(..., C)``;
-    ``thr``/``wl1`` are numbers or tensors of one element or of shape
-    ``(C,)``; ``us`` scales ``PU`` on load; ``ams`` is ``None`` or
-    ``(Wp, nimp)`` with ``Wp`` a contiguous float32 ``(R, P)`` mask, ``P``
-    dividing ``C`` (the AMS form).  Returns ``(PYn, PUn, sums)`` with
-    ``PYn is PY`` and ``PUn is PU`` (updated in place)."""
+    ``thr`` is a number, a one-element tensor or a ``(C,)`` tensor,
+    ``wl1`` a number or a tensor of one element or of shape ``(C,)``;
+    ``us`` (a number or a 0-d tensor) scales ``PU`` on load; ``ams`` is
+    ``None`` or ``(Wp, nimp)`` with ``Wp`` a contiguous float32 ``(R, P)``
+    mask, ``P`` dividing ``C`` (the AMS form).  The kernel reads ``thr``'s
+    scalar and ``us`` from device memory, and ``live``, ``counter`` and
+    ``out`` (the sums' buffer) are as in
+    :func:`~sporco_tpu_torch.ops.csc_iter.csc_iter`.  Returns ``(PYn, PUn,
+    sums)`` with ``PYn is PY`` and ``PUn is PU`` (updated in place)."""
     dev = PY.device
     if dev.type == "cpu":
+        if not is_live(live):
+            return PY, PU, _sums_buffer(out, dev)
         return admm_tail_plain(PX, PY, PU, thr, wl1, rlx, nonneg=nonneg,
-                               us=us, ams=ams)
+                               us=us, ams=ams, out=out)
     if dev.type != "cuda":
         raise ValueError(f"admm_tail runs on CUDA or CPU tensors, not "
                          f"{dev.type}")
@@ -175,14 +202,17 @@ def admm_tail(PX, PY, PU, thr, wl1, rlx, nonneg=False, us=1.0, ams=None):
     R = PY.numel() // C
     Wp, Ma, nimp = (None, 0, 0) if ams is None \
         else _check_ams(ams, R, C, dev)
-    thr = _as_channels(thr, C, dev)
+    check_counter(counter, dev)
+    thr_s, thr_v = split_thr(thr, C, dev)
     wl1 = _as_channels(wl1, C, dev)
+    scal = scalar_block(dev, live, thr_s, us, 0.0)
     vecs = [v.contiguous() if isinstance(v, torch.Tensor) else None
-            for v in (thr, wl1)]
+            for v in (thr_v, wl1)]
     lib = _lib()
     part = torch.empty(lib.csc_tail_scratch_doubles(R * C),
                        dtype=torch.float64, device=dev)
-    sums = torch.empty(NSUM, dtype=torch.float32, device=dev)
+    sums = _sums_buffer(out, dev)
+    _check("sums", sums, (NSUM,), dev)
     arrays = [PX, PY, PU] + [v for v in vecs if v is not None]
     vec = int(C % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in arrays))
 
@@ -192,14 +222,13 @@ def admm_tail(PX, PY, PU, thr, wl1, rlx, nonneg=False, us=1.0, ams=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.csc_tail_launch(
-            ptr(PX), ptr(PY), ptr(PU),
-            ptr(vecs[0]), 0.0 if vecs[0] is not None else thr,
-            ptr(vecs[1]), 0.0 if vecs[1] is not None else wl1,
-            float(np.float32(rlx)), float(np.float32(us)),
-            int(bool(nonneg)), vec, ptr(Wp), Ma, nimp, ptr(part),
-            ptr(sums), R, C, stream)
+            ptr(PX), ptr(PY), ptr(PU), ptr(vecs[0]), ptr(vecs[1]),
+            0.0 if vecs[1] is not None else wl1, ptr(scal),
+            float(np.float32(rlx)), int(bool(nonneg)), vec, ptr(Wp), Ma,
+            nimp, ptr(part), ptr(sums), ptr(counter), R, C, stream)
     if err != 0:
         raise RuntimeError(f"admm_tail kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["admm_tail"] += 1
+    if counter is None:
+        LAUNCHES["admm_tail"] += 1
     return PY, PU, sums

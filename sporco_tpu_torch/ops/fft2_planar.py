@@ -19,6 +19,13 @@ first.
 and (even-length) last half-spectrum column after the axis-0 transform,
 as numpy does, so its input need not be Hermitian.
 
+Inside :func:`gate` (the fused drivers' device loop, whose iteration may
+run after convergence, replayed from a CUDA graph) the kernels read the
+loop's flag ``live`` from device memory and return before any write
+where it is 0, and count their live launches on the device, in the
+loop's counter, in place of :data:`LAUNCHES`; on CPU tensors a launch
+with ``live`` 0 runs no plain version and returns zeros.
+
 The wrappers launch the kernels for tensors on a CUDA device and run the
 plain versions for tensors on the CPU; any other device raises.  The
 plain versions compute what the TPU kernel computes
@@ -30,6 +37,7 @@ signature; both values run full fp32 here (on the TPU ``"high"`` is a
 3-pass bf16 split).
 """
 
+import contextlib
 import ctypes
 import functools
 
@@ -40,7 +48,7 @@ from sporco_tpu_torch._device import fp32_precision
 
 __all__ = ["rfft2_planar", "irfft2_planar", "irfft2_spectrum",
            "rfft2_planar_plain", "irfft2_planar_plain", "supported",
-           "LAUNCHES", "reset_launches"]
+           "gate", "LAUNCHES", "reset_launches"]
 
 _L = 128                   # radix-128 sub-transform length of the TPU kernel
 _RADICES = (1, 2, 4)       # N0 in {128, 256, 512}
@@ -49,11 +57,52 @@ _PRECISIONS = ("default", "high", "highest")
 # launches of the CUDA kernels (not of the plain versions), by kernel:
 # irfft2_spectrum counts as irfft2_planar
 LAUNCHES = {"rfft2_planar": 0, "irfft2_planar": 0}
+# the slot of each kernel in a gate's counter
+_SLOT = {"rfft2_planar": 0, "irfft2_planar": 1}
+_GATES = []
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def gate(live, counter):
+    """Gate the launches in the block by ``live``, a 0-d float32 tensor,
+    and count them in ``counter``, an int32 tensor of two elements
+    (``rfft2_planar``, ``irfft2_planar``), both on the device of the
+    transforms: a kernel reads ``live`` on the device and writes nothing
+    where it is 0, and adds 1 to its slot of ``counter`` where it is not
+    (``irfft2_spectrum`` counts as ``irfft2_planar``).  On CPU tensors
+    ``live`` is read on the host."""
+    if (live.dtype != torch.float32 or live.numel() != 1
+            or counter.dtype != torch.int32 or counter.numel() != 2
+            or counter.device != live.device):
+        raise ValueError("gate takes a one-element float32 flag and a "
+                         "two-element int32 counter on one device")
+    _GATES.append((live, counter))
+    try:
+        yield
+    finally:
+        _GATES.pop()
+
+
+def _gate(dev):
+    """The innermost gate's ``(live, counter)``, or None."""
+    if not _GATES:
+        return None
+    g = _GATES[-1]
+    if g[0].device != dev:
+        raise ValueError(f"the gate is on {g[0].device}, the transform on "
+                         f"{dev}")
+    return g
+
+
+def _dead_on_cpu(dev):
+    """A launch on CPU tensors inside a gate whose ``live`` is 0."""
+    g = _gate(dev)
+    return g is not None and not bool(g[0])
 
 
 def supported(n0, n1, dtype):
@@ -228,12 +277,12 @@ def _lib():
     lib = _nvcc.load("fft2_planar")
     if lib.rfft2_planar_launch.argtypes is None:
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.rfft2_planar_launch.argtypes = [vp] * 5 + [i64, i32, i32, vp]
+        tail = [i64, i32, i32, vp, vp, vp]     # B, n0, n1, gate, cnt, st
+        lib.rfft2_planar_launch.argtypes = [vp] * 5 + tail
         lib.rfft2_planar_launch.restype = ctypes.c_int
-        lib.irfft2_planar_launch.argtypes = [vp] * 6 + [i64, i32, i32, vp]
+        lib.irfft2_planar_launch.argtypes = [vp] * 6 + tail
         lib.irfft2_planar_launch.restype = ctypes.c_int
-        lib.irfft2_spectrum_launch.argtypes = [vp] * 5 + [i64, i32, i32,
-                                                          vp]
+        lib.irfft2_spectrum_launch.argtypes = [vp] * 5 + tail
         lib.irfft2_spectrum_launch.restype = ctypes.c_int
     return lib
 
@@ -255,11 +304,20 @@ def _device_of(name, *ts, dtype=torch.float32):
     return dev
 
 
-def _launch(lib, name, *args, count=None):
-    err = getattr(lib, f"{name}_launch")(*args)
+def _launch(lib, name, dev, *args, count=None):
+    """Launch ``name`` on the current stream of ``dev`` with ``args`` and
+    the innermost gate, and count it."""
+    count = count or name
+    g = _gate(dev)
+    live, cnt = (None, None) if g is None else (
+        g[0].data_ptr(), g[1].data_ptr() + 4 * _SLOT[count])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, f"{name}_launch")(*args, live, cnt, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[count or name] += 1
+    if g is None:
+        LAUNCHES[count] += 1
 
 
 def rfft2_planar(x, precision="high"):
@@ -268,6 +326,11 @@ def rfft2_planar(x, precision="high"):
     ``x.shape[:-1] + (N1//2+1,)``."""
     dev = _device_of("rfft2_planar", x)
     if dev.type == "cpu":
+        if _dead_on_cpu(dev):
+            n0, n1 = x.shape[-2:]
+            _check_shape(n0, n1, precision)
+            y = x.new_zeros(x.shape[:-1] + (n1 // 2 + 1,))
+            return y, y.clone()
         return rfft2_planar_plain(x, precision)
     n0, n1 = x.shape[-2:]
     _check_shape(n0, n1, precision)
@@ -281,11 +344,9 @@ def rfft2_planar(x, precision="high"):
     if b == 0:
         return yr, yi
     key = _dev_key(dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch(lib, "rfft2_planar", x.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-                _twiddles(n0, key).data_ptr(),
-                _twiddles(n1, key).data_ptr(), b, n0, n1, stream)
+    _launch(lib, "rfft2_planar", dev, x.data_ptr(), yr.data_ptr(),
+            yi.data_ptr(), _twiddles(n0, key).data_ptr(),
+            _twiddles(n1, key).data_ptr(), b, n0, n1)
     return yr, yi
 
 
@@ -295,6 +356,9 @@ def irfft2_planar(yr, yi, n1, precision="high"):
     last axis ``n1``."""
     dev = _device_of("irfft2_planar", yr, yi)
     if dev.type == "cpu":
+        if _dead_on_cpu(dev):
+            _check_spectrum(yr, yi, n1, precision)
+            return yr.new_zeros(yr.shape[:-1] + (n1,))
         return irfft2_planar_plain(yr, yi, n1, precision)
     _check_spectrum(yr, yi, n1, precision)
     yr, yi = yr.resolve_neg().contiguous(), yi.resolve_neg().contiguous()
@@ -309,6 +373,9 @@ def irfft2_spectrum(y, n1, precision="high"):
     ``(y.real, y.imag)``."""
     dev = _device_of("irfft2_spectrum", y, dtype=torch.complex64)
     if dev.type == "cpu":
+        if _dead_on_cpu(dev):
+            _check_spectrum(y, None, n1, precision)
+            return y.real.new_zeros(y.shape[:-1] + (n1,))
         return irfft2_planar_plain(y.real, y.imag, n1, precision)
     _check_spectrum(y, None, n1, precision)
     y = y.resolve_conj().resolve_neg().contiguous()
@@ -329,10 +396,7 @@ def _irfft2_launch(name, inputs, n1):
     lib = _lib()
     s = torch.empty(2 * b * n0 * k1, dtype=torch.float32, device=dev)
     key = _dev_key(dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch(lib, name, *(t.data_ptr() for t in inputs), x.data_ptr(),
-                s.data_ptr(), _twiddles(n0, key).data_ptr(),
-                _twiddles(n1, key).data_ptr(), b, n0, n1, stream,
-                count="irfft2_planar")
+    _launch(lib, name, dev, *(t.data_ptr() for t in inputs), x.data_ptr(),
+            s.data_ptr(), _twiddles(n0, key).data_ptr(),
+            _twiddles(n1, key).data_ptr(), b, n0, n1, count="irfft2_planar")
     return x

@@ -47,9 +47,11 @@ with a single-channel dictionary is C independent problems sharing D:
 :func:`cbpdn_solve_cfold` and :func:`pgm_cbpdn_solve_cfold` fold its
 channels into the batch axis, which is exact.
 
-The loop runs on the host and reads back one small vector per
-iteration (the six sums and the objective's spectral terms) for the
-stopping test and the stats row.  It reproduces the JAX driver's
+The loop runs on the device (:mod:`sporco_tpu_torch.ops.device_loop`):
+the stopping test, AutoRho and the stats row of an iteration are
+computed there from the kernel's six sums and the objective's spectral
+terms, the iteration is captured as a CUDA graph and replayed in blocks
+of 8 with one host read a block.  It reproduces the JAX driver's
 iteration count, stats rows and returned ``U = us * U``.
 
 The FISTA (PGM) form of the same problem keeps its state in the same
@@ -72,14 +74,18 @@ import torch
 from sporco_tpu_torch._device import fp32_precision
 from sporco_tpu_torch.ops import csc_tail
 from sporco_tpu_torch.ops import fft as sf
+from sporco_tpu_torch.ops import fft2_planar
+from sporco_tpu_torch.ops.csc_iter import LAUNCHES as CSC_ITER_LAUNCHES
 from sporco_tpu_torch.ops.csc_iter import csc_iter, split_weight
 from sporco_tpu_torch.ops.csc_tail import tail_ops
+from sporco_tpu_torch.ops.pgm_iter import LAUNCHES as PGM_ITER_LAUNCHES
 from sporco_tpu_torch.ops.pgm_iter import pgm_iter
 from sporco_tpu_torch.solvers import pgm as _pgm
-from sporco_tpu_torch.solvers.admm import (ADMMState, _update_rho,
-                                           norm_residuals)
-from sporco_tpu_torch.solvers.pgm import (PGMProblem, _momentum_update,
-                                          stop_tol)
+from sporco_tpu_torch.ops import device_loop
+from sporco_tpu_torch.solvers.admm import (ADMMState, norm_residuals_t,
+                                           sqrt_t, update_rho_t)
+from sporco_tpu_torch.solvers.pgm import (PGMProblem, momentum_update_t,
+                                          stop_tol, stop_tol_t)
 from sporco_tpu_torch.utils.signal import gradient_filters
 
 __all__ = ["cbpdn_solve", "cbpdn_solve_cfold", "eligible", "cfold_eligible",
@@ -137,14 +143,25 @@ def poly_unpack(P, ps=PS):
     return A.permute(perm).reshape(lead + (p0 * ps, p1 * ps))
 
 
-def pack_state(A, ps=PS):
+def pack_state(A, ps=PS, copy=True, out=None):
     """Internal CSC layout (K, 1, M, N0, N1) -> polyphase
-    (K, N0/ps, N1/ps, ps*ps*M) with channel order (w0, w1, m); always a
-    new contiguous tensor."""
+    (K, N0/ps, N1/ps, ps*ps*M) with channel order (w0, w1, m); a new
+    contiguous tensor, or with ``copy`` False a view of ``A`` where one
+    is possible (a permuted view of a contiguous ``A``), or written into
+    ``out`` (a contiguous tensor of that shape), which it returns."""
     K, _, M, n0, n1 = A.shape
     P = poly_pack(A.reshape(K, M, n0, n1), ps)     # (K, M, p0, p1, ps*ps)
     P = P.permute(0, 2, 3, 4, 1)                   # (K, p0, p1, ps*ps, M)
-    return P.reshape(K, n0 // ps, n1 // ps, ps * ps * M).contiguous()
+    shape = (K, n0 // ps, n1 // ps, ps * ps * M)
+    if out is not None:
+        if tuple(out.shape) != shape:
+            raise ValueError(f"pack_state: out is {tuple(out.shape)}, "
+                             f"not {shape}")
+        out.view(P.shape).copy_(P)
+        return out
+    if not copy:
+        return P.reshape(shape)
+    return P.reshape(shape).contiguous()
 
 
 def unpack_state(P, M, ps=PS):
@@ -317,11 +334,35 @@ def _adj_rolls_mc(G, J0, J1, ps=PS):
     return _adj_rolls(_pack_ch(G, ps), J0, J1)
 
 
+def _num(v):
+    """A scalar of the x-step: a 0-d tensor as it is (the device loop's
+    rho), else a Python float."""
+    return v if isinstance(v, torch.Tensor) else float(v)
+
+
+def _scaled(s, x):
+    """``s * x`` for a number or a 0-d tensor ``s`` (the device loop's
+    rho and us) and a real or complex ``x``.  A 0-d CUDA tensor in an
+    elementwise op makes PyTorch broadcast it through its strided
+    kernel, slower on large arrays than the vectorised one it takes for a
+    Python number; ``_foreach_mul`` reads the scalar from device memory
+    in a vectorised kernel that can be captured (as the capturable
+    optimizers use it), with the same products (a complex ``x`` as its
+    real pairs)."""
+    if not isinstance(s, torch.Tensor):
+        return s * x
+    if x.is_complex():
+        return torch.view_as_complex(
+            torch._foreach_mul([torch.view_as_real(x)], s)[0])
+    return torch._foreach_mul([x], s)[0]
+
+
 def _herm_solve(A, beta, B):
     """Solve ``(A + beta I) g = B`` per frequency bin for a Hermitian
     C x C ``A``, C in (1, 2, 3), by closed-form cofactors (the JAX
     package's operation count; no batched LU).  ``A`` is (C, C, n0, k1)
-    complex, ``B`` (K, C, n0, k1) complex, ``beta`` a number."""
+    complex, ``B`` (K, C, n0, k1) complex, ``beta`` a number or a 0-d
+    tensor."""
     C = A.shape[0]
     if C == 1:
         return B / (A[0, 0] + beta)
@@ -368,11 +409,12 @@ def spatial_xstep(Pyu, Wf, Wa, js, DHD, sfr, sfi, beta, scale, Nv):
 
         x = scale * yu + D^H irfft((Sf - scale * rfft(D yu)) / (DHD + beta))
 
-    Returns ``(PX, rfr, rfi, gr, gi)``.
+    ``beta`` and ``scale`` are numbers or 0-d tensors.  Returns ``(PX,
+    rfr, rfi, gr, gi)``.
     """
     jf0, jf1, ja0, ja1 = js
     axes = (-2, -1)
-    beta, scale = float(beta), float(scale)
+    beta, scale = _num(beta), _num(scale)
     R = poly_unpack(_conv_fwd_mm(Pyu, Wf, jf0, jf1, PS))
     rf = sf.rfftn(R, axes=axes)
     rfr, rfi = scale * rf.real, scale * rf.imag
@@ -380,7 +422,7 @@ def spatial_xstep(Pyu, Wf, Wa, js, DHD, sfr, sfi, beta, scale, Nv):
     gr = (sfr - rfr) * den
     gi = (sfi - rfi) * den
     G = sf.irfftn(torch.complex(gr, gi), s=Nv, axes=axes)
-    PX = scale * Pyu + _conv_adj_mm(poly_pack(G), Wa, ja0, ja1)
+    PX = _scaled(scale, Pyu) + _conv_adj_mm(poly_pack(G), Wa, ja0, ja1)
     return PX, rfr, rfi, gr, gi
 
 
@@ -394,9 +436,9 @@ def spatial_xstep_mc(Pyu, Wf, Wa, js, DDHf, Sf, beta, scale, Nv, C):
     axes = (-2, -1)
     R = _fwd_combine_mc(Pyu @ Wf, jf0, jf1, C, PS)     # (K, C, n0, n1)
     rf = sf.rfftn(R, axes=axes)
-    Gf = _herm_solve(DDHf, float(beta), Sf - float(scale) * rf)
+    Gf = _herm_solve(DDHf, _num(beta), Sf - _num(scale) * rf)
     G = sf.irfftn(Gf, s=Nv, axes=axes)
-    PX = float(scale) * Pyu + _adj_rolls_mc(G, ja0, ja1) @ Wa
+    PX = _scaled(_num(scale), Pyu) + _adj_rolls_mc(G, ja0, ja1) @ Wa
     return PX, rf, Gf
 
 
@@ -548,24 +590,66 @@ def cbpdn_solve(cfg, params, opts, state):
         return _cbpdn_fused_run(cfg, params, opts, state)
 
 
-def _gradreg_xstep(Pyu, rho, mu, Df, Sf, GHGfW, K, M, Nv):
+def _gradreg_xstep(Pyu, rho, mu, Df, Sf, GHGfW, K, M, Nv, copy=True):
     """The gradreg x-step: the per-bin solve of ``(rho I + mu GHGfW +
     D^H D) x = rho yu + D^H s`` over the M-channel half-spectrum (the
     rank-1 Woodbury identity with a bin-dependent diagonal, as
-    ``solvedbd_sm``).  Returns ``(PX, Xfg)``."""
+    ``solvedbd_sm``); ``rho`` and ``mu`` are numbers or 0-d tensors.
+    Returns
+    ``(PX, Xfg)``; with ``copy`` False ``PX`` may be a strided view, which
+    the device loop writes into its state in the pass that guards it."""
     axes = (-2, -1)
+    rho = _num(rho)
     yu = unpack_state(Pyu, M).reshape(K, M, *Nv)
     yuf = sf.rfftn(yu, axes=axes)                        # (K, M, n0, k1)
-    Lam = float(rho) + float(mu) * GHGfW
+    Lam = rho + _scaled(_num(mu), GHGfW)
     e = 1.0 / Lam
     Dc = Df.conj()
-    bg = float(rho) * yuf + Dc[None] * Sf[:, None]
+    bg = _scaled(rho, yuf) + Dc[None] * Sf[:, None]
     tg = e * bg
     alpha = torch.sum(Df[None] * tg, dim=1)              # (K, n0, k1)
     betaS = torch.sum((Df * Dc).real * e, dim=-3)
     Xfg = tg - (alpha / (1.0 + betaS))[:, None] * (e * Dc[None])
     Xg = sf.irfftn(Xfg, s=Nv, axes=axes)
-    return pack_state(Xg.reshape(K, 1, M, *Nv)), Xfg
+    return pack_state(Xg.reshape(K, 1, M, *Nv), copy=copy), Xfg
+
+
+def _stats_on(state_stats, max_iter, ncol, device):
+    """The stats buffer of a solve call on ``device``: the state's
+    (``k - k0`` rows of this call overwrite it from row 0), or NaN when
+    its shape is not ``(max_iter, ncol)``."""
+    stats = np.asarray(state_stats, np.float32)
+    if stats.shape != (max_iter, ncol):
+        stats = np.full((max_iter, ncol), np.nan, np.float32)
+    return torch.tensor(stats, device=device)
+
+
+def _row_index(k, k0, max_iter):
+    """The stats row of iteration ``k`` (a float32 tensor) of a solve
+    call from ``k0``, as a one-element int64 tensor (clamped: a dead
+    iteration after ``max_iter`` rewrites the last row with itself)."""
+    return (k - k0).clamp(0, max_iter - 1).to(torch.int64).reshape(1)
+
+
+def _write_row(stats, idx, live, row):
+    """Row ``idx`` (a one-element int64 tensor) of ``stats`` becomes
+    ``row`` where ``live``, else stays."""
+    old = stats.index_select(0, idx)[0]
+    stats.index_copy_(0, idx, torch.where(live, row, old)[None])
+
+
+def _loop_key(kind, cfg, opts, consts, t):
+    """What a captured iteration bakes in beside the values of its static
+    tensors ``t``: the configuration and options, the Python constants of
+    the iteration (``consts``; its tensors are in ``t``), the shapes and
+    types of ``t``, the matmul precision and the FFT dispatch of the
+    glue."""
+    return (kind, repr(cfg), repr(opts),
+            tuple((name, v) for name, v in consts.items()
+                  if not isinstance(v, torch.Tensor)),
+            tuple((name, tuple(v.shape), v.dtype, str(v.device))
+                  for name, v in t.items()),
+            _MATMUL_PRECISION, sf.get_precision(), sf._PLANAR_MODE)
 
 
 def _cbpdn_fused_run(cfg, params, opts, state):
@@ -574,79 +658,160 @@ def _cbpdn_fused_run(cfg, params, opts, state):
     K, M = cri.K, cri.M
     nd0, nd1 = cri.dsz[0], cri.dsz[1]
     axes = (-2, -1)
-    ar = opts.auto_rho
-    rlx = f32(opts.relax_param)
-    lmbda = f32(params["lmbda"])
     gradreg = cfg.variant == "gradreg"
-    mu = f32(params["mu"]) if cfg.variant in ("elastic", "gradreg") \
-        else None
+    elastic = cfg.variant in ("elastic", "gradreg")
     wl1p = _packed_l1_weight(params["wl1"], cri)
     spatial_w = isinstance(wl1p, torch.Tensor) and wl1p.ndim > 1
-    # AMS: the last filter is the impulse; its map takes (1 - W)(AX + U)
-    ams = (ams_mask(params["Wams"], K, cri.Nv), cfg.ams_nimp) \
-        if cfg.ams_nimp else None
-    mixed = _MATMUL_PRECISION == "mixed"
+    dev = params["S"].device
+    k0 = int(state.k)
 
+    # this call's tensors, which the iteration reads from the loop's
+    # static ones (the first call's are those)
+    t = {}
     Cd = cri.Cd
     if Cd > 1:
         # colour dictionary (l1/elastic): the rank-Cd Woodbury x-step
         D = params["D"].reshape(Cd, M, nd0, nd1)
-        Df = sf.rfftn(D, s=cri.Nv, axes=axes)           # (Cd, M, n0, k1)
-        DDHf = _gram(Df)
-        Sf = sf.rfftn(params["S"].reshape(K, Cd, n0, n1), axes=axes)
+        t["Df"] = sf.rfftn(D, s=cri.Nv, axes=axes)      # (Cd, M, n0, k1)
+        t["DDHf"] = _gram(t["Df"])
+        t["Sf"] = sf.rfftn(params["S"].reshape(K, Cd, n0, n1), axes=axes)
     else:
         D = params["D"].reshape(M, nd0, nd1)
-        Df = sf.rfftn(D, s=cri.Nv, axes=axes)
-        DHD = torch.sum((Df * Df.conj()).real, dim=0)      # (n0, k1)
-        Sf = sf.rfftn(params["S"].reshape(K, n0, n1), axes=axes)
-        sfr, sfi = Sf.real.contiguous(), Sf.imag.contiguous()
+        t["Df"] = sf.rfftn(D, s=cri.Nv, axes=axes)
+        t["DHD"] = torch.sum((t["Df"] * t["Df"].conj()).real, dim=0)
+        t["Sf"] = sf.rfftn(params["S"].reshape(K, n0, n1), axes=axes)
+        t["sfr"] = t["Sf"].real.contiguous()
+        t["sfi"] = t["Sf"].imag.contiguous()
+    js = None
     if gradreg:
-        _, GHGf = gradient_filters(2, cri.Nv, dtype=Sf.real.dtype,
-                                   device=Sf.device)
+        _, GHGf = gradient_filters(2, cri.Nv, dtype=t["Sf"].real.dtype,
+                                   device=dev)
         wg = params["wgrd"]
-        GHGfW = wg * GHGf if wg.ndim == 0 else wg.reshape(-1, 1, 1) * GHGf
+        t["GHGfW"] = wg * GHGf if wg.ndim == 0 \
+            else wg.reshape(-1, 1, 1) * GHGf
     else:
-        Wf, Wa, js = xstep_kernels(D, nd0, nd1, PS)
-        jf0, jf1, ja0, ja1 = js
-    pos = K * (n0 // PS) * (n1 // PS)
-    C = PS * PS * M
-
+        t["Wf"], t["Wa"], js = xstep_kernels(D, nd0, nd1, PS)
+    if isinstance(wl1p, torch.Tensor):
+        t["wl1p"] = wl1p
+    else:
+        wl1p = float(wl1p)
+    if cfg.ams_nimp:
+        # AMS: the last filter is the impulse; its map takes (1 - W)(AX+U)
+        t["Wams"] = ams_mask(params["Wams"], K, cri.Nv)
     # The JAX package's routing, except that the port runs csc_iter
     # whatever iter_supported says and runs the tail kernel at any layout
     # (ROADMAP "Kernel routing (deliberate)").
     use_pk = (cfg.variant in ("l1", "elastic") and not spatial_w
               and not cfg.ams_nimp)
-    use_tail = not use_pk and not spatial_w
+    nobj = 5 if elastic else 4
 
-    k0 = int(state.k)
-    k = k0
-    nc = math.sqrt(K * M * n0 * n1)    # sqrt of the size of X and of Y
-    rho, rho_xi = f32(state.rho), f32(state.rho_xi)
-    r, s = f32(state.r), f32(state.s)
-    epri, edua = f32(state.epri), f32(state.edua)
-    nobj = 4 if mu is None else 5
-    stats = np.array(state.stats, np.float32, copy=True)
-    if stats.shape[0] != opts.max_iter:
-        stats = np.full((opts.max_iter, 1 + nobj + 5), np.nan, np.float32)
-
-    # fresh packed buffers: the kernels update PY/PU in place; body
-    # carries X, body_pk rebuilds it after the loop
-    PX = None if use_pk else pack_state(state.X)
-    PY = pack_state(state.Y)
-    PU = pack_state(state.U)        # true dual = us * PU
-    us = f32(1.0)
+    # The loop's state: the scalars [rho, us, r, s, epri, edua, k, k0]
+    # (the true dual is us * PU; k and k0 float32, exact below 2**24),
+    # lmbda and mu, the stats rows and the launch counters of the
+    # kernels (csc_iter or admm_tail; the FFT pair).  The kernels update
+    # PY/PU in place; body carries X, body_pk rebuilds it after the loop
+    # from the forward pair R1/R2 of (PY - PU) and PU.
+    t["sc"] = torch.tensor([state.rho, 1.0, state.r, state.s, state.epri,
+                            state.edua, k0, k0], dtype=torch.float32,
+                           device=dev)
+    t["rho_xi"] = torch.full((), float(f32(state.rho_xi)), device=dev)
+    t["lmbda"] = torch.full((), float(f32(params["lmbda"])), device=dev)
+    if elastic:
+        t["mu"] = torch.full((), float(f32(params["mu"])), device=dev)
+    t["stats"] = _stats_on(state.stats, opts.max_iter, 1 + nobj + 5, dev)
+    t["cnt"] = torch.zeros(1, dtype=torch.int32, device=dev)
+    t["fcnt"] = torch.zeros(2, dtype=torch.int32, device=dev)
+    t["enable"] = torch.ones((), dtype=torch.bool, device=dev)
+    t["sums"] = torch.zeros(6, dtype=torch.float32, device=dev)
     if use_pk:
-        R1 = (PY - PU).reshape(pos, C) @ Wf
-        R2 = PU.reshape(pos, C) @ Wf
+        t["wf_split"] = split_weight(t["Wf"])   # the kernel's, once a call
+    consts = dict(wl1p=wl1p, use_pk=use_pk, js=js, nobj=nobj)
+    key = _loop_key("admm", cfg, opts, consts, t)
+    # the packed state, written straight into a kept loop's buffers
+    loop = device_loop.kept("admm", key)
+    into = {} if loop is None else loop.t
+    t["PY"] = pack_state(state.Y, out=into.get("PY"))
+    t["PU"] = pack_state(state.U, out=into.get("PU"))
+    pos, C = K * (n0 // PS) * (n1 // PS), PS * PS * M
+    if use_pk:
+        t["R1"] = torch.matmul((t["PY"] - t["PU"]).reshape(pos, C),
+                               t["Wf"], out=into.get("R1"))
+        t["R2"] = torch.matmul(t["PU"].reshape(pos, C), t["Wf"],
+                               out=into.get("R2"))
+    else:
+        t["PX"] = pack_state(state.X, out=into.get("PX"))
+    if loop is None:
+        loop = device_loop.keep("admm", key,
+                                _admm_loop(cfg, opts, consts, t))
+    loop.refill(t)
+    host = device_loop.run(
+        loop, opts.max_iter,
+        bool(f32(state.r) <= f32(state.epri)
+             and f32(state.s) <= f32(state.edua)),
+        dev, verbose=opts.verbose)
+    T = loop.t
+    PX = loop.finish()
+    if dev.type == "cuda":
+        # the kernels' live launches, counted on the device
+        CSC_ITER_LAUNCHES["csc_iter"] += int(host[8]) if use_pk else 0
+        csc_tail.LAUNCHES["admm_tail"] += 0 if use_pk else int(host[8])
+        fft2_planar.LAUNCHES["rfft2_planar"] += int(host[9])
+        fft2_planar.LAUNCHES["irfft2_planar"] += int(host[10])
+    rho_h, us_h, r_h, s_h, epri_h, edua_h = (f32(v) for v in host[:6])
+    shp = state.Y.shape
+    us = T["sc"][1]
+    # new tensors: the loop's are refilled by its next call
+    return ADMMState(
+        X=unpack_state(PX, M).reshape(shp).clone(),
+        Y=unpack_state(T["PY"], M).reshape(shp).clone(),
+        U=(us * unpack_state(T["PU"], M)).reshape(shp),
+        rho=rho_h, rho_xi=f32(state.rho_xi), k=np.int32(host[6]), r=r_h,
+        s=s_h, epri=epri_h, edua=edua_h,
+        stats=host[11:].reshape(opts.max_iter, 1 + nobj + 5).copy())
+
+
+def _admm_loop(cfg, opts, consts, T):
+    """The fused ADMM driver's iteration (``body_pk`` on ``csc_iter`` or
+    ``body`` with ``admm_tail`` or the torch-op tail) over the static
+    tensors ``T`` (see :func:`_cbpdn_fused_run`), as a
+    :class:`~sporco_tpu_torch.ops.device_loop.Loop`."""
+    cri = cfg.cri
+    n0, n1 = cri.Nv
+    K, M, Cd = cri.K, cri.M, cri.Cd
+    axes = (-2, -1)
+    ar = opts.auto_rho
+    rlx = f32(opts.relax_param)
+    nobj, use_pk = consts["nobj"], consts["use_pk"]
+    gradreg = cfg.variant == "gradreg"
+    wl1p = T.get("wl1p", consts["wl1p"])
+    spatial_w = isinstance(wl1p, torch.Tensor) and wl1p.ndim > 1
+    use_tail = not use_pk and not spatial_w
+    ams = (T["Wams"], cfg.ams_nimp) if cfg.ams_nimp else None
+    mixed = _MATMUL_PRECISION == "mixed"
+    nc = math.sqrt(K * M * n0 * n1)    # sqrt of the size of X and of Y
+    pos, C = K * (n0 // PS) * (n1 // PS), PS * PS * M
+    js = consts["js"]
+    if js is not None:
+        jf0, jf1, ja0, ja1 = js
+        Wf, Wa = T["Wf"], T["Wa"]
         Ta = Wa.shape[0]        # (ja0 + 1)(ja1 + 1) Cd PS^2
-        wf_split = split_weight(Wf)     # the kernel's, once per solve
+    Df, Sf = T["Df"], T["Sf"]
+    DHD, sfr, sfi = T.get("DHD"), T.get("sfr"), T.get("sfi")
+    DDHf, GHGfW = T.get("DDHf"), T.get("GHGfW")
+    PY, PU, PX = T["PY"], T["PU"], T.get("PX")
+    R1, R2, wf_split = T.get("R1"), T.get("R2"), T.get("wf_split")
+    sc, stats, cnt, sums = T["sc"], T["stats"], T["cnt"], T["sums"]
+    fcnt, enable, rho_xi = T["fcnt"], T["enable"], T["rho_xi"]
+    lmbda, mu = T["lmbda"], T.get("mu")
+    rho, us, r, s, epri, edua, k, k0 = sc
+    nanv = torch.full((), float("nan"), device=sc.device)
 
     def beta_scale(rho):
         """The x-step's ``beta`` and ``scale``: the elastic net's
         ``(rho + mu) I + D^H D`` system is the l1 one with yu scaled by
         ``rho / beta``."""
         if mu is None:
-            return rho, f32(1.0)
+            return rho, 1.0
         beta = rho + mu
         return beta, rho / beta
 
@@ -667,7 +832,7 @@ def _cbpdn_fused_run(cfg, params, opts, state):
         DDHf Gf - Sf``), no extra transform."""
         if Cd > 1:
             rf, Gf = spec
-            er = (float(scale) * rf
+            er = (scale * rf
                   + torch.sum(DDHf[None] * Gf[:, None], dim=2) - Sf)
             return 0.5 * _rfl2norm2_sq((er * er.conj()).real, n1)
         rfr, rfi, gr, gi = spec
@@ -676,23 +841,30 @@ def _cbpdn_fused_run(cfg, params, opts, state):
         return 0.5 * _rfl2norm2_planar(er, ei, n1)
 
     def converged():
-        return (r <= epri and s <= edua) or k - k0 >= opts.max_iter
+        return ((r <= epri) & (s <= edua)) | (k - k0 >= opts.max_iter)
 
-    while not converged():
-        lr = f32(lmbda / rho)
-        thr = lr * wl1p if isinstance(wl1p, np.floating) \
-            else float(lr) * wl1p
+    def step():
+        """One iteration, guarded by ``live`` (the JAX ``lax.cond``); the
+        FFT kernels read it through their gate."""
+        device_loop.stage("stopping test")
+        live = enable & ~converged()
+        with fft2_planar.gate(live.to(torch.float32), fcnt):
+            return body(live)
+
+    def body(live):
+        thr = (lmbda / rho) * wl1p
         extra = []
         if use_pk:
+            device_loop.stage("x-step glue")
             # forward product, rescale-corrected by linearity:
             # (Y - us U) @ Wf = R1 + (1 - us) R2
             beta, scale = beta_scale(rho)
-            o2 = R1 + float(f32(1.0) - us) * R2
+            o2 = R1 + _scaled(1.0 - us, R2)
             o4 = o2.reshape(K, n0 // PS, n1 // PS, -1)
             if Cd > 1:
                 rf = sf.rfftn(_fwd_combine_mc(o4, jf0, jf1, Cd, PS),
                               axes=axes)
-                Gf = _herm_solve(DDHf, float(beta), Sf - float(scale) * rf)
+                Gf = _herm_solve(DDHf, beta, Sf - scale * rf)
                 G2 = _adj_rolls_mc(sf.irfftn(Gf, s=cri.Nv, axes=axes),
                                    ja0, ja1)
                 spec = (rf, Gf)
@@ -701,34 +873,43 @@ def _cbpdn_fused_run(cfg, params, opts, state):
                 rf = sf.rfftn(R, axes=axes)
                 rfr, rfi = rf.real, rf.imag
                 if mu is not None:
-                    rfr, rfi = float(scale) * rfr, float(scale) * rfi
-                den = 1.0 / (DHD[None] + float(beta))
+                    rfr, rfi = scale * rfr, scale * rfi
+                den = 1.0 / (DHD[None] + beta)
                 gr = (sfr - rfr) * den
                 gi = (sfi - rfi) * den
                 G = sf.irfftn(torch.complex(gr, gi), s=cri.Nv, axes=axes)
                 G2 = _adj_rolls(poly_pack(G), ja0, ja1)
                 spec = (rfr, rfi, gr, gi)
-            _, _, _, R1, R2, sums = csc_iter(
-                G2.reshape(pos, Ta), PY.view(pos, C), PU.view(pos, C), Wa,
-                Wf, thr, wl1p, rlx, us, scale, nonneg=cfg.non_neg,
-                emit_px=False, wf_split=wf_split, mixed=mixed)
+            device_loop.stage("csc_iter")
+            csc_iter(G2.reshape(pos, Ta), PY.view(pos, C), PU.view(pos, C),
+                     Wa, Wf, thr, wl1p, rlx, us, scale, nonneg=cfg.non_neg,
+                     emit_px=False, wf_split=wf_split, mixed=mixed,
+                     live=live, counter=cnt, out=(R1, R2, sums))
         else:
             # the XLA body: the x-step, then the tail on the packed state
-            PUt = float(us) * PU
+            device_loop.stage("x-step")
+            PUt = _scaled(us, PU)
             Pyu = PY - PUt
             if gradreg:
-                PX, Xfg = _gradreg_xstep(Pyu, rho, mu, Df, Sf, GHGfW, K, M,
-                                         cri.Nv)
+                PXn, Xfg = _gradreg_xstep(Pyu, rho, mu, Df, Sf, GHGfW, K,
+                                          M, cri.Nv, copy=False)
             else:
                 beta, scale = beta_scale(rho)
-                PX, spec = xstep(Pyu, beta, scale)
+                PXn, spec = xstep(Pyu, beta, scale)
+            # X is carried: the x-step's result where live (for gradreg
+            # the packing's own pass)
+            torch.where(live, PXn, PX, out=PX)
+            device_loop.stage("tail")
             if use_tail:
-                PY, PU, sums = csc_tail.admm_tail(
-                    PX, PY, PU, thr, wl1p, rlx, nonneg=cfg.non_neg, us=us,
-                    ams=ams)
+                csc_tail.admm_tail(PX, PY, PU, thr, wl1p, rlx,
+                                   nonneg=cfg.non_neg, us=us, ams=ams,
+                                   live=live, counter=cnt, out=sums)
             else:
-                PY, PU, sums = tail_ops(PX, PY, PUt, thr, wl1p, rlx,
-                                        nonneg=cfg.non_neg, ams=ams)
+                yn, un, s6 = tail_ops(PX, PY, PUt, thr, wl1p, rlx,
+                                      nonneg=cfg.non_neg, ams=ams)
+                torch.where(live, yn, PY, out=PY)
+                torch.where(live, un, PU, out=PU)
+                sums.copy_(s6)
             if gradreg and not opts.fast_solve:
                 DXf = torch.sum(Df[None] * Xfg, dim=1)
                 er = DXf.real - sfr
@@ -736,47 +917,52 @@ def _cbpdn_fused_run(cfg, params, opts, state):
                 sqg = (Xfg * Xfg.conj()).real * GHGfW
                 extra = [0.5 * _rfl2norm2_planar(er, ei, n1),
                          0.5 * _rfl2norm2_sq(sqg, n1)]
+        device_loop.stage("residuals, stats row and AutoRho")
         if not (opts.fast_solve or gradreg):
             extra = [data_fidelity(spec, scale)]
-        # the one host read of the iteration
-        host = torch.cat([sums] + [v.reshape(1) for v in extra]) \
-            .cpu().numpy()
-        rnrm = np.sqrt(host[0])
-        snrm = rho * np.sqrt(host[1])
-        rn = np.sqrt(np.maximum(host[2], host[3]))
-        sn = rho * np.sqrt(host[4])
-        r_, s_, epri_, edua_ = norm_residuals(ar, opts, nc, nc, rnrm, snrm,
-                                              rn, sn)
+        q = sqrt_t(torch.stack([sums[0], sums[1],
+                                torch.maximum(sums[2], sums[3]), sums[4]]))
+        r_, s_, epri_, edua_ = norm_residuals_t(ar, opts, nc, nc, q[0],
+                                                rho * q[1], q[2],
+                                                rho * q[3])
         if opts.fast_solve:
-            objv = (np.nan,) * nobj
+            objv = (nanv,) * nobj
         else:
-            rl1, dfd = host[5], host[6]
+            rl1, dfd = sums[5], extra[0]
             if mu is None:
-                objv = (dfd + lmbda * rl1, dfd, rl1, np.nan)
+                objv = (dfd + lmbda * rl1, dfd, rl1, nanv)
             else:
                 # RegGrad from the spectrum, RegL2 from the tail's ||PX||^2
-                reg = host[7] if gradreg else f32(0.5) * host[2]
-                objv = (dfd + lmbda * rl1 + mu * reg, dfd, rl1, reg, np.nan)
-        stats[k - k0] = (k,) + objv + (r_, s_, epri_, edua_, rho)
-        if opts.verbose:
-            print(f"it {k}  obj {stats[k - k0, 1]:.4e}  r {r_:.3e}  "
-                  f"s {s_:.3e}  rho {rho:.3e}")
-        rho_new, us = _update_rho(ar, k, r_, s_, rho, rho_xi, f32(1.0))
-        rho, r, s, epri, edua = rho_new, r_, s_, epri_, edua_
-        k += 1
+                reg = extra[1] if gradreg else 0.5 * sums[2]
+                objv = (dfd + lmbda * rl1 + mu * reg, dfd, rl1, reg, nanv)
+        row = torch.stack((k,) + objv + (r_, s_, epri_, edua_, rho))
+        _write_row(stats, _row_index(k, k0, opts.max_iter), live, row)
+        rho_new, us_new = update_rho_t(ar, k, r_, s_, rho, rho_xi)
+        torch.where(live, torch.stack(
+            [rho_new, us_new, r_, s_, epri_, edua_, k + 1.0, k0]), sc,
+            out=sc)
+        return live
 
-    if use_pk:
-        # The kernel loop never stores X; it is the x-step at the final
-        # (Y, U, rho), which is what the next iteration (or a resumed
-        # solve) computes.
-        PX = xstep(PY - float(us) * PU, *beta_scale(rho))[0]
-    shp = state.Y.shape
-    return ADMMState(
-        X=unpack_state(PX, M).reshape(shp),
-        Y=unpack_state(PY, M).reshape(shp),
-        U=(float(us) * unpack_state(PU, M)).reshape(shp),
-        rho=rho, rho_xi=rho_xi, k=np.int32(k), r=r, s=s, epri=epri,
-        edua=edua, stats=stats)
+    def status():
+        return torch.stack([converged().to(torch.float32), k - k0])
+
+    def show(row):
+        print(f"it {int(row[0])}  obj {row[1]:.4e}  r {row[1 + nobj]:.3e}  "
+              f"s {row[2 + nobj]:.3e}  rho {row[-1]:.3e}")
+
+    def finish():
+        """PX of the final state: the loop's (body), or the x-step at
+        the final (Y, U, rho), which the next iteration (or a resumed
+        solve) computes (body_pk: the kernel loop never stores X)."""
+        if not use_pk:
+            return PX
+        return xstep(PY - _scaled(us, PU), *beta_scale(rho))[0]
+
+    return device_loop.Loop(
+        T, step, status,
+        lambda: torch.cat([sc, cnt.to(torch.float32),
+                           fcnt.to(torch.float32), stats.reshape(-1)]),
+        lambda i, n: stats[i:i + n], show, finish)
 
 
 # ---------------------------------------------------------------------------
@@ -962,75 +1148,151 @@ def _pgm_kernel_eligible(cfg, params, opts):
 
 
 def _pgm_fused_kernel_run(cfg, params, opts, state):
-    """FISTA loop around :func:`sporco_tpu_torch.ops.pgm_iter.pgm_iter`:
-    per iteration the small roll-combine of R1, the residual, the mask
-    and the adjoint rolls in PyTorch, then one kernel call (gradient
-    product, prox, momentum, the next forward product and RX), then the
-    objective from RX and one host read of three floats."""
+    """FISTA loop around :func:`sporco_tpu_torch.ops.pgm_iter.pgm_iter`,
+    on the device (:mod:`sporco_tpu_torch.ops.device_loop`): per
+    iteration the small roll-combine of R1, the residual, the mask and
+    the adjoint rolls in PyTorch, then one kernel call (gradient product,
+    prox, momentum, the next forward product and RX), then the objective
+    from RX, the stopping test and the stats row on the device."""
+    M = cfg.cri.M
+    aux = _pgm_aux(cfg, params)
+    dev = aux["Sp"].device
+    k0 = int(state.k)
+    L = f32(state.L)            # fixed: no backtracking on this route
+    ncol = state.stats.shape[1]
+    # this call's tensors, which the iteration reads from the loop's
+    # static ones (the first call's are those): the weights and signal,
+    # the state [t, rsdl, k, k0] (k and k0 float32, exact below 2**24),
+    # the stats rows, the kernel's launch counter and fresh, distinct
+    # packed buffers (pgm_iter writes X over the previous iterate and Yn
+    # over Y in place)
+    t = {name: aux[name] for name in ("Wf", "Wa", "Sp", "Wp2")
+         if name in aux}
+    # the kernel's scalars fixed over the solve: thr = (lmbda / L) wl1
+    # (0-d, or per filter) and rL = 1 / L in float32, with lmbda and L
+    thr = _thr(aux, L)
+    wl1p = aux["wl1p"]
+    if isinstance(thr, torch.Tensor):
+        t["thr"], t["wl1p"] = thr, wl1p
+        wl1p = None
+    else:
+        t["thr"] = torch.full((), float(thr), device=dev)
+        wl1p = float(wl1p)
+    t["pc"] = torch.tensor([aux["lmbda"], L, f32(1.0) / L],
+                           dtype=torch.float32, device=dev)
+    t["sc"] = torch.tensor([state.t, state.rsdl, k0, k0],
+                           dtype=torch.float32, device=dev)
+    t["stats"] = _stats_on(state.stats, opts.max_iter, ncol, dev)
+    t["cnt"] = torch.zeros(1, dtype=torch.int32, device=dev)
+    t["enable"] = torch.ones((), dtype=torch.bool, device=dev)
+    t["sums"] = torch.zeros(2, dtype=torch.float32, device=dev)
+    t["wf_split"] = split_weight(t["Wf"])   # the kernel's, once a call
+    consts = dict(wl1p=wl1p, j=aux["j"], Cd=aux["Cd"], ncol=ncol)
+    key = _loop_key("pgm", cfg, opts, consts, t)
+    # the packed state, written straight into a kept loop's buffers
+    loop = device_loop.kept("pgm", key)
+    into = {} if loop is None else loop.t
+    t["PX"] = pack_state(state.X, out=into.get("PX"))
+    t["PY"] = pack_state(state.Y, out=into.get("PY"))
+    pos, C = t["PY"].shape[0] * t["PY"].shape[1] * t["PY"].shape[2], \
+        t["PY"].shape[3]
+    t["R1"] = torch.matmul(t["PY"].reshape(pos, C), t["Wf"],
+                           out=into.get("R1"))
+    # the kernel's output, which each live iteration writes before the
+    # objective reads it
+    t["RX"] = into["RX"] if "RX" in into else torch.empty_like(t["R1"])
+    if loop is None:
+        loop = device_loop.keep("pgm", key, _pgm_loop(cfg, opts, consts, t))
+    loop.refill(t)
+    host = device_loop.run(
+        loop, opts.max_iter,
+        not bool(f32(state.rsdl) >= stop_tol(opts, k0)), dev,
+        verbose=opts.verbose)
+    if dev.type == "cuda":
+        # the kernel's live launches, counted on the device
+        PGM_ITER_LAUNCHES["pgm_iter"] += int(host[4])
+    T = loop.t
+    shp = state.X.shape
+    # new tensors: the loop's are refilled by its next call
+    X = unpack_state(T["PX"], M).reshape(shp).clone()
+    return state._replace(
+        X=X, Y=unpack_state(T["PY"], M).reshape(shp).clone(),
+        Xprv=X.clone(), t=f32(host[0]), L=L, k=np.int32(host[2]),
+        rsdl=f32(host[1]), stats=host[5:].reshape(opts.max_iter,
+                                                  ncol).copy())
+
+
+def _pgm_loop(cfg, opts, consts, T):
+    """The fused FISTA driver's iteration on ``pgm_iter`` over the static
+    tensors ``T`` (see :func:`_pgm_fused_kernel_run`), as a
+    :class:`~sporco_tpu_torch.ops.device_loop.Loop`."""
     cri = cfg.cri
     n0, n1 = cri.Nv
     K, M = cri.K, cri.M
     p0, p1 = n0 // PS, n1 // PS
     pos = K * p0 * p1
     C = PS * PS * M
-    aux = _pgm_aux(cfg, params)
-    Wf, Wa, Sp, wl1p, lmbda = (aux[k] for k in ("Wf", "Wa", "Sp", "wl1p",
-                                                "lmbda"))
-    jf0, jf1, ja0, ja1 = aux["j"]
-    Cd = aux["Cd"]
+    jf0, jf1, ja0, ja1 = consts["j"]
+    Cd = consts["Cd"]
+    Wf, Wa, Sp, Wp2 = T["Wf"], T["Wa"], T["Sp"], T.get("Wp2")
+    thr = T["thr"]
+    wl1p = T.get("wl1p", consts["wl1p"])
     Ta = Wa.shape[0]            # (ja0 + 1)(ja1 + 1) Cd PS^2
-    Wp2 = aux.get("Wp2")
-
-    k0 = int(state.k)
-    k = k0
-    t, L, rsdl = f32(state.t), f32(state.L), f32(state.rsdl)
-    stats = np.array(state.stats, np.float32, copy=True)
-    if stats.shape[0] != opts.max_iter:
-        stats = np.full((opts.max_iter, stats.shape[1]), np.nan, np.float32)
-    # fresh, distinct packed buffers: pgm_iter writes X over the previous
-    # iterate and Yn over Y in place
-    PX = pack_state(state.X)
-    PY = pack_state(state.Y)
-    R1 = PY.reshape(pos, C) @ Wf
-    wf_split = split_weight(Wf)         # the kernel's, once per solve
+    PX, PY, R1, RX = T["PX"], T["PY"], T["R1"], T["RX"]
+    sc, stats, cnt, sums = T["sc"], T["stats"], T["cnt"], T["sums"]
+    enable, wf_split = T["enable"], T["wf_split"]
     mixed = _MATMUL_PRECISION == "mixed"
-    nanv = f32(np.nan)
+    t, rsdl, k, k0 = sc
+    lmbda, L, rL = T["pc"]
+    nanv = torch.full((), float("nan"), device=sc.device)
+    zero = torch.zeros((), device=sc.device)
 
-    while k - k0 < opts.max_iter and rsdl >= stop_tol(opts, k):
+    def live_now():
+        return (enable & (k - k0 < opts.max_iter)
+                & (rsdl >= stop_tol_t(opts, k)))
+
+    def step():
+        """One iteration, guarded by ``live`` (the JAX ``cond``)."""
+        device_loop.stage("stopping test")
+        live = live_now()
+        device_loop.stage("gradient glue")
         Rp = _fwd_combine(R1.reshape(K, p0, p1, -1), jf0, jf1, PS, Cd) - Sp
         if Wp2 is not None:
             Rp = Wp2 * Rp
         G2 = _adj_rolls(Rp, ja0, ja1)
-        tprv = t
-        t = _momentum_update(opts, t, k)
-        beta = (tprv - f32(1.0)) / t
-        _, _, R1, RX, sums = pgm_iter(
-            G2.reshape(pos, Ta), PY.view(pos, C), PX.view(pos, C), Wa, Wf,
-            _thr(aux, L), wl1p, f32(1.0) / L, beta, nonneg=cfg.non_neg,
-            wf_split=wf_split, mixed=mixed)
+        tn = momentum_update_t(opts, t, k)
+        beta = (t - 1.0) / tn
+        device_loop.stage("pgm_iter")
+        pgm_iter(G2.reshape(pos, Ta), PY.view(pos, C), PX.view(pos, C), Wa,
+                 Wf, thr, wl1p, rL, beta, nonneg=cfg.non_neg,
+                 wf_split=wf_split, mixed=mixed, live=live, counter=cnt,
+                 out=(R1, RX, sums))
+        device_loop.stage("objective and stats row")
+        rs = sqrt_t(sums[0])
         if opts.fast_solve:
-            host = sums.cpu().numpy()
-            objv = (np.nan,) * 3
+            objv = (nanv,) * 3
         else:
             RpX = _fwd_combine(RX.reshape(K, p0, p1, -1), jf0, jf1, PS,
                                Cd) - Sp
             sq = RpX * RpX if Wp2 is None else Wp2 * RpX ** 2
             f = 0.5 * torch.sum(sq)
-            # the one host read of the iteration
-            host = torch.cat([sums, f.reshape(1)]).cpu().numpy()
-            objv = (host[2] + lmbda * host[1], host[2], host[1])
-        rsdl = f32(np.sqrt(host[0]))
-        stats[k - k0] = (k,) + objv + (rsdl, nanv, nanv, 0.0, L)
-        if opts.verbose:
-            print(f"it {k}  obj {stats[k - k0, 1]:.4e}  rsdl {rsdl:.3e}  "
-                  f"L {L:.3e}")
-        k += 1
+            objv = (f + lmbda * sums[1], f, sums[1])
+        row = torch.stack((k,) + objv + (rs, nanv, nanv, zero, L))
+        _write_row(stats, _row_index(k, k0, opts.max_iter), live, row)
+        torch.where(live, torch.stack([tn, rs, k + 1.0, k0]), sc, out=sc)
+        return live
 
-    shp = state.X.shape
-    X = unpack_state(PX, M).reshape(shp)
-    return state._replace(
-        X=X, Y=unpack_state(PY, M).reshape(shp), Xprv=X.clone(), t=t, L=L,
-        k=np.int32(k), rsdl=rsdl, stats=stats)
+    def status():
+        return torch.stack([(~live_now()).to(torch.float32), k - k0])
+
+    def show(row):
+        print(f"it {int(row[0])}  obj {row[1]:.4e}  rsdl {row[4]:.3e}  "
+              f"L {row[8]:.3e}")
+
+    return device_loop.Loop(
+        T, step, status,
+        lambda: torch.cat([sc, cnt.to(torch.float32), stats.reshape(-1)]),
+        lambda i, n: stats[i:i + n], show)
 
 
 def pgm_cbpdn_solve(cfg, params, opts, state):

@@ -9,7 +9,10 @@ are host numpy values (``float32``, or ``float64`` for a float64 or
 complex128 problem).  All scalar arithmetic is done in that type, in
 the same order as the JAX package, so that the AutoRho decisions and
 the stopping test match it.  The generic driver :func:`admm_solve`
-reads one small vector back from the device per iteration.
+reads one small vector back from the device per iteration.  The fused
+drivers (``ops/fused_csc.py``) keep these scalars on the device instead,
+through the tensor forms ``rsf_t``, ``update_rho_t`` and
+``norm_residuals_t``.
 
 X, Y and U are each a tensor or a tuple of tensors (a problem with more
 than one constraint block, such as ``MinL1InL2Ball``): the driver's
@@ -145,6 +148,73 @@ def norm_residuals(ar, opts, nc, nx, rnrm, snrm, rn, sn, ft=f32):
         sn_ = ft(1.0) if sn == 0.0 else sn
         return (rnrm / rn_, snrm / sn_, atol_c / rn_ + rtol,
                 atol_x / sn_ + rtol)
+
+
+# ---------------------------------------------------------------------------
+# The same scalar arithmetic on 0-d float32 tensors, for the fused
+# drivers' on-device loop (``ops/device_loop.py``): the JAX package's
+# operations in its order, ``torch.where`` in place of the branches, so
+# a stats row computed on the device equals the one the host forms
+# above compute.  The host forms stay numpy: torch's CPU square root is
+# not correctly rounded (MKL's vector math; about one float32 input in
+# 100 and float64 input in 150 parts from numpy's), and the generic
+# drivers' float64 rows must match the JAX package's bit for bit.
+
+def sqrt_t(x):
+    """The correctly rounded square root of a float32 tensor: CUDA's is,
+    torch's CPU one is not, so there it goes through float64."""
+    if x.device.type == "cuda":
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def rsf_t(ar, k, r, s, xi):
+    """:func:`_rsf` on 0-d float32 tensors: ``k`` the iteration counter
+    as a tensor (an integer, or a float32 holding one), ``r``, ``s`` and
+    ``xi`` float32 (``sporco_tpu/solvers/admm.py`` ``_update_rho``)."""
+    if not ar.enabled:
+        return torch.ones_like(r)
+    tau = float(f32(ar.scaling))
+    mu = float(f32(ar.rsdl_ratio))
+    if ar.auto_scaling:
+        sxi = s * xi
+        ratio = torch.where(r > sxi, r / sxi, sxi / r)
+        rhomlt = torch.clamp(sqrt_t(ratio), max=tau)
+        rhomlt = torch.where((s == 0.0) | (r == 0.0), tau, rhomlt)
+    else:
+        rhomlt = torch.full_like(r, tau)
+    rsf = torch.where(r > xi * mu * s, rhomlt,
+                      torch.where(s > (torch.full_like(xi, mu) / xi) * r,
+                                  torch.reciprocal(rhomlt), 1.0))
+    on_period = (k != 0) & ((k + 1) % ar.period == 0)
+    return torch.where(on_period, rsf, 1.0)
+
+
+def update_rho_t(ar, k, r, s, rho, xi):
+    """:func:`_update_rho` of the fused driver on 0-d float32 tensors:
+    the new rho and the deferred dual factor ``1 / rsf``."""
+    rsf = rsf_t(ar, k, r, s, xi)
+    return rho * rsf, torch.reciprocal(rsf)
+
+
+def norm_residuals_t(ar, opts, nc, nx, rnrm, snrm, rn, sn):
+    """:func:`norm_residuals` on 0-d float32 tensors (``nc``, ``nx``
+    numbers); the four results are views of one tensor."""
+    atol_c = float(f32(nc * opts.abs_stop_tol))
+    atol_x = float(f32(nx * opts.abs_stop_tol))
+    rtol = float(f32(opts.rel_stop_tol))
+    norms = torch.stack([rn, sn])
+    if ar.std_residuals:
+        tol = norms * rtol + torch.stack([torch.full_like(rn, atol_c),
+                                          torch.full_like(sn, atol_x)])
+        return (rnrm, snrm, tol[0], tol[1])
+    norms = torch.where(norms == 0.0, 1.0, norms)
+    atol = torch.full_like(norms, atol_c) if atol_c == atol_x \
+        else torch.stack([torch.full_like(rn, atol_c),
+                          torch.full_like(sn, atol_x)])
+    out = torch.cat([torch.stack([rnrm, snrm]) / norms,
+                     atol / norms + rtol])
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,8 @@ from sporco_tpu_torch._device import fp32_precision
 from sporco_tpu_torch.solvers.admm import IterStats, scalar_type
 
 __all__ = ["PGMOpts", "PGMProblem", "PGMState", "pgm_solve",
-           "pgm_init_state", "pgm_iterstats", "stat_names"]
+           "pgm_init_state", "pgm_iterstats", "stat_names",
+           "momentum_update_t", "stop_tol_t"]
 
 f32 = np.float32
 
@@ -147,6 +148,35 @@ def stop_tol(opts, k, ft=f32):
     if opts.auto_stop:
         return ft(opts.auto_stop_tau0) / (ft(1.0) + ft(k))
     return ft(opts.rel_stop_tol)
+
+
+def momentum_update_t(opts, t, k):
+    """:func:`_momentum_update` on a 0-d float32 tensor ``t`` and a
+    tensor ``k`` (an integer, or a float32 holding one), for the fused
+    drivers' on-device loop.  The host form stays numpy: torch's CPU
+    square root is not correctly rounded (see
+    :func:`sporco_tpu_torch.solvers.admm.sqrt_t`)."""
+    from sporco_tpu_torch.solvers.admm import sqrt_t
+    if opts.momentum == "nesterov":
+        return 0.5 * (1.0 + sqrt_t(1.0 + 4.0 * (t * t)))
+    kf = k.to(t.dtype)
+    b = torch.full_like(t, float(f32(opts.momentum_b)))
+    if opts.momentum == "linear":
+        return (kf + b) / b
+    if opts.momentum == "genlinear":
+        return (kf + float(f32(opts.momentum_a))) / b
+    raise ValueError(f"unknown momentum {opts.momentum!r}")
+
+
+def stop_tol_t(opts, k):
+    """:func:`stop_tol` in float32 for a tensor ``k`` (an integer, or a
+    float32 holding one): a 0-d tensor under ``auto_stop``, else the
+    fixed tolerance as a float32 value."""
+    if opts.auto_stop:
+        kf = k.to(torch.float32)
+        return torch.full_like(kf, float(f32(opts.auto_stop_tau0))) / (
+            1.0 + kf)
+    return float(f32(opts.rel_stop_tol))
 
 
 def _pgm_run(prob, cfg, params, opts, state):

@@ -1605,3 +1605,345 @@ def test_sharded_consensus_on_card_matches_cpu(dev, nccl_mesh, dtype, n):
     tol = 1e-8 if dtype == torch.float64 else 1e-4
     assert np.abs(Da - Dc).max() <= tol * np.abs(Dc).max()
     np.testing.assert_allclose(a.evaluate(), c.evaluate(), rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# The fused drivers' on-device loop: kernels that read their scalars and
+# the flag live from device memory, dead launches, captured solves
+
+def _bits(t):
+    return t.detach().clone().view(torch.int32)
+
+
+def _scalars(dev, *vals):
+    return [torch.tensor(v, dtype=torch.float32, device=dev) for v in vals]
+
+
+def _kernel_case(kernel, dev, geom, vectors):
+    """(call, the buffers a launch may write): ``call(live, counter)``
+    launches ``kernel`` with its changing scalars as 0-d device tensors,
+    into buffers given by ``out``; ``call(None, None)`` with numbers."""
+    if kernel == "admm_tail":
+        R, C = geom
+        PX, PY, PU, thr, wl1 = _tail_inputs(R, C, vectors, dev)
+        sums = torch.full((6,), 3.0, device=dev)
+        thr_t = thr if vectors else _scalars(dev, thr)[0]
+        us_t, = _scalars(dev, 0.7)
+
+        def call(live, cnt):
+            if live is None:
+                return tct.admm_tail(PX, PY, PU, thr, wl1, RLX, us=0.7,
+                                     out=sums)
+            return tct.admm_tail(PX, PY, PU, thr_t, wl1, RLX, us=us_t,
+                                 live=live, counter=cnt, out=sums)
+        return call, (PY, PU, sums)
+    pos, C, T = geom
+    G2, Y, U, Wa, Wf, thr, wl1 = _inputs(pos, C, T, vectors, dev)
+    wf3 = tci.split_weight(Wf)
+    R1 = torch.full((pos, T), 1.5, device=dev)
+    R2 = torch.full((pos, T), float("nan"), device=dev)
+    thr_t = thr if vectors else _scalars(dev, thr)[0]
+    if kernel == "csc_iter":
+        sums = torch.full((6,), 3.0, device=dev)
+        a_t, b_t = _scalars(dev, US, SCALE)
+
+        def call(live, cnt):
+            if live is None:
+                return tci.csc_iter(G2, Y, U, Wa, Wf, thr, wl1, RLX, US,
+                                    SCALE, emit_px=False, wf_split=wf3,
+                                    out=(R1, R2, sums))
+            return tci.csc_iter(G2, Y, U, Wa, Wf, thr_t, wl1, RLX, a_t,
+                                b_t, emit_px=False, wf_split=wf3,
+                                live=live, counter=cnt, out=(R1, R2, sums))
+        return call, (Y, U, R1, R2, sums)
+    sums = torch.full((2,), 3.0, device=dev)
+    a_t, b_t = _scalars(dev, RL, BETA)
+
+    def call(live, cnt):
+        if live is None:
+            return tpi.pgm_iter(G2, Y, U, Wa, Wf, thr, wl1, RL, BETA,
+                                wf_split=wf3, out=(R1, R2, sums))
+        return tpi.pgm_iter(G2, Y, U, Wa, Wf, thr_t, wl1, a_t, b_t,
+                            wf_split=wf3, live=live, counter=cnt,
+                            out=(R1, R2, sums))
+    return call, (Y, U, R1, R2, sums)
+
+
+LOOP_KERNEL_CASES = [(k, g, v) for k, geoms in (
+    ("csc_iter", [(64, 256, 256), (129, 131, 7), (4096, 4096, 256)]),
+    ("pgm_iter", [(64, 256, 256), (129, 131, 7), (4096, 4096, 256)]),
+    ("admm_tail", [(64, 256), (37, 4100), (4096, 4096)]))
+    for g in geoms for v in (False, True)]
+
+
+@pytest.mark.parametrize("kernel,geom,vectors", LOOP_KERNEL_CASES,
+                         ids=[f"{k}-{g}-{'vec' if v else 'scalar'}"
+                              for k, g, v in LOOP_KERNEL_CASES])
+def test_dead_launch_writes_nothing_and_live_equals_numbers(dev, kernel,
+                                                           geom, vectors):
+    """With live = 0 the kernel writes nothing (every buffer's bits, the
+    counter, the Python count unchanged); with live = 1 it gives the bits
+    of a launch with the same scalars as numbers, and adds 1 to the
+    counter only."""
+    mod = {"csc_iter": tci, "pgm_iter": tpi, "admm_tail": tct}[kernel]
+    call, bufs = _kernel_case(kernel, dev, geom, vectors)
+    start = [b.clone() for b in bufs]
+    before = [_bits(b) for b in bufs]
+    cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+    mod.reset_launches()
+    call(torch.tensor(False, device=dev), cnt)
+    torch.cuda.synchronize()
+    for a, b in zip(before, bufs):
+        assert torch.equal(a, _bits(b))
+    assert int(cnt.item()) == 0 and mod.LAUNCHES[kernel] == 0
+    call(torch.tensor(True, device=dev), cnt)
+    live = [b.clone() for b in bufs]
+    assert int(cnt.item()) == 1 and mod.LAUNCHES[kernel] == 0
+    for b, s in zip(bufs, start):
+        b.copy_(s)
+    call(None, None)
+    assert mod.LAUNCHES[kernel] == 1
+    for a, b in zip(live, bufs):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("kernel,geom,vectors", LOOP_KERNEL_CASES,
+                         ids=[f"{k}-{g}-{'vec' if v else 'scalar'}"
+                              for k, g, v in LOOP_KERNEL_CASES])
+def test_live_launch_from_device_scalars_matches_plain(dev, kernel, geom,
+                                                       vectors):
+    """The kernel with its scalars and live = 1 from device memory
+    against its plain version on the same tensors: 1e-5 of each
+    output's largest magnitude (KERNEL_RTOL, as the cases above)."""
+    call, bufs = _kernel_case(kernel, dev, geom, vectors)
+    start = [b.clone() for b in bufs]
+    call(torch.tensor(True, device=dev), None)
+    got = [b.clone() for b in bufs]
+    for b, s in zip(bufs, start):
+        b.copy_(s)
+    mod = {"csc_iter": (tci, "csc_iter_plain"),
+           "pgm_iter": (tpi, "pgm_iter_plain"),
+           "admm_tail": (tct, "admm_tail_plain")}[kernel]
+    real = getattr(*mod)
+    # the plain version on the same card tensors, through the wrapper's
+    # own call (its arguments, its output buffers)
+    wrapper = getattr(mod[0], kernel)
+
+    def plain(*a, live=None, counter=None, wf_split=None, **k):
+        return real(*a, live=live, **k)
+    setattr(mod[0], kernel, plain)
+    try:
+        call(torch.tensor(True, device=dev), None)
+    finally:
+        setattr(mod[0], kernel, wrapper)
+    for a, b in zip(got, bufs):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 1e-5 * scale
+
+
+def _loop_problem(N=64, M=4, seed=0):
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((8, 8, M)).astype(np.float32)
+    D /= np.sqrt((D ** 2).sum(axis=(0, 1), keepdims=True))
+    S = rng.standard_normal((N, N)).astype(np.float32)
+    return D, S
+
+
+def _loop_model(kind, dev, opt, N=64):
+    D, S = _loop_problem(N)
+    if kind == "fista":
+        return tpgm.ConvBPDN(D, S, 0.05, device=dev,
+                             opt=tpgm.ConvBPDN.options(L=50.0, **opt))
+    if kind == "gradreg":
+        return ConvBPDNGradReg(D, S, 0.05, mu=0.2, device=dev,
+                               opt=ConvBPDNGradReg.options(**opt))
+    return ConvBPDN(D, S, 0.05, device=dev, opt=ConvBPDN.options(**opt))
+
+
+def _loop_tol(kind, k, N=64):
+    """A stopping tolerance at which the CPU solve stops after k
+    iterations, well away from every iteration's residual."""
+    b = _loop_model(kind, "cpu", dict(max_iter=30, rel_stop_tol=0.0), N)
+    b.solve()
+    its = b.getitstat()
+    m = (np.asarray(its.Rsdl) if kind == "fista"
+         else np.maximum(its.PrimalRsdl, its.DualRsdl))
+    lo, hi = m[k - 1], m[:k - 1].min()
+    assert hi > 1.01 * lo
+    return float(np.sqrt(lo * hi))
+
+
+@pytest.mark.parametrize("kind", ["l1", "fista", "gradreg"])
+def test_captured_solve_on_card_matches_cpu(dev, kind):
+    """A fused solve that stops inside a block (19 iterations) as a
+    captured CUDA graph on the card, against the same solve on the CPU:
+    the same iterations, the rows at the CPU tests' tolerances, one host
+    read a block and the final one, and the kernel's launch count equal
+    to the live iterations."""
+    from sporco_tpu_torch.ops import device_loop
+    k = 19
+    opt = dict(max_iter=50, rel_stop_tol=_loop_tol(kind, k))
+    kernel = {"l1": (tci, "csc_iter"), "fista": (tpi, "pgm_iter"),
+              "gradreg": (tct, "admm_tail")}[kind]
+    kernel[0].reset_launches()
+    a = _loop_model(kind, dev, opt)
+    Xa = a.solve().cpu().numpy()
+    assert int(a.state.k) == k
+    assert kernel[0].LAUNCHES[kernel[1]] == k
+    last = device_loop.LAST
+    assert last["graph"] and last["live"] == k
+    assert last["host_reads"] == -(-k // 8) + 1
+    assert last["replays"] == 24
+    b = _loop_model(kind, "cpu", opt)
+    Xb = b.solve().numpy()
+    assert int(b.state.k) == k
+    assert np.abs(Xa - Xb).max() < 2e-4 * np.abs(Xb).max()
+    ia, ib = a.getitstat(), b.getitstat()
+    names = ("ObjFun", "DFid", "RegL1") + (() if kind == "fista"
+                                           else ("Rho",))
+    for name in names:
+        np.testing.assert_allclose(getattr(ia, name), getattr(ib, name),
+                                   rtol=1e-4, err_msg=name)
+    for name in ("Rsdl",) if kind == "fista" else ("PrimalRsdl",
+                                                   "DualRsdl"):
+        np.testing.assert_allclose(getattr(ia, name), getattr(ib, name),
+                                   rtol=1e-3, atol=1e-6, err_msg=name)
+
+
+def _fft_launch(name, dev, ins, outs, b, n0, n1, live, cnt):
+    """The FFT kernel ``name`` launched through its C interface on
+    ``ins`` into ``outs`` (the outputs, then the scratch), with the gate
+    ``live`` and the counter ``cnt`` (a one-element int32 tensor)."""
+    key = tfp._dev_key(dev)
+    err = getattr(tfp._lib(), f"{name}_launch")(
+        *(t.data_ptr() for t in ins + outs),
+        tfp._twiddles(n0, key).data_ptr(), tfp._twiddles(n1, key).data_ptr(),
+        b, n0, n1, live.data_ptr(), cnt.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    assert err == 0
+
+
+FFT_GATE_CASES = [(3, 128, 128), (2, 256, 126), (1, 512, 512)]
+
+
+@pytest.mark.parametrize("b,n0,n1", FFT_GATE_CASES)
+def test_fft_kernels_read_the_gate(dev, b, n0, n1):
+    """Each FFT kernel with the device loop's gate: with live 0 it writes
+    nothing (its outputs and its scratch keep their bits, the counter
+    stays 0); with live 1 it gives the bits of the ungated wrapper's
+    launch and adds 1 to the counter."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((b, n0, n1), generator=g, device=dev)
+    k1 = n1 // 2 + 1
+    yr, yi = tfp.rfft2_planar(x)
+    xr = tfp.irfft2_planar(yr, yi, n1)
+    y = torch.complex(yr, yi)
+    xs = tfp.irfft2_spectrum(y, n1)
+
+    def filled(*shape):
+        return torch.full(shape, 7.0, device=dev)
+    cases = {"rfft2_planar": ([x], [filled(*yr.shape), filled(*yi.shape)],
+                              [yr, yi]),
+             "irfft2_planar": ([yr, yi], [filled(*xr.shape),
+                                          filled(2 * b * n0 * k1)], [xr]),
+             "irfft2_spectrum": ([y], [filled(*xs.shape),
+                                       filled(2 * b * n0 * k1)], [xs])}
+    for name, (ins, outs, refs) in cases.items():
+        cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+        before = [_bits(o) for o in outs]
+        _fft_launch(name, dev, ins, outs, b, n0, n1,
+                    torch.zeros((), device=dev), cnt)
+        torch.cuda.synchronize()
+        for a, o in zip(before, outs):
+            assert torch.equal(a, _bits(o)), name
+        assert int(cnt.item()) == 0, name
+        _fft_launch(name, dev, ins, outs, b, n0, n1,
+                    torch.ones((), device=dev), cnt)
+        for r, o in zip(refs, outs):
+            assert torch.equal(_bits(r), _bits(o)), name
+        assert int(cnt.item()) == 1, name
+
+
+def test_fft_gate_counts_on_the_device(dev):
+    """Inside ``fft2_planar.gate`` the wrappers count their launches in
+    the gate's counter, live ones only, and not in ``LAUNCHES``; the live
+    launches give the ungated ones' bits."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((2, 128, 128), generator=g, device=dev)
+    tfp.reset_launches()
+    yr0, yi0 = tfp.rfft2_planar(x)
+    x0 = tfp.irfft2_planar(yr0, yi0, 128)
+    xs0 = tfp.irfft2_spectrum(torch.complex(yr0, yi0), 128)
+    assert tfp.LAUNCHES == {"rfft2_planar": 1, "irfft2_planar": 2}
+    live = torch.ones((), device=dev)
+    cnt = torch.zeros(2, dtype=torch.int32, device=dev)
+    with tfp.gate(live, cnt):
+        yr, yi = tfp.rfft2_planar(x)
+        xb = tfp.irfft2_planar(yr, yi, 128)
+        xs = tfp.irfft2_spectrum(torch.complex(yr, yi), 128)
+        live.zero_()
+        tfp.rfft2_planar(x)
+        tfp.irfft2_planar(yr, yi, 128)
+    assert tfp.LAUNCHES == {"rfft2_planar": 1, "irfft2_planar": 2}
+    assert cnt.tolist() == [1, 2]
+    for a, b in ((yr0, yr), (yi0, yi), (x0, xb), (xs0, xs)):
+        assert torch.equal(_bits(a), _bits(b))
+    with pytest.raises(ValueError):
+        with tfp.gate(live, cnt[:1]):
+            pass
+
+
+@pytest.mark.parametrize("kind,fwd,inv", [("l1", 3, 1), ("gradreg", 3, 0)])
+def test_captured_solve_counts_fft_launches_of_live_iterations(dev, kind,
+                                                               fwd, inv):
+    """A captured fused solve at a size the FFT kernels take (128 x 128)
+    that stops inside a block: the FFT pair's launches are counted on the
+    device, those of live iterations only (the set-up's, and l1's final
+    x-step, by the wrappers), and the solve equals the CPU's."""
+    from sporco_tpu_torch.ops import device_loop
+    ks = [k for k in range(9, 16) if k % 8]
+    b = _loop_model(kind, "cpu", dict(max_iter=30, rel_stop_tol=0.0), 128)
+    b.solve()
+    its = b.getitstat()
+    m = np.maximum(its.PrimalRsdl, its.DualRsdl)
+    k = next(k for k in ks if m[:k - 1].min() > 1.01 * m[k - 1])
+    opt = dict(max_iter=50, rel_stop_tol=float(np.sqrt(
+        m[k - 1] * m[:k - 1].min())))
+    tfp.reset_launches()
+    a = _loop_model(kind, dev, opt, 128)
+    Xa = a.solve().cpu().numpy()
+    assert int(a.state.k) == k
+    last = device_loop.LAST
+    assert last["graph"] and last["live"] == k and last["replays"] == 16
+    assert tfp.LAUNCHES == {"rfft2_planar": k + fwd,
+                            "irfft2_planar": k + inv}
+    c = _loop_model(kind, "cpu", opt, 128)
+    Xc = c.solve().numpy()
+    assert int(c.state.k) == k
+    assert np.abs(Xa - Xc).max() < 2e-4 * np.abs(Xc).max()
+    np.testing.assert_allclose(a.getitstat().ObjFun, c.getitstat().ObjFun,
+                               rtol=1e-4)
+
+
+def test_eager_launches_with_numbers_wrap_the_pinned_ring(dev):
+    """Eager launches that pass their scalars as numbers take slots of
+    the pinned ring in turn: over more launches than it has slots, each
+    with its own ``us``, each gives the bits of a launch with the same
+    scalars as 0-d device tensors."""
+    PX, PY, PU, thr, wl1 = _tail_inputs(64, 256, False, dev)
+    start = (PY.clone(), PU.clone())
+    n = 2 * tci._PinnedRing.SLOTS + 3
+    got = []
+    for i in range(n):
+        PY.copy_(start[0])
+        PU.copy_(start[1])
+        got.append(torch.cat([t.clone().reshape(-1) for t in tct.admm_tail(
+            PX, PY, PU, thr, wl1, RLX, us=0.5 + i / n)]))
+    for i in range(n):
+        PY.copy_(start[0])
+        PU.copy_(start[1])
+        us, thr_t = _scalars(dev, 0.5 + i / n, thr)
+        want = torch.cat([t.reshape(-1) for t in tct.admm_tail(
+            PX, PY, PU, thr_t, wl1, RLX, us=us,
+            live=torch.tensor(True, device=dev))])
+        assert torch.equal(_bits(got[i]), _bits(want)), i

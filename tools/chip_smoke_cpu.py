@@ -17,8 +17,11 @@ phases
 (default: every phase it knows, in ``PHASES``'s order) with
 ``device="cpu"``: the kernels' wrappers then
 run their plain versions, each call of which is counted as the launch
-the card would make, so the phases' launch checks on ``csc_iter``,
-``pgm_iter`` and ``admm_tail`` hold as on the card.  The FFT kernels'
+the card would make (inside the fused drivers' device loop, for live
+iterations only, as on the card), so the phases' launch checks on
+``csc_iter``, ``pgm_iter`` and ``admm_tail`` hold as on the card; the
+fused solves' loop runs eagerly (no graph) and their host reads are
+held to the card's limit.  The FFT kernels'
 counts are checked in the phases of ``PLANAR_PHASES`` only, which run at
 128x128 with the planar route on for CPU tensors.  CUDA events,
 synchronisation and the profiler are replaced by stubs: every kernel
@@ -52,7 +55,9 @@ PAR_PHASES = ("par_parity", "par_solve", "cns_sharded", "spatial",
               "grid_search")
 # the phases it runs, in chip_smoke.py's order (mixed_solve compares
 # with solve and pgm_solve, which run first whenever it runs)
-PHASES = ("solve", "pgm_solve", "ams_tail_kernel", "ams_parity",
+PHASES = ("solve", "pgm_solve", "gradreg_solve", "elastic_solve",
+          "wl1_spatial_solve", "clr_solve", "clr_pgm_solve", "cfold_solve",
+          "cdl_solve", "ams_tail_kernel", "ams_parity",
           "ams_solve", "mixed_kernel", "mixed_solve", "cdl_pgm_solve",
           "bpdn_parity", "bpdn_solve", "tv_parity", "tv_solve",
           "rpca_parity", "rpca_solve", "dictlrn_handover",
@@ -101,8 +106,9 @@ def setup():
     cs.RPCA_N, cs.RPCA_R, cs.RPCA_RANK = 64, 3, 6
     torch.cuda.synchronize = lambda *a, **k: None
     cs.cuda_ms = lambda fn, reps=20, warmup=3, batch=1: (fn(), math.nan)[1]
-    cs.device_ms_by_kernel = lambda fn, reps=10, tries=3: {}
+    cs.device_ms_by_kernel = lambda fn, reps=10, tries=3, need=(): {}
     cs.expect_launches = _expect
+    cs.LOOP_GRAPH = False
     cs.accel._device = lambda dev, device: "cpu"
     for args in COUNTED + FFT_COUNTED:
         _counting(*args)
@@ -120,10 +126,20 @@ def main(argv):
     D, S, lmbda = cs.headline_problem()
     W, Sm = cs.ams_problem(S)
     D0c, Sc, lc = cs.cdl_problem()
+    Dc, S3 = cs.colour_problem()
+    Dg, gkw = cs.gradreg_problem(D)
     done = {}
     runs = {
         "solve": lambda: cs.phase_solve(dev, D, S, lmbda),
         "pgm_solve": lambda: cs.phase_pgm_solve(dev, D, S, lmbda),
+        "gradreg_solve": lambda: cs.phase_gradreg_solve(
+            dev, Dg, S, gkw),
+        "elastic_solve": lambda: cs.phase_elastic_solve(dev, D, S),
+        "wl1_spatial_solve": lambda: cs.phase_wl1_spatial_solve(dev, D, S),
+        "clr_solve": lambda: cs.phase_clr_solve(dev, Dc, S3),
+        "clr_pgm_solve": lambda: cs.phase_clr_pgm_solve(dev, Dc, S3),
+        "cfold_solve": lambda: cs.phase_cfold_solve(dev, D, S3),
+        "cdl_solve": lambda: cs.phase_cdl_solve(dev, D0c, Sc, lc),
         "ams_tail_kernel": lambda: cs.phase_ams_tail_kernel(dev, W),
         "ams_parity": lambda: cs.phase_ams_parity(dev, D, Sm, W),
         "ams_solve": lambda: cs.phase_ams_solve(dev, D, Sm, W),

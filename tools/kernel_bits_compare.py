@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Hold the packed-state kernels of this checkout against another
-checkout's, bit for bit, on one CUDA card.
+"""Hold the packed-state kernels and the FFT pair of this checkout
+against another checkout's, bit for bit, on one CUDA card.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
@@ -14,7 +14,9 @@ launches ``csc_iter`` (with and without PX, and without the forward
 pair), ``pgm_iter`` and ``admm_tail`` in their default forms, through
 the wrappers' common arguments, on the same inputs drawn from seeded
 CUDA generators: the headline packed geometry (4096, 4096, 256) and a
-ragged one (129, 131, 7).  Prints one JSON line per launch with whether
+ragged one (129, 131, 7); and ``rfft2_planar``, ``irfft2_planar`` and
+``irfft2_spectrum`` at 64 planes of 512 x 512 (the gradreg x-step's) and
+3 planes of 256 x 126 (the direct row DFT).  Prints one JSON line per launch with whether
 each output equals the other tree's bit for bit, then the card's name
 and power limit; exits 1 if any output differs.
 """
@@ -27,6 +29,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GEOMS = [(4096, 4096, 256), (129, 131, 7)]
+FFT_GEOMS = [(64, 512, 512), (3, 256, 126)]
 
 
 def _inputs(pos, C, T, seed):
@@ -48,6 +51,7 @@ def run_tree(out):
     import torch
     from sporco_tpu_torch.ops import csc_iter as tci
     from sporco_tpu_torch.ops import csc_tail as tct
+    from sporco_tpu_torch.ops import fft2_planar as tfp
     from sporco_tpu_torch.ops import pgm_iter as tpi
     res = {}
     for gi, (pos, C, T) in enumerate(GEOMS):
@@ -67,6 +71,14 @@ def run_tree(out):
         o = tct.admm_tail(a["Y"] + a["U"], a["Y"].clone(), a["U"].clone(),
                           0.0143, 1.0, 1.8, us=0.9)
         res[f"admm_tail {pos}x{C}"] = list(o)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    for b, n0, n1 in FFT_GEOMS:
+        x = torch.randn((b, n0, n1), generator=g, device="cuda")
+        yr, yi = tfp.rfft2_planar(x)
+        res[f"rfft2_planar {b}x{n0}x{n1}"] = [yr, yi]
+        res[f"irfft2_planar {b}x{n0}x{n1}"] = [tfp.irfft2_planar(yr, yi, n1)]
+        res[f"irfft2_spectrum {b}x{n0}x{n1}"] = [
+            tfp.irfft2_spectrum(torch.complex(yr, yi), n1)]
     torch.cuda.synchronize()
     torch.save({k: [t.cpu() for t in v] for k, v in res.items()}, out)
 
