@@ -355,7 +355,15 @@ fused solve phase (``solve``, ``pgm_solve``, the fused side of
 ``ams_solve``, ``mixed_solve``) reports its ``host_reads`` and fails if
 the loop was not captured or made more than ``ceil(k / 8) + 2`` reads
 for k iterations; the ``--profile`` phases report them beside the idle
-share.
+share.  The generic ADMM and PGM drivers run the same loop: the generic
+solve phases (``generic_solve``, ``pgm_generic_solve``, ``bpdn_solve``,
+``tv_solve``, ``rpca_solve``, ``maskdcpl_solve`` and every
+``<family>_solve``, ``PPP`` among them) report ``host_reads`` and the
+``route`` and fail past ``ceil(k / 8) + 2`` reads, or where a problem
+that declares the graph route did not run as a graph (Robust PCA, the
+CG d-steps, ``host_prior`` and line searches declare the eager route);
+``cdl_solve``, ``mdl_solve`` and ``dense_dl_solve`` report ms an outer
+iteration.
 Any failure exits non-zero without the ``ok`` line; so does a run past the
 time budget, or a machine without a CUDA device.
 ``--profile`` adds phases that run the fused ADMM, fused FISTA, generic
@@ -629,23 +637,41 @@ def launches():
     return {**tci.LAUNCHES, **tpi.LAUNCHES, **tfp.LAUNCHES, **tct.LAUNCHES}
 
 
-def loop_reads(label, k):
-    """The last fused solve's device loop (``ops/device_loop.py``): it
-    ran as a CUDA graph (captured in this call, or kept from an earlier
-    call of the same geometry), and made at most one host read a block
-    of 8 iterations and the final one, with one to spare (set-up), or the
-    phase fails.  Returns the loop's record (``host_reads`` and the
-    rest)."""
+def loop_reads(label, k, route="graph"):
+    """The last solve's device loop (``ops/device_loop.py``): on the
+    graph route it ran as a CUDA graph (captured in this call, or kept
+    from an earlier call of the same geometry), on the eager route (a
+    problem that declares it) without one, and made at most one host
+    read a block of 8 iterations and the final one, with one to spare
+    (set-up), or the phase fails.  Returns the loop's record
+    (``host_reads`` and the rest)."""
     last = dict(device_loop.LAST)
     limit = math.ceil(k / device_loop.UNROLL) + 2
-    if not last or last["live"] != k or (LOOP_GRAPH
-                                         and not last["graph"]):
+    if not last or last["live"] != k or (LOOP_GRAPH and (
+            last["graph"] != (route == "graph")
+            or last["route"] != route)):
         raise AssertionError(f"{label}: the device loop's record {last} "
-                             f"is not a captured run of {k} iterations")
+                             f"is not a {route} run of {k} iterations")
     if last["host_reads"] > limit:
         raise AssertionError(f"{label}: {last['host_reads']} host reads "
                              f"for {k} iterations (at most {limit})")
     return last
+
+
+def generic_loop(label, b, k):
+    """:func:`loop_reads` of a model ``b`` on a generic driver after a
+    solve of ``k`` iterations, on the route its problem declares (a
+    FISTA line search takes the eager one): the host reads, the route
+    and whether it ran as a captured graph."""
+    m = _model(b)
+    route = m.problem.route
+    if getattr(m.opts, "backtrack", "none") != "none":
+        route = "eager"
+    last = loop_reads(label, k, route)
+    return {"host_reads": last["host_reads"], "route": last["route"],
+            "declared_route": route, "graph": last["graph"],
+            "captured": last["captured"], "blocks": last["blocks"],
+            "flag_reads": last["flag_reads"]}
 
 
 def expect_launches(label, counts, **want):
@@ -1378,6 +1404,7 @@ def phase_generic_solve(dev, D, S, lmbda, fused):
     k = int(b.state.k)
     expect_launches(f"a generic ADMM solve of {k} iterations", counts,
                     rfft2_planar=k + 2, irfft2_planar=k)
+    loop_g = generic_loop(f"a generic ADMM solve of {k} iterations", b, k)
     if tuple(X.shape) != (N, N, 1, 1, M) or not all(
             bool(torch.isfinite(t).all()) for t in (X, b.state.X,
                                                    b.state.U)):
@@ -1408,6 +1435,8 @@ def phase_generic_solve(dev, D, S, lmbda, fused):
             "fused_iterations": fused["iterations"],
             "objective_rel_diff": agree, "final_dfid": float(its.DFid[-1]),
             "final_rho": float(its.Rho[-1]), "launches": counts,
+            "host_reads": loop_g["host_reads"], "route": loop_g["route"],
+            "device_loop": loop_g,
             "fused_highest": {"iterations": kf, "wall_s": wall_f,
                               "final_objective": float(
                                   bf.getitstat().ObjFun[-1]),
@@ -1439,6 +1468,7 @@ def phase_pgm_generic_solve(dev, D, S, lmbda):
                                  "iterations")
         expect_launches(f"a generic FISTA solve ({label})", counts,
                         rfft2_planar=fwd * k + 2, irfft2_planar=inv * k)
+        loop = generic_loop(f"a generic FISTA solve ({label})", b, k)
         if not (bool(torch.isfinite(X).all())
                 and np.all(np.isfinite(its.ObjFun))
                 and its.ObjFun[-1] < its.ObjFun[0]):
@@ -1448,7 +1478,8 @@ def phase_pgm_generic_solve(dev, D, S, lmbda):
                       "iters_per_s": k / wall, "ms_per_iter": 1e3 * wall / k,
                       "final_objective": float(its.ObjFun[-1]),
                       "final_rsdl": float(its.Rsdl[-1]),
-                      "launches": counts,
+                      "launches": counts, "host_reads": loop["host_reads"],
+                      "route": loop["route"], "device_loop": loop,
                       "predicted": {"rfft2_planar": f"{fwd} k + 2",
                                     "irfft2_planar": f"{inv} k"}}
     return out
@@ -2088,6 +2119,7 @@ def phase_cdl_solve(dev, D0, S, lmbda):
         raise AssertionError("ConvBPDNDictLearn: not finite")
     return {"iterations": CDL_ITERS, "wall_s": wall,
             "ms_per_iter": 1e3 * wall / CDL_ITERS,
+            "ms_per_outer_iter": 1e3 * wall / CDL_ITERS,
             "objective_first": float(obj[0]),
             "objective": float(obj[-1]), "dfid": float(its["XDFid"][-1]),
             "launches": counts}
@@ -2532,6 +2564,7 @@ def phase_cdl_pgm_solve(dev, D0, S, lmbda):
                                  f"{name} differs by {e:.3e}")
     return {"iterations": CDL_ITERS, "wall_s": wall,
             "ms_per_iter": 1e3 * wall / CDL_ITERS,
+            "ms_per_outer_iter": 1e3 * wall / CDL_ITERS,
             "objective_first": float(obj[0]), "objective": float(obj[-1]),
             "dfid": float(its["XDFid"][-1]), "unit_norm_err": unit,
             "launches": counts,
@@ -2770,11 +2803,13 @@ def _solve_record(b, wall, counts, max_iter):
             and all(bool(torch.isfinite(v).all())
                     for v in _tree_leaves(b.state.X, b.state.Y))):
         raise AssertionError(f"{type(b).__name__}: not finite")
+    loop = generic_loop(type(b).__name__, b, k)
     return {"iterations": k, "converged": k < max_iter,
             "final_objective": float(its._arr[-1, 1]),
             "objective_name": its._names[1], "wall_s": wall,
             "ms_per_iter": 1e3 * wall / k, "rho": float(its.Rho[-1]),
-            "launches": counts}
+            "launches": counts, "host_reads": loop["host_reads"],
+            "route": loop["route"], "device_loop": loop}
 
 
 def _repeat_ms(make, reps=2):
@@ -3998,10 +4033,13 @@ def _rest_record(b, wall, counts, max_iter):
             and all(bool(torch.isfinite(v).all()) for v in _tree_leaves(
                 _model(b).state.X, _model(b).state.Y))):
         raise AssertionError(f"{type(b).__name__}: not finite")
+    loop = generic_loop(type(b).__name__, b, k)
     return {"iterations": k, "converged": k < max_iter,
             "final_objective": float(arr[-1, 1]),
             "objective_name": names[1], "wall_s": wall,
-            "ms_per_iter": 1e3 * wall / k, "launches": counts}
+            "ms_per_iter": 1e3 * wall / k, "launches": counts,
+            "host_reads": loop["host_reads"], "route": loop["route"],
+            "device_loop": loop}
 
 
 def phase_rest_solve(dev, family):
@@ -4088,8 +4126,7 @@ def phase_profile(dev, make_model):
     busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
     top = sorted(on_dev, key=dev_us, reverse=True)[:16]
     k = b.j if hasattr(b, "j") else int(b.state.k)
-    # the fused drivers' device loop: its host reads (the generic drivers
-    # run no device loop)
+    # the device loop's host reads
     loop = dict(device_loop.LAST) if device_loop.LAST.get(
         "live") == k else {}
     return {"iterations": k, "wall_ms": wall_ms, "device_busy_ms": busy_ms,

@@ -23,8 +23,9 @@ from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import linalg as sl
 from sporco_tpu_torch.ops import prox as sp
 from sporco_tpu_torch.solvers.admm import (ADMMOpts, ADMMProblem,
-                                           AutoRhoOpts, init_state,
-                                           scalar_type, tree_norm)
+                                           AutoRhoOpts, const_div,
+                                           init_state, scalar_type,
+                                           tree_norm)
 
 __all__ = ["BPDN", "BPDNJoint", "ElasticNet", "BPDNProjL1",
            "MinL1InL2Ball"]
@@ -61,10 +62,12 @@ def _ystep(cfg, aux, params, state, AXU):
     if cfg.variant == "projl1":
         Y = sp.proj_l1(AXU, params["gamma"], axis=0)
     elif cfg.variant == "joint":
-        Y = sp.prox_sl1l2(AXU, (ft(params["lmbda"]) / rho) * params["wl1"],
-                          ft(params["mu"]) / rho, axis=-1)
+        Y = sp.prox_sl1l2(AXU, const_div(ft(params["lmbda"]), rho)
+                          * params["wl1"], const_div(ft(params["mu"]), rho),
+                          axis=-1)
     else:
-        Y = sp.prox_l1(AXU, (ft(params["lmbda"]) / rho) * params["wl1"])
+        Y = sp.prox_l1(AXU, const_div(ft(params["lmbda"]), rho)
+                       * params["wl1"])
     if cfg.non_neg:
         Y = torch.clamp(Y, min=0.0)
     return Y

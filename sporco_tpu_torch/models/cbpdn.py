@@ -61,8 +61,9 @@ from sporco_tpu_torch.ops import fused_csc
 from sporco_tpu_torch.ops import linalg as sl
 from sporco_tpu_torch.ops import prox as sp
 from sporco_tpu_torch.solvers.admm import (ADMMOpts, ADMMProblem,
-                                           AutoRhoOpts, init_state,
-                                           scalar_type, tree_norm)
+                                           AutoRhoOpts, const_div,
+                                           init_state, scalar_type,
+                                           tree_norm)
 from sporco_tpu_torch.utils.signal import gradient_filters
 
 __all__ = ["ConvBPDN", "ConvBPDNJoint", "ConvElasticNet", "ConvBPDNGradReg",
@@ -156,17 +157,17 @@ def _csc_xstep(cfg, aux, params, state):
     cri = cfg.cri
     axes = _fftaxes(cri)
     rho = state.rho
-    b = aux["DSf"] + float(rho) * _fwd(cfg)(state.Y - state.U, axes=axes)
+    b = aux["DSf"] + rho * _fwd(cfg)(state.Y - state.U, axes=axes)
     if cfg.variant == "elastic":
         # (rho + mu) I + D^H D (sporco/admm/cbpdn.py:948-975)
-        diag = float(rho + aux["mu"])
+        diag = rho + aux["mu"]
         Xf = _sm_solve(cfg, aux, diag, b)
     elif cfg.variant == "gradreg":
         # the diagonal mu GHGfW + rho (sporco/admm/cbpdn.py:1173-1201)
-        diag = float(aux["mu"]) * aux["GHGfW"] + float(rho)
+        diag = float(aux["mu"]) * aux["GHGfW"] + rho
         Xf = _sm_solve(cfg, aux, diag, b, diagonal=True)
     else:
-        diag = float(rho)
+        diag = rho
         Xf = _sm_solve(cfg, aux, diag, b)
     X = _inv(cfg, Xf, cri.Nv, axes)
     xaux = {"Xf": Xf}
@@ -200,13 +201,13 @@ def _projl1_axes(cfg):
 
 
 def _csc_ystep(cfg, aux, params, state, AXU):
-    thr = float(aux["lmbda"] / state.rho)
+    thr = const_div(aux["lmbda"], state.rho)
     if cfg.variant == "projl1":
         Y = sp.proj_l1(AXU, params["gamma"], axis=_projl1_axes(cfg))
     elif cfg.variant == "joint":
         # l1 and l2,1 over the channels (sporco/admm/cbpdn.py:760)
         Y = sp.prox_sl1l2(AXU, thr * params["wl1"],
-                          float(aux["mu"] / state.rho) * params["wl21"],
+                          const_div(aux["mu"], state.rho) * params["wl21"],
                           axis=1)
     else:
         Y = sp.prox_l1(AXU, thr * params["wl1"])
@@ -607,7 +608,7 @@ def _csc2_xstep(cfg, aux, params, state):
     YU1f = sf.rfftn(Y1 - U1, axes=axes)
     b = _dh(cfg, aux, YU0f) + YU1f
     if cfg.variant == "l1l1grd":
-        d = float(aux["mu"] / state.rho) * aux["GHGfW"] + 1.0
+        d = const_div(aux["mu"], state.rho) * aux["GHGfW"] + 1.0
         Xf = _sm_solve(cfg, aux, d, b, diagonal=(cri.Cd == 1))
     else:
         Xf = _sm_solve(cfg, aux, 1.0, b)
@@ -657,10 +658,10 @@ def _csc2_ystep(cfg, aux, params, state, AXU):
     if cfg.variant == "minl2ball":
         Y0 = sp.proj_l2(v0, params["epsilon"], axis=_csc2_ball_axes(cfg))
     elif cfg.variant == "l1l1grd":
-        Y0 = sp.prox_l1(v0, params["W"] / float(rho))
+        Y0 = sp.prox_l1(v0, params["W"] / rho)
     else:       # the prox of (1/2)||W y0||^2
-        Y0 = float(rho) * v0 / (params["W"] ** 2 + float(rho))
-    Y1 = sp.prox_l1(A1, float(aux["lmbda"] / rho) * params["wl1"])
+        Y0 = rho * v0 / (params["W"] ** 2 + rho)
+    Y1 = sp.prox_l1(A1, const_div(aux["lmbda"], rho) * params["wl1"])
     Y1 = _apply_masks(CSCConfig(cri=cfg.cri, non_neg=cfg.non_neg,
                                 no_bndry=cfg.no_bndry), Y1)
     return (Y0, Y1)
@@ -702,11 +703,11 @@ def _csc2_rsdl_s(cfg, aux, params, state, Yprev):
     (``sporco/admm/cbpdn.py:1814``), not the standard ``rho A^T B(Y -
     Yprev)``; ``l1l1grd`` keeps the standard form
     (``sporco/admm/cbpdn.py:2753``)."""
-    return float(state.rho) * _csc2_cnst_at(cfg, aux, params, state.U)
+    return state.rho * _csc2_cnst_at(cfg, aux, params, state.U)
 
 
 def _csc2_rsdl_sn(cfg, aux, params, state):
-    return float(state.rho) * tree_norm(state.U)
+    return state.rho * tree_norm(state.U)
 
 
 _CSC2_STATS = {

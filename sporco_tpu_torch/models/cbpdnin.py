@@ -67,7 +67,7 @@ def _setup(cfg, params):
 def _xstep(cfg, aux, params, state):
     cri = cfg.cri
     axes = _fftaxes(cri)
-    rho = float(state.rho)
+    rho = state.rho
     b = aux["DSf"] + rho * sf.rfftn(state.Y - state.U, axes=axes)
     if cri.Cd == 1:
         Xf = sl.solvedbi_sm(aux["Df"], rho, b, axis=2)
@@ -79,7 +79,7 @@ def _xstep(cfg, aux, params, state):
 def _ystep(cfg, aux, params, state, AXU):
     wml, wms = state.extra
     thresh = (float(aux["lmbda"]) * params["wl1"] + float(aux["mu"]) * wml
-              + float(aux["gamma"]) * wms) / float(state.rho)
+              + float(aux["gamma"]) * wms) / state.rho
     Y = sp.prox_l1(AXU, thresh)
     return _apply_masks(CSCConfig(cri=cfg.cri, non_neg=cfg.non_neg,
                                   no_bndry=cfg.no_bndry), Y)

@@ -39,8 +39,9 @@ from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import linalg as sl
 from sporco_tpu_torch.ops import prox as sp
 from sporco_tpu_torch.solvers.admm import (ADMMOpts, ADMMProblem,
-                                           AutoRhoOpts, init_state,
-                                           scalar_type)
+                                           AutoRhoOpts, const_div,
+                                           init_state, scalar_type,
+                                           sqrt_t)
 from sporco_tpu_torch.utils.signal import gradient_filters
 
 __all__ = ["ConvBPDNScalarTV", "ConvBPDNVectorTV", "ConvBPDNRecTV",
@@ -92,7 +93,7 @@ def _dfid(cfg, aux, Xf):
 def _sv_xstep(cfg, aux, params, state):
     cri = cfg.cri
     axes = _fftaxes(cri)
-    rho = float(state.rho)
+    rho = state.rho
     YUf = sf.rfftn(state.Y - state.U, axes=axes)
     b = aux["DSf"] + rho * (YUf[-1] + params["wtv"] * torch.sum(
         aux["Gf"].conj() * YUf[:-1], dim=0))
@@ -131,7 +132,7 @@ def _sv_cnst_at(cfg, aux, params, V):
 
 def _sv_ystep(cfg, aux, params, state, AXU):
     rho = state.rho
-    mu = float(aux["mu"] / rho)
+    mu = const_div(aux["mu"], rho)
     if cfg.variant == "vector":
         # jointly over the filters and the gradient index
         # (sporco/admm/cbpdntv.py:136-137)
@@ -140,7 +141,7 @@ def _sv_ystep(cfg, aux, params, state, AXU):
         # the reference's scalar TV shrinks the whole gradient stack by
         # its global norm (cbpdntv.py:404, axis=None), as the JAX package
         Yg = sp.prox_l2(AXU[:-1], mu, axis=None)
-    Yl = sp.prox_l1(AXU[-1], float(aux["lmbda"] / rho) * params["wl1"])
+    Yl = sp.prox_l1(AXU[-1], const_div(aux["lmbda"], rho) * params["wl1"])
     return torch.cat([Yg, Yl[None]], dim=0)
 
 
@@ -193,7 +194,7 @@ def _rec_at_grad(cfg, aux, V1f):
 def _rec_xstep(cfg, aux, params, state):
     cri = cfg.cri
     axes = _fftaxes(cri)
-    rho = float(state.rho)
+    rho = state.rho
     (Y0, Y1), (U0, U1) = state.Y, state.U
     YU0f = sf.rfftn(Y0 - U0, axes=axes)
     YU1f = sf.rfftn(Y1 - U1, axes=axes)          # (J, K, C, 1, f)
@@ -201,7 +202,7 @@ def _rec_xstep(cfg, aux, params, state):
     b = aux["DSf"] + rho * YU0f + rho * _rec_at_grad(cfg, aux, YU1f)
     # the rank terms on the channel axis: the dictionary's rows and the
     # sqrt(rho) (G_j D) rows (sporco/admm/cbpdntv.py:1038-1051)
-    ah = torch.cat([aux["Df"]] + [np.sqrt(rho) * GDf[j]
+    ah = torch.cat([aux["Df"]] + [sqrt_t(rho) * GDf[j]
                                   for j in range(GDf.shape[0])], dim=1)
     Xf = sl.solvemdbi_ism(ah, rho, b, axisM=2, axisK=1)
     X = sf.irfftn(Xf, s=cri.Nv, axes=axes)
@@ -225,9 +226,9 @@ def _rec_cnst_at(cfg, aux, params, V):
 def _rec_ystep(cfg, aux, params, state, AXU):
     rho = state.rho
     A0, A1 = AXU
-    Y0 = sp.prox_l1(A0, float(aux["lmbda"] / rho) * params["wl1"])
+    Y0 = sp.prox_l1(A0, const_div(aux["lmbda"], rho) * params["wl1"])
     # jointly over the channels and the gradient index
-    Y1 = sp.prox_l2(A1, float(aux["mu"] / rho), axis=(0, 2))
+    Y1 = sp.prox_l2(A1, const_div(aux["mu"], rho), axis=(0, 2))
     return (Y0, Y1)
 
 

@@ -121,7 +121,7 @@ def _yinit(cfg, params):
 
 def _xstep_single(cfg, aux, params, state):
     axes = _fftaxes(cfg.cri)
-    rho = float(state.rho)
+    rho = state.rho
     b = aux["ZSf"] + rho * _cfwd(cfg, state.Y - state.U, axes)
     if cfg.method == "ism":
         Xf = sl.solvemdbi_ism(aux["Zf"], rho, b, axisM=2, axisK=0)
@@ -145,10 +145,13 @@ def _uinit_single(cfg, params):
     return torch.zeros_like(params["D0"])
 
 
+# cg: the conjugate gradient reads its stopping test on the host every
+# CG iteration (ops/linalg.py cg), so that problem takes the eager route
 _CCMOD_SINGLE = {
     m: ADMMProblem(setup=_setup, xstep=_xstep_single, ystep=_ystep_single,
                    obfn=_obfn, yinit=_yinit, uinit=_uinit_single,
-                   stat_names=("DFid", "Cnstr", "XSlvRelRes"))
+                   stat_names=("DFid", "Cnstr", "XSlvRelRes"),
+                   route="eager" if m == "cg" else "graph")
     for m in ("ism", "cg")
 }
 
@@ -159,7 +162,7 @@ _CCMOD_SINGLE = {
 
 def _xstep_cns(cfg, aux, params, state):
     axes = _fftaxes(cfg.cri)
-    rho = float(state.rho)
+    rho = state.rho
     YU = state.Y - state.U
     b = aux["ZSf"] + rho * _cfwd(cfg, YU, axes)
     Xf = sl.solvedbi_sm(aux["Zf"], rho, b, axis=2, aah=aux["ZHZ"])
@@ -181,12 +184,12 @@ def _ystep_cns(cfg, aux, params, state, AXU):
 
 
 def _cns_rsdl_s(cfg, aux, params, state, Yprev):
-    w = float(state.rho) * math.sqrt(float(_nblocks(cfg.cri)))
+    w = state.rho * math.sqrt(float(_nblocks(cfg.cri)))
     return w * (Yprev - state.Y)
 
 
 def _cns_rsdl_sn(cfg, aux, params, state):
-    return float(state.rho) * _norm(state.U)
+    return state.rho * _norm(state.U)
 
 
 def _cns_rsdl_rn(cfg, aux, params, state, AXnr):

@@ -68,7 +68,7 @@ def _zero(params):
 
 def _masked_y(params, rho, V):
     """The prox of ``(1/2)||W y||^2`` at ``V - S``."""
-    return float(rho) * (V - params["S"]) / (params["W"] ** 2 + float(rho))
+    return rho * (V - params["S"]) / (params["W"] ** 2 + rho)
 
 
 def _dfid(params, ZD):
@@ -148,7 +148,8 @@ _CCMODMD_2B = {
     m: ADMMProblem(setup=_setup, xstep=_xstep_2b, ystep=_ystep_2b,
                    obfn=_obfn_2b, cnst_a=_cnst_a_2b, cnst_at=_cnst_at_2b,
                    cnst_b=_neg_pair, cnst_c=_cnst_c_2b, yinit=_yinit_2b,
-                   uinit=_uinit_2b, xinit=_xinit_2b, stat_names=_STATS)
+                   uinit=_uinit_2b, xinit=_xinit_2b, stat_names=_STATS,
+                   route="eager" if m == "cg" else "graph")
     for m in ("ism", "cg")
 }
 
@@ -183,9 +184,10 @@ def _ystep_cnsm(cfg, aux, params, state, AXU):
             _masked_y(params, state.rho, A1))
 
 
-def _sqrt_nb(params, rho):
-    """``sqrt(Nb)`` in the scalar type of ``rho``."""
-    return type(rho)(math.sqrt(float(_nb(params))))
+def _sqrt_nb(params):
+    """``sqrt(Nb)``, a number (rounded to the scalar type where it meets
+    a tensor)."""
+    return math.sqrt(float(_nb(params)))
 
 
 def _cnsm_rsdl_r(cfg, aux, params, state, AXnr):
@@ -195,17 +197,17 @@ def _cnsm_rsdl_r(cfg, aux, params, state, AXnr):
 
 
 def _cnsm_rsdl_s(cfg, aux, params, state, Yprev):
-    w = state.rho * _sqrt_nb(params, state.rho)
-    return float(w) * (Yprev[0] - state.Y[0])
+    w = state.rho * _sqrt_nb(params)
+    return w * (Yprev[0] - state.Y[0])
 
 
 def _cnsm_rsdl_rn(cfg, aux, params, state, AXnr):
-    return torch.maximum(tree_norm(AXnr[0]), float(_sqrt_nb(
-        params, state.rho)) * tree_norm(state.Y[0]))
+    return torch.maximum(tree_norm(AXnr[0]),
+                         _sqrt_nb(params) * tree_norm(state.Y[0]))
 
 
 def _cnsm_rsdl_sn(cfg, aux, params, state):
-    return float(state.rho) * tree_norm(state.U[0])
+    return state.rho * tree_norm(state.U[0])
 
 
 def _obfn_cnsm(cfg, aux, params, state, xaux):

@@ -35,8 +35,9 @@ from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import linalg as sl
 from sporco_tpu_torch.ops import prox as sp
 from sporco_tpu_torch.solvers.admm import (ADMMOpts, ADMMProblem,
-                                           AutoRhoOpts, init_state,
-                                           scalar_type, tree_norm)
+                                           AutoRhoOpts, const_div,
+                                           init_state, scalar_type,
+                                           tree_norm)
 from sporco_tpu_torch.utils.signal import gradient_filters
 
 __all__ = ["ConvProdDictBPDN", "ConvProdDictBPDNJoint",
@@ -92,7 +93,7 @@ def _setup(cfg, params):
 def _xstep(cfg, aux, params, state):
     cri = cfg.cri
     axes = _fftaxes(cri)
-    rho = float(state.rho)
+    rho = state.rho
     Zf = sf.rfftn(state.Y - state.U, axes=axes)          # (K, R, M, f)
     b = aux["DSfBQ"] + rho * _dotc(aux["Q"].T, Zf)
     Xf = _dotc(aux["Q"], sl.solvedbi_sm(aux["gDf"], rho, b, axis=2))
@@ -102,9 +103,9 @@ def _xstep(cfg, aux, params, state):
 def _y_coef(cfg, aux, params, rho, A, mu):
     """The coefficient block's prox: the l1 shrinkage, followed for the
     joint forms by the group shrinkage over the B-basis axis."""
-    thr = float(aux["lmbda"] / rho) * params["wl1"]
+    thr = const_div(aux["lmbda"], rho) * params["wl1"]
     if cfg.variant.endswith("joint"):
-        return sp.prox_sl1l2(A, thr, float(mu / rho) * params["wl21"],
+        return sp.prox_sl1l2(A, thr, const_div(mu, rho) * params["wl21"],
                              axis=1)
     return sp.prox_l1(A, thr)
 
@@ -159,7 +160,7 @@ def _g_xstep(cfg, aux, params, state):
     Z0f = sf.rfftn(Y0 - U0 + params["S"], axes=axes)     # (K, C, 1, f)
     Z1f = sf.rfftn(Y1 - U1, axes=axes)                   # (K, R, M, f)
     b = _dotc(aux["BQ"].T, aux["Df"].conj() * Z0f) + _dotc(aux["Q"].T, Z1f)
-    d = float(aux["mu"] / state.rho) * aux["GHGfW"] + 1.0
+    d = const_div(aux["mu"], state.rho) * aux["GHGfW"] + 1.0
     Xf = _dotc(aux["Q"], sl.solvedbd_sm(aux["gDf"], d, b, axis=2))
     X = sf.irfftn(Xf, s=cri.Nv, axes=axes)
     DXf = torch.sum(aux["Df"] * Xf, dim=2, keepdim=True)
@@ -189,7 +190,7 @@ def _g_cnst_c(cfg, aux, params):
 def _g_ystep(cfg, aux, params, state, AXU):
     rho = state.rho
     A0, A1 = AXU
-    Y0 = sp.prox_l1(A0 - params["S"], params["W"] / float(rho))
+    Y0 = sp.prox_l1(A0 - params["S"], params["W"] / rho)
     return (Y0, _y_coef(cfg, aux, params, rho, A1, aux["mu2"]))
 
 
@@ -208,11 +209,11 @@ def _g_obfn(cfg, aux, params, state, xaux):
 
 
 def _g_rsdl_s(cfg, aux, params, state, Yprev):
-    return float(state.rho) * _g_cnst_at(cfg, aux, params, state.U)
+    return state.rho * _g_cnst_at(cfg, aux, params, state.U)
 
 
 def _g_rsdl_sn(cfg, aux, params, state):
-    return float(state.rho) * tree_norm(state.U)
+    return state.rho * tree_norm(state.U)
 
 
 def _g_yinit(cfg, params):

@@ -48,7 +48,7 @@ from sporco_tpu_torch.models.common import PGMModel, user_tensor
 from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import fused_csc
 from sporco_tpu_torch.ops import prox as sp
-from sporco_tpu_torch.solvers.admm import scalar_type
+from sporco_tpu_torch.solvers.admm import const_div, scalar_type
 from sporco_tpu_torch.solvers.pgm import (PGMOpts, PGMProblem, pgm_init_state,
                                           pgm_solve)
 
@@ -119,7 +119,7 @@ def _pcb_grad(cfg, aux, params, Y):
 
 
 def _pcb_prox(cfg, aux, params, V, L):
-    U = sp.prox_l1(V, float(aux["lmbda"] / L) * params["wl1"])
+    U = sp.prox_l1(V, const_div(aux["lmbda"], L) * params["wl1"])
     return _cbpdn._apply_masks(_cbpdn.CSCConfig(
         cri=cfg.cri, non_neg=cfg.non_neg, no_bndry=cfg.no_bndry), U)
 
@@ -470,7 +470,7 @@ def _bp_grad(cfg, aux, params, Y):
 
 
 def _bp_prox(cfg, aux, params, V, L):
-    U = sp.prox_l1(V, float(params["lmbda"] / L) * params["wl1"])
+    U = sp.prox_l1(V, const_div(params["lmbda"], L) * params["wl1"])
     return torch.clamp(U, min=0.0) if cfg.non_neg else U
 
 

@@ -39,9 +39,24 @@ def host_prior(fn):
     it plugs any host code into a solve on the card.  Further arguments
     (the penalty ``rho`` or step ``L``) are not passed on."""
     def wrapped(x, *a):
-        out = np.asarray(fn(x.detach().cpu().numpy()))
-        return torch.as_tensor(out).to(device=x.device, dtype=x.dtype)
+        return _host_call(fn, x)
+    wrapped.on_host = True
     return wrapped
+
+
+def _host_call(fn, x):
+    """``fn`` of ``x`` through the host: the round trip of
+    :func:`host_prior`."""
+    out = np.asarray(fn(x.detach().cpu().numpy()))
+    return torch.as_tensor(out).to(device=x.device, dtype=x.dtype)
+
+
+def _route(*fns):
+    """The solve loop's route for a problem made of the callables
+    ``fns``: eager where one is a :func:`host_prior` (its round trip
+    cannot be captured in a CUDA graph), else the graph."""
+    return "eager" if any(getattr(f, "on_host", False) for f in fns) \
+        else "graph"
 
 
 @dataclass(frozen=True)
@@ -99,7 +114,8 @@ class PPP(ADMMModel):
 
         self.problem = ADMMProblem(
             setup=_setup, xstep=_xstep, ystep=_ystep, obfn=_obfn,
-            yinit=_yinit, uinit=_yinit, stat_names=self.STAT_NAMES)
+            yinit=_yinit, uinit=_yinit, stat_names=self.STAT_NAMES,
+            route=_route(f, proxf, proxg))
         rho0 = opt.rho if opt.rho is not None else 1.0
         self.state = init_state(self.problem, self.cfg, self.params,
                                 self.opts, rho0, 1.0,
@@ -160,10 +176,10 @@ class PPPConsensus(ADMMModel):
             return m
 
         def _rsdl_s(cfg, aux, params, state, Yprev):
-            return float(state.rho) * sqnb * (Yprev - state.Y)
+            return state.rho * sqnb * (Yprev - state.Y)
 
         def _rsdl_sn(cfg, aux, params, state):
-            return float(state.rho) * tree_norm(state.U)
+            return state.rho * tree_norm(state.U)
 
         def _rsdl_rn(cfg, aux, params, state, AXnr):
             return torch.maximum(tree_norm(AXnr), sqnb * tree_norm(state.Y))
@@ -176,7 +192,8 @@ class PPPConsensus(ADMMModel):
             rsdl_s=_rsdl_s, rsdl_sn=_rsdl_sn, rsdl_rn=_rsdl_rn,
             yinit=lambda cfg, params: _zeros(1),
             uinit=lambda cfg, params: _zeros(Nb),
-            xinit=lambda cfg, params: _zeros(Nb), stat_names=())
+            xinit=lambda cfg, params: _zeros(Nb), stat_names=(),
+            route=_route(proxg, *proxfi))
         rho0 = opt.rho if opt.rho is not None else 1.0
         self.state = init_state(self.problem, self.cfg, self.params,
                                 self.opts, rho0, 1.0,
@@ -218,7 +235,7 @@ class PPPPGM(PGMModel):
             obfn_f=lambda cfg, aux, params, X: f(X),
             obfn_g=lambda cfg, aux, params, X: X.new_zeros(()),
             xinit=lambda cfg, params: params["x0"],
-            stat_names=self.STAT_NAMES)
+            stat_names=self.STAT_NAMES, route=_route(f, gradf, proxg))
         L0 = opt.L if opt.L is not None else 1.0
         self.state = pgm_init_state(self.params["x0"].clone(), self.opts, L0,
                                     len(self.STAT_NAMES))

@@ -16,8 +16,8 @@ from sporco_tpu_torch.models.common import ADMMModel, user_tensor
 from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import prox as sp
 from sporco_tpu_torch.solvers.admm import (ADMMOpts, ADMMProblem,
-                                           AutoRhoOpts, init_state,
-                                           scalar_type)
+                                           AutoRhoOpts, const_div,
+                                           init_state, scalar_type)
 
 __all__ = ["RobustPCA"]
 
@@ -36,7 +36,8 @@ def _xstep(cfg, aux, params, state):
     ft = scalar_type(params["S"].dtype)
     with fp32_precision():
         X, ss = sp.prox_nuclear(params["S"] - state.Y - state.U,
-                                ft(1.0) / state.rho, rank=cfg.svd_rank,
+                                const_div(ft(1.0), state.rho),
+                                rank=cfg.svd_rank,
                                 n_iter=cfg.svd_iters,
                                 sketch=params.get("sketch"))
     return X, {"ss": ss}
@@ -45,7 +46,8 @@ def _xstep(cfg, aux, params, state):
 def _ystep(cfg, aux, params, state, AXU):
     # AXU = AX + U; the reference's y-step is prox_l1(S - AX - U, ...)
     ft = scalar_type(params["S"].dtype)
-    return sp.prox_l1(params["S"] - AXU, ft(params["lmbda"]) / state.rho)
+    return sp.prox_l1(params["S"] - AXU,
+                      const_div(ft(params["lmbda"]), state.rho))
 
 
 def _cnst_b(cfg, aux, params, Y):
@@ -69,9 +71,11 @@ def _yinit(cfg, params):
 
 _STATS = ("ObjFun", "NrmNuc", "NrmL1", "Cnstr")
 
+# eager on the card: torch.linalg.svd (and qr in the randomized form)
+# synchronises the device with the host to check its result
 _RPCA = ADMMProblem(setup=_setup, xstep=_xstep, ystep=_ystep, obfn=_obfn,
                     cnst_b=_cnst_b, cnst_c=_cnst_c, yinit=_yinit,
-                    uinit=_yinit, stat_names=_STATS)
+                    uinit=_yinit, stat_names=_STATS, route="eager")
 
 
 class RobustPCA(ADMMModel):

@@ -20,8 +20,8 @@ from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import linalg as sl
 from sporco_tpu_torch.ops import prox as sp
 from sporco_tpu_torch.solvers.admm import (ADMMOpts, ADMMProblem,
-                                           AutoRhoOpts, init_state,
-                                           scalar_type)
+                                           AutoRhoOpts, const_div,
+                                           init_state, scalar_type)
 
 __all__ = ["SplineL1", "SplineConfig"]
 
@@ -47,7 +47,7 @@ def _setup(cfg, params):
 
 
 def _xstep(cfg, aux, params, state):
-    lr = float(aux["lmbda"] / state.rho)
+    lr = const_div(aux["lmbda"], state.rho)
     gamma = 1.0 / (1.0 + lr * aux["alpha"] ** 2)
     V = state.Y + params["S"] - state.U
     X = sf.idctii(gamma * sf.dctii(V, axes=cfg.axes), axes=cfg.axes)
@@ -60,7 +60,7 @@ def _xstep(cfg, aux, params, state):
 
 
 def _ystep(cfg, aux, params, state, AXU):
-    return sp.prox_l1(AXU - params["S"], params["Wdf"] / float(state.rho))
+    return sp.prox_l1(AXU - params["S"], params["Wdf"] / state.rho)
 
 
 def _cnst_c(cfg, aux, params):

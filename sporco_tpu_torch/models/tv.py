@@ -33,8 +33,9 @@ from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import linalg as sl
 from sporco_tpu_torch.ops import prox as sp
 from sporco_tpu_torch.solvers.admm import (ADMMOpts, ADMMProblem,
-                                           AutoRhoOpts, init_state,
-                                           scalar_type, tree_norm)
+                                           AutoRhoOpts, const_div,
+                                           init_state, scalar_type,
+                                           tree_norm)
 from sporco_tpu_torch.utils.array import zpad
 from sporco_tpu_torch.utils.signal import grad, gradT
 
@@ -132,7 +133,8 @@ def _tvl2den_xstep(cfg, aux, params, state):
 
 
 def _tvl2den_ystep(cfg, aux, params, state, AXU):
-    return sp.prox_l2(AXU, (_ft(params)(params["lmbda"]) / state.rho)
+    return sp.prox_l2(AXU, const_div(_ft(params)(params["lmbda"]),
+                                     state.rho)
                       * params["Wtvna"], axis=cfg.saxes)
 
 
@@ -209,9 +211,9 @@ def _tvl1den_xstep(cfg, aux, params, state):
 def _tvl1_ystep(cfg, aux, params, state, AXU):
     ft = _ft(params)
     rho = state.rho
-    Yg = sp.prox_l2(AXU[..., :-1], (ft(params["lmbda"]) / rho)
+    Yg = sp.prox_l2(AXU[..., :-1], const_div(ft(params["lmbda"]), rho)
                     * params["Wtvna"], axis=cfg.saxes)
-    Yd = sp.prox_l1(AXU[..., -1] - params["S"], (ft(1.0) / rho)
+    Yd = sp.prox_l1(AXU[..., -1] - params["S"], const_div(ft(1.0), rho)
                     * params["Wdf"])
     return torch.cat([Yg, Yd[..., None]], dim=-1)
 

@@ -1,6 +1,6 @@
-"""The fused drivers' on-device loop: one iteration function over static
-device buffers, run in blocks of up to ``UNROLL`` iterations between
-host reads.
+"""The drivers' on-device loop (the fused ones and the generic ADMM and
+PGM drivers): one iteration function over static device buffers, run in
+blocks of up to ``UNROLL`` iterations between host reads.
 
 Counterpart of the JAX package's ``lax.while_loop`` over blocks of
 ``UNROLL = 8`` iterations, each guarded by ``lax.cond``
@@ -20,8 +20,9 @@ every other update goes through ``torch.where(live, new, old)``.
 block (the flag and k, with the block's rows when ``verbose``), then
 one read of the final state.  On CUDA tensors ``step`` is captured as a
 CUDA graph and replayed, the replays of a block queued without a host
-read between them; capture is the only route there, and a capture that
-fails raises, naming the stage of ``step`` it was in.  Before the
+read between them; a capture that fails raises, naming the stage of
+``step`` it was in (the eager route below is a problem's declaration,
+never a fallback from a failed capture).  Before the
 capture ``step`` runs once eagerly with ``enable`` 0 (cuFFT plans, the
 cuBLAS handle, the kernels' libraries, the allocator), which leaves the
 state as it was.  One loop of each kind is kept with its graph
@@ -35,12 +36,25 @@ on the device, in a counter of the loop that is read with the final
 state (``counter=`` of ``csc_iter``, ``pgm_iter`` and ``admm_tail``, the
 ``gate`` of the FFT pair); a dead launch, the warm-up's included, counts
 nothing.
+
+The generic ADMM and PGM drivers (``solvers/admm.py``,
+``solvers/pgm.py``) run their problems' functions in the same loop: the
+tensors of ``params``, of ``prob.setup``'s result and of the state are
+leaves of trees (:func:`flatten`), copied once into static tensors of
+the loop and refilled by a later call of the same key.  A problem whose
+iteration synchronises with the host by nature (a ``torch.linalg`` call
+that checks its result on the host, a host callable, a line search that
+reads its test) declares the eager route: on the card its blocks run
+eagerly, with no graph, and the same single read a block.
 """
+
+import dataclasses
 
 import torch
 
-__all__ = ["UNROLL", "LAST", "Loop", "kept", "keep", "clear_cache", "run",
-           "read", "stage"]
+__all__ = ["UNROLL", "LAST", "Loop", "Piece", "kept", "keep",
+           "clear_cache", "run", "read", "flag", "stage", "flatten",
+           "unflatten"]
 
 UNROLL = 8
 
@@ -62,6 +76,16 @@ def stage(name):
 def read(t):
     """The loop's device-to-host read of ``t``, as a numpy array."""
     return t.detach().cpu().numpy()
+
+
+_FLAGS = [0]
+
+
+def flag(t):
+    """A one-element bool tensor read on the host inside an iteration of
+    the eager route (a line search's test), counted in ``LAST``."""
+    _FLAGS[0] += 1
+    return bool(read(t))
 
 
 def _capture(step, device):
@@ -87,16 +111,42 @@ def _capture(step, device):
             except Exception:
                 pass
             raise RuntimeError(
-                "CUDA-graph capture of the fused loop's iteration failed "
+                "CUDA-graph capture of the loop's iteration failed "
                 f"in {_STAGE[0]!r}: {exc}") from exc
         try:
             graph.capture_end()
         except Exception as exc:
             raise RuntimeError(
-                "CUDA-graph capture of the fused loop's iteration failed "
+                "CUDA-graph capture of the loop's iteration failed "
                 f"at its end (last stage {_STAGE[0]!r}): {exc}") from exc
     cur.wait_stream(side)
     return graph
+
+
+class Piece:
+    """A part of an iteration on the eager route that touches only static
+    tensors (the stopping test, the scalar tail), captured as a CUDA
+    graph of its own at its first call on the card and replayed after:
+    one launch for a few dozen small ones, each of which would pay the
+    host's dispatch.  ``quiet``, a 0-d bool tensor (the loop's ``live``),
+    is 0 while the part is warmed up and captured, so that the warm-up
+    writes nothing the part guards by it."""
+
+    def __init__(self, fn, device, quiet=None):
+        self.fn, self.device, self.quiet = fn, device, quiet
+        self.graph = None
+
+    def __call__(self):
+        if self.graph is None:
+            saved = None if self.quiet is None else self.quiet.clone()
+            if saved is not None:
+                self.quiet.fill_(False)
+            try:
+                self.graph = _capture(self.fn, self.device)
+            finally:
+                if saved is not None:
+                    self.quiet.copy_(saved)
+        self.graph.replay()
 
 
 class Loop:
@@ -110,12 +160,17 @@ class Loop:
     k0]`` of the state after a block, ``final()`` the tensor read once at
     the end, ``rows(i, n)`` the stats rows ``[i, i + n)`` and
     ``show(row)`` prints one (verbose); ``finish()``, where given, gives
-    what the driver derives on the device from the final state."""
+    what the driver derives on the device from the final state;
+    ``start()``, where given, runs once before the first block of a call
+    that is not captured (a loop whose eager iterations each compute the
+    next one's test at their end computes the first's there)."""
 
-    def __init__(self, t, step, status, final, rows, show, finish=None):
+    def __init__(self, t, step, status, final, rows, show, finish=None,
+                 start=None):
         self.t = t
         self.step, self.status, self.final = step, status, final
         self.rows, self.show, self.finish = rows, show, finish
+        self.start = start
         self.graph = None       # the captured iteration, once captured
 
     def refill(self, fresh):
@@ -134,27 +189,45 @@ class Loop:
 
 
 # The loop kept between solve calls, one of each kind (the fused ADMM
-# and FISTA drivers), with the key of what its captured iteration bakes
-# in (geometry, options, route, precisions): a model solved again with
-# the same key, as dictionary learning's x-step or solve_chunked do,
-# replays its graph instead of capturing anew.  A kept graph holds its
-# own memory pool, so a new key replaces the loop of its kind.
+# and FISTA drivers; the generic drivers' kinds are one per problem and
+# device),
+# with the key of what its captured iteration bakes in (geometry,
+# options, route, precisions): a model solved again with the same key,
+# as dictionary learning's x- and d-steps or solve_chunked do, replays
+# its graph instead of capturing anew.  A kept graph holds its own
+# memory pool, so a new key replaces the loop of its kind, past MAX_KEPT
+# kinds the least recently used one goes, and the blocks of the pools
+# so freed go back to the card before the next capture.
 _KEPT = {}
+MAX_KEPT = 4
+
+
+_DROPPED = [False]
 
 
 def kept(kind, key):
     """The loop of ``kind`` kept for ``key``, or None (and a loop of the
     kind kept for another key is dropped)."""
-    entry = _KEPT.get(kind)
+    entry = _KEPT.pop(kind, None)
     if entry is not None and entry[0] == key:
+        _KEPT[kind] = entry
         return entry[1]
-    _KEPT.pop(kind, None)
+    _DROPPED[0] |= entry is not None
     return None
 
 
 def keep(kind, key, loop):
     """Keep ``loop`` as the loop of ``kind`` for ``key``; returns it."""
+    _DROPPED[0] |= _KEPT.pop(kind, None) is not None
+    while len(_KEPT) >= MAX_KEPT:
+        del _KEPT[next(iter(_KEPT))]
+        _DROPPED[0] = True
     _KEPT[kind] = (key, loop)
+    if _DROPPED[0] and torch.cuda.is_available():
+        # a dropped loop's graph pool is cached memory that no other
+        # capture can take
+        torch.cuda.empty_cache()
+        _DROPPED[0] = False
     return loop
 
 
@@ -163,15 +236,18 @@ def clear_cache():
     _KEPT.clear()
 
 
-def run(loop, max_iter, done, device, verbose=False):
+def run(loop, max_iter, done, device, verbose=False, graph=True):
     """Run ``loop.step`` to convergence or ``max_iter`` iterations and
     return the final read (a numpy array).  ``done`` is the host's view
-    of the initial state (a converged state runs no block)."""
+    of the initial state (a converged state runs no block).  ``graph``
+    False is the eager route: the card runs ``step`` itself."""
     reads = blocks = replays = 0
     n_done = 0
     captured = False
+    _FLAGS[0] = 0
+    graph = graph and device.type == "cuda"
     if not done and max_iter > 0:
-        if device.type == "cuda":
+        if graph:
             if loop.graph is None:
                 loop.t["enable"].fill_(False)
                 try:
@@ -186,6 +262,8 @@ def run(loop, max_iter, done, device, verbose=False):
                 captured = True
             replay = loop.graph.replay
         else:
+            if loop.start is not None:
+                loop.start()
             replay = loop.step
         while not done:
             n = min(UNROLL, max_iter - n_done)
@@ -208,6 +286,110 @@ def run(loop, max_iter, done, device, verbose=False):
     out = read(loop.final())
     LAST.clear()
     LAST.update(host_reads=reads + 1, blocks=blocks, replays=replays,
-                live=n_done, graph=device.type == "cuda" and blocks > 0,
-                captured=captured)
+                live=n_done, graph=graph and blocks > 0, captured=captured,
+                route="graph" if graph else "eager", flag_reads=_FLAGS[0])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Trees of tensors (the generic drivers' params, set-up results and state)
+
+def _const_key(v):
+    """A comparable stand-in for a non-tensor leaf, which a captured
+    iteration bakes in: its value where it has one, else the object
+    itself (kept alive by the loop, so its identity stays its own)."""
+    if v is None or isinstance(v, (bool, int, float, complex, str)):
+        return ("v", type(v).__name__, repr(v))
+    if isinstance(v, torch.dtype):
+        return ("v", "dtype", str(v))
+    try:
+        import numpy as np
+        if isinstance(v, np.generic):
+            return ("v", v.dtype.str, v.tobytes())
+        if isinstance(v, np.ndarray):
+            return ("a", v.shape, v.dtype.str, v.tobytes())
+    except ImportError:         # pragma: no cover
+        pass
+    try:
+        hash(v)
+    except TypeError:
+        return ("id", id(v))
+    return ("h", v)
+
+
+def _has_tensor(x):
+    if isinstance(x, torch.Tensor):
+        return True
+    if isinstance(x, dict):
+        return any(_has_tensor(v) for v in x.values())
+    if isinstance(x, (tuple, list)):
+        return any(_has_tensor(v) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return any(_has_tensor(getattr(x, f.name))
+                   for f in dataclasses.fields(x))
+    return False
+
+
+def flatten(tree, shared=True):
+    """The tensor leaves of ``tree`` (nested dicts, tuples, lists, named
+    tuples and dataclass instances), a spec that :func:`unflatten`
+    rebuilds it from, and a hashable key of its structure: the shape,
+    type and device of each tensor, which leaves are one tensor (with
+    ``shared``; else each place is a leaf of its own, as the state
+    arrays that the loop writes are), and the value (or identity) of
+    every other leaf."""
+    leaves = []
+    spec, key = _walk(tree, leaves, {} if shared else None)
+    return leaves, spec, key
+
+
+def _walk(x, leaves, seen):
+    """:func:`flatten`'s recursion (a module function: a nested one would
+    hold the leaves in a reference cycle until the collector runs, and
+    the card's memory with them)."""
+    if isinstance(x, torch.Tensor):
+        i = len(leaves) if seen is None else seen.setdefault(id(x),
+                                                             len(leaves))
+        if i == len(leaves):
+            leaves.append(x)
+        return ("T", i), ("T", i, tuple(x.shape), x.dtype, str(x.device))
+    if isinstance(x, dict):
+        parts = [(k, _walk(v, leaves, seen)) for k, v in x.items()]
+        return (("d", type(x), tuple((k, p[0]) for k, p in parts)),
+                ("d", tuple((repr(k), p[1]) for k, p in parts)))
+    if isinstance(x, (tuple, list)) and _has_tensor(x):
+        parts = [_walk(v, leaves, seen) for v in x]
+        return ((type(x), tuple(p[0] for p in parts)),
+                (type(x).__name__, tuple(p[1] for p in parts)))
+    if (dataclasses.is_dataclass(x) and not isinstance(x, type)
+            and _has_tensor(x)):
+        parts = [(f.name, _walk(getattr(x, f.name), leaves, seen))
+                 for f in dataclasses.fields(x)]
+        return (("c", x, tuple((n, p[0]) for n, p in parts)),
+                ("c", type(x).__name__, tuple((n, p[1]) for n, p in parts)))
+    return ("K", x), ("K", _const_key(x))
+
+
+def unflatten(spec, leaves):
+    """The tree of :func:`flatten`'s ``spec`` with ``leaves`` for its
+    tensors."""
+    tag = spec[0]
+    if tag == "T":
+        return leaves[spec[1]]
+    if tag == "K":
+        return spec[1]
+    if tag == "d":
+        return spec[1]({k: unflatten(p, leaves) for k, p in spec[2]})
+    if tag == "c":
+        import copy
+        obj = copy.copy(spec[1])
+        for n, p in spec[2]:
+            object.__setattr__(obj, n, unflatten(p, leaves))
+        return obj
+    typ, parts = spec
+    vals = [unflatten(p, leaves) for p in parts]
+    if typ is list:
+        return vals
+    if typ is tuple:
+        return tuple(vals)
+    return typ(*vals)           # a named tuple

@@ -82,8 +82,9 @@ from sporco_tpu_torch.ops.pgm_iter import LAUNCHES as PGM_ITER_LAUNCHES
 from sporco_tpu_torch.ops.pgm_iter import pgm_iter
 from sporco_tpu_torch.solvers import pgm as _pgm
 from sporco_tpu_torch.ops import device_loop
-from sporco_tpu_torch.solvers.admm import (ADMMState, norm_residuals_t,
-                                           sqrt_t, update_rho_t)
+from sporco_tpu_torch.solvers.admm import (ADMMState, _stats_tensor,
+                                           const_div, norm_residuals_t,
+                                           sqrt_t, update_rho_t, write_row)
 from sporco_tpu_torch.solvers.pgm import (PGMProblem, momentum_update_t,
                                           stop_tol, stop_tol_t)
 from sporco_tpu_torch.utils.signal import gradient_filters
@@ -614,30 +615,6 @@ def _gradreg_xstep(Pyu, rho, mu, Df, Sf, GHGfW, K, M, Nv, copy=True):
     return pack_state(Xg.reshape(K, 1, M, *Nv), copy=copy), Xfg
 
 
-def _stats_on(state_stats, max_iter, ncol, device):
-    """The stats buffer of a solve call on ``device``: the state's
-    (``k - k0`` rows of this call overwrite it from row 0), or NaN when
-    its shape is not ``(max_iter, ncol)``."""
-    stats = np.asarray(state_stats, np.float32)
-    if stats.shape != (max_iter, ncol):
-        stats = np.full((max_iter, ncol), np.nan, np.float32)
-    return torch.tensor(stats, device=device)
-
-
-def _row_index(k, k0, max_iter):
-    """The stats row of iteration ``k`` (a float32 tensor) of a solve
-    call from ``k0``, as a one-element int64 tensor (clamped: a dead
-    iteration after ``max_iter`` rewrites the last row with itself)."""
-    return (k - k0).clamp(0, max_iter - 1).to(torch.int64).reshape(1)
-
-
-def _write_row(stats, idx, live, row):
-    """Row ``idx`` (a one-element int64 tensor) of ``stats`` becomes
-    ``row`` where ``live``, else stays."""
-    old = stats.index_select(0, idx)[0]
-    stats.index_copy_(0, idx, torch.where(live, row, old)[None])
-
-
 def _loop_key(kind, cfg, opts, consts, t):
     """What a captured iteration bakes in beside the values of its static
     tensors ``t``: the configuration and options, the Python constants of
@@ -718,7 +695,7 @@ def _cbpdn_fused_run(cfg, params, opts, state):
     t["lmbda"] = torch.full((), float(f32(params["lmbda"])), device=dev)
     if elastic:
         t["mu"] = torch.full((), float(f32(params["mu"])), device=dev)
-    t["stats"] = _stats_on(state.stats, opts.max_iter, 1 + nobj + 5, dev)
+    t["stats"] = _stats_tensor(state.stats, opts.max_iter, 1 + nobj + 5, dev)
     t["cnt"] = torch.zeros(1, dtype=torch.int32, device=dev)
     t["fcnt"] = torch.zeros(2, dtype=torch.int32, device=dev)
     t["enable"] = torch.ones((), dtype=torch.bool, device=dev)
@@ -936,7 +913,7 @@ def _admm_loop(cfg, opts, consts, T):
                 reg = extra[1] if gradreg else 0.5 * sums[2]
                 objv = (dfd + lmbda * rl1 + mu * reg, dfd, rl1, reg, nanv)
         row = torch.stack((k,) + objv + (r_, s_, epri_, edua_, rho))
-        _write_row(stats, _row_index(k, k0, opts.max_iter), live, row)
+        write_row(stats, k, k0, live, row)
         rho_new, us_new = update_rho_t(ar, k, r_, s_, rho, rho_xi)
         torch.where(live, torch.stack(
             [rho_new, us_new, r_, s_, epri_, edua_, k + 1.0, k0]), sc,
@@ -972,11 +949,13 @@ def _admm_loop(cfg, opts, consts, T):
 # data term an elementwise norm, so a FISTA iteration (masked or not,
 # backtracking included) needs no FFT.
 
-def _pgm_aux(cfg, params):
+def _pgm_aux(cfg, params, number=True):
     """The packed problem's constants: the weights of a Cd-channel
     dictionary (Cd = 1 or a colour dictionary), the signal and the
     squared mask in the channel-packed layout (K, p0, p1, Cd*PS^2) in
-    which the residual lives."""
+    which the residual lives; a scalar l1 weight as a number for the
+    kernel's loop, as a 0-d tensor (``number`` False) for the generic
+    loop, which reads nothing on the host."""
     cri = cfg.cri
     n0, n1 = cri.Nv
     M, K, Cd = cri.M, cri.K, cri.Cd
@@ -985,7 +964,7 @@ def _pgm_aux(cfg, params):
                                nd1, PS)
     aux = {"Wf": Wf, "Wa": Wa, "j": js, "Cd": Cd,
            "Sp": _pack_ch(params["S"].reshape(K, Cd, n0, n1)),
-           "wl1p": _packed_l1_weight(params["wl1"], cri),
+           "wl1p": _packed_l1_weight(params["wl1"], cri, number),
            "lmbda": f32(params["lmbda"])}
     if cfg.masked:
         W = params["W"]
@@ -1005,11 +984,14 @@ def ams_mask(Wams, K, Nv):
     return poly_pack(W.to(torch.float32)).reshape(-1, PS * PS).contiguous()
 
 
-def _packed_l1_weight(wl1, cri):
-    """l1 weights in the packed layout: a float32 scalar, the per-filter
-    vector tiled over the ps*ps phases (C,), or a spatially varying
-    weight packed like the state (K, N0/ps, N1/ps, C)."""
+def _packed_l1_weight(wl1, cri, number=True):
+    """l1 weights in the packed layout: a float32 scalar (a 0-d float32
+    tensor where ``number`` is False), the per-filter vector tiled over
+    the ps*ps phases (C,), or a spatially varying weight packed like the
+    state (K, N0/ps, N1/ps, C)."""
     if wl1.ndim == 0 or wl1.numel() == 1:
+        if not number:
+            return wl1.reshape(()).to(torch.float32)
         return f32(wl1.reshape(()).item())
     if _wl1_per_channel(wl1):
         return wl1.reshape(-1).to(torch.float32).repeat(PS * PS) \
@@ -1031,7 +1013,10 @@ def _pgm_grad(cfg, aux, params, Yp):
 
 
 def _thr(aux, L):
-    """The soft threshold (lmbda / L) * wl1p in float32."""
+    """The soft threshold (lmbda / L) * wl1p in float32 (``L`` a number
+    or, in the generic loop, a 0-d tensor)."""
+    if isinstance(L, torch.Tensor):
+        return const_div(aux["lmbda"], L) * aux["wl1p"]
     lr = aux["lmbda"] / f32(L)
     wl1p = aux["wl1p"]
     return lr * wl1p if isinstance(wl1p, np.floating) else float(lr) * wl1p
@@ -1056,12 +1041,12 @@ def _pgm_reg(aux, Xp):
 
 
 def _pgm_g(cfg, aux, params, Xp):
-    return aux["lmbda"] * f32(_pgm_reg(aux, Xp).item())
+    return aux["lmbda"] * _pgm_reg(aux, Xp)
 
 
 def _pgm_obfn(cfg, aux, params, Xp):
-    f = f32(_pgm_f(cfg, aux, params, Xp).item())
-    reg = f32(_pgm_reg(aux, Xp).item())
+    f = _pgm_f(cfg, aux, params, Xp)
+    reg = _pgm_reg(aux, Xp)
     return (f + aux["lmbda"] * reg, f, reg)
 
 
@@ -1079,7 +1064,8 @@ def _pgm_xinit(cfg, params):
 
 
 _CBPDN_PGM_FUSED = PGMProblem(
-    setup=_pgm_aux, grad_f=_pgm_grad, prox_g=_pgm_prox, obfn_f=_pgm_f,
+    setup=functools.partial(_pgm_aux, number=False), grad_f=_pgm_grad,
+    prox_g=_pgm_prox, obfn_f=_pgm_f,
     obfn_g=_pgm_g, hessian_f=_pgm_hess, xinit=_pgm_xinit, obfn=_pgm_obfn,
     stat_names=("ObjFun", "DFid", "RegL1"))
 
@@ -1182,7 +1168,7 @@ def _pgm_fused_kernel_run(cfg, params, opts, state):
                            dtype=torch.float32, device=dev)
     t["sc"] = torch.tensor([state.t, state.rsdl, k0, k0],
                            dtype=torch.float32, device=dev)
-    t["stats"] = _stats_on(state.stats, opts.max_iter, ncol, dev)
+    t["stats"] = _stats_tensor(state.stats, opts.max_iter, ncol, dev)
     t["cnt"] = torch.zeros(1, dtype=torch.int32, device=dev)
     t["enable"] = torch.ones((), dtype=torch.bool, device=dev)
     t["sums"] = torch.zeros(2, dtype=torch.float32, device=dev)
@@ -1278,7 +1264,7 @@ def _pgm_loop(cfg, opts, consts, T):
             f = 0.5 * torch.sum(sq)
             objv = (f + lmbda * sums[1], f, sums[1])
         row = torch.stack((k,) + objv + (rs, nanv, nanv, zero, L))
-        _write_row(stats, _row_index(k, k0, opts.max_iter), live, row)
+        write_row(stats, k, k0, live, row)
         torch.where(live, torch.stack([tn, rs, k + 1.0, k0]), sc, out=sc)
         return live
 

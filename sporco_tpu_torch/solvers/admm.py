@@ -1,18 +1,21 @@
 """ADMM options, state, adaptive rho and the generic driver (counterpart
 of ``sporco_tpu.solvers.admm``).
 
-The JAX package runs the whole loop on the device.  Here the loop runs
-on the host in Python: the large arrays (X, Y, U) are tensors on the
-solve's device, while the scalars of the state (rho, residuals,
-tolerances, the iteration counter) and the per-iteration stats buffer
-are host numpy values (``float32``, or ``float64`` for a float64 or
-complex128 problem).  All scalar arithmetic is done in that type, in
-the same order as the JAX package, so that the AutoRho decisions and
-the stopping test match it.  The generic driver :func:`admm_solve`
-reads one small vector back from the device per iteration.  The fused
-drivers (``ops/fused_csc.py``) keep these scalars on the device instead,
-through the tensor forms ``rsf_t``, ``update_rho_t`` and
-``norm_residuals_t``.
+The loop runs on the device, as the JAX package's ``lax.while_loop``
+does (:mod:`sporco_tpu_torch.ops.device_loop`): X, Y and U, the scalars
+of the state (rho, the residuals and tolerances, k and k0, 0-d tensors
+of the problem's real type, ``float32`` or ``float64`` for a float64 or
+complex128 problem) and the float32 stats rows stay on the solve's
+device, and the host reads the stopping flag once a block of iterations
+and the final state once.  The scalar arithmetic (``rsf_t``,
+``norm_residuals_t``, ``sqrt_t``) is the JAX package's in its order,
+correctly rounded, so that the AutoRho decisions and the stopping test
+match it; the host forms (``_rsf``, ``norm_residuals``) stay as the
+tests' oracle.  On the card one iteration is a CUDA graph, replayed; a
+problem whose iteration synchronises with the host declares
+``route="eager"`` and runs the same blocks without a graph.  The
+returned :class:`ADMMState` holds host scalars and a numpy ``stats``
+from the one final read.
 
 X, Y and U are each a tensor or a tuple of tensors (a problem with more
 than one constraint block, such as ``MinL1InL2Ball``): the driver's
@@ -28,6 +31,9 @@ import numpy as np
 import torch
 
 from sporco_tpu_torch._device import fp32_precision
+from sporco_tpu_torch.ops import device_loop
+from sporco_tpu_torch.ops import fft as sf
+from sporco_tpu_torch.ops import fft2_planar
 
 __all__ = ["AutoRhoOpts", "ADMMOpts", "ADMMProblem", "ADMMState",
            "IterStats", "admm_solve", "init_state", "iterstats",
@@ -70,7 +76,8 @@ class ADMMOpts:
 class ADMMState(NamedTuple):
     """Full ADMM solver state.  ``X``/``Y``/``U`` are tensors (or tuples
     of tensors) on the solve's device; the rest are host scalars and the
-    host stats buffer of shape ``(max_iter, nstat)``."""
+    host stats buffer of shape ``(max_iter, nstat)`` (inside the device
+    loop the problem's functions see 0-d tensors for the scalars)."""
     X: Any
     Y: Any
     U: Any
@@ -151,31 +158,80 @@ def norm_residuals(ar, opts, nc, nx, rnrm, snrm, rn, sn, ft=f32):
 
 
 # ---------------------------------------------------------------------------
-# The same scalar arithmetic on 0-d float32 tensors, for the fused
-# drivers' on-device loop (``ops/device_loop.py``): the JAX package's
-# operations in its order, ``torch.where`` in place of the branches, so
-# a stats row computed on the device equals the one the host forms
-# above compute.  The host forms stay numpy: torch's CPU square root is
-# not correctly rounded (MKL's vector math; about one float32 input in
-# 100 and float64 input in 150 parts from numpy's), and the generic
-# drivers' float64 rows must match the JAX package's bit for bit.
+# The same scalar arithmetic on 0-d tensors of the problem's real type
+# (float32 or float64), for the on-device loops (``ops/device_loop.py``):
+# the JAX package's operations in its order, ``torch.where`` in place of
+# the branches, so a stats row computed on the device equals the one the
+# host forms above compute.  Constants are numbers of that type, and a
+# number is never divided by a tensor (torch computes ``number / t`` as
+# ``reciprocal(t) * number``, two roundings).
+
+def _num(x, dtype):
+    """The number ``x`` rounded to the real type ``dtype``."""
+    return float(f32(x)) if dtype == torch.float32 else float(x)
+
+
+def _sqrt64_cpu(x):
+    """The correctly rounded square root of a float64 CPU tensor.
+
+    torch's CPU square root is faithful, not correctly rounded (about
+    one float64 input in 150 parts from numpy's).  Of its result and the
+    two neighbours the one whose exact residual ``x - c*c`` is least in
+    magnitude is the correctly rounded root (no float64 ``x`` lies
+    between the square of a midpoint and that plus a quarter of the
+    neighbours' spacing squared).  The residual is exact: ``c*c = p + e``
+    by Veltkamp's split (Dekker's product), ``x - p`` by Sterbenz, and
+    the remainder of a faithful root is a float64.  Inputs outside
+    [2**-900, 2**900] are scaled by an even power of two first, so
+    that no product of the split overflows or leaves the normal range.
+    Zero, inf, nan and negative inputs take ``torch.sqrt`` as it is."""
+    one = torch.ones_like(x)
+    big, small = x > 2.0 ** 900, x < 2.0 ** -900
+    xs = x * torch.where(big, one * 2.0 ** -600,
+                         torch.where(small, one * 2.0 ** 600, one))
+    y = torch.sqrt(xs)
+    inf = torch.full_like(y, math.inf)
+
+    def resid(c):
+        p = c * c
+        t = c * 134217729.0             # 2**27 + 1
+        ch = t - (t - c)
+        cl = c - ch
+        e = ((ch * ch - p) + 2.0 * ch * cl) + cl * cl
+        return ((xs - p) - e).abs()
+
+    best, rb = y, resid(y)
+    for c in (torch.nextafter(y, -inf), torch.nextafter(y, inf)):
+        rc = resid(c)
+        take = rc < rb
+        best = torch.where(take, c, best)
+        rb = torch.where(take, rc, rb)
+    out = best * torch.where(big, one * 2.0 ** 300,
+                             torch.where(small, one * 2.0 ** -300, one))
+    return torch.where((x > 0) & torch.isfinite(x), out, torch.sqrt(x))
+
 
 def sqrt_t(x):
-    """The correctly rounded square root of a float32 tensor: CUDA's is,
-    torch's CPU one is not, so there it goes through float64."""
+    """The correctly rounded square root of a float32 or float64 tensor:
+    CUDA's is; on the CPU float32 goes through float64 (the root of a
+    float32 lies farther from a float32 rounding midpoint than torch's
+    float64 root errs) and float64 through :func:`_sqrt64_cpu`."""
     if x.device.type == "cuda":
         return torch.sqrt(x)
+    if x.dtype == torch.float64:
+        return _sqrt64_cpu(x)
     return torch.sqrt(x.double()).to(x.dtype)
 
 
 def rsf_t(ar, k, r, s, xi):
-    """:func:`_rsf` on 0-d float32 tensors: ``k`` the iteration counter
-    as a tensor (an integer, or a float32 holding one), ``r``, ``s`` and
-    ``xi`` float32 (``sporco_tpu/solvers/admm.py`` ``_update_rho``)."""
+    """:func:`_rsf` on 0-d tensors: ``k`` the iteration counter as a
+    tensor (an integer, or a real holding one), ``r``, ``s`` and ``xi``
+    of the problem's real type (``sporco_tpu/solvers/admm.py``
+    ``_update_rho``)."""
     if not ar.enabled:
         return torch.ones_like(r)
-    tau = float(f32(ar.scaling))
-    mu = float(f32(ar.rsdl_ratio))
+    tau = _num(ar.scaling, r.dtype)
+    mu = _num(ar.rsdl_ratio, r.dtype)
     if ar.auto_scaling:
         sxi = s * xi
         ratio = torch.where(r > sxi, r / sxi, sxi / r)
@@ -191,18 +247,20 @@ def rsf_t(ar, k, r, s, xi):
 
 
 def update_rho_t(ar, k, r, s, rho, xi):
-    """:func:`_update_rho` of the fused driver on 0-d float32 tensors:
-    the new rho and the deferred dual factor ``1 / rsf``."""
+    """:func:`_update_rho` of the fused driver on 0-d tensors: the new
+    rho and the deferred dual factor ``1 / rsf``."""
     rsf = rsf_t(ar, k, r, s, xi)
     return rho * rsf, torch.reciprocal(rsf)
 
 
 def norm_residuals_t(ar, opts, nc, nx, rnrm, snrm, rn, sn):
-    """:func:`norm_residuals` on 0-d float32 tensors (``nc``, ``nx``
-    numbers); the four results are views of one tensor."""
-    atol_c = float(f32(nc * opts.abs_stop_tol))
-    atol_x = float(f32(nx * opts.abs_stop_tol))
-    rtol = float(f32(opts.rel_stop_tol))
+    """:func:`norm_residuals` on 0-d tensors of the problem's real type
+    (``nc``, ``nx`` numbers); the four results are views of one
+    tensor."""
+    dt = rn.dtype
+    atol_c = _num(nc * opts.abs_stop_tol, dt)
+    atol_x = _num(nx * opts.abs_stop_tol, dt)
+    rtol = _num(opts.rel_stop_tol, dt)
     norms = torch.stack([rn, sn])
     if ar.std_residuals:
         tol = norms * rtol + torch.stack([torch.full_like(rn, atol_c),
@@ -215,6 +273,13 @@ def norm_residuals_t(ar, opts, nc, nx, rnrm, snrm, rn, sn):
     out = torch.cat([torch.stack([rnrm, snrm]) / norms,
                      atol / norms + rtol])
     return tuple(out)
+
+
+def const_div(a, t):
+    """``a / t`` for a number ``a`` and a tensor ``t``, rounded once (as
+    the JAX package's ``a / t``): the number as a tensor of ``t``'s
+    type."""
+    return torch.full_like(t, float(a)) / t
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +367,12 @@ class ADMMProblem:
         extra_init(cfg, params) -> extra carry (kept in the state)
         update_extra(cfg, aux, params, state, xaux) -> new extra carry,
             after the u-step, before the residuals and the objective
+
+    The functions run inside the device loop: ``state.rho`` (and the
+    other scalars) are 0-d tensors, and nothing may be read on the host.
+    ``route`` is ``"graph"`` (on the card an iteration is captured once
+    as a CUDA graph) or ``"eager"`` for a problem whose iteration
+    synchronises with the host by nature.
     """
     setup: Callable
     xstep: Callable
@@ -321,6 +392,7 @@ class ADMMProblem:
     extra_init: Optional[Callable] = None
     update_extra: Optional[Callable] = None
     stat_names: Tuple[str, ...] = ("Obj", "F", "G")
+    route: str = "graph"
 
 
 def init_state(prob, cfg, params, opts, rho0, rho_xi=1.0, Y0=None,
@@ -346,106 +418,298 @@ def init_state(prob, cfg, params, opts, rho0, rho_xi=1.0, Y0=None,
         extra=prob.extra_init(cfg, params) if prob.extra_init else ())
 
 
+def _loop_key(kind, prob, cfg, opts, trees):
+    """What a captured iteration of a generic driver bakes in beside the
+    values of its static tensors: the problem, configuration and options,
+    the structure of its trees (``device_loop.flatten``), the matmul and
+    FFT modes."""
+    from sporco_tpu_torch.ops import fused_csc
+    return (kind, prob, repr(cfg), repr(opts), trees,
+            fused_csc.get_matmul_precision(), sf.get_precision(),
+            sf._PLANAR_MODE)
+
+
+def _stats_tensor(stats, max_iter, ncol, device):
+    """The stats buffer of a solve call on ``device`` (float32): the
+    state's, or NaN when its shape is not ``(max_iter, ncol)``."""
+    stats = np.asarray(stats, np.float32)
+    if stats.shape != (max_iter, ncol):
+        stats = np.full((max_iter, ncol), np.nan, np.float32)
+    return torch.tensor(stats, device=device)
+
+
+def _row_index(k, k0, max_iter):
+    """The stats row of iteration ``k`` of a solve call from ``k0`` as a
+    one-element int64 tensor (clamped: a dead iteration after
+    ``max_iter`` rewrites the last row with itself)."""
+    return (k - k0).clamp(0, max_iter - 1).to(torch.int64).reshape(1)
+
+
+def write_row(stats, k, k0, live, row):
+    """Row ``k - k0`` of ``stats`` becomes ``row`` (float32) where
+    ``live``, else stays."""
+    idx = _row_index(k, k0, stats.shape[0])
+    old = stats.index_select(0, idx)[0]
+    stats.index_copy_(0, idx, torch.where(live, row, old)[None])
+
+
+def _as_reals(vals, dtype, device):
+    """0-d tensors of any real or integer type, or numbers, as 0-d tensors
+    of ``dtype`` (the type the host forms took them in)."""
+    return [v.reshape(()).to(dtype) if isinstance(v, torch.Tensor)
+            else torch.full((), float(v), dtype=dtype, device=device)
+            for v in vals]
+
+
+def as_row(vals, dtype, device):
+    """The entries of a stats row as one float32 tensor, each through
+    ``dtype`` (:func:`_as_reals`)."""
+    return torch.stack(_as_reals(vals, dtype, device)).to(torch.float32)
+
+
+def guarded_update(live, olds, news):
+    """Write each tensor of ``news`` into its static counterpart in
+    ``olds`` where ``live`` (``torch.where``).  A new value that is its
+    own counterpart is left; one that is another static tensor (FISTA's
+    Xprv, the old X) is written before that tensor is, or copied first
+    where that order cannot hold."""
+    if len(news) != len(olds):
+        raise ValueError(f"the iteration gave {len(news)} state arrays for "
+                         f"the loop's {len(olds)}")
+
+    def mem(t):
+        return t.untyped_storage().data_ptr()
+    slot = {mem(o): j for j, o in enumerate(olds)}
+    reads = {i: slot[mem(n)] for i, n in enumerate(news)
+             if n is not olds[i] and mem(n) in slot}
+    first = [i for i in reads if i not in reads.values()]
+    news = list(news)
+    for i in reads:
+        if i not in first:
+            news[i] = news[i].clone()
+    for i in first + [i for i in range(len(olds)) if i not in first]:
+        if news[i] is not olds[i]:
+            torch.where(live, news[i], olds[i], out=olds[i])
+
+
 def _admm_run(prob, cfg, params, opts, state):
     """Run up to ``opts.max_iter`` iterations from ``state``, stopping
-    when both normalised residuals pass their tolerances; one host read
-    per iteration (the squared norms and the objective terms)."""
+    when both normalised residuals pass their tolerances, on the device
+    (:mod:`sporco_tpu_torch.ops.device_loop`): one host read a block of
+    iterations and one of the final state."""
     aux = prob.setup(cfg, params)
+    rdt = sf.real_dtype(opts.dtype)
+    ft = scalar_type(opts.dtype)
+    k0 = int(state.k)
+    nobj = len(prob.stat_names)
+    dev = _tleaves(state.Y)[0].device
+    arrays = (state.X, state.Y, state.U, state.extra)
+    p_leaves, p_spec, p_key = device_loop.flatten((params, aux))
+    s_leaves, s_spec, s_key = device_loop.flatten(arrays, shared=False)
+    key = _loop_key("admm", prob, cfg, opts, (p_key, s_key))
+    kind = ("admm_generic", prob, str(dev))
+    fresh = {f"p{i}": v for i, v in enumerate(p_leaves)}
+    fresh.update({f"s{i}": v for i, v in enumerate(s_leaves)})
+    fresh["sc"] = torch.tensor(
+        [state.rho, state.rho_xi, k0, k0, state.r, state.s, state.epri,
+         state.edua], dtype=rdt, device=dev)
+    fresh["stats"] = _stats_tensor(state.stats, opts.max_iter,
+                                   1 + nobj + 5, dev)
+    fresh["fcnt"] = torch.zeros(2, dtype=torch.int32, device=dev)
+    fresh["enable"] = torch.ones((), dtype=torch.bool, device=dev)
+    loop = device_loop.kept(kind, key)
+    if loop is None:
+        # the loop's own copies (a later call refills them in place)
+        T = {n: v.clone() for n, v in fresh.items()}
+        loop = device_loop.keep(kind, key, _admm_loop(
+            prob, cfg, opts, T, p_spec, len(p_leaves), s_spec,
+            len(s_leaves), prob.route == "graph"))
+    else:
+        loop.refill(fresh)
+    host = device_loop.run(
+        loop, opts.max_iter,
+        bool(ft(state.r) <= ft(state.epri) and ft(state.s) <= ft(state.edua)),
+        dev, verbose=opts.verbose, graph=prob.route == "graph")
+    T = loop.t
+    if dev.type == "cuda":
+        # the FFT kernels' live launches in the loop, counted on the device
+        fft2_planar.LAUNCHES["rfft2_planar"] += int(host[8])
+        fft2_planar.LAUNCHES["irfft2_planar"] += int(host[9])
+    rho, rho_xi, k, _, r, s, epri, edua = (ft(v) for v in host[:8])
+    # new tensors: the loop's are refilled by its next call
+    X, Y, U, extra = device_loop.unflatten(
+        s_spec, [T[f"s{i}"].clone() for i in range(len(s_leaves))])
+    return ADMMState(
+        X=X, Y=Y, U=U, rho=rho, rho_xi=rho_xi, k=np.int32(k), r=r, s=s,
+        epri=epri, edua=edua,
+        stats=host[10:].reshape(opts.max_iter, 1 + nobj + 5)
+        .astype(np.float32), extra=extra)
+
+
+def _admm_loop(prob, cfg, opts, T, p_spec, n_p, s_spec, n_s, graph):
+    """The generic ADMM iteration (``sporco_tpu/solvers/admm.py``
+    ``body``) over the static tensors ``T`` (see :func:`_admm_run`), as
+    a :class:`~sporco_tpu_torch.ops.device_loop.Loop`.
+
+    An iteration is the stopping test (``head``), the problem's steps
+    with the residual norms and objective terms gathered in one static
+    vector, the scalar tail (``tail``: residuals, tolerances, the stats
+    row, AutoRho) and the guarded writes of the state.  On the eager
+    route on the card, ``head`` and ``tail`` are CUDA graphs of their
+    own (:class:`~sporco_tpu_torch.ops.device_loop.Piece`): dozens of
+    small launches that would each pay the host's dispatch."""
+    params, aux = device_loop.unflatten(p_spec, [T[f"p{i}"]
+                                                 for i in range(n_p)])
+    olds = [T[f"s{i}"] for i in range(n_s)]
+    Xs, Ys, Us, Es = device_loop.unflatten(s_spec, olds)
+    sc, stats, fcnt, enable = T["sc"], T["stats"], T["fcnt"], T["enable"]
+    rho, rho_xi, k, k0, r, s, epri, edua = sc
+    rdt = sc.dtype
+    dev = sc.device
     ar = opts.auto_rho
     rlx = opts.relax_param
-    ft = scalar_type(opts.dtype)
-    st = state
-    k0 = int(st.k)
-    nc = math.sqrt(_tree_size(st.Y))
-    nx = math.sqrt(_tree_size(st.X))
     nobj = len(prob.stat_names)
-    stats = np.array(st.stats, np.float32, copy=True)
-    if stats.shape[0] != opts.max_iter:
-        stats = np.full((opts.max_iter, 1 + nobj + 5), np.nan, np.float32)
+    nc = math.sqrt(_tree_size(Ys))
+    nx = math.sqrt(_tree_size(Xs))
+    # the static vector the steps fill: the squared norms of the primal
+    # and dual residuals, the primal normalisers (the generic ones
+    # squared: A x, B y and a tensor c; or rsdl_rn's norm), the dual
+    # normaliser (squared, or rsdl_sn's), then the objective terms
+    c0 = prob.cnst_c(cfg, aux, params)
+    n_rn = 1 if prob.rsdl_rn is not None else (
+        3 if isinstance(c0, (torch.Tensor, tuple)) else 2)
+    nsq = 2 + n_rn + 1
+    T["tin"] = tin = torch.zeros(nsq + nobj, dtype=rdt, device=dev)
+    T["live"] = live = torch.zeros((), dtype=torch.bool, device=dev)
+    T["rsf"] = rsf = torch.ones((), dtype=rdt, device=dev)
+    # the entries of tin that are squared norms
+    squared = [True, True] + [prob.rsdl_rn is None] * n_rn + [
+        prob.rsdl_sn is None] + [False] * nobj
+    squared = torch.tensor(squared, device=dev)
+    whole = dev.type == "cuda" and graph    # the iteration is one graph
 
-    def converged(st):
-        return (int(st.k) - k0 >= opts.max_iter
-                or (st.r <= st.epri and st.s <= st.edua))
+    def converged():
+        return ((r <= epri) & (s <= edua)) | (k - k0 >= opts.max_iter)
 
-    while not converged(st):
-        rho = st.rho
-        Yprev = st.Y
+    def head(out=live):
+        torch.logical_and(enable, ~converged(), out=out)
+
+    def tail():
+        q = torch.where(squared, sqrt_t(tin), tin)
+        rnrm = q[0]
+        snrm = q[1] if prob.rsdl_s is not None else rho * q[1]
+        rn = torch.amax(q[2:2 + n_rn])
+        sn = q[nsq - 1] if prob.rsdl_sn is not None else rho * q[nsq - 1]
+        r_, s_, epri_, edua_ = norm_residuals_t(ar, opts, nc, nx, rnrm,
+                                                snrm, rn, sn)
+        write_row(stats, k, k0, live,
+                  as_row((k,) + tuple(q[nsq:]) + (r_, s_, epri_, edua_,
+                                                  rho), rdt, dev))
+        # adaptive rho (sporco/admm/admm.py:549-575)
+        rsf.copy_(rsf_t(ar, k, r_, s_, rho_xi))
+        torch.where(live, torch.stack(
+            [rho * rsf, rho_xi, k + 1.0, k0, r_, s_, epri_, edua_]), sc,
+            out=sc)
+
+    # iterating eagerly (the CPU, the eager route), the scalar tail ends
+    # with the next iteration's test, into ``nxt``: on the card the two
+    # are one graph of their own (a Piece)
+    T["next"] = nxt = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def tail_next():
+        tail()
+        head(nxt)
+    if whole:
+        tail_p = tail
+    elif dev.type == "cuda":
+        tail_p = device_loop.Piece(tail_next, dev, quiet=live)
+    else:
+        tail_p = tail_next
+
+    def step():
+        """One iteration, guarded by ``live`` (the JAX ``lax.cond``); the
+        FFT kernels read it through their gate."""
+        device_loop.stage("stopping test")
+        if whole:
+            head()
+        with fft2_planar.gate(live.to(torch.float32), fcnt):
+            body()
+        if not whole:
+            live.copy_(nxt)
+        return live
+
+    def body():
+        st = ADMMState(X=Xs, Y=Ys, U=Us, rho=rho, rho_xi=rho_xi, k=k, r=r,
+                       s=s, epri=epri, edua=edua, stats=None, extra=Es)
+        device_loop.stage("x-step")
         X, xaux = prob.xstep(cfg, aux, params, st)
         AXnr = prob.cnst_a(cfg, aux, params, X)
         c = prob.cnst_c(cfg, aux, params)
         if rlx == 1.0:
             AX = AXnr
         else:
-            BY = prob.cnst_b(cfg, aux, params, st.Y)
+            BY = prob.cnst_b(cfg, aux, params, Ys)
             AX = _with_c(lambda cl, a, b: rlx * a - (1 - rlx) * (b - cl),
                          c, AXnr, BY)
+        device_loop.stage("y-step")
         Y = prob.ystep(cfg, aux, params, st._replace(X=X),
-                       _tmap(lambda a, u: a + u, AX, st.U))
+                       _tmap(lambda a, u: a + u, AX, Us))
         BY = prob.cnst_b(cfg, aux, params, Y)
-        U = _with_c(lambda cl, u, a, b: u + a + b - cl, c, st.U, AX, BY)
+        U = _with_c(lambda cl, u, a, b: u + a + b - cl, c, Us, AX, BY)
         st2 = st._replace(X=X, Y=Y, U=U)
         if prob.update_extra is not None:
             st2 = st2._replace(
                 extra=prob.update_extra(cfg, aux, params, st2, xaux))
-        # residuals (sporco/admm/admm.py:462-486), squared, on the device;
-        # a problem's rsdl_* hooks replace the generic ones
+        # residuals (sporco/admm/admm.py:462-486) on the device; a
+        # problem's rsdl_* hooks replace the generic ones
+        device_loop.stage("residuals and objective")
         if prob.rsdl_r is not None:
             rv = prob.rsdl_r(cfg, aux, params, st2, AXnr)
         else:
             rv = _with_c(lambda cl, a, b: a + b - cl, c, AXnr, BY)
         if prob.rsdl_s is not None:     # rho included
-            sv = prob.rsdl_s(cfg, aux, params, st2, Yprev)
+            sv = prob.rsdl_s(cfg, aux, params, st2, Ys)
         else:
             sv = prob.cnst_at(cfg, aux, params, prob.cnst_b(
-                cfg, aux, params, _tmap(lambda a, b: a - b, Y, Yprev)))
-        c_tensor = isinstance(c, (torch.Tensor, tuple))
-        sq = [tree_sumsq(rv), tree_sumsq(sv)]
+                cfg, aux, params, _tmap(lambda a, b: a - b, Y, Ys)))
+        vals = [tree_sumsq(rv), tree_sumsq(sv)]
         if prob.rsdl_rn is not None:
-            sq.append(prob.rsdl_rn(cfg, aux, params, st2, AXnr))
+            vals.append(prob.rsdl_rn(cfg, aux, params, st2, AXnr))
         else:
-            sq += [tree_sumsq(AXnr), tree_sumsq(BY)]
-            if c_tensor:
-                sq.append(tree_sumsq(c))
+            vals += [tree_sumsq(AXnr), tree_sumsq(BY)]
+            if n_rn == 3:
+                vals.append(tree_sumsq(c))
         if prob.rsdl_sn is not None:
-            sq.append(prob.rsdl_sn(cfg, aux, params, st2))
+            vals.append(prob.rsdl_sn(cfg, aux, params, st2))
         else:
-            sq.append(tree_sumsq(prob.cnst_at(cfg, aux, params, U)))
-        nsq = len(sq)
-        rtype = sq[0].dtype
-        sq = [v.reshape(()).to(rtype) for v in sq]
-        if not (opts.fast_solve or prob.obfn is None):
-            sq += [torch.as_tensor(o, dtype=rtype, device=sq[0].device)
-                   for o in prob.obfn(cfg, aux, params, st2, xaux)]
-        # the one host read of the iteration
-        host = torch.stack(sq).cpu().numpy().astype(ft)
-        rnrm = np.sqrt(host[0])
-        snrm = np.sqrt(host[1])
-        if prob.rsdl_s is None:
-            snrm = rho * snrm
-        if prob.rsdl_rn is not None:
-            rn = host[2]
+            vals.append(tree_sumsq(prob.cnst_at(cfg, aux, params, U)))
+        if opts.fast_solve or prob.obfn is None:
+            vals += [math.nan] * nobj
         else:
-            rn = np.maximum(np.sqrt(host[2]), np.sqrt(host[3]))
-            if c_tensor:
-                rn = np.maximum(rn, np.sqrt(host[4]))
-        if prob.rsdl_sn is not None:
-            sn = host[nsq - 1]
-        else:
-            sn = rho * np.sqrt(host[nsq - 1])
-        r, s, epri, edua = norm_residuals(ar, opts, nc, nx, rnrm, snrm, rn,
-                                          sn, ft)
-        objv = tuple(host[nsq:]) if len(host) > nsq else (np.nan,) * nobj
-        k = int(st.k)
-        stats[k - k0] = (k,) + objv + (r, s, epri, edua, rho)
-        if opts.verbose:
-            print(f"it {k}  obj {stats[k - k0, 1]:.4e}  r {r:.3e}  "
-                  f"s {s:.3e}  rho {rho:.3e}")
-        rsf = _rsf(ar, k, r, s, st.rho_xi, ft)
-        if rsf != 1.0:
-            U = _tmap(lambda u: u / float(rsf), U)
-        st = st2._replace(U=U, rho=ft(rho * rsf), k=np.int32(k + 1), r=r,
-                          s=s, epri=epri, edua=edua)
-    return st._replace(stats=stats)
+            vals += list(prob.obfn(cfg, aux, params, st2, xaux))
+        torch.stack(_as_reals(vals, rdt, dev), out=tin)
+        device_loop.stage("scalar tail")
+        tail_p()
+        # U / rsf on every iteration, as the JAX package (a division by 1
+        # is exact)
+        device_loop.stage("state")
+        if ar.enabled:
+            U = _tmap(lambda u: u / rsf, U)
+        guarded_update(live, olds, device_loop.flatten(
+            (X, Y, U, st2.extra), shared=False)[0])
+
+    def status():
+        return torch.stack([converged().to(rdt), k - k0])
+
+    def show(row):
+        print(f"it {int(row[0])}  obj {row[1]:.4e}  r {row[1 + nobj]:.3e}  "
+              f"s {row[2 + nobj]:.3e}  rho {row[-1]:.3e}")
+
+    return device_loop.Loop(
+        T, step, status,
+        lambda: torch.cat([sc, fcnt.to(rdt), stats.reshape(-1).to(rdt)]),
+        lambda i, n: stats[i:i + n], show,
+        start=None if whole else head)
 
 
 def admm_solve(prob, cfg, params, opts, state):

@@ -6,16 +6,24 @@ momentum strategies (Nesterov / linear / generalised-linear,
 ``sporco/pgm/momentum.py:47-130``), the step-size policies (Cauchy,
 Barzilai-Borwein, ``sporco/pgm/stepsize.py:49-130``), the monotone
 variant and both backtracking line searches (standard and robust,
-``sporco/pgm/backtrack.py:49-180``) run as a loop on the host.  The
-arrays of the state (X, Y, Xprv, Gprv, Zrb) are tensors on the solve's
-device; its scalars (t, Tk, L, rsdl, objprv) are host numpy values of
-the problem's real type (``float32``, or ``float64`` for a float64
-problem, as the JAX package's ``rdt``), the counter an ``int32`` and the
-stats buffer ``float32``.  Every scalar is computed in that type in the
-JAX package's order, so that the momentum ``beta`` and the stopping test
-match it to the last bit.
+``sporco/pgm/backtrack.py:49-180``) run on the device, as the JAX
+package's ``lax.while_loop`` does (:mod:`sporco_tpu_torch.ops.device_loop`):
+the arrays of the state (X, Y, Xprv, Gprv, Zrb), its scalars (t, Tk, L,
+rsdl, objprv, k and k0 as 0-d tensors of the problem's real type,
+``float32``, or ``float64`` for a float64 problem, as the JAX package's
+``rdt``) and the float32 stats rows stay on the solve's device, and the
+host reads the stopping flag once a block of iterations and the final
+state once.  Every scalar is computed in that type in the JAX package's
+order, correctly rounded, so that the momentum ``beta`` and the
+stopping test match it to the last bit; the host forms
+(``_momentum_update``, ``stop_tol``) stay as the tests' oracle.  The
+backtracking searches take the eager route: each trial's test ``F > Q``
+is read on the host (``device_loop.flag``), the rest stays on the
+device.  The returned :class:`PGMState` holds host scalars and a numpy
+``stats`` from the one final read.
 """
 
+import math
 from dataclasses import dataclass, replace
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
@@ -23,7 +31,13 @@ import numpy as np
 import torch
 
 from sporco_tpu_torch._device import fp32_precision
-from sporco_tpu_torch.solvers.admm import IterStats, scalar_type
+from sporco_tpu_torch.ops import device_loop
+from sporco_tpu_torch.ops import fft as sf
+from sporco_tpu_torch.ops import fft2_planar
+from sporco_tpu_torch.solvers.admm import (IterStats, _as_reals, _loop_key,
+                                           _num, _stats_tensor, as_row,
+                                           guarded_update, scalar_type,
+                                           sqrt_t, write_row)
 
 __all__ = ["PGMOpts", "PGMProblem", "PGMState", "pgm_solve",
            "pgm_init_state", "pgm_iterstats", "stat_names",
@@ -69,7 +83,11 @@ class PGMProblem:
         obfn_g(cfg, aux, params, X) -> 0-d tensor (regulariser)
         hessian_f(cfg, aux, params, V) -> tensor (Cauchy policy only)
         xinit(cfg, params) -> X0
-        obfn(cfg, aux, params, X) -> tuple of float32 (stats columns)
+        obfn(cfg, aux, params, X) -> tuple of 0-d tensors (stats columns)
+
+    The functions run inside the device loop (``L`` a 0-d tensor, nothing
+    read on the host); ``route`` is ``"graph"`` or ``"eager"`` as for
+    :class:`~sporco_tpu_torch.solvers.admm.ADMMProblem`.
     """
     setup: Callable
     grad_f: Callable
@@ -80,6 +98,7 @@ class PGMProblem:
     hessian_f: Optional[Callable] = None
     obfn: Optional[Callable] = None
     stat_names: Tuple[str, ...] = ("Obj", "F", "G")
+    route: str = "graph"
 
 
 class PGMState(NamedTuple):
@@ -137,11 +156,6 @@ def _momentum_update(opts, t, k):
     raise ValueError(f"unknown momentum {opts.momentum!r}")
 
 
-def _host(x, ft=f32):
-    """A 0-d tensor (or number) as a host scalar of type ``ft``."""
-    return ft(x.item() if isinstance(x, torch.Tensor) else x)
-
-
 def stop_tol(opts, k, ft=f32):
     """The stopping tolerance at iteration ``k`` (adaptive under
     ``auto_stop``), in the scalar type ``ft``."""
@@ -151,165 +165,266 @@ def stop_tol(opts, k, ft=f32):
 
 
 def momentum_update_t(opts, t, k):
-    """:func:`_momentum_update` on a 0-d float32 tensor ``t`` and a
-    tensor ``k`` (an integer, or a float32 holding one), for the fused
-    drivers' on-device loop.  The host form stays numpy: torch's CPU
-    square root is not correctly rounded (see
-    :func:`sporco_tpu_torch.solvers.admm.sqrt_t`)."""
-    from sporco_tpu_torch.solvers.admm import sqrt_t
+    """:func:`_momentum_update` on a 0-d tensor ``t`` of the problem's
+    real type and a tensor ``k`` (an integer, or a real holding one), for
+    the on-device loops; the square root correctly rounded
+    (:func:`sporco_tpu_torch.solvers.admm.sqrt_t`)."""
     if opts.momentum == "nesterov":
         return 0.5 * (1.0 + sqrt_t(1.0 + 4.0 * (t * t)))
     kf = k.to(t.dtype)
-    b = torch.full_like(t, float(f32(opts.momentum_b)))
+    b = torch.full_like(t, _num(opts.momentum_b, t.dtype))
     if opts.momentum == "linear":
         return (kf + b) / b
     if opts.momentum == "genlinear":
-        return (kf + float(f32(opts.momentum_a))) / b
+        return (kf + _num(opts.momentum_a, t.dtype)) / b
     raise ValueError(f"unknown momentum {opts.momentum!r}")
 
 
-def stop_tol_t(opts, k):
-    """:func:`stop_tol` in float32 for a tensor ``k`` (an integer, or a
-    float32 holding one): a 0-d tensor under ``auto_stop``, else the
-    fixed tolerance as a float32 value."""
+def stop_tol_t(opts, k, dtype=torch.float32):
+    """:func:`stop_tol` in ``dtype`` for a tensor ``k`` (an integer, or a
+    real holding one): a 0-d tensor under ``auto_stop``, else the fixed
+    tolerance as a number of that type."""
     if opts.auto_stop:
-        kf = k.to(torch.float32)
-        return torch.full_like(kf, float(f32(opts.auto_stop_tau0))) / (
+        kf = k.to(dtype)
+        return torch.full_like(kf, _num(opts.auto_stop_tau0, dtype)) / (
             1.0 + kf)
-    return float(f32(opts.rel_stop_tol))
+    return _num(opts.rel_stop_tol, dtype)
 
 
 def _pgm_run(prob, cfg, params, opts, state):
-    """Run (or resume) the loop from ``state``; returns the final
-    state.  Stats row: ``[k, objective terms..., Rsdl, F_Btrack,
+    """Run (or resume) the loop from ``state`` on the device; returns the
+    final state.  Stats row: ``[k, objective terms..., Rsdl, F_Btrack,
     Q_Btrack, IterBTrack, L]``."""
     aux = prob.setup(cfg, params)
-    k0 = int(state.k)
+    rdt = sf.real_dtype(opts.dtype)
     ft = scalar_type(opts.dtype)
-    nanv = ft(np.nan)
+    k0 = int(state.k)
+    dev = state.X.device
+    ncol = len(stat_names(prob.stat_names))
+    arrays = (state.X, state.Y, state.Xprv, state.Gprv, state.Zrb)
+    p_leaves, p_spec, p_key = device_loop.flatten((params, aux))
+    s_leaves, s_spec, s_key = device_loop.flatten(arrays, shared=False)
+    key = _loop_key("pgm", prob, cfg, opts, (p_key, s_key))
+    kind = ("pgm_generic", prob, str(dev))
+    fresh = {f"p{i}": v for i, v in enumerate(p_leaves)}
+    fresh.update({f"s{i}": v for i, v in enumerate(s_leaves)})
+    fresh["sc"] = torch.tensor(
+        [state.t, state.Tk, state.L, k0, k0, state.rsdl, state.objprv],
+        dtype=rdt, device=dev)
+    fresh["stats"] = _stats_tensor(state.stats, opts.max_iter, ncol, dev)
+    fresh["fcnt"] = torch.zeros(2, dtype=torch.int32, device=dev)
+    fresh["enable"] = torch.ones((), dtype=torch.bool, device=dev)
+    eager = prob.route == "eager" or opts.backtrack != "none"
+    loop = device_loop.kept(kind, key)
+    if loop is None:
+        # the loop's own copies (a later call refills them in place)
+        T = {n: v.clone() for n, v in fresh.items()}
+        loop = device_loop.keep(kind, key, _pgm_loop(
+            prob, cfg, opts, T, p_spec, len(p_leaves), s_spec,
+            len(s_leaves), not eager))
+    else:
+        loop.refill(fresh)
+    host = device_loop.run(
+        loop, opts.max_iter, not bool(ft(state.rsdl) >= stop_tol(
+            opts, k0, ft)), dev, verbose=opts.verbose, graph=not eager)
+    T = loop.t
+    if dev.type == "cuda":
+        # the FFT kernels' live launches in the loop, counted on the device
+        fft2_planar.LAUNCHES["rfft2_planar"] += int(host[7])
+        fft2_planar.LAUNCHES["irfft2_planar"] += int(host[8])
+    t, Tk, L, k, _, rsdl, objprv = (ft(v) for v in host[:7])
+    # new tensors: the loop's are refilled by its next call
+    X, Y, Xprv, Gprv, Zrb = device_loop.unflatten(
+        s_spec, [T[f"s{i}"].clone() for i in range(len(s_leaves))])
+    return PGMState(
+        X=X, Y=Y, Xprv=Xprv, Gprv=Gprv, Zrb=Zrb, t=t, Tk=Tk, L=L,
+        k=np.int32(k), rsdl=rsdl, objprv=objprv,
+        stats=host[9:].reshape(opts.max_iter, ncol).astype(np.float32))
 
-    def host(x):
-        return _host(x, ft)
+
+def _pgm_loop(prob, cfg, opts, T, p_spec, n_p, s_spec, n_s, graph):
+    """The generic PGM iteration (``sporco_tpu/solvers/pgm.py`` ``body``)
+    over the static tensors ``T`` (see :func:`_pgm_run`), as a
+    :class:`~sporco_tpu_torch.ops.device_loop.Loop`."""
+    params, aux = device_loop.unflatten(p_spec, [T[f"p{i}"]
+                                                 for i in range(n_p)])
+    olds = [T[f"s{i}"] for i in range(n_s)]
+    Xs, Ys, Xprvs, Gprvs, Zrbs = device_loop.unflatten(s_spec, olds)
+    sc, stats, fcnt, enable = T["sc"], T["stats"], T["fcnt"], T["enable"]
+    t, Tk, Ls, k, k0, rsdl, objprv = sc
+    rdt = sc.dtype
+    dev = sc.device
+    nobj = len(prob.stat_names)
+    nanv = torch.full((), math.nan, dtype=rdt, device=dev)
+    gamma_u = _num(opts.bt_gamma_u, rdt)
 
     def dotp(a, b):
-        return host(torch.sum(a * b))
+        return torch.sum(a * b).to(rdt)
 
     def norm(a):
-        return ft(np.sqrt(host(torch.sum(a * a))))
+        return sqrt_t(torch.sum(a * a).to(rdt))
 
     def eval_obj(X):
         if prob.obfn is not None:
-            return tuple(host(v) for v in prob.obfn(cfg, aux, params, X))
-        f = host(prob.obfn_f(cfg, aux, params, X))
-        g = host(prob.obfn_g(cfg, aux, params, X))
+            return tuple(prob.obfn(cfg, aux, params, X))
+        f = prob.obfn_f(cfg, aux, params, X)
+        g = prob.obfn_g(cfg, aux, params, X)
         return (f + g, f, g)
 
     def step_to(Y, grad, L):
-        return prob.prox_g(cfg, aux, params, Y - grad / float(L), L)
+        return prob.prox_g(cfg, aux, params, Y - grad / L, L)
 
-    def plain_step(st):
-        grad = prob.grad_f(cfg, aux, params, st.Y)
-        L = st.L
+    def plain_step(live):
+        grad = prob.grad_f(cfg, aux, params, Ys)
+        L = Ls
         if opts.stepsize == "cauchy":
             den = dotp(grad, grad)
             num = dotp(grad, prob.hessian_f(cfg, aux, params, grad))
-            if st.k > 1:
-                L = num / den
+            L = torch.where(k > 1, num / den, L)
         elif opts.stepsize == "bb":
-            dx = st.X - st.Xprv
-            dg = grad - st.Gprv
-            with np.errstate(divide="ignore", invalid="ignore"):
-                Lbb = dotp(dg, dg) / dotp(dx, dg)
-            if st.k > 1 and Lbb >= 0.0:
-                L = Lbb
-        X = step_to(st.Y, grad, L)
-        objprv = st.objprv
+            Lbb = dotp(grad - Gprvs, grad - Gprvs) / dotp(
+                Xs - Xprvs, grad - Gprvs)
+            L = torch.where((k > 1) & (Lbb >= 0.0), Lbb, L)
+        X = step_to(Ys, grad, L)
+        obj_prv = objprv
         if opts.monotone:
-            obj = eval_obj(X)[0]
+            obj = torch.as_tensor(eval_obj(X)[0]).to(rdt)
+            revert = (k > 0) & (objprv < obj)
             ZZ = X
-            if st.k > 0 and objprv < obj:
-                X, obj = st.X, objprv
-            objprv = obj
-        tprv = st.t
-        t = _momentum_update(opts, st.t, st.k)
-        c = float((tprv - ft(1.0)) / t)
+            X = torch.where(revert, Xs, X)
+            obj_prv = torch.where(revert, objprv, obj)
+        tn = momentum_update_t(opts, t, k)
         if opts.monotone:
-            Y = X + float(tprv / t) * (ZZ - X) + c * (X - st.X)
+            Y = X + (t / tn) * (ZZ - X) + ((t - 1.0) / tn) * (X - Xs)
         else:
-            Y = X + c * (X - st.X)
-        return st._replace(X=X, Y=Y, Xprv=st.X, Gprv=grad, t=t, L=ft(L),
-                           objprv=objprv), (nanv, nanv, 0)
+            Y = X + ((t - 1.0) / tn) * (X - Xs)
+        return (X, Y, grad, Zrbs), (tn, Tk, L, obj_prv), (nanv, nanv, 0)
 
     def majorant(fY, X, Y, grad, L):
         Dxy = X - Y
         n = norm(Dxy)
-        return fY + dotp(Dxy, grad) + (L / ft(2.0)) * (n * n)
+        return fY + dotp(Dxy, grad) + (L / 2.0) * (n * n)
 
-    def bt_standard_step(st):
-        grad = prob.grad_f(cfg, aux, params, st.Y)
-        fY = host(prob.obfn_f(cfg, aux, params, st.Y))
-
-        def trial(L):
-            X = step_to(st.Y, grad, L)
-            F = host(prob.obfn_f(cfg, aux, params, X))
-            return X, F, majorant(fY, X, st.Y, grad, L)
-
-        L = st.L
-        X, F, Q = trial(L)
+    def search(live, trial, L):
+        """Raise L by ``bt_gamma_u`` until ``F <= Q`` (one host read of
+        the test a trial, the eager route's) or ``bt_maxiter`` trials."""
+        out = trial(L)
         ibt = 1
-        while F > Q and ibt < opts.bt_maxiter:
-            L = L * ft(opts.bt_gamma_u)
-            X, F, Q = trial(L)
+        while ibt < opts.bt_maxiter and device_loop.flag(
+                live & (out[-2] > out[-1])):
+            L = L * gamma_u
+            out = trial(L)
             ibt += 1
-        tprv = st.t
-        t = _momentum_update(opts, st.t, st.k)
-        Y = X + float((tprv - ft(1.0)) / t) * (X - st.X)
-        return st._replace(X=X, Y=Y, Xprv=st.X, Gprv=grad, t=t,
-                           L=L), (F, Q, ibt)
+        return out, L, ibt
 
-    def bt_robust_step(st):
+    def bt_standard_step(live):
+        grad = prob.grad_f(cfg, aux, params, Ys)
+        fY = prob.obfn_f(cfg, aux, params, Ys).to(rdt)
+
         def trial(L):
-            t = (ft(1.0) + np.sqrt(ft(1.0) + ft(4.0) * L * st.Tk)) \
-                / (ft(2.0) * L)
-            T = st.Tk + t
-            y = (float(st.Tk) * st.X + float(t) * st.Zrb) / float(T)
+            X = step_to(Ys, grad, L)
+            F = prob.obfn_f(cfg, aux, params, X).to(rdt)
+            return X, F, majorant(fY, X, Ys, grad, L)
+
+        (X, F, Q), L, ibt = search(live, trial, Ls)
+        tn = momentum_update_t(opts, t, k)
+        Y = X + ((t - 1.0) / tn) * (X - Xs)
+        return (X, Y, grad, Zrbs), (tn, Tk, L, objprv), (F, Q, ibt)
+
+    def bt_robust_step(live):
+        def trial(L):
+            tt = (1.0 + sqrt_t(1.0 + 4.0 * L * Tk)) / (2.0 * L)
+            TT = Tk + tt
+            y = (Tk * Xs + tt * Zrbs) / TT
             grad = prob.grad_f(cfg, aux, params, y)
             X = step_to(y, grad, L)
-            F = host(prob.obfn_f(cfg, aux, params, X))
-            fy = host(prob.obfn_f(cfg, aux, params, y))
-            return X, y, grad, F, majorant(fy, X, y, grad, L), t, T
+            F = prob.obfn_f(cfg, aux, params, X).to(rdt)
+            fy = prob.obfn_f(cfg, aux, params, y).to(rdt)
+            return X, y, grad, tt, TT, F, majorant(fy, X, y, grad, L)
 
-        L = st.L * ft(opts.bt_gamma_d)
-        X, y, grad, F, Q, t, T = trial(L)
-        ibt = 1
-        while F > Q and ibt < opts.bt_maxiter:
-            L = L * ft(opts.bt_gamma_u)
-            X, y, grad, F, Q, t, T = trial(L)
-            ibt += 1
-        Zrb = st.Zrb + float(t * L) * (X - y)
-        return st._replace(X=X, Y=y, Xprv=st.X, Gprv=grad, Zrb=Zrb, t=t,
-                           Tk=T, L=L), (F, Q, ibt)
+        (X, y, grad, tt, TT, F, Q), L, ibt = search(
+            live, trial, Ls * _num(opts.bt_gamma_d, rdt))
+        Zrb = Zrbs + (tt * L) * (X - y)
+        return (X, y, grad, Zrb), (tt, TT, L, objprv), (F, Q, ibt)
 
-    step = {"standard": bt_standard_step,
+    take = {"standard": bt_standard_step,
             "robust": bt_robust_step}.get(opts.backtrack, plain_step)
-    st = state
-    stats = np.array(st.stats, np.float32, copy=True)
-    if stats.shape[0] != opts.max_iter:
-        stats = np.full((opts.max_iter, stats.shape[1]), np.nan, np.float32)
-    while int(st.k) - k0 < opts.max_iter and st.rsdl >= stop_tol(opts, st.k,
-                                                                  ft):
-        Yprv = st.Y
-        st2, (F, Q, ibt) = step(st)
-        rsdl = norm(st2.X - (st2.Y if opts.monotone else Yprv))
-        objv = ((np.nan,) * len(prob.stat_names) if opts.fast_solve
-                else eval_obj(st2.X))
-        stats[int(st.k) - k0] = ((st.k,) + tuple(objv)
-                                 + (rsdl, F, Q, ibt, st2.L))
-        if opts.verbose:
-            print(f"it {int(st.k)}  obj {stats[int(st.k) - k0, 1]:.4e}  "
-                  f"rsdl {rsdl:.3e}  L {st2.L:.3e}")
-        st = st2._replace(k=np.int32(st.k + 1), rsdl=rsdl)
-    return st._replace(stats=stats)
+    # the static vector the step fills: ||X - Y||^2, the objective terms,
+    # the line search's F, Q and trials, and the new t, Tk, L, objprv
+    T["tin"] = tin = torch.zeros(1 + nobj + 7, dtype=rdt, device=dev)
+    T["live"] = live = torch.zeros((), dtype=torch.bool, device=dev)
+    whole = dev.type == "cuda" and graph    # the iteration is one graph
+
+    def live_now():
+        return (enable & (k - k0 < opts.max_iter)
+                & (rsdl >= stop_tol_t(opts, k, rdt)))
+
+    def head(out=live):
+        out.copy_(live_now())
+
+    def tail():
+        rs = sqrt_t(tin[0])
+        F, Q, ibt, tn, TTn, L, obj_prv = tin[1 + nobj:]
+        write_row(stats, k, k0, live,
+                  as_row((k,) + tuple(tin[1:1 + nobj]) + (rs, F, Q, ibt, L),
+                         rdt, dev))
+        torch.where(live, torch.stack([tn, TTn, L, k + 1.0, k0, rs,
+                                       obj_prv]), sc, out=sc)
+
+    # iterating eagerly (the CPU, the eager route), the scalar tail ends
+    # with the next iteration's test, into ``nxt``: on the card the two
+    # are one graph of their own (a Piece)
+    T["next"] = nxt = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def tail_next():
+        tail()
+        head(nxt)
+    if whole:
+        tail_p = tail
+    elif dev.type == "cuda":
+        tail_p = device_loop.Piece(tail_next, dev, quiet=live)
+    else:
+        tail_p = tail_next
+
+    def step():
+        """One iteration, guarded by ``live`` (the JAX ``lax.cond``); the
+        FFT kernels read it through their gate."""
+        device_loop.stage("stopping test")
+        if whole:
+            head()
+        with fft2_planar.gate(live.to(torch.float32), fcnt):
+            body()
+        if not whole:
+            live.copy_(nxt)
+        return live
+
+    def body():
+        device_loop.stage("step")
+        (X, Y, grad, Zrb), (tn, TTn, L, obj_prv), (F, Q, ibt) = take(live)
+        # fixed-point residual (sporco/pgm/pgm.py:696-702)
+        device_loop.stage("objective")
+        D = X - (Y if opts.monotone else Ys)
+        objv = ((math.nan,) * nobj if opts.fast_solve else eval_obj(X))
+        torch.stack(_as_reals([torch.sum(D * D)] + list(objv)
+                              + [F, Q, ibt, tn, TTn, L, obj_prv], rdt, dev),
+                    out=tin)
+        device_loop.stage("scalar tail")
+        tail_p()
+        device_loop.stage("state")
+        guarded_update(live, olds, [X, Y, Xs, grad, Zrb])
+
+    def status():
+        return torch.stack([(~live_now()).to(rdt), k - k0])
+
+    def show(row):
+        print(f"it {int(row[0])}  obj {row[1]:.4e}  rsdl {row[1 + nobj]:.3e}"
+              f"  L {row[-1]:.3e}")
+
+    return device_loop.Loop(
+        T, step, status,
+        lambda: torch.cat([sc, fcnt.to(rdt), stats.reshape(-1).to(rdt)]),
+        lambda i, n: stats[i:i + n], show,
+        start=None if whole else head)
 
 
 def pgm_solve(prob, cfg, params, opts, state):

@@ -1947,3 +1947,262 @@ def test_eager_launches_with_numbers_wrap_the_pinned_ring(dev):
             PX, PY, PU, thr_t, wl1, RLX, us=us,
             live=torch.tensor(True, device=dev))])
         assert torch.equal(_bits(got[i]), _bits(want)), i
+
+
+# ---------------------------------------------------------------------------
+# The generic ADMM and PGM drivers on the device loop
+
+def _generic_data(seed=0, N=32):
+    g = np.random.default_rng(seed)
+    D = g.standard_normal((24, 40))
+    x0 = np.zeros((40, 3))
+    for k in range(3):
+        x0[g.choice(40, 4, replace=False), k] = g.standard_normal(4)
+    Sd = D @ x0 + 0.01 * g.standard_normal((24, 3))
+    Dc = g.standard_normal((6, 6, 4))
+    Dc /= np.sqrt((Dc ** 2).sum(axis=(0, 1), keepdims=True))
+    Si = np.cumsum(np.cumsum(g.standard_normal((N, N)), 0), 1) / N
+    Si += 0.1 * g.standard_normal((N, N))
+    W = (g.random((N, N)) > 0.25).astype(np.float64)
+    A = np.ones((3, 3)) / 9.0
+    return D, Sd, Dc, Si, W, A
+
+
+def _ppp_model(dev, dtype, opt):
+    from sporco_tpu_torch.models import ppp
+    _, _, _, Si, _, _ = _generic_data()
+    s = torch.tensor(Si, dtype=dtype, device=dev)
+
+    def f(x):
+        return 0.5 * torch.sum((x - s) ** 2)
+
+    def proxf(v, rho):
+        return (s + rho * v) / (1.0 + rho)
+
+    def proxg(v, rho):
+        return torch.sign(v) * torch.clamp(v.abs() - 0.05 / rho, min=0.0)
+    return ppp.PPP(Si.shape, f, proxf, proxg, dtype=dtype, device=dev,
+                   opt=ppp.PPP.options(**opt))
+
+
+def _generic_model(name, dev, dtype, opt):
+    """A model of a generic driver's problem, ``name``, on ``dev``."""
+    from sporco_tpu_torch.models import bpdn, cbpdn, pgm, rpca, tv
+    D, Sd, Dc, Si, W, A = (a.astype(np.float32) if dtype == torch.float32
+                           else a for a in _generic_data())
+    kw = dict(dtype=dtype, device=dev)
+    if name in ("BPDN", "BPDNJoint", "ElasticNet"):
+        cls = getattr(bpdn, name)
+        extra = {} if name == "BPDN" else {"mu": 0.05}
+        return cls(D, Sd, 1e-2,
+                   opt=cls.options(**opt), **extra, **kw)
+    if name == "BPDNProjL1":
+        return bpdn.BPDNProjL1(D, Sd, 2.0, opt=bpdn.BPDNProjL1.options(
+            **opt), **kw)
+    if name == "MinL1InL2Ball":
+        return bpdn.MinL1InL2Ball(D, Sd, 0.05, opt=bpdn.MinL1InL2Ball
+                                  .options(**opt), **kw)
+    if name in ("TVL2Denoise", "TVL1Denoise"):
+        cls = getattr(tv, name)
+        return cls(Si, 0.2, opt=cls.options(**opt), **kw)
+    if name in ("TVL2Deconv", "TVL1Deconv"):
+        cls = getattr(tv, name)
+        return cls(A, Si, 0.05, opt=cls.options(**opt), **kw)
+    if name == "RobustPCA":
+        return rpca.RobustPCA(Si, opt=rpca.RobustPCA.options(**opt), **kw)
+    if name in ("ConvBPDN", "ConvElasticNet", "ConvBPDNGradReg"):
+        cls = getattr(cbpdn, name)
+        extra = {} if name == "ConvBPDN" else {"mu": 0.1}
+        return cls(Dc, Si, 0.05, opt=cls.options(**opt), fused=False,
+                   **extra, **kw)
+    if name == "ConvBPDNMaskDcpl":
+        return cbpdn.ConvBPDNMaskDcpl(Dc, Si, 0.05, W=W, opt=cbpdn
+                                      .ConvBPDNMaskDcpl.options(**opt), **kw)
+    if name == "FISTA":
+        return pgm.ConvBPDN(Dc, Si, 0.05, fused=False, opt=pgm.ConvBPDN
+                            .options(L=50.0, **opt), **kw)
+    if name == "FISTAMask":
+        return pgm.ConvBPDNMask(Dc, Si, 0.05, W=W, fused=False,
+                                opt=pgm.ConvBPDNMask.options(L=50.0, **opt),
+                                **kw)
+    if name == "FISTABacktrack":
+        return pgm.ConvBPDN(Dc, Si, 0.05, fused=False, opt=pgm.ConvBPDN
+                            .options(L=0.5, backtrack="standard", **opt),
+                            **kw)
+    if name == "PGMBPDN":
+        return pgm.BPDN(D, Sd, 1e-2, opt=pgm.BPDN.options(L=50.0, **opt),
+                        **kw)
+    if name == "PPP":
+        return _ppp_model(dev, dtype, opt)
+    raise ValueError(name)
+
+
+GRAPH_PROBLEMS = ("BPDN", "BPDNJoint", "ElasticNet", "BPDNProjL1",
+                  "MinL1InL2Ball", "TVL2Denoise", "TVL1Denoise",
+                  "TVL2Deconv", "TVL1Deconv", "ConvBPDN", "ConvElasticNet",
+                  "ConvBPDNGradReg", "ConvBPDNMaskDcpl", "FISTA",
+                  "FISTAMask", "PGMBPDN", "PPP")
+
+
+def _generic_arrays(b):
+    out = []
+    for n in ("X", "Y"):
+        v = getattr(b.state, n)
+        out += [t.cpu().numpy() for t in (v if isinstance(v, tuple)
+                                          else (v,))]
+    return out
+
+
+@pytest.mark.parametrize("name", GRAPH_PROBLEMS)
+def test_generic_graph_route_captures_and_matches_cpu(dev, name):
+    """Each graph-route problem of the generic drivers, 12 iterations in
+    float64: captured once as a CUDA graph and replayed in blocks (one
+    host read a block and the final one), a second solve call replaying
+    the kept loop; the rows equal the CPU's to 1e-6 and X and Y within
+    1e-8 of their scale (``chip_smoke.py``'s float64 parity)."""
+    from sporco_tpu_torch.ops import device_loop
+    opt = dict(max_iter=12, rel_stop_tol=0.0)
+    a = _generic_model(name, dev, torch.float64, opt)
+    assert a.problem.route == "graph"
+    a.solve()
+    last = dict(device_loop.LAST)
+    assert last["graph"] and last["route"] == "graph"
+    assert last["live"] == 12 and last["host_reads"] == 3
+    c = _generic_model(name, "cpu", torch.float64, opt)
+    c.solve()
+    ia, ic = a.getitstat(), c.getitstat()
+    assert len(ia) == len(ic) == 12
+    for n in ia._names:
+        np.testing.assert_allclose(getattr(ia, n), getattr(ic, n),
+                                   rtol=1e-6, atol=1e-12, err_msg=n)
+    for x, y in zip(_generic_arrays(a), _generic_arrays(c)):
+        assert np.abs(x - y).max() <= 1e-8 * max(np.abs(y).max(), 1e-12)
+    # the next call of the same geometry replays the kept graph
+    a.solve()
+    assert device_loop.LAST["graph"] and not device_loop.LAST["captured"]
+    assert int(a.state.k) == 24
+
+
+def test_generic_convbpdn_float32_counts_fft_launches(dev):
+    """The generic ConvBPDN in float32 at 128 x 128 (the FFT kernels'
+    size) as a captured graph that stops inside a block: ``rfft2_planar``
+    k + 2 and ``irfft2_planar`` k, counted on the device, and the rows
+    equal the CPU's at the CPU tests' tolerances."""
+    from sporco_tpu_torch.ops import device_loop
+    D, S = _loop_problem(128)
+    opt = dict(max_iter=13, rel_stop_tol=0.0)
+
+    def make(d):
+        return ConvBPDN(D, S, 0.05, fused=False, device=d,
+                        opt=ConvBPDN.options(**opt))
+    tfp.reset_launches()
+    a = make(dev)
+    a.solve()
+    assert device_loop.LAST["graph"]
+    assert tfp.LAUNCHES == {"rfft2_planar": 15, "irfft2_planar": 13}
+    c = make("cpu")
+    c.solve()
+    ia, ic = a.getitstat(), c.getitstat()
+    for n in ("ObjFun", "DFid", "RegL1", "Rho"):
+        np.testing.assert_allclose(getattr(ia, n), getattr(ic, n),
+                                   rtol=1e-4, err_msg=n)
+    for n in ("PrimalRsdl", "DualRsdl"):
+        np.testing.assert_allclose(getattr(ia, n), getattr(ic, n),
+                                   rtol=1e-3, atol=1e-6, err_msg=n)
+
+
+def _ccmod_cg(dev):
+    from sporco_tpu_torch.models import ccmod
+    _, _, Dc, Si, _, _ = _generic_data()
+    g = np.random.default_rng(4)
+    X = g.standard_normal((32, 32, 1, 1, 4)) * (g.random((32, 32, 1, 1, 4))
+                                                < 0.1)
+    return ccmod.ConvCnstrMOD_CG(X, Si, (6, 6, 4), dimK=0,
+                                 dtype=torch.float64, device=dev,
+                                 opt=ccmod.ConvCnstrMOD_CG.options(
+                                     max_iter=1))
+
+
+def _eager_case(name, dev):
+    """An eager-route model of ``name`` for one iteration and the named
+    synchronising calls its route is declared for: (module, attribute)
+    pairs."""
+    from sporco_tpu_torch.models import ppp
+    from sporco_tpu_torch.ops import device_loop
+    from sporco_tpu_torch.ops import linalg as sl
+    opt = dict(max_iter=1, rel_stop_tol=0.0)
+    if name == "RobustPCA":
+        return (_generic_model(name, dev, torch.float64, opt),
+                [(torch.linalg, "svd"), (torch.linalg, "qr")])
+    if name == "CCMOD-cg":
+        return _ccmod_cg(dev), [(sl, "cg")]
+    if name == "FISTABacktrack":
+        return (_generic_model(name, dev, torch.float64, opt),
+                [(device_loop, "flag")])
+    b = _ppp_model(dev, torch.float64, opt)
+    prior = ppp.host_prior(lambda x: x)
+    b2 = ppp.PPP(b.params["x0"].shape, lambda x: x.sum(),
+                 lambda v, r: v, prior, dtype=torch.float64, device=dev,
+                 opt=ppp.PPP.options(**opt))
+    return b2, [(ppp, "_host_call")]
+
+
+@pytest.mark.parametrize("name", ["RobustPCA", "CCMOD-cg",
+                                  "FISTABacktrack", "PPP-host"])
+def test_eager_route_syncs_only_in_its_named_call(dev, monkeypatch, name):
+    """One iteration of each eager-route problem under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing synchronises
+    the device with the host but the named call that is the reason for
+    its route (which runs with the mode off)."""
+    from sporco_tpu_torch.ops import device_loop
+    b, named = _eager_case(name, dev)
+    assert b.problem.route == "eager" or name == "FISTABacktrack"
+
+    def quiet(fn):
+        def call(*a, **k):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return call
+    for mod, attr in named:
+        monkeypatch.setattr(mod, attr, quiet(getattr(mod, attr)))
+    run = device_loop.run
+
+    def strict_run(loop, *a, **k):
+        step = loop.step
+
+        def strict():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        loop.step = strict
+        try:
+            return run(loop, *a, **k)
+        finally:
+            loop.step = step
+    monkeypatch.setattr(device_loop, "run", strict_run)
+    b.solve()
+    assert device_loop.LAST["route"] == "eager"
+    assert device_loop.LAST["live"] == 1 and not device_loop.LAST["graph"]
+
+
+def test_rpca_eager_route_reason_svd_synchronises(dev):
+    """The reason Robust PCA declares the eager route, held on the card:
+    ``torch.linalg.svd`` (full, and of the randomized form's small
+    matrix) synchronises the device with the host, so under
+    ``set_sync_debug_mode("error")`` it raises, and its iteration cannot
+    be captured in a CUDA graph."""
+    x = torch.randn(64, 48, device=dev)
+    torch.linalg.svd(x, full_matrices=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.linalg.svd(x, full_matrices=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

@@ -1,0 +1,173 @@
+#!/usr/bin/env python3
+"""Time the generic drivers' solves of one tree of the port on the card.
+
+Run from the root of a checkout, on a machine with a CUDA card:
+
+    python3 tools/generic_loop_profile.py [--tree DIR] [--label NAME]
+        [--only NAME ...]
+
+It imports ``chip_smoke.py`` and the port from ``DIR`` (default: this
+checkout; an unpacked ``git archive`` of another commit under ``build/``
+to compare with it), builds that tree's kernels into ``DIR/build/kernels``
+and solves, in float32 at ``chip_smoke.py``'s sizes: BPDN with one and
+with 256 signals, ``TVL2Denoise``, ``TVL2Deconv``, the randomized Robust
+PCA, the generic ConvBPDN by ADMM and by FISTA at the headline and
+``PPP``.  For each, after one solve that warms it up (and keeps its
+loop where the tree keeps one): the host reads of a solve (every
+``item``, ``float``, ``bool`` and ``cpu`` of a CUDA tensor, counted by
+monkeypatching, so both the per-iteration reads of an older tree and the
+device loop's are seen), the wall time an iteration of two more solves
+with nothing patched (the least is ``wall_ms_per_iter``) and, under
+``torch.profiler``, the device busy time an iteration and the idle share.
+``--only cdl_solve mdl_solve dense_dl_solve`` runs those phases of
+``chip_smoke.py`` instead, for the ms an outer iteration of each
+dictionary learner.  Prints one JSON line per problem, each with the
+label, the card's name and its power limit.  Run two trees in turns in one call (parent,
+change, change, parent) to compare them on one card.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+PROBLEMS = ("bpdn_k1", "bpdn_k256", "tvl2den", "tvl2dcn", "rpca",
+            "cbpdn_admm", "cbpdn_fista", "ppp")
+# the dictionary-learning phases of chip_smoke.py (--only dl): ms an
+# outer iteration, their x- and d-steps solved again each outer iteration
+DL_PHASES = ("cdl_solve", "mdl_solve", "dense_dl_solve")
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=".")
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--only", nargs="*", default=None)
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    label = args.label or os.path.basename(tree)
+    sys.path.insert(0, tree)
+    os.environ.pop("SPORCO_TPU_TORCH_BUILD_DIR", None)
+    import torch
+    import chip_smoke as cs
+    if not os.path.abspath(cs.__file__).startswith(tree):
+        raise SystemExit(f"chip_smoke came from {cs.__file__}, not {tree}")
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device is available")
+    dev = torch.device("cuda", 0)
+    smi = cs.nvidia_smi()
+    cs._nvcc.build(cs._nvcc.KERNELS)
+    makers = _makers(cs, dev, torch)
+    for name in args.only or PROBLEMS:
+        t0 = time.perf_counter()
+        try:
+            out = (_dl(cs, dev, name) if name in DL_PHASES
+                   else _measure(cs, torch, makers[name]))
+        except Exception as exc:        # report, and go on to the next
+            out = {"error": f"{type(exc).__name__}: {exc}"[:2000]}
+        print(json.dumps({"label": label, "problem": name,
+                          "seconds": time.perf_counter() - t0,
+                          "nvidia_smi": smi, **out}), flush=True)
+    return 0
+
+
+def _makers(cs, dev, torch):
+    """problem name -> a maker of its float32 model, as the tree's
+    ``chip_smoke.py`` phases make it."""
+    out = {}
+    for K, name in ((1, "bpdn_k1"), (cs.BPDN_K, "bpdn_k256")):
+        D, S, _ = cs.bpdn_problem(K)
+        out[name] = (lambda D=D, S=S: cs.tbpdn.BPDN(
+            D, S, cs.BPDN_LMBDA, device=dev, opt=cs.tbpdn.BPDN.options(
+                max_iter=cs.BPDN_ITERS, rel_stop_tol=cs.DENSE_TOL)))
+    tv = cs.tv_problems()
+    for name, tvname in (("tvl2den", "TVL2Denoise"),
+                         ("tvl2dcn", "TVL2Deconv")):
+        cls, a, okw, _ = tv[tvname]
+        out[name] = (lambda cls=cls, a=a, okw=okw: cls(
+            *a, opt=cls.options(**okw), device=dev))
+    Sr, _, _ = cs.rpca_problem()
+    out["rpca"] = lambda: cs.trpca.RobustPCA(
+        Sr, svd_rank=cs.RPCA_RANK, device=dev,
+        opt=cs.trpca.RobustPCA.options(max_iter=cs.RPCA_ITERS,
+                                       rel_stop_tol=cs.DENSE_TOL))
+    D, S, lmbda = cs.headline_problem()
+    out["cbpdn_admm"] = lambda: cs.ConvBPDN(
+        D, S, lmbda, opt=cs.ConvBPDN.options(max_iter=cs.MAX_ITER,
+                                             rel_stop_tol=cs.REL_TOL),
+        device=dev, fused=False)
+    out["cbpdn_fista"] = lambda: cs.tpgm.ConvBPDN(
+        D, S, lmbda, opt=cs.pgm_options(cs.PGM_GENERIC_ITERS), device=dev,
+        fused=False)
+    pp = cs.ppp_problem(cs.N)
+    out["ppp"] = lambda: pp["PPP"](dev, "float32", cs.PPP_ITERS, cs.REL_TOL)
+    return out
+
+
+def _dl(cs, dev, name):
+    """ms an outer iteration of each learner of the dictionary-learning
+    phase ``name``, run twice: cold (the first phase of the process) and
+    warm (its loops kept from the first run, as after
+    ``chip_smoke.py``'s earlier phases)."""
+    runs = []
+    for _ in range(2):
+        if name == "dense_dl_solve":
+            out = cs.phase_dense_dl_solve(dev)
+        else:
+            D0, S, lmbda = cs.cdl_problem()
+            out = getattr(cs, f"phase_{name}")(dev, D0, S, lmbda)
+        if "ms_per_iter" in out:        # cdl_solve: one learner
+            out = {"ConvBPDNDictLearn": {"ms_per_outer_iter":
+                                         out["ms_per_iter"]}}
+        runs.append({k: v["ms_per_outer_iter"] for k, v in out.items()
+                     if "ms_per_outer_iter" in v})
+    return {"ms_per_outer_iter": runs[1], "cold_ms_per_outer_iter": runs[0]}
+
+
+def _measure(cs, torch, make):
+    make().solve()                      # warm-up (and a kept loop)
+    reads = {"n": 0}
+    saved = {}
+    for meth in ("item", "__float__", "__int__", "__bool__", "cpu",
+                 "tolist"):
+        orig = getattr(torch.Tensor, meth)
+        saved[meth] = orig
+
+        def counted(self, *a, _orig=orig, **k):
+            if self.is_cuda:
+                reads["n"] += 1
+            return _orig(self, *a, **k)
+        setattr(torch.Tensor, meth, counted)
+    try:
+        make().solve()                  # the host reads, counted
+    finally:
+        for meth, orig in saved.items():
+            setattr(torch.Tensor, meth, orig)
+    walls = []
+    for _ in range(2):                  # the wall, with nothing patched
+        b = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.solve()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    k = int(b.state.k)
+    loop = dict(cs.device_loop.LAST) if cs.device_loop.LAST.get(
+        "live") == k else {}
+    prof = cs.phase_profile(b.device, make)
+    return {"iterations": k,
+            "wall_ms_per_iter": 1e3 * min(walls) / k,
+            "wall_ms_per_iter_runs": [1e3 * w / k for w in walls],
+            "host_reads": reads["n"], "host_reads_per_iter": reads["n"] / k,
+            "loop_host_reads": loop.get("host_reads"),
+            "route": loop.get("route"), "graph": loop.get("graph"),
+            "profiled_iterations": prof["iterations"],
+            "profiled_wall_ms_per_iter": prof["wall_ms_per_iter"],
+            "device_ms_per_iter": prof["device_ms_per_iter"],
+            "idle_share": prof["idle_share"],
+            "top": prof["top"][:6]}
+
+
+if __name__ == "__main__":
+    sys.exit(main())
