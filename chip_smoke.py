@@ -123,6 +123,18 @@ Phases, each printing one JSON line on stdout:
 12. ``pgm_generic_solve``: ``pgm.ConvBPDN(fused=False)`` at L = 100 for
     250 iterations, unmasked and masked, with the launches its calls per
     iteration predict;
+12a. ``cond_node``: the device loop's IF node (``csrc/cond_node.cu``
+    through ``device_loop.when``) captured in a graph runs its body where
+    its flag holds at replay and skips it where not; nested nodes stop at
+    the first false flag; a flat chain of 50 runs as many bodies as its
+    flags allow, and the time of a skipped node;
+12b. ``bt_solve``: ``pgm.ConvBPDN(fused=False)`` with the standard and
+    the robust line search on the headline, 24 iterations from L = 1, on
+    the graph route (the search ``bt_maxiter`` trials in IF nodes: no
+    flag read, ``ceil(k / 8) + 1`` host reads) against the same problem
+    declared eager (one host read a trial): the same iterations, every
+    row within 1e-6, ``IterBTrack`` and the FFT launches equal; ms an
+    iteration of each route, the capture's time and its pool's memory;
 13. ``tail_kernel``: ``admm_tail`` against its plain version on the card
     at the headline layout (4096 x 4096) and at ragged ones (37 x 4100,
     4096 x 192) over its flag grid; kernel and plain version timed;
@@ -256,7 +268,9 @@ then masked, online and patch dictionary learning:
     objective lower at the end than at the start (admm/cns and pgm/pgm,
     whose objective rises again in the JAX package too: its least value),
     the launches of ``mdl_launches`` (pgm/pgm one ``pgm_iter`` an outer
-    iteration);
+    iteration); each CG solve of the admm/cg d-step, of c iterations,
+    read the host max(1, ceil(c / 8)) times, once a block captured as a
+    CUDA graph;
 45. ``online_solve``: ``OnlineConvBPDNDictLearn`` and its masked form over
     five 512x512 samples (``headline_problem`` seeds 0-4, the masked
     form with ``ams_problem``'s mask) at lmbda 0.05, 50 x-step
@@ -307,13 +321,15 @@ CPU):
 60. ``par_parity``: ParConvBPDN (16 filter groups) in float64 on the
     REST_PARITY_N crop of the headline, card against CPU; then its
     ``mesh=`` form (the group sums through NCCL) against ``mesh=None``
-    on the card, float32, 10 iterations at 512x512 (rows 1e-5);
+    on the card, float32, 10 iterations at 512x512 (rows 1e-5); each on
+    the card a captured device loop of ``ceil(k / 8) + 1`` host reads;
 61. ``par_solve``: ParConvBPDN to 1e-3 on the headline and on
     ``examples/csc_parallel.py``'s image masked through 30% of its pixels
     (the data pack's 64 filters):
     iterations, objective, ms an iteration, ``rfft2_planar`` 2k + 1 and
-    ``irfft2_planar`` 2k, the reconstruction error below 0.8, the masked
-    reconstruction's PSNR above the masked input's;
+    ``irfft2_planar`` 2k, ``ceil(k / 8) + 1`` host reads, the
+    reconstruction error below 0.8, the masked reconstruction's PSNR
+    above the masked input's;
 62. ``cns_sharded``: ``launch.consensus_cdl`` on the mesh against the
     unsharded loop at the consensus geometry, 10 outer iterations (D
     within 1e-5 of its scale, the same launches: ``csc_iter`` once an
@@ -321,7 +337,9 @@ CPU):
 63. ``spatial``: ``cbpdn_nsharded`` on the headline against
     ``ConvBPDN(fused=False)`` and ``tvl2deconv_nsharded`` against
     ``TVL2Deconv`` (iterations within one, the first 10 rows at the
-    parity tolerances or X within 2e-4), ms an iteration of each;
+    parity tolerances or X within 2e-4), ms an iteration of each, each
+    sharded solve a captured device loop (its collectives in the graph)
+    of ``ceil(k / 8) + 1`` host reads;
 64. ``grid_search``: ``launch.grid_search`` finds (0.3, 0) with value 0.
 
 Each solve sets every kernel's launch count to 0 just before it and
@@ -340,7 +358,9 @@ of the last slice ``csc_iter`` its launches in MultiDictConvBPDN's solve
 and the FFT kernels in every model's solve (``csc_rest_launches``), of
 the parallel slice ``csc_iter`` and the FFT kernels their launches in
 the sharded consensus (``sharded_consensus_launches``) and the FFT
-kernels in ParConvBPDN's solves (``parcbpdn_launches``); the
+kernels in ParConvBPDN's solves (``parcbpdn_launches``), and of the
+last slice the FFT kernels' launches in the line-search FISTA solves
+(``bt_launches``); the
 AMS form of
 ``admm_tail`` and the "mixed" forms of ``csc_iter``/``pgm_iter`` are
 entries of their own, with their launches in the fused masked and mixed
@@ -361,7 +381,8 @@ solve phases (``generic_solve``, ``pgm_generic_solve``, ``bpdn_solve``,
 ``<family>_solve``, ``PPP`` among them) report ``host_reads`` and the
 ``route`` and fail past ``ceil(k / 8) + 2`` reads, or where a problem
 that declares the graph route did not run as a graph (Robust PCA, the
-CG d-steps, ``host_prior`` and line searches declare the eager route);
+CG d-steps and ``host_prior`` declare the eager route; a line search of
+more than 64 trials takes it);
 ``cdl_solve``, ``mdl_solve`` and ``dense_dl_solve`` report ms an outer
 iteration.
 Any failure exits non-zero without the ``ok`` line; so does a run past the
@@ -410,9 +431,11 @@ from sporco_tpu_torch.ops import device_loop
 from sporco_tpu_torch.ops import fft as tsf
 from sporco_tpu_torch.ops import fft2_planar as tfp
 from sporco_tpu_torch.ops import fused_csc as tfc
+from sporco_tpu_torch.ops import linalg as tla
 from sporco_tpu_torch.ops import pgm_iter as tpi
 from sporco_tpu_torch.ops.fused_csc import PS, xstep_kernels
 from sporco_tpu_torch.parallel import consensus as tcns
+from sporco_tpu_torch.solvers import pgm as tspgm
 
 BUDGET_S = 600          # hard limit for the whole script, build included
 
@@ -660,18 +683,30 @@ def loop_reads(label, k, route="graph"):
 
 def generic_loop(label, b, k):
     """:func:`loop_reads` of a model ``b`` on a generic driver after a
-    solve of ``k`` iterations, on the route its problem declares (a
-    FISTA line search takes the eager one): the host reads, the route
-    and whether it ran as a captured graph."""
+    solve of ``k`` iterations, on the route its solve declares
+    (``solvers/pgm.py`` ``pgm_route``: a FISTA line search is the graph's
+    up to BT_GRAPH_MAX trials): the host reads, the route and whether it
+    ran as a captured graph."""
     m = _model(b)
     route = m.problem.route
-    if getattr(m.opts, "backtrack", "none") != "none":
-        route = "eager"
+    if hasattr(m.opts, "backtrack"):
+        route = tspgm.pgm_route(m.problem, m.opts)
     last = loop_reads(label, k, route)
     return {"host_reads": last["host_reads"], "route": last["route"],
             "declared_route": route, "graph": last["graph"],
             "captured": last["captured"], "blocks": last["blocks"],
             "flag_reads": last["flag_reads"]}
+
+
+def exact_reads(label, k):
+    """The last device loop's host reads are one a block of 8 iterations
+    and the final one, ``ceil(k / 8) + 1``, or the phase fails."""
+    want = math.ceil(k / device_loop.UNROLL) + 1
+    got = device_loop.LAST.get("host_reads")
+    if got != want:
+        raise AssertionError(f"{label}: {got} host reads for {k} "
+                             f"iterations, not {want}")
+    return got
 
 
 def expect_launches(label, counts, **want):
@@ -1482,6 +1517,160 @@ def phase_pgm_generic_solve(dev, D, S, lmbda):
                       "route": loop["route"], "device_loop": loop,
                       "predicted": {"rfft2_planar": f"{fwd} k + 2",
                                     "irfft2_planar": f"{inv} k"}}
+    return out
+
+
+COND_CHAIN = 50         # the flat chain of IF nodes timed in cond_node
+COND_NESTED = 8         # the depth of nested IF nodes checked there
+
+
+def phase_cond_node(dev):
+    """The device loop's IF node (``csrc/cond_node.cu`` through
+    ``device_loop.when``): a captured node whose body adds 1 runs it where
+    its flag is true and skips it where false, at replay; a chain of
+    COND_NESTED nested nodes stops at the first false flag; a flat chain
+    of COND_CHAIN nodes (the line search's groups are one) runs as many
+    bodies as its flags allow, and its time with every node but the
+    first skipped, over the nodes skipped, is what a skipped node
+    costs."""
+    x = torch.zeros((), device=dev)
+    pred = torch.zeros((), dtype=torch.bool, device=dev)
+    g = device_loop._capture(lambda: device_loop.when(
+        pred, lambda: x.add_(1.0)), dev)
+    seen = []
+    for flag in (True, False, True):
+        pred.fill_(flag)
+        g.replay()
+        seen.append(float(x))
+    if seen != [1.0, 1.0, 2.0]:
+        raise AssertionError(f"IF node: the body's count {seen} at flags "
+                             "1, 0, 1")
+    c = torch.zeros((), device=dev)
+    lim = torch.zeros((), device=dev)
+
+    def level(i):
+        c.add_(1.0)
+        if i + 1 < COND_NESTED:
+            device_loop.when(c < lim, lambda: level(i + 1))
+    gn = device_loop._capture(lambda: level(0), dev)
+    nested = {}
+    for n in (0, 3, COND_NESTED + 5):
+        c.zero_()
+        lim.fill_(n)
+        gn.replay()
+        nested[n] = float(c)
+    if nested != {0: 1.0, 3: 3.0, COND_NESTED + 5: float(COND_NESTED)}:
+        raise AssertionError(f"nested IF nodes ran {nested} levels")
+    go = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def body():
+        c.add_(1.0)
+        torch.lt(c, lim, out=go)
+
+    def chain():
+        body()
+        for _ in range(COND_CHAIN - 1):
+            device_loop.when(go, body)
+    gf = device_loop._capture(chain, dev)
+    flat = {}
+    for n in (0, 7, 2 * COND_CHAIN):
+        c.zero_()
+        lim.fill_(n)
+        gf.replay()
+        flat[n] = float(c)
+    if flat != {0: 1.0, 7: 7.0, 2 * COND_CHAIN: float(COND_CHAIN)}:
+        raise AssertionError(f"a flat chain of IF nodes ran {flat} bodies")
+    times = {}
+    for n in (0, 2 * COND_CHAIN):
+        lim.fill_(n)
+        times[n] = cuda_ms(lambda: (c.zero_(), gf.replay()), 20)
+    torch.cuda.synchronize()
+    return {"single": seen, "nested": nested, "flat": flat,
+            "flat_ms_all_skipped": times[0],
+            "flat_ms_all_run": times[2 * COND_CHAIN],
+            "us_per_skipped_node": 1e3 * times[0] / (COND_CHAIN - 1)}
+
+
+# the line-search FISTA solves of bt_solve: iterations, and a first L
+# below the headline's Lipschitz constant, which the first search raises
+# over several trials
+BT_ITERS, BT_L = 24, 1.0
+
+
+def _bt_model(D, S, lmbda, dev, backtrack, route):
+    b = tpgm.ConvBPDN(D, S, lmbda, device=dev, fused=False,
+                      opt=tpgm.ConvBPDN.options(
+                          max_iter=BT_ITERS, rel_stop_tol=0.0, L=BT_L,
+                          backtrack=backtrack))
+    if route == "eager":
+        # the same problem declared eager: one host read a trial
+        b.problem = dataclasses.replace(b.problem, route="eager")
+    return b
+
+
+def phase_bt_solve(dev, D, S, lmbda):
+    """Generic FISTA with each line search (standard, robust) on the
+    headline, BT_ITERS iterations in float32: on the graph route (the
+    search ``bt_maxiter`` trials in IF nodes; no flag read, one host read
+    a block) against the same problem declared eager (one host read a
+    trial): the same iterations, every stats row within 1e-6 (rtol),
+    ``IterBTrack`` equal, the same FFT launches; ms an iteration of each
+    (the graph's a replay of the kept loop), the capture's time and the
+    memory its pool took."""
+    out = {}
+    for bt in ("standard", "robust"):
+        r = {}
+        for route in ("graph", "eager"):
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_reserved(dev)
+            b = _bt_model(D, S, lmbda, dev, bt, route)
+            first, _ = _timed(b)
+            mem1 = torch.cuda.memory_reserved(dev)
+            b = _bt_model(D, S, lmbda, dev, bt, route)
+            wall, counts = _timed(b)
+            its = b.getitstat()
+            k = len(its)
+            last = dict(device_loop.LAST)
+            if k != BT_ITERS or (LOOP_GRAPH and (
+                    last["route"] != route
+                    or last["graph"] != (route == "graph"))):
+                raise AssertionError(f"FISTA ({bt}, {route}): {k} "
+                                     f"iterations, record {last}")
+            if LOOP_GRAPH and route == "graph" and (
+                    last["flag_reads"] != 0 or last["captured"]):
+                raise AssertionError(f"FISTA ({bt}): the graph route read "
+                                     f"flags or captured again: {last}")
+            exact_reads(f"FISTA ({bt}, {route})", k)
+            if not (np.all(np.isfinite(its._arr)) and
+                    its.ObjFun[-1] < its.ObjFun[0]):
+                raise AssertionError(f"FISTA ({bt}, {route}): objective "
+                                     "not finite or not decreasing")
+            r[route] = {"rows": its, "launches": counts, "wall_s": wall,
+                        "ms_per_iter": 1e3 * wall / k,
+                        "first_solve_s": first,
+                        "reserved_MB": (mem1 - mem0) / 2 ** 20,
+                        "flag_reads": last["flag_reads"],
+                        "host_reads": last["host_reads"]}
+        g, e = r["graph"], r["eager"]
+        errs = {name: _rel_rows(getattr(g["rows"], name),
+                                getattr(e["rows"], name), 0.0)
+                for name in g["rows"]._names[1:]}
+        bad = {n: v for n, v in errs.items() if not v <= 1e-6}
+        if bad or not np.array_equal(g["rows"].IterBTrack,
+                                     e["rows"].IterBTrack):
+            raise AssertionError(f"FISTA ({bt}): graph route against eager "
+                                 f"{bad}, IterBTrack "
+                                 f"{g['rows'].IterBTrack} against "
+                                 f"{e['rows'].IterBTrack}")
+        if g["launches"] != e["launches"]:
+            raise AssertionError(f"FISTA ({bt}): launches {g['launches']} "
+                                 f"(graph) against {e['launches']}")
+        ibt = g["rows"].IterBTrack
+        for v in r.values():
+            del v["rows"]
+        out[bt] = {"iterations": BT_ITERS, "rel_err": errs,
+                   "trials": int(ibt.sum()), "max_trials": int(ibt.max()),
+                   "bt_maxiter": tpgm.ConvBPDN.options().bt_maxiter, **r}
     return out
 
 
@@ -3359,6 +3548,37 @@ def mdl_launches(xm, dm):
             "irfft2_planar": x[2] + d[1]}
 
 
+@contextlib.contextmanager
+def cg_record():
+    """The records (``ops/linalg.py`` ``CG_LAST``) of the CG solves run
+    inside the block."""
+    seen = []
+    cg = tla.cg
+
+    def recorded(*a, **k):
+        out = cg(*a, **k)
+        seen.append(dict(tla.CG_LAST))
+        return out
+    tla.cg = recorded
+    try:
+        yield seen
+    finally:
+        tla.cg = cg
+
+
+def check_cg_reads(label, cgs):
+    """Every CG solve of c iterations read the host max(1, ceil(c / 8))
+    times, once a block, its block a CUDA graph on the card."""
+    if not cgs:
+        raise AssertionError(f"{label}: no CG solve ran")
+    for c in cgs:
+        want = max(1, math.ceil(c["iterations"] / device_loop.UNROLL))
+        if c["host_reads"] != want or c["blocks"] != want or (
+                LOOP_GRAPH and not c["graph"]):
+            raise AssertionError(f"{label}: a CG solve's record {c}, not "
+                                 f"{want} reads of graph blocks")
+
+
 def phase_mdl_solve(dev, D0, S, lmbda):
     """CNS_ITERS outer iterations of each method pair in float32 on the
     card: ms an outer iteration, filters in the unit ball within
@@ -3374,7 +3594,10 @@ def phase_mdl_solve(dev, D0, S, lmbda):
         if xm == "pgm" and d.xstep._fused_solve is None:
             raise AssertionError(f"ConvBPDNMaskDictLearn ({label}): the "
                                  "FISTA x-step is not fused")
-        wall, counts = _timed(d)
+        with cg_record() as cgs:
+            wall, counts = _timed(d)
+        if dm == "cg":
+            check_cg_reads(f"ConvBPDNMaskDictLearn ({label})", cgs)
         per = mdl_launches(xm, dm)
         expect_launches(f"ConvBPDNMaskDictLearn ({label})", counts,
                         **{k: v * CNS_ITERS for k, v in per.items()})
@@ -3396,6 +3619,8 @@ def phase_mdl_solve(dev, D0, S, lmbda):
                                  f"{obj.min()})")
         out[label] = {"outer_iterations": CNS_ITERS, "wall_s": wall,
                       "ms_per_outer_iter": 1e3 * wall / CNS_ITERS,
+                      "cg_solves": [(c["iterations"], c["host_reads"])
+                                    for c in cgs],
                       "x_objective_first": float(obj[0]),
                       "x_objective_least": float(obj.min()),
                       "x_objective_least_at": int(np.argmin(obj)),
@@ -4246,10 +4471,15 @@ def phase_par_parity(dev, mesh):
     D, S, _, lmbda, _ = par_problems()["headline"]
     n = REST_PARITY_N
     runs = []
+    reads = {}
     for d in (dev, "cpu"):
         b = _par(D, S[:n, :n], None, lmbda, d, REST_PARITY_ITERS, 0.0,
                  torch.float64)
         b.solve()
+        if d is dev:
+            loop_reads("ParConvBPDN float64", REST_PARITY_ITERS)
+            reads["float64"] = exact_reads("ParConvBPDN float64",
+                                           REST_PARITY_ITERS)
         runs.append((b.getitstat(), _par_arrays(b)))
     f64 = par_rows("ParConvBPDN float64", runs, F64_PARITY["rows"],
                    F64_PARITY["X"], F64_PARITY["zero"])
@@ -4257,16 +4487,21 @@ def phase_par_parity(dev, mesh):
     for m in (mesh, None):
         b = _par(D, S, None, lmbda, dev, PAR_MESH_ITERS, 0.0, mesh=m)
         wall, counts = _timed(b)
-        expect_launches("ParConvBPDN mesh" if m else "ParConvBPDN", counts,
+        label = "ParConvBPDN mesh" if m else "ParConvBPDN"
+        expect_launches(label, counts,
                         rfft2_planar=2 * PAR_MESH_ITERS + 1,
                         irfft2_planar=2 * PAR_MESH_ITERS)
+        loop_reads(label, PAR_MESH_ITERS)
+        reads["mesh" if m else "unsharded"] = exact_reads(label,
+                                                          PAR_MESH_ITERS)
         runs.append((b.getitstat(), _par_arrays(b)))
     mesh_errs = par_rows("ParConvBPDN mesh= against mesh=None", runs,
                          PAR_MESH_ROWS, PARITY["X"], 0.0)
     return {"float64": {"iterations": REST_PARITY_ITERS, "side": n,
                         "rel_err": f64, "tolerance": F64_PARITY},
             "mesh": {"iterations": PAR_MESH_ITERS, "side": N,
-                     "rel_err": mesh_errs, "rows_tolerance": PAR_MESH_ROWS}}
+                     "rel_err": mesh_errs, "rows_tolerance": PAR_MESH_ROWS},
+            "host_reads": reads}
 
 
 def phase_par_solve(dev):
@@ -4286,12 +4521,16 @@ def phase_par_solve(dev):
         k = len(its)
         expect_launches(f"ParConvBPDN {name}", counts,
                         rfft2_planar=2 * k + 1, irfft2_planar=2 * k)
+        loop = loop_reads(f"ParConvBPDN {name}", k)
+        exact_reads(f"ParConvBPDN {name}", k)
         rec = b.reconstruct().cpu().numpy()
         if not (np.all(np.isfinite(its._arr)) and np.all(np.isfinite(rec))):
             raise AssertionError(f"ParConvBPDN {name}: not finite")
         r = {"iterations": k, "converged": k < PAR_MAX_ITER,
              "final_objective": float(its.ObjFun[-1]), "wall_s": wall,
              "ms_per_iter": 1e3 * wall / k, "launches": counts,
+             "host_reads": loop["host_reads"],
+             "captured": loop["captured"],
              "rec_err": _rec_err(rec, clean)}
         if not r["rec_err"] < REC_ERR:
             raise AssertionError(f"ParConvBPDN {name}: reconstruction "
@@ -4379,6 +4618,8 @@ def phase_spatial(dev, mesh, D, S, lmbda):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     expect_launches("cbpdn_nsharded", launches())
+    loop_reads("cbpdn_nsharded", k)
+    reads_c = exact_reads("cbpdn_nsharded", k)
     names = ("ObjFun", "DFid", "RegL1", "PrimalRsdl", "DualRsdl", "Rho")
     cols = (1, 2, 3, 4, 5, 8)
     n = min(SPATIAL_ROWS, k, len(ic))
@@ -4397,6 +4638,7 @@ def phase_spatial(dev, mesh, D, S, lmbda):
                              f"{stats[-1, 1]} against {len(ic)}, "
                              f"{ic.ObjFun[-1]}")
     out["cbpdn"] = {"iterations": k, "reference_iterations": len(ic),
+                    "host_reads": reads_c,
                     "final_objective": float(stats[-1, 1]),
                     "objective_rel_diff": agree, "rel_err": errs,
                     "ms_per_iter": 1e3 * wall / k,
@@ -4414,11 +4656,14 @@ def phase_spatial(dev, mesh, D, S, lmbda):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     expect_launches("tvl2deconv_nsharded", launches())
+    loop_reads("tvl2deconv_nsharded", kt)
+    reads_t = exact_reads("tvl2deconv_nsharded", kt)
     xe = float(np.abs(Xt.cpu().numpy() - Xb).max() / np.abs(Xb).max())
     if abs(kt - kb) > 1 or not xe <= SPATIAL_X:
         raise AssertionError(f"tvl2deconv_nsharded: {kt} iterations "
                              f"against {kb}, X differs by {xe:.3e}")
     out["tvl2deconv"] = {"iterations": kt, "reference_iterations": kb,
+                         "host_reads": reads_t,
                          "X_rel_err": xe, "ms_per_iter": 1e3 * wall / kt,
                          "reference_ms_per_iter": 1e3 * wall_b / kb}
     return out
@@ -4595,6 +4840,11 @@ def kernels_line(summary):
         entry["tv_deconv_launches"] = {
             model: summary["tv_solve"][model]["launches"][name]
             for model in ("TVL2Deconv", "TVL1Deconv")}
+        # the line-search FISTA solves' on the graph route (their trials
+        # in IF nodes), BT_ITERS iterations each
+        entry["bt_launches"] = {
+            bt: summary["bt_solve"][bt]["graph"]["launches"][name]
+            for bt in ("standard", "robust")}
     # the forms this slice added, as entries of their own: the AMS tail
     # (launches in the fused cbpdnmsk solve; cbpdngrdmsk's beside) and the
     # "mixed" forward product (launches in the mixed fused solves)
@@ -4695,6 +4945,10 @@ def main(argv):
         lambda: phase_generic_solve(dev, D, S, lmbda, summary["solve"]))
     run_phase("pgm_generic_solve",
               lambda: phase_pgm_generic_solve(dev, D, S, lmbda))
+    summary["cond_node"] = run_phase("cond_node",
+                                     lambda: phase_cond_node(dev))
+    summary["bt_solve"] = run_phase(
+        "bt_solve", lambda: phase_bt_solve(dev, D, S, lmbda))
     summary["tail_kernel"] = run_phase("tail_kernel",
                                        lambda: phase_tail_kernel(dev))
     Dg, gkw = gradreg_problem(D)

@@ -145,8 +145,10 @@ def _uinit_single(cfg, params):
     return torch.zeros_like(params["D0"])
 
 
-# cg: the conjugate gradient reads its stopping test on the host every
-# CG iteration (ops/linalg.py cg), so that problem takes the eager route
+# cg: the conjugate gradient reads its stopping test on the host once a
+# block of 8 CG iterations (ops/linalg.py cg), an unbounded inner loop
+# that a captured ADMM iteration cannot hold, so that problem takes the
+# eager route
 _CCMOD_SINGLE = {
     m: ADMMProblem(setup=_setup, xstep=_xstep_single, ystep=_ystep_single,
                    obfn=_obfn, yinit=_yinit, uinit=_uinit_single,

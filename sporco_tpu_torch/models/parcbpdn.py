@@ -7,15 +7,22 @@ alpha y1)`` (``sporco/admm/parcbpdn.py:353``).  Every step is
 independent per group except the coupled ``y0`` solve, a sum over the
 groups with a cached inverse off-diagonal element
 (``parcbpdn.py:182-205``).  The group axis is a leading tensor axis, so
-each per-group step is one batched op; the loop runs on the host with one
-read of its scalars an iteration.
+each per-group step is one batched op.  The iteration runs on the device
+loop (:mod:`sporco_tpu_torch.ops.device_loop`), as the JAX package's
+``lax.while_loop`` does: the residuals, tolerances, stopping test and
+stats row are 0-d tensors computed on the device in the model's type, in
+the host forms' order, and the host reads the stopping flag once a block
+of 8 iterations and the final state once (``ceil(k / 8) + 1`` reads a
+solve).  On the card one iteration is a CUDA graph, kept with the loop
+for the next solve of the same key.
 
 With ``mesh=`` (:func:`sporco_tpu_torch.parallel.mesh.make_mesh`), each
 rank holds L/F groups, F the mesh's ``"filter"`` size, and three sums of
 an iteration become ``all_reduce`` over the ``"filter"`` group: the
 ``y0`` coupling (``:146`` of the JAX module), then the reconstruction
 ``DXsum`` (``:180``) together with the residual norms and the l1 term,
-in one collective.
+in one collective.  On NCCL both are captured in the iteration's graph;
+a mesh of CPU ranks (gloo) runs the same blocks eagerly.
 
 Residuals and stopping follow the reference (``parcbpdn.py:318-352,
 783-819``): unnormalised ``r = sqrt(sum_g ||DX_g - Y0_g||^2 + alpha^2
@@ -39,13 +46,17 @@ from sporco_tpu_torch._device import fp32_precision, resolve_device
 from sporco_tpu_torch.models.cbpdn import (_max_abs_dhs, host_array,
                                            reconstruct)
 from sporco_tpu_torch.models.common import ADMMModel
+from sporco_tpu_torch.ops import device_loop
 from sporco_tpu_torch.ops import fft as sf
+from sporco_tpu_torch.ops import fft2_planar
 from sporco_tpu_torch.ops import linalg as sl
 from sporco_tpu_torch.ops import prox as sp
 from sporco_tpu_torch.parallel.mesh import (all_reduce_sum, axis_rank,
                                             axis_size, mesh_device)
 from sporco_tpu_torch.solvers.admm import (ADMMOpts, AutoRhoOpts,
-                                           IterStats, scalar_type)
+                                           IterStats, _loop_key, as_row,
+                                           guarded_update, scalar_type,
+                                           sqrt_t, write_row)
 
 __all__ = ["ParConvBPDN"]
 
@@ -67,7 +78,9 @@ class ParCfg:
 
 def _iteration(cfg, p, st, aux):
     """One iteration (``parcbpdn.py:132-265``) on this rank's groups;
-    returns the new arrays and the host scalars of the iteration."""
+    returns the new arrays and a tensor of the iteration's sums (the
+    eleven of the residuals, norms and l1 term, then the data term),
+    reduced over the groups."""
     cri = cfg.cri
     axes = tuple(range(-cri.dimN, 0))
     Nv = cri.Nv
@@ -120,8 +133,78 @@ def _iteration(cfg, p, st, aux):
     else:
         sums = torch.stack(sums)
     dfd = 0.5 * torch.sum((p["W"] * (DXsum - p["S"])) ** 2)
-    host = torch.cat([sums, dfd.reshape(1)]).cpu().numpy()
-    return (Y0n, U0n, Y1n, U1n, Xnr, DXnr), host
+    return (Y0n, U0n, Y1n, U1n, Xnr, DXnr), torch.cat([sums,
+                                                        dfd.reshape(1)])
+
+
+def _par_loop(cfg, ft, T, p_spec, n_p, n_s):
+    """The iteration over the static tensors ``T`` (the parameters and
+    set-up result ``p*``, the arrays ``s*``, the scalars ``sc = [k, k0,
+    r, s, epri, edua]``, the stats rows), as a
+    :class:`~sporco_tpu_torch.ops.device_loop.Loop`: the residuals and
+    tolerances of ``parcbpdn.py:783-819`` as the host forms took them, in
+    the model's type, correctly rounded roots."""
+    cri = cfg.cri
+    p, aux = device_loop.unflatten(p_spec, [T[f"p{i}"] for i in range(n_p)])
+    olds = [T[f"s{i}"] for i in range(n_s)]
+    sc, stats, fcnt, enable = T["sc"], T["stats"], T["fcnt"], T["enable"]
+    k, k0, r, s, epri, edua = sc
+    rdt = sc.dtype
+    dev = sc.device
+    L = cfg.ngrp
+    # constraint and dual space sizes for the AbsStopTol terms,
+    # sqrt(Nc) and sqrt(Nx) of parcbpdn.py:790-795 (taken in float32
+    # as the JAX package takes them)
+    nY0 = L * cri.K * cri.C * int(np.prod(cri.Nv))
+    nY1 = L * cri.K * (cri.M // L) * int(np.prod(cri.Nv))
+    rtN = ft(np.sqrt(np.float32(nY0 + nY1)))
+    atol = float(rtN * ft(cfg.abs_stop_tol))
+    rtol = float(ft(cfg.rel_stop_tol))
+    a2, rho, lm = (float(ft(v)) for v in (p["alpha2"], p["rho"],
+                                           p["lmbda"]))
+    T["live"] = live = torch.zeros((), dtype=torch.bool, device=dev)
+    inf = torch.full((), np.inf, dtype=rdt, device=dev)
+    zero = torch.zeros((), dtype=rdt, device=dev)
+    nan = torch.full((), np.nan, dtype=rdt, device=dev)
+
+    def converged():
+        return ((r <= epri) & (s <= edua)) | (k - k0 >= cfg.max_iter)
+
+    def step():
+        device_loop.stage("stopping test")
+        torch.logical_and(enable, ~converged(), out=live)
+        with fft2_planar.gate(live.to(torch.float32), fcnt):
+            device_loop.stage("iteration")
+            news, h = _iteration(cfg, p, tuple(olds[:4]), aux)
+        device_loop.stage("scalar tail")
+        if cfg.fast_solve:
+            r_, s_, epri_, edua_ = inf, inf, zero, zero
+            obj = dfd = rl1 = nan
+        else:
+            r_ = sqrt_t(h[0] + h[1] * a2)
+            s_ = sqrt_t(h[2] + h[3] * a2)
+            nrmAx = sqrt_t(h[4] + h[5] * a2)
+            nrmBy = sqrt_t(h[6] + h[7] * a2)
+            nrmu = sqrt_t(h[8] + h[9])
+            epri_ = torch.maximum(nrmAx, nrmBy) * rtol + atol
+            edua_ = nrmu * rtol + atol
+            dfd, rl1 = h[11], h[10]
+            obj = dfd + rl1 * lm
+        write_row(stats, k, k0, live, as_row(
+            (k, obj, dfd, rl1, r_, s_, epri_, edua_, rho), rdt, dev))
+        torch.where(live, torch.stack([k + 1.0, k0, r_, s_, epri_, edua_]),
+                    sc, out=sc)
+        device_loop.stage("state")
+        guarded_update(live, olds, list(news))
+        return live
+
+    def status():
+        return torch.stack([converged().to(rdt), k - k0])
+
+    return device_loop.Loop(
+        T, step, status,
+        lambda: torch.cat([sc, fcnt.to(rdt), stats.reshape(-1).to(rdt)]),
+        lambda i, n: stats[i:i + n], lambda row: None)
 
 
 class ParConvBPDN(ADMMModel):
@@ -255,48 +338,48 @@ class ParConvBPDN(ADMMModel):
         cfg, p = self.cfg, self.params
         cri = cfg.cri
         ft = scalar_type(self.opts.dtype)
-        L = cfg.ngrp
-        # constraint and dual space sizes for the AbsStopTol terms,
-        # sqrt(Nc) and sqrt(Nx) of parcbpdn.py:790-795 (taken in float32
-        # as the JAX package takes them)
-        nY0 = L * cri.K * cri.C * int(np.prod(cri.Nv))
-        nY1 = L * cri.K * (cri.M // L) * int(np.prod(cri.Nv))
-        rtN = ft(np.sqrt(np.float32(nY0 + nY1)))
-        atol = rtN * ft(cfg.abs_stop_tol)
-        rtol = ft(cfg.rel_stop_tol)
-        a2, rho, lm = ft(p["alpha2"]), ft(p["rho"]), p["lmbda"]
+        rdt = sf.real_dtype(self.opts.dtype)
+        dev = self.device
         Y0, U0, Y1, U1, X, DX, k, r, s, epri, edua, _ = self.state
         k0 = int(k)
-        kmax = k0 + cfg.max_iter
-        stats = self._fresh_stats()
         with fp32_precision(), torch.no_grad():
             Dfg = sf.rfftn(p["D"], s=cri.Nv, axes=tuple(range(-cri.dimN,
                                                               0)))
             aux = (Dfg, torch.sum((Dfg * Dfg.conj()).real, dim=3,
                                   keepdim=True))
-            st = (Y0, U0, Y1, U1)
-            while int(k) < kmax and not (r <= epri and s <= edua):
-                (Y0n, U0n, Y1n, U1n, X, DX), h = _iteration(cfg, p, st, aux)
-                h = h.astype(ft)
-                if cfg.fast_solve:
-                    r = s = ft(np.inf)
-                    epri = edua = ft(0.0)
-                    obj = dfd = rl1 = np.nan
-                else:
-                    r = np.sqrt(h[0] + a2 * h[1])
-                    s = np.sqrt(h[2] + a2 * h[3])
-                    nrmAx = np.sqrt(h[4] + a2 * h[5])
-                    nrmBy = np.sqrt(h[6] + a2 * h[7])
-                    nrmu = np.sqrt(h[8] + h[9])
-                    epri = atol + np.maximum(nrmAx, nrmBy) * rtol
-                    edua = atol + nrmu * rtol
-                    dfd, rl1 = h[11], h[10]
-                    obj = dfd + lm * rl1
-                stats[int(k) - k0] = (k, obj, dfd, rl1, r, s, epri, edua,
-                                      rho)
-                st = (Y0n, U0n, Y1n, U1n)
-                k = np.int32(k + 1)
-        return st + (X, DX, k, r, s, epri, edua, stats)
+            p_leaves, p_spec, p_key = device_loop.flatten((p, aux))
+            s_leaves, s_spec, s_key = device_loop.flatten(
+                (Y0, U0, Y1, U1, X, DX), shared=False)
+            key = _loop_key("parcbpdn", None, cfg, self.opts,
+                            (p_key, s_key))
+            kind = ("parcbpdn", str(dev))
+            fresh = {f"p{i}": v for i, v in enumerate(p_leaves)}
+            fresh.update({f"s{i}": v for i, v in enumerate(s_leaves)})
+            fresh["sc"] = torch.tensor([k0, k0, r, s, epri, edua],
+                                       dtype=rdt, device=dev)
+            fresh["stats"] = torch.tensor(self._fresh_stats(), device=dev)
+            fresh["fcnt"] = torch.zeros(2, dtype=torch.int32, device=dev)
+            fresh["enable"] = torch.ones((), dtype=torch.bool, device=dev)
+            loop = device_loop.kept(kind, key)
+            if loop is None:
+                T = {n: v.clone() for n, v in fresh.items()}
+                loop = device_loop.keep(kind, key, _par_loop(
+                    cfg, ft, T, p_spec, len(p_leaves), len(s_leaves)))
+            else:
+                loop.refill(fresh)
+            host = device_loop.run(loop, cfg.max_iter,
+                                   bool(r <= epri and s <= edua), dev)
+            T = loop.t
+            if dev.type == "cuda":
+                # the FFT kernels' live launches in the loop
+                fft2_planar.LAUNCHES["rfft2_planar"] += int(host[6])
+                fft2_planar.LAUNCHES["irfft2_planar"] += int(host[7])
+            k, _, r, s, epri, edua = (ft(v) for v in host[:6])
+            # new tensors: the loop's are refilled by its next call
+            arrays = tuple(T[f"s{i}"].clone() for i in range(len(s_leaves)))
+        return arrays + (np.int32(k), r, s, epri, edua,
+                         host[8:].reshape(cfg.max_iter, len(_STAT_NAMES))
+                         .astype(np.float32))
 
     def solve(self):
         """Run (or resume) the solve; returns the coefficient maps in the

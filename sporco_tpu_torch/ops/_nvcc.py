@@ -42,8 +42,9 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# every source of csrc/ that holds kernels, as build() takes them
-KERNELS = ("csc_iter", "pgm_iter", "fft2_planar", "csc_tail")
+# every source of csrc/ that holds kernels, as build() takes them (the
+# last, the device loop's IF node, ports no TPU kernel)
+KERNELS = ("csc_iter", "pgm_iter", "fft2_planar", "csc_tail", "cond_node")
 
 _LIBS = {}
 # name -> {"path", "cached", "seconds", "log"} for every loaded library

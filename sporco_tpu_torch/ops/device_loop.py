@@ -43,9 +43,14 @@ tensors of ``params``, of ``prob.setup``'s result and of the state are
 leaves of trees (:func:`flatten`), copied once into static tensors of
 the loop and refilled by a later call of the same key.  A problem whose
 iteration synchronises with the host by nature (a ``torch.linalg`` call
-that checks its result on the host, a host callable, a line search that
-reads its test) declares the eager route: on the card its blocks run
-eagerly, with no graph, and the same single read a block.
+that checks its result on the host, a host callable, an unbounded inner
+loop such as conjugate gradient) declares the eager route: on the card
+its blocks run eagerly, with no graph, and the same single read a block.
+
+Conditional blocks inside an iteration (the JAX package's ``lax.cond``
+and bounded inner ``while_loop``: a line search's trials, the
+iterations of a CG block) are :func:`when`: an IF node of the captured
+graph on the card, a host test elsewhere.
 """
 
 import dataclasses
@@ -53,7 +58,7 @@ import dataclasses
 import torch
 
 __all__ = ["UNROLL", "LAST", "Loop", "Piece", "kept", "keep",
-           "clear_cache", "run", "read", "flag", "stage", "flatten",
+           "clear_cache", "run", "read", "when", "stage", "flatten",
            "unflatten"]
 
 UNROLL = 8
@@ -78,14 +83,15 @@ def read(t):
     return t.detach().cpu().numpy()
 
 
+# eager reads of when()'s flags in the current run (LAST["flag_reads"])
 _FLAGS = [0]
 
 
-def flag(t):
-    """A one-element bool tensor read on the host inside an iteration of
-    the eager route (a line search's test), counted in ``LAST``."""
-    _FLAGS[0] += 1
-    return bool(read(t))
+# while _capture warms its function up (eagerly, ``enable`` 0), and the
+# memory pool of each capture under way (for the IF nodes' bodies) with
+# whether its recording follows the capturing thread yet
+_WARM = [False]
+_POOLS = []
 
 
 def _capture(step, device):
@@ -94,33 +100,159 @@ def _capture(step, device):
     cur = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(cur)
-    with torch.cuda.stream(side):
-        step()
+    _WARM[0] = True
+    try:
+        with torch.cuda.stream(side):
+            step()
+    finally:
+        _WARM[0] = False
     cur.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    pool = torch.cuda.graph_pool_handle()
+    # what the IF nodes need, made before the capture: the library, its
+    # kernel loaded, the bodies' streams of the first two depths
+    for depth in (0, 1):
+        _body_stream(device, depth)
     side.wait_stream(cur)
-    with torch.cuda.stream(side):
-        # thread-local: another thread's CUDA calls (a profiler's, a
-        # process group's watchdog) do not invalidate the capture
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            step()
-        except Exception as exc:
+    _POOLS.append([pool, False])
+    try:
+        with torch.cuda.stream(side):
+            # thread-local: another thread's CUDA calls (a profiler's, a
+            # process group's watchdog) do not invalidate the capture
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                step()
+            except Exception as exc:
+                try:
+                    graph.capture_end()
+                except Exception:
+                    pass
+                raise RuntimeError(
+                    "CUDA-graph capture of the loop's iteration failed "
+                    f"in {_STAGE[0]!r}: {exc}") from exc
             try:
                 graph.capture_end()
-            except Exception:
-                pass
-            raise RuntimeError(
-                "CUDA-graph capture of the loop's iteration failed "
-                f"in {_STAGE[0]!r}: {exc}") from exc
-        try:
-            graph.capture_end()
-        except Exception as exc:
-            raise RuntimeError(
-                "CUDA-graph capture of the loop's iteration failed "
-                f"at its end (last stage {_STAGE[0]!r}): {exc}") from exc
+            except Exception as exc:
+                raise RuntimeError(
+                    "CUDA-graph capture of the loop's iteration failed "
+                    f"at its end (last stage {_STAGE[0]!r}): {exc}") from exc
+    finally:
+        _POOLS.pop()
     cur.wait_stream(side)
     return graph
+
+
+def when(pred, body):
+    """Run ``body()`` where the 0-d bool tensor ``pred`` is true (the JAX
+    package's ``lax.cond`` with an empty other branch).
+
+    While the device loop captures a CUDA graph, this adds an IF node to
+    it (``csrc/cond_node.cu``): ``body``'s work is captured into the
+    node's body graph and runs, when the graph is replayed, only where
+    ``pred`` then holds; nothing is read on the host.  ``body`` gives its
+    results by writing (``copy_``) into tensors made before the node: the
+    graph after the node reads fixed addresses, whether the body ran or
+    not.  A body may hold only what a conditional body may (kernels,
+    device-memory copies and sets, graphs and further IF nodes); anything
+    else fails the capture, named by its ``stage``.  Outside a capture
+    (the CPU, the eager route on the card) ``pred`` is read on the host,
+    counted in ``LAST["flag_reads"]``; during the capture's eager warm-up
+    (``enable`` 0, so every guarded ``pred`` is false) the body is
+    skipped unread.  Returns None where it made a node, else whether the
+    body ran."""
+    if pred.device.type == "cuda" and \
+            torch.cuda.is_current_stream_capturing():
+        _if_node(pred, body)
+        return None
+    if _WARM[0]:
+        return False
+    _FLAGS[0] += 1
+    if bool(read(pred)):
+        body()
+        return True
+    return False
+
+
+_COND = {}
+
+
+def _cond_lib():
+    lib = _COND.get("lib")
+    if lib is None:
+        import ctypes
+        from sporco_tpu_torch.ops import _nvcc
+        lib = _nvcc.load("cond_node")
+        lib.cond_if_begin.argtypes = [ctypes.c_void_p] * 3
+        lib.cond_if_begin.restype = ctypes.c_int
+        lib.cond_if_end.argtypes = [ctypes.c_void_p]
+        lib.cond_if_end.restype = ctypes.c_int
+        lib.cond_stream_create.argtypes = [ctypes.c_void_p]
+        lib.cond_stream_create.restype = ctypes.c_int
+        lib.cond_init.argtypes = []
+        lib.cond_init.restype = ctypes.c_int
+        err = lib.cond_init()
+        if err != 0:
+            raise RuntimeError(f"cond_node: CUDA error {err} at load")
+        _COND["lib"] = lib
+    return lib
+
+
+def _body_stream(device, depth):
+    """The stream that captures the bodies of IF nodes ``depth`` deep, one
+    a depth and device for the process: the caching allocator reuses a
+    block freed by a body only on its stream, so the bodies of a flat
+    chain of nodes share one set of temporaries."""
+    import ctypes
+    key = (device.index, depth)
+    s = _COND.get(key)
+    if s is None:
+        h = ctypes.c_void_p()
+        err = _cond_lib().cond_stream_create(ctypes.byref(h))
+        if err != 0:
+            raise RuntimeError(f"IF-node body stream: CUDA error {err}")
+        s = _COND[key] = torch.cuda.ExternalStream(h.value, device=device)
+    return s
+
+
+_DEPTH = [0]
+
+
+def _if_node(pred, body):
+    if pred.dtype != torch.bool or pred.numel() != 1:
+        raise ValueError("when() takes a one-element bool tensor, not "
+                         f"{pred.dtype} of shape {tuple(pred.shape)}")
+    if not _POOLS:
+        raise RuntimeError("when() makes an IF node only inside the device "
+                           "loop's capture (device_loop._capture)")
+    dev = pred.device
+    cap = _POOLS[-1]
+    lib = _cond_lib()
+    child = _body_stream(dev, _DEPTH[0])
+    parent = torch.cuda.current_stream(dev)
+    err = lib.cond_if_begin(parent.cuda_stream, child.cuda_stream,
+                            pred.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"IF node in {_STAGE[0]!r}: CUDA error {err}")
+    _DEPTH[0] += 1
+    try:
+        if not cap[1]:
+            # the graph's pool takes this thread's allocations from here
+            # to the capture's end, the bodies' among them (its own
+            # filter knows the parent stream's capture only, and a pool
+            # records under one filter at a time); capture_end ends it
+            torch._C._cuda_endAllocateToPool(dev.index, cap[0])
+            torch._C._cuda_beginAllocateCurrentThreadToPool(dev.index,
+                                                            cap[0])
+            torch._C._cuda_releasePool(dev.index, cap[0])
+            cap[1] = True
+        with torch.cuda.stream(child):
+            body()
+    finally:
+        _DEPTH[0] -= 1
+        err = lib.cond_if_end(child.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"IF node's body in {_STAGE[0]!r}: CUDA error "
+                           f"{err}")
 
 
 class Piece:

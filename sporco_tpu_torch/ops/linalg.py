@@ -110,12 +110,36 @@ def solvemdbi_ism(ah, rho, b, axisM, axisK):
     return beta
 
 
-def cg(aop, b, x0=None, tol=1e-5, max_iter=1000, m_inv=None):
+# The last cg call: its iterations, blocks, host reads (one a block) and
+# the eager reads of its conditional blocks' tests (the CPU's; none on
+# the card), as ``device_loop.LAST`` records a loop's.
+CG_LAST = {}
+
+# the graphs of cg blocks kept between calls, by the caller's key
+_CG_KEPT = {}
+CG_MAX_KEPT = 2
+
+
+def cg(aop, b, x0=None, tol=1e-5, max_iter=1000, m_inv=None, key=None):
     """Conjugate gradient for a Hermitian positive-definite operator
     ``aop`` on tensors (``sporco/linalg.py:515``; the same recurrence and
-    stopping test as the JAX package's ``cg``).  The test reads one
-    scalar per iteration on the host.  Returns ``(x, k)`` with ``k`` the
-    number of iterations run, a Python int."""
+    stopping test as the JAX package's ``cg``, whose ``lax.while_loop``
+    keeps the test on the device).
+
+    The state (x, r, z, p, rz, k) lives in tensors of the call's own, and
+    the iterations run in blocks of ``device_loop.UNROLL``, each one a
+    conditional block (``device_loop.when``) on ``live = (k < max_iter)
+    & (||r|| > thr)``, computed on the device at the end of the iteration
+    before.  The host reads ``live`` and k once a block: a solve of c
+    iterations reads max(1, ceil(c / 8)) times (:data:`CG_LAST`).  On the
+    card a block is one CUDA graph (``device_loop.Piece``, its iterations
+    IF nodes), captured at the call's first block; with ``key`` the graph
+    is kept for the next call of that key, which the caller gives only
+    where ``aop`` and ``m_inv`` read the same tensors every call (their
+    addresses in the key).  Inside another capture cg raises: its reads
+    need the host.  Returns ``(x, k)`` with ``k`` the number of
+    iterations run, a Python int."""
+    from sporco_tpu_torch.ops import device_loop
     if x0 is None:
         x0 = torch.zeros_like(b)
 
@@ -123,24 +147,92 @@ def cg(aop, b, x0=None, tol=1e-5, max_iter=1000, m_inv=None):
         return torch.sum((u.conj() * v).real)
 
     tiny = 1e-30
+    cuda = b.device.type == "cuda"
+    if cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("cg reads its stopping test on the host once a "
+                           "block: it cannot run inside a CUDA-graph "
+                           "capture")
+    kkey = None if key is None else (key, tuple(b.shape), b.dtype,
+                                     str(b.device), tol, max_iter,
+                                     m_inv is not None)
+    st = _CG_KEPT.get(kkey) if cuda else None
+    if st is None:
+        st = _cg_state(aop, b, m_inv, max_iter, dotp, tiny, device_loop)
+        if cuda and kkey is not None:
+            while len(_CG_KEPT) >= CG_MAX_KEPT:
+                del _CG_KEPT[next(iter(_CG_KEPT))]
+            _CG_KEPT[kkey] = st
+    # the set-up, eagerly: the first residual and the first test
     bn = torch.sqrt(dotp(b, b))
     r = b - aop(x0)
     z = m_inv(r) if m_inv is not None else r
-    x, p, rz = x0, z, dotp(r, z)
-    thr = tol * torch.clamp(bn, min=tiny)
-    k = 0
-    while k < max_iter and bool(torch.sqrt(dotp(r, r)) > thr):
+    st["x"].copy_(x0)
+    st["r"].copy_(r)
+    if m_inv is not None:
+        st["z"].copy_(z)
+    st["p"].copy_(z)
+    st["rz"].copy_(dotp(r, z))
+    st["k"].zero_()
+    st["thr"].copy_(tol * torch.clamp(bn, min=tiny))
+    st["test"]()
+    flags = device_loop._FLAGS[0]
+    reads = blocks = 0
+    while True:
+        st["block"]()
+        host = device_loop.read(torch.stack([st["live"].to(torch.int64),
+                                             st["k"]]))
+        reads += 1
+        blocks += 1
+        if not host[0]:
+            break
+    k = int(host[1])
+    CG_LAST.clear()
+    CG_LAST.update(iterations=k, blocks=blocks, host_reads=reads,
+                   flag_reads=device_loop._FLAGS[0] - flags,
+                   graph=getattr(st["block"], "graph", None) is not None,
+                   kept=kkey in _CG_KEPT)
+    return st["x"].clone(), k
+
+
+def _cg_state(aop, b, m_inv, max_iter, dotp, tiny, device_loop):
+    """The tensors of a cg solve and its block (see :func:`cg`)."""
+    rdt = b.real.dtype if b.is_complex() else b.dtype
+    dev = b.device
+    st = {n: torch.empty_like(b) for n in ("x", "r", "p")}
+    st["z"] = torch.empty_like(b) if m_inv is not None else st["r"]
+    st["rz"] = torch.zeros((), dtype=rdt, device=dev)
+    st["thr"] = torch.zeros((), dtype=rdt, device=dev)
+    st["k"] = torch.zeros((), dtype=torch.int64, device=dev)
+    st["live"] = live = torch.zeros((), dtype=torch.bool, device=dev)
+    x, r, z, p, rz, k = (st[n] for n in ("x", "r", "z", "p", "rz", "k"))
+
+    def test():
+        torch.logical_and(k < max_iter, torch.sqrt(dotp(r, r)) > st["thr"],
+                          out=live)
+
+    def iteration():
+        device_loop.stage("cg iteration")
         ap = aop(p)
         alpha = rz / torch.clamp(dotp(p, ap), min=tiny)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = m_inv(r) if m_inv is not None else r
+        x.copy_(x + alpha * p)
+        r.copy_(r - alpha * ap)
+        if m_inv is not None:
+            z.copy_(m_inv(r))
         rz_new = dotp(r, z)
         beta = rz_new / torch.clamp(rz, min=tiny)
-        p = z + beta * p
-        rz = rz_new
-        k += 1
-    return x, k
+        p.copy_(z + beta * p)
+        rz.copy_(rz_new)
+        k.add_(1)
+        test()
+
+    def block():
+        for _ in range(device_loop.UNROLL):
+            if device_loop.when(live, iteration) is False:
+                break
+    st["test"] = test
+    st["block"] = (device_loop.Piece(block, dev) if dev.type == "cuda"
+                   else block)
+    return st
 
 
 def solvemdbi_cg(ah, rho, b, axisM, axisK, tol=1e-5, max_iter=1000,
@@ -154,8 +246,14 @@ def solvemdbi_cg(ah, rho, b, axisM, axisK, tol=1e-5, max_iter=1000,
         return rho * u + torch.sum(a * inner(ah, u, axis=axisM),
                                    dim=axisK, keepdim=True)
 
+    # aop reads ah, a view of it and rho: the same tensors (by address)
+    # give the same block graph
+    rkey = (("t", rho.data_ptr(), rho.dtype) if isinstance(rho, torch.Tensor)
+            else ("v", float(rho)))
+    key = ("solvemdbi_cg", ah.data_ptr(), tuple(ah.shape), ah.stride(),
+           ah.dtype, rkey, axisM, axisK)
     with fp32_precision():
-        return cg(aop, b, x0=x0, tol=tol, max_iter=max_iter)
+        return cg(aop, b, x0=x0, tol=tol, max_iter=max_iter, key=key)
 
 
 # ---------------------------------------------------------------------------

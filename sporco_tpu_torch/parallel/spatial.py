@@ -19,11 +19,17 @@ device decomposes by rows:
 :func:`tvl2deconv_nsharded` and :func:`cbpdn_nsharded` keep the generic
 ADMM driver's semantics (normalised residuals, AutoRho with the dual
 rescale, early stopping), so their iterations follow the single-device
-``TVL2Deconv`` and ``ConvBPDN(fused=False)`` to rounding.  The loop runs
-on the host with one read of the reduced sums an iteration, as the
-port's generic driver does.  The transforms are ``torch.fft``'s 1-D
-ones: no kernel of the port runs here (the JAX package's functions use
-``jnp.fft`` too).
+``TVL2Deconv`` and ``ConvBPDN(fused=False)`` to rounding.  They run on
+the device loop (:mod:`sporco_tpu_torch.ops.device_loop`), as the JAX
+package's ``lax.while_loop`` under ``shard_map`` does: rho, the
+residuals, tolerances and stats rows are 0-d tensors of the solve's type
+(``norm_residuals_t``, ``rsf_t``), the sums of an iteration one
+``all_reduce`` with no read, and the host reads the stopping flag once a
+block of 8 iterations and the final state once.  On NCCL an iteration,
+its ``all_to_all_single`` and ``all_reduce`` included, is one CUDA
+graph; ranks on gloo (the CPU) run the same blocks eagerly.  The
+transforms are ``torch.fft``'s 1-D ones: no kernel of the port runs
+here (the JAX package's functions use ``jnp.fft`` too).
 """
 
 import math
@@ -33,12 +39,15 @@ import torch
 import torch.distributed as dist
 
 from sporco_tpu_torch._device import fp32_precision
+from sporco_tpu_torch.ops import device_loop
 from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import prox as sp
 from sporco_tpu_torch.parallel.mesh import (all_reduce_sum, axis_rank,
                                             axis_size, mesh_device,
                                             shard_batch)
-from sporco_tpu_torch.solvers.admm import _rsf, norm_residuals, scalar_type
+from sporco_tpu_torch.solvers.admm import (as_row, const_div, guarded_update,
+                                           norm_residuals_t, rsf_t,
+                                           scalar_type, sqrt_t, write_row)
 
 __all__ = ["dist_rfft2", "dist_irfft2", "tvl2deconv_nsharded",
            "cbpdn_nsharded"]
@@ -112,10 +121,49 @@ def _col_block(af, K1, K1p, cols):
     return torch.cat([af, pad], dim=-1)[..., cols]
 
 
-def _host_sums(vals, group):
-    """The 0-d tensors ``vals`` summed over ``group`` and read back: the
-    one collective and the one host read of an iteration."""
-    return all_reduce_sum(torch.stack(vals), group).cpu().numpy()
+def _sums(vals, group):
+    """The 0-d tensors ``vals`` summed over ``group``: the one collective
+    of an iteration."""
+    return all_reduce_sum(torch.stack(vals), group)
+
+
+def _loop(dtype, dev, arrays, rho0, max_iter, iteration, nstat=0):
+    """A device loop over the state ``arrays`` (X, Y, U) and the scalars
+    ``sc = [rho, k, r, s, epri, edua]`` (k from 0), with ``nstat``
+    columns of stats rows: ``iteration()`` gives the new arrays, the new
+    scalars and the row."""
+    rdt = sf.real_dtype(dtype)
+    inf = float("inf")
+    T = {"sc": torch.tensor([rho0, 0.0, inf, inf, 0.0, 0.0], dtype=rdt,
+                            device=dev),
+         "stats": torch.full((max_iter, nstat), float("nan"),
+                             dtype=torch.float32, device=dev),
+         "enable": torch.ones((), dtype=torch.bool, device=dev),
+         "live": torch.zeros((), dtype=torch.bool, device=dev)}
+    sc, stats, live = T["sc"], T["stats"], T["live"]
+    rho, k, r, s, epri, edua = sc
+    zero = torch.zeros((), dtype=rdt, device=dev)
+
+    def converged():
+        return ((r <= epri) & (s <= edua)) | (k >= max_iter)
+
+    def step():
+        device_loop.stage("stopping test")
+        torch.logical_and(T["enable"], ~converged(), out=live)
+        device_loop.stage("iteration")
+        news, scal, row = iteration()
+        device_loop.stage("scalar tail")
+        if nstat:
+            write_row(stats, k, zero, live, row)
+        torch.where(live, torch.stack(scal), sc, out=sc)
+        guarded_update(live, arrays, news)
+        return live
+
+    def status():
+        return torch.stack([converged().to(rdt), k])
+    return device_loop.Loop(
+        T, step, status, lambda: torch.cat([sc, stats.reshape(-1).to(rdt)]),
+        lambda i, n: stats[i:i + n], lambda row: None)
 
 
 def tvl2deconv_nsharded(A, S, lmbda, mesh, opt=None, Wtv=1.0, dtype=None):
@@ -163,33 +211,36 @@ def tvl2deconv_nsharded(A, S, lmbda, mesh, opt=None, Wtv=1.0, dtype=None):
         X = torch.zeros_like(S_loc)
         Y = torch.zeros((2,) + S_loc.shape, dtype=dtype, device=dev)
         U = torch.zeros_like(Y)
-        k, r, s, epri, edua = 0, ft(np.inf), ft(np.inf), ft(0.0), ft(0.0)
-        while k < opt.max_iter and not (r <= epri and s <= edua):
+        xi = torch.ones((), dtype=sf.real_dtype(dtype), device=dev)
+
+        def iteration():
+            rho, k = sc[0], sc[1]
             # x-step (tvl2.py:594-610): per bin in the column block
-            b = AHSf + float(rho) * cnst_at_f(dist_rfft2(Y - U, P, group))
-            den = AHAf + float(rho) * GHGf
+            b = AHSf + rho * cnst_at_f(dist_rfft2(Y - U, P, group))
+            den = AHAf + rho * GHGf
             Xf = torch.where(mask, b / torch.where(mask, den, 1.0), 0.0)
             Xl = irf(Xf[None])[0]
             AXnr = irf(Gf * Xf[None])
             AX = rlx * AXnr + (1 - rlx) * Y
-            Yn = sp.prox_l2(AX + U, float((lmbda / rho) * Wtv), axis=(0,))
+            Yn = sp.prox_l2(AX + U, const_div(lmbda, rho) * Wtv, axis=(0,))
             Un = U + AX - Yn
             # residuals (the generic driver's), reduced in one collective
             sv = irf(cnst_at_f(dist_rfft2(Yn - Y, P, group))[None])[0]
             atu = irf(cnst_at_f(dist_rfft2(Un, P, group))[None])[0]
-            h = _host_sums([torch.sum(v * v) for v in
-                            (AXnr - Yn, sv, AXnr, Yn, atu)], group)
-            h = h.astype(ft)
-            rn = np.maximum(np.sqrt(h[2]), np.sqrt(h[3]))
-            r, s, epri, edua = norm_residuals(
-                ar, opt, nc, nx, np.sqrt(h[0]), rho * np.sqrt(h[1]), rn,
-                rho * np.sqrt(h[4]), ft)
+            h = sqrt_t(_sums([torch.sum(v * v) for v in
+                              (AXnr - Yn, sv, AXnr, Yn, atu)], group))
+            r, s, epri, edua = norm_residuals_t(
+                ar, opt, nc, nx, h[0], rho * h[1], torch.maximum(h[2], h[3]),
+                rho * h[4])
             # adaptive rho with the dual rescale (admm.py:549-575)
-            rsf = _rsf(ar, k, r, s, ft(1.0), ft)
-            if rsf != 1.0:
-                Un = Un / float(rsf)
-            X, Y, U, k, rho = Xl, Yn, Un, k + 1, ft(rho * rsf)
-    return X, k, float(r), float(s)
+            rsf = rsf_t(ar, k, r, s, xi)
+            return [Xl, Yn, Un / rsf], [rho * rsf, k + 1.0, r, s, epri,
+                                        edua], None
+
+        loop = _loop(dtype, dev, [X, Y, U], rho, opt.max_iter, iteration)
+        sc = loop.t["sc"]
+        host = device_loop.run(loop, opt.max_iter, False, dev)
+    return X, int(host[1]), float(ft(host[2])), float(ft(host[3]))
 
 
 def cbpdn_nsharded(D, S, lmbda, mesh, opt=None, wl1=1.0, dtype=None):
@@ -249,38 +300,49 @@ def cbpdn_nsharded(D, S, lmbda, mesh, opt=None, wl1=1.0, dtype=None):
         shp = (M,) + tuple(S_loc.shape)
         X = torch.zeros(shp, dtype=dtype, device=dev)
         Y, U = torch.zeros_like(X), torch.zeros_like(X)
-        k, r, s, epri, edua = 0, ft(np.inf), ft(np.inf), ft(0.0), ft(0.0)
-        while k < opt.max_iter and not (r <= epri and s <= edua):
+        rdt = sf.real_dtype(dtype)
+        xi = torch.full((), float(rho_xi), dtype=rdt, device=dev)
+        NN = torch.full((), float(ft(N0 * N1)), dtype=rdt, device=dev)
+        nan = torch.full((), float("nan"), dtype=rdt, device=dev)
+
+        def iteration():
+            rho, k = sc[0], sc[1]
             # x-step: per-bin rank-1 Sherman-Morrison in the column block
-            b = DSf + float(rho) * dist_rfft2(Y - U, P, group)
+            b = DSf + rho * dist_rfft2(Y - U, P, group)
             ahb = torch.sum(Df * b, dim=0)
-            Xf = (b - Df.conj() * (ahb / (float(rho) + DHD))[None]) \
-                / float(rho)
+            Xf = (b - Df.conj() * (ahb / (rho + DHD))[None]) / rho
             Xl = dist_irfft2(Xf, N1, P, group)             # (M, N0/P, N1)
             AX = rlx * Xl + (1 - rlx) * Y
             AXU = AX + U
-            thr = (lmbda / rho) * wl1
-            Yn = torch.sign(AXU) * torch.clamp(torch.abs(AXU) - float(thr),
-                                               min=0.0)
+            thr = const_div(lmbda, rho) * wl1
+            Yn = torch.sign(AXU) * torch.clamp(torch.abs(AXU) - thr, min=0.0)
             Un = U + AX - Yn
             sums = [torch.sum(v * v) for v in (Xl - Yn, Yn - Y, Xl, Yn, Un)]
             if not opt.fast_solve:
                 Ef = torch.sum(Df * Xf, dim=0) - Sf
                 sums += [torch.sum(pw * (Ef * Ef.conj()).real),
                          torch.sum(torch.abs(Xl))]
-            h = _host_sums(sums, group).astype(ft)
-            r, s, epri, edua = norm_residuals(
-                ar, opt, nc, nx, np.sqrt(h[0]), rho * np.sqrt(h[1]),
-                np.sqrt(np.maximum(h[2], h[3])), rho * np.sqrt(h[4]), ft)
+            h = _sums(sums, group)
+            q = sqrt_t(h[:5])
+            r, s, epri, edua = norm_residuals_t(
+                ar, opt, nc, nx, q[0], rho * q[1],
+                sqrt_t(torch.maximum(h[2], h[3])), rho * q[4])
             if opt.fast_solve:
-                obj = dfd = rl1 = np.nan
+                obj = dfd = rl1 = nan
             else:
-                dfd = ft(0.5) * h[5] / ft(N0 * N1)
-                rl1 = ft(wl1) * h[6]
-                obj = dfd + ft(lmbda) * rl1
-            stats[k] = (k, obj, dfd, rl1, r, s, epri, edua, rho, 0.0)
-            rsf = _rsf(ar, k, r, s, rho_xi, ft)
-            if rsf != 1.0:
-                Un = Un / float(rsf)
-            X, Y, U, k, rho = Xl, Yn, Un, k + 1, ft(rho * rsf)
+                dfd = (h[5] * 0.5) / NN
+                rl1 = h[6] * wl1
+                obj = dfd + rl1 * lmbda
+            row = as_row((k, obj, dfd, rl1, r, s, epri, edua, rho, 0.0),
+                         rdt, dev)
+            rsf = rsf_t(ar, k, r, s, xi)
+            return [Xl, Yn, Un / rsf], [rho * rsf, k + 1.0, r, s, epri,
+                                        edua], row
+
+        loop = _loop(dtype, dev, [X, Y, U], rho, opt.max_iter, iteration,
+                     nstat=10)
+        sc = loop.t["sc"]
+        host = device_loop.run(loop, opt.max_iter, False, dev)
+    k = int(host[1])
+    stats = host[6:].reshape(opt.max_iter, 10).astype(np.float32)
     return Y.movedim(0, -1), stats[:k], k

@@ -16,11 +16,14 @@ host reads the stopping flag once a block of iterations and the final
 state once.  Every scalar is computed in that type in the JAX package's
 order, correctly rounded, so that the momentum ``beta`` and the
 stopping test match it to the last bit; the host forms
-(``_momentum_update``, ``stop_tol``) stay as the tests' oracle.  The
-backtracking searches take the eager route: each trial's test ``F > Q``
-is read on the host (``device_loop.flag``), the rest stays on the
-device.  The returned :class:`PGMState` holds host scalars and a numpy
-``stats`` from the one final read.
+(``_momentum_update``, ``stop_tol``) stay as the tests' oracle.  A
+backtracking search is a chain of ``bt_maxiter`` trials (:func:`bt_chain`),
+each after the first a conditional block on its test ``F > Q``: on the
+card, IF nodes of the iteration's graph that test it on the device (the
+graph route); eagerly, one host read a trial.  A search of more than
+:data:`BT_GRAPH_MAX` trials takes the eager route (:func:`pgm_route`).
+The returned :class:`PGMState` holds host scalars and a numpy ``stats``
+from the one final read.
 """
 
 import math
@@ -39,9 +42,9 @@ from sporco_tpu_torch.solvers.admm import (IterStats, _as_reals, _loop_key,
                                            guarded_update, scalar_type,
                                            sqrt_t, write_row)
 
-__all__ = ["PGMOpts", "PGMProblem", "PGMState", "pgm_solve",
+__all__ = ["PGMOpts", "PGMProblem", "PGMState", "pgm_solve", "pgm_route",
            "pgm_init_state", "pgm_iterstats", "stat_names",
-           "momentum_update_t", "stop_tol_t"]
+           "momentum_update_t", "stop_tol_t", "bt_chain", "BT_GRAPH_MAX"]
 
 f32 = np.float32
 
@@ -191,6 +194,21 @@ def stop_tol_t(opts, k, dtype=torch.float32):
     return _num(opts.rel_stop_tol, dtype)
 
 
+# The graph route's line search holds bt_maxiter trials; a backtracking
+# solve with more takes the eager route (its trials read their test on
+# the host), as declared here.
+BT_GRAPH_MAX = 64
+
+
+def pgm_route(prob, opts):
+    """The route of a solve of ``prob`` under ``opts``: the problem's
+    (``prob.route``), but ``"eager"`` for a line search of more than
+    :data:`BT_GRAPH_MAX` trials."""
+    if opts.backtrack != "none" and opts.bt_maxiter > BT_GRAPH_MAX:
+        return "eager"
+    return prob.route
+
+
 def _pgm_run(prob, cfg, params, opts, state):
     """Run (or resume) the loop from ``state`` on the device; returns the
     final state.  Stats row: ``[k, objective terms..., Rsdl, F_Btrack,
@@ -214,7 +232,7 @@ def _pgm_run(prob, cfg, params, opts, state):
     fresh["stats"] = _stats_tensor(state.stats, opts.max_iter, ncol, dev)
     fresh["fcnt"] = torch.zeros(2, dtype=torch.int32, device=dev)
     fresh["enable"] = torch.ones((), dtype=torch.bool, device=dev)
-    eager = prob.route == "eager" or opts.backtrack != "none"
+    eager = pgm_route(prob, opts) == "eager"
     loop = device_loop.kept(kind, key)
     if loop is None:
         # the loop's own copies (a later call refills them in place)
@@ -242,6 +260,69 @@ def _pgm_run(prob, cfg, params, opts, state):
         stats=host[9:].reshape(opts.max_iter, ncol).astype(np.float32))
 
 
+def bt_chain(live, trial, L0, opts, T=None):
+    """A backtracking line search (``sporco/pgm/backtrack.py``; the JAX
+    package's inner ``while_loop``, ``sporco_tpu/solvers/pgm.py``) as a
+    chain of ``bt_maxiter`` trials.  The first, ``trial(L0)``, runs
+    unconditionally and its results (..., F, Q) become the chain's
+    buffers; each next trial is a conditional block
+    (:func:`~sporco_tpu_torch.ops.device_loop.when`) on ``searching =
+    live & (F > Q)``, which the block before it left: it multiplies L by
+    ``bt_gamma_u``, runs the trial, copies its results into the buffers,
+    adds one to the trial count and updates ``searching``.
+
+    The trials after the first are nested in groups of about the square
+    root of their number, the groups a flat chain.  Captured (IF nodes
+    that test ``searching`` on the device, no host read), a satisfied
+    test skips the rest of its group in one check and each later group
+    in one: a skipped node of a flat chain costs some 7 µs on the card,
+    and each nesting depth captures on a stream of its own, whose freed
+    blocks the caching allocator reuses on that stream only, so each
+    depth holds a trial's temporaries (PERF.md §6).  Eagerly, each
+    block reads ``searching`` on the host and the chain stops at the
+    first false one: a search of n trials reads min(n, bt_maxiter - 1)
+    times.  A result that shares memory with a tensor of ``T`` (the
+    loop's) or with another result is copied first, so that the blocks
+    never write into a problem's tensors.  Returns the buffers, L and
+    the trial count (0-d tensors of L0's type)."""
+    out = list(trial(L0))
+    seen = set() if T is None else {
+        v.untyped_storage().data_ptr() for v in T.values()}
+    for i, v in enumerate(out):
+        m = v.untyped_storage().data_ptr()
+        if m in seen:
+            out[i] = v = v.clone()
+            m = v.untyped_storage().data_ptr()
+        seen.add(m)
+    L = L0.clone()
+    ibt = torch.ones_like(L)
+    searching = live & (out[-2] > out[-1])
+    gamma_u = _num(opts.bt_gamma_u, L.dtype)
+    stopped = [False]       # an eager block found the search satisfied
+
+    def more():
+        device_loop.stage("line search trial")
+        L.mul_(gamma_u)
+        for dst, v in zip(out, trial(L)):
+            dst.copy_(v)
+        ibt.add_(1.0)
+        torch.logical_and(live, out[-2] > out[-1], out=searching)
+
+    def group(n):
+        more()
+        if n > 1 and device_loop.when(searching,
+                                      lambda: group(n - 1)) is False:
+            stopped[0] = True
+    left = opts.bt_maxiter - 1
+    size = math.isqrt(max(left, 1) - 1) + 1         # ceil(sqrt(left))
+    while left > 0 and not stopped[0]:
+        n = min(size, left)
+        if device_loop.when(searching, lambda n=n: group(n)) is False:
+            break
+        left -= n
+    return tuple(out), L, ibt
+
+
 def _pgm_loop(prob, cfg, opts, T, p_spec, n_p, s_spec, n_s, graph):
     """The generic PGM iteration (``sporco_tpu/solvers/pgm.py`` ``body``)
     over the static tensors ``T`` (see :func:`_pgm_run`), as a
@@ -256,7 +337,6 @@ def _pgm_loop(prob, cfg, opts, T, p_spec, n_p, s_spec, n_s, graph):
     dev = sc.device
     nobj = len(prob.stat_names)
     nanv = torch.full((), math.nan, dtype=rdt, device=dev)
-    gamma_u = _num(opts.bt_gamma_u, rdt)
 
     def dotp(a, b):
         return torch.sum(a * b).to(rdt)
@@ -305,18 +385,6 @@ def _pgm_loop(prob, cfg, opts, T, p_spec, n_p, s_spec, n_s, graph):
         n = norm(Dxy)
         return fY + dotp(Dxy, grad) + (L / 2.0) * (n * n)
 
-    def search(live, trial, L):
-        """Raise L by ``bt_gamma_u`` until ``F <= Q`` (one host read of
-        the test a trial, the eager route's) or ``bt_maxiter`` trials."""
-        out = trial(L)
-        ibt = 1
-        while ibt < opts.bt_maxiter and device_loop.flag(
-                live & (out[-2] > out[-1])):
-            L = L * gamma_u
-            out = trial(L)
-            ibt += 1
-        return out, L, ibt
-
     def bt_standard_step(live):
         grad = prob.grad_f(cfg, aux, params, Ys)
         fY = prob.obfn_f(cfg, aux, params, Ys).to(rdt)
@@ -326,7 +394,7 @@ def _pgm_loop(prob, cfg, opts, T, p_spec, n_p, s_spec, n_s, graph):
             F = prob.obfn_f(cfg, aux, params, X).to(rdt)
             return X, F, majorant(fY, X, Ys, grad, L)
 
-        (X, F, Q), L, ibt = search(live, trial, Ls)
+        (X, F, Q), L, ibt = bt_chain(live, trial, Ls, opts, T)
         tn = momentum_update_t(opts, t, k)
         Y = X + ((t - 1.0) / tn) * (X - Xs)
         return (X, Y, grad, Zrbs), (tn, Tk, L, objprv), (F, Q, ibt)
@@ -342,8 +410,8 @@ def _pgm_loop(prob, cfg, opts, T, p_spec, n_p, s_spec, n_s, graph):
             fy = prob.obfn_f(cfg, aux, params, y).to(rdt)
             return X, y, grad, tt, TT, F, majorant(fy, X, y, grad, L)
 
-        (X, y, grad, tt, TT, F, Q), L, ibt = search(
-            live, trial, Ls * _num(opts.bt_gamma_d, rdt))
+        (X, y, grad, tt, TT, F, Q), L, ibt = bt_chain(
+            live, trial, Ls * _num(opts.bt_gamma_d, rdt), opts, T)
         Zrb = Zrbs + (tt * L) * (X - y)
         return (X, y, grad, Zrb), (tt, TT, L, objprv), (F, Q, ibt)
 

@@ -219,6 +219,7 @@ def case_spatial():
     import torch.distributed as dist
     from sporco_tpu_torch.models.cbpdn import ConvBPDN
     from sporco_tpu_torch.models.tv import TVL2Deconv
+    from sporco_tpu_torch.ops import device_loop
     from sporco_tpu_torch.parallel import spatial
     from sporco_tpu_torch.parallel.mesh import shard_batch
     mesh = _mesh()
@@ -230,12 +231,14 @@ def case_spatial():
     Xt, kt, rt, st = spatial.tvl2deconv_nsharded(
         h, S, 5e-3, mesh, opt=TVL2Deconv.options(**TV_OPT),
         dtype=torch.float64)
+    reads_t = device_loop.LAST["host_reads"]
     Xc, stats, kc = spatial.cbpdn_nsharded(
         D, Sc, 0.1, mesh, opt=ConvBPDN.options(**CSC_OPT),
         dtype=torch.float64)
     out = {"xf": xf.numpy(), "xr": xr.numpy(), "Xt": Xt.numpy(), "kt": kt,
            "rs": np.array([rt, st]), "Xc": Xc.numpy(), "stats": stats,
-           "kc": kc}
+           "kc": kc, "reads": np.array([reads_t,
+                                        device_loop.LAST["host_reads"]])}
     for name, args in (("odd_rows", (h, S[:-1])), ("not_2d", (h, S[None]))):
         try:
             spatial.tvl2deconv_nsharded(*args, 5e-3, mesh)
@@ -248,6 +251,7 @@ def case_spatial():
 def case_par():
     import torch.distributed as dist
     from sporco_tpu_torch.models.parcbpdn import ParConvBPDN
+    from sporco_tpu_torch.ops import device_loop
     from sporco_tpu_torch.parallel.mesh import make_mesh
     mesh = make_mesh(n_data=1, n_filter=dist.get_world_size(), device="cpu")
     D, S, W = par_problem()
@@ -256,7 +260,8 @@ def case_par():
     X = b.solve().numpy()
     its = b.getitstat()
     return {"X": X, "rows": its._arr, "Y1": b.state[2].numpy(),
-            "recon": b.reconstruct().numpy()}
+            "recon": b.reconstruct().numpy(),
+            "reads": device_loop.LAST["host_reads"]}
 
 
 def case_grid():

@@ -2137,8 +2137,11 @@ def _eager_case(name, dev):
     if name == "CCMOD-cg":
         return _ccmod_cg(dev), [(sl, "cg")]
     if name == "FISTABacktrack":
-        return (_generic_model(name, dev, torch.float64, opt),
-                [(device_loop, "flag")])
+        # the line search is the graph route's; declared eager, each
+        # trial's test is read through device_loop.when
+        b = _generic_model(name, dev, torch.float64, opt)
+        b.problem = dataclasses.replace(b.problem, route="eager")
+        return b, [(device_loop, "when")]
     b = _ppp_model(dev, torch.float64, opt)
     prior = ppp.host_prior(lambda x: x)
     b2 = ppp.PPP(b.params["x0"].shape, lambda x: x.sum(),
@@ -2156,7 +2159,7 @@ def test_eager_route_syncs_only_in_its_named_call(dev, monkeypatch, name):
     its route (which runs with the mode off)."""
     from sporco_tpu_torch.ops import device_loop
     b, named = _eager_case(name, dev)
-    assert b.problem.route == "eager" or name == "FISTABacktrack"
+    assert b.problem.route == "eager"
 
     def quiet(fn):
         def call(*a, **k):
@@ -2206,3 +2209,179 @@ def test_rpca_eager_route_reason_svd_synchronises(dev):
             torch.linalg.svd(x, full_matrices=False)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# ---------------------------------------------------------------------------
+# The device loop's conditional blocks (IF nodes) and the loops on them
+
+def test_if_node_skips_its_body(dev):
+    """``device_loop.when`` inside a capture makes an IF node: at replay
+    its body runs where the flag is true and not where it is false; a
+    flat chain of nodes runs as many bodies as its flags allow."""
+    from sporco_tpu_torch.ops import device_loop
+    x = torch.zeros((), device=dev)
+    pred = torch.zeros((), dtype=torch.bool, device=dev)
+    g = device_loop._capture(
+        lambda: device_loop.when(pred, lambda: x.add_(1.0)), dev)
+    seen = []
+    for flag in (True, False, False, True):
+        pred.fill_(flag)
+        g.replay()
+        seen.append(float(x))
+    assert seen == [1.0, 1.0, 1.0, 2.0]
+    c = torch.zeros((), device=dev)
+    lim = torch.zeros((), device=dev)
+    go = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def body():
+        c.add_(1.0)
+        torch.lt(c, lim, out=go)
+
+    def chain():
+        body()
+        for _ in range(9):
+            device_loop.when(go, body)
+    gc = device_loop._capture(chain, dev)
+    for n, want in ((0, 1.0), (4, 4.0), (30, 10.0)):
+        c.zero_()
+        lim.fill_(n)
+        gc.replay()
+        assert float(c) == want
+
+
+def _eager_run(monkeypatch):
+    """Run every device loop of the test without a graph (the eager
+    route, as a problem that declares it runs)."""
+    from sporco_tpu_torch.ops import device_loop
+    run = device_loop.run
+    monkeypatch.setattr(device_loop, "run",
+                        lambda *a, **k: run(*a, **{**k, "graph": False}))
+
+
+@pytest.mark.parametrize("backtrack", ["standard", "robust"])
+def test_backtracking_graph_route_matches_eager(dev, backtrack):
+    """Generic FISTA with a line search in float64 at 32x32, 20
+    iterations from L = 0.5: on the graph route (the search a chain of IF
+    nodes; no flag read, ceil(k / 8) + 1 host reads) against the same
+    problem declared eager on the card: the same rows to 1e-6,
+    ``IterBTrack`` equal."""
+    from sporco_tpu_torch.models import pgm
+    from sporco_tpu_torch.ops import device_loop
+    _, _, Dc, Si, _, _ = _generic_data()
+    runs = []
+    for route in ("graph", "eager"):
+        b = pgm.ConvBPDN(Dc, Si, 0.05, fused=False, dtype=torch.float64,
+                         device=dev, opt=pgm.ConvBPDN.options(
+                             L=0.5, backtrack=backtrack, max_iter=20,
+                             rel_stop_tol=0.0))
+        if route == "eager":
+            b.problem = dataclasses.replace(b.problem, route="eager")
+        b.solve()
+        last = dict(device_loop.LAST)
+        assert last["route"] == route and last["host_reads"] == 4
+        assert (last["flag_reads"] == 0) == (route == "graph")
+        runs.append(b.getitstat())
+    g, e = runs
+    assert g.IterBTrack.max() > 1
+    np.testing.assert_array_equal(g.IterBTrack, e.IterBTrack)
+    for n in g._names:
+        np.testing.assert_allclose(getattr(g, n), getattr(e, n), rtol=1e-6,
+                                   atol=1e-30, err_msg=n)
+
+
+def test_cg_blocks_graph_matches_eager_on_card(dev, monkeypatch):
+    """``cg`` on the card, each block of 8 iterations a CUDA graph of IF
+    nodes (one read a block), against the same blocks run eagerly on the
+    card (their tests read on the host): the same iteration count and x,
+    float64; a second call of the same key replays the kept block; the
+    CPU gives the same count, x within 1e-10 of its scale (the card's
+    reductions sum in another order, which 40 CG iterations carry to
+    2e-11 on an H100, PERF.md §6)."""
+    from sporco_tpu_torch.ops import device_loop
+    from sporco_tpu_torch.ops import linalg as tla
+    g = np.random.default_rng(5)
+    ah = g.standard_normal((3, 1, 4, 6, 4)) + 1j * g.standard_normal(
+        (3, 1, 4, 6, 4))
+    b = g.standard_normal((1, 3, 4, 6, 4)) + 1j * g.standard_normal(
+        (1, 3, 4, 6, 4))
+
+    def solve(d):
+        tah = torch.tensor(ah, device=d)
+        x, k = tla.solvemdbi_cg(tah, 1.5, torch.tensor(b, device=d), 2, 0,
+                                tol=1e-10)
+        assert tla.CG_LAST["host_reads"] == max(1, -(-k // 8))
+        return tah, x, k
+    tah, xg, kg = solve(dev)
+    assert tla.CG_LAST["graph"] and tla.CG_LAST["flag_reads"] == 0
+    x2, k2 = tla.solvemdbi_cg(tah, 1.5, torch.tensor(b, device=dev), 2, 0,
+                              tol=1e-10)
+    assert tla.CG_LAST["kept"] and k2 == kg and torch.equal(x2, xg)
+
+    class Eager:
+        def __init__(self, fn, device, quiet=None):
+            self.fn = fn
+
+        def __call__(self):
+            self.fn()
+    tla._CG_KEPT.clear()
+    monkeypatch.setattr(device_loop, "Piece", Eager)
+    _, xe, ke = solve(dev)
+    assert not tla.CG_LAST["graph"] and tla.CG_LAST["flag_reads"] > 0
+    assert ke == kg > 8 and torch.equal(xe, xg)
+    _, xc, kc = solve("cpu")
+    assert kc == kg
+    xc, xg = xc.numpy(), xg.cpu().numpy()
+    assert np.abs(xg - xc).max() <= 1e-10 * np.abs(xc).max()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_parcbpdn_graph_matches_eager_on_card(dev, monkeypatch, masked):
+    """ParConvBPDN in float64 at 32x32, 13 iterations: its captured loop
+    (ceil(k / 8) + 1 host reads) against the same loop run eagerly on the
+    card: every row to 1e-6, the arrays within 1e-12 of their scale."""
+    from sporco_tpu_torch.ops import device_loop
+    out = []
+    for eager in (False, True):
+        if eager:
+            _eager_run(monkeypatch)
+        b = _par_model(dev, torch.float64, 32, masked, iters=13)
+        b.solve()
+        assert device_loop.LAST["graph"] == (not eager)
+        assert device_loop.LAST["host_reads"] == 3
+        out.append(_par_out(b))
+    (rg, ag), (re_, ae) = out
+    np.testing.assert_allclose(rg, re_, rtol=1e-6, atol=1e-30)
+    for g, e in zip(ag, ae):
+        assert np.abs(g - e).max() <= 1e-12 * max(np.abs(e).max(), 1e-30)
+
+
+def test_nsharded_graph_matches_eager_on_card(dev, nccl_mesh, monkeypatch):
+    """The row-sharded solvers on a world-size-1 NCCL mesh in float64:
+    their captured loops (the ``all_to_all_single`` and ``all_reduce`` in
+    the graph; ceil(k / 8) + 1 host reads) against the same loops run
+    eagerly: the same iterations, the CSC rows to 1e-6, X within 1e-12
+    of its scale."""
+    from sporco_tpu_torch.models.cbpdn import ConvBPDN as CB
+    from sporco_tpu_torch.models.tv import TVL2Deconv
+    from sporco_tpu_torch.ops import device_loop
+    from sporco_tpu_torch.parallel import spatial
+    _, _, Dc, Si, _, A = _generic_data()
+    out = []
+    for eager in (False, True):
+        if eager:
+            _eager_run(monkeypatch)
+        Xt, kt, r, s = spatial.tvl2deconv_nsharded(
+            A, Si, 0.05, nccl_mesh, dtype=torch.float64,
+            opt=TVL2Deconv.options(max_iter=40, rel_stop_tol=1e-3))
+        assert device_loop.LAST["graph"] == (not eager)
+        assert device_loop.LAST["host_reads"] == -(-kt // 8) + 1
+        Xc, stats, kc = spatial.cbpdn_nsharded(
+            Dc, Si, 0.05, nccl_mesh, dtype=torch.float64,
+            opt=CB.options(max_iter=40, rel_stop_tol=1e-3))
+        assert device_loop.LAST["host_reads"] == -(-kc // 8) + 1
+        out.append((Xt.cpu().numpy(), kt, Xc.cpu().numpy(), stats, kc))
+    (xg, kg, cg, sg, lg), (xe, ke, ce, se, le) = out
+    assert kg == ke and lg == le
+    assert np.abs(xg - xe).max() <= 1e-12 * np.abs(xe).max()
+    assert np.abs(cg - ce).max() <= 1e-12 * max(np.abs(ce).max(), 1e-30)
+    np.testing.assert_allclose(sg, se, rtol=1e-6, atol=1e-30)

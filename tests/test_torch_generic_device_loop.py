@@ -352,9 +352,10 @@ def test_declared_routes():
 
 @pytest.mark.parametrize("backtrack", ["standard", "robust"])
 def test_backtracking_reads_one_flag_a_trial(backtrack):
-    """Backtracking takes the eager route and reads its test once a
-    trial, through ``device_loop.flag``; its rows match the JAX
-    package's (float64)."""
+    """Backtracking takes the graph route (its line search a chain of
+    conditional blocks, IF nodes on the card); on the CPU each block reads
+    its test once, so a live iteration of n trials reads min(n, bt_maxiter
+    - 1) flags; its rows match the JAX package's (float64)."""
     opt = dict(max_iter=9, rel_stop_tol=0.0, backtrack=backtrack)
     D, S = _data("FISTA")
     j = jpgm.ConvBPDN(D, S, 0.05, opt=jpgm.ConvBPDN.options(L=0.5, **opt),
@@ -364,11 +365,13 @@ def test_backtracking_reads_one_flag_a_trial(backtrack):
                       dtype=torch.float64, fused=False, device="cpu")
     t.solve()
     _assert_rows("float64", j.getitstat(), t.getitstat(), 9)
-    ibt = np.asarray(t.getitstat().IterBTrack)
-    assert device_loop.LAST["route"] == "eager"
-    # each trial after the first reads one true flag, the last trial of
-    # each live iteration one false flag (unless at bt_maxiter)
-    assert device_loop.LAST["flag_reads"] >= int(ibt.sum())
+    ibt = np.asarray(t.getitstat().IterBTrack).astype(int)
+    np.testing.assert_array_equal(ibt, j.getitstat().IterBTrack)
+    assert tspgm.pgm_route(t.problem, t.opts) == "graph"
+    assert device_loop.LAST["route"] == "eager"      # the CPU has no graph
+    bt_max = t.opts.bt_maxiter
+    assert device_loop.LAST["flag_reads"] == int(
+        np.minimum(ibt, bt_max - 1).sum())
     assert device_loop.LAST["host_reads"] == 3
 
 

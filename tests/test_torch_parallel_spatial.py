@@ -78,6 +78,17 @@ def test_tvl2deconv_nsharded_matches_jax(world2):
     np.testing.assert_allclose(world2[0]["rs"], [rj, sj], rtol=1e-6)
 
 
+def test_nsharded_solvers_read_once_a_block(world2):
+    """Each rank runs the row-sharded solvers on the device loop: the
+    stopping flag read once a block of 8 iterations, the final state once,
+    ``ceil(k / 8) + 1`` reads a solve (TV deconvolution, then CSC)."""
+    import math
+    for o in world2:
+        k = (int(o["kt"]), int(o["kc"]))
+        assert [int(v) for v in o["reads"]] == [math.ceil(n / 8) + 1
+                                                 for n in k]
+
+
 def test_nsharded_raise_where_jax_raises(world2):
     """Rows that do not divide over the ranks, and a signal that is not
     2-D, raise ValueError as in the JAX package."""
@@ -95,12 +106,14 @@ def test_world_size_one_matches_single_device_models(tmp_path):
     from sporco_tpu_torch.parallel import launch, spatial
     from tests._torch_dist import free_port
     _, (h, S), (D, Sc) = spatial_problems()
+    from sporco_tpu_torch.ops import device_loop
     launch.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0, device="cpu")
     try:
         mesh = launch.global_mesh()
         X2, k2, _, _ = spatial.tvl2deconv_nsharded(
             h, S, 5e-3, mesh, opt=TVL2Deconv.options(**TV_OPT),
             dtype=torch.float64)
+        assert device_loop.LAST["host_reads"] == -(-k2 // 8) + 1
         Xc2, st2, kc2 = spatial.cbpdn_nsharded(
             D, Sc, 0.1, mesh, opt=ConvBPDN.options(**CSC_OPT),
             dtype=torch.float64)

@@ -159,13 +159,15 @@ def test_filter_sharded_matches_unsharded(tmp_path):
     """Two ranks of a 1 x 2 mesh each hold two of the four filter groups
     (float64, the mask on): every row rtol 1e-6 and X within 1e-10 of its
     scale against the unsharded run, the gathered coefficients the same
-    on both ranks."""
+    on both ranks; each rank's device loop reads the host ceil(30 / 8) + 1
+    times."""
     ranks = run_world(["par"], 2, tmp_path)["par"]
     D, S, W = par_problem()
     b = tpc.ParConvBPDN(D, S, 0.1, W=W, ngrp=4, dtype=torch.float64,
                         device="cpu", opt=tpc.ParConvBPDN.options(max_iter=30))
     X = b.solve().numpy()
     for r, out in enumerate(ranks):
+        assert int(out["reads"]) == 5
         assert out["Y1"].shape[0] == 2
         np.testing.assert_array_equal(out["X"], ranks[0]["X"])
         np.testing.assert_allclose(out["rows"], b.getitstat()._arr,

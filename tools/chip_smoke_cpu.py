@@ -55,7 +55,8 @@ PAR_PHASES = ("par_parity", "par_solve", "cns_sharded", "spatial",
               "grid_search")
 # the phases it runs, in chip_smoke.py's order (mixed_solve compares
 # with solve and pgm_solve, which run first whenever it runs)
-PHASES = ("solve", "pgm_solve", "gradreg_solve", "elastic_solve",
+PHASES = ("solve", "pgm_solve", "bt_solve", "gradreg_solve",
+          "elastic_solve",
           "wl1_spatial_solve", "clr_solve", "clr_pgm_solve", "cfold_solve",
           "cdl_solve", "ams_tail_kernel", "ams_parity",
           "ams_solve", "mixed_kernel", "mixed_solve", "cdl_pgm_solve",
@@ -132,6 +133,7 @@ def main(argv):
     runs = {
         "solve": lambda: cs.phase_solve(dev, D, S, lmbda),
         "pgm_solve": lambda: cs.phase_pgm_solve(dev, D, S, lmbda),
+        "bt_solve": lambda: cs.phase_bt_solve(dev, D, S, lmbda),
         "gradreg_solve": lambda: cs.phase_gradreg_solve(
             dev, Dg, S, gkw),
         "elastic_solve": lambda: cs.phase_elastic_solve(dev, D, S),

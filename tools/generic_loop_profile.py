@@ -12,7 +12,10 @@ to compare with it), builds that tree's kernels into ``DIR/build/kernels``
 and solves, in float32 at ``chip_smoke.py``'s sizes: BPDN with one and
 with 256 signals, ``TVL2Denoise``, ``TVL2Deconv``, the randomized Robust
 PCA, the generic ConvBPDN by ADMM and by FISTA at the headline and
-``PPP``.  For each, after one solve that warms it up (and keeps its
+``PPP``; by name also FISTA with each line search at the headline (48
+iterations from L = 1), ``ParConvBPDN`` on the headline to 1e-3 and the
+row-sharded ``cbpdn_nsharded`` there (a world of one rank over NCCL,
+``chip_smoke.dist_world``).  For each, after one solve that warms it up (and keeps its
 loop where the tree keeps one): the host reads of a solve (every
 ``item``, ``float``, ``bool`` and ``cpu`` of a CUDA tensor, counted by
 monkeypatching, so both the per-iteration reads of an older tree and the
@@ -27,6 +30,7 @@ change, change, parent) to compare them on one card.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -34,6 +38,10 @@ import time
 
 PROBLEMS = ("bpdn_k1", "bpdn_k256", "tvl2den", "tvl2dcn", "rpca",
             "cbpdn_admm", "cbpdn_fista", "ppp")
+# the loops of the last slice, run by name (--only)
+LOOPS = ("fista_bt_standard", "fista_bt_robust", "par_headline",
+         "cbpdn_sharded")
+BT_ITERS, BT_L = 48, 1.0
 # the dictionary-learning phases of chip_smoke.py (--only dl): ms an
 # outer iteration, their x- and d-steps solved again each outer iteration
 DL_PHASES = ("cdl_solve", "mdl_solve", "dense_dl_solve")
@@ -58,21 +66,38 @@ def main():
     dev = torch.device("cuda", 0)
     smi = cs.nvidia_smi()
     cs._nvcc.build(cs._nvcc.KERNELS)
-    makers = _makers(cs, dev, torch)
-    for name in args.only or PROBLEMS:
-        t0 = time.perf_counter()
-        try:
-            out = (_dl(cs, dev, name) if name in DL_PHASES
-                   else _measure(cs, torch, makers[name]))
-        except Exception as exc:        # report, and go on to the next
-            out = {"error": f"{type(exc).__name__}: {exc}"[:2000]}
-        print(json.dumps({"label": label, "problem": name,
-                          "seconds": time.perf_counter() - t0,
-                          "nvidia_smi": smi, **out}), flush=True)
+    names = args.only or PROBLEMS
+    world = (cs.dist_world(dev) if "cbpdn_sharded" in names
+             else contextlib.nullcontext())
+    with world as mesh:
+        makers = _makers(cs, dev, torch, mesh)
+        for name in names:
+            t0 = time.perf_counter()
+            try:
+                out = (_dl(cs, dev, name) if name in DL_PHASES
+                       else _measure(cs, torch, makers[name]))
+            except Exception as exc:    # report, and go on to the next
+                out = {"error": f"{type(exc).__name__}: {exc}"[:2000]}
+            print(json.dumps({"label": label, "problem": name,
+                              "seconds": time.perf_counter() - t0,
+                              "nvidia_smi": smi, **out}), flush=True)
     return 0
 
 
-def _makers(cs, dev, torch):
+class _Run:
+    """A solve that is no model (or keeps its count elsewhere), as
+    ``_measure`` and ``chip_smoke.phase_profile`` take a model:
+    ``solve()`` runs ``fn``, which returns the iterations, kept in
+    ``j``."""
+
+    def __init__(self, fn, dev):
+        self.fn, self.device, self.j = fn, dev, 0
+
+    def solve(self):
+        self.j = self.fn()
+
+
+def _makers(cs, dev, torch, mesh):
     """problem name -> a maker of its float32 model, as the tree's
     ``chip_smoke.py`` phases make it."""
     out = {}
@@ -102,6 +127,22 @@ def _makers(cs, dev, torch):
         fused=False)
     pp = cs.ppp_problem(cs.N)
     out["ppp"] = lambda: pp["PPP"](dev, "float32", cs.PPP_ITERS, cs.REL_TOL)
+    for bt in ("standard", "robust"):
+        out[f"fista_bt_{bt}"] = (lambda bt=bt: cs.tpgm.ConvBPDN(
+            D, S, lmbda, device=dev, fused=False, opt=cs.tpgm.ConvBPDN
+            .options(max_iter=BT_ITERS, rel_stop_tol=0.0, L=BT_L,
+                     backtrack=bt)))
+
+    def par():
+        b = cs._par(D, S, None, lmbda, dev, cs.PAR_MAX_ITER)
+        return _Run(lambda: (b.solve(), int(b.state[6]))[1], dev)
+    out["par_headline"] = par
+    if mesh is not None:
+        from sporco_tpu_torch.parallel import spatial
+        opt = cs.ConvBPDN.options(max_iter=cs.MAX_ITER,
+                                  rel_stop_tol=cs.REL_TOL)
+        out["cbpdn_sharded"] = lambda: _Run(lambda: spatial.cbpdn_nsharded(
+            D, S, lmbda, mesh, opt=opt)[2], dev)
     return out
 
 
@@ -152,7 +193,7 @@ def _measure(cs, torch, make):
         b.solve()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    k = int(b.state.k)
+    k = b.j if hasattr(b, "j") else int(b.state.k)
     loop = dict(cs.device_loop.LAST) if cs.device_loop.LAST.get(
         "live") == k else {}
     prof = cs.phase_profile(b.device, make)
@@ -162,6 +203,7 @@ def _measure(cs, torch, make):
             "host_reads": reads["n"], "host_reads_per_iter": reads["n"] / k,
             "loop_host_reads": loop.get("host_reads"),
             "route": loop.get("route"), "graph": loop.get("graph"),
+            "flag_reads": loop.get("flag_reads"),
             "profiled_iterations": prof["iterations"],
             "profiled_wall_ms_per_iter": prof["wall_ms_per_iter"],
             "device_ms_per_iter": prof["device_ms_per_iter"],
