@@ -127,14 +127,18 @@ Phases, each printing one JSON line on stdout:
     through ``device_loop.when``) captured in a graph runs its body where
     its flag holds at replay and skips it where not; nested nodes stop at
     the first false flag; a flat chain of 50 runs as many bodies as its
-    flags allow, and the time of a skipped node;
+    flags allow, and the time of a skipped node; its WHILE node (through
+    ``device_loop.while_``) runs its body 0, 1, 7 and 1000 times for the
+    limit set before each replay, nests in an IF node and holds one, and
+    the µs of a pass;
 12b. ``bt_solve``: ``pgm.ConvBPDN(fused=False)`` with the standard and
     the robust line search on the headline, 24 iterations from L = 1, on
-    the graph route (the search ``bt_maxiter`` trials in IF nodes: no
-    flag read, ``ceil(k / 8) + 1`` host reads) against the same problem
-    declared eager (one host read a trial): the same iterations, every
-    row within 1e-6, ``IterBTrack`` and the FFT launches equal; ms an
-    iteration of each route, the capture's time and its pool's memory;
+    the graph route (the search a WHILE node: no flag read, ``ceil(k /
+    8) + 1`` host reads) against the same problem declared eager (one
+    host read a trial), and the standard one at ``bt_maxiter`` 200 on the
+    graph route: every row equal to the bit, ``IterBTrack`` among them,
+    and the FFT launches equal; ms an iteration of each, the first
+    solve's capture seconds and its graph pool's memory;
 13. ``tail_kernel``: ``admm_tail`` against its plain version on the card
     at the headline layout (4096 x 4096) and at ragged ones (37 x 4100,
     4096 x 192) over its flag grid; kernel and plain version timed;
@@ -268,9 +272,16 @@ then masked, online and patch dictionary learning:
     objective lower at the end than at the start (admm/cns and pgm/pgm,
     whose objective rises again in the JAX package too: its least value),
     the launches of ``mdl_launches`` (pgm/pgm one ``pgm_iter`` an outer
-    iteration); each CG solve of the admm/cg d-step, of c iterations,
-    read the host max(1, ceil(c / 8)) times, once a block captured as a
-    CUDA graph;
+    iteration); the admm/cg d-step on the graph route: every sub-solve
+    of k ADMM iterations ``ceil(k / 8) + 1`` host reads, its CG a WHILE
+    node that reads nothing (the CG iterations from the loop's device
+    counter); then admm/cg with the d-step declared eager, rows and D
+    equal to the graph route's to the bit;
+44a. ``ccmod_cg_solve``: ``ConvCnstrMOD(method="cg")`` at the consensus
+    geometry (40 signals of 128x128, 32 filters, coefficients drawn from
+    a seed) in float32 on the graph route against the same problem
+    declared eager: rows and D equal to the bit, the same FFT launches
+    and CG iterations; ms an iteration of each;
 45. ``online_solve``: ``OnlineConvBPDNDictLearn`` and its masked form over
     five 512x512 samples (``headline_problem`` seeds 0-4, the masked
     form with ``ams_problem``'s mask) at lmbda 0.05, 50 x-step
@@ -380,9 +391,8 @@ solve phases (``generic_solve``, ``pgm_generic_solve``, ``bpdn_solve``,
 ``tv_solve``, ``rpca_solve``, ``maskdcpl_solve`` and every
 ``<family>_solve``, ``PPP`` among them) report ``host_reads`` and the
 ``route`` and fail past ``ceil(k / 8) + 2`` reads, or where a problem
-that declares the graph route did not run as a graph (Robust PCA, the
-CG d-steps and ``host_prior`` declare the eager route; a line search of
-more than 64 trials takes it);
+that declares the graph route did not run as a graph (Robust PCA and
+``host_prior`` declare the eager route);
 ``cdl_solve``, ``mdl_solve`` and ``dense_dl_solve`` report ms an outer
 iteration.
 Any failure exits non-zero without the ``ok`` line; so does a run past the
@@ -684,9 +694,8 @@ def loop_reads(label, k, route="graph"):
 def generic_loop(label, b, k):
     """:func:`loop_reads` of a model ``b`` on a generic driver after a
     solve of ``k`` iterations, on the route its solve declares
-    (``solvers/pgm.py`` ``pgm_route``: a FISTA line search is the graph's
-    up to BT_GRAPH_MAX trials): the host reads, the route and whether it
-    ran as a captured graph."""
+    (``solvers/pgm.py`` ``pgm_route``): the host reads, the route and
+    whether it ran as a captured graph."""
     m = _model(b)
     route = m.problem.route
     if hasattr(m.opts, "backtrack"):
@@ -1525,14 +1534,14 @@ COND_NESTED = 8         # the depth of nested IF nodes checked there
 
 
 def phase_cond_node(dev):
-    """The device loop's IF node (``csrc/cond_node.cu`` through
-    ``device_loop.when``): a captured node whose body adds 1 runs it where
+    """The device loop's conditional nodes (``csrc/cond_node.cu``).  IF
+    (``device_loop.when``): a captured node whose body adds 1 runs it where
     its flag is true and skips it where false, at replay; a chain of
     COND_NESTED nested nodes stops at the first false flag; a flat chain
     of COND_CHAIN nodes (the line search's groups are one) runs as many
     bodies as its flags allow, and its time with every node but the
     first skipped, over the nodes skipped, is what a skipped node
-    costs."""
+    costs.  WHILE (``device_loop.while_``): ``while_node_checks``."""
     x = torch.zeros((), device=dev)
     pred = torch.zeros((), dtype=torch.bool, device=dev)
     g = device_loop._capture(lambda: device_loop.when(
@@ -1588,45 +1597,158 @@ def phase_cond_node(dev):
     return {"single": seen, "nested": nested, "flat": flat,
             "flat_ms_all_skipped": times[0],
             "flat_ms_all_run": times[2 * COND_CHAIN],
-            "us_per_skipped_node": 1e3 * times[0] / (COND_CHAIN - 1)}
+            "us_per_skipped_node": 1e3 * times[0] / (COND_CHAIN - 1),
+            **while_node_checks(dev)}
+
+
+WHILE_PASSES = (0, 1, 7, 1000)   # the limits a captured WHILE node runs
+
+
+def while_node_checks(dev):
+    """The device loop's WHILE node (``device_loop.while_``): one captured
+    graph runs its body n times for a limit n written before each replay
+    (WHILE_PASSES); a WHILE node in an IF node's body and an IF node in a
+    WHILE body run as their flags say; a pass's µs, from the replay's
+    time at 1000 passes less its time at 0, over 1000 (the body one add
+    and one compare, each a one-element kernel, and the set-condition
+    kernel that ends it)."""
+    c = torch.zeros((), device=dev)
+    lim = torch.zeros((), device=dev)
+    go = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def body():
+        c.add_(1.0)
+        torch.lt(c, lim, out=go)
+
+    def loop():
+        torch.lt(c, lim, out=go)
+        device_loop.while_(go, body)
+    gw = device_loop._capture(loop, dev)
+    passes = {}
+    for n in WHILE_PASSES:
+        c.zero_()
+        lim.fill_(n)
+        gw.replay()
+        passes[n] = float(c)
+    if passes != {n: float(n) for n in WHILE_PASSES}:
+        raise AssertionError(f"WHILE node: passes {passes} at limits "
+                             f"{WHILE_PASSES}")
+    odd = torch.zeros((), device=dev)
+    on = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def odd_body():
+        c.add_(1.0)
+        device_loop.when(torch.remainder(c, 2.0) == 1.0,
+                         lambda: odd.add_(1.0))
+        torch.lt(c, lim, out=go)
+
+    def while_in_if():
+        torch.lt(c, lim, out=go)
+        device_loop.while_(go, odd_body)
+    gn = device_loop._capture(lambda: device_loop.when(on, while_in_if),
+                              dev)
+    nested = {}
+    for flag, n in ((True, 5), (False, 5), (True, 0), (True, 8)):
+        c.zero_()
+        odd.zero_()
+        on.fill_(flag)
+        lim.fill_(n)
+        gn.replay()
+        nested[f"{int(flag)}/{n}"] = [float(c), float(odd)]
+    want = {"1/5": [5.0, 3.0], "0/5": [0.0, 0.0], "1/0": [0.0, 0.0],
+            "1/8": [8.0, 4.0]}
+    if nested != want:
+        raise AssertionError(f"WHILE in IF, IF in WHILE: (passes, odd "
+                             f"passes) {nested}, not {want}")
+    times = {}
+    for n in (0, WHILE_PASSES[-1]):
+        lim.fill_(n)
+        times[n] = cuda_ms(lambda: (c.zero_(), gw.replay()), 20)
+    torch.cuda.synchronize()
+    return {"while_passes": passes, "while_if_nested": nested,
+            "while_ms_0_passes": times[0],
+            "while_ms_1000_passes": times[WHILE_PASSES[-1]],
+            "us_per_while_pass": 1e3 * (times[WHILE_PASSES[-1]] - times[0])
+            / WHILE_PASSES[-1]}
 
 
 # the line-search FISTA solves of bt_solve: iterations, and a first L
 # below the headline's Lipschitz constant, which the first search raises
-# over several trials
-BT_ITERS, BT_L = 24, 1.0
+# over several trials; a bt_maxiter past the 64 trials that once sent a
+# search to the eager route
+BT_ITERS, BT_L, BT_LONG = 24, 1.0, 200
 
 
-def _bt_model(D, S, lmbda, dev, backtrack, route):
+def _bt_model(D, S, lmbda, dev, backtrack, route, bt_maxiter=None):
+    kw = {} if bt_maxiter is None else {"bt_maxiter": bt_maxiter}
     b = tpgm.ConvBPDN(D, S, lmbda, device=dev, fused=False,
                       opt=tpgm.ConvBPDN.options(
                           max_iter=BT_ITERS, rel_stop_tol=0.0, L=BT_L,
-                          backtrack=backtrack))
+                          backtrack=backtrack, **kw))
     if route == "eager":
         # the same problem declared eager: one host read a trial
         b.problem = dataclasses.replace(b.problem, route="eager")
     return b
 
 
+@contextlib.contextmanager
+def capture_seconds():
+    """The host seconds of each CUDA-graph capture of the device loop
+    (``device_loop._capture``, its warm-up included, synchronised before
+    and after) made inside the block."""
+    seen = []
+    capture = device_loop._capture
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = capture(*a, **k)
+        torch.cuda.synchronize()
+        seen.append(time.perf_counter() - t0)
+        return g
+    device_loop._capture = timed
+    try:
+        yield seen
+    finally:
+        device_loop._capture = capture
+
+
+def _equal_rows(label, a, b):
+    """Fail unless the stats rows ``a`` and ``b`` are equal to the bit
+    (NaN where NaN)."""
+    bad = [n for n in a._names if not np.array_equal(
+        getattr(a, n), getattr(b, n), equal_nan=True)]
+    if bad:
+        raise AssertionError(f"{label}: rows {bad} differ: "
+                             + "; ".join(f"{n} {getattr(a, n)} against "
+                                         f"{getattr(b, n)}" for n in bad))
+
+
 def phase_bt_solve(dev, D, S, lmbda):
     """Generic FISTA with each line search (standard, robust) on the
     headline, BT_ITERS iterations in float32: on the graph route (the
-    search ``bt_maxiter`` trials in IF nodes; no flag read, one host read
-    a block) against the same problem declared eager (one host read a
-    trial): the same iterations, every stats row within 1e-6 (rtol),
-    ``IterBTrack`` equal, the same FFT launches; ms an iteration of each
-    (the graph's a replay of the kept loop), the capture's time and the
-    memory its pool took."""
+    search a WHILE node; no flag read, one host read a block) against the
+    same problem declared eager (one host read a trial): the same
+    arithmetic, so every stats row equal to the bit, ``IterBTrack`` among
+    them, and the same FFT launches; the standard search also at
+    ``bt_maxiter`` BT_LONG on the graph route (equal to the default's
+    where no search reaches the default's cap).  For each: ms an
+    iteration (the graph's a replay of the kept loop), the first solve's
+    seconds, its captures' seconds and the memory its graph pool took."""
     out = {}
     for bt in ("standard", "robust"):
         r = {}
-        for route in ("graph", "eager"):
+        runs = [("graph", "graph", None), ("eager", "eager", None)]
+        if bt == "standard":
+            runs.append(("graph_200", "graph", BT_LONG))
+        for label, route, n in runs:
             torch.cuda.synchronize()
             mem0 = torch.cuda.memory_reserved(dev)
-            b = _bt_model(D, S, lmbda, dev, bt, route)
-            first, _ = _timed(b)
+            b = _bt_model(D, S, lmbda, dev, bt, route, n)
+            with capture_seconds() as caps:
+                first, _ = _timed(b)
             mem1 = torch.cuda.memory_reserved(dev)
-            b = _bt_model(D, S, lmbda, dev, bt, route)
+            b = _bt_model(D, S, lmbda, dev, bt, route, n)
             wall, counts = _timed(b)
             its = b.getitstat()
             k = len(its)
@@ -1634,43 +1756,42 @@ def phase_bt_solve(dev, D, S, lmbda):
             if k != BT_ITERS or (LOOP_GRAPH and (
                     last["route"] != route
                     or last["graph"] != (route == "graph"))):
-                raise AssertionError(f"FISTA ({bt}, {route}): {k} "
+                raise AssertionError(f"FISTA ({bt}, {label}): {k} "
                                      f"iterations, record {last}")
             if LOOP_GRAPH and route == "graph" and (
                     last["flag_reads"] != 0 or last["captured"]):
-                raise AssertionError(f"FISTA ({bt}): the graph route read "
-                                     f"flags or captured again: {last}")
-            exact_reads(f"FISTA ({bt}, {route})", k)
+                raise AssertionError(f"FISTA ({bt}, {label}): the graph "
+                                     f"route read flags or captured "
+                                     f"again: {last}")
+            exact_reads(f"FISTA ({bt}, {label})", k)
             if not (np.all(np.isfinite(its._arr)) and
                     its.ObjFun[-1] < its.ObjFun[0]):
-                raise AssertionError(f"FISTA ({bt}, {route}): objective "
+                raise AssertionError(f"FISTA ({bt}, {label}): objective "
                                      "not finite or not decreasing")
-            r[route] = {"rows": its, "launches": counts, "wall_s": wall,
+            r[label] = {"rows": its, "launches": counts, "wall_s": wall,
                         "ms_per_iter": 1e3 * wall / k,
-                        "first_solve_s": first,
+                        "first_solve_s": first, "capture_s": caps,
                         "reserved_MB": (mem1 - mem0) / 2 ** 20,
+                        "bt_maxiter": b.opts.bt_maxiter,
                         "flag_reads": last["flag_reads"],
                         "host_reads": last["host_reads"]}
-        g, e = r["graph"], r["eager"]
-        errs = {name: _rel_rows(getattr(g["rows"], name),
-                                getattr(e["rows"], name), 0.0)
-                for name in g["rows"]._names[1:]}
-        bad = {n: v for n, v in errs.items() if not v <= 1e-6}
-        if bad or not np.array_equal(g["rows"].IterBTrack,
-                                     e["rows"].IterBTrack):
-            raise AssertionError(f"FISTA ({bt}): graph route against eager "
-                                 f"{bad}, IterBTrack "
-                                 f"{g['rows'].IterBTrack} against "
-                                 f"{e['rows'].IterBTrack}")
-        if g["launches"] != e["launches"]:
-            raise AssertionError(f"FISTA ({bt}): launches {g['launches']} "
-                                 f"(graph) against {e['launches']}")
+        g = r["graph"]
         ibt = g["rows"].IterBTrack
+        for label in r:
+            if label == "graph" or (label == "graph_200"
+                                    and ibt.max() >= g["bt_maxiter"]):
+                continue
+            _equal_rows(f"FISTA ({bt}): graph against {label}",
+                        g["rows"], r[label]["rows"])
+            if g["launches"] != r[label]["launches"]:
+                raise AssertionError(f"FISTA ({bt}): launches "
+                                     f"{g['launches']} (graph) against "
+                                     f"{r[label]['launches']} ({label})")
         for v in r.values():
             del v["rows"]
-        out[bt] = {"iterations": BT_ITERS, "rel_err": errs,
+        out[bt] = {"iterations": BT_ITERS, "rows_equal": True,
                    "trials": int(ibt.sum()), "max_trials": int(ibt.max()),
-                   "bt_maxiter": tpgm.ConvBPDN.options().bt_maxiter, **r}
+                   **r}
     return out
 
 
@@ -3566,17 +3687,49 @@ def cg_record():
         tla.cg = cg
 
 
-def check_cg_reads(label, cgs):
-    """Every CG solve of c iterations read the host max(1, ceil(c / 8))
-    times, once a block, its block a CUDA graph on the card."""
-    if not cgs:
-        raise AssertionError(f"{label}: no CG solve ran")
+@contextlib.contextmanager
+def solve_record(model):
+    """The device loop's records (``device_loop.LAST``, with the generic
+    ADMM loop's ``inner``) of the calls of ``model.solve`` inside the
+    block."""
+    seen = []
+    solve = model.solve
+
+    def recorded(*a, **k):
+        out = solve(*a, **k)
+        seen.append(dict(device_loop.LAST))
+        return out
+    model.solve = recorded
+    try:
+        yield seen
+    finally:
+        del model.solve
+
+
+def check_cg_loops(label, cgs, subs, route="graph"):
+    """The CG d-step's solves (their device loops' records ``subs``) on
+    ``route``: each of k ADMM iterations read the host ``ceil(k / 8) +
+    1`` times and ran some CG iterations (the loop's device count); on
+    the graph route every CG solve a WHILE node of the captured iteration
+    that read nothing, on the eager route a graph of its own that read
+    once.  Returns the solves' (k, CG iterations, host reads)."""
+    if not subs:
+        raise AssertionError(f"{label}: no CG d-step ran")
+    form, reads = ("node", 0) if route == "graph" else ("graph", 1)
+    for r in subs:
+        want = math.ceil(r["live"] / device_loop.UNROLL) + 1
+        if r["host_reads"] != want or r["inner"] <= 0 or (
+                LOOP_GRAPH and (r["route"] != route
+                                or r["graph"] != (route == "graph"))):
+            raise AssertionError(f"{label}: a d-step's loop record {r}, "
+                                 f"not {want} reads of a {route} run with "
+                                 "CG iterations")
     for c in cgs:
-        want = max(1, math.ceil(c["iterations"] / device_loop.UNROLL))
-        if c["host_reads"] != want or c["blocks"] != want or (
-                LOOP_GRAPH and not c["graph"]):
-            raise AssertionError(f"{label}: a CG solve's record {c}, not "
-                                 f"{want} reads of graph blocks")
+        if LOOP_GRAPH and (c["form"] != form or c["host_reads"] != reads
+                           or c["flag_reads"]):
+            raise AssertionError(f"{label}: a CG solve's record {c}, not a "
+                                 f"{form} with {reads} reads")
+    return [(r["live"], r["inner"], r["host_reads"]) for r in subs]
 
 
 def phase_mdl_solve(dev, D0, S, lmbda):
@@ -3584,20 +3737,37 @@ def phase_mdl_solve(dev, D0, S, lmbda):
     card: ms an outer iteration, filters in the unit ball within
     UNIT_NORM, the x-step objective lower at the last outer iteration
     than at the first (for the pairs of MDL_RISE its least value), and
-    the launches of ``mdl_launches``."""
+    the launches of ``mdl_launches``; the admm/cg pair's d-step on the
+    graph route (``check_cg_loops``), then again declared eager, whose
+    rows and D must equal the graph route's to the bit."""
     W = mdl_mask(S)
     out = {}
-    for xm, dm in MDL_PAIRS:
+    for xm, dm in MDL_PAIRS + (("admm", "cg eager"),):
         label = f"{xm}/{dm}"
-        _mdl(D0, S, W, lmbda, xm, dm, dev, 2).solve()
-        d = _mdl(D0, S, W, lmbda, xm, dm, dev, CNS_ITERS)
+        eager = dm == "cg eager"
+        dm = "cg" if eager else dm
+
+        def make(n):
+            d = _mdl(D0, S, W, lmbda, xm, dm, dev, n)
+            if eager:
+                d.dstep.problem = dataclasses.replace(d.dstep.problem,
+                                                      route="eager")
+            return d
+        make(2).solve()
+        d = make(CNS_ITERS)
         if xm == "pgm" and d.xstep._fused_solve is None:
             raise AssertionError(f"ConvBPDNMaskDictLearn ({label}): the "
                                  "FISTA x-step is not fused")
-        with cg_record() as cgs:
+        with cg_record() as cgs, solve_record(d.dstep) as loops:
             wall, counts = _timed(d)
+        rec = {}
         if dm == "cg":
-            check_cg_reads(f"ConvBPDNMaskDictLearn ({label})", cgs)
+            subs = check_cg_loops(f"ConvBPDNMaskDictLearn ({label})", cgs,
+                                  loops, "eager" if eager else "graph")
+            rec = {"d_step_solves": subs,
+                   "cg_iterations": sum(n for _, n, _ in subs),
+                   "cg_solves": [(c["iterations"], c["host_reads"])
+                                 for c in cgs]}
         per = mdl_launches(xm, dm)
         expect_launches(f"ConvBPDNMaskDictLearn ({label})", counts,
                         **{k: v * CNS_ITERS for k, v in per.items()})
@@ -3617,10 +3787,23 @@ def phase_mdl_solve(dev, D0, S, lmbda):
             raise AssertionError(f"ConvBPDNMaskDictLearn ({label}): x-step "
                                  f"objective {obj[0]} -> {obj[-1]} (least "
                                  f"{obj.min()})")
+        if eager:
+            g = out["admm/cg"]
+            bad = [n for n in its if not np.array_equal(
+                np.asarray(its[n]), g["_rows"][n], equal_nan=True)]
+            if bad or not np.array_equal(Dl.numpy(), g["_D"]) \
+                    or counts != g["launches"] \
+                    or rec["cg_iterations"] != g["cg_iterations"]:
+                raise AssertionError(
+                    f"ConvBPDNMaskDictLearn (admm/cg): the eager d-step "
+                    f"parts from the graph route's in {bad}, D equal "
+                    f"{np.array_equal(Dl.numpy(), g['_D'])}, launches "
+                    f"{counts} against {g['launches']}, CG iterations "
+                    f"{rec['cg_iterations']} against "
+                    f"{g['cg_iterations']}")
+            rec["rows_and_D_equal_graph"] = True
         out[label] = {"outer_iterations": CNS_ITERS, "wall_s": wall,
-                      "ms_per_outer_iter": 1e3 * wall / CNS_ITERS,
-                      "cg_solves": [(c["iterations"], c["host_reads"])
-                                    for c in cgs],
+                      "ms_per_outer_iter": 1e3 * wall / CNS_ITERS, **rec,
                       "x_objective_first": float(obj[0]),
                       "x_objective_least": float(obj.min()),
                       "x_objective_least_at": int(np.argmin(obj)),
@@ -3628,7 +3811,83 @@ def phase_mdl_solve(dev, D0, S, lmbda):
                       "d_dfid": float(its["DDFid"][-1]),
                       "max_filter_norm": float(nrm.max()),
                       "launches": counts}
+        if label == "admm/cg":
+            out[label]["_rows"] = {n: np.asarray(its[n]) for n in its}
+            out[label]["_D"] = Dl.numpy()
+    for rec in out.values():
+        rec.pop("_rows", None)
+        rec.pop("_D", None)
     return out
+
+
+# ConvCnstrMOD(method="cg") at the consensus geometry: the coefficient
+# maps' density, the ADMM iterations and tolerance, the CG tolerance (the
+# model's default)
+CCMOD_CG_DENSITY, CCMOD_CG_ITERS, CCMOD_CG_TOL = 0.05, 50, 1e-3
+
+
+def ccmod_cg_model(dev, route, D0, S):
+    """``ConvCnstrMOD(method="cg")`` in float32 on the consensus problem's
+    S and D0, its coefficients drawn from ``default_rng(5)`` (a share
+    CCMOD_CG_DENSITY of them non-zero), on ``route``."""
+    g = np.random.default_rng(5)
+    shape = S.shape[:2] + (1, S.shape[2], D0.shape[-1])
+    Z = (g.standard_normal(shape) * (g.random(shape) < CCMOD_CG_DENSITY)
+         ).astype(np.float32)
+    b = tccmod.ConvCnstrMOD(Z, S, D0.shape, method="cg", D0=D0,
+                            dtype=torch.float32, device=dev,
+                            opt=tccmod.ConvCnstrMODBase.options(
+                                max_iter=CCMOD_CG_ITERS,
+                                rel_stop_tol=CCMOD_CG_TOL))
+    if route == "eager":
+        b.problem = dataclasses.replace(b.problem, route="eager")
+    return b
+
+
+def phase_ccmod_cg_solve(dev, D0, S):
+    """``ConvCnstrMOD(method="cg")`` at the consensus geometry in float32,
+    on the graph route (its ADMM iteration one captured graph, each CG
+    solve a WHILE node in it) against the same problem declared eager (a
+    CG graph of its own and one read a CG solve): rows and D equal to the
+    bit, the same FFT launches and CG iterations, ``check_cg_loops``; ms
+    an iteration of each (a second solve, the first capturing)."""
+    out = {}
+    for route in ("graph", "eager"):
+        ccmod_cg_model(dev, route, D0, S).solve()
+        b = ccmod_cg_model(dev, route, D0, S)
+        with cg_record() as cgs:
+            wall, counts = _timed(b)
+        loops = [dict(device_loop.LAST)]
+        its = b.getitstat()
+        k = len(its)
+        subs = check_cg_loops(f"ConvCnstrMOD cg ({route})", cgs, loops,
+                              route)
+        Dl = b.getdict().cpu().numpy()
+        if not (np.all(np.isfinite(its._arr[:, 1:2])) and np.isfinite(
+                Dl).all()):
+            raise AssertionError(f"ConvCnstrMOD cg ({route}): not finite")
+        out[route] = {"iterations": k, "wall_s": wall,
+                      "ms_per_iter": 1e3 * wall / k,
+                      "cg_iterations": subs[0][1],
+                      "host_reads": subs[0][2],
+                      "cg_solves": [(c["iterations"], c["host_reads"])
+                                    for c in cgs],
+                      "dfid": float(its.DFid[-1]), "launches": counts,
+                      "_rows": its, "_D": Dl}
+    g, e = out["graph"], out["eager"]
+    _equal_rows("ConvCnstrMOD cg: graph against eager", g["_rows"],
+                e["_rows"])
+    if not np.array_equal(g["_D"], e["_D"]) or g["launches"] != \
+            e["launches"] or g["cg_iterations"] != e["cg_iterations"]:
+        raise AssertionError(
+            f"ConvCnstrMOD cg: D equal {np.array_equal(g['_D'], e['_D'])}, "
+            f"launches {g['launches']} against {e['launches']}, CG "
+            f"iterations {g['cg_iterations']} against {e['cg_iterations']}")
+    for rec in (g, e):
+        del rec["_rows"], rec["_D"]
+    return {"geometry": {"signals": S.shape[2], "side": S.shape[0],
+                         "filters": D0.shape[-1]}, "dtype": "float32",
+            "rows_and_D_equal": True, **out}
 
 
 def online_samples():
@@ -4841,10 +5100,13 @@ def kernels_line(summary):
             model: summary["tv_solve"][model]["launches"][name]
             for model in ("TVL2Deconv", "TVL1Deconv")}
         # the line-search FISTA solves' on the graph route (their trials
-        # in IF nodes), BT_ITERS iterations each
+        # in a WHILE node), BT_ITERS iterations each
         entry["bt_launches"] = {
             bt: summary["bt_solve"][bt]["graph"]["launches"][name]
             for bt in ("standard", "robust")}
+        # ConvCnstrMOD's CG d-step on the graph route
+        entry["ccmod_cg_launches"] = \
+            summary["ccmod_cg_solve"]["graph"]["launches"][name]
     # the forms this slice added, as entries of their own: the AMS tail
     # (launches in the fused cbpdnmsk solve; cbpdngrdmsk's beside) and the
     # "mixed" forward product (launches in the mixed fused solves)
@@ -5010,6 +5272,8 @@ def main(argv):
     run_phase("mdl_parity", lambda: phase_mdl_parity(dev, D0c, Sc, lc))
     summary["mdl_solve"] = run_phase(
         "mdl_solve", lambda: phase_mdl_solve(dev, D0c, Sc, lc))
+    summary["ccmod_cg_solve"] = run_phase(
+        "ccmod_cg_solve", lambda: phase_ccmod_cg_solve(dev, D0c, Sc))
     imgs, Wo = online_samples()
     summary["online_solve"] = run_phase(
         "online_solve", lambda: phase_online_solve(dev, D, imgs, Wo))

@@ -145,15 +145,10 @@ def _uinit_single(cfg, params):
     return torch.zeros_like(params["D0"])
 
 
-# cg: the conjugate gradient reads its stopping test on the host once a
-# block of 8 CG iterations (ops/linalg.py cg), an unbounded inner loop
-# that a captured ADMM iteration cannot hold, so that problem takes the
-# eager route
 _CCMOD_SINGLE = {
     m: ADMMProblem(setup=_setup, xstep=_xstep_single, ystep=_ystep_single,
                    obfn=_obfn, yinit=_yinit, uinit=_uinit_single,
-                   stat_names=("DFid", "Cnstr", "XSlvRelRes"),
-                   route="eager" if m == "cg" else "graph")
+                   stat_names=("DFid", "Cnstr", "XSlvRelRes"))
     for m in ("ism", "cg")
 }
 

@@ -144,14 +144,11 @@ def _xinit_2b(cfg, params):
 
 _STATS = ("DFid", "Cnstr", "XSlvRelRes")
 
-# cg takes the eager route, as in ccmod.py: its solve reads its test once
-# a block of 8 CG iterations
 _CCMODMD_2B = {
     m: ADMMProblem(setup=_setup, xstep=_xstep_2b, ystep=_ystep_2b,
                    obfn=_obfn_2b, cnst_a=_cnst_a_2b, cnst_at=_cnst_at_2b,
                    cnst_b=_neg_pair, cnst_c=_cnst_c_2b, yinit=_yinit_2b,
-                   uinit=_uinit_2b, xinit=_xinit_2b, stat_names=_STATS,
-                   route="eager" if m == "cg" else "graph")
+                   uinit=_uinit_2b, xinit=_xinit_2b, stat_names=_STATS)
     for m in ("ism", "cg")
 }
 

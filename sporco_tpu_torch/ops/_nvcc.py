@@ -43,7 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every source of csrc/ that holds kernels, as build() takes them (the
-# last, the device loop's IF node, ports no TPU kernel)
+# last, the device loop's IF and WHILE nodes, ports no TPU kernel)
 KERNELS = ("csc_iter", "pgm_iter", "fft2_planar", "csc_tail", "cond_node")
 
 _LIBS = {}

@@ -43,23 +43,29 @@ tensors of ``params``, of ``prob.setup``'s result and of the state are
 leaves of trees (:func:`flatten`), copied once into static tensors of
 the loop and refilled by a later call of the same key.  A problem whose
 iteration synchronises with the host by nature (a ``torch.linalg`` call
-that checks its result on the host, a host callable, an unbounded inner
-loop such as conjugate gradient) declares the eager route: on the card
-its blocks run eagerly, with no graph, and the same single read a block.
+that checks its result on the host, a host callable) declares the eager
+route: on the card its blocks run eagerly, with no graph, and the same
+single read a block.  An unbounded inner loop is no such reason.
 
-Conditional blocks inside an iteration (the JAX package's ``lax.cond``
-and bounded inner ``while_loop``: a line search's trials, the
-iterations of a CG block) are :func:`when`: an IF node of the captured
-graph on the card, a host test elsewhere.
+Conditional blocks inside an iteration (the JAX package's ``lax.cond``)
+are :func:`when`: an IF node of the captured graph on the card, a host
+test elsewhere.  Inner loops (its inner ``lax.while_loop``: conjugate
+gradient, a line search's trials) are :func:`while_`: a WHILE node of
+the captured graph on the card, whose body sets its own condition for
+the next pass; a host loop elsewhere.  An inner loop finds the
+iteration it runs in through :func:`outer` (the flag ``live``, so that a
+dead iteration runs no pass, and a device counter of the loop that adds
+up its passes, read with the final state into ``LAST["inner"]``).
 """
 
+import contextlib
 import dataclasses
 
 import torch
 
 __all__ = ["UNROLL", "LAST", "Loop", "Piece", "kept", "keep",
-           "clear_cache", "run", "read", "when", "stage", "flatten",
-           "unflatten"]
+           "clear_cache", "run", "read", "when", "while_", "inner", "outer",
+           "stage", "flatten", "unflatten"]
 
 UNROLL = 8
 
@@ -83,13 +89,14 @@ def read(t):
     return t.detach().cpu().numpy()
 
 
-# eager reads of when()'s flags in the current run (LAST["flag_reads"])
+# eager reads of when()'s and while_()'s flags in the current run
+# (LAST["flag_reads"])
 _FLAGS = [0]
 
 
 # while _capture warms its function up (eagerly, ``enable`` 0), and the
-# memory pool of each capture under way (for the IF nodes' bodies) with
-# whether its recording follows the capturing thread yet
+# memory pool of each capture under way (for the conditional nodes'
+# bodies) with whether its recording follows the capturing thread yet
 _WARM = [False]
 _POOLS = []
 
@@ -109,8 +116,9 @@ def _capture(step, device):
     cur.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     pool = torch.cuda.graph_pool_handle()
-    # what the IF nodes need, made before the capture: the library, its
-    # kernel loaded, the bodies' streams of the first two depths
+    # what the conditional nodes need, made before the capture: the
+    # library, its kernel loaded, the bodies' streams of the first two
+    # depths
     for depth in (0, 1):
         _body_stream(device, depth)
     side.wait_stream(cur)
@@ -153,16 +161,16 @@ def when(pred, body):
     results by writing (``copy_``) into tensors made before the node: the
     graph after the node reads fixed addresses, whether the body ran or
     not.  A body may hold only what a conditional body may (kernels,
-    device-memory copies and sets, graphs and further IF nodes); anything
-    else fails the capture, named by its ``stage``.  Outside a capture
-    (the CPU, the eager route on the card) ``pred`` is read on the host,
-    counted in ``LAST["flag_reads"]``; during the capture's eager warm-up
-    (``enable`` 0, so every guarded ``pred`` is false) the body is
-    skipped unread.  Returns None where it made a node, else whether the
-    body ran."""
+    device-memory copies and sets, graphs and further conditional nodes);
+    anything else fails the capture, named by its ``stage``.  Outside a
+    capture (the CPU, the eager route on the card) ``pred`` is read on
+    the host, counted in ``LAST["flag_reads"]``; during the capture's
+    eager warm-up (``enable`` 0, so every guarded ``pred`` is false) the
+    body is skipped unread.  Returns None where it made a node, else
+    whether the body ran."""
     if pred.device.type == "cuda" and \
             torch.cuda.is_current_stream_capturing():
-        _if_node(pred, body)
+        _cond_node(pred, body, "if")
         return None
     if _WARM[0]:
         return False
@@ -171,6 +179,58 @@ def when(pred, body):
         body()
         return True
     return False
+
+
+def while_(pred, body):
+    """Run ``body()`` while the 0-d bool tensor ``pred`` holds (the JAX
+    package's ``lax.while_loop`` on state held in tensors made before
+    the call); ``body`` rewrites ``pred`` in place.
+
+    While the device loop captures a CUDA graph, this adds a WHILE node
+    to it (``csrc/cond_node.cu``): ``pred`` is its entry value and the
+    body's last work sets its condition again from ``pred``, so the node
+    runs the body as many times as ``pred`` allows at replay, with
+    nothing read on the host.  ``body`` obeys :func:`when`'s rules.
+    Outside a capture ``pred`` is read on the host before each pass,
+    each read counted in ``LAST["flag_reads"]``; during the capture's
+    eager warm-up the body is skipped unread.  Returns None where it
+    made a node, else the passes run."""
+    if pred.device.type == "cuda" and \
+            torch.cuda.is_current_stream_capturing():
+        _cond_node(pred, body, "while")
+        return None
+    if _WARM[0]:
+        return 0
+    n = 0
+    while True:
+        _FLAGS[0] += 1
+        if not bool(read(pred)):
+            return n
+        body()
+        n += 1
+
+
+# the iterations under way (inner() contexts), innermost last
+_OUTER = []
+
+
+@contextlib.contextmanager
+def inner(live, passes):
+    """Within this context, inner loops (``ops/linalg.py`` ``cg``) belong
+    to a loop iteration whose flag is ``live`` (a 0-d bool tensor): they
+    run no pass where it is false, and add their passes into ``passes``
+    (a 0-d int64 tensor of the loop, read with its final state)."""
+    _OUTER.append((live, passes))
+    try:
+        yield
+    finally:
+        _OUTER.pop()
+
+
+def outer():
+    """``(live, passes)`` of the innermost :func:`inner` context under
+    way, or None."""
+    return _OUTER[-1] if _OUTER else None
 
 
 _COND = {}
@@ -186,6 +246,10 @@ def _cond_lib():
         lib.cond_if_begin.restype = ctypes.c_int
         lib.cond_if_end.argtypes = [ctypes.c_void_p]
         lib.cond_if_end.restype = ctypes.c_int
+        lib.cond_while_begin.argtypes = [ctypes.c_void_p] * 3
+        lib.cond_while_begin.restype = ctypes.c_int
+        lib.cond_while_end.argtypes = [ctypes.c_void_p] * 2
+        lib.cond_while_end.restype = ctypes.c_int
         lib.cond_stream_create.argtypes = [ctypes.c_void_p]
         lib.cond_stream_create.restype = ctypes.c_int
         lib.cond_init.argtypes = []
@@ -198,10 +262,10 @@ def _cond_lib():
 
 
 def _body_stream(device, depth):
-    """The stream that captures the bodies of IF nodes ``depth`` deep, one
-    a depth and device for the process: the caching allocator reuses a
-    block freed by a body only on its stream, so the bodies of a flat
-    chain of nodes share one set of temporaries."""
+    """The stream that captures the bodies of conditional nodes ``depth``
+    deep, one a depth and device for the process: the caching allocator
+    reuses a block freed by a body only on its stream, so the bodies of a
+    flat chain of nodes share one set of temporaries."""
     import ctypes
     key = (device.index, depth)
     s = _COND.get(key)
@@ -209,7 +273,8 @@ def _body_stream(device, depth):
         h = ctypes.c_void_p()
         err = _cond_lib().cond_stream_create(ctypes.byref(h))
         if err != 0:
-            raise RuntimeError(f"IF-node body stream: CUDA error {err}")
+            raise RuntimeError(f"conditional node's body stream: CUDA "
+                               f"error {err}")
         s = _COND[key] = torch.cuda.ExternalStream(h.value, device=device)
     return s
 
@@ -217,22 +282,27 @@ def _body_stream(device, depth):
 _DEPTH = [0]
 
 
-def _if_node(pred, body):
+def _cond_node(pred, body, kind):
+    """An IF (``kind`` "if") or WHILE ("while") node on ``pred`` whose
+    body ``body()`` captures, in the capture under way."""
+    name = {"if": "when", "while": "while_"}[kind]
     if pred.dtype != torch.bool or pred.numel() != 1:
-        raise ValueError("when() takes a one-element bool tensor, not "
+        raise ValueError(f"{name}() takes a one-element bool tensor, not "
                          f"{pred.dtype} of shape {tuple(pred.shape)}")
     if not _POOLS:
-        raise RuntimeError("when() makes an IF node only inside the device "
-                           "loop's capture (device_loop._capture)")
+        raise RuntimeError(f"{name}() makes a {kind.upper()} node only "
+                           "inside the device loop's capture "
+                           "(device_loop._capture)")
     dev = pred.device
     cap = _POOLS[-1]
     lib = _cond_lib()
     child = _body_stream(dev, _DEPTH[0])
     parent = torch.cuda.current_stream(dev)
-    err = lib.cond_if_begin(parent.cuda_stream, child.cuda_stream,
-                            pred.data_ptr())
+    begin = lib.cond_if_begin if kind == "if" else lib.cond_while_begin
+    err = begin(parent.cuda_stream, child.cuda_stream, pred.data_ptr())
     if err != 0:
-        raise RuntimeError(f"IF node in {_STAGE[0]!r}: CUDA error {err}")
+        raise RuntimeError(f"{kind.upper()} node in {_STAGE[0]!r}: CUDA "
+                           f"error {err}")
     _DEPTH[0] += 1
     try:
         if not cap[1]:
@@ -249,10 +319,11 @@ def _if_node(pred, body):
             body()
     finally:
         _DEPTH[0] -= 1
-        err = lib.cond_if_end(child.cuda_stream)
+        err = (lib.cond_if_end(child.cuda_stream) if kind == "if" else
+               lib.cond_while_end(child.cuda_stream, pred.data_ptr()))
     if err != 0:
-        raise RuntimeError(f"IF node's body in {_STAGE[0]!r}: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{kind.upper()} node's body in {_STAGE[0]!r}: "
+                           f"CUDA error {err}")
 
 
 class Piece:
@@ -295,14 +366,16 @@ class Loop:
     what the driver derives on the device from the final state;
     ``start()``, where given, runs once before the first block of a call
     that is not captured (a loop whose eager iterations each compute the
-    next one's test at their end computes the first's there)."""
+    next one's test at their end computes the first's there); ``inner_at``,
+    where given, is the index in ``final()``'s read of the loop's count
+    of inner passes (:func:`inner`), recorded in ``LAST["inner"]``."""
 
     def __init__(self, t, step, status, final, rows, show, finish=None,
-                 start=None):
+                 start=None, inner_at=None):
         self.t = t
         self.step, self.status, self.final = step, status, final
         self.rows, self.show, self.finish = rows, show, finish
-        self.start = start
+        self.start, self.inner_at = start, inner_at
         self.graph = None       # the captured iteration, once captured
 
     def refill(self, fresh):
@@ -420,6 +493,8 @@ def run(loop, max_iter, done, device, verbose=False, graph=True):
     LAST.update(host_reads=reads + 1, blocks=blocks, replays=replays,
                 live=n_done, graph=graph and blocks > 0, captured=captured,
                 route="graph" if graph else "eager", flag_reads=_FLAGS[0])
+    if loop.inner_at is not None:
+        LAST["inner"] = int(out[loop.inner_at])
     return out
 
 

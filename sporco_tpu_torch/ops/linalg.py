@@ -110,14 +110,28 @@ def solvemdbi_ism(ah, rho, b, axisM, axisK):
     return beta
 
 
-# The last cg call: its iterations, blocks, host reads (one a block) and
-# the eager reads of its conditional blocks' tests (the CPU's; none on
-# the card), as ``device_loop.LAST`` records a loop's.
+# The last cg call: how it ran (``form``: "node", "graph" or "blocks",
+# see cg; ``graph`` whether in a CUDA graph), its iterations (None for a
+# node, whose count stays on the device), blocks, host reads and the
+# eager reads of its loop's tests (the CPU's; none on the card), as
+# ``device_loop.LAST`` records a loop's.
 CG_LAST = {}
 
-# the graphs of cg blocks kept between calls, by the caller's key
+# the graphs of cg solves kept between calls, by the caller's key
 _CG_KEPT = {}
 CG_MAX_KEPT = 2
+
+
+def _cg_form(b):
+    """How :func:`cg` runs on ``b``'s device here: "node" inside a CUDA-
+    graph capture (and its eager warm-up), "graph" elsewhere on the
+    card, "blocks" on the CPU."""
+    from sporco_tpu_torch.ops import device_loop
+    if b.device.type != "cuda":
+        return "blocks"
+    if torch.cuda.is_current_stream_capturing() or device_loop._WARM[0]:
+        return "node"
+    return "graph"
 
 
 def cg(aop, b, x0=None, tol=1e-5, max_iter=1000, m_inv=None, key=None):
@@ -126,89 +140,123 @@ def cg(aop, b, x0=None, tol=1e-5, max_iter=1000, m_inv=None, key=None):
     stopping test as the JAX package's ``cg``, whose ``lax.while_loop``
     keeps the test on the device).
 
-    The state (x, r, z, p, rz, k) lives in tensors of the call's own, and
-    the iterations run in blocks of ``device_loop.UNROLL``, each one a
-    conditional block (``device_loop.when``) on ``live = (k < max_iter)
-    & (||r|| > thr)``, computed on the device at the end of the iteration
-    before.  The host reads ``live`` and k once a block: a solve of c
-    iterations reads max(1, ceil(c / 8)) times (:data:`CG_LAST`).  On the
-    card a block is one CUDA graph (``device_loop.Piece``, its iterations
-    IF nodes), captured at the call's first block; with ``key`` the graph
-    is kept for the next call of that key, which the caller gives only
-    where ``aop`` and ``m_inv`` read the same tensors every call (their
-    addresses in the key).  Inside another capture cg raises: its reads
-    need the host.  Returns ``(x, k)`` with ``k`` the number of
-    iterations run, a Python int."""
+    The state (x, r, z, p, rz, k) lives in tensors of the call's own; an
+    iteration runs where ``live = (k < max_iter) & (||r|| > thr)``,
+    computed on the device at the end of the iteration before, and, in a
+    device loop's iteration (``device_loop.outer``), where that
+    iteration is live; its iterations are added into the loop's counter
+    of inner passes.  Three forms (:data:`CG_LAST`):
+
+    - "node": inside a capture (the ADMM iteration of a graph-route
+      problem), the set-up and a WHILE node (``device_loop.while_``)
+      whose body is one iteration; nothing is read on the host, and
+      ``k`` is returned as a 0-d device tensor.
+    - "graph": elsewhere on the card, the set-up and the WHILE node are a
+      CUDA graph of their own, captured at the first call and, with
+      ``key``, kept for the next call of that key (which the caller
+      gives only where ``aop`` and ``m_inv`` read the same tensors every
+      call: their addresses in the key); one host read, of k.
+    - "blocks": on the CPU, blocks of ``device_loop.UNROLL`` iterations,
+      each a conditional block (``device_loop.when``), one read of
+      ``live`` and k a block: a solve of c iterations reads max(1,
+      ceil(c / 8)) times.
+
+    Returns ``(x, k)`` with ``k`` the number of iterations run (a Python
+    int, but in the "node" form)."""
     from sporco_tpu_torch.ops import device_loop
     if x0 is None:
         x0 = torch.zeros_like(b)
-
-    def dotp(u, v):
-        return torch.sum((u.conj() * v).real)
-
-    tiny = 1e-30
-    cuda = b.device.type == "cuda"
-    if cuda and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("cg reads its stopping test on the host once a "
-                           "block: it cannot run inside a CUDA-graph "
-                           "capture")
-    kkey = None if key is None else (key, tuple(b.shape), b.dtype,
-                                     str(b.device), tol, max_iter,
-                                     m_inv is not None)
-    st = _CG_KEPT.get(kkey) if cuda else None
-    if st is None:
-        st = _cg_state(aop, b, m_inv, max_iter, dotp, tiny, device_loop)
-        if cuda and kkey is not None:
-            while len(_CG_KEPT) >= CG_MAX_KEPT:
-                del _CG_KEPT[next(iter(_CG_KEPT))]
-            _CG_KEPT[kkey] = st
-    # the set-up, eagerly: the first residual and the first test
-    bn = torch.sqrt(dotp(b, b))
-    r = b - aop(x0)
-    z = m_inv(r) if m_inv is not None else r
-    st["x"].copy_(x0)
-    st["r"].copy_(r)
-    if m_inv is not None:
-        st["z"].copy_(z)
-    st["p"].copy_(z)
-    st["rz"].copy_(dotp(r, z))
-    st["k"].zero_()
-    st["thr"].copy_(tol * torch.clamp(bn, min=tiny))
-    st["test"]()
+    form = _cg_form(b)
+    gate = device_loop.outer()
+    CG_LAST.clear()
+    if form == "node":
+        st = _cg_state(aop, b, m_inv, tol, max_iter, gate, device_loop)
+        st["run"](b, x0)
+        CG_LAST.update(form=form, iterations=None, blocks=0, host_reads=0,
+                       flag_reads=0, graph=True, kept=False)
+        return st["x"], st["k"]
+    if form == "graph":
+        kkey = None if key is None else (
+            key, tuple(b.shape), b.dtype, str(b.device), tol, max_iter,
+            m_inv is not None, None if gate is None else tuple(
+                t.data_ptr() for t in gate))
+        st = _CG_KEPT.get(kkey)
+        if st is None:
+            st = _cg_state(aop, b, m_inv, tol, max_iter, gate, device_loop)
+            st["b"], st["x0"] = b.clone(), x0.clone()
+            st["graph"] = device_loop._capture(
+                lambda: st["run"](st["b"], st["x0"]), b.device)
+            if kkey is not None:
+                while len(_CG_KEPT) >= CG_MAX_KEPT:
+                    del _CG_KEPT[next(iter(_CG_KEPT))]
+                _CG_KEPT[kkey] = st
+        else:
+            st["b"].copy_(b)
+            st["x0"].copy_(x0)
+        st["graph"].replay()
+        k = int(device_loop.read(st["k"]))
+        CG_LAST.update(form=form, iterations=k, blocks=0, host_reads=1,
+                       flag_reads=0, graph=True, kept=kkey in _CG_KEPT)
+        return st["x"].clone(), k
+    st = _cg_state(aop, b, m_inv, tol, max_iter, gate, device_loop)
+    st["setup"](b, x0)
     flags = device_loop._FLAGS[0]
-    reads = blocks = 0
+    reads = 0
     while True:
-        st["block"]()
+        for _ in range(device_loop.UNROLL):
+            if device_loop.when(st["live"], st["iteration"]) is False:
+                break
         host = device_loop.read(torch.stack([st["live"].to(torch.int64),
                                              st["k"]]))
         reads += 1
-        blocks += 1
         if not host[0]:
             break
+    if gate is not None:
+        gate[1].add_(st["k"])
     k = int(host[1])
-    CG_LAST.clear()
-    CG_LAST.update(iterations=k, blocks=blocks, host_reads=reads,
-                   flag_reads=device_loop._FLAGS[0] - flags,
-                   graph=getattr(st["block"], "graph", None) is not None,
-                   kept=kkey in _CG_KEPT)
-    return st["x"].clone(), k
+    CG_LAST.update(form=form, iterations=k, blocks=reads, host_reads=reads,
+                   flag_reads=device_loop._FLAGS[0] - flags, graph=False,
+                   kept=False)
+    return st["x"], k
 
 
-def _cg_state(aop, b, m_inv, max_iter, dotp, tiny, device_loop):
-    """The tensors of a cg solve and its block (see :func:`cg`)."""
+def _cg_state(aop, b, m_inv, tol, max_iter, gate, device_loop):
+    """The tensors of a cg solve and its functions (see :func:`cg`):
+    ``setup(b, x0)``, ``iteration()`` and ``run(b, x0)`` (the set-up, a
+    WHILE loop of iterations and the count into the loop's counter)."""
     rdt = b.real.dtype if b.is_complex() else b.dtype
     dev = b.device
+    tiny = 1e-30
     st = {n: torch.empty_like(b) for n in ("x", "r", "p")}
     st["z"] = torch.empty_like(b) if m_inv is not None else st["r"]
     st["rz"] = torch.zeros((), dtype=rdt, device=dev)
     st["thr"] = torch.zeros((), dtype=rdt, device=dev)
     st["k"] = torch.zeros((), dtype=torch.int64, device=dev)
     st["live"] = live = torch.zeros((), dtype=torch.bool, device=dev)
-    x, r, z, p, rz, k = (st[n] for n in ("x", "r", "z", "p", "rz", "k"))
+    x, r, z, p, rz, k, thr = (st[n] for n in ("x", "r", "z", "p", "rz", "k",
+                                              "thr"))
+
+    def dotp(u, v):
+        return torch.sum((u.conj() * v).real)
 
     def test():
-        torch.logical_and(k < max_iter, torch.sqrt(dotp(r, r)) > st["thr"],
+        torch.logical_and(k < max_iter, torch.sqrt(dotp(r, r)) > thr,
                           out=live)
+        if gate is not None:
+            live.logical_and_(gate[0])
+
+    def setup(b, x0):
+        device_loop.stage("cg set-up")
+        bn = torch.sqrt(dotp(b, b))
+        x.copy_(x0)
+        r.copy_(b - aop(x0))
+        if m_inv is not None:
+            z.copy_(m_inv(r))
+        p.copy_(z)
+        rz.copy_(dotp(r, z))
+        k.zero_()
+        thr.copy_(tol * torch.clamp(bn, min=tiny))
+        test()
 
     def iteration():
         device_loop.stage("cg iteration")
@@ -225,13 +273,12 @@ def _cg_state(aop, b, m_inv, max_iter, dotp, tiny, device_loop):
         k.add_(1)
         test()
 
-    def block():
-        for _ in range(device_loop.UNROLL):
-            if device_loop.when(live, iteration) is False:
-                break
-    st["test"] = test
-    st["block"] = (device_loop.Piece(block, dev) if dev.type == "cuda"
-                   else block)
+    def run(b, x0):
+        setup(b, x0)
+        device_loop.while_(live, iteration)
+        if gate is not None:
+            gate[1].add_(k)
+    st.update(setup=setup, iteration=iteration, run=run)
     return st
 
 
@@ -247,7 +294,7 @@ def solvemdbi_cg(ah, rho, b, axisM, axisK, tol=1e-5, max_iter=1000,
                                    dim=axisK, keepdim=True)
 
     # aop reads ah, a view of it and rho: the same tensors (by address)
-    # give the same block graph
+    # give the same graph
     rkey = (("t", rho.data_ptr(), rho.dtype) if isinstance(rho, torch.Tensor)
             else ("v", float(rho)))
     key = ("solvemdbi_cg", ah.data_ptr(), tuple(ah.shape), ah.stride(),

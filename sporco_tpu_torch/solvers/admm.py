@@ -516,6 +516,7 @@ def _admm_run(prob, cfg, params, opts, state):
     fresh["stats"] = _stats_tensor(state.stats, opts.max_iter,
                                    1 + nobj + 5, dev)
     fresh["fcnt"] = torch.zeros(2, dtype=torch.int32, device=dev)
+    fresh["inner"] = torch.zeros((), dtype=torch.int64, device=dev)
     fresh["enable"] = torch.ones((), dtype=torch.bool, device=dev)
     loop = device_loop.kept(kind, key)
     if loop is None:
@@ -542,7 +543,7 @@ def _admm_run(prob, cfg, params, opts, state):
     return ADMMState(
         X=X, Y=Y, U=U, rho=rho, rho_xi=rho_xi, k=np.int32(k), r=r, s=s,
         epri=epri, edua=edua,
-        stats=host[10:].reshape(opts.max_iter, 1 + nobj + 5)
+        stats=host[11:].reshape(opts.max_iter, 1 + nobj + 5)
         .astype(np.float32), extra=extra)
 
 
@@ -563,6 +564,7 @@ def _admm_loop(prob, cfg, opts, T, p_spec, n_p, s_spec, n_s, graph):
     olds = [T[f"s{i}"] for i in range(n_s)]
     Xs, Ys, Us, Es = device_loop.unflatten(s_spec, olds)
     sc, stats, fcnt, enable = T["sc"], T["stats"], T["fcnt"], T["enable"]
+    passes = T["inner"]
     rho, rho_xi, k, k0, r, s, epri, edua = sc
     rdt = sc.dtype
     dev = sc.device
@@ -628,11 +630,13 @@ def _admm_loop(prob, cfg, opts, T, p_spec, n_p, s_spec, n_s, graph):
 
     def step():
         """One iteration, guarded by ``live`` (the JAX ``lax.cond``); the
-        FFT kernels read it through their gate."""
+        FFT kernels read it through their gate, the inner loops (CG)
+        through ``device_loop.inner``."""
         device_loop.stage("stopping test")
         if whole:
             head()
-        with fft2_planar.gate(live.to(torch.float32), fcnt):
+        with fft2_planar.gate(live.to(torch.float32), fcnt), \
+                device_loop.inner(live, passes):
             body()
         if not whole:
             live.copy_(nxt)
@@ -707,9 +711,12 @@ def _admm_loop(prob, cfg, opts, T, p_spec, n_p, s_spec, n_s, graph):
 
     return device_loop.Loop(
         T, step, status,
-        lambda: torch.cat([sc, fcnt.to(rdt), stats.reshape(-1).to(rdt)]),
+        # the state, the FFT pair's and the inner loops' (CG) passes
+        # counted on the device, the stats rows
+        lambda: torch.cat([sc, fcnt.to(rdt), passes.to(rdt)[None],
+                           stats.reshape(-1).to(rdt)]),
         lambda i, n: stats[i:i + n], show,
-        start=None if whole else head)
+        start=None if whole else head, inner_at=10)
 
 
 def admm_solve(prob, cfg, params, opts, state):

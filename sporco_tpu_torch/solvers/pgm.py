@@ -17,11 +17,11 @@ state once.  Every scalar is computed in that type in the JAX package's
 order, correctly rounded, so that the momentum ``beta`` and the
 stopping test match it to the last bit; the host forms
 (``_momentum_update``, ``stop_tol``) stay as the tests' oracle.  A
-backtracking search is a chain of ``bt_maxiter`` trials (:func:`bt_chain`),
-each after the first a conditional block on its test ``F > Q``: on the
-card, IF nodes of the iteration's graph that test it on the device (the
-graph route); eagerly, one host read a trial.  A search of more than
-:data:`BT_GRAPH_MAX` trials takes the eager route (:func:`pgm_route`).
+backtracking search (:func:`bt_chain`) is a first trial and an inner
+loop of trials while ``F > Q`` and fewer than ``bt_maxiter`` have run:
+on the card, a WHILE node of the iteration's graph that tests it on the
+device (the graph route, for any ``bt_maxiter``); eagerly, one host read
+a trial.
 The returned :class:`PGMState` holds host scalars and a numpy ``stats``
 from the one final read.
 """
@@ -44,7 +44,7 @@ from sporco_tpu_torch.solvers.admm import (IterStats, _as_reals, _loop_key,
 
 __all__ = ["PGMOpts", "PGMProblem", "PGMState", "pgm_solve", "pgm_route",
            "pgm_init_state", "pgm_iterstats", "stat_names",
-           "momentum_update_t", "stop_tol_t", "bt_chain", "BT_GRAPH_MAX"]
+           "momentum_update_t", "stop_tol_t", "bt_chain"]
 
 f32 = np.float32
 
@@ -194,18 +194,9 @@ def stop_tol_t(opts, k, dtype=torch.float32):
     return _num(opts.rel_stop_tol, dtype)
 
 
-# The graph route's line search holds bt_maxiter trials; a backtracking
-# solve with more takes the eager route (its trials read their test on
-# the host), as declared here.
-BT_GRAPH_MAX = 64
-
-
 def pgm_route(prob, opts):
     """The route of a solve of ``prob`` under ``opts``: the problem's
-    (``prob.route``), but ``"eager"`` for a line search of more than
-    :data:`BT_GRAPH_MAX` trials."""
-    if opts.backtrack != "none" and opts.bt_maxiter > BT_GRAPH_MAX:
-        return "eager"
+    (``prob.route``), whatever its line search."""
     return prob.route
 
 
@@ -262,29 +253,23 @@ def _pgm_run(prob, cfg, params, opts, state):
 
 def bt_chain(live, trial, L0, opts, T=None):
     """A backtracking line search (``sporco/pgm/backtrack.py``; the JAX
-    package's inner ``while_loop``, ``sporco_tpu/solvers/pgm.py``) as a
-    chain of ``bt_maxiter`` trials.  The first, ``trial(L0)``, runs
-    unconditionally and its results (..., F, Q) become the chain's
-    buffers; each next trial is a conditional block
-    (:func:`~sporco_tpu_torch.ops.device_loop.when`) on ``searching =
-    live & (F > Q)``, which the block before it left: it multiplies L by
-    ``bt_gamma_u``, runs the trial, copies its results into the buffers,
-    adds one to the trial count and updates ``searching``.
+    package's inner ``while_loop``, ``sporco_tpu/solvers/pgm.py``
+    ``bt_cond``/``bt_body``).  The first trial, ``trial(L0)``, runs
+    unconditionally and its results (..., F, Q) become the search's
+    buffers; then :func:`~sporco_tpu_torch.ops.device_loop.while_` runs
+    a trial while ``searching = live & (F > Q) & (trials <
+    bt_maxiter)``: it multiplies L by ``bt_gamma_u``, runs the trial,
+    copies its results into the buffers, adds one to the trial count
+    and updates ``searching``.
 
-    The trials after the first are nested in groups of about the square
-    root of their number, the groups a flat chain.  Captured (IF nodes
-    that test ``searching`` on the device, no host read), a satisfied
-    test skips the rest of its group in one check and each later group
-    in one: a skipped node of a flat chain costs some 7 µs on the card,
-    and each nesting depth captures on a stream of its own, whose freed
-    blocks the caching allocator reuses on that stream only, so each
-    depth holds a trial's temporaries (PERF.md §6).  Eagerly, each
-    block reads ``searching`` on the host and the chain stops at the
-    first false one: a search of n trials reads min(n, bt_maxiter - 1)
-    times.  A result that shares memory with a tensor of ``T`` (the
-    loop's) or with another result is copied first, so that the blocks
-    never write into a problem's tensors.  Returns the buffers, L and
-    the trial count (0-d tensors of L0's type)."""
+    Captured, the loop is one WHILE node that tests ``searching`` on the
+    device, whatever ``bt_maxiter``; eagerly, each pass reads it on the
+    host, n + 1 reads for a live search of n trials after the first (n
+    = 0 where the first satisfies the test).  A result that shares
+    memory with a tensor of ``T`` (the loop's) or with another result is
+    copied first, so that the trials never write into a problem's
+    tensors.  Returns the buffers, L and the trial count (0-d tensors of
+    L0's type)."""
     out = list(trial(L0))
     seen = set() if T is None else {
         v.untyped_storage().data_ptr() for v in T.values()}
@@ -296,9 +281,9 @@ def bt_chain(live, trial, L0, opts, T=None):
         seen.add(m)
     L = L0.clone()
     ibt = torch.ones_like(L)
-    searching = live & (out[-2] > out[-1])
+    n = opts.bt_maxiter
+    searching = live & (out[-2] > out[-1]) & (ibt < n)
     gamma_u = _num(opts.bt_gamma_u, L.dtype)
-    stopped = [False]       # an eager block found the search satisfied
 
     def more():
         device_loop.stage("line search trial")
@@ -307,19 +292,8 @@ def bt_chain(live, trial, L0, opts, T=None):
             dst.copy_(v)
         ibt.add_(1.0)
         torch.logical_and(live, out[-2] > out[-1], out=searching)
-
-    def group(n):
-        more()
-        if n > 1 and device_loop.when(searching,
-                                      lambda: group(n - 1)) is False:
-            stopped[0] = True
-    left = opts.bt_maxiter - 1
-    size = math.isqrt(max(left, 1) - 1) + 1         # ceil(sqrt(left))
-    while left > 0 and not stopped[0]:
-        n = min(size, left)
-        if device_loop.when(searching, lambda n=n: group(n)) is False:
-            break
-        left -= n
+        searching.logical_and_(ibt < n)
+    device_loop.while_(searching, more)
     return tuple(out), L, ibt
 
 

@@ -1267,14 +1267,25 @@ def test_ccmodmd_cg_default_tolerance_counts_equal_on_card(dev):
     """At the default CG tolerance (1e-3) the masked CCMOD's CG d-step
     stops at the same iteration on the card and on the CPU in every
     x-step of the 10 iterations: the two parted by 1.1e-7 of scale there
-    through rounding inside CG, not through its stopping test."""
+    through rounding inside CG, not through its stopping test.  The
+    card's counts a solve come from the problem declared eager (each CG
+    solve a graph that reads its count); on the graph route, where the
+    counts stay on the device, their sum is the loop's count of CG
+    iterations."""
     from sporco_tpu_torch.models import ccmodmd as tmd
+    from sporco_tpu_torch.ops import device_loop
     cases, _, _ = _new_model_cases()
+    b = cases["ccmodmd cg"](dev)
+    b.cfg = dataclasses.replace(b.cfg, cg_tol=1e-3)
+    b.solve()
+    assert device_loop.LAST["route"] == "graph"
+    graph_total = device_loop.LAST["inner"]
     counts = []
     orig = tmd.sl.solvemdbi_cg
     for d in (dev, "cpu"):
         b = cases["ccmodmd cg"](d)
         b.cfg = dataclasses.replace(b.cfg, cg_tol=1e-3)
+        b.problem = dataclasses.replace(b.problem, route="eager")
         seen = []
 
         def counted(*a, **k):
@@ -1288,6 +1299,7 @@ def test_ccmodmd_cg_default_tolerance_counts_equal_on_card(dev):
             tmd.sl.solvemdbi_cg = orig
         counts.append(seen)
     assert len(counts[0]) == 10 and counts[0] == counts[1]
+    assert sum(counts[0]) == graph_total
 
 
 @pytest.mark.parametrize("name,per,setup", [("ConvBPDNMaskDcpl", 3, 1),
@@ -2111,7 +2123,7 @@ def test_generic_convbpdn_float32_counts_fft_launches(dev):
                                    rtol=1e-3, atol=1e-6, err_msg=n)
 
 
-def _ccmod_cg(dev):
+def _ccmod_cg(dev, max_iter=1):
     from sporco_tpu_torch.models import ccmod
     _, _, Dc, Si, _, _ = _generic_data()
     g = np.random.default_rng(4)
@@ -2120,7 +2132,7 @@ def _ccmod_cg(dev):
     return ccmod.ConvCnstrMOD_CG(X, Si, (6, 6, 4), dimK=0,
                                  dtype=torch.float64, device=dev,
                                  opt=ccmod.ConvCnstrMOD_CG.options(
-                                     max_iter=1))
+                                     max_iter=max_iter, rel_stop_tol=0.0))
 
 
 def _eager_case(name, dev):
@@ -2135,13 +2147,17 @@ def _eager_case(name, dev):
         return (_generic_model(name, dev, torch.float64, opt),
                 [(torch.linalg, "svd"), (torch.linalg, "qr")])
     if name == "CCMOD-cg":
-        return _ccmod_cg(dev), [(sl, "cg")]
+        # the CG d-step takes the graph route; declared eager, each CG
+        # solve is a graph of its own that reads its iteration count
+        b = _ccmod_cg(dev)
+        b.problem = dataclasses.replace(b.problem, route="eager")
+        return b, [(sl, "cg")]
     if name == "FISTABacktrack":
         # the line search is the graph route's; declared eager, each
-        # trial's test is read through device_loop.when
+        # trial's test is read through device_loop.while_
         b = _generic_model(name, dev, torch.float64, opt)
         b.problem = dataclasses.replace(b.problem, route="eager")
-        return b, [(device_loop, "when")]
+        return b, [(device_loop, "while_")]
     b = _ppp_model(dev, torch.float64, opt)
     prior = ppp.host_prior(lambda x: x)
     b2 = ppp.PPP(b.params["x0"].shape, lambda x: x.sum(),
@@ -2261,10 +2277,10 @@ def _eager_run(monkeypatch):
 @pytest.mark.parametrize("backtrack", ["standard", "robust"])
 def test_backtracking_graph_route_matches_eager(dev, backtrack):
     """Generic FISTA with a line search in float64 at 32x32, 20
-    iterations from L = 0.5: on the graph route (the search a chain of IF
-    nodes; no flag read, ceil(k / 8) + 1 host reads) against the same
-    problem declared eager on the card: the same rows to 1e-6,
-    ``IterBTrack`` equal."""
+    iterations from L = 0.5: on the graph route (the search a WHILE node;
+    no flag read, ceil(k / 8) + 1 host reads) against the same problem
+    declared eager on the card: the same arithmetic, so the rows equal to
+    the bit, ``IterBTrack`` equal."""
     from sporco_tpu_torch.models import pgm
     from sporco_tpu_torch.ops import device_loop
     _, _, Dc, Si, _, _ = _generic_data()
@@ -2285,53 +2301,229 @@ def test_backtracking_graph_route_matches_eager(dev, backtrack):
     assert g.IterBTrack.max() > 1
     np.testing.assert_array_equal(g.IterBTrack, e.IterBTrack)
     for n in g._names:
-        np.testing.assert_allclose(getattr(g, n), getattr(e, n), rtol=1e-6,
-                                   atol=1e-30, err_msg=n)
+        np.testing.assert_array_equal(getattr(g, n), getattr(e, n),
+                                      err_msg=n)
 
 
-def test_cg_blocks_graph_matches_eager_on_card(dev, monkeypatch):
-    """``cg`` on the card, each block of 8 iterations a CUDA graph of IF
-    nodes (one read a block), against the same blocks run eagerly on the
-    card (their tests read on the host): the same iteration count and x,
-    float64; a second call of the same key replays the kept block; the
-    CPU gives the same count, x within 1e-10 of its scale (the card's
-    reductions sum in another order, which 40 CG iterations carry to
-    2e-11 on an H100, PERF.md §6)."""
-    from sporco_tpu_torch.ops import device_loop
+def _cg_problem(kind, dev):
+    """``(solve, b)`` of a cg solve on ``dev``, ``solve(keyed)`` giving
+    cg's ``(x, k)`` (with ``key`` where ``keyed``): the circulant
+    operator of ``tests/test_torch_device_blocks.py`` (float64, 64
+    points, tol 1e-10); the small ``solvemdbi_cg`` system of three
+    signals (complex128, tol 1e-10, which passes its own key); or the CCMOD x-step's
+    ``solvemdbi_cg`` operator at the consensus geometry (40 signals of
+    128x128, 32 filters; complex64, as the float32 d-step solves it, tol
+    1e-4)."""
     from sporco_tpu_torch.ops import linalg as tla
     g = np.random.default_rng(5)
-    ah = g.standard_normal((3, 1, 4, 6, 4)) + 1j * g.standard_normal(
-        (3, 1, 4, 6, 4))
-    b = g.standard_normal((1, 3, 4, 6, 4)) + 1j * g.standard_normal(
-        (1, 3, 4, 6, 4))
+    if kind == "circulant":
+        d = torch.tensor(g.uniform(1.5, 3.0, 64), device=dev)
+        b = torch.tensor(g.standard_normal(64), device=dev)
 
-    def solve(d):
-        tah = torch.tensor(ah, device=d)
-        x, k = tla.solvemdbi_cg(tah, 1.5, torch.tensor(b, device=d), 2, 0,
-                                tol=1e-10)
-        assert tla.CG_LAST["host_reads"] == max(1, -(-k // 8))
-        return tah, x, k
-    tah, xg, kg = solve(dev)
-    assert tla.CG_LAST["graph"] and tla.CG_LAST["flag_reads"] == 0
-    x2, k2 = tla.solvemdbi_cg(tah, 1.5, torch.tensor(b, device=dev), 2, 0,
-                              tol=1e-10)
-    assert tla.CG_LAST["kept"] and k2 == kg and torch.equal(x2, xg)
+        def aop(u):
+            return d * u - 0.5 * (u.roll(1) + u.roll(-1))
+        key = ("circulant", d.data_ptr())
+        return (lambda keyed: tla.cg(aop, b, tol=1e-10,
+                                     key=key if keyed else None)), b
+    if kind == "solvemdbi":
+        shape = (3, 1, 4, 6, 4)
+        ah = torch.tensor(g.standard_normal(shape) + 1j * g.standard_normal(
+            shape), device=dev)
+        b = torch.tensor(g.standard_normal((1, 3, 4, 6, 4)) + 1j
+                         * g.standard_normal((1, 3, 4, 6, 4)), device=dev)
+        return (lambda keyed: tla.solvemdbi_cg(ah, 1.5, b, 2, 0,
+                                               tol=1e-10)), b
+    shape = (40, 1, 32, 128, 65)
+    ah = torch.tensor(g.standard_normal(shape) * (g.random(shape) < 0.3)
+                      + 1j * g.standard_normal(shape), dtype=torch.complex64,
+                      device=dev)
+    b = torch.tensor(g.standard_normal(shape[1:]) + 1j * g.standard_normal(
+        shape[1:]), dtype=torch.complex64, device=dev)[None]
+    rho = torch.full((), 40.0, device=dev)
+    a = ah.conj()
 
-    class Eager:
-        def __init__(self, fn, device, quiet=None):
-            self.fn = fn
+    def aop(u):
+        return rho * u + torch.sum(a * tla.inner(ah, u, axis=2), dim=0,
+                                   keepdim=True)
+    key = ("ccmod", ah.data_ptr(), rho.data_ptr())
+    return (lambda keyed: tla.cg(aop, b, tol=1e-4,
+                                 key=key if keyed else None)), b
 
-        def __call__(self):
-            self.fn()
+
+@pytest.mark.parametrize("kind", ["circulant", "solvemdbi", "ccmod"])
+def test_cg_blocks_graph_matches_eager_on_card(dev, monkeypatch, kind):
+    """``cg`` on the card in its three forms on the same operator: inside
+    a capture (a WHILE node; k stays on the device), a graph of its own
+    (one read, a second call replaying the kept graph) and the eager
+    blocks of 8 (their tests read on the host, as on the CPU): the same
+    arithmetic, so the same iteration count and x to the bit.  In
+    float64 at tol 1e-10 the CPU gives the same count and x within 1e-10
+    of its scale (the card's reductions sum in another order, which 40
+    CG iterations carry to 2e-11 on an H100)."""
+    from sporco_tpu_torch.ops import device_loop
+    from sporco_tpu_torch.ops import linalg as tla
+    solve, b = _cg_problem(kind, dev)
+    out = {}
+    x_node = torch.empty_like(b)
+    k_node = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def captured():
+        x, k = solve(False)
+        x_node.copy_(x)
+        k_node.copy_(k)
+    graph = device_loop._capture(captured, dev)
+    assert tla.CG_LAST["form"] == "node" and tla.CG_LAST["host_reads"] == 0
+    graph.replay()
+    out["node"] = (x_node.clone(), int(k_node))
     tla._CG_KEPT.clear()
-    monkeypatch.setattr(device_loop, "Piece", Eager)
-    _, xe, ke = solve(dev)
-    assert not tla.CG_LAST["graph"] and tla.CG_LAST["flag_reads"] > 0
-    assert ke == kg > 8 and torch.equal(xe, xg)
-    _, xc, kc = solve("cpu")
-    assert kc == kg
-    xc, xg = xc.numpy(), xg.cpu().numpy()
+    for _ in range(2):
+        out["graph"] = solve(True)
+        assert tla.CG_LAST["form"] == "graph"
+        assert tla.CG_LAST["host_reads"] == 1
+    assert tla.CG_LAST["kept"]
+    monkeypatch.setattr(tla, "_cg_form", lambda b: "blocks")
+    out["blocks"] = solve(False)
+    k = out["blocks"][1]
+    assert tla.CG_LAST["host_reads"] == max(1, -(-k // 8)) and k > 8
+    for form in ("node", "graph"):
+        assert out[form][1] == k, form
+        assert torch.equal(out[form][0], out["blocks"][0]), form
+    if kind == "ccmod":
+        return
+    monkeypatch.undo()
+    solve_cpu, _ = _cg_problem(kind, "cpu")
+    xc, kc = solve_cpu(False)
+    assert tla.CG_LAST["form"] == "blocks" and kc == k
+    xc, xg = xc.numpy(), out["blocks"][0].cpu().numpy()
     assert np.abs(xg - xc).max() <= 1e-10 * np.abs(xc).max()
+
+
+@pytest.mark.parametrize("lim", [0, 1, 7, 1000])
+def test_while_node_runs_its_body_n_times(dev, lim):
+    """``device_loop.while_`` inside a capture makes a WHILE node: at each
+    replay it runs its body as many times as the flag, set from a limit
+    written before the replay, allows; one graph serves every limit."""
+    from sporco_tpu_torch.ops import device_loop
+    c = torch.zeros((), device=dev)
+    n = torch.zeros((), device=dev)
+    go = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def body():
+        c.add_(1.0)
+        torch.lt(c, n, out=go)
+
+    def loop():
+        torch.lt(c, n, out=go)
+        device_loop.while_(go, body)
+    graph = device_loop._capture(loop, dev)
+    for m in (lim, 3, lim):
+        c.zero_()
+        n.fill_(m)
+        graph.replay()
+        assert float(c) == m
+
+
+def test_while_node_nests_with_if_nodes(dev):
+    """A WHILE node in an IF node's body and an IF node in a WHILE body
+    both run as their flags say at replay."""
+    from sporco_tpu_torch.ops import device_loop
+    c = torch.zeros((), device=dev)
+    odd = torch.zeros((), device=dev)
+    n = torch.zeros((), device=dev)
+    on = torch.zeros((), dtype=torch.bool, device=dev)
+    go = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def body():
+        c.add_(1.0)
+        device_loop.when(torch.remainder(c, 2.0) == 1.0,
+                         lambda: odd.add_(1.0))
+        torch.lt(c, n, out=go)
+
+    def outer():
+        torch.lt(c, n, out=go)
+        device_loop.while_(go, body)
+    graph = device_loop._capture(lambda: device_loop.when(on, outer), dev)
+    for flag, m, want in ((True, 5, (5, 3)), (False, 5, (0, 0)),
+                          (True, 0, (0, 0)), (True, 8, (8, 4))):
+        c.zero_()
+        odd.zero_()
+        on.fill_(flag)
+        n.fill_(m)
+        graph.replay()
+        assert (float(c), float(odd)) == want
+
+
+def test_line_search_of_200_trials_stays_on_the_graph_route(dev):
+    """FISTA with ``bt_maxiter`` 200 (past the 64 that once sent it to
+    the eager route) from L = 0.05 at 32x32 in float64: one capture, no
+    flag read, ceil(k / 8) + 1 host reads; its rows, ``IterBTrack`` and
+    launches equal the same problem's declared eager."""
+    from sporco_tpu_torch.models import pgm
+    from sporco_tpu_torch.ops import device_loop
+    _, _, Dc, Si, _, _ = _generic_data()
+    runs = []
+    for route in ("graph", "eager"):
+        b = pgm.ConvBPDN(Dc, Si, 0.05, fused=False, dtype=torch.float64,
+                         device=dev, opt=pgm.ConvBPDN.options(
+                             L=0.05, backtrack="standard", bt_maxiter=200,
+                             max_iter=12, rel_stop_tol=0.0))
+        if route == "eager":
+            b.problem = dataclasses.replace(b.problem, route="eager")
+        b.solve()
+        last = dict(device_loop.LAST)
+        assert last["route"] == route and last["host_reads"] == 3
+        assert (last["flag_reads"] == 0) == (route == "graph")
+        runs.append(b.getitstat())
+    g, e = runs
+    assert g.IterBTrack.max() > 1
+    for n in g._names:
+        np.testing.assert_array_equal(getattr(g, n), getattr(e, n),
+                                      err_msg=n)
+
+
+@pytest.mark.parametrize("kind", ["ccmod", "ccmodmd"])
+def test_cg_d_step_graph_route_matches_eager_on_card(dev, kind):
+    """The CG d-steps on the graph route (their ADMM iteration one
+    captured graph with a WHILE node of CG iterations: no CG read,
+    ceil(k / 8) + 1 host reads) against the same problems declared eager
+    (a CG graph and one read a solve) in float64: the same arithmetic,
+    so rows and D to the bit and the same count of CG iterations."""
+    from sporco_tpu_torch.ops import device_loop
+    from sporco_tpu_torch.ops import linalg as tla
+    out = []
+    for route in ("graph", "eager"):
+        device_loop.clear_cache()
+        if kind == "ccmod":
+            b = _ccmod_cg(dev, 20)
+        else:
+            b = _new_model_cases()[0]["ccmodmd cg"](dev)
+        if route == "eager":
+            b.problem = dataclasses.replace(b.problem, route="eager")
+        reads = []
+        cg = tla.cg
+
+        def counted(*a, **k):
+            res = cg(*a, **k)
+            reads.append(tla.CG_LAST["host_reads"])
+            return res
+        tla.cg = counted
+        try:
+            b.solve()
+        finally:
+            tla.cg = cg
+        last = dict(device_loop.LAST)
+        k = len(b.getitstat())
+        assert last["route"] == route and last["inner"] > k
+        assert last["host_reads"] == -(-k // 8) + 1
+        assert set(reads) == ({0} if route == "graph" else {1})
+        out.append((b.getitstat(), b.getdict().cpu().numpy(),
+                    last["inner"]))
+    (ig, dg, ng), (ie, de, ne) = out
+    assert ng == ne
+    np.testing.assert_array_equal(dg, de)
+    for n in ig._names:
+        np.testing.assert_array_equal(getattr(ig, n), getattr(ie, n),
+                                      err_msg=n)
 
 
 @pytest.mark.parametrize("masked", [False, True])

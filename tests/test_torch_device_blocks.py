@@ -20,6 +20,7 @@ where ``when`` makes IF nodes, ``tests/test_torch_cuda.py`` holds the
 graph route against the eager route.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -68,10 +69,12 @@ def test_when_skips_unread_while_a_capture_warms_up():
 
 
 def test_when_makes_nodes_only_inside_the_loops_capture():
-    with pytest.raises(RuntimeError, match="only inside"):
-        device_loop._if_node(torch.ones((), dtype=torch.bool), lambda: None)
-    with pytest.raises(ValueError, match="one-element bool"):
-        device_loop._if_node(torch.ones(()), lambda: None)
+    for kind in ("if", "while"):
+        with pytest.raises(RuntimeError, match="only inside"):
+            device_loop._cond_node(torch.ones((), dtype=torch.bool),
+                                   lambda: None, kind)
+        with pytest.raises(ValueError, match="one-element bool"):
+            device_loop._cond_node(torch.ones(()), lambda: None, kind)
 
 
 # ---------------------------------------------------------------------------
@@ -124,7 +127,7 @@ def _lasso(dtype, robust):
 
 
 @pytest.mark.parametrize("robust", [False, True])
-@pytest.mark.parametrize("bt_maxiter", [1, 2, 4, 50])
+@pytest.mark.parametrize("bt_maxiter", [1, 2, 4, 50, 200])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("live", [True, False])
 def test_bt_chain_equals_host_search(robust, bt_maxiter, dtype, live):
@@ -184,8 +187,9 @@ def test_backtracking_fista_matches_jax_and_reads_once_a_block(backtrack):
     """The generic FISTA with each line search, float64, to its stopping
     tolerance: the JAX package's iterations, every row rtol 1e-6 and
     ``IterBTrack`` equal, X within 1e-8 of its scale; the graph route;
-    ``ceil(k / 8) + 1`` host reads and one flag read a block of the
-    chain that ran."""
+    ``ceil(k / 8) + 1`` host reads and one flag read a trial (a search
+    of n trials reads its test n times: n - 1 passes and the false
+    one)."""
     from sporco_tpu.models import pgm as jpgm
     D, S = _fista_data()
     opt = dict(max_iter=250, rel_stop_tol=1e-2, backtrack=backtrack)
@@ -209,19 +213,21 @@ def test_backtracking_fista_matches_jax_and_reads_once_a_block(backtrack):
     # the dead iterations of the last block read one false flag each
     dead = -k % device_loop.UNROLL
     ibt = ta.IterBTrack.astype(int)
-    assert device_loop.LAST["flag_reads"] == int(
-        np.minimum(ibt, t.opts.bt_maxiter - 1).sum()) + dead
+    assert device_loop.LAST["flag_reads"] == int(ibt.sum()) + dead
 
 
-def test_long_line_search_takes_the_eager_route():
-    """A line search of more than BT_GRAPH_MAX trials is the eager route's
-    (the graph would hold that many copies of a trial)."""
+@pytest.mark.parametrize("bt_maxiter", [64, 65, 200])
+def test_long_line_search_takes_the_graph_route(bt_maxiter):
+    """A line search of any length is one inner loop (a WHILE node on the
+    card): the route is the problem's, the graph route, and a problem
+    declared eager keeps its route."""
     D, S = _fista_data()
-    for n, route in ((tspgm.BT_GRAPH_MAX, "graph"),
-                     (tspgm.BT_GRAPH_MAX + 1, "eager")):
-        t = tpgm.ConvBPDN(D, S, 0.05, opt=tpgm.ConvBPDN.options(
-            backtrack="standard", bt_maxiter=n), fused=False, device="cpu")
-        assert tspgm.pgm_route(t.problem, t.opts) == route
+    t = tpgm.ConvBPDN(D, S, 0.05, opt=tpgm.ConvBPDN.options(
+        backtrack="standard", bt_maxiter=bt_maxiter), fused=False,
+        device="cpu")
+    assert tspgm.pgm_route(t.problem, t.opts) == "graph"
+    t.problem = dataclasses.replace(t.problem, route="eager")
+    assert tspgm.pgm_route(t.problem, t.opts) == "eager"
     t = tpgm.ConvBPDN(D, S, 0.05, opt=tpgm.ConvBPDN.options(), fused=False,
                       device="cpu")
     assert tspgm.pgm_route(t.problem, t.opts) == "graph"

@@ -63,7 +63,8 @@ PHASES = ("solve", "pgm_solve", "bt_solve", "gradreg_solve",
           "bpdn_parity", "bpdn_solve", "tv_parity", "tv_solve",
           "rpca_parity", "rpca_solve", "dictlrn_handover",
           "maskdcpl_parity", "maskdcpl_solve", "mdl_parity", "mdl_solve",
-          "online_solve", "dense_dl_parity", "dense_dl_solve",
+          "ccmod_cg_solve", "online_solve", "dense_dl_parity",
+          "dense_dl_solve",
           *(f"{f}_{p}" for f in cs.REST_FAMILIES
             for p in ("parity", "solve")),
           *PAR_PHASES)
@@ -71,7 +72,7 @@ PHASES = ("solve", "pgm_solve", "bt_solve", "gradreg_solve",
 # run at sizes the FFT kernels take (128x128) with the planar route on
 # for CPU tensors, so that their FFT launch checks hold here too
 PLANAR_PHASES = ("maskdcpl_parity", "maskdcpl_solve", "mdl_parity",
-                 "mdl_solve", "online_solve",
+                 "mdl_solve", "ccmod_cg_solve", "online_solve",
                  *(f"{f}_solve" for f in cs.REST_FAMILIES),
                  "par_parity", "par_solve")
 COUNTED = ((tci, "csc_iter", "csc_iter_plain"),
@@ -177,6 +178,7 @@ def main(argv):
                 imgs, Wo = cs.online_samples()
                 args = {"maskdcpl": (dev, D2, S2, W2, Sm2),
                         "mdl": (dev, D0c2, Sc2, lc2),
+                        "ccmod": (dev, D0c2, Sc2),
                         "online": (dev, D2, imgs, Wo),
                         "dense": (dev,)}[phase.split("_")[0]]
                 return getattr(cs, f"phase_{phase}")(*args)
@@ -186,7 +188,8 @@ def main(argv):
         return run
     runs.update({name: at_cut(name) for name in (
         "maskdcpl_parity", "maskdcpl_solve", "mdl_parity", "mdl_solve",
-        "online_solve", "dense_dl_parity", "dense_dl_solve")})
+        "ccmod_cg_solve", "online_solve", "dense_dl_parity",
+        "dense_dl_solve")})
     # the rest of the CSC models at 128x128 with 8 filters (one lateral
     # inhibition group), the float64 parity crop 64x64
     rest_cut = {"N": 128, "M": 8, "REST_PARITY_N": 64}

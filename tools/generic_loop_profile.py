@@ -13,9 +13,12 @@ and solves, in float32 at ``chip_smoke.py``'s sizes: BPDN with one and
 with 256 signals, ``TVL2Denoise``, ``TVL2Deconv``, the randomized Robust
 PCA, the generic ConvBPDN by ADMM and by FISTA at the headline and
 ``PPP``; by name also FISTA with each line search at the headline (48
-iterations from L = 1), ``ParConvBPDN`` on the headline to 1e-3 and the
+iterations from L = 1), ``ParConvBPDN`` on the headline to 1e-3, the
 row-sharded ``cbpdn_nsharded`` there (a world of one rank over NCCL,
-``chip_smoke.dist_world``).  For each, after one solve that warms it up (and keeps its
+``chip_smoke.dist_world``) and ``ConvCnstrMOD(method="cg")`` at the
+consensus geometry (``ccmod_cg``: 40 signals of 128x128, 32 filters,
+coefficients drawn from ``default_rng(5)``, 5% non-zero; 50 iterations
+to 1e-3).  For each, after one solve that warms it up (and keeps its
 loop where the tree keeps one): the host reads of a solve (every
 ``item``, ``float``, ``bool`` and ``cpu`` of a CUDA tensor, counted by
 monkeypatching, so both the per-iteration reads of an older tree and the
@@ -40,7 +43,7 @@ PROBLEMS = ("bpdn_k1", "bpdn_k256", "tvl2den", "tvl2dcn", "rpca",
             "cbpdn_admm", "cbpdn_fista", "ppp")
 # the loops of the last slice, run by name (--only)
 LOOPS = ("fista_bt_standard", "fista_bt_robust", "par_headline",
-         "cbpdn_sharded")
+         "cbpdn_sharded", "ccmod_cg")
 BT_ITERS, BT_L = 48, 1.0
 # the dictionary-learning phases of chip_smoke.py (--only dl): ms an
 # outer iteration, their x- and d-steps solved again each outer iteration
@@ -132,6 +135,16 @@ def _makers(cs, dev, torch, mesh):
             D, S, lmbda, device=dev, fused=False, opt=cs.tpgm.ConvBPDN
             .options(max_iter=BT_ITERS, rel_stop_tol=0.0, L=BT_L,
                      backtrack=bt)))
+
+    D0c, Sc, _ = cs.cdl_problem()
+    g = cs.np.random.default_rng(5)
+    shape = Sc.shape[:2] + (1, Sc.shape[2], D0c.shape[-1])
+    Zc = (g.standard_normal(shape) * (g.random(shape) < 0.05)).astype(
+        cs.np.float32)
+    out["ccmod_cg"] = lambda: cs.tccmod.ConvCnstrMOD(
+        Zc, Sc, D0c.shape, method="cg", D0=D0c, device=dev,
+        opt=cs.tccmod.ConvCnstrMODBase.options(max_iter=50,
+                                               rel_stop_tol=1e-3))
 
     def par():
         b = cs._par(D, S, None, lmbda, dev, cs.PAR_MAX_ITER)
