@@ -244,9 +244,24 @@ then BASELINE configurations 1-3 and the generic dictionary learning:
     CPU, the randomized SVD with the same sketch on both sides and the
     full SVD;
 39. ``rpca_solve``: both in float32 to 1e-3: the low-rank and the sparse
-    part recovered within 1e-2, ms an iteration (three solves), the
-    randomized solve's objective within ``RPCA_OBJ_AGREE`` of the CPU's
-    with the same sketch;
+    part recovered within 1e-2, ms an iteration (three solves), each
+    final objective within ``RPCA_OBJ_AGREE`` of the CPU's (the
+    randomized with the same sketch);
+    both Robust PCA phases on the graph route, the iteration captured
+    under ``global_capture()`` (any synchronisation inside it
+    would fail the capture), exactly ``ceil(k / 8) + 1`` host reads
+    (``exact_reads``) and the Jacobi SVD's sweeps counted on the device;
+39a. ``svd_qr``: the x-step's decompositions at its shapes in float32
+    and float64: the Jacobi SVD (``ops/svd.py``, ``csrc/jacobi_svd.cu``)
+    of 512x512 and 26x512, then of 4x20000 float64 and 30000x8 float32
+    (rows in global memory) and 2048x2048 float32, against
+    ``torch.linalg.svd`` within ``SVD_TOL`` L eps (singular values,
+    product, orthonormality, the prox's thresholded product) and against
+    its own plain version but at 512x512 and 2048x2048; its captured form
+    (global mode) replays bit for bit its eager form, NaN in gives NaN
+    out with no synchronisation; ``torch.linalg.qr`` of 512x26 captured
+    under global mode, its replay bit for bit the eager call, NaN in
+    gives NaN out; each one's ms beside ``torch.linalg``'s;
 40. ``dictlrn_handover``: the generic ``DictLearn`` over ``ConvBPDN`` and
     the consensus ``ConvCnstrMOD`` at the headline size, 3 outer
     iterations of 5 inner ones on the card (its hand-overs pass card
@@ -391,8 +406,8 @@ solve phases (``generic_solve``, ``pgm_generic_solve``, ``bpdn_solve``,
 ``tv_solve``, ``rpca_solve``, ``maskdcpl_solve`` and every
 ``<family>_solve``, ``PPP`` among them) report ``host_reads`` and the
 ``route`` and fail past ``ceil(k / 8) + 2`` reads, or where a problem
-that declares the graph route did not run as a graph (Robust PCA and
-``host_prior`` declare the eager route);
+that declares the graph route did not run as a graph (``host_prior``
+alone declares the eager route);
 ``cdl_solve``, ``mdl_solve`` and ``dense_dl_solve`` report ms an outer
 iteration.
 Any failure exits non-zero without the ``ok`` line; so does a run past the
@@ -443,6 +458,7 @@ from sporco_tpu_torch.ops import fft2_planar as tfp
 from sporco_tpu_torch.ops import fused_csc as tfc
 from sporco_tpu_torch.ops import linalg as tla
 from sporco_tpu_torch.ops import pgm_iter as tpi
+from sporco_tpu_torch.ops import svd as tsvd
 from sporco_tpu_torch.ops.fused_csc import PS, xstep_kernels
 from sporco_tpu_torch.parallel import consensus as tcns
 from sporco_tpu_torch.solvers import pgm as tspgm
@@ -734,6 +750,22 @@ def fft_precision(p):
         yield
     finally:
         tsf.set_precision(prev)
+
+
+@contextlib.contextmanager
+def global_capture():
+    """Every CUDA-graph capture begun within, the device loop's among
+    them, under global mode: any synchronising call inside it, in any
+    thread, fails the capture."""
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def capture_begin(self, pool=None, capture_error_mode="global", **kw):
+        return begin(self, pool=pool, capture_error_mode="global", **kw)
+    torch.cuda.CUDAGraph.capture_begin = capture_begin
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = begin
 
 
 @contextlib.contextmanager
@@ -2920,8 +2952,10 @@ DENSE_OBJ_AGREE = 4e-3
 PROJL1_DFID_AGREE = 1e-9
 # the TV models' final objectives: the card 1.2e-7 off (TVL1Deconv, one
 # float32 ulp of its objective; the others equal), one ulp of S up to
-# 5.3e-7 (TVL2Deconv); Robust PCA's (randomized): the card 4.5e-7 off,
-# one ulp of S 7.9e-7
+# 5.3e-7 (TVL2Deconv); Robust PCA's: randomized, the card 4.5e-7 off,
+# one ulp of S 7.9e-7; full, one ulp 5.6e-7, and a control: a Jacobi SVD
+# rotating float32 rows in float32 put the card 3.0e-6 off (its singular
+# values 16 times further off than LAPACK's; ops/svd.py works in float64)
 TV_OBJ_AGREE = 5e-7
 RPCA_OBJ_AGREE = 6e-7
 TV_PARITY = {"X": 2e-4, "ObjFun": 1e-4, "DFid": 1e-4, "RegTV": 1e-4,
@@ -3050,16 +3084,19 @@ def _rel_rows(a, c, zero):
             np.abs(a - c) / np.abs(c))))
 
 
-def f64_parity(label, dev, make, iters=PARITY_ITERS):
+def f64_parity(label, dev, make, iters=PARITY_ITERS, on_card=None):
     """``make(device)`` (a float64 model of ``iters`` iterations) solved
     on the card and on the CPU: every stats row to rtol 1e-6 (``XSlvRelRes``,
     rounding noise, within 1e-12; a ``Cnstr`` at zero skipped; an entry
     within 1e-12 of its column's largest on both sides counts as equal),
-    X and Y within 1e-8 of their scale."""
+    X and Y within 1e-8 of their scale.  ``on_card(model)``, where given,
+    runs after the card's solve (to check its loop)."""
     runs = []
     for d in (dev, "cpu"):
         b = make(d)
         b.solve()
+        if on_card is not None and d is dev:
+            on_card(b)
         runs.append((b.getitstat(), _state_arrays(b)))
     (ig, ag), (ic, ac) = runs
     if len(ig) != iters or len(ic) != iters:
@@ -3301,42 +3338,67 @@ def _rpca_sketch():
                        generator=torch.Generator().manual_seed(0))
 
 
+def rpca_loop(label, k):
+    """Robust PCA's last solve ran on the graph route, captured (under
+    ``global_capture()``: nothing in its iteration synchronises
+    with the host) and read the host exactly ``ceil(k / 8) + 1`` times;
+    its Jacobi SVD's sweeps, counted on the device (the loop's inner
+    passes), ran.  The CPU rehearsal (``LOOP_GRAPH`` off) checks the
+    reads alone: its SVD is ``torch.linalg.svd``."""
+    last = dict(device_loop.LAST)
+    reads = exact_reads(label, k)
+    if LOOP_GRAPH and not (last.get("graph") and last.get("route") == "graph"
+                           and last.get("inner", 0) > 0):
+        raise AssertionError(f"{label}: not a graph-route run with Jacobi "
+                             f"sweeps: {last}")
+    return {"host_reads": reads, "svd_sweeps": last.get("inner"),
+            "captured": last.get("captured")}
+
+
 def phase_rpca_parity(dev):
     """Robust PCA at 512x512, 10 iterations in float64 card against CPU,
     the randomized SVD (the same sketch on both sides) and the full
-    SVD."""
+    SVD; the card's loop on the graph route with exact reads."""
     S, _, _ = rpca_problem()
     sk = _rpca_sketch().double()
-    errs = {}
+    errs, loops = {}, {}
     for label, kw in (("randomized", {"svd_rank": RPCA_RANK,
                                       "sketch": sk}),
                       ("full", {})):
-        errs[label] = f64_parity(f"RobustPCA {label}", dev, lambda d: (
-            trpca.RobustPCA(S, opt=trpca.RobustPCA.options(
-                max_iter=PARITY_ITERS, rel_stop_tol=0.0),
-                dtype=torch.float64, device=d, **kw)))
+        def on_card(b, label=label):
+            loops[label] = rpca_loop(f"RobustPCA {label} float64",
+                                     PARITY_ITERS)
+        with global_capture():
+            errs[label] = f64_parity(f"RobustPCA {label}", dev, lambda d: (
+                trpca.RobustPCA(S, opt=trpca.RobustPCA.options(
+                    max_iter=PARITY_ITERS, rel_stop_tol=0.0),
+                    dtype=torch.float64, device=d, **kw)), on_card=on_card)
     return {"iterations": PARITY_ITERS, "dtype": "float64",
-            "rel_err": errs, "tolerance": F64_PARITY}
+            "rel_err": errs, "tolerance": F64_PARITY, "loop": loops}
 
 
 def phase_rpca_solve(dev):
     """BASELINE configuration 3 in float32 on the card: the randomized SVD
     (rank 16, the model's default sketch) and the full SVD, to 1e-3 (200
-    iterations at most): iterations, objective, ms an iteration and the
-    recovery of the low-rank and the sparse part, and the ms an
-    iteration of two more solves; the randomized solve's final objective
-    within RPCA_OBJ_AGREE of the CPU's with the same sketch."""
+    iterations at most), on the graph route (captured under
+    ``global_capture()``, exactly ``ceil(k / 8) + 1`` host reads):
+    iterations, objective, ms an iteration and the recovery of the
+    low-rank and the sparse part, and the ms an iteration of two more
+    solves; each final objective within RPCA_OBJ_AGREE of the CPU's (the
+    randomized with the same sketch)."""
     S, L, Ssp = rpca_problem()
     out = {}
     opt = trpca.RobustPCA.options(max_iter=RPCA_ITERS,
                                   rel_stop_tol=DENSE_TOL)
     for label, kw in (("randomized", {"svd_rank": RPCA_RANK}),
                       ("full", {})):
-        trpca.RobustPCA(S, opt=trpca.RobustPCA.options(max_iter=3),
-                        device=dev, **kw).solve()
+        with global_capture():
+            trpca.RobustPCA(S, opt=trpca.RobustPCA.options(max_iter=3),
+                            device=dev, **kw).solve()
         b = trpca.RobustPCA(S, opt=opt, device=dev, **kw)
         wall, counts = _timed(b)
         rec = _solve_record(b, wall, counts, RPCA_ITERS)
+        rec.update(rpca_loop(f"RobustPCA {label}", rec["iterations"]))
         rec["ms_per_iter_repeats"] = _repeat_ms(
             lambda: trpca.RobustPCA(S, opt=opt, device=dev, **kw))
         expect_launches(f"RobustPCA {label}", counts)
@@ -3350,22 +3412,174 @@ def phase_rpca_solve(dev):
             raise AssertionError(f"RobustPCA {label}: recovery "
                                  f"{rec['lowrank_rel_err']:.3e}, "
                                  f"{rec['sparse_rel_err']:.3e}")
-        if label == "randomized":
-            c = trpca.RobustPCA(S, opt=opt, device="cpu", **kw,
-                                sketch=b.params["sketch"].cpu())
-            c.solve()
-            ic = c.getitstat()
-            rec["cpu_iterations"] = len(ic)
-            rec["cpu_final_objective"] = float(ic.ObjFun[-1])
-            agree = abs(rec["final_objective"]
-                        - rec["cpu_final_objective"]) \
-                / abs(rec["cpu_final_objective"])
-            rec["objective_rel_diff"] = agree
-            if not agree <= RPCA_OBJ_AGREE:
-                raise AssertionError(
-                    f"RobustPCA: objective {rec['final_objective']} "
-                    f"against the CPU's {rec['cpu_final_objective']}")
+        if "svd_rank" in kw:
+            kw = dict(kw, sketch=b.params["sketch"].cpu())
+        c = trpca.RobustPCA(S, opt=opt, device="cpu", **kw)
+        c.solve()
+        ic = c.getitstat()
+        rec["cpu_iterations"] = len(ic)
+        rec["cpu_final_objective"] = float(ic.ObjFun[-1])
+        agree = abs(rec["final_objective"] - rec["cpu_final_objective"]) \
+            / abs(rec["cpu_final_objective"])
+        rec["objective_rel_diff"] = agree
+        if not agree <= RPCA_OBJ_AGREE:
+            raise AssertionError(
+                f"RobustPCA {label}: objective {rec['final_objective']} "
+                f"against the CPU's {rec['cpu_final_objective']}")
         out[label] = rec
+    return out
+
+
+# the decompositions of Robust PCA's x-step at its shapes: the full SVD,
+# the SVD of the randomized form's small matrix b = q^T v (rank 16 plus
+# 10 over 512 columns) and the QR of its 512 x 26 sketches
+SVD_SHAPES = (("full", (RPCA_N, RPCA_N)), ("small", (RPCA_RANK + 10, RPCA_N)))
+QR_SHAPE = (RPCA_N, RPCA_RANK + 10)
+# beyond them, in the type given: rows too long for shared memory (a wide
+# and a tall matrix, the kernel's route in global memory) and a larger
+# square, timed beside torch.linalg.svd
+SVD_MORE = (("wide", (4, 20000), torch.float64),
+            ("tall", (30000, 8), torch.float32),
+            ("large", (2048, 2048), torch.float32))
+# the Jacobi SVD against torch.linalg.svd on the card: singular values of
+# the largest, the product of a's norm, orthonormality, each within
+# SVD_TOL L eps for rows of length L (a Jacobi SVD's rounding: an entry
+# goes through some P rotations a sweep; tests/test_torch_svd.py); the
+# thresholded product of the prox (eight values kept, above a gap) within
+# the same of its norm
+SVD_TOL = 8
+
+
+def _svd_errors(a, u, s, vt, s_ref):
+    k = min(a.shape)
+    eye = torch.eye(k, dtype=a.dtype, device=a.device)
+    return {"s": float((s - s_ref).abs().max() / s_ref[0]),
+            "recon": float(((u * s) @ vt - a).norm() / a.norm()),
+            "orth_u": float((u.mT @ u - eye).abs().max()),
+            "orth_v": float((vt @ vt.mT - eye).abs().max())}
+
+
+def _all_nan(ts):
+    return all(bool(torch.isnan(t).all()) for t in ts)
+
+
+def _svd_case(a, name, jacobi_plain, reps, prox):
+    """The Jacobi SVD of ``a`` (on the card) checked and timed: its
+    "eager" form (each sweep's flag read on the host) against
+    ``torch.linalg.svd`` within ``SVD_TOL`` L eps, where ``prox`` the
+    prox's thresholded product too (``a`` of rank 8 over noise: the
+    threshold in the gap after the 8th value) and, where
+    ``jacobi_plain``, against the kernels' own plain version; its "node"
+    form captured under global mode (``device_loop._capture``) replays
+    bit for bit the eager form's outputs, and with a NaN in the input
+    gives NaN in every output with no synchronisation; ``ms`` the replay,
+    ``plain_ms`` ``torch.linalg.svd``."""
+    limit = SVD_TOL * max(a.shape) * torch.finfo(a.dtype).eps
+    u, s, vt = tsvd.jacobi_svd(a)
+    status = tsvd.LAST["status"].tolist()
+    up, sp, vp = tsvd.svd_plain(a)
+    errs = _svd_errors(a, u, s, vt, sp)
+    rec = {"shape": list(a.shape), "geometry": tsvd.LAST["geometry"],
+           "sweeps": status[1], "unconverged": status[2],
+           "vs_plain": errs, "plain": _svd_errors(a, up, sp, vp, sp),
+           "limit": limit}
+    checks = dict(errs)
+    if prox:
+        alpha = 0.5 * (sp[7] + sp[8])
+        x = (u * torch.clamp(s - alpha, min=0)) @ vt
+        xp = (up * torch.clamp(sp - alpha, min=0)) @ vp
+        checks["prox"] = rec["prox_vs_plain"] = float(
+            (x - xp).norm() / xp.norm())
+    if jacobi_plain:
+        jp = tsvd.jacobi_svd_plain(a)
+        rec["vs_jacobi_plain"] = _svd_errors(a, u, s, vt, jp[1])
+        rec["jacobi_plain_sweeps"] = tsvd.LAST["sweeps"]
+        checks["jacobi_plain"] = rec["vs_jacobi_plain"]["s"]
+    bad = {k: v for k, v in checks.items() if not v <= limit}
+    if bad or status[2]:
+        raise AssertionError(f"jacobi_svd {name}: {bad}, status {status}")
+    x = a.clone()
+    outs = [torch.empty_like(t) for t in (u, s, vt)]
+
+    def step():
+        for o, t in zip(outs, tsvd.jacobi_svd(x)):
+            o.copy_(t)
+    with global_capture():
+        graph = device_loop._capture(step, a.device)
+    graph.replay()
+    rec["replay_equals_eager"] = all(torch.equal(o, t) for o, t in
+                                     zip(outs, (u, s, vt)))
+    if not rec["replay_equals_eager"]:
+        raise AssertionError(f"jacobi_svd {name}: the captured form's "
+                             "replay differs from the eager form")
+    x[1, 2] = math.nan
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rec["nan_gives_nan"] = _all_nan(outs)
+    if not rec["nan_gives_nan"]:
+        raise AssertionError(f"jacobi_svd {name}: a NaN input gave a "
+                             "finite output")
+    x.copy_(a)
+    rec["ms"] = cuda_ms(graph.replay, reps=reps, warmup=1)
+    rec["plain_ms"] = cuda_ms(lambda: tsvd.svd_plain(a), reps=reps, warmup=1)
+    return rec
+
+
+def phase_svd_qr(dev):
+    """Robust PCA's x-step decompositions on the card.  The Jacobi SVD
+    (``ops/svd.py`` ``jacobi_svd``, the kernels of
+    ``csrc/jacobi_svd.cu``) of a 512x512 matrix and of a 26x512 one (the
+    randomized form's small matrix), each rank 8 at scale 10 over unit
+    noise, in float32 and float64, then of ``SVD_MORE`` (Gaussian, no
+    prox), each as ``_svd_case`` checks it (against the kernels' plain
+    version too, but at 512x512 and 2048x2048).  The QR
+    (``torch.linalg.qr``) of a 512x26 matrix captured under global mode:
+    its replay equals the eager call bit for bit, a NaN input gives NaN.
+    Times from CUDA events beside ``torch.linalg``'s, with the card's
+    name and power limit."""
+    out = {"nvidia_smi": nvidia_smi(), "svd": {}, "qr": {}}
+    g = torch.Generator().manual_seed(7)
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[1]
+        for label, shape in SVD_SHAPES:
+            # rank 8 at scale 10 over unit noise, Robust PCA's x-step
+            # input in kind: the prox's threshold between the 8th and 9th
+            # singular values falls in a gap
+            lo = torch.randn(shape[0], 8, generator=g, dtype=dt) @ \
+                torch.randn(8, shape[1], generator=g, dtype=dt)
+            a = (10.0 * lo + torch.randn(shape, generator=g, dtype=dt)).to(
+                dev)
+            out["svd"][f"{name} {label}"] = _svd_case(
+                a, f"{name} {label}", label == "small", reps=10, prox=True)
+        y = torch.randn(QR_SHAPE, generator=g, dtype=dt).to(dev)
+        q_eager = torch.linalg.qr(y)[0]
+        static = y.clone()
+        q = torch.empty_like(q_eager)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="global"):
+            q.copy_(torch.linalg.qr(static)[0])
+        graph.replay()
+        rec = {"shape": list(QR_SHAPE),
+               "replay_equals_eager": bool(torch.equal(q, q_eager))}
+        static[3, 4] = math.nan
+        graph.replay()
+        rec["nan_gives_nan"] = _all_nan([q])
+        static.copy_(y)
+        rec["ms"] = cuda_ms(graph.replay, reps=20)
+        rec["eager_ms"] = cuda_ms(lambda: torch.linalg.qr(y), reps=20)
+        if not (rec["replay_equals_eager"] and rec["nan_gives_nan"]):
+            raise AssertionError(f"qr {name}: {rec}")
+        out["qr"][name] = rec
+    for label, shape, dt in SVD_MORE:
+        a = torch.randn(shape, generator=g, dtype=dt).to(dev)
+        name = f"{str(dt).split('.')[1]} {label}"
+        out["svd"][name] = _svd_case(a, name, label != "large", reps=3,
+                                     prox=False)
     return out
 
 
@@ -3462,8 +3676,8 @@ MDL_CG_ITERS = 10
 # the depth of the two-block models' and the masked learner's float64
 # card-against-CPU checks (a crop, and fewer iterations than PARITY_ITERS
 # and CNS_PARITY_ITERS), to keep the script in its time (PERF.md, 4)
-MASKDCPL_PARITY_N, MASKDCPL_PARITY_ITERS = 256, 3
-MDL_PARITY_ITERS = 2
+MASKDCPL_PARITY_N, MASKDCPL_PARITY_ITERS = 256, 2
+MDL_PARITY_ITERS = 1
 # the pairs whose float32 x-step objective, one inner iteration an outer
 # one, falls and then rises over CNS_ITERS outer iterations at this
 # geometry in the JAX package too (on the CPU: (admm, cns) 51815 ->
@@ -4117,7 +4331,7 @@ REST_FAMILIES = ("csc_variants", "inhib", "csctv", "pdcsc", "ppp", "spline")
 # the float64 card-against-CPU checks' side and iterations: at 512x512,
 # or over 10 iterations, their CPU runs put the script past its time
 # (PERF.md, 4)
-REST_PARITY_N, REST_PARITY_ITERS = 256, 3
+REST_PARITY_N, REST_PARITY_ITERS = 256, 2
 REST_REPEAT_ITERS = 30  # iterations of the two repeat solves that time ms
 JOINT_MU = 0.02         # examples/csc_joint_color.py
 PROJL1_DENSITY, PROJL1_NOISE, PROJL1_FRAC = 24 / (64 * 64 * 8), 0.01, 0.9
@@ -5262,6 +5476,7 @@ def main(argv):
     run_phase("rpca_parity", lambda: phase_rpca_parity(dev))
     summary["rpca_solve"] = run_phase("rpca_solve",
                                       lambda: phase_rpca_solve(dev))
+    summary["svd_qr"] = run_phase("svd_qr", lambda: phase_svd_qr(dev))
     summary["dictlrn_handover"] = run_phase(
         "dictlrn_handover",
         lambda: phase_dictlrn_handover(dev, D, S, lmbda))

@@ -2,7 +2,9 @@
 ``sporco/admm/rpca.py:23``): ``argmin_{X,Y} ||X||_* + lmbda ||Y||_1``
 subject to ``X + Y = S``.  The x-step is singular-value soft
 thresholding, by a full SVD or, with ``svd_rank``, by a randomized
-subspace iteration; the y-step is elementwise shrinkage.
+subspace iteration; the y-step is elementwise shrinkage.  On the card
+the SVD is ``ops/svd.py``'s Jacobi kernels, whose sweeps are a WHILE
+node of the captured iteration: the problem takes the graph route.
 """
 
 from dataclasses import dataclass
@@ -15,6 +17,7 @@ from sporco_tpu_torch._device import fp32_precision, resolve_device
 from sporco_tpu_torch.models.common import ADMMModel, user_tensor
 from sporco_tpu_torch.ops import fft as sf
 from sporco_tpu_torch.ops import prox as sp
+from sporco_tpu_torch.ops import svd as ssvd
 from sporco_tpu_torch.solvers.admm import (ADMMOpts, ADMMProblem,
                                            AutoRhoOpts, const_div,
                                            init_state, scalar_type)
@@ -29,6 +32,8 @@ class RPCAConfig:
 
 
 def _setup(cfg, params):
+    # the x-step's SVD kernels built and loaded before the loop captures
+    ssvd.prepare(params["S"].device)
     return {}
 
 
@@ -71,11 +76,9 @@ def _yinit(cfg, params):
 
 _STATS = ("ObjFun", "NrmNuc", "NrmL1", "Cnstr")
 
-# eager on the card: torch.linalg.svd (and qr in the randomized form)
-# synchronises the device with the host to check its result
 _RPCA = ADMMProblem(setup=_setup, xstep=_xstep, ystep=_ystep, obfn=_obfn,
                     cnst_b=_cnst_b, cnst_c=_cnst_c, yinit=_yinit,
-                    uinit=_yinit, stat_names=_STATS, route="eager")
+                    uinit=_yinit, stat_names=_STATS)
 
 
 class RobustPCA(ADMMModel):

@@ -43,8 +43,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every source of csrc/ that holds kernels, as build() takes them (the
-# last, the device loop's IF and WHILE nodes, ports no TPU kernel)
-KERNELS = ("csc_iter", "pgm_iter", "fft2_planar", "csc_tail", "cond_node")
+# last two, the device loop's IF and WHILE nodes and Robust PCA's Jacobi
+# SVD, port no TPU kernel)
+KERNELS = ("csc_iter", "pgm_iter", "fft2_planar", "csc_tail", "cond_node",
+           "jacobi_svd")
 
 _LIBS = {}
 # name -> {"path", "cached", "seconds", "log"} for every loaded library

@@ -42,10 +42,10 @@ The generic ADMM and PGM drivers (``solvers/admm.py``,
 tensors of ``params``, of ``prob.setup``'s result and of the state are
 leaves of trees (:func:`flatten`), copied once into static tensors of
 the loop and refilled by a later call of the same key.  A problem whose
-iteration synchronises with the host by nature (a ``torch.linalg`` call
-that checks its result on the host, a host callable) declares the eager
-route: on the card its blocks run eagerly, with no graph, and the same
-single read a block.  An unbounded inner loop is no such reason.
+iteration synchronises with the host by nature (a host callable, as
+``PPP``'s ``host_prior``) declares the eager route: on the card its
+blocks run eagerly, with no graph, and the same single read a block.  An
+unbounded inner loop is no such reason.
 
 Conditional blocks inside an iteration (the JAX package's ``lax.cond``)
 are :func:`when`: an IF node of the captured graph on the card, a host

@@ -8,6 +8,8 @@ import math
 
 import torch
 
+from sporco_tpu_torch.ops.svd import svd
+
 __all__ = ["zdivide", "norm_l0", "prox_l0", "norm_l1", "prox_l1",
            "norm_2l2", "norm_l2", "prox_l2", "proj_l2", "norm_l21",
            "prox_sl1l2", "norm_dl1l2", "prox_dl1l2", "proj_l1",
@@ -197,9 +199,14 @@ def prox_nuclear(v, alpha, rank=None, n_iter=2, oversample=10,
     full decomposition, and ``s`` has that length.  Its Gaussian
     ``sketch`` of shape ``v.shape[:-2] + (n, r)`` may be passed in (the
     JAX package draws its own from ``PRNGKey(0)``, which cannot be drawn
-    here); by default :func:`nuclear_sketch` draws one."""
+    here); by default :func:`nuclear_sketch` draws one.
+
+    The SVD is ``ops/svd.py`` ``svd`` (``torch.linalg.svd`` on the CPU,
+    the Jacobi kernels on the card) and the QR ``torch.linalg.qr``:
+    neither reads the host on the card, so a device loop captures the
+    prox into its iteration's graph."""
     if rank is None:
-        u, s, vt = torch.linalg.svd(v, full_matrices=False)
+        u, s, vt = svd(v)
         ss = torch.clamp(s - alpha, min=0)
         return (u * ss[..., None, :]) @ vt, ss
     if sketch is None:
@@ -220,7 +227,7 @@ def prox_nuclear(v, alpha, rank=None, n_iter=2, oversample=10,
         y = v @ z
     q = torch.linalg.qr(y)[0]
     b = q.transpose(-1, -2).conj() @ v
-    ub, s, vt = torch.linalg.svd(b, full_matrices=False)
+    ub, s, vt = svd(b)
     ss = torch.clamp(s - alpha, min=0)
     u = q @ ub
     return (u * ss[..., None, :]) @ vt, ss

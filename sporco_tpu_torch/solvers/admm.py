@@ -13,7 +13,9 @@ correctly rounded, so that the AutoRho decisions and the stopping test
 match it; the host forms (``_rsf``, ``norm_residuals``) stay as the
 tests' oracle.  On the card one iteration is a CUDA graph, replayed; a
 problem whose iteration synchronises with the host declares
-``route="eager"`` and runs the same blocks without a graph.  The
+``route="eager"`` and runs the same blocks without a graph: only
+``PPP`` with a ``host_prior`` does (Robust PCA's SVD, ``ops/svd.py``,
+reads nothing on the host).  The
 returned :class:`ADMMState` holds host scalars and a numpy ``stats``
 from the one final read.
 
@@ -372,7 +374,7 @@ class ADMMProblem:
     other scalars) are 0-d tensors, and nothing may be read on the host.
     ``route`` is ``"graph"`` (on the card an iteration is captured once
     as a CUDA graph) or ``"eager"`` for a problem whose iteration
-    synchronises with the host by nature.
+    synchronises with the host by nature (a host callable).
     """
     setup: Callable
     xstep: Callable

@@ -2053,7 +2053,7 @@ GRAPH_PROBLEMS = ("BPDN", "BPDNJoint", "ElasticNet", "BPDNProjL1",
                   "MinL1InL2Ball", "TVL2Denoise", "TVL1Denoise",
                   "TVL2Deconv", "TVL1Deconv", "ConvBPDN", "ConvElasticNet",
                   "ConvBPDNGradReg", "ConvBPDNMaskDcpl", "FISTA",
-                  "FISTAMask", "PGMBPDN", "PPP")
+                  "FISTAMask", "PGMBPDN", "PPP", "RobustPCA")
 
 
 def _generic_arrays(b):
@@ -2143,9 +2143,6 @@ def _eager_case(name, dev):
     from sporco_tpu_torch.ops import device_loop
     from sporco_tpu_torch.ops import linalg as sl
     opt = dict(max_iter=1, rel_stop_tol=0.0)
-    if name == "RobustPCA":
-        return (_generic_model(name, dev, torch.float64, opt),
-                [(torch.linalg, "svd"), (torch.linalg, "qr")])
     if name == "CCMOD-cg":
         # the CG d-step takes the graph route; declared eager, each CG
         # solve is a graph of its own that reads its iteration count
@@ -2166,8 +2163,8 @@ def _eager_case(name, dev):
     return b2, [(ppp, "_host_call")]
 
 
-@pytest.mark.parametrize("name", ["RobustPCA", "CCMOD-cg",
-                                  "FISTABacktrack", "PPP-host"])
+@pytest.mark.parametrize("name", ["CCMOD-cg", "FISTABacktrack",
+                                  "PPP-host"])
 def test_eager_route_syncs_only_in_its_named_call(dev, monkeypatch, name):
     """One iteration of each eager-route problem under
     ``torch.cuda.set_sync_debug_mode("error")``: nothing synchronises
@@ -2211,11 +2208,12 @@ def test_eager_route_syncs_only_in_its_named_call(dev, monkeypatch, name):
 
 
 def test_rpca_eager_route_reason_svd_synchronises(dev):
-    """The reason Robust PCA declares the eager route, held on the card:
-    ``torch.linalg.svd`` (full, and of the randomized form's small
-    matrix) synchronises the device with the host, so under
-    ``set_sync_debug_mode("error")`` it raises, and its iteration cannot
-    be captured in a CUDA graph."""
+    """Why the port's Robust PCA does not call ``torch.linalg.svd`` in its
+    iteration (its SVD is ``ops/svd.py``'s Jacobi kernels), held on the
+    card: ``torch.linalg.svd`` synchronises the device with the host to
+    check its result, so under ``set_sync_debug_mode("error")`` it
+    raises, and an iteration that called it could not be captured in a
+    CUDA graph."""
     x = torch.randn(64, 48, device=dev)
     torch.linalg.svd(x, full_matrices=False)
     torch.cuda.synchronize()
@@ -2225,6 +2223,226 @@ def test_rpca_eager_route_reason_svd_synchronises(dev):
             torch.linalg.svd(x, full_matrices=False)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# ---------------------------------------------------------------------------
+# Robust PCA's x-step on the card: the Jacobi SVD (ops/svd.py,
+# csrc/jacobi_svd.cu) and torch.linalg.qr, inside captures made under
+# global mode (any synchronising call fails such a capture)
+
+SVD_CASES = [((512, 512), torch.float32), ((512, 512), torch.float64),
+             ((26, 512), torch.float32), ((26, 512), torch.float64),
+             ((512, 26), torch.float64), ((48, 33), torch.float32),
+             ((3, 7), torch.float64), ((2, 5, 9), torch.float32),
+             ((4, 20000), torch.float64), ((30000, 8), torch.float32)]
+
+
+@pytest.fixture
+def global_capture(monkeypatch):
+    """Every CUDA-graph capture begun in the test, the device loop's
+    among them, under global mode: any synchronising call inside it, in
+    any thread, fails the capture."""
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def capture_begin(self, pool=None, capture_error_mode="global", **kw):
+        return begin(self, pool=pool, capture_error_mode="global", **kw)
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin",
+                        capture_begin)
+
+
+def _svd_within(a, u, s, vt, s_ref):
+    """Singular values against ``s_ref`` of the largest, the product of
+    ``a``'s norm and orthonormality, each within 8 L eps (rows of length
+    L; tests/test_torch_svd.py)."""
+    lim = 8 * max(a.shape) * torch.finfo(a.dtype).eps
+    k = min(a.shape)
+    eye = torch.eye(k, dtype=a.dtype, device=a.device)
+    assert float((s - s_ref).abs().max()) <= lim * float(s_ref[0])
+    assert float(((u * s) @ vt - a).norm()) <= lim * float(a.norm())
+    assert float((u.mT @ u - eye).abs().max()) <= lim
+    assert float((vt @ vt.mT - eye).abs().max()) <= lim
+
+
+@pytest.mark.parametrize("shape,dtype", SVD_CASES, ids=str)
+def test_jacobi_svd_matches_plain_and_captures(dev, global_capture, shape,
+                                               dtype):
+    """The Jacobi SVD on the card against its plain version
+    ``torch.linalg.svd`` and the kernels' own plain version
+    ``jacobi_svd_plain`` on the card (8 L eps), rows too long for shared
+    memory (4 x 20000 float64, 30000 x 8 float32) among the shapes; its
+    "node" form captured under global mode inside
+    ``device_loop._capture`` and replayed equals its "eager" form bit for
+    bit; a batch is the stack of its matrices."""
+    from sporco_tpu_torch.ops import device_loop
+    from sporco_tpu_torch.ops import svd as tsvd
+    a = torch.randn(shape, generator=torch.Generator().manual_seed(1),
+                    dtype=dtype).to(dev)
+    u, s, vt = tsvd.jacobi_svd(a)
+    assert tsvd.LAST["form"] == "eager"
+    ur, sr, vr = tsvd.svd_plain(a)
+    _, sj, _ = tsvd.jacobi_svd_plain(a)
+    for i in np.ndindex(*shape[:-2]):
+        _svd_within(a[i], u[i], s[i], vt[i], sr[i])
+        _svd_within(a[i], u[i], s[i], vt[i], sj[i])
+    outs = [torch.empty_like(t) for t in (u, s, vt)]
+
+    def step():
+        for o, t in zip(outs, tsvd.jacobi_svd(a)):
+            o.copy_(t)
+    graph = device_loop._capture(step, dev)
+    assert tsvd.LAST["form"] == "node"
+    for o in outs:
+        o.fill_(float("nan"))
+    graph.replay()
+    for o, t in zip(outs, (u, s, vt)):
+        assert torch.equal(o, t)
+
+
+def test_jacobi_svd_nan_gives_nan_without_a_host_read(dev, global_capture):
+    """A NaN in the input gives NaN in every output, XLA's convention: in
+    a replay of the "node" form with no synchronisation
+    (``set_sync_debug_mode("error")``), and in the "eager" form; the next
+    finite input is decomposed again."""
+    from sporco_tpu_torch.ops import device_loop
+    from sporco_tpu_torch.ops import svd as tsvd
+    a = torch.randn(26, 512, generator=torch.Generator().manual_seed(2),
+                    device="cpu").to(dev)
+    ref = tsvd.jacobi_svd(a)
+    bad = a.clone()
+    bad[4, 9] = float("nan")
+    x = a.clone()
+    outs = [torch.empty_like(t) for t in ref]
+
+    def step():
+        for o, t in zip(outs, tsvd.jacobi_svd(x)):
+            o.copy_(t)
+    graph = device_loop._capture(step, dev)
+    x.copy_(bad)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for t in list(tsvd.jacobi_svd(bad)) + outs:
+        assert bool(torch.isnan(t).all())
+    x.copy_(a)
+    graph.replay()
+    for o, t in zip(outs, ref):
+        assert torch.equal(o, t)
+
+
+@pytest.mark.parametrize("rank", [None, 16], ids=["full", "randomized"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_prox_nuclear_captures_under_global_mode(dev, global_capture, rank,
+                                                 dtype):
+    """Robust PCA's x-step, ``prox_nuclear`` at 512 x 512 (full, or rank 16
+    with its QRs), captured under global mode: its replay equals its
+    eager call bit for bit, and a NaN input gives NaN with no
+    synchronisation."""
+    from sporco_tpu_torch.ops import device_loop
+    from sporco_tpu_torch.ops import prox as tpx
+    g = torch.Generator().manual_seed(4)
+    v = torch.randn(512, 512, generator=g, dtype=dtype).to(dev)
+    sk = (None if rank is None else
+          torch.randn(512, rank + 10, generator=g, dtype=dtype).to(dev))
+    ref = tpx.prox_nuclear(v, 20.0, rank=rank, sketch=sk)
+    x = v.clone()
+    outs = [torch.empty_like(t) for t in ref]
+
+    def step():
+        for o, t in zip(outs, tpx.prox_nuclear(x, 20.0, rank=rank,
+                                               sketch=sk)):
+            o.copy_(t)
+    graph = device_loop._capture(step, dev)
+    graph.replay()
+    for o, t in zip(outs, ref):
+        assert torch.equal(o, t)
+    x[5, 6] = float("nan")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isnan(o).all()) for o in outs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_qr_captures_under_global_mode(dev, dtype):
+    """``torch.linalg.qr`` of the randomized form's 512 x 26 sketch
+    (cuSOLVER's geqrf and orgqr, no status read on the host) captures
+    under global mode; the replay equals the eager call bit for bit and
+    a NaN input gives NaN."""
+    y = torch.randn(512, 26, generator=torch.Generator().manual_seed(3),
+                    dtype=dtype).to(dev)
+    q_eager = torch.linalg.qr(y)[0]
+    x = y.clone()
+    q = torch.empty_like(q_eager)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="global"):
+        q.copy_(torch.linalg.qr(x)[0])
+    graph.replay()
+    assert torch.equal(q, q_eager)
+    x[7, 3] = float("nan")
+    graph.replay()
+    assert bool(torch.isnan(q).all())
+
+
+def _rpca_case(d, dtype, rank):
+    """The CPU tests' Robust PCA problem (tests/test_torch_rpca.py: 48 x 48,
+    rank 3 plus 10% outliers) on device ``d``, to 1e-3; the randomized
+    SVD of rank ``rank`` with a numpy sketch."""
+    from sporco_tpu_torch.models import rpca
+    rng = np.random.default_rng(0)
+    L = rng.standard_normal((48, 3)) @ rng.standard_normal((3, 48))
+    S = (L + (rng.random((48, 48)) > 0.9) * rng.standard_normal((48, 48))
+         * 5).astype(np.float32)
+    kw = {} if rank is None else {
+        "svd_rank": rank,
+        "sketch": np.random.default_rng(1).standard_normal((48, rank + 10))}
+    return rpca.RobustPCA(S, dtype=dtype, device=d, **kw,
+                          opt=rpca.RobustPCA.options(max_iter=200,
+                                                     rel_stop_tol=1e-3))
+
+
+@pytest.mark.parametrize("rank", [None, 6], ids=["full", "randomized"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rpca_iteration_captures_under_global_mode(dev, global_capture,
+                                                   rank, dtype):
+    """Robust PCA on the graph route, its iteration captured under global
+    mode (nothing in it synchronises with the host), exactly
+    ``ceil(k / 8) + 1`` host reads and its SVD's sweeps counted on the
+    device; against the CPU: float64 the same iterations, rows to 1e-6,
+    X and Y within 1e-8 of their scale; float32 the iteration count
+    within one and the last ObjFun to rtol 1e-4
+    (tests/test_torch_rpca.py's tolerances)."""
+    import math
+    from sporco_tpu_torch.ops import device_loop
+    device_loop.clear_cache()
+    b = _rpca_case(dev, dtype, rank)
+    assert b.problem.route == "graph"
+    b.solve()
+    last = dict(device_loop.LAST)
+    k = int(b.state.k)
+    assert last["graph"] and last["captured"] and last["route"] == "graph"
+    assert last["host_reads"] == math.ceil(k / 8) + 1
+    assert last["inner"] > 0
+    c = _rpca_case("cpu", dtype, rank)
+    c.solve()
+    ib, ic = b.getitstat(), c.getitstat()
+    if dtype == torch.float64:
+        assert len(ib) == len(ic)
+        for n in ib._names:
+            np.testing.assert_allclose(getattr(ib, n), getattr(ic, n),
+                                       rtol=1e-6, atol=1e-12, err_msg=n)
+        for x, y in ((b.state.X, c.state.X), (b.state.Y, c.state.Y)):
+            y = y.numpy()
+            assert np.abs(x.cpu().numpy() - y).max() <= 1e-8 * np.abs(y).max()
+    else:
+        assert abs(len(ib) - len(ic)) <= 1
+        np.testing.assert_allclose(ib.ObjFun[-1], ic.ObjFun[-1], rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------

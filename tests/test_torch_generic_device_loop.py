@@ -269,7 +269,22 @@ def _ppp(dtype):
                     device="cpu")
 
 
-READ_CASES = [(p, d) for p in PROBLEMS + ("TVL2Deconv", "PPP")
+def _rpca(form, dtype):
+    """Robust PCA on a 32 x 32 rank-3 matrix plus 10% outliers, with the
+    full SVD or the randomized one of rank 3."""
+    from sporco_tpu_torch.models import rpca as trpca
+    rng = np.random.default_rng(0)
+    S = rng.standard_normal((32, 3)) @ rng.standard_normal((3, 32)) \
+        + (rng.random((32, 32)) > 0.9) * rng.standard_normal((32, 32)) * 5
+    return trpca.RobustPCA(S.astype(np.float32), dtype=getattr(torch, dtype),
+                           svd_rank=None if form == "full" else 3,
+                           device="cpu", opt=trpca.RobustPCA.options(
+                               max_iter=30, rel_stop_tol=1e-3))
+
+
+READ_CASES = [(p, d) for p in PROBLEMS + ("TVL2Deconv", "PPP",
+                                          "RobustPCA-full",
+                                          "RobustPCA-randomized")
               for d in DTYPES]
 
 
@@ -315,6 +330,8 @@ def test_no_host_read_inside_the_iterations(monkeypatch, name, dtype):
     monkeypatch.setattr(device_loop, "run", counted_run)
     if name == "PPP":
         b = _ppp(dtype)
+    elif name.startswith("RobustPCA"):
+        b = _rpca(name.split("-")[1], dtype)
     elif name == "TVL2Deconv":
         _, S = _data(name)
         A = np.ones((3, 3), np.float32) / 9.0
@@ -334,11 +351,12 @@ def test_no_host_read_inside_the_iterations(monkeypatch, name, dtype):
 
 
 def test_declared_routes():
-    """The problems that synchronise with the host by nature declare the
-    eager route; the rest the graph (the CG d-steps too: their solves
-    are inner loops, WHILE nodes on the card)."""
+    """The problems that synchronise with the host by nature (a host
+    callable) declare the eager route; the rest the graph (the CG d-steps
+    too: their solves are inner loops, WHILE nodes on the card; Robust
+    PCA too: its SVD's sweeps are a WHILE node)."""
     from sporco_tpu_torch.models import ccmod, ccmodmd, rpca
-    assert rpca._RPCA.route == "eager"
+    assert rpca._RPCA.route == "graph"
     assert ccmod._CCMOD_SINGLE["cg"].route == "graph"
     assert ccmod._CCMOD_SINGLE["ism"].route == "graph"
     assert ccmodmd._CCMODMD_2B["cg"].route == "graph"

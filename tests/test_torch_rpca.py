@@ -152,3 +152,56 @@ def test_checkpoint_resumes_across_packages(writer, tmp_path):
     assert int(a.state.k) == int(b.state.k) == 12
     _assert_rows(a, b, 1e-6, 1e-6)
     _assert_states(a, b, 1e-8)
+
+
+PROX_SHAPES = [(40, 24), (24, 40), (32, 32)]
+PROX_RANK = 5
+
+
+def _prox_problem(shape, dtype, seed=3):
+    """A rank-4 matrix plus noise and an ``alpha`` between its 6th and
+    7th singular values: six are kept, the rest thresholded to 0."""
+    rng = np.random.default_rng(seed)
+    m, n = shape
+    v = 3.0 * rng.standard_normal((m, 4)) @ rng.standard_normal((4, n)) \
+        + 0.3 * rng.standard_normal((m, n))
+    v = v.astype(dtype)
+    s = np.linalg.svd(v.astype(np.float64), compute_uv=False)
+    return v, float(0.5 * (s[5] + s[6]))
+
+
+@pytest.mark.parametrize("shape", PROX_SHAPES, ids=["tall", "wide",
+                                                    "square"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("rank", [None, PROX_RANK],
+                         ids=["full", "randomized"])
+@pytest.mark.parametrize("svd", ["plain", "jacobi"])
+def test_prox_nuclear_matches_jax(monkeypatch, shape, dtype, rank, svd):
+    """The port's ``prox_nuclear`` (the algebra the card route takes)
+    against ``sporco_tpu.ops.prox`` on m > n, m < n and square matrices,
+    with ``alpha`` set so that some singular values are zeroed; the
+    randomized form with the JAX sketch.  Its SVD the CPU's
+    (``torch.linalg.svd``) or the plain version of the card's Jacobi SVD
+    (``ops/svd.py`` ``jacobi_svd_plain``).  X within 1e-10 of its scale
+    in float64 and 1e-5 in float32, the thresholded singular values
+    likewise of the largest."""
+    from sporco_tpu.ops import prox as jpx
+    from sporco_tpu_torch.ops import prox as tpx
+    from sporco_tpu_torch.ops import svd as tsvd
+    if svd == "jacobi":
+        monkeypatch.setattr(tpx, "svd", tsvd.jacobi_svd_plain)
+    v, alpha = _prox_problem(shape, dtype)
+    kw = {}
+    if rank is not None:
+        # r = rank + 10 <= min(m, n): the JAX package's (n, r) draw
+        kw["sketch"] = torch.tensor(_jax_sketch(v, rank, dtype))
+    jx, js = jpx.prox_nuclear(jnp.asarray(v), alpha, rank=rank)
+    tx, ts = tpx.prox_nuclear(torch.tensor(v), alpha, rank=rank, **kw)
+    jx, js = np.asarray(jx), np.asarray(js)
+    assert tx.dtype == torch.tensor(v).dtype and tx.shape == jx.shape
+    assert ts.shape == js.shape
+    # some values are zeroed, some kept
+    assert 0 < np.count_nonzero(js) < js.size
+    tol = 1e-10 if dtype == "float64" else 1e-5
+    assert np.abs(tx.numpy() - jx).max() <= tol * np.abs(jx).max()
+    assert np.abs(ts.numpy() - js).max() <= tol * js[0]

@@ -7,9 +7,11 @@ Run from the root of a checkout:
     python3 tools/dense_cpu_study.py ulp [MODEL ...]
     python3 tools/dense_cpu_study.py tvl1 [LMBDA ...]
     python3 tools/dense_cpu_study.py mdl [jax]
+    python3 tools/dense_cpu_study.py svd
 
 ``ulp`` solves each dense model of ``chip_smoke.py``'s ``bpdn_solve``,
-``tv_solve`` and ``rpca_solve`` (randomized SVD) in float32 on the CPU,
+``tv_solve`` and ``rpca_solve`` (randomized and full SVD) in float32 on
+the CPU,
 as those phases do, seven times: on S, on S moved one ulp up and one ulp
 down (``numpy.nextafter``), and on four draws of S with each element
 moved one ulp up or down at random.  For each it prints the iteration
@@ -38,7 +40,19 @@ rho (or FISTA's L) at the first and last outer iteration; with ``jax``
 the JAX package runs each beside the port (it then needs the JAX
 package; about 15 minutes).
 
-Prints one JSON line per model, lmbda or learner.  Uses 4 CPU threads.
+``svd`` measures, at ``rpca_solve``'s S in float32, how far from
+float64 LAPACK's the singular values (of the largest) and the sum of
+those above a threshold (the nuclear prox's, at alpha between the 8th
+and 9th value and at the 21st) fall for LAPACK's float32 SVD, the
+port's Jacobi SVD (``ops/svd.py`` ``jacobi_svd_plain``, the card
+kernels' schedule, in float64 for float32 input) and a control, a
+one-sided Jacobi SVD whose rows, products and rotations stay in float32;
+then solves Robust PCA in float32 (full and randomized) to 1e-3 with the
+CPU's SVD and with a float64-accurate one (float64 LAPACK, rounded), and
+prints the final objectives' relative difference.  About a minute.
+
+Prints one JSON line per model, lmbda, learner or SVD.  Uses 4 CPU
+threads.
 """
 
 import json
@@ -74,7 +88,7 @@ def _moved(S):
 def _dense_models():
     """name -> (make(S) -> model, S, ||S||^2): the float32 solves of
     ``bpdn_solve``, ``tv_solve`` and ``rpca_solve`` (randomized, the
-    default sketch) on the CPU."""
+    default sketch, and full) on the CPU."""
     out = {}
     for K in (1, cs.BPDN_K):
         D, S, x0 = cs.bpdn_problem(K)
@@ -95,6 +109,8 @@ def _dense_models():
                                      rel_stop_tol=cs.DENSE_TOL)
     out["RobustPCA randomized"] = (lambda s: cs.trpca.RobustPCA(
         s, opt=opt, svd_rank=cs.RPCA_RANK, device="cpu"), S)
+    out["RobustPCA full"] = (lambda s: cs.trpca.RobustPCA(
+        s, opt=opt, device="cpu"), S)
     return out
 
 
@@ -186,11 +202,87 @@ def mdl(args):
                                              d.getitstat())), flush=True)
 
 
+def _jacobi_float32_values(a, cap=30):
+    """The control of ``svd``: the singular values (descending) of a
+    cyclic one-sided Jacobi SVD whose rows, products and rotations stay
+    in float32, every disjoint pair of a round-robin round at once."""
+    from sporco_tpu_torch.ops import svd as tsvd
+    W = (a if a.shape[0] < a.shape[1] else a.mT).float().clone()
+    P, L = W.shape
+    if P % 2:
+        W = torch.cat([W, torch.zeros(1, L)])
+    n = W.shape[0]
+    tol = L ** 0.5 * torch.finfo(torch.float32).eps
+    for _ in range(cap):
+        moved = False
+        for r in range(n - 1):
+            i, j = (torch.tensor(v) for v in zip(
+                *[tsvd._rr_pair(n, r, k) for k in range(n // 2)]))
+            x, y = W[i], W[j]
+            al, be, ga = (x * x).sum(-1), (y * y).sum(-1), (x * y).sum(-1)
+            do = ga.abs() > tol * al.sqrt() * be.sqrt()
+            zeta = (be - al) / (2.0 * ga)
+            t = torch.sign(zeta) / (zeta.abs() + torch.sqrt(1.0 + zeta * zeta))
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            sn = c * t
+            keep = do[:, None]
+            W[i] = torch.where(keep, c[:, None] * x - sn[:, None] * y, x)
+            W[j] = torch.where(keep, sn[:, None] * x + c[:, None] * y, y)
+            moved |= bool(do.any())
+        if not moved:
+            break
+    return torch.sort(W[:P].norm(dim=-1), descending=True).values
+
+
+def svd_study(args):
+    from sporco_tpu_torch.ops import prox as tpx
+    from sporco_tpu_torch.ops import svd as tsvd
+    S, _, _ = cs.rpca_problem()
+    a = torch.tensor(S)
+    s64 = torch.linalg.svdvals(a.double())
+    alphas = (0.5 * float(s64[7] + s64[8]), float(s64[20]))
+    for name, fn in (("LAPACK float32", lambda x: tsvd.svd_plain(x)[1]),
+                     ("port Jacobi", lambda x: tsvd.jacobi_svd_plain(x)[1]),
+                     ("float32 Jacobi control", _jacobi_float32_values)):
+        s = fn(a).double()
+        rec = {"svd": name,
+               "s_err_of_largest": float((s - s64).abs().max() / s64[0])}
+        for al in alphas:
+            ref = torch.clamp(s64 - al, min=0).sum()
+            rec[f"sum_above_{al:.3f}_rel_err"] = float(
+                (torch.clamp(s - al, min=0).sum() - ref) / ref)
+        print(json.dumps(rec), flush=True)
+
+    def svd64(x):
+        return tuple(t.to(x.dtype) for t in
+                     torch.linalg.svd(x.double(), full_matrices=False))
+    opt = cs.trpca.RobustPCA.options(max_iter=cs.RPCA_ITERS,
+                                     rel_stop_tol=cs.DENSE_TOL)
+    for label, kw in (("full", {}), ("randomized",
+                                     {"svd_rank": cs.RPCA_RANK})):
+        runs = {}
+        for name, fn in (("cpu", tsvd.svd_plain), ("float64-accurate",
+                                                   svd64)):
+            tpx.svd = fn
+            try:
+                b = cs.trpca.RobustPCA(S, opt=opt, device="cpu", **kw)
+                b.solve()
+            finally:
+                tpx.svd = tsvd.svd
+            its = b.getitstat()
+            runs[name] = (len(its), float(its.ObjFun[-1]))
+        print(json.dumps({
+            "model": f"RobustPCA {label}", "runs": runs,
+            "rel_diff": abs(runs["float64-accurate"][1] - runs["cpu"][1])
+            / abs(runs["cpu"][1])}), flush=True)
+
+
 def main(argv):
-    if not argv or argv[0] not in ("ulp", "tvl1", "mdl"):
+    if not argv or argv[0] not in ("ulp", "tvl1", "mdl", "svd"):
         raise SystemExit(__doc__)
     torch.set_num_threads(4)
-    {"ulp": ulp, "tvl1": tvl1, "mdl": mdl}[argv[0]](argv[1:])
+    {"ulp": ulp, "tvl1": tvl1, "mdl": mdl, "svd": svd_study}[argv[0]](
+        argv[1:])
     return 0
 
 

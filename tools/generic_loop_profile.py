@@ -10,8 +10,8 @@ It imports ``chip_smoke.py`` and the port from ``DIR`` (default: this
 checkout; an unpacked ``git archive`` of another commit under ``build/``
 to compare with it), builds that tree's kernels into ``DIR/build/kernels``
 and solves, in float32 at ``chip_smoke.py``'s sizes: BPDN with one and
-with 256 signals, ``TVL2Denoise``, ``TVL2Deconv``, the randomized Robust
-PCA, the generic ConvBPDN by ADMM and by FISTA at the headline and
+with 256 signals, ``TVL2Denoise``, ``TVL2Deconv``, the randomized and the
+full Robust PCA, the generic ConvBPDN by ADMM and by FISTA at the headline and
 ``PPP``; by name also FISTA with each line search at the headline (48
 iterations from L = 1), ``ParConvBPDN`` on the headline to 1e-3, the
 row-sharded ``cbpdn_nsharded`` there (a world of one rank over NCCL,
@@ -22,7 +22,10 @@ to 1e-3).  For each, after one solve that warms it up (and keeps its
 loop where the tree keeps one): the host reads of a solve (every
 ``item``, ``float``, ``bool`` and ``cpu`` of a CUDA tensor, counted by
 monkeypatching, so both the per-iteration reads of an older tree and the
-device loop's are seen), the wall time an iteration of two more solves
+device loop's are seen), the synchronisations of a solve (the warnings of
+``torch.cuda.set_sync_debug_mode("warn")``: also those inside torch's own
+calls, such as ``torch.linalg.svd``'s check of its status), the wall
+time an iteration of two more solves
 with nothing patched (the least is ``wall_ms_per_iter``) and, under
 ``torch.profiler``, the device busy time an iteration and the idle share.
 ``--only cdl_solve mdl_solve dense_dl_solve`` runs those phases of
@@ -38,9 +41,10 @@ import json
 import os
 import sys
 import time
+import warnings
 
 PROBLEMS = ("bpdn_k1", "bpdn_k256", "tvl2den", "tvl2dcn", "rpca",
-            "cbpdn_admm", "cbpdn_fista", "ppp")
+            "rpca_full", "cbpdn_admm", "cbpdn_fista", "ppp")
 # the loops of the last slice, run by name (--only)
 LOOPS = ("fista_bt_standard", "fista_bt_robust", "par_headline",
          "cbpdn_sharded", "ccmod_cg")
@@ -116,10 +120,10 @@ def _makers(cs, dev, torch, mesh):
         out[name] = (lambda cls=cls, a=a, okw=okw: cls(
             *a, opt=cls.options(**okw), device=dev))
     Sr, _, _ = cs.rpca_problem()
-    out["rpca"] = lambda: cs.trpca.RobustPCA(
-        Sr, svd_rank=cs.RPCA_RANK, device=dev,
-        opt=cs.trpca.RobustPCA.options(max_iter=cs.RPCA_ITERS,
-                                       rel_stop_tol=cs.DENSE_TOL))
+    for name, kw in (("rpca", {"svd_rank": cs.RPCA_RANK}), ("rpca_full", {})):
+        out[name] = (lambda kw=kw: cs.trpca.RobustPCA(
+            Sr, device=dev, **kw, opt=cs.trpca.RobustPCA.options(
+                max_iter=cs.RPCA_ITERS, rel_stop_tol=cs.DENSE_TOL)))
     D, S, lmbda = cs.headline_problem()
     out["cbpdn_admm"] = lambda: cs.ConvBPDN(
         D, S, lmbda, opt=cs.ConvBPDN.options(max_iter=cs.MAX_ITER,
@@ -198,6 +202,16 @@ def _measure(cs, torch, make):
     finally:
         for meth, orig in saved.items():
             setattr(torch.Tensor, meth, orig)
+    # every synchronisation torch sees in a solve, its own calls' too
+    # (torch.linalg.svd's check of its status) beside the reads above
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            make().solve()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
     walls = []
     for _ in range(2):                  # the wall, with nothing patched
         b = make()
@@ -214,6 +228,7 @@ def _measure(cs, torch, make):
             "wall_ms_per_iter": 1e3 * min(walls) / k,
             "wall_ms_per_iter_runs": [1e3 * w / k for w in walls],
             "host_reads": reads["n"], "host_reads_per_iter": reads["n"] / k,
+            "syncs": syncs, "syncs_per_iter": syncs / k,
             "loop_host_reads": loop.get("host_reads"),
             "route": loop.get("route"), "graph": loop.get("graph"),
             "flag_reads": loop.get("flag_reads"),
