@@ -246,7 +246,8 @@ then BASELINE configurations 1-3 and the generic dictionary learning:
 39. ``rpca_solve``: both in float32 to 1e-3: the low-rank and the sparse
     part recovered within 1e-2, ms an iteration (three solves), each
     final objective within ``RPCA_OBJ_AGREE`` of the CPU's (the
-    randomized with the same sketch);
+    randomized with the same sketch), ``jac_round``'s launches (counted
+    on the device) its sweeps times its rounds a sweep;
     both Robust PCA phases on the graph route, the iteration captured
     under ``global_capture()`` (any synchronisation inside it
     would fail the capture), exactly ``ceil(k / 8) + 1`` host reads
@@ -254,14 +255,18 @@ then BASELINE configurations 1-3 and the generic dictionary learning:
 39a. ``svd_qr``: the x-step's decompositions at its shapes in float32
     and float64: the Jacobi SVD (``ops/svd.py``, ``csrc/jacobi_svd.cu``)
     of 512x512 and 26x512, then of 4x20000 float64 and 30000x8 float32
-    (rows in global memory) and 2048x2048 float32, against
-    ``torch.linalg.svd`` within ``SVD_TOL`` L eps (singular values,
-    product, orthonormality, the prox's thresholded product) and against
-    its own plain version but at 512x512 and 2048x2048; its captured form
-    (global mode) replays bit for bit its eager form, NaN in gives NaN
-    out with no synchronisation; ``torch.linalg.qr`` of 512x26 captured
-    under global mode, its replay bit for bit the eager call, NaN in
-    gives NaN out; each one's ms beside ``torch.linalg``'s;
+    (rows in a cluster's shared memory), 76800x100 float32 (a video's
+    pixels by frames, rows in global memory) and 2048x2048 float32,
+    against ``torch.linalg.svd`` within ``SVD_TOL`` L eps (singular
+    values, product, orthonormality, the prox's thresholded product) and
+    against its own plain version but at 512x512 float64 and 2048x2048;
+    its captured form (global mode) replays bit for bit its eager form,
+    its ``jac_round`` launches counted on the device are its sweeps times
+    its rounds, NaN in gives NaN out with no synchronisation;
+    ``torch.linalg.qr`` of 512x26 captured under global mode, its replay
+    bit for bit the eager call, NaN in gives NaN out; each one's ms
+    beside ``torch.linalg``'s, the Jacobi SVD's with its cluster size C,
+    block width w, blocks a round, launches a sweep and sweeps;
 40. ``dictlrn_handover``: the generic ``DictLearn`` over ``ConvBPDN`` and
     the consensus ``ConvCnstrMOD`` at the headline size, 3 outer
     iterations of 5 inner ones on the card (its hand-overs pass card
@@ -390,7 +395,10 @@ last slice the FFT kernels' launches in the line-search FISTA solves
 AMS form of
 ``admm_tail`` and the "mixed" forms of ``csc_iter``/``pgm_iter`` are
 entries of their own, with their launches in the fused masked and mixed
-solves), the ``nvidia-smi`` name and power limit line, and last
+solves; last ``jac_round``, the Jacobi SVD's kernel, which has no TPU
+counterpart, at one SVD of 512x512 float32, with its launches in the
+Robust PCA solves, counted on the device, and its time at every
+``svd_qr`` shape), the ``nvidia-smi`` name and power limit line, and last
 ``{"ok": true, "device": {...}}``.
 The fused ADMM and FISTA solves run their loop on the card
 (``sporco_tpu_torch/ops/device_loop.py``): one iteration captured as a
@@ -522,6 +530,9 @@ PEAK_BF16_FLOPS = 989e12
 # csrc/csc_tiles.cuh (the six of order <= 2 of three-term splits)
 SPLIT_PASSES = 6
 PEAK_HBM_BYTES = 3.35e12
+# FP64 on the tensor cores (the data sheet's FP64 Tensor Core rate; the
+# Jacobi SVD's kernels work in double)
+PEAK_FP64_FLOPS = 67e12
 # float operations per state element in each kernel's epilogue, beside
 # the 2*k of each product: csc_iter's update of Y and U and six sums;
 # pgm_iter's step, prox, momentum and two sums
@@ -679,11 +690,16 @@ def reset_launches():
     tpi.reset_launches()
     tfp.reset_launches()
     tct.reset_launches()
+    tsvd.reset_launches()
     device_loop.LAST.clear()
 
 
 def launches():
-    return {**tci.LAUNCHES, **tpi.LAUNCHES, **tfp.LAUNCHES, **tct.LAUNCHES}
+    """Every kernel's launches since ``reset_launches()``: the wrappers'
+    counts, and ``jac_round``'s from its counter on the device (its
+    launches run inside WHILE nodes)."""
+    return {**tci.LAUNCHES, **tpi.LAUNCHES, **tfp.LAUNCHES, **tct.LAUNCHES,
+            "jac_round": tsvd.launches()}
 
 
 def loop_reads(label, k, route="graph"):
@@ -3399,9 +3415,15 @@ def phase_rpca_solve(dev):
         wall, counts = _timed(b)
         rec = _solve_record(b, wall, counts, RPCA_ITERS)
         rec.update(rpca_loop(f"RobustPCA {label}", rec["iterations"]))
+        # jac_round: the rounds of every sweep the device loop counted
+        jac = 0
+        if LOOP_GRAPH:
+            geo = tsvd.LAST["geometry"]
+            rec["svd_geometry"] = list(geo)
+            jac = rec["svd_sweeps"] * (geo.Pp // geo.w - 1)
+        expect_launches(f"RobustPCA {label}", counts, jac_round=jac)
         rec["ms_per_iter_repeats"] = _repeat_ms(
             lambda: trpca.RobustPCA(S, opt=opt, device=dev, **kw))
-        expect_launches(f"RobustPCA {label}", counts)
         X, Y = (t.cpu().numpy() for t in (b.state.X, b.state.Y))
         rec["lowrank_rel_err"] = float(np.linalg.norm(X - L)
                                        / np.linalg.norm(L))
@@ -3435,11 +3457,14 @@ def phase_rpca_solve(dev):
 # 10 over 512 columns) and the QR of its 512 x 26 sketches
 SVD_SHAPES = (("full", (RPCA_N, RPCA_N)), ("small", (RPCA_RANK + 10, RPCA_N)))
 QR_SHAPE = (RPCA_N, RPCA_RANK + 10)
-# beyond them, in the type given: rows too long for shared memory (a wide
-# and a tall matrix, the kernel's route in global memory) and a larger
+# beyond them, in the type given: rows too long for one block's shared
+# memory (a wide and a tall matrix, in a cluster's), a video's pixels by
+# frames (76800 x 100, tests/test_torch_svd.py: rows beyond a cluster's
+# shared memory, the kernel's route in global memory) and a larger
 # square, timed beside torch.linalg.svd
 SVD_MORE = (("wide", (4, 20000), torch.float64),
             ("tall", (30000, 8), torch.float32),
+            ("video", (76800, 100), torch.float32),
             ("large", (2048, 2048), torch.float32))
 # the Jacobi SVD against torch.linalg.svd on the card: singular values of
 # the largest, the product of a's norm, orthonormality, each within
@@ -3463,26 +3488,57 @@ def _all_nan(ts):
     return all(bool(torch.isnan(t).all()) for t in ts)
 
 
+def jacobi_bound_ms(geo, sweeps, itemsize):
+    """Least time on an H100 SXM of one Jacobi SVD in the geometry ``geo``
+    that took ``sweeps`` sweeps, of a matrix of ``itemsize``-byte
+    entries: its bytes, the matrix (P x L) read once and u, s and v^T (P
+    x P, P and P x L) written once, over ``PEAK_HBM_BYTES``; its
+    operations, the sweeps' rounds of pairs each forming its Gram
+    matrix's upper triangle and applying R to its rows of W and Q, in
+    double over ``PEAK_FP64_FLOPS``; the larger of the two, and which
+    bounds it."""
+    P, L, w, Pp = geo[:4]
+    n2, rounds = 2 * w, Pp // w - 1
+    flops = Pp // n2 * (n2 * (n2 + 1) * L + 2 * n2 * n2 * (L + Pp))
+    t_ops = sweeps * rounds * flops / PEAK_FP64_FLOPS * 1e3
+    t_bytes = itemsize * (2 * P * L + P * P + P) / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
 def _svd_case(a, name, jacobi_plain, reps, prox):
     """The Jacobi SVD of ``a`` (on the card) checked and timed: its
     "eager" form (each sweep's flag read on the host) against
     ``torch.linalg.svd`` within ``SVD_TOL`` L eps, where ``prox`` the
     prox's thresholded product too (``a`` of rank 8 over noise: the
     threshold in the gap after the 8th value) and, where
-    ``jacobi_plain``, against the kernels' own plain version; its "node"
-    form captured under global mode (``device_loop._capture``) replays
-    bit for bit the eager form's outputs, and with a NaN in the input
-    gives NaN in every output with no synchronisation; ``ms`` the replay,
-    ``plain_ms`` ``torch.linalg.svd``."""
+    ``jacobi_plain``, against the kernels' own plain version (its time
+    ``jacobi_plain_ms``, the largest difference of the singular values
+    ``max_abs_err``); its "node" form captured under global mode
+    (``device_loop._capture``) replays bit for bit the eager form's
+    outputs, and with a NaN in the input gives NaN in every output with
+    no synchronisation; ``ms`` the replay, ``plain_ms``
+    ``torch.linalg.svd``; the geometry (``C``, ``w``, the route, blocks a
+    round, launches a sweep: its rounds and ``jac_sweep_end``), the
+    replay's ``jac_round`` launches counted on the device (the sweeps
+    times the rounds, or the case fails) and ``bound_ms``."""
     limit = SVD_TOL * max(a.shape) * torch.finfo(a.dtype).eps
     u, s, vt = tsvd.jacobi_svd(a)
     status = tsvd.LAST["status"].tolist()
+    geo = tsvd.LAST["geometry"]
     up, sp, vp = tsvd.svd_plain(a)
     errs = _svd_errors(a, u, s, vt, sp)
-    rec = {"shape": list(a.shape), "geometry": tsvd.LAST["geometry"],
+    rounds = geo.Pp // geo.w - 1
+    rec = {"shape": list(a.shape), "geometry": list(geo),
+           "C": geo.C, "w": geo.w,
+           "route": "shared" if geo.shared else "global",
+           "blocks_per_round": geo.Pp // (2 * geo.w) * geo.C,
+           "rounds_per_sweep": rounds, "launches_per_sweep": rounds + 1,
            "sweeps": status[1], "unconverged": status[2],
            "vs_plain": errs, "plain": _svd_errors(a, up, sp, vp, sp),
            "limit": limit}
+    rec["bound_ms"], rec["bound_by"] = jacobi_bound_ms(
+        geo, status[1], a.element_size())
     checks = dict(errs)
     if prox:
         alpha = 0.5 * (sp[7] + sp[8])
@@ -3491,8 +3547,13 @@ def _svd_case(a, name, jacobi_plain, reps, prox):
         checks["prox"] = rec["prox_vs_plain"] = float(
             (x - xp).norm() / xp.norm())
     if jacobi_plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         jp = tsvd.jacobi_svd_plain(a)
+        torch.cuda.synchronize()
+        rec["jacobi_plain_ms"] = 1e3 * (time.perf_counter() - t0)
         rec["vs_jacobi_plain"] = _svd_errors(a, u, s, vt, jp[1])
+        rec["max_abs_err"] = float((s - jp[1]).abs().max())
         rec["jacobi_plain_sweeps"] = tsvd.LAST["sweeps"]
         checks["jacobi_plain"] = rec["vs_jacobi_plain"]["s"]
     bad = {k: v for k, v in checks.items() if not v <= limit}
@@ -3506,7 +3567,14 @@ def _svd_case(a, name, jacobi_plain, reps, prox):
             o.copy_(t)
     with global_capture():
         graph = device_loop._capture(step, a.device)
+    torch.cuda.synchronize()
+    tsvd.reset_launches()
     graph.replay()
+    rec["jac_round_launches"] = tsvd.launches(a.device)
+    if rec["jac_round_launches"] != status[1] * rounds:
+        raise AssertionError(f"jacobi_svd {name}: {rec['jac_round_launches']}"
+                             f" jac_round launches for {status[1]} sweeps "
+                             f"of {rounds} rounds")
     rec["replay_equals_eager"] = all(torch.equal(o, t) for o, t in
                                      zip(outs, (u, s, vt)))
     if not rec["replay_equals_eager"]:
@@ -3536,7 +3604,7 @@ def phase_svd_qr(dev):
     randomized form's small matrix), each rank 8 at scale 10 over unit
     noise, in float32 and float64, then of ``SVD_MORE`` (Gaussian, no
     prox), each as ``_svd_case`` checks it (against the kernels' plain
-    version too, but at 512x512 and 2048x2048).  The QR
+    version too, but at 512x512 float64 and 2048x2048).  The QR
     (``torch.linalg.qr``) of a 512x26 matrix captured under global mode:
     its replay equals the eager call bit for bit, a NaN input gives NaN.
     Times from CUDA events beside ``torch.linalg``'s, with the card's
@@ -3554,7 +3622,8 @@ def phase_svd_qr(dev):
             a = (10.0 * lo + torch.randn(shape, generator=g, dtype=dt)).to(
                 dev)
             out["svd"][f"{name} {label}"] = _svd_case(
-                a, f"{name} {label}", label == "small", reps=10, prox=True)
+                a, f"{name} {label}", label == "small" or name == "float32",
+                reps=10, prox=True)
         y = torch.randn(QR_SHAPE, generator=g, dtype=dt).to(dev)
         q_eager = torch.linalg.qr(y)[0]
         static = y.clone()
@@ -5259,6 +5328,39 @@ def par_launches(summary, csc, ffts):
             if isinstance(rec, dict) and "launches" in rec}
 
 
+def jacobi_entry(summary):
+    """The kernels line's entry of ``jac_round``, a kernel of the port's
+    that has no TPU counterpart: its numbers for one SVD of 512x512
+    float32 (the full Robust PCA's x-step: ``ms`` the captured SVD's
+    replay, ``jac_round``'s launches with ``jac_sweep_end``,
+    ``jac_norms`` and ``jac_finish``; ``plain_ms`` its plain version,
+    ``jacobi_svd_plain``, on the card; ``library_ms``
+    ``torch.linalg.svd``; ``bound_ms`` the larger of its bytes and its
+    sweeps' FP64 operations, ``jacobi_bound_ms``),
+    its launches in the two Robust PCA solves of ``rpca_solve``, and
+    ``shapes``: each ``svd_qr`` case's ms beside ``torch.linalg.svd``'s
+    with its geometry."""
+    svd = summary["svd_qr"]["svd"]
+    head = svd["float32 full"]
+    solves = {label: summary["rpca_solve"][label]["launches"]["jac_round"]
+              for label in ("randomized", "full")}
+    return {"name": "jac_round", "route": "cuda",
+            "source": "sporco_tpu_torch/csrc/jacobi_svd.cu",
+            "replaces": "none: no TPU kernel (the JAX package's "
+                        "prox_nuclear, sporco_tpu/ops/prox.py:176-221, "
+                        "leaves its SVD to XLA)",
+            "tpu_kernel": False, "launches": sum(solves.values()),
+            "rpca_launches": solves, "max_abs_err": head["max_abs_err"],
+            "ms": head["ms"], "plain_ms": head["jacobi_plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["plain_ms"], "shape": head["shape"],
+            "sweeps": head["sweeps"], "geometry": head["geometry"],
+            "shapes": {name: {key: rec[key] for key in (
+                "ms", "plain_ms", "bound_ms", "C", "w", "route",
+                "blocks_per_round", "launches_per_sweep", "sweeps")}
+                for name, rec in svd.items()}}
+
+
 def kernels_line(summary):
     """The ``{"kernels": [...]}`` line from the phases' results: each
     kernel's headline numbers and main-path launches; ``csc_iter`` and
@@ -5355,7 +5457,7 @@ def kernels_line(summary):
                      summary["gradreg"],
                      "sporco_tpu/ops/pallas_csc_tail.py:105",
                      source="sporco_tpu_torch/csrc/csc_tail.cu"),
-        ams, *mixed]}
+        ams, *mixed, jacobi_entry(summary)]}
 
 
 def main(argv):

@@ -17,13 +17,21 @@ convention for the JAX package's ``jnp.linalg.svd``.
 the TPU is: the rows of ``a`` or of ``a^T``, whichever are the shorter,
 are made orthogonal by plane rotations in sweeps over every pair, until
 a sweep rotates none (``|x.y| <= tol |x| |y|``, ``tol = sqrt(L) eps`` for
-rows of length ``L``) or :data:`SWEEP_CAP` sweeps have run.  It works in
-float64 whatever the input's type, and rounds its outputs to that type:
-a float32 Jacobi SVD's thousands of rotations a row leave its singular
-values about 16 times further off than LAPACK's float32 SVD, enough to
-move Robust PCA's float32 objective (PERF.md).  On CPU tensors it runs
-:func:`jacobi_svd_plain`, the same schedule in PyTorch.  On the card it
-has two forms, of the same kernels:
+rows of length ``L``) or :data:`SWEEP_CAP` sweeps have run.  A sweep is a
+round-robin over blocks of ``w`` rows; a round gives each pair of blocks
+to a cluster of ``C`` thread blocks, which sum the pair's Gram matrix
+over their slices of the rows, rotate pairs of its ``2 w`` rows on it
+(in a sweep's first round every pair of them, in the others each row of
+one block with each row of the other, so that a sweep visits every pair
+of rows once) and apply the product of the rotations to the rows
+(``csrc/jacobi_svd.cu``; :func:`geometry` chooses ``w``, ``C`` and the
+route from the shape).  It works in float64 whatever the input's type,
+and rounds its outputs to that type: a float32 Jacobi SVD's thousands of
+rotations a row leave its singular values about 16 times further off
+than LAPACK's float32 SVD, enough to move Robust PCA's float32 objective
+(PERF.md).  On CPU tensors it runs :func:`jacobi_svd_plain`, the same
+schedule in PyTorch.  On the card it has two forms, of the same
+kernels:
 
 - "node": inside a CUDA-graph capture (the device loop's captured
   iteration) and its eager warm-up, the set-up kernels and a WHILE node
@@ -34,10 +42,11 @@ has two forms, of the same kernels:
 - "eager": elsewhere on the card, the same launches with each sweep's
   flag read on the host, as :func:`jacobi_svd_plain` reads it.
 
-Where two blocks of rows do not fit a block's shared memory
-(:func:`shared_rows`: rows longer than 12,798), the kernel rotates them
-where they lie in global memory, with the same arithmetic: every shape
-has a route.
+Where a cluster's slices of a pair of row blocks do not fit its blocks'
+shared memory (:func:`shared_rows`), the kernel reads the rows where they
+lie in global memory instead, with the same arithmetic: every shape has
+a route.  Every launch of ``jac_round`` adds one to a counter on the
+device (:func:`launches`).
 
 The QR of the randomized form needs nothing of this kind:
 ``torch.linalg.qr`` on the card (cuSOLVER's ``geqrf`` and ``orgqr``)
@@ -47,22 +56,38 @@ Real ``float32`` and ``float64`` matrices, batched over leading axes (a
 loop over the batch); a complex CUDA tensor raises.
 """
 
+import collections
 import ctypes
 import math
 
 import torch
 
 __all__ = ["svd", "svd_plain", "jacobi_svd", "jacobi_svd_plain",
-           "prepare", "geometry", "shared_rows", "LAST", "SWEEP_CAP"]
+           "prepare", "geometry", "shared_rows", "Geometry",
+           "launches", "reset_launches", "LAST", "SWEEP_CAP"]
 
 # sweeps at most, as LAPACK's xGESVJ
 SWEEP_CAP = 30
-# rows of a block: a jac_round block takes two blocks of w rows (8 the
-# fastest at 512 x 512 on an H100, PERF.md; the kernels take 1, 2, 4, 8)
+# rows of a block: a cluster takes two blocks of w rows (8 the fastest at
+# 512 x 512 on an H100, PERF.md; the kernels take 1, 2, 4, 8)
 MAX_W = 8
-# dynamic shared memory of a jac_round block at most (csrc/jacobi_svd.cu
-# kSmemMax)
-SMEM_MAX = 200 * 1024
+# blocks of a cluster at most (csrc/jacobi_svd.cu kMaxCluster; above 8 a
+# non-portable cluster size, which the H100 runs)
+MAX_C = 16
+# the SMs a round's blocks should cover (an H100 SXM's 132)
+SMS = 132
+# columns of a block's slice of the rows at least, where C is chosen to
+# cover the SMs
+MIN_SPAN = 64
+# dynamic shared memory of a jac_round block at most and its warps
+# (csrc/jacobi_svd.cu kSmemMax, kWarps; a launch on the shared route
+# whose slices exceed kSmemMax fails)
+SMEM_MAX = 220 * 1024
+WARPS = 8
+
+# P rows of length L (the shorter side's), blocks of w rows padded to Pp,
+# clusters of C blocks, the rows' slices in shared memory or not
+Geometry = collections.namedtuple("Geometry", "P L w Pp C shared")
 
 # the last call: its form, geometry and status tensor (int32 on the
 # device: rotating blocks of the last sweep, sweeps, not converged)
@@ -86,30 +111,61 @@ def _next_pow2(n):
     return 1 << max(0, int(n) - 1).bit_length()
 
 
-def shared_rows(L, w):
-    """Whether a ``jac_round`` block's two blocks of ``w`` float64 rows of
-    length ``L`` fit :data:`SMEM_MAX` beside their rotations; where they
-    do not, the kernel rotates the rows in global memory."""
-    return (2 * w * L + 4 * w * w) * 8 <= SMEM_MAX
+def _span(L, C):
+    """Columns of a block's slice of rows of length ``L`` cut in ``C``, a
+    multiple of 4 (``csrc/jacobi_svd.cu`` ``span_of``)."""
+    return (-(-L // C) + 3) // 4 * 4
+
+
+def _stride(span):
+    """Doubles from one row of a slice to the next in a block's shared
+    memory (``csrc/jacobi_svd.cu`` ``stride_of``)."""
+    return (span + 15) // 16 * 16 + 4
+
+
+def _head(w):
+    """Doubles of a ``jac_round`` block's shared memory before its slices:
+    its partial Gram, G, R, the inner round's rotations and the warps'
+    partial Grams (``csrc/jacobi_svd.cu`` ``head_doubles``; on the shared
+    route the slice of the pair's rows of Q follows W's where it fits)."""
+    return (3 + WARPS) * 4 * w * w + 4 * w
+
+
+def shared_rows(L, w, C=1):
+    """Whether a block's slice of two blocks of ``w`` float64 rows of
+    length ``L``, cut in ``C``, fits :data:`SMEM_MAX` beside its Gram
+    buffers; where it does not, the kernel reads the rows in global
+    memory."""
+    return (_head(w) + 2 * w * _stride(_span(L, C))) * 8 <= SMEM_MAX
 
 
 def geometry(m, n):
-    """``(P, L, w, Pp)`` of the Jacobi SVD of an ``m x n`` matrix: ``P``
-    rows of length ``L`` (the shorter side's), blocks of ``w`` rows (at
-    most :data:`MAX_W` and no more than half the rows rounded up to a
-    power of two; the largest such whose two blocks of rows fit
-    :data:`SMEM_MAX`, or, where even two rows do not, the largest such,
-    its rows in global memory), the rows padded to ``Pp``, a multiple of
-    ``2 w``."""
+    """The :class:`Geometry` of the Jacobi SVD of an ``m x n`` matrix,
+    from its shape alone: ``P`` rows of length ``L`` (the shorter side's),
+    blocks of ``w`` rows (at most :data:`MAX_W` and no more than half the
+    rows rounded up to a power of two), the rows padded to ``Pp``, a
+    multiple of ``2 w``; clusters of ``C`` blocks, a power of two up to
+    :data:`MAX_C`: the most whose blocks (``Pp / 2w`` pairs a round times
+    ``C``) fit :data:`SMS` with slices of at least :data:`MIN_SPAN`
+    columns, raised where that lets the slices fit shared memory
+    (``shared``); where no cluster's slices fit, ``C`` stays and the rows
+    are read in global memory."""
     P, L = min(m, n), max(m, n)
     w = MAX_W
     while w > 1 and 2 * w > _next_pow2(P):
         w //= 2
-    if shared_rows(L, 1):
-        while not shared_rows(L, w):
-            w //= 2
     Pp = -(-P // (2 * w)) * 2 * w
-    return P, L, w, Pp
+    pairs = Pp // (2 * w)
+    C = 1
+    while (C < MAX_C and pairs * 2 * C <= SMS
+           and _span(L, 2 * C) >= MIN_SPAN):
+        C *= 2
+    c = C
+    while c < MAX_C and not shared_rows(L, w, c):
+        c *= 2
+    if shared_rows(L, w, c):
+        return Geometry(P, L, w, Pp, c, True)
+    return Geometry(P, L, w, Pp, C, False)
 
 
 def _tol(L):
@@ -155,38 +211,102 @@ def _outputs(m, n, S, Wout, Qout):
 # ---------------------------------------------------------------------------
 # The plain version: the kernels' schedule in PyTorch
 
-def _dots(x, y):
-    """``|x|^2``, ``|y|^2`` and ``x.y`` over the last axis, as the kernel
-    forms them: each of 32 lanes sums every 32nd product, then the lanes'
-    parts are summed."""
-    L = x.shape[-1]
-    pad = -L % 32
-    if pad:
-        x = torch.nn.functional.pad(x, (0, pad))
-        y = torch.nn.functional.pad(y, (0, pad))
-    xs = x.reshape(x.shape[:-1] + (-1, 32))
-    ys = y.reshape(y.shape[:-1] + (-1, 32))
-    return tuple((u * v).sum(-2).sum(-1)
-                 for u, v in ((xs, xs), (ys, ys), (xs, ys)))
+def _rotation(a, b, g, tol):
+    """Whether pairs with ``|x|^2 = a``, ``|y|^2 = b``, ``x.y = g`` are
+    rotated and their ``(c, s)`` (``csrc/jacobi_svd.cu`` ``rotation``: a,
+    b and g scaled by the power of two that brings the larger of a and b
+    into [1, 2); Rutishauser's ``t = s / c = e / D``, ``D = d + sign(d)
+    sqrt(d^2 + e^2)``, ``d = b - a``, ``e = 2 g``; 1 and 0 where not
+    rotated)."""
+    m = torch.maximum(a, b)
+    one = torch.ones_like(m)
+    ex = torch.frexp(torch.where(m > 0, m, one)).exponent - 1
+    a, b, g = (torch.ldexp(v, -ex) for v in (a, b, g))
+    do = g.abs() > tol * a.sqrt() * b.sqrt()
+    d, e = b - a, 2.0 * g
+    D = d + torch.copysign(torch.sqrt(d * d + e * e), d)
+    q = torch.rsqrt(D * D + e * e)
+    c = torch.where(do, D.abs() * q, one)
+    s = torch.where(do, torch.copysign(one, D) * e * q, torch.zeros_like(m))
+    return do, c, s
 
 
-def _rotation(a, b, g):
-    """``(c, s)`` of the rotations of pairs with ``|x|^2 = a``, ``|y|^2 =
-    b``, ``x.y = g`` (``csrc/jacobi_svd.cu`` ``rotation``)."""
-    zeta = (b - a) / (2.0 * g)
-    one = torch.ones_like(zeta)
-    t = torch.where(zeta.abs() > 1e150, 0.5 / zeta,
-                    torch.copysign(one, zeta)
-                    / (zeta.abs() + torch.sqrt(1.0 + zeta * zeta)))
-    c = 1.0 / torch.sqrt(1.0 + t * t)
-    return c, c * t
+def _gram(X, C):
+    """The Gram matrices ``X X^T`` of the pairs' rows ``X`` (pairs, 2w,
+    L) as the clusters form them: each of ``C`` blocks that of its slice
+    of the columns, added in rank order, the upper triangle mirrored."""
+    L = X.shape[-1]
+    span = _span(L, C)
+    G = None
+    for c in range(C):
+        xs = X[..., c * span:(c + 1) * span]
+        part = xs @ xs.mT
+        G = part if G is None else G + part
+    return G.triu() + G.triu(1).mT
+
+
+def _inner_pairs(n2, cross):
+    """The inner rounds' pairs of rows among a pair of row blocks (``n2 =
+    2 w`` rows): the round-robin of all of them (2w - 1 rounds), or,
+    ``cross``, row p of the first block with row (p + r) mod w of the
+    second (w rounds) (``csrc/jacobi_svd.cu`` ``inner_pair``)."""
+    w = n2 // 2
+    if cross:
+        return [[(p, w + (p + r) % w) for p in range(w)] for r in range(w)]
+    return [[_rr_pair(n2, r, p) for p in range(w)] for r in range(n2 - 1)]
+
+
+_PLAIN_IDX = {}
+
+
+def _round_index(n2, cross, device):
+    """Per inner round, the pairs' rows ``i``, ``j`` as index tensors on
+    ``device`` (made once)."""
+    key = (n2, cross, str(device))
+    out = _PLAIN_IDX.get(key)
+    if out is None:
+        out = [(torch.tensor([p[0] for p in ij], device=device),
+                torch.tensor([p[1] for p in ij], device=device))
+               for ij in _inner_pairs(n2, cross)]
+        _PLAIN_IDX[key] = out
+    return out
+
+
+def _inner_rounds(G, tol, cross=False):
+    """The inner rounds (:func:`_inner_pairs`) of the pairs' rows on their
+    Gram matrices ``G`` (pairs, 2w, 2w), as every block of a cluster runs
+    them: a pair (i, j) of rows is rotated where ``|g_ij| > tol
+    sqrt(g_ii) sqrt(g_jj)``; G becomes J G J^T for the round's rotations
+    J (the identity on the pairs not rotated), with ``x'.y'`` set to 0,
+    and the rotations are gathered in R = J R.  Returns R and whether each
+    pair of blocks rotated."""
+    nb, n2 = G.shape[0], G.shape[-1]
+    dev = G.device
+    eye = torch.eye(n2, dtype=G.dtype, device=dev).expand(nb, n2, n2)
+    R = eye.clone()
+    any_ = torch.zeros(nb, dtype=torch.bool, device=dev)
+    for i, j in _round_index(n2, cross, dev):
+        do, c, s = _rotation(G[:, i, i], G[:, j, j], G[:, i, j], tol)
+        J = eye.clone()
+        J[:, i, i] = c
+        J[:, i, j] = -s
+        J[:, j, i] = s
+        J[:, j, j] = c
+        G = J @ G @ J.mT
+        z = torch.where(do, torch.zeros_like(c), G[:, i, j])
+        G[:, i, j] = z
+        G[:, j, i] = z
+        R = J @ R
+        any_ |= do.any(-1)
+    return R, any_
 
 
 def jacobi_svd_plain(a, sweep_cap=SWEEP_CAP):
     """The Jacobi SVD of :func:`jacobi_svd` in PyTorch, round for round
-    as the kernels run it (the same blocks, round-robins, rotations,
-    threshold, sweep cap, order and NaN rule), on any device; it reads
-    each sweep's flag on the host."""
+    as the kernels run it (the same blocks, round-robins, slices and
+    their rank-order sums, Gram inner rounds of a sweep's first round and
+    of the others, threshold, sweep cap, order and NaN rule), on any
+    device; it reads each sweep's flag on the host."""
     _check(a)
     return _batched(lambda x: _plain_2d(x, sweep_cap), a)
 
@@ -195,53 +315,36 @@ def _plain_2d(a, sweep_cap):
     m, n = a.shape
     dt, dev = a.dtype, a.device
     f64 = torch.float64
-    P, L, w, Pp = geometry(m, n)
+    geo = geometry(m, n)
+    P, L, w, Pp, C = geo[:5]
     tol = _tol(L)
     W = torch.zeros((Pp, L), dtype=f64, device=dev)
     W[:P] = a if m < n else a.mT
     Q = torch.eye(Pp, dtype=f64, device=dev)
-    nb, n2 = Pp // w, 2 * w
-    inner = [[_rr_pair(n2, r, k) for k in range(w)] for r in range(n2 - 1)]
+    nb = Pp // w
+    rows_of = [torch.tensor([[ba * w + l for l in range(w)]
+                             + [bb * w + l for l in range(w)]
+                             for ba, bb in (_rr_pair(nb, rnd, k)
+                                            for k in range(nb // 2))],
+                            device=dev) for rnd in range(nb - 1)]
     sweeps, unconverged = 0, False
     while True:
-        moved = False
-        for rnd in range(nb - 1):
-            pairs = [_rr_pair(nb, rnd, k) for k in range(nb // 2)]
-            rows = torch.tensor([[ba * w + l for l in range(w)]
-                                 + [bb * w + l for l in range(w)]
-                                 for ba, bb in pairs], device=dev)
-            sw = W[rows]                            # (blocks, 2w, L)
-            R = torch.eye(n2, dtype=f64, device=dev).expand(
-                len(pairs), n2, n2).clone()
-            any_ = torch.zeros(len(pairs), dtype=torch.bool, device=dev)
-            for ij in inner:
-                i = torch.tensor([p[0] for p in ij], device=dev)
-                j = torch.tensor([p[1] for p in ij], device=dev)
-                x, y = sw[:, i], sw[:, j]
-                rx, ry = R[:, i], R[:, j]
-                al, be, ga = _dots(x, y)
-                do = ga.abs() > tol * al.sqrt() * be.sqrt()
-                c, s = _rotation(al, be, ga)
-                c, s = c[..., None], s[..., None]
-                keep = do[..., None]
-                sw[:, i] = torch.where(keep, c * x - s * y, x)
-                sw[:, j] = torch.where(keep, s * x + c * y, y)
-                R[:, i] = torch.where(keep, c * rx - s * ry, rx)
-                R[:, j] = torch.where(keep, s * rx + c * ry, ry)
-                any_ |= do.any(-1)
-            if bool(any_.any()):
-                moved = True
-                rw = rows[any_]
-                W[rw.reshape(-1)] = sw[any_].reshape(-1, L)
-                Q[rw.reshape(-1)] = (R[any_] @ Q[rw]).reshape(-1, Pp)
+        moved = torch.zeros((), dtype=torch.bool, device=dev)
+        for rnd, rows in enumerate(rows_of):
+            X = W[rows]                             # (pairs, 2w, L)
+            R, any_ = _inner_rounds(_gram(X, C), tol, rnd > 0)
+            # R is the identity for a pair of blocks that rotated nothing
+            W[rows.reshape(-1)] = (R @ X).reshape(-1, L)
+            Q[rows.reshape(-1)] = (R @ Q[rows]).reshape(-1, Pp)
+            moved |= any_.any()
         sweeps += 1
-        if not moved:
+        if not bool(moved):
             break
         if sweeps >= sweep_cap:
             unconverged = True
             break
     LAST.clear()
-    LAST.update(form="plain", sweeps=sweeps, geometry=(P, L, w, Pp))
+    LAST.update(form="plain", sweeps=sweeps, geometry=geo)
     sig = torch.sqrt((W[:P] ** 2).sum(-1))
     if unconverged or not bool(torch.isfinite(sig).all()):
         nan = torch.full((), math.nan, dtype=dt, device=dev)
@@ -258,10 +361,21 @@ def _plain_2d(a, sweep_cap):
 # The card
 
 _LIB = {}
+# device index -> the int64 counter of jac_round launches on that device
+_COUNT = {}
+
+
+def _index(device):
+    """The index of a CUDA ``device`` (the current device's where it has
+    none)."""
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
 
 
 def _lib(device):
-    """The kernels' library, with ``jac_init`` run on ``device``."""
+    """The kernels' library, with ``jac_init`` run on ``device`` and its
+    launch counter made there."""
+    device = torch.device("cuda", _index(device))
     lib = _LIB.get("lib")
     if lib is None:
         from sporco_tpu_torch.ops import _nvcc
@@ -269,24 +383,21 @@ def _lib(device):
         V, I = ctypes.c_void_p, ctypes.c_int
         lib.jac_init.argtypes = []
         lib.jac_init.restype = I
-        lib.jac_smem_max.argtypes = []
-        lib.jac_smem_max.restype = I
-        lib.jac_round_launch.argtypes = [V, V, V, I, I, I, I,
-                                         ctypes.c_double, V]
+        lib.jac_round_launch.argtypes = [V, V, V, I, I, I, I, I, I, I,
+                                         ctypes.c_double, V, V]
         lib.jac_round_launch.restype = I
         lib.jac_sweep_end_launch.argtypes = [V, V, V, I]
         lib.jac_sweep_end_launch.restype = I
         lib.jac_finish_launch.argtypes = [V, V, V, V, V, I, I, I, V, V, V]
         lib.jac_finish_launch.restype = I
-        if lib.jac_smem_max() != SMEM_MAX:
-            raise RuntimeError("jacobi_svd: the library's shared memory "
-                               "limit is not ops/svd.py's SMEM_MAX")
         _LIB["lib"] = lib
     if device.index not in _LIB.setdefault("init", set()):
         with torch.cuda.device(device):
             err = lib.jac_init()
         if err != 0:
             raise RuntimeError(f"jacobi_svd: CUDA error {err} at set-up")
+        _COUNT[device.index] = torch.zeros((), dtype=torch.int64,
+                                           device=device)
         _LIB["init"].add(device.index)
     return lib
 
@@ -294,6 +405,22 @@ def _lib(device):
 def _ck(err, what):
     if err != 0:
         raise RuntimeError(f"jacobi_svd: CUDA error {err} in {what}")
+
+
+def launches(device=None):
+    """The ``jac_round`` launches on ``device`` (every card where None)
+    since the last :func:`reset_launches`, read from the device's
+    counter (0 where the kernels were never set up)."""
+    if device is not None:
+        device = torch.device(device)
+    return sum(int(c) for i, c in _COUNT.items()
+               if device is None or _index(device) == i)
+
+
+def reset_launches():
+    """Set every device's counter of ``jac_round`` launches to 0."""
+    for c in _COUNT.values():
+        c.zero_()
 
 
 def prepare(device):
@@ -310,10 +437,12 @@ class _State:
 
     def __init__(self, m, n, dtype, device):
         self.m, self.n, self.dtype, self.device = m, n, dtype, device
-        self.P, self.L, self.w, self.Pp = geometry(m, n)
+        self.geo = geometry(m, n)
+        self.P, self.L, self.w, self.Pp, self.C = self.geo[:5]
         P, L, Pp = self.P, self.L, self.Pp
         self.tol = _tol(L)
         self.lib = _lib(device)
+        self.count = _COUNT[_index(device)]
 
         def E(*shape, dt=torch.float64):
             return torch.empty(shape, dtype=dt, device=device)
@@ -328,7 +457,9 @@ class _State:
         for rnd in range(self.Pp // self.w - 1):
             _ck(self.lib.jac_round_launch(
                 s, self.W.data_ptr(), self.Q.data_ptr(), self.Pp,
-                self.L, self.w, rnd, self.tol, self.status.data_ptr()),
+                self.L, self.w, self.C, int(self.geo.shared), rnd,
+                int(rnd > 0), self.tol, self.status.data_ptr(),
+                self.count.data_ptr()),
                 "jac_round")
         _ck(self.lib.jac_sweep_end_launch(s, self.status.data_ptr(),
                                           self.more.data_ptr(), SWEEP_CAP),
@@ -385,5 +516,5 @@ def _card_2d(a):
     st.run(a)
     LAST.clear()
     LAST.update(form="node" if node else "eager", status=st.status,
-                geometry=(st.P, st.L, st.w, st.Pp))
+                geometry=st.geo)
     return st.outputs()

@@ -19,6 +19,7 @@ from sporco_tpu_torch.ops import csc_iter as tci
 from sporco_tpu_torch.ops import csc_tail as tct
 from sporco_tpu_torch.ops import fft2_planar as tfp
 from sporco_tpu_torch.ops import pgm_iter as tpi
+from tests._torch_svd import clusters  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -2330,6 +2331,48 @@ def test_jacobi_svd_nan_gives_nan_without_a_host_read(dev, global_capture):
     graph.replay()
     for o, t in zip(outs, ref):
         assert torch.equal(o, t)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("shape", [(256, 256), (30000, 8)], ids=str)
+def test_jacobi_svd_cluster_sizes_match_plain(dev, clusters, shape,
+                                              cluster):
+    """The kernels in clusters of every size the geometry may choose
+    (``svd.geometry`` forced to that C by the ``clusters`` fixture; the
+    route, shared or global, as ``shared_rows`` gives it) against
+    ``torch.linalg.svd`` and the plain schedule at the same C, float64,
+    within 8 L eps; the device's count of ``jac_round`` launches is the
+    sweeps times the rounds a sweep."""
+    from sporco_tpu_torch.ops import svd as tsvd
+    clusters(cluster)
+    a = torch.randn(shape, generator=torch.Generator().manual_seed(3),
+                    dtype=torch.float64).to(dev)
+    tsvd.prepare(dev)
+    torch.cuda.synchronize()
+    tsvd.reset_launches()
+    u, s, vt = tsvd.jacobi_svd(a)
+    geo = tsvd.LAST["geometry"]
+    sweeps = int(tsvd.LAST["status"][1])
+    assert geo.C == cluster
+    assert tsvd.launches(dev) == sweeps * (geo.Pp // geo.w - 1)
+    _svd_within(a, u, s, vt, tsvd.svd_plain(a)[1])
+    _svd_within(a, u, s, vt, tsvd.jacobi_svd_plain(a)[1])
+
+
+def test_jacobi_svd_graded_rows_on_card(dev):
+    """A float64 matrix whose row norms span 1e-6 to 1 (the rotations come
+    from Gram matrices): the kernels within 8 L eps of
+    ``torch.linalg.svd``, in as many sweeps as the plain schedule within
+    one."""
+    from sporco_tpu_torch.ops import svd as tsvd
+    rng = np.random.default_rng(8)
+    a = torch.tensor(rng.standard_normal((96, 300))
+                     * np.logspace(-6, 0, 96)[:, None]).to(dev)
+    u, s, vt = tsvd.jacobi_svd(a)
+    sweeps = int(tsvd.LAST["status"][1])
+    _svd_within(a, u, s, vt, tsvd.svd_plain(a)[1])
+    tsvd.jacobi_svd_plain(a)
+    assert abs(sweeps - tsvd.LAST["sweeps"]) <= 1
 
 
 @pytest.mark.parametrize("rank", [None, 16], ids=["full", "randomized"])

@@ -23,6 +23,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from sporco_tpu_torch.ops import svd as tsvd
+from tests._torch_svd import clusters  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -119,29 +120,42 @@ def test_jacobi_plain_failure_gives_nan(dtype):
 
 def test_geometry():
     """Blocks of at most 8 rows, no more than half the rows rounded up
-    to a power of two, two blocks of rows in the shared memory; the rows
-    padded to a multiple of two blocks.  Where even two rows do not fit,
-    the blocks are as wide as the rows allow and lie in global memory."""
-    assert tsvd.geometry(512, 512) == (512, 512, 8, 512)
-    assert tsvd.geometry(26, 512) == (26, 512, 8, 32)
-    assert tsvd.geometry(512, 26) == (26, 512, 8, 32)
-    assert tsvd.geometry(3, 3) == (3, 3, 2, 4)
-    assert tsvd.geometry(1, 7) == (1, 7, 1, 2)
-    # long rows narrow the blocks: 2 w L 8 bytes within 200 KiB
-    assert tsvd.geometry(64, 4000)[2] == 2
-    assert tsvd.geometry(64, 1000)[2] == 8
-    assert tsvd.shared_rows(12798, 1) and not tsvd.shared_rows(12799, 1)
-    assert tsvd.geometry(4, 20000) == (4, 20000, 2, 4)
-    assert tsvd.geometry(30000, 8) == (8, 30000, 4, 8)
-    assert tsvd.geometry(76800, 100) == (100, 76800, 8, 112)
+    to a power of two, the rows padded to a multiple of two blocks;
+    clusters of C blocks, the most whose blocks fit the card's 132 SMs
+    with slices of at least 64 columns, raised (to 16 at most) where that
+    lets a pair's slices fit shared memory; where no cluster's do, the
+    rows stay in global memory.  Long rows keep wide blocks: a cluster
+    holds them."""
+    G = tsvd.Geometry
+    assert tsvd.geometry(512, 512) == G(512, 512, 8, 512, 4, True)
+    assert tsvd.geometry(26, 512) == G(26, 512, 8, 32, 8, True)
+    assert tsvd.geometry(512, 26) == G(26, 512, 8, 32, 8, True)
+    assert tsvd.geometry(3, 3) == G(3, 3, 2, 4, 1, True)
+    assert tsvd.geometry(1, 7) == G(1, 7, 1, 2, 1, True)
+    assert tsvd.geometry(64, 4000) == G(64, 4000, 8, 64, 16, True)
+    assert tsvd.geometry(64, 1000) == G(64, 1000, 8, 64, 16, True)
+    # two rows of a block: 14,048 doubles of a slice beside the block's
+    # Gram buffers within 220 KiB; a cluster of 16 holds 16 slices
+    assert tsvd.shared_rows(14048, 1) and not tsvd.shared_rows(14049, 1)
+    assert tsvd.shared_rows(16 * 14048, 1, 16)
+    assert not tsvd.shared_rows(16 * 14048 + 64, 1, 16)
+    assert tsvd.geometry(4, 20000) == G(4, 20000, 2, 4, 16, True)
+    assert tsvd.geometry(30000, 8) == G(8, 30000, 4, 8, 16, True)
+    assert tsvd.geometry(76800, 100) == G(100, 76800, 8, 112, 16, False)
+    assert tsvd.geometry(2048, 2048) == G(2048, 2048, 8, 2048, 2, True)
+    # a wave of blocks where the rows allow it (at 2048 x 2048 the slices
+    # need C = 2: 256 blocks)
+    for m, n in ((512, 512), (26, 512), (30000, 8), (2048, 2048)):
+        g = tsvd.geometry(m, n)
+        assert g.Pp // (2 * g.w) * g.C <= tsvd.SMS or g.C == 2 == m / 1024
 
 
 @pytest.mark.parametrize("shape,dtype", [((4, 20000), torch.float64),
                                          ((30000, 8), torch.float32)],
                          ids=["wide-float64", "tall-float32"])
 def test_jacobi_plain_long_rows(shape, dtype):
-    """Rows too long for a block's shared memory (the kernel's route in
-    global memory, the same schedule) against numpy."""
+    """Rows too long for one block's shared memory (slices over a
+    cluster of 16, the same schedule) against numpy."""
     a = torch.tensor(np.random.default_rng(6).standard_normal(shape),
                      dtype=dtype)
     _assert_svd(a, *tsvd.jacobi_svd_plain(a))
@@ -186,3 +200,100 @@ def test_jacobi_plain_float32_works_in_float64():
         assert x.dtype == torch.float32 and torch.equal(x, y.float())
     ref = np.linalg.svd(a.double().numpy(), compute_uv=False)
     assert np.abs(out[1].double().numpy() - ref).max() <= 2.0 ** -23 * ref[0]
+
+
+# the prox shapes and long rows, for the clusters' slices and their sums
+CLUSTER_SHAPES = [((60, 60), torch.float64), ((26, 512), torch.float32),
+                  ((512, 26), torch.float64), ((4, 20000), torch.float64),
+                  ((30000, 8), torch.float32)]
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape,dtype", CLUSTER_SHAPES,
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v).split(".")[-1])
+def test_jacobi_plain_cluster_sizes(clusters, shape, dtype, cluster):
+    """The plain schedule with the rows cut in ``cluster`` slices (their
+    partial Gram matrices added in rank order) against numpy, at any
+    cluster size the geometry may choose."""
+    clusters(cluster)
+    a = torch.tensor(np.random.default_rng(7).standard_normal(shape),
+                     dtype=dtype)
+    _assert_svd(a, *tsvd.jacobi_svd_plain(a))
+    assert tsvd.LAST["geometry"].C == cluster
+    assert tsvd.LAST["sweeps"] < tsvd.SWEEP_CAP
+
+
+@pytest.mark.parametrize("graded", ["rows", "columns", "both"])
+def test_jacobi_plain_graded(graded):
+    """Float64 matrices whose row (or column) norms span 1e-6 to 1, the
+    case where rotations taken from a Gram matrix lose relative accuracy
+    first: the decomposition holds at the same tolerance, in as many
+    sweeps as the cap allows."""
+    rng = np.random.default_rng(8)
+    a = rng.standard_normal((48, 40))
+    if graded in ("rows", "both"):
+        a *= np.logspace(-6, 0, 48)[:, None]
+    if graded in ("columns", "both"):
+        a *= np.logspace(0, -6, 40)[None, :]
+    a = torch.tensor(a)
+    u, s, vt = tsvd.jacobi_svd_plain(a)
+    _assert_svd(a, u, s, vt)
+    assert tsvd.LAST["sweeps"] < tsvd.SWEEP_CAP
+
+
+@pytest.mark.parametrize("cluster", [1, 4])
+def test_jacobi_plain_rank_deficient_clusters(clusters, cluster):
+    """Rank 5 of a 64 x 48 float64 matrix through the Gram path with the
+    rows in ``cluster`` slices: the product holds and the 43 trailing
+    singular values vanish to the tolerance."""
+    clusters(cluster)
+    rng = np.random.default_rng(9)
+    a = torch.tensor(rng.standard_normal((64, 5))
+                     @ rng.standard_normal((5, 48)))
+    u, s, vt = tsvd.jacobi_svd_plain(a)
+    _assert_svd(a, u, s, vt)
+    assert float(s[5:].abs().max()) <= _tol(a) * float(s[0])
+
+
+@pytest.mark.parametrize("scale", [1e-100, 1e100])
+def test_jacobi_plain_scaled_gram(scale):
+    """Entries of 1e-100 and 1e100, whose Gram matrices lie beyond
+    2^-500 and 2^500: the rotations scale them by a power of two first,
+    so that no square underflows or overflows."""
+    a = torch.tensor(np.random.default_rng(10).standard_normal((20, 30))
+                     * scale)
+    _assert_svd(a, *tsvd.jacobi_svd_plain(a))
+
+
+@pytest.mark.parametrize("w", [1, 2, 4, 8])
+def test_sweep_visits_every_pair(w):
+    """A sweep's first round pairs the 2w rows of each pair of blocks in
+    a round-robin (2w - 1 inner rounds of w disjoint pairs), its other
+    rounds each row of one block with each of the other (w inner rounds):
+    over the outer round-robin every pair of rows meets, and in the
+    rounds after the first each cross pair once."""
+    n2 = 2 * w
+    for cross in (False, True):
+        rounds = tsvd._inner_pairs(n2, cross)
+        assert len(rounds) == (w if cross else n2 - 1)
+        seen = set()
+        for ij in rounds:
+            flat = [x for p in ij for x in p]
+            assert len(ij) == w and sorted(flat) == list(range(n2))
+            seen |= {tuple(sorted(p)) for p in ij}
+        want = ({(i, j) for i in range(w) for j in range(w, n2)} if cross
+                else {(i, j) for i in range(n2) for j in range(i + 1, n2)})
+        assert seen == want
+    Pp = 8 * w
+    nb = Pp // w
+    met = set()
+    for rnd in range(nb - 1):
+        for k in range(nb // 2):
+            ba, bb = tsvd._rr_pair(nb, rnd, k)
+            rows = [ba * w + l for l in range(w)] + \
+                [bb * w + l for l in range(w)]
+            for i, j in (p for ij in tsvd._inner_pairs(n2, rnd > 0)
+                         for p in ij):
+                met.add(tuple(sorted((rows[i], rows[j]))))
+    assert met == {(i, j) for i in range(Pp) for j in range(i + 1, Pp)}

@@ -27,12 +27,23 @@ device loop's are seen), the synchronisations of a solve (the warnings of
 calls, such as ``torch.linalg.svd``'s check of its status), the wall
 time an iteration of two more solves
 with nothing patched (the least is ``wall_ms_per_iter``) and, under
-``torch.profiler``, the device busy time an iteration and the idle share.
+``torch.profiler``, the device busy time an iteration and the idle share
+(with, where the tree counts them, the Jacobi SVD's ``jac_round``
+launches in that solve as the device counted them, beside the
+profiler's count in ``top``).
 ``--only cdl_solve mdl_solve dense_dl_solve`` runs those phases of
 ``chip_smoke.py`` instead, for the ms an outer iteration of each
-dictionary learner.  Prints one JSON line per problem, each with the
-label, the card's name and its power limit.  Run two trees in turns in one call (parent,
-change, change, parent) to compare them on one card.
+dictionary learner.  ``--only svd`` times the Jacobi SVD at each shape
+of :data:`SVD_CASES` (Robust PCA's full and randomized x-step in float32
+and float64, rows too long for one block's shared memory, a video's
+pixels by frames, a large square) on a Gaussian matrix drawn from
+``torch.Generator().manual_seed(7)``, through the tree's
+``chip_smoke._svd_case``: its checks, its captured replay (``ms``) and
+``torch.linalg.svd`` (``plain_ms``), from CUDA events, the median of 5.
+Prints one JSON line per problem (per shape for ``svd``), each with the
+label, the card's name and its power limit, and exits 1 if any failed.
+Run two trees in turns in one call (parent, change, change, parent) to
+compare them on one card.
 """
 
 import argparse
@@ -52,6 +63,18 @@ BT_ITERS, BT_L = 48, 1.0
 # the dictionary-learning phases of chip_smoke.py (--only dl): ms an
 # outer iteration, their x- and d-steps solved again each outer iteration
 DL_PHASES = ("cdl_solve", "mdl_solve", "dense_dl_solve")
+# the Jacobi SVD's shapes (--only svd): case -> shape, type
+SVD_CASES = {
+    "full32": ((512, 512), "float32"),
+    "full64": ((512, 512), "float64"),
+    "small32": ((26, 512), "float32"),
+    "small64": ((26, 512), "float64"),
+    "wide64": ((4, 20000), "float64"),
+    "tall32": ((30000, 8), "float32"),
+    "video32": ((76800, 100), "float32"),
+    "large32": ((2048, 2048), "float32"),
+}
+SVD_REPS = 5
 
 
 def main():
@@ -76,19 +99,26 @@ def main():
     names = args.only or PROBLEMS
     world = (cs.dist_world(dev) if "cbpdn_sharded" in names
              else contextlib.nullcontext())
+    runs = [(name, case) for name in names
+            for case in (SVD_CASES if name == "svd" else [None])]
+    failed = 0
     with world as mesh:
         makers = _makers(cs, dev, torch, mesh)
-        for name in names:
+        for name, case in runs:
             t0 = time.perf_counter()
             try:
-                out = (_dl(cs, dev, name) if name in DL_PHASES
+                out = (_svd(cs, torch, dev, case) if case
+                       else _dl(cs, dev, name) if name in DL_PHASES
                        else _measure(cs, torch, makers[name]))
-            except Exception as exc:    # report, and go on to the next
+            except Exception as exc:    # report, go on, and fail at the end
                 out = {"error": f"{type(exc).__name__}: {exc}"[:2000]}
-            print(json.dumps({"label": label, "problem": name,
-                              "seconds": time.perf_counter() - t0,
+                failed += 1
+            head = {"label": label, "problem": name}
+            if case:
+                head["case"] = case
+            print(json.dumps({**head, "seconds": time.perf_counter() - t0,
                               "nvidia_smi": smi, **out}), flush=True)
-    return 0
+    return 1 if failed else 0
 
 
 class _Run:
@@ -163,6 +193,18 @@ def _makers(cs, dev, torch, mesh):
     return out
 
 
+def _svd(cs, torch, dev, case):
+    """The Jacobi SVD of a Gaussian matrix of ``SVD_CASES[case]``, as
+    ``chip_smoke._svd_case`` checks and times it (no prox, not against
+    the plain version)."""
+    shape, dt = SVD_CASES[case]
+    a = torch.randn(shape, generator=torch.Generator().manual_seed(7),
+                    dtype=getattr(torch, dt)).to(dev)
+    rec = cs._svd_case(a, case, False, reps=SVD_REPS, prox=False)
+    rec["geometry"] = list(rec["geometry"])
+    return {"dtype": dt, **rec}
+
+
 def _dl(cs, dev, name):
     """ms an outer iteration of each learner of the dictionary-learning
     phase ``name``, run twice: cold (the first phase of the process) and
@@ -223,8 +265,21 @@ def _measure(cs, torch, make):
     k = b.j if hasattr(b, "j") else int(b.state.k)
     loop = dict(cs.device_loop.LAST) if cs.device_loop.LAST.get(
         "live") == k else {}
+    # the Jacobi SVD's jac_round launches in the profiled solve, counted
+    # on the device, where the tree counts them (beside the profiler's
+    # count of the kernel's events in "top")
+    svd = getattr(cs, "tsvd", None)
+    counted = svd is not None and hasattr(svd, "reset_launches")
+    if counted:
+        torch.cuda.synchronize()
+        svd.reset_launches()
     prof = cs.phase_profile(b.device, make)
-    return {"iterations": k,
+    jac = svd.launches() if counted else None
+    # the profiler's count of jac_round events among the 16 kernels of
+    # most device time (None where it is not among them)
+    seen = [t["count"] for t in prof["top"] if "jac_round" in t["name"]]
+    return {"iterations": k, "jac_round_device_launches": jac,
+            "jac_round_profiler_launches": sum(seen) if seen else None,
             "wall_ms_per_iter": 1e3 * min(walls) / k,
             "wall_ms_per_iter_runs": [1e3 * w / k for w in walls],
             "host_reads": reads["n"], "host_reads_per_iter": reads["n"] / k,
