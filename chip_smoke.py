@@ -244,9 +244,10 @@ then BASELINE configurations 1-3 and the generic dictionary learning:
     CPU, the randomized SVD with the same sketch on both sides and the
     full SVD;
 39. ``rpca_solve``: both in float32 to 1e-3: the low-rank and the sparse
-    part recovered within 1e-2, ms an iteration (three solves), each
-    final objective within ``RPCA_OBJ_AGREE`` of the CPU's (the
-    randomized with the same sketch), ``jac_round``'s launches (counted
+    part recovered within 1e-2, ms an iteration (three solves), the
+    iterations within one of the CPU's and each final objective within
+    ``RPCA_OBJ_AGREE`` of it (the randomized with the same sketch; the
+    complex phase below shares this routine), ``jac_round``'s launches (counted
     on the device) its sweeps times its rounds a sweep;
     both Robust PCA phases on the graph route, the iteration captured
     under ``global_capture()`` (any synchronisation inside it
@@ -267,6 +268,17 @@ then BASELINE configurations 1-3 and the generic dictionary learning:
     bit for bit the eager call, NaN in gives NaN out; each one's ms
     beside ``torch.linalg``'s, the Jacobi SVD's with its cluster size C,
     block width w, blocks a round, launches a sweep and sweeps;
+39b. ``rpca_complex``: complex Robust PCA.  The complex form of the
+    Jacobi SVD (``jac_round_z``) of complex64 512x512, 26x512 and
+    256x192, as ``svd_qr`` checks each (against ``torch.linalg.svd``,
+    its plain version on the card but at 256x192, replay, NaN, launches)
+    and times it;
+    then complex64 Robust PCA (``rpca_problem`` made complex) with the
+    randomized (rank 16) and the full SVD to 1e-3 on the graph route
+    (exactly ``ceil(k / 8) + 1`` host reads, ``jac_round`` launches the
+    sweeps times the rounds), against the same solves on the CPU: the
+    iterations within one, the objective within
+    ``RPCA_COMPLEX_OBJ_AGREE``;
 40. ``dictlrn_handover``: the generic ``DictLearn`` over ``ConvBPDN`` and
     the consensus ``ConvCnstrMOD`` at the headline size, 3 outer
     iterations of 5 inner ones on the card (its hand-overs pass card
@@ -398,7 +410,10 @@ entries of their own, with their launches in the fused masked and mixed
 solves; last ``jac_round``, the Jacobi SVD's kernel, which has no TPU
 counterpart, at one SVD of 512x512 float32, with its launches in the
 Robust PCA solves, counted on the device, and its time at every
-``svd_qr`` shape), the ``nvidia-smi`` name and power limit line, and last
+``svd_qr`` shape, and its complex form, ``jac_round (complex form)``, at
+one SVD of 512x512 complex64 with its launches in the complex solves
+and its time at every ``rpca_complex`` shape), the ``nvidia-smi`` name
+and power limit line, and last
 ``{"ok": true, "device": {...}}``.
 The fused ADMM and FISTA solves run their loop on the card
 (``sporco_tpu_torch/ops/device_loop.py``): one iteration captured as a
@@ -3393,37 +3408,40 @@ def phase_rpca_parity(dev):
             "rel_err": errs, "tolerance": F64_PARITY, "loop": loops}
 
 
-def phase_rpca_solve(dev):
-    """BASELINE configuration 3 in float32 on the card: the randomized SVD
-    (rank 16, the model's default sketch) and the full SVD, to 1e-3 (200
-    iterations at most), on the graph route (captured under
-    ``global_capture()``, exactly ``ceil(k / 8) + 1`` host reads):
-    iterations, objective, ms an iteration and the recovery of the
-    low-rank and the sparse part, and the ms an iteration of two more
-    solves; each final objective within RPCA_OBJ_AGREE of the CPU's (the
-    randomized with the same sketch)."""
-    S, L, Ssp = rpca_problem()
+def rpca_solves(dev, S, L, Ssp, dtype, agree, what="RobustPCA"):
+    """Robust PCA of ``S`` (low-rank part ``L``, sparse part ``Ssp``) in
+    ``dtype`` on the card: the randomized SVD (rank 16, the model's default
+    sketch) and the full SVD, to 1e-3 (200 iterations at most), on the
+    graph route (captured under ``global_capture()``, exactly ``ceil(k /
+    8) + 1`` host reads, the device's ``jac_round`` launches the sweeps
+    the loop counted times the rounds a sweep): iterations, objective, ms
+    an iteration and the recovery of both parts (1% of their norms), and
+    the ms an iteration of two more solves; against the same solve on the
+    CPU (the randomized with the same sketch) the iterations within one
+    and the final objective within ``agree``."""
     out = {}
     opt = trpca.RobustPCA.options(max_iter=RPCA_ITERS,
                                   rel_stop_tol=DENSE_TOL)
     for label, kw in (("randomized", {"svd_rank": RPCA_RANK}),
                       ("full", {})):
+        name = f"{what} {label}"
         with global_capture():
             trpca.RobustPCA(S, opt=trpca.RobustPCA.options(max_iter=3),
-                            device=dev, **kw).solve()
-        b = trpca.RobustPCA(S, opt=opt, device=dev, **kw)
+                            dtype=dtype, device=dev, **kw).solve()
+        b = trpca.RobustPCA(S, opt=opt, dtype=dtype, device=dev, **kw)
         wall, counts = _timed(b)
         rec = _solve_record(b, wall, counts, RPCA_ITERS)
-        rec.update(rpca_loop(f"RobustPCA {label}", rec["iterations"]))
+        rec.update(rpca_loop(name, rec["iterations"]))
         # jac_round: the rounds of every sweep the device loop counted
         jac = 0
         if LOOP_GRAPH:
             geo = tsvd.LAST["geometry"]
             rec["svd_geometry"] = list(geo)
             jac = rec["svd_sweeps"] * (geo.Pp // geo.w - 1)
-        expect_launches(f"RobustPCA {label}", counts, jac_round=jac)
+        expect_launches(name, counts, jac_round=jac)
         rec["ms_per_iter_repeats"] = _repeat_ms(
-            lambda: trpca.RobustPCA(S, opt=opt, device=dev, **kw))
+            lambda: trpca.RobustPCA(S, opt=opt, dtype=dtype, device=dev,
+                                    **kw))
         X, Y = (t.cpu().numpy() for t in (b.state.X, b.state.Y))
         rec["lowrank_rel_err"] = float(np.linalg.norm(X - L)
                                        / np.linalg.norm(L))
@@ -3431,25 +3449,35 @@ def phase_rpca_solve(dev):
                                       / np.linalg.norm(Ssp))
         if not (rec["lowrank_rel_err"] < 1e-2
                 and rec["sparse_rel_err"] < 1e-2):
-            raise AssertionError(f"RobustPCA {label}: recovery "
+            raise AssertionError(f"{name}: recovery "
                                  f"{rec['lowrank_rel_err']:.3e}, "
                                  f"{rec['sparse_rel_err']:.3e}")
         if "svd_rank" in kw:
             kw = dict(kw, sketch=b.params["sketch"].cpu())
-        c = trpca.RobustPCA(S, opt=opt, device="cpu", **kw)
+        t0 = time.perf_counter()
+        c = trpca.RobustPCA(S, opt=opt, dtype=dtype, device="cpu", **kw)
         c.solve()
+        rec["cpu_s"] = time.perf_counter() - t0
         ic = c.getitstat()
         rec["cpu_iterations"] = len(ic)
         rec["cpu_final_objective"] = float(ic.ObjFun[-1])
-        agree = abs(rec["final_objective"] - rec["cpu_final_objective"]) \
+        diff = abs(rec["final_objective"] - rec["cpu_final_objective"]) \
             / abs(rec["cpu_final_objective"])
-        rec["objective_rel_diff"] = agree
-        if not agree <= RPCA_OBJ_AGREE:
+        rec["objective_rel_diff"] = diff
+        if not (abs(rec["iterations"] - len(ic)) <= 1 and diff <= agree):
             raise AssertionError(
-                f"RobustPCA {label}: objective {rec['final_objective']} "
-                f"against the CPU's {rec['cpu_final_objective']}")
+                f"{name}: {rec['iterations']} iterations, objective "
+                f"{rec['final_objective']} against the CPU's {len(ic)}, "
+                f"{rec['cpu_final_objective']}")
         out[label] = rec
     return out
+
+
+def phase_rpca_solve(dev):
+    """BASELINE configuration 3 in float32 on the card, as
+    ``rpca_solves`` runs it, each final objective within RPCA_OBJ_AGREE
+    of the CPU's."""
+    return rpca_solves(dev, *rpca_problem(), torch.float32, RPCA_OBJ_AGREE)
 
 
 # the decompositions of Robust PCA's x-step at its shapes: the full SVD,
@@ -3480,26 +3508,29 @@ def _svd_errors(a, u, s, vt, s_ref):
     eye = torch.eye(k, dtype=a.dtype, device=a.device)
     return {"s": float((s - s_ref).abs().max() / s_ref[0]),
             "recon": float(((u * s) @ vt - a).norm() / a.norm()),
-            "orth_u": float((u.mT @ u - eye).abs().max()),
-            "orth_v": float((vt @ vt.mT - eye).abs().max())}
+            "orth_u": float((u.mH @ u - eye).abs().max()),
+            "orth_v": float((vt @ vt.mH - eye).abs().max())}
 
 
 def _all_nan(ts):
     return all(bool(torch.isnan(t).all()) for t in ts)
 
 
-def jacobi_bound_ms(geo, sweeps, itemsize):
+def jacobi_bound_ms(geo, sweeps, itemsize, cplx=False):
     """Least time on an H100 SXM of one Jacobi SVD in the geometry ``geo``
     that took ``sweeps`` sweeps, of a matrix of ``itemsize``-byte
     entries: its bytes, the matrix (P x L) read once and u, s and v^T (P
     x P, P and P x L) written once, over ``PEAK_HBM_BYTES``; its
     operations, the sweeps' rounds of pairs each forming its Gram
     matrix's upper triangle and applying R to its rows of W and Q, in
-    double over ``PEAK_FP64_FLOPS``; the larger of the two, and which
-    bounds it."""
+    double over ``PEAK_FP64_FLOPS``, a complex (``cplx``) multiply-add
+    counted as four real ones; the larger of the two, and which bounds
+    it."""
     P, L, w, Pp = geo[:4]
     n2, rounds = 2 * w, Pp // w - 1
     flops = Pp // n2 * (n2 * (n2 + 1) * L + 2 * n2 * n2 * (L + Pp))
+    if cplx:
+        flops *= 4
     t_ops = sweeps * rounds * flops / PEAK_FP64_FLOPS * 1e3
     t_bytes = itemsize * (2 * P * L + P * P + P) / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -3538,7 +3569,7 @@ def _svd_case(a, name, jacobi_plain, reps, prox):
            "vs_plain": errs, "plain": _svd_errors(a, up, sp, vp, sp),
            "limit": limit}
     rec["bound_ms"], rec["bound_by"] = jacobi_bound_ms(
-        geo, status[1], a.element_size())
+        geo, status[1], a.element_size(), a.is_complex())
     checks = dict(errs)
     if prox:
         alpha = 0.5 * (sp[7] + sp[8])
@@ -3652,6 +3683,68 @@ def phase_svd_qr(dev):
     return out
 
 
+# complex Robust PCA (the JAX package's RobustPCA takes complex64 and
+# complex128): rpca_problem made complex, and the complex Jacobi SVD
+# (csrc/jacobi_svd.cu jac_round_z) at its x-step's shapes, the full and
+# the randomized form's small matrix, and a 256 x 192 beside them
+CSVD_SHAPES = (("full", (RPCA_N, RPCA_N)), ("small", (RPCA_RANK + 10, RPCA_N)),
+               ("mid", (256, 192)))
+# the complex64 solves' final objectives against the same solves on the
+# CPU: the limit between the card's difference and the spread that moving
+# S by one float32 ulp (both parts) gives two CPU solves
+# (tools/dense_cpu_study.py ulp "RobustPCA complex randomized" "RobustPCA
+# complex full", on the card's machine; the card an H100): randomized,
+# the card equal, one ulp 5.3e-7; full, the card 2.1e-7 off, one ulp
+# 1.2e-6
+RPCA_COMPLEX_OBJ_AGREE = 5e-7
+
+
+def rpca_complex_problem(seed=0):
+    """``rpca_problem`` made complex: rank 8 plus 10% sparse outliers at
+    scale 5, 512x512, complex64, the factors and the outliers complex
+    Gaussians of unit variance from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+
+    def cn(*shape):
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)) / np.sqrt(2.0)
+    L = cn(RPCA_N, RPCA_R) @ cn(RPCA_R, RPCA_N)
+    Ssp = (rng.random((RPCA_N, RPCA_N)) > 0.9) * cn(RPCA_N, RPCA_N) * 5
+    return (L + Ssp).astype(np.complex64), L, Ssp
+
+
+def rpca_complex_solves(dev):
+    """Complex64 Robust PCA on ``rpca_complex_problem``, as
+    ``rpca_solves`` runs it (the device's ``jac_round`` launches the
+    complex form's), each final objective within
+    ``RPCA_COMPLEX_OBJ_AGREE`` of the CPU's."""
+    return rpca_solves(dev, *rpca_complex_problem(), torch.complex64,
+                       RPCA_COMPLEX_OBJ_AGREE, "complex RobustPCA")
+
+
+def phase_rpca_complex(dev):
+    """Complex Robust PCA on the card.  The complex form of the Jacobi SVD
+    (``jac_round_z``) of complex64 matrices of rank 8 at scale 10 over
+    unit noise at ``CSVD_SHAPES``, each as ``_svd_case`` checks it
+    (against ``torch.linalg.svd``, the prox's thresholded product, the
+    kernels' plain version on the card but at 256x192, which is no
+    shape of the x-step's, the captured replay bit for bit, NaN in gives
+    NaN out, the device's launches) and times it beside
+    ``torch.linalg.svd``, with the card's name and power limit; then
+    ``rpca_complex_solves``."""
+    out = {"nvidia_smi": nvidia_smi(), "svd": {}}
+    g = torch.Generator().manual_seed(9)
+    dt = torch.complex64
+    for label, shape in CSVD_SHAPES:
+        lo = torch.randn(shape[0], 8, generator=g, dtype=dt) @ \
+            torch.randn(8, shape[1], generator=g, dtype=dt)
+        a = (10.0 * lo + torch.randn(shape, generator=g, dtype=dt)).to(dev)
+        out["svd"][f"complex64 {label}"] = _svd_case(
+            a, f"complex64 {label}", label != "mid", reps=5, prox=True)
+    out.update(rpca_complex_solves(dev))
+    return out
+
+
 def dense_profile_models(dev):
     """profile phase name -> a maker of the float32 model it profiles: BPDN
     on the 256 signals, ``TVL2Denoise``, ``TVL2Deconv`` and the
@@ -3744,8 +3837,9 @@ MDL_PAIRS = (("admm", "cns"), ("admm", "ism"), ("admm", "cg"),
 MDL_CG_ITERS = 10
 # the depth of the two-block models' and the masked learner's float64
 # card-against-CPU checks (a crop, and fewer iterations than PARITY_ITERS
-# and CNS_PARITY_ITERS), to keep the script in its time (PERF.md, 4)
-MASKDCPL_PARITY_N, MASKDCPL_PARITY_ITERS = 256, 2
+# and CNS_PARITY_ITERS), to keep the script in its time (PERF.md, 4; the
+# crop 128x128 since complex Robust PCA's phase came)
+MASKDCPL_PARITY_N, MASKDCPL_PARITY_ITERS = 128, 2
 MDL_PARITY_ITERS = 1
 # the pairs whose float32 x-step objective, one inner iteration an outer
 # one, falls and then rises over CNS_ITERS outer iterations at this
@@ -4399,8 +4493,9 @@ def phase_dense_dl_solve(dev):
 REST_FAMILIES = ("csc_variants", "inhib", "csctv", "pdcsc", "ppp", "spline")
 # the float64 card-against-CPU checks' side and iterations: at 512x512,
 # or over 10 iterations, their CPU runs put the script past its time
-# (PERF.md, 4)
-REST_PARITY_N, REST_PARITY_ITERS = 256, 2
+# (PERF.md, 4; 128x128 since complex Robust PCA's phase came, where
+# 256x256 took 51 s of a slow run)
+REST_PARITY_N, REST_PARITY_ITERS = 128, 2
 REST_REPEAT_ITERS = 30  # iterations of the two repeat solves that time ms
 JOINT_MU = 0.02         # examples/csc_joint_color.py
 PROJL1_DENSITY, PROJL1_NOISE, PROJL1_FRAC = 24 / (64 * 64 * 8), 0.01, 0.9
@@ -5337,9 +5432,11 @@ def jacobi_entry(summary):
     ``jacobi_svd_plain``, on the card; ``library_ms``
     ``torch.linalg.svd``; ``bound_ms`` the larger of its bytes and its
     sweeps' FP64 operations, ``jacobi_bound_ms``),
-    its launches in the two Robust PCA solves of ``rpca_solve``, and
+    its launches in the two Robust PCA solves of ``rpca_solve``,
     ``shapes``: each ``svd_qr`` case's ms beside ``torch.linalg.svd``'s
-    with its geometry."""
+    with its geometry, and ``complex_form``: the complex form's ms,
+    bound, library ms and launches (its entry,
+    ``jacobi_complex_entry``)."""
     svd = summary["svd_qr"]["svd"]
     head = svd["float32 full"]
     solves = {label: summary["rpca_solve"][label]["launches"]["jac_round"]
@@ -5358,6 +5455,37 @@ def jacobi_entry(summary):
             "shapes": {name: {key: rec[key] for key in (
                 "ms", "plain_ms", "bound_ms", "C", "w", "route",
                 "blocks_per_round", "launches_per_sweep", "sweeps")}
+                for name, rec in svd.items()},
+            "complex_form": {key: jacobi_complex_entry(summary)[key]
+                             for key in ("ms", "bound_ms", "bound_by",
+                                         "library_ms", "launches")}}
+
+
+def jacobi_complex_entry(summary):
+    """The kernels line's entry of the complex form of ``jac_round``
+    (``jac_round_z``, a kernel of its own in the same source): its numbers
+    for one SVD of 512x512 complex64 (the complex full Robust PCA's
+    x-step; the keys as ``jacobi_entry``'s), its launches in the two
+    complex Robust PCA solves of ``rpca_complex``, and each shape of that
+    phase beside ``torch.linalg.svd``."""
+    svd = summary["rpca_complex"]["svd"]
+    head = svd["complex64 full"]
+    solves = {label: summary["rpca_complex"][label]["launches"]["jac_round"]
+              for label in ("randomized", "full")}
+    return {"name": "jac_round (complex form)", "route": "cuda",
+            "source": "sporco_tpu_torch/csrc/jacobi_svd.cu",
+            "replaces": "none: no TPU kernel (the JAX package's "
+                        "prox_nuclear, sporco_tpu/ops/prox.py:176-221, "
+                        "leaves its SVD to XLA, which takes complex input)",
+            "tpu_kernel": False, "launches": sum(solves.values()),
+            "rpca_launches": solves, "max_abs_err": head["max_abs_err"],
+            "ms": head["ms"], "plain_ms": head["jacobi_plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["plain_ms"], "shape": head["shape"],
+            "sweeps": head["sweeps"], "geometry": head["geometry"],
+            "shapes": {name: {key: rec.get(key) for key in (
+                "ms", "plain_ms", "jacobi_plain_ms", "bound_ms", "bound_by",
+                "route", "blocks_per_round", "launches_per_sweep", "sweeps")}
                 for name, rec in svd.items()}}
 
 
@@ -5457,7 +5585,7 @@ def kernels_line(summary):
                      summary["gradreg"],
                      "sporco_tpu/ops/pallas_csc_tail.py:105",
                      source="sporco_tpu_torch/csrc/csc_tail.cu"),
-        ams, *mixed, jacobi_entry(summary)]}
+        ams, *mixed, jacobi_entry(summary), jacobi_complex_entry(summary)]}
 
 
 def main(argv):
@@ -5579,6 +5707,8 @@ def main(argv):
     summary["rpca_solve"] = run_phase("rpca_solve",
                                       lambda: phase_rpca_solve(dev))
     summary["svd_qr"] = run_phase("svd_qr", lambda: phase_svd_qr(dev))
+    summary["rpca_complex"] = run_phase("rpca_complex",
+                                        lambda: phase_rpca_complex(dev))
     summary["dictlrn_handover"] = run_phase(
         "dictlrn_handover",
         lambda: phase_dictlrn_handover(dev, D, S, lmbda))

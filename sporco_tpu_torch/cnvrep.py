@@ -24,7 +24,13 @@ __all__ = ["CSCIndex", "csc_index", "CDUIndex", "cdu_index",
            "DictionarySize", "to_internal_S", "to_internal_D",
            "to_internal_X", "from_internal_X", "from_internal_D",
            "l1_weight", "fidelity_mask", "zeromean", "normalise", "zpad",
-           "bcrop", "Pcn", "getPcn"]
+           "bcrop", "Pcn", "getPcn", "AXIS_K", "AXIS_C", "AXIS_M"]
+
+# the axes of the internal CSC layout's leading dimensions: signals K,
+# channels C, filters M (the JAX package's constants)
+AXIS_K = 0
+AXIS_C = 1
+AXIS_M = 2
 
 
 @dataclass(frozen=True)

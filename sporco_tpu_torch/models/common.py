@@ -19,7 +19,29 @@ from sporco_tpu_torch.solvers import pgm as _pgm
 from sporco_tpu_torch.utils.timer import Timer
 
 __all__ = ["ADMMModel", "PGMModel", "default_rho_xi", "user_tensor",
-           "warm_start"]
+           "warm_start", "device_sync"]
+
+
+def device_sync(state):
+    """Wait for every device that holds a tensor of ``state`` (a tensor,
+    or a dataclass, named tuple, tuple, list or dict of them, nested) to
+    finish its work: ``torch.cuda.synchronize`` of each CUDA device among
+    them, nothing for CPU tensors.  The JAX package's counterpart fetches
+    one scalar of the state to the host as its barrier."""
+    devices, todo = set(), [state]
+    while todo:
+        x = todo.pop()
+        if isinstance(x, torch.Tensor):
+            if x.device.type == "cuda":
+                devices.add(x.device)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            todo.extend(getattr(x, f.name) for f in dataclasses.fields(x))
+        elif isinstance(x, dict):
+            todo.extend(x.values())
+        elif isinstance(x, (tuple, list)):
+            todo.extend(x)
+    for d in devices:
+        torch.cuda.synchronize(d)
 
 
 def user_tensor(a, dtype, device):

@@ -4,7 +4,10 @@ subject to ``X + Y = S``.  The x-step is singular-value soft
 thresholding, by a full SVD or, with ``svd_rank``, by a randomized
 subspace iteration; the y-step is elementwise shrinkage.  On the card
 the SVD is ``ops/svd.py``'s Jacobi kernels, whose sweeps are a WHILE
-node of the captured iteration: the problem takes the graph route.
+node of the captured iteration: the problem takes the graph route, for
+a real ``S`` and for a complex one (``dtype=torch.complex64`` or
+``complex128``, the complex form of the kernels; the stats rows are
+real).
 """
 
 from dataclasses import dataclass
@@ -32,7 +35,8 @@ class RPCAConfig:
 
 
 def _setup(cfg, params):
-    # the x-step's SVD kernels built and loaded before the loop captures
+    # the x-step's SVD kernels, real and complex, built and loaded before
+    # the loop captures
     ssvd.prepare(params["S"].device)
     return {}
 

@@ -28,7 +28,8 @@ from sporco_tpu_torch.ops import fft2_planar
 __all__ = ["fftn", "ifftn", "rfftn", "irfftn", "fl2norm2", "rfl2norm2",
            "fftconv", "dctii", "idctii", "complex_dtype", "real_dtype",
            "torch_dtype", "numpy_dtype", "set_precision", "get_precision",
-           "use_planar_fft"]
+           "use_planar_fft", "is_complex_dtype", "empty_aligned_func",
+           "fftn_func", "ifftn_func", "fl2norm2_func"]
 
 _PRECISION = "highest"
 _PLANAR_MODE = "auto"
@@ -70,6 +71,12 @@ def real_dtype(dtype):
     if not dtype.is_complex:
         return dtype
     return torch.float64 if dtype == torch.complex128 else torch.float32
+
+
+def is_complex_dtype(dtype):
+    """True if ``dtype`` (a torch dtype, a numpy dtype or its name) is
+    complex."""
+    return torch_dtype(dtype).is_complex
 
 
 def torch_dtype(dtype):
@@ -239,3 +246,41 @@ def rfl2norm2(xf, xs, axis=None):
     nrm1 = (torch.sum(sq.narrow(last, sq.shape[last] - 1, 1))
             if xs[-1] % 2 == 0 else 0.0)
     return scl * (2.0 * torch.sum(sq) - nrm0 - nrm1)
+
+
+# ---------------------------------------------------------------------------
+# Real/complex dispatch (``sporco/fft.py:488-588``): a solver that takes
+# complex D or S binds the transform family at construction.
+
+def empty_aligned_func(real=True):
+    """Compatibility with the reference: alignment means nothing here, so
+    ``torch.empty`` for either family."""
+    del real
+    return torch.empty
+
+
+def _ifftn_s(a, s, axes=None):
+    return ifftn(a, s=s, axes=axes)
+
+
+def _fl2norm2_xs(xf, xs, axis=None):
+    return fl2norm2(xf, axis=axis)
+
+
+def fftn_func(real=True):
+    """The forward transform of real (:func:`rfftn`) or complex
+    (:func:`fftn`) problems."""
+    return rfftn if real else fftn
+
+
+def ifftn_func(real=True):
+    """The inverse transform, ``f(a, s, axes=None)``: :func:`irfftn` for
+    real problems (``s`` required), :func:`ifftn` for complex ones."""
+    return irfftn if real else _ifftn_s
+
+
+def fl2norm2_func(real=True):
+    """The Parseval norm of the bound family, ``f(xf, xs, axis=None)``:
+    :func:`rfl2norm2` for real problems, :func:`fl2norm2` (``xs``
+    unused) for complex ones."""
+    return rfl2norm2 if real else _fl2norm2_xs

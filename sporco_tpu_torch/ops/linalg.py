@@ -16,6 +16,8 @@ import numpy as np
 import torch
 
 from sporco_tpu_torch._device import fp32_precision, resolve_device
+# re-exported, as the JAX package's ops.linalg does
+from sporco_tpu_torch.ops.prox import zdivide
 
 __all__ = ["inner", "dot", "solvedbi_sm", "solvedbi_sm_c", "solvedbd_sm",
            "solvedbd_sm_c", "solvemdbi_ism", "cg", "solvemdbi_cg",
@@ -25,7 +27,7 @@ __all__ = ["inner", "dot", "solvedbi_sm", "solvedbi_sm_c", "solvedbd_sm",
            "cho_solve_AATI", "lu_factor", "lu_solve_ATAI", "lu_solve_AATI",
            "rrs", "solvemdbi_rsm", "valid_adjoint", "block_circulant",
            "solve_symmetric_sylvester", "pca", "nkp", "kpsvd",
-           "proj_l2ball"]
+           "proj_l2ball", "zdivide"]
 
 
 def inner(x, y, axis=-1):

@@ -202,9 +202,12 @@ def prox_nuclear(v, alpha, rank=None, n_iter=2, oversample=10,
     here); by default :func:`nuclear_sketch` draws one.
 
     The SVD is ``ops/svd.py`` ``svd`` (``torch.linalg.svd`` on the CPU,
-    the Jacobi kernels on the card) and the QR ``torch.linalg.qr``:
-    neither reads the host on the card, so a device loop captures the
-    prox into its iteration's graph."""
+    the Jacobi kernels on the card, real or complex) and the QR
+    ``torch.linalg.qr``: neither reads the host on the card (the complex
+    QR no more than the real one, PERF.md), so a device loop captures
+    the prox into its iteration's graph, for real and complex ``v``
+    alike.  A complex ``v``'s sketch is real, cast to ``v``'s type, as
+    the JAX package's is."""
     if rank is None:
         u, s, vt = svd(v)
         ss = torch.clamp(s - alpha, min=0)

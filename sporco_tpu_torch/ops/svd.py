@@ -52,8 +52,17 @@ The QR of the randomized form needs nothing of this kind:
 ``torch.linalg.qr`` on the card (cuSOLVER's ``geqrf`` and ``orgqr``)
 checks no status on the host and captures as it is (PERF.md).
 
-Real ``float32`` and ``float64`` matrices, batched over leading axes (a
-loop over the batch); a complex CUDA tensor raises.
+``float32``, ``float64``, ``complex64`` and ``complex128`` matrices,
+batched over leading axes (a loop over the batch).  A complex matrix
+takes the same schedule in complex double (``complex64`` results
+rounded), through the kernels' complex form (``jac_round_z``): its rows'
+Gram matrices are Hermitian, ``G = X X^H``, a pair is tested on
+``|g_ij|`` and rotated by the real rotation of ``(g_ii, g_jj, |g_ij|)``
+with the phase of ``g_ij`` on the off-diagonal entries.  That form runs
+one block a pair of row blocks (``C = 1``) without tensor cores, the
+rows in shared memory where they fit (16-byte elements:
+:func:`shared_rows`), else in global memory.  ``vt`` is ``V^H``: ``u
+diag(s) vt`` is ``a``.
 """
 
 import collections
@@ -123,6 +132,13 @@ def _stride(span):
     return (span + 15) // 16 * 16 + 4
 
 
+def _head_z(w):
+    """Doubles of a ``jac_round_z`` block's shared memory before its rows:
+    G and R (complex), the inner round's phases and its c, s and |g|
+    (``csrc/jacobi_svd.cu`` ``head_z_doubles``)."""
+    return 16 * w * w + 6 * w
+
+
 def _head(w):
     """Doubles of a ``jac_round`` block's shared memory before its slices:
     its partial Gram, G, R, the inner round's rotations and the warps'
@@ -131,17 +147,21 @@ def _head(w):
     return (3 + WARPS) * 4 * w * w + 4 * w
 
 
-def shared_rows(L, w, C=1):
-    """Whether a block's slice of two blocks of ``w`` float64 rows of
-    length ``L``, cut in ``C``, fits :data:`SMEM_MAX` beside its Gram
-    buffers; where it does not, the kernel reads the rows in global
-    memory."""
+def shared_rows(L, w, C=1, itemsize=8):
+    """Whether a block's slice of two blocks of ``w`` rows of length
+    ``L``, cut in ``C``, fits :data:`SMEM_MAX` beside its Gram buffers;
+    where it does not, the kernel reads the rows in global memory.  The
+    rows' element is a float64 (``itemsize`` 8) or, for the complex form,
+    a complex128 (16), whose kernel holds a pair's whole rows (``C`` 1)."""
+    if itemsize == 16:
+        return (_head_z(w) + 4 * w * L) * 8 <= SMEM_MAX
     return (_head(w) + 2 * w * _stride(_span(L, C))) * 8 <= SMEM_MAX
 
 
-def geometry(m, n):
+def geometry(m, n, itemsize=8):
     """The :class:`Geometry` of the Jacobi SVD of an ``m x n`` matrix,
-    from its shape alone: ``P`` rows of length ``L`` (the shorter side's),
+    from its shape and the working element's size (8, float64; 16,
+    complex128): ``P`` rows of length ``L`` (the shorter side's),
     blocks of ``w`` rows (at most :data:`MAX_W` and no more than half the
     rows rounded up to a power of two), the rows padded to ``Pp``, a
     multiple of ``2 w``; clusters of ``C`` blocks, a power of two up to
@@ -149,12 +169,15 @@ def geometry(m, n):
     ``C``) fit :data:`SMS` with slices of at least :data:`MIN_SPAN`
     columns, raised where that lets the slices fit shared memory
     (``shared``); where no cluster's slices fit, ``C`` stays and the rows
-    are read in global memory."""
+    are read in global memory.  The complex form takes ``C`` 1, its rows
+    in shared memory where :func:`shared_rows` says they fit."""
     P, L = min(m, n), max(m, n)
     w = MAX_W
     while w > 1 and 2 * w > _next_pow2(P):
         w //= 2
     Pp = -(-P // (2 * w)) * 2 * w
+    if itemsize == 16:
+        return Geometry(P, L, w, Pp, 1, shared_rows(L, w, 1, 16))
     pairs = Pp // (2 * w)
     C = 1
     while (C < MAX_C and pairs * 2 * C <= SMS
@@ -180,10 +203,16 @@ def _rr_pair(n, r, i):
     return (r + i) % (n - 1), (r - i) % (n - 1)
 
 
+_WORK = {torch.float32: torch.float64, torch.float64: torch.float64,
+         torch.complex64: torch.complex128,
+         torch.complex128: torch.complex128}
+
+
 def _check(a):
-    if a.dtype not in (torch.float32, torch.float64):
+    if a.dtype not in _WORK:
         raise NotImplementedError(
-            f"jacobi_svd takes float32 or float64 matrices, not {a.dtype}")
+            f"jacobi_svd takes float32, float64, complex64 or complex128 "
+            f"matrices, not {a.dtype}")
     if a.ndim < 2 or 0 in a.shape[-2:]:
         raise ValueError(f"jacobi_svd needs matrices, not shape "
                          f"{tuple(a.shape)}")
@@ -201,11 +230,25 @@ def _batched(fn, a):
 
 def _outputs(m, n, S, Wout, Qout):
     """``(u, s, vt)`` from the sorted norms and rows: for ``m >= n`` the
-    rows were those of ``a^T`` (``a = Wn^T diag(s) Q``), else those of
-    ``a`` (``a = Q^T diag(s) Wn``)."""
+    rows were those of ``a^H`` (``a = Wn^H diag(s) Q``), else those of
+    ``a`` (``a = Q^H diag(s) Wn``)."""
     if m >= n:
-        return Wout.mT, S, Qout
-    return Qout.mT, S, Wout
+        return Wout.mH, S, Qout
+    return Qout.mH, S, Wout
+
+
+def _rows_of(a):
+    """The matrix whose rows are rotated: ``a`` if it is wide, else
+    ``a^H``."""
+    m, n = a.shape
+    return a if m < n else a.mH
+
+
+def _sq_norms(W):
+    """The squared norms of the rows of ``W``, real or complex."""
+    if W.is_complex():
+        return (W.real ** 2 + W.imag ** 2).sum(-1)
+    return (W ** 2).sum(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -232,17 +275,21 @@ def _rotation(a, b, g, tol):
 
 
 def _gram(X, C):
-    """The Gram matrices ``X X^T`` of the pairs' rows ``X`` (pairs, 2w,
+    """The Gram matrices ``X X^H`` of the pairs' rows ``X`` (pairs, 2w,
     L) as the clusters form them: each of ``C`` blocks that of its slice
-    of the columns, added in rank order, the upper triangle mirrored."""
+    of the columns, added in rank order, the upper triangle mirrored (the
+    diagonal of a complex one real)."""
     L = X.shape[-1]
     span = _span(L, C)
     G = None
     for c in range(C):
         xs = X[..., c * span:(c + 1) * span]
-        part = xs @ xs.mT
+        part = xs @ xs.mH
         G = part if G is None else G + part
-    return G.triu() + G.triu(1).mT
+    G = G.triu() + G.triu(1).mH
+    if G.is_complex():
+        G.diagonal(dim1=-2, dim2=-1).imag.zero_()
+    return G
 
 
 def _inner_pairs(n2, cross):
@@ -276,26 +323,41 @@ def _inner_rounds(G, tol, cross=False):
     """The inner rounds (:func:`_inner_pairs`) of the pairs' rows on their
     Gram matrices ``G`` (pairs, 2w, 2w), as every block of a cluster runs
     them: a pair (i, j) of rows is rotated where ``|g_ij| > tol
-    sqrt(g_ii) sqrt(g_jj)``; G becomes J G J^T for the round's rotations
+    sqrt(g_ii) sqrt(g_jj)``; G becomes J G J^H for the round's rotations
     J (the identity on the pairs not rotated), with ``x'.y'`` set to 0,
-    and the rotations are gathered in R = J R.  Returns R and whether each
-    pair of blocks rotated."""
+    and the rotations are gathered in R = J R.  A complex pair's rotation
+    is the real one of ``(g_ii, g_jj, |g_ij|)`` with the phase ``u =
+    g_ij / |g_ij|``: ``x' = c x - s u y``, ``y' = s conj(u) x + c y`` (the
+    diagonal of G kept real).  Returns R and whether each pair of blocks
+    rotated."""
     nb, n2 = G.shape[0], G.shape[-1]
-    dev = G.device
+    dev, cplx = G.device, G.is_complex()
     eye = torch.eye(n2, dtype=G.dtype, device=dev).expand(nb, n2, n2)
     R = eye.clone()
     any_ = torch.zeros(nb, dtype=torch.bool, device=dev)
     for i, j in _round_index(n2, cross, dev):
-        do, c, s = _rotation(G[:, i, i], G[:, j, j], G[:, i, j], tol)
+        g = G[:, i, j]
+        if cplx:
+            mag = g.abs()
+            do, c, s = _rotation(G[:, i, i].real, G[:, j, j].real, mag, tol)
+            u = torch.where(do, g / torch.where(do, mag, 1.0),
+                            torch.ones_like(g))
+            sij, sji = -s * u, s * u.conj()
+        else:
+            do, c, s = _rotation(G[:, i, i], G[:, j, j], g, tol)
+            sij, sji = -s, s
+        c = c.to(G.dtype)
         J = eye.clone()
         J[:, i, i] = c
-        J[:, i, j] = -s
-        J[:, j, i] = s
+        J[:, i, j] = sij
+        J[:, j, i] = sji
         J[:, j, j] = c
-        G = J @ G @ J.mT
-        z = torch.where(do, torch.zeros_like(c), G[:, i, j])
+        G = J @ G @ J.mH
+        z = torch.where(do, torch.zeros_like(g), G[:, i, j])
         G[:, i, j] = z
-        G[:, j, i] = z
+        G[:, j, i] = z.conj() if cplx else z
+        if cplx:
+            G.diagonal(dim1=-2, dim2=-1).imag.zero_()
         R = J @ R
         any_ |= do.any(-1)
     return R, any_
@@ -314,12 +376,12 @@ def jacobi_svd_plain(a, sweep_cap=SWEEP_CAP):
 def _plain_2d(a, sweep_cap):
     m, n = a.shape
     dt, dev = a.dtype, a.device
-    f64 = torch.float64
-    geo = geometry(m, n)
+    f64 = _WORK[dt]
+    geo = geometry(m, n, f64.itemsize)
     P, L, w, Pp, C = geo[:5]
     tol = _tol(L)
     W = torch.zeros((Pp, L), dtype=f64, device=dev)
-    W[:P] = a if m < n else a.mT
+    W[:P] = _rows_of(a)
     Q = torch.eye(Pp, dtype=f64, device=dev)
     nb = Pp // w
     rows_of = [torch.tensor([[ba * w + l for l in range(w)]
@@ -345,16 +407,24 @@ def _plain_2d(a, sweep_cap):
             break
     LAST.clear()
     LAST.update(form="plain", sweeps=sweeps, geometry=geo)
-    sig = torch.sqrt((W[:P] ** 2).sum(-1))
+    sig = torch.sqrt(_sq_norms(W[:P]))
     if unconverged or not bool(torch.isfinite(sig).all()):
-        nan = torch.full((), math.nan, dtype=dt, device=dev)
-        return _outputs(m, n, nan.expand(P).clone(), nan.expand(P, L).clone(),
-                        nan.expand(P, P).clone())
+        nan = torch.full((), complex(math.nan, math.nan) if dt.is_complex
+                         else math.nan, dtype=dt, device=dev)
+        return _outputs(m, n, nan.real.expand(P).clone(),
+                        nan.expand(P, L).clone(), nan.expand(P, P).clone())
     order = torch.sort(sig, descending=True, stable=True).indices
     S = sig[order]
-    Wn = torch.where(S[:, None] > 0, W[order] / S[:, None],
-                     torch.zeros((), dtype=f64, device=dev))
-    return _outputs(m, n, *(t.to(dt) for t in (S, Wn, Q[order][:, :P])))
+    pos = S[:, None] > 0
+    d = torch.where(pos, S[:, None], 1.0)
+    Wo = W[order]
+    if Wo.is_complex():
+        Wn = torch.complex(Wo.real / d, Wo.imag / d)
+    else:
+        Wn = Wo / d
+    Wn = torch.where(pos, Wn, torch.zeros((), dtype=f64, device=dev))
+    return _outputs(m, n, S.to(dt.to_real()), Wn.to(dt),
+                    Q[order][:, :P].to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -390,6 +460,11 @@ def _lib(device):
         lib.jac_sweep_end_launch.restype = I
         lib.jac_finish_launch.argtypes = [V, V, V, V, V, I, I, I, V, V, V]
         lib.jac_finish_launch.restype = I
+        lib.jac_round_z_launch.argtypes = [V, V, V, I, I, I, I, I, I,
+                                           ctypes.c_double, V, V]
+        lib.jac_round_z_launch.restype = I
+        lib.jac_finish_z_launch.argtypes = [V, V, V, V, V, I, I, I, V, V, V]
+        lib.jac_finish_z_launch.restype = I
         _LIB["lib"] = lib
     if device.index not in _LIB.setdefault("init", set()):
         with torch.cuda.device(device):
@@ -437,7 +512,9 @@ class _State:
 
     def __init__(self, m, n, dtype, device):
         self.m, self.n, self.dtype, self.device = m, n, dtype, device
-        self.geo = geometry(m, n)
+        work = _WORK[dtype]
+        self.complex = work.is_complex
+        self.geo = geometry(m, n, work.itemsize)
         self.P, self.L, self.w, self.Pp, self.C = self.geo[:5]
         P, L, Pp = self.P, self.L, self.Pp
         self.tol = _tol(L)
@@ -446,21 +523,23 @@ class _State:
 
         def E(*shape, dt=torch.float64):
             return torch.empty(shape, dtype=dt, device=device)
-        self.W, self.Q = E(Pp, L), E(Pp, Pp)
+        self.W, self.Q = E(Pp, L, dt=work), E(Pp, Pp, dt=work)
         self.sig, self.S = E(P), E(P)
-        self.Wout, self.Qout = E(P, L), E(P, P)
+        self.Wout, self.Qout = E(P, L, dt=work), E(P, P, dt=work)
         self.status = E(3, dt=torch.int32)
         self.more = E(dt=torch.bool)
 
     def sweep(self):
         s = torch.cuda.current_stream(self.device).cuda_stream
+        head = (s, self.W.data_ptr(), self.Q.data_ptr(), self.Pp, self.L,
+                self.w)
+        # the complex form runs no clusters: it takes no C
+        launch, head = ((self.lib.jac_round_z_launch, head) if self.complex
+                        else (self.lib.jac_round_launch, head + (self.C,)))
         for rnd in range(self.Pp // self.w - 1):
-            _ck(self.lib.jac_round_launch(
-                s, self.W.data_ptr(), self.Q.data_ptr(), self.Pp,
-                self.L, self.w, self.C, int(self.geo.shared), rnd,
-                int(rnd > 0), self.tol, self.status.data_ptr(),
-                self.count.data_ptr()),
-                "jac_round")
+            _ck(launch(*head, int(self.geo.shared), rnd, int(rnd > 0),
+                       self.tol, self.status.data_ptr(),
+                       self.count.data_ptr()), "jac_round")
         _ck(self.lib.jac_sweep_end_launch(s, self.status.data_ptr(),
                                           self.more.data_ptr(), SWEEP_CAP),
             "jac_sweep_end")
@@ -470,7 +549,7 @@ class _State:
         device_loop.stage("jacobi_svd")
         gate = device_loop.outer()
         P = self.P
-        self.W[:P].copy_(a if self.m < self.n else a.mT)
+        self.W[:P].copy_(_rows_of(a))
         if self.Pp > P:
             self.W[P:].zero_()
         self.Q.zero_()
@@ -481,7 +560,9 @@ class _State:
         else:
             self.more.copy_(gate[0])
         device_loop.while_(self.more, self.sweep)
-        _ck(self.lib.jac_finish_launch(
+        finish = (self.lib.jac_finish_z_launch if self.complex
+                  else self.lib.jac_finish_launch)
+        _ck(finish(
             torch.cuda.current_stream(self.device).cuda_stream,
             self.W.data_ptr(), self.Q.data_ptr(), self.sig.data_ptr(),
             self.status.data_ptr(), P, self.Pp, self.L, self.S.data_ptr(),
@@ -490,16 +571,17 @@ class _State:
             gate[1].add_(self.status[1])
 
     def outputs(self):
-        return _outputs(self.m, self.n, *(t.to(self.dtype) for t in
-                                          (self.S, self.Wout, self.Qout)))
+        return _outputs(self.m, self.n, self.S.to(self.dtype.to_real()),
+                        self.Wout.to(self.dtype), self.Qout.to(self.dtype))
 
 
 def jacobi_svd(a):
     """``(u, s, vt)`` of ``a`` by the one-sided Jacobi SVD: the kernels on
-    a CUDA tensor (a ``float32`` or ``float64`` matrix, or a batch of
-    them), :func:`jacobi_svd_plain` on the CPU (see the module's
-    docstring).  A zero singular value's vector on the side of the
-    rotated rows (``u`` for m >= n, ``v`` for m < n) is zero."""
+    a CUDA tensor (a ``float32``, ``float64``, ``complex64`` or
+    ``complex128`` matrix, or a batch of them), :func:`jacobi_svd_plain`
+    on the CPU (see the module's docstring).  A zero singular value's
+    vector on the side of the rotated rows (``u`` for m >= n, ``v`` for
+    m < n) is zero."""
     if a.device.type == "cpu":
         return jacobi_svd_plain(a)
     if a.device.type != "cuda":

@@ -16,7 +16,8 @@ import torch
 from sporco_tpu_torch._device import resolve_device
 from sporco_tpu_torch.ops import fft as sf
 
-__all__ = ["grad", "gradT", "gradient_filters", "spnoise", "rndmask",
+__all__ = ["complex_randn", "grad", "gradT", "gradient_filters", "spnoise",
+           "rndmask",
            "rgb2gray", "tikhonov_filter", "gaussian",
            "local_contrast_normalise"]
 
@@ -32,6 +33,19 @@ def _uniform(shape, generator, u, device):
     if u is not None:
         return _as_tensor(u).to(device)
     return torch.rand(tuple(shape), generator=generator).to(device)
+
+
+def complex_randn(generator, *shape):
+    """Complex Gaussian samples of ``shape`` (``sporco/signal.py:23``):
+    standard normal real and imaginary parts, drawn in that order from
+    ``generator`` (a ``torch.Generator``, on its device; None, the global
+    one), in torch's default float type (complex64 by default).  The JAX
+    package draws from a ``jax.random`` key, which gives other numbers
+    for the same seed."""
+    device = None if generator is None else generator.device
+    re = torch.randn(shape, generator=generator, device=device)
+    im = torch.randn(shape, generator=generator, device=device)
+    return torch.complex(re, im)
 
 
 def spnoise(s, frc, smn=0.0, smx=1.0, generator=None, u=None):

@@ -2489,6 +2489,225 @@ def test_rpca_iteration_captures_under_global_mode(dev, global_capture,
 
 
 # ---------------------------------------------------------------------------
+# The complex form of the Jacobi SVD (csrc/jacobi_svd.cu jac_round_z) and
+# complex Robust PCA on the graph route
+
+CSVD_CASES = [((512, 512), torch.complex64), ((48, 33), torch.complex128),
+              ((26, 512), torch.complex64), ((512, 26), torch.complex128),
+              ((3, 7), torch.complex64), ((2, 5, 9), torch.complex128),
+              ((100, 2000), torch.complex128)]
+
+
+def _crandn(shape, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.complex(torch.randn(shape, generator=g, dtype=torch.float64),
+                         torch.randn(shape, generator=g,
+                                     dtype=torch.float64)).to(dtype)
+
+
+@pytest.mark.parametrize("shape,dtype", CSVD_CASES, ids=str)
+def test_complex_jacobi_svd_matches_plain_and_captures(dev, global_capture,
+                                                       shape, dtype):
+    """The complex form on the card against ``torch.linalg.svd`` and the
+    plain schedule on the card (8 L eps; 100 x 2000 rows too long for
+    shared memory), the device's ``jac_round`` count the sweeps times the
+    rounds; its "node" form captured under global mode and replayed
+    equals its "eager" form bit for bit."""
+    from sporco_tpu_torch.ops import device_loop
+    from sporco_tpu_torch.ops import svd as tsvd
+    a = _crandn(shape, dtype, 5).to(dev)
+    tsvd.prepare(dev)
+    torch.cuda.synchronize()
+    tsvd.reset_launches()
+    u, s, vt = tsvd.jacobi_svd(a)
+    assert tsvd.LAST["form"] == "eager"
+    geo = tsvd.LAST["geometry"]
+    assert geo.C == 1 and u.dtype == vt.dtype == dtype
+    assert s.dtype == dtype.to_real()
+    if len(shape) == 2:
+        sweeps = int(tsvd.LAST["status"][1])
+        assert tsvd.launches(dev) == sweeps * (geo.Pp // geo.w - 1)
+    sr = tsvd.svd_plain(a)[1]
+    sj = tsvd.jacobi_svd_plain(a)[1]
+    lim = 8 * max(shape) * torch.finfo(dtype).eps
+    for i in np.ndindex(*shape[:-2]):
+        k = min(shape[-2:])
+        eye = torch.eye(k, dtype=dtype, device=dev)
+        for ref in (sr[i], sj[i]):
+            assert float((s[i] - ref).abs().max()) <= lim * float(ref[0])
+        rec = (u[i] * s[i]) @ vt[i] - a[i]
+        assert float(rec.norm()) <= lim * float(a[i].norm())
+        assert float((u[i].mH @ u[i] - eye).abs().max()) <= lim
+        assert float((vt[i] @ vt[i].mH - eye).abs().max()) <= lim
+    outs = [torch.empty_like(t) for t in (u, s, vt)]
+
+    def step():
+        for o, t in zip(outs, tsvd.jacobi_svd(a)):
+            o.copy_(t)
+    graph = device_loop._capture(step, dev)
+    assert tsvd.LAST["form"] == "node"
+    for o in outs:
+        o.fill_(float("nan"))
+    graph.replay()
+    for o, t in zip(outs, (u, s, vt)):
+        assert torch.equal(o, t)
+
+
+def test_complex_jacobi_svd_nan_gives_nan_without_a_host_read(
+        dev, global_capture):
+    """A NaN in either part of a complex input gives NaN in every output,
+    in a replay of the "node" form with no synchronisation."""
+    from sporco_tpu_torch.ops import device_loop
+    from sporco_tpu_torch.ops import svd as tsvd
+    a = _crandn((26, 512), torch.complex64, 6).to(dev)
+    ref = tsvd.jacobi_svd(a)
+    x = a.clone()
+    outs = [torch.empty_like(t) for t in ref]
+
+    def step():
+        for o, t in zip(outs, tsvd.jacobi_svd(x)):
+            o.copy_(t)
+    graph = device_loop._capture(step, dev)
+    x[4, 9] = complex(0.0, float("nan"))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isnan(o).all()) for o in outs)
+    x.copy_(a)
+    graph.replay()
+    for o, t in zip(outs, ref):
+        assert torch.equal(o, t)
+
+
+@pytest.mark.parametrize("rank", [None, 5], ids=["full", "randomized"])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("shape", [(40, 24), (24, 40), (32, 32)],
+                         ids=["tall", "wide", "square"])
+def test_complex_prox_nuclear_on_card_matches_cpu(dev, global_capture,
+                                                  shape, dtype, rank):
+    """Complex ``prox_nuclear``, full and randomized (the same sketch), on
+    the card against the CPU (``torch.linalg.svd`` there): X within 1e-10
+    of its scale for complex128 and 1e-5 for complex64, the thresholded
+    singular values likewise of the largest (the CPU tests' tolerances,
+    ``tests/test_torch_rpca.py``); captured under global mode, its replay
+    equals the eager call bit for bit."""
+    from sporco_tpu_torch.ops import device_loop
+    from sporco_tpu_torch.ops import prox as tpx
+    rng = np.random.default_rng(3)
+    m, n = shape
+    v = sum(3.0 * rng.standard_normal((m, 4)) @ rng.standard_normal((4, n))
+            * f + 0.3 * rng.standard_normal((m, n)) * f for f in (1, 1j))
+    sv = np.linalg.svd(v, compute_uv=False)
+    alpha = float(0.5 * (sv[5] + sv[6]))
+    v = torch.tensor(v).to(dtype)
+    sk = (None if rank is None else torch.tensor(
+        rng.standard_normal((n, rank + 10))).to(dtype.to_real()))
+    xc, sc = tpx.prox_nuclear(v, alpha, rank=rank, sketch=sk)
+    xd, sd = tpx.prox_nuclear(v.to(dev), alpha, rank=rank,
+                              sketch=None if sk is None else sk.to(dev))
+    tol = 1e-10 if dtype == torch.complex128 else 1e-5
+    assert xd.dtype == dtype and 0 < int((sc > 0).sum()) < sc.numel()
+    assert float((xd.cpu() - xc).abs().max()) <= tol * float(xc.abs().max())
+    assert float((sd.cpu() - sc).abs().max()) <= tol * float(sc[0])
+    x = v.to(dev)
+    skd = None if sk is None else sk.to(dev)
+    outs = [torch.empty_like(t) for t in (xd, sd)]
+
+    def step():
+        for o, t in zip(outs, tpx.prox_nuclear(x, alpha, rank=rank,
+                                               sketch=skd)):
+            o.copy_(t)
+    graph = device_loop._capture(step, dev)
+    graph.replay()
+    for o, t in zip(outs, (xd, sd)):
+        assert torch.equal(o, t)
+
+
+def _complex_rpca_case(d, dtype, rank):
+    """A 48 x 40 complex matrix of rank 4 plus 10% complex outliers at
+    scale 5 (``tests/test_torch_rpca.py``) on device ``d``, to 1e-3; the
+    randomized SVD with a numpy sketch."""
+    from sporco_tpu_torch.models import rpca
+    rng = np.random.default_rng(5)
+
+    def cn(*shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    S = cn(48, 4) @ cn(4, 40) + (rng.random((48, 40)) > 0.9) * cn(48, 40) * 5
+    kw = {} if rank is None else {
+        "svd_rank": rank,
+        "sketch": np.random.default_rng(1).standard_normal((40, rank + 10))}
+    return rpca.RobustPCA(S, dtype=dtype, device=d, **kw,
+                          opt=rpca.RobustPCA.options(max_iter=200,
+                                                     rel_stop_tol=1e-3))
+
+
+@pytest.mark.parametrize("rank", [None, 6], ids=["full", "randomized"])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_rpca_on_the_graph_route(dev, global_capture, rank, dtype):
+    """Complex Robust PCA on the graph route, its iteration captured under
+    global mode, exactly ``ceil(k / 8) + 1`` host reads, its SVD's sweeps
+    counted on the device and the device's ``jac_round`` count a whole
+    number of sweeps of its rounds; against the CPU: complex128 the same
+    iterations, rows to 1e-6, X and Y within 1e-8 of their scale;
+    complex64 the iteration count within one and the last ObjFun to
+    rtol 1e-4; the stats rows real."""
+    import math
+    from sporco_tpu_torch.ops import device_loop
+    from sporco_tpu_torch.ops import svd as tsvd
+    device_loop.clear_cache()
+    b = _complex_rpca_case(dev, dtype, rank)
+    assert b.problem.route == "graph"
+    torch.cuda.synchronize()
+    tsvd.reset_launches()
+    b.solve()
+    last = dict(device_loop.LAST)
+    k = int(b.state.k)
+    assert last["graph"] and last["captured"] and last["route"] == "graph"
+    assert last["host_reads"] == math.ceil(k / 8) + 1
+    geo = tsvd.LAST["geometry"]
+    rounds = geo.Pp // geo.w - 1
+    assert last["inner"] > 0 and geo.C == 1
+    assert tsvd.launches(dev) % rounds == 0
+    assert tsvd.launches(dev) >= last["inner"] * rounds
+    assert b.state.X.dtype == dtype
+    c = _complex_rpca_case("cpu", dtype, rank)
+    c.solve()
+    ib, ic = b.getitstat(), c.getitstat()
+    for n in ib._names:
+        assert np.isrealobj(np.asarray(getattr(ib, n)))
+    if dtype == torch.complex128:
+        assert len(ib) == len(ic)
+        for n in ib._names:
+            np.testing.assert_allclose(getattr(ib, n), getattr(ic, n),
+                                       rtol=1e-6, atol=1e-12, err_msg=n)
+        for x, y in ((b.state.X, c.state.X), (b.state.Y, c.state.Y)):
+            y = y.numpy()
+            assert np.abs(x.cpu().numpy() - y).max() <= 1e-8 * np.abs(y).max()
+    else:
+        assert abs(len(ib) - len(ic)) <= 1
+        np.testing.assert_allclose(ib.ObjFun[-1], ic.ObjFun[-1], rtol=1e-4)
+
+
+def test_device_sync_synchronises_the_state_device(dev, monkeypatch):
+    """``models.common.device_sync`` of a card model's state synchronises
+    its device once."""
+    from sporco_tpu_torch.models import common as tcm
+    b = _complex_rpca_case(dev, torch.complex64, None)
+    seen = []
+    sync = torch.cuda.synchronize
+
+    def record(d=None):
+        seen.append(torch.device(d))
+        sync(d)
+    monkeypatch.setattr(torch.cuda, "synchronize", record)
+    tcm.device_sync(b.state)
+    assert len(seen) == 1 and seen[0].type == "cuda"
+
+
+# ---------------------------------------------------------------------------
 # The device loop's conditional blocks (IF nodes) and the loops on them
 
 def test_if_node_skips_its_body(dev):

@@ -259,6 +259,53 @@ def test_prox_nuclear_randomized_matches_full_and_jax(dtype):
                                atol=0)
 
 
+def _low_rank_complex(dtype):
+    """A complex 64x48 target of rank 6 with a tail below 0.05: the
+    complex counterpart of :func:`_low_rank`."""
+    rng = np.random.default_rng(17)
+    U = np.linalg.qr(_rand(rng, (64, 48), "complex128"))[0]
+    V = np.linalg.qr(_rand(rng, (48, 48), "complex128"))[0]
+    sv = np.zeros(48)
+    sv[:6] = [50, 40, 30, 20, 10, 5]
+    sv[6:] = rng.uniform(0, 0.05, 42)
+    return ((U * sv) @ V.conj().T).astype(dtype), sv
+
+
+@pytest.mark.parametrize("svd", ["plain", "jacobi"])
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_prox_nuclear_complex_both_forms_match_jax(monkeypatch, dtype, svd):
+    """``prox_nuclear`` on a complex low-rank target whose tail is below
+    alpha, its SVD ``torch.linalg.svd`` or the card's Jacobi schedule in
+    PyTorch (``jacobi_svd_plain``): the full form against the JAX
+    package's, the randomized form (rank 6, the JAX sketch, real and cast
+    to the complex type on both sides) against the JAX package's and
+    against the full form."""
+    from sporco_tpu_torch.ops import svd as tsvd
+    if svd == "jacobi":
+        monkeypatch.setattr(tpx, "svd", tsvd.jacobi_svd_plain)
+    A, sv = _low_rank_complex(dtype)
+    tA, jA = torch.tensor(A), jnp.asarray(A)
+    rtol = 1e-5 if dtype == "complex64" else 1e-12
+    Xf, sf = tpx.prox_nuclear(tA, 0.1)
+    Xj, sj = jpx.prox_nuclear(jA, 0.1)
+    assert Xf.dtype == tA.dtype and sf.dtype == tA.real.dtype
+    np.testing.assert_allclose(sf.numpy(), np.asarray(sj), rtol=rtol,
+                               atol=rtol * 50)
+    assert float(np.abs(Xf.numpy() - np.asarray(Xj)).max()) < rtol * 50
+    rdt = "float32" if dtype == "complex64" else "float64"
+    sketch = np.asarray(jax.random.normal(jax.random.PRNGKey(0), (48, 16),
+                                          jnp.dtype(rdt)))
+    Xr, sr = tpx.prox_nuclear(tA, 0.1, rank=6, sketch=torch.tensor(sketch))
+    Xjr, sjr = jpx.prox_nuclear(jA, 0.1, rank=6)
+    assert sr.shape == (16,) and Xr.dtype == tA.dtype
+    np.testing.assert_allclose(sr.numpy(), np.asarray(sjr), rtol=rtol,
+                               atol=rtol * 50)
+    assert float(np.abs(Xr.numpy() - np.asarray(Xjr)).max()) < rtol * 50
+    np.testing.assert_allclose(sr.numpy()[:6], np.maximum(0, sv[:6] - 0.1),
+                               rtol=1e-5)
+    assert float((Xf - Xr).abs().max()) < 1e-4
+
+
 def _gram_problem(shape, dtype, nb=3, right=False):
     rng = np.random.default_rng(8)
     A = rng.standard_normal(shape).astype(dtype)

@@ -160,27 +160,35 @@ PROX_RANK = 5
 
 def _prox_problem(shape, dtype, seed=3):
     """A rank-4 matrix plus noise and an ``alpha`` between its 6th and
-    7th singular values: six are kept, the rest thresholded to 0."""
+    7th singular values: six are kept, the rest thresholded to 0; complex
+    for a complex ``dtype`` (its imaginary parts drawn after the real
+    ones)."""
     rng = np.random.default_rng(seed)
     m, n = shape
     v = 3.0 * rng.standard_normal((m, 4)) @ rng.standard_normal((4, n)) \
         + 0.3 * rng.standard_normal((m, n))
+    if np.dtype(dtype).kind == "c":
+        v = v + 1j * (3.0 * rng.standard_normal((m, 4))
+                      @ rng.standard_normal((4, n))
+                      + 0.3 * rng.standard_normal((m, n)))
     v = v.astype(dtype)
-    s = np.linalg.svd(v.astype(np.float64), compute_uv=False)
+    s = np.linalg.svd(v.astype(np.complex128), compute_uv=False)
     return v, float(0.5 * (s[5] + s[6]))
 
 
 @pytest.mark.parametrize("shape", PROX_SHAPES, ids=["tall", "wide",
                                                     "square"])
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "complex64",
+                                   "complex128"])
 @pytest.mark.parametrize("rank", [None, PROX_RANK],
                          ids=["full", "randomized"])
 @pytest.mark.parametrize("svd", ["plain", "jacobi"])
 def test_prox_nuclear_matches_jax(monkeypatch, shape, dtype, rank, svd):
     """The port's ``prox_nuclear`` (the algebra the card route takes)
     against ``sporco_tpu.ops.prox`` on m > n, m < n and square matrices,
-    with ``alpha`` set so that some singular values are zeroed; the
-    randomized form with the JAX sketch.  Its SVD the CPU's
+    real and complex, with ``alpha`` set so that some singular values are
+    zeroed; the randomized form with the JAX sketch (real, cast to the
+    complex type on both sides).  Its SVD the CPU's
     (``torch.linalg.svd``) or the plain version of the card's Jacobi SVD
     (``ops/svd.py`` ``jacobi_svd_plain``).  X within 1e-10 of its scale
     in float64 and 1e-5 in float32, the thresholded singular values
@@ -194,7 +202,8 @@ def test_prox_nuclear_matches_jax(monkeypatch, shape, dtype, rank, svd):
     kw = {}
     if rank is not None:
         # r = rank + 10 <= min(m, n): the JAX package's (n, r) draw
-        kw["sketch"] = torch.tensor(_jax_sketch(v, rank, dtype))
+        kw["sketch"] = torch.tensor(_jax_sketch(v, rank,
+                                                v.real.dtype.name))
     jx, js = jpx.prox_nuclear(jnp.asarray(v), alpha, rank=rank)
     tx, ts = tpx.prox_nuclear(torch.tensor(v), alpha, rank=rank, **kw)
     jx, js = np.asarray(jx), np.asarray(js)
@@ -202,6 +211,73 @@ def test_prox_nuclear_matches_jax(monkeypatch, shape, dtype, rank, svd):
     assert ts.shape == js.shape
     # some values are zeroed, some kept
     assert 0 < np.count_nonzero(js) < js.size
-    tol = 1e-10 if dtype == "float64" else 1e-5
+    tol = 1e-10 if dtype in ("float64", "complex128") else 1e-5
     assert np.abs(tx.numpy() - jx).max() <= tol * np.abs(jx).max()
     assert np.abs(ts.numpy() - js).max() <= tol * js[0]
+
+
+# ---------------------------------------------------------------------------
+# Complex Robust PCA (the JAX package's dtype=complex64 or complex128):
+# a 48 x 40 matrix of rank 4 plus 10% complex outliers at scale 5
+
+
+def _complex_problem(m=48, n=40, r=4, seed=5):
+    rng = np.random.default_rng(seed)
+
+    def cn(*shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    L = cn(m, r) @ cn(r, n)
+    Ssp = (rng.random((m, n)) > 0.9) * cn(m, n) * 5
+    return (L + Ssp).astype(np.complex128), L, Ssp
+
+
+def _complex_pair(monkeypatch, dtype, rank, svd, max_iter, tol):
+    """The JAX package's complex Robust PCA and the port's on the CPU, the
+    port's prox SVD ``torch.linalg.svd`` ("plain") or the card's schedule
+    in PyTorch (``jacobi_svd_plain``); the randomized form with the JAX
+    sketch."""
+    from sporco_tpu_torch.ops import prox as tpx
+    from sporco_tpu_torch.ops import svd as tsvd
+    if svd == "jacobi":
+        monkeypatch.setattr(tpx, "svd", tsvd.jacobi_svd_plain)
+    S, L, Ssp = _complex_problem()
+    rdt = "float64" if dtype == "complex128" else "float32"
+    a = jr.RobustPCA(S, opt=jr.RobustPCA.options(max_iter=max_iter,
+                                                 rel_stop_tol=tol),
+                     dtype=dtype, svd_rank=rank)
+    a.solve()
+    kw = {} if rank is None else {"sketch": _jax_sketch(S, rank, rdt)}
+    b = tr.RobustPCA(S, opt=tr.RobustPCA.options(max_iter=max_iter,
+                                                 rel_stop_tol=tol),
+                     dtype=dtype, svd_rank=rank, device="cpu", **kw)
+    b.solve()
+    assert b.state.X.dtype == getattr(torch, dtype)
+    return a, b, L, Ssp
+
+
+@pytest.mark.parametrize("svd", ["plain", "jacobi"])
+@pytest.mark.parametrize("rank", [None, RANK], ids=["full", "randomized"])
+def test_complex128_solve_matches_jax(monkeypatch, rank, svd):
+    """complex128 to 1e-3: the same iteration count, every row (real, as
+    the JAX package's) to rtol 1e-6, X and Y within 1e-8 of their scale,
+    and the low-rank and sparse parts recovered to 1% of their norms."""
+    a, b, L, Ssp = _complex_pair(monkeypatch, "complex128", rank, svd, 200,
+                                 1e-3)
+    assert len(b.getitstat()) < 200
+    for name in b.getitstat()._names:
+        assert np.isrealobj(np.asarray(getattr(b.getitstat(), name)))
+    _assert_rows(a, b, 1e-6, 1e-6)
+    _assert_states(a, b, 1e-8)
+    for got, want in ((b.state.X, L), (b.state.Y, Ssp)):
+        assert np.linalg.norm(got.numpy() - want) < \
+            1e-2 * np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("svd", ["plain", "jacobi"])
+@pytest.mark.parametrize("rank", [None, RANK], ids=["full", "randomized"])
+def test_complex64_iterations_match_jax(monkeypatch, rank, svd):
+    """complex64 over 10 iterations: every row to rtol 1e-4, X and Y
+    within 2e-4 of their scale (the float32 test's array tolerance)."""
+    a, b, _, _ = _complex_pair(monkeypatch, "complex64", rank, svd, 10, 0.0)
+    _assert_rows(a, b, 1e-4, 1e-4)
+    _assert_states(a, b, 2e-4)

@@ -10,7 +10,9 @@ goes through some ``P`` rotations a sweep, each rounding it: at 200 x
 200 in float64 (12 sweeps) the product parts from ``a`` by 2.4 L eps and
 ``v`` from orthonormal by 2.7 L eps, ten to thirty times LAPACK's
 ``gesdd``.  A float32 matrix is decomposed in float64 and the results
-rounded.  The card's kernels are held against these in
+rounded; a complex64 one in complex128, the same way.  Complex
+matrices run the same schedule with Hermitian Gram matrices (``u^H u =
+I``, ``vt = V^H``).  The card's kernels are held against these in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
@@ -28,6 +30,7 @@ from tests._torch_svd import clusters  # noqa: F401
 torch.set_num_threads(2)
 
 DTYPES = [torch.float32, torch.float64]
+CDTYPES = [torch.complex64, torch.complex128]
 
 
 def _tol(a):
@@ -35,23 +38,31 @@ def _tol(a):
 
 
 def _assert_svd(a, u, s, vt):
+    """The singular values against numpy's, the product, ``u^H u`` and
+    ``vt vt^H`` (real or complex ``a``)."""
     m, n = a.shape
     k = min(m, n)
     assert u.shape == (m, k) and s.shape == (k,) and vt.shape == (k, n)
-    assert u.dtype == s.dtype == vt.dtype == a.dtype
+    assert u.dtype == vt.dtype == a.dtype and s.dtype == a.real.dtype
     tol = _tol(a)
-    ref = np.linalg.svd(a.double().numpy(), compute_uv=False)
+    wide = torch.complex128 if a.is_complex() else torch.float64
+    ref = np.linalg.svd(a.to(wide).numpy(), compute_uv=False)
     scale = max(ref[0], 1e-300)
     assert np.abs(s.double().numpy() - ref).max() <= tol * scale
     assert bool((s[:-1] >= s[1:]).all())
     rec = (u * s) @ vt - a
     assert float(rec.norm()) <= tol * max(float(a.norm()), 1e-300)
     nz = (s > 0).numpy()
-    uu = (u.mT @ u).numpy()[np.ix_(nz, nz)]
-    vv = (vt @ vt.mT).numpy()[np.ix_(nz, nz)]
+    uu = (u.mH @ u).numpy()[np.ix_(nz, nz)]
+    vv = (vt @ vt.mH).numpy()[np.ix_(nz, nz)]
     eye = np.eye(int(nz.sum()))
     assert np.abs(uu - eye).max() <= tol
     assert np.abs(vv - eye).max() <= tol
+
+
+def _complex(rng, shape, dtype):
+    return torch.tensor(rng.standard_normal(shape)
+                        + 1j * rng.standard_normal(shape), dtype=dtype)
 
 
 @settings(max_examples=40, deadline=None, derandomize=True)
@@ -164,8 +175,9 @@ def test_jacobi_plain_long_rows(shape, dtype):
 
 def test_svd_routes_on_the_cpu():
     """On CPU tensors ``svd`` is ``torch.linalg.svd`` (bit for bit) and
-    ``jacobi_svd`` the plain version, batched over leading axes; the
-    Jacobi SVD takes real float32 and float64 matrices only."""
+    ``jacobi_svd`` the plain version, batched over leading axes, for real
+    and complex matrices; anything but a matrix raises, and so does an
+    integer type."""
     rng = np.random.default_rng(4)
     a = torch.tensor(rng.standard_normal((2, 3, 9, 7)))
     ref = torch.linalg.svd(a, full_matrices=False)
@@ -177,8 +189,15 @@ def test_svd_routes_on_the_cpu():
     for i in range(2):
         for j in range(3):
             _assert_svd(a[i, j], u[i, j], s[i, j], vt[i, j])
-    with pytest.raises(NotImplementedError, match="float32 or float64"):
-        tsvd.jacobi_svd(a.to(torch.complex128))
+    z = a + 1j * torch.tensor(rng.standard_normal((2, 3, 9, 7)))
+    u, s, vt = tsvd.jacobi_svd(z)
+    assert u.dtype == vt.dtype == torch.complex128
+    assert s.dtype == torch.float64 and vt.shape == (2, 3, 7, 7)
+    for i in range(2):
+        for j in range(3):
+            _assert_svd(z[i, j], u[i, j], s[i, j], vt[i, j])
+    with pytest.raises(NotImplementedError, match="complex128 matrices"):
+        tsvd.jacobi_svd(torch.zeros(3, 3, dtype=torch.int32))
     with pytest.raises(ValueError, match="matrices"):
         tsvd.jacobi_svd(torch.zeros(5))
     with pytest.raises(ValueError, match="no route"):
@@ -297,3 +316,116 @@ def test_sweep_visits_every_pair(w):
                          for p in ij):
                 met.add(tuple(sorted((rows[i], rows[j]))))
     assert met == {(i, j) for i in range(Pp) for j in range(i + 1, Pp)}
+
+
+# ---------------------------------------------------------------------------
+# The complex form: Hermitian Gram matrices, the real rotation of
+# (g_ii, g_jj, |g_ij|) with the phase of g_ij (csrc/jacobi_svd.cu
+# jac_round_z)
+
+@settings(max_examples=30, deadline=None, derandomize=True)
+@given(m=st.integers(1, 30), n=st.integers(1, 30),
+       c128=st.booleans(), seed=st.integers(0, 2 ** 31 - 1),
+       scale=st.sampled_from([1e-20, 1.0, 1e20]))
+def test_jacobi_plain_complex_matches_numpy(m, n, c128, seed, scale):
+    """Random complex shapes and scales against numpy: the singular
+    values, ``u diag(s) vt`` rebuilds ``a``, ``u^H u = I`` and ``vt vt^H
+    = I`` within 8 L eps."""
+    dt = torch.complex128 if c128 else torch.complex64
+    a = _complex(np.random.default_rng(seed), (m, n), dt) * scale
+    _assert_svd(a, *tsvd.jacobi_svd_plain(a))
+    assert tsvd.LAST["sweeps"] < tsvd.SWEEP_CAP
+    assert tsvd.LAST["geometry"].C == 1
+
+
+@pytest.mark.parametrize("dtype", CDTYPES)
+@pytest.mark.parametrize("shape", [(48, 40), (26, 512), (512, 26), (3, 7)],
+                         ids=["tall", "wide", "long", "small"])
+def test_jacobi_plain_complex_against_linalg(dtype, shape):
+    """Robust PCA's complex shapes (a 48 x 40 matrix, the randomized
+    prox's 26 x 512 and its transpose): the singular values against
+    ``torch.linalg.svd``'s, and the decomposition's own checks."""
+    a = _complex(np.random.default_rng(11), shape, dtype)
+    u, s, vt = tsvd.jacobi_svd_plain(a)
+    _assert_svd(a, u, s, vt)
+    ref = torch.linalg.svdvals(a.to(torch.complex128))
+    assert float((s.double() - ref).abs().max()) <= _tol(a) * float(ref[0])
+
+
+@pytest.mark.parametrize("dtype", CDTYPES)
+def test_jacobi_plain_complex_rank_deficient(dtype):
+    """Rank 3 of a complex 30 x 20 matrix with a zero column: the product
+    holds and the trailing singular values vanish to the tolerance."""
+    rng = np.random.default_rng(12)
+    a = _complex(rng, (30, 3), torch.complex128) @ \
+        _complex(rng, (3, 20), torch.complex128)
+    a[:, 5] = 0.0
+    a = a.to(dtype)
+    u, s, vt = tsvd.jacobi_svd_plain(a)
+    _assert_svd(a, u, s, vt)
+    assert float(s[3:].abs().max()) <= _tol(a) * float(s[0])
+
+
+def test_jacobi_plain_complex64_works_in_complex128():
+    """A complex64 matrix is decomposed in complex128 and the results
+    rounded: every output is the complex128 decomposition of the same
+    matrix rounded (the singular values to float32)."""
+    a = _complex(np.random.default_rng(13), (64, 48), torch.complex64)
+    out = tsvd.jacobi_svd_plain(a)
+    wide = tsvd.jacobi_svd_plain(a.to(torch.complex128))
+    for x, y in zip(out, wide):
+        want = torch.float32 if not y.is_complex() else torch.complex64
+        assert x.dtype == want and torch.equal(x, y.to(want))
+
+
+@pytest.mark.parametrize("dtype", CDTYPES)
+def test_jacobi_plain_complex_failure_gives_nan(dtype):
+    """A NaN or an infinite entry (in either part), or sweeps stopped at
+    the cap unconverged, give NaN in every output."""
+    a = _complex(np.random.default_rng(14), (12, 9), dtype)
+    b = a.clone()
+    b[2, 3] = complex(0.0, math.inf)
+    c = a.clone()
+    c[0, 0] = complex(math.nan, 0.0)
+    for bad in (b, c):
+        for t in tsvd.jacobi_svd_plain(bad):
+            assert bool(torch.isnan(t).all())
+    for t in tsvd.jacobi_svd_plain(a, sweep_cap=1):
+        assert bool(torch.isnan(t).all())
+
+
+def test_geometry_complex():
+    """The complex form runs one block a pair of row blocks (C = 1), its
+    rows in shared memory where a pair's whole rows of 16-byte entries
+    fit beside G and R: up to 846 columns at w = 8; longer rows are read
+    in global memory."""
+    G = tsvd.Geometry
+    assert tsvd.geometry(512, 512, 16) == G(512, 512, 8, 512, 1, True)
+    assert tsvd.geometry(26, 512, 16) == G(26, 512, 8, 32, 1, True)
+    assert tsvd.geometry(256, 192, 16) == G(192, 256, 8, 192, 1, True)
+    assert tsvd.geometry(100, 2000, 16) == G(100, 2000, 8, 112, 1, False)
+    assert tsvd.shared_rows(846, 8, 1, 16)
+    assert not tsvd.shared_rows(847, 8, 1, 16)
+    # the real form's geometry at the same shapes is unchanged
+    assert tsvd.geometry(512, 512) == G(512, 512, 8, 512, 4, True)
+    assert tsvd.geometry(512, 512, 8) == tsvd.geometry(512, 512)
+
+
+def test_complex_sweep_zeroes_each_pair():
+    """One inner round of the complex form on a Hermitian G: every pair
+    rotated is left with g_ij = 0, the diagonal real, R unitary, and R X
+    gives the Gram matrix J G J^H of the rows."""
+    rng = np.random.default_rng(15)
+    X = _complex(rng, (3, 8, 20), torch.complex128)
+    G = tsvd._gram(X, 1)
+    assert torch.equal(G, G.mH)
+    R, moved = tsvd._inner_rounds(G, tsvd._tol(20), cross=True)
+    assert bool(moved.all())
+    Y = R @ X
+    eye = torch.eye(8, dtype=torch.complex128)
+    assert float((R @ R.mH - eye).abs().max()) < 1e-14
+    Gy = Y @ Y.mH
+    # the last inner round's pairs are orthogonal to rounding
+    for i, j in tsvd._inner_pairs(8, True)[-1]:
+        assert float(Gy[:, i, j].abs().max()) < 1e-12 * float(
+            Gy.diagonal(dim1=-2, dim2=-1).real.max())

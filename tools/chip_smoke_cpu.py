@@ -9,7 +9,8 @@ It imports ``chip_smoke.py``, cuts the headline problem to 64x64 with 8
 filters, the consensus problem to 4 images of 32x32 with 8 filters, the
 dense BPDN problem to a 64x96 dictionary (8 signals for the batch), the
 TV images to 64x64 (denoising) and 128x128 (deconvolution) and Robust
-PCA to 64x64 of rank 3 (sketch rank 6), the dictionary learning
+PCA, real and complex, to 64x64 of rank 3 (sketch rank 6; of
+``rpca_complex`` its solves alone), the dictionary learning
 phases' problems as ``at_cut`` says, the rest of the CSC models'
 as ``at_rest_cut`` says and the parallel phases' as ``at_par`` says (in
 a one-rank gloo world where the card runs NCCL), and runs the named
@@ -61,7 +62,7 @@ PHASES = ("solve", "pgm_solve", "bt_solve", "gradreg_solve",
           "cdl_solve", "ams_tail_kernel", "ams_parity",
           "ams_solve", "mixed_kernel", "mixed_solve", "cdl_pgm_solve",
           "bpdn_parity", "bpdn_solve", "tv_parity", "tv_solve",
-          "rpca_parity", "rpca_solve", "dictlrn_handover",
+          "rpca_parity", "rpca_solve", "rpca_complex", "dictlrn_handover",
           "maskdcpl_parity", "maskdcpl_solve", "mdl_parity", "mdl_solve",
           "ccmod_cg_solve", "online_solve", "dense_dl_parity",
           "dense_dl_solve",
@@ -156,6 +157,8 @@ def main(argv):
         "tv_solve": lambda: cs.phase_tv_solve(dev),
         "rpca_parity": lambda: cs.phase_rpca_parity(dev),
         "rpca_solve": lambda: cs.phase_rpca_solve(dev),
+        # its solves; the complex SVD's checks need the card
+        "rpca_complex": lambda: cs.rpca_complex_solves(dev),
         "dictlrn_handover": lambda: cs.phase_dictlrn_handover(dev, D, S,
                                                               lmbda),
     }

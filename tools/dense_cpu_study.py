@@ -10,8 +10,9 @@ Run from the root of a checkout:
     python3 tools/dense_cpu_study.py svd
 
 ``ulp`` solves each dense model of ``chip_smoke.py``'s ``bpdn_solve``,
-``tv_solve`` and ``rpca_solve`` (randomized and full SVD) in float32 on
-the CPU,
+``tv_solve`` and ``rpca_solve`` (randomized and full SVD) in float32,
+and ``rpca_complex``'s complex Robust PCA in complex64 (its parts each
+moved), on the CPU,
 as those phases do, seven times: on S, on S moved one ulp up and one ulp
 down (``numpy.nextafter``), and on four draws of S with each element
 moved one ulp up or down at random.  For each it prints the iteration
@@ -73,22 +74,26 @@ ULP_RANDOM = 4
 
 def _moved(S):
     """S, S one ulp up, one ulp down, and four moves of every element
-    one ulp up or down at random (seeded)."""
-    S = np.asarray(S, np.float32)
-    up = np.nextafter(S, np.float32(np.inf))
-    down = np.nextafter(S, np.float32(-np.inf))
-    out = [("S", S), ("S + ulp", up), ("S - ulp", down)]
+    one ulp up or down at random (seeded); for a complex64 S, the real
+    and the imaginary part of every element each so moved."""
+    cplx = np.iscomplexobj(S)
+    S = np.asarray(S, np.complex64 if cplx else np.float32)
+    F = S.view(np.float32)
+    up = np.nextafter(F, np.float32(np.inf))
+    down = np.nextafter(F, np.float32(-np.inf))
+    out = [("S", F), ("S + ulp", up), ("S - ulp", down)]
     rng = np.random.default_rng(1)
     for i in range(ULP_RANDOM):
-        out.append((f"S +- ulp {i}", np.where(rng.random(S.shape) < 0.5,
+        out.append((f"S +- ulp {i}", np.where(rng.random(F.shape) < 0.5,
                                               up, down)))
-    return out
+    return [(label, m.view(S.dtype)) for label, m in out]
 
 
 def _dense_models():
-    """name -> (make(S) -> model, S, ||S||^2): the float32 solves of
+    """name -> (make(S) -> model, S): the float32 solves of
     ``bpdn_solve``, ``tv_solve`` and ``rpca_solve`` (randomized, the
-    default sketch, and full) on the CPU."""
+    default sketch, and full) and the complex64 ones of
+    ``rpca_complex`` on the CPU."""
     out = {}
     for K in (1, cs.BPDN_K):
         D, S, x0 = cs.bpdn_problem(K)
@@ -111,6 +116,12 @@ def _dense_models():
         s, opt=opt, svd_rank=cs.RPCA_RANK, device="cpu"), S)
     out["RobustPCA full"] = (lambda s: cs.trpca.RobustPCA(
         s, opt=opt, device="cpu"), S)
+    Sc, _, _ = cs.rpca_complex_problem()
+    out["RobustPCA complex randomized"] = (lambda s: cs.trpca.RobustPCA(
+        s, opt=opt, svd_rank=cs.RPCA_RANK, dtype=torch.complex64,
+        device="cpu"), Sc)
+    out["RobustPCA complex full"] = (lambda s: cs.trpca.RobustPCA(
+        s, opt=opt, dtype=torch.complex64, device="cpu"), Sc)
     return out
 
 

@@ -39,7 +39,11 @@ and float64, rows too long for one block's shared memory, a video's
 pixels by frames, a large square) on a Gaussian matrix drawn from
 ``torch.Generator().manual_seed(7)``, through the tree's
 ``chip_smoke._svd_case``: its checks, its captured replay (``ms``) and
-``torch.linalg.svd`` (``plain_ms``), from CUDA events, the median of 5.
+``torch.linalg.svd`` (``plain_ms``), from CUDA events, the median of 5;
+``--only csvd`` the complex form's at :data:`CSVD_CASES` the same way,
+``--only svd.<case>`` one case of either.  ``rpca_complex`` and
+``rpca_complex_full`` (by name) are ``chip_smoke.py``'s complex64 Robust
+PCA solves (``rpca_complex_problem``).
 Prints one JSON line per problem (per shape for ``svd``), each with the
 label, the card's name and its power limit, and exits 1 if any failed.
 Run two trees in turns in one call (parent, change, change, parent) to
@@ -56,9 +60,10 @@ import warnings
 
 PROBLEMS = ("bpdn_k1", "bpdn_k256", "tvl2den", "tvl2dcn", "rpca",
             "rpca_full", "cbpdn_admm", "cbpdn_fista", "ppp")
-# the loops of the last slice, run by name (--only)
+# the loops of the last slices, run by name (--only): complex64 Robust
+# PCA (chip_smoke.py rpca_complex) among them
 LOOPS = ("fista_bt_standard", "fista_bt_robust", "par_headline",
-         "cbpdn_sharded", "ccmod_cg")
+         "cbpdn_sharded", "ccmod_cg", "rpca_complex", "rpca_complex_full")
 BT_ITERS, BT_L = 48, 1.0
 # the dictionary-learning phases of chip_smoke.py (--only dl): ms an
 # outer iteration, their x- and d-steps solved again each outer iteration
@@ -74,7 +79,27 @@ SVD_CASES = {
     "video32": ((76800, 100), "float32"),
     "large32": ((2048, 2048), "float32"),
 }
+# the complex form's (--only csvd): Robust PCA's complex x-step shapes
+CSVD_CASES = {
+    "cfull64": ((512, 512), "complex64"),
+    "csmall64": ((26, 512), "complex64"),
+    "cmid64": ((256, 192), "complex64"),
+    "cfull128": ((512, 512), "complex128"),
+}
 SVD_REPS = 5
+
+
+def _cases(name):
+    """The SVD cases of ``--only`` name ``name``: every real one
+    (``svd``), every complex one (``csvd``), one (``svd.<case>``), or
+    none (a problem)."""
+    if name == "svd":
+        return list(SVD_CASES)
+    if name == "csvd":
+        return list(CSVD_CASES)
+    if name.startswith("svd."):
+        return [name[4:]]
+    return [None]
 
 
 def main():
@@ -99,8 +124,7 @@ def main():
     names = args.only or PROBLEMS
     world = (cs.dist_world(dev) if "cbpdn_sharded" in names
              else contextlib.nullcontext())
-    runs = [(name, case) for name in names
-            for case in (SVD_CASES if name == "svd" else [None])]
+    runs = [(name, case) for name in names for case in _cases(name)]
     failed = 0
     with world as mesh:
         makers = _makers(cs, dev, torch, mesh)
@@ -154,6 +178,14 @@ def _makers(cs, dev, torch, mesh):
         out[name] = (lambda kw=kw: cs.trpca.RobustPCA(
             Sr, device=dev, **kw, opt=cs.trpca.RobustPCA.options(
                 max_iter=cs.RPCA_ITERS, rel_stop_tol=cs.DENSE_TOL)))
+    if hasattr(cs, "rpca_complex_problem"):
+        Sz, _, _ = cs.rpca_complex_problem()
+        for name, kw in (("rpca_complex", {"svd_rank": cs.RPCA_RANK}),
+                         ("rpca_complex_full", {})):
+            out[name] = (lambda kw=kw: cs.trpca.RobustPCA(
+                Sz, device=dev, dtype=torch.complex64, **kw,
+                opt=cs.trpca.RobustPCA.options(max_iter=cs.RPCA_ITERS,
+                                               rel_stop_tol=cs.DENSE_TOL)))
     D, S, lmbda = cs.headline_problem()
     out["cbpdn_admm"] = lambda: cs.ConvBPDN(
         D, S, lmbda, opt=cs.ConvBPDN.options(max_iter=cs.MAX_ITER,
@@ -194,10 +226,10 @@ def _makers(cs, dev, torch, mesh):
 
 
 def _svd(cs, torch, dev, case):
-    """The Jacobi SVD of a Gaussian matrix of ``SVD_CASES[case]``, as
-    ``chip_smoke._svd_case`` checks and times it (no prox, not against
-    the plain version)."""
-    shape, dt = SVD_CASES[case]
+    """The Jacobi SVD of a Gaussian matrix of ``SVD_CASES[case]`` (or
+    ``CSVD_CASES[case]``), as ``chip_smoke._svd_case`` checks and times it
+    (no prox, not against the plain version)."""
+    shape, dt = {**SVD_CASES, **CSVD_CASES}[case]
     a = torch.randn(shape, generator=torch.Generator().manual_seed(7),
                     dtype=getattr(torch, dt)).to(dev)
     rec = cs._svd_case(a, case, False, reps=SVD_REPS, prox=False)
