@@ -269,10 +269,11 @@ then BASELINE configurations 1-3 and the generic dictionary learning:
     beside ``torch.linalg``'s, the Jacobi SVD's with its cluster size C,
     block width w, blocks a round, launches a sweep and sweeps;
 39b. ``rpca_complex``: complex Robust PCA.  The complex form of the
-    Jacobi SVD (``jac_round_z``) of complex64 512x512, 26x512 and
-    256x192, as ``svd_qr`` checks each (against ``torch.linalg.svd``,
-    its plain version on the card but at 256x192, replay, NaN, launches)
-    and times it;
+    Jacobi SVD (``jac_round<w, SH, true>``, in clusters as the real form)
+    of complex64 512x512, 26x512 and 256x192, as ``svd_qr`` checks each
+    (against ``torch.linalg.svd``, its plain version on the card but at
+    256x192, replay, NaN, launches) and times it, with its cluster size
+    C, route and blocks a round;
     then complex64 Robust PCA (``rpca_problem`` made complex) with the
     randomized (rank 16) and the full SVD to 1e-3 on the graph route
     (exactly ``ceil(k / 8) + 1`` host reads, ``jac_round`` launches the
@@ -3685,7 +3686,8 @@ def phase_svd_qr(dev):
 
 # complex Robust PCA (the JAX package's RobustPCA takes complex64 and
 # complex128): rpca_problem made complex, and the complex Jacobi SVD
-# (csrc/jacobi_svd.cu jac_round_z) at its x-step's shapes, the full and
+# (csrc/jacobi_svd.cu jac_round<w, SH, true>, launched by
+# jac_round_z_launch) at its x-step's shapes, the full and
 # the randomized form's small matrix, and a 256 x 192 beside them
 CSVD_SHAPES = (("full", (RPCA_N, RPCA_N)), ("small", (RPCA_RANK + 10, RPCA_N)),
                ("mid", (256, 192)))
@@ -3724,8 +3726,8 @@ def rpca_complex_solves(dev):
 
 def phase_rpca_complex(dev):
     """Complex Robust PCA on the card.  The complex form of the Jacobi SVD
-    (``jac_round_z``) of complex64 matrices of rank 8 at scale 10 over
-    unit noise at ``CSVD_SHAPES``, each as ``_svd_case`` checks it
+    (``jac_round<w, SH, true>``) of complex64 matrices of rank 8 at scale
+    10 over unit noise at ``CSVD_SHAPES``, each as ``_svd_case`` checks it
     (against ``torch.linalg.svd``, the prox's thresholded product, the
     kernels' plain version on the card but at 256x192, which is no
     shape of the x-step's, the captured replay bit for bit, NaN in gives
@@ -5463,8 +5465,8 @@ def jacobi_entry(summary):
 
 def jacobi_complex_entry(summary):
     """The kernels line's entry of the complex form of ``jac_round``
-    (``jac_round_z``, a kernel of its own in the same source): its numbers
-    for one SVD of 512x512 complex64 (the complex full Robust PCA's
+    (``jac_round<w, SH, true>``, launched by ``jac_round_z_launch``): its
+    numbers for one SVD of 512x512 complex64 (the complex full Robust PCA's
     x-step; the keys as ``jacobi_entry``'s), its launches in the two
     complex Robust PCA solves of ``rpca_complex``, and each shape of that
     phase beside ``torch.linalg.svd``."""
@@ -5485,7 +5487,8 @@ def jacobi_complex_entry(summary):
             "sweeps": head["sweeps"], "geometry": head["geometry"],
             "shapes": {name: {key: rec.get(key) for key in (
                 "ms", "plain_ms", "jacobi_plain_ms", "bound_ms", "bound_by",
-                "route", "blocks_per_round", "launches_per_sweep", "sweeps")}
+                "C", "w", "route", "blocks_per_round", "launches_per_sweep",
+                "sweeps")}
                 for name, rec in svd.items()}}
 
 

@@ -55,13 +55,14 @@ checks no status on the host and captures as it is (PERF.md).
 ``float32``, ``float64``, ``complex64`` and ``complex128`` matrices,
 batched over leading axes (a loop over the batch).  A complex matrix
 takes the same schedule in complex double (``complex64`` results
-rounded), through the kernels' complex form (``jac_round_z``): its rows'
+rounded), through the kernels' complex form (``jac_round<w, SH, true>``,
+launched by ``jac_round_z_launch``): its rows'
 Gram matrices are Hermitian, ``G = X X^H``, a pair is tested on
 ``|g_ij|`` and rotated by the real rotation of ``(g_ii, g_jj, |g_ij|)``
 with the phase of ``g_ij`` on the off-diagonal entries.  That form runs
-one block a pair of row blocks (``C = 1``) without tensor cores, the
-rows in shared memory where they fit (16-byte elements:
-:func:`shared_rows`), else in global memory.  ``vt`` is ``V^H``: ``u
+the real form's clusters, slices and tensor-core tiles on the rows read
+as rows of doubles (each entry's real and imaginary parts side by side),
+in clusters of any size (:func:`geometry`).  ``vt`` is ``V^H``: ``u
 diag(s) vt`` is ``a``.
 """
 
@@ -85,6 +86,12 @@ MAX_W = 8
 MAX_C = 16
 # the SMs a round's blocks should cover (an H100 SXM's 132)
 SMS = 132
+# the complex form's: clusters of any size up to MAX_C, on at most 96 SMs
+# (the card places a cluster's blocks within one GPC, and holds 30
+# clusters of 4 at one block an SM, not 33: where the blocks do not fit
+# at one an SM, some SMs take two and the launch waits for them; PERF.md
+# §6)
+CLUSTER_SMS = 96
 # columns of a block's slice of the rows at least, where C is chosen to
 # cover the SMs
 MIN_SPAN = 64
@@ -132,19 +139,13 @@ def _stride(span):
     return (span + 15) // 16 * 16 + 4
 
 
-def _head_z(w):
-    """Doubles of a ``jac_round_z`` block's shared memory before its rows:
-    G and R (complex), the inner round's phases and its c, s and |g|
-    (``csrc/jacobi_svd.cu`` ``head_z_doubles``)."""
-    return 16 * w * w + 6 * w
-
-
-def _head(w):
+def _head(w, e=1):
     """Doubles of a ``jac_round`` block's shared memory before its slices:
     its partial Gram, G, R, the inner round's rotations and the warps'
-    partial Grams (``csrc/jacobi_svd.cu`` ``head_doubles``; on the shared
-    route the slice of the pair's rows of Q follows W's where it fits)."""
-    return (3 + WARPS) * 4 * w * w + 4 * w
+    partial Grams, for entries of ``e`` doubles (2 for the complex form)
+    (``csrc/jacobi_svd.cu`` ``head_doubles``; on the shared route the
+    slice of the pair's rows of Q follows W's where it fits)."""
+    return (3 + WARPS) * e * 4 * w * w + 2 * (e + 1) * w
 
 
 def shared_rows(L, w, C=1, itemsize=8):
@@ -152,10 +153,10 @@ def shared_rows(L, w, C=1, itemsize=8):
     ``L``, cut in ``C``, fits :data:`SMEM_MAX` beside its Gram buffers;
     where it does not, the kernel reads the rows in global memory.  The
     rows' element is a float64 (``itemsize`` 8) or, for the complex form,
-    a complex128 (16), whose kernel holds a pair's whole rows (``C`` 1)."""
-    if itemsize == 16:
-        return (_head_z(w) + 4 * w * L) * 8 <= SMEM_MAX
-    return (_head(w) + 2 * w * _stride(_span(L, C))) * 8 <= SMEM_MAX
+    a complex128 (16), two doubles."""
+    e = itemsize // 8
+    return (_head(w, e) + 2 * w * _stride(e * _span(L, C))) * 8 \
+        <= SMEM_MAX
 
 
 def geometry(m, n, itemsize=8):
@@ -164,29 +165,34 @@ def geometry(m, n, itemsize=8):
     complex128): ``P`` rows of length ``L`` (the shorter side's),
     blocks of ``w`` rows (at most :data:`MAX_W` and no more than half the
     rows rounded up to a power of two), the rows padded to ``Pp``, a
-    multiple of ``2 w``; clusters of ``C`` blocks, a power of two up to
-    :data:`MAX_C`: the most whose blocks (``Pp / 2w`` pairs a round times
-    ``C``) fit :data:`SMS` with slices of at least :data:`MIN_SPAN`
-    columns, raised where that lets the slices fit shared memory
-    (``shared``); where no cluster's slices fit, ``C`` stays and the rows
-    are read in global memory.  The complex form takes ``C`` 1, its rows
-    in shared memory where :func:`shared_rows` says they fit."""
+    multiple of ``2 w``; clusters of ``C`` blocks: the most whose blocks
+    (``Pp / 2w`` pairs a round times ``C``) fit :data:`SMS` with slices
+    of at least :data:`MIN_SPAN` columns, a power of two up to
+    :data:`MAX_C`, raised (doubled) where that lets the slices fit shared
+    memory (``shared``); where no cluster's slices fit, ``C`` stays and
+    the rows are read in global memory.  The complex form (``itemsize``
+    16) takes clusters of any size up to :data:`MAX_C` on at most
+    :data:`CLUSTER_SMS` SMs, by the same rule otherwise, raised by one
+    at a time."""
     P, L = min(m, n), max(m, n)
     w = MAX_W
     while w > 1 and 2 * w > _next_pow2(P):
         w //= 2
     Pp = -(-P // (2 * w)) * 2 * w
-    if itemsize == 16:
-        return Geometry(P, L, w, Pp, 1, shared_rows(L, w, 1, 16))
     pairs = Pp // (2 * w)
-    C = 1
-    while (C < MAX_C and pairs * 2 * C <= SMS
-           and _span(L, 2 * C) >= MIN_SPAN):
-        C *= 2
+    if itemsize == 16:
+        C = max(1, min(MAX_C, CLUSTER_SMS // pairs))
+        while C > 1 and _span(L, C) < MIN_SPAN:
+            C -= 1
+    else:
+        C = 1
+        while (C < MAX_C and pairs * 2 * C <= SMS
+               and _span(L, 2 * C) >= MIN_SPAN):
+            C *= 2
     c = C
-    while c < MAX_C and not shared_rows(L, w, c):
-        c *= 2
-    if shared_rows(L, w, c):
+    while c < MAX_C and not shared_rows(L, w, c, itemsize):
+        c = c + 1 if itemsize == 16 else 2 * c
+    if shared_rows(L, w, c, itemsize):
         return Geometry(P, L, w, Pp, c, True)
     return Geometry(P, L, w, Pp, C, False)
 
@@ -460,7 +466,7 @@ def _lib(device):
         lib.jac_sweep_end_launch.restype = I
         lib.jac_finish_launch.argtypes = [V, V, V, V, V, I, I, I, V, V, V]
         lib.jac_finish_launch.restype = I
-        lib.jac_round_z_launch.argtypes = [V, V, V, I, I, I, I, I, I,
+        lib.jac_round_z_launch.argtypes = [V, V, V, I, I, I, I, I, I, I,
                                            ctypes.c_double, V, V]
         lib.jac_round_z_launch.restype = I
         lib.jac_finish_z_launch.argtypes = [V, V, V, V, V, I, I, I, V, V, V]
@@ -532,12 +538,11 @@ class _State:
     def sweep(self):
         s = torch.cuda.current_stream(self.device).cuda_stream
         head = (s, self.W.data_ptr(), self.Q.data_ptr(), self.Pp, self.L,
-                self.w)
-        # the complex form runs no clusters: it takes no C
-        launch, head = ((self.lib.jac_round_z_launch, head) if self.complex
-                        else (self.lib.jac_round_launch, head + (self.C,)))
+                self.w, self.C, int(self.geo.shared))
+        launch = (self.lib.jac_round_z_launch if self.complex
+                  else self.lib.jac_round_launch)
         for rnd in range(self.Pp // self.w - 1):
-            _ck(launch(*head, int(self.geo.shared), rnd, int(rnd > 0),
+            _ck(launch(*head, rnd, int(rnd > 0),
                        self.tol, self.status.data_ptr(),
                        self.count.data_ptr()), "jac_round")
         _ck(self.lib.jac_sweep_end_launch(s, self.status.data_ptr(),

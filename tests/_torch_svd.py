@@ -11,14 +11,13 @@ from sporco_tpu_torch.ops import svd as tsvd
 def clusters(monkeypatch):
     """``set(C)`` makes :func:`svd.geometry` give clusters of C blocks (the
     route, shared or global, as ``shared_rows`` gives it at that C) to the
-    real form; the complex form runs no clusters."""
+    real and the complex form."""
     geo0 = tsvd.geometry
 
     def set_c(C):
         def geometry(m, n, itemsize=8):
             g = geo0(m, n, itemsize)
-            if itemsize == 16:
-                return g
-            return g._replace(C=C, shared=tsvd.shared_rows(g.L, g.w, C))
+            return g._replace(C=C, shared=tsvd.shared_rows(g.L, g.w, C,
+                                                           itemsize))
         monkeypatch.setattr(tsvd, "geometry", geometry)
     return set_c

@@ -2253,15 +2253,15 @@ def global_capture(monkeypatch):
 
 def _svd_within(a, u, s, vt, s_ref):
     """Singular values against ``s_ref`` of the largest, the product of
-    ``a``'s norm and orthonormality, each within 8 L eps (rows of length
-    L; tests/test_torch_svd.py)."""
+    ``a``'s norm and orthonormality (real or complex), each within 8 L
+    eps (rows of length L; tests/test_torch_svd.py)."""
     lim = 8 * max(a.shape) * torch.finfo(a.dtype).eps
     k = min(a.shape)
     eye = torch.eye(k, dtype=a.dtype, device=a.device)
     assert float((s - s_ref).abs().max()) <= lim * float(s_ref[0])
     assert float(((u * s) @ vt - a).norm()) <= lim * float(a.norm())
-    assert float((u.mT @ u - eye).abs().max()) <= lim
-    assert float((vt @ vt.mT - eye).abs().max()) <= lim
+    assert float((u.mH @ u - eye).abs().max()) <= lim
+    assert float((vt @ vt.mH - eye).abs().max()) <= lim
 
 
 @pytest.mark.parametrize("shape,dtype", SVD_CASES, ids=str)
@@ -2495,7 +2495,7 @@ def test_rpca_iteration_captures_under_global_mode(dev, global_capture,
 CSVD_CASES = [((512, 512), torch.complex64), ((48, 33), torch.complex128),
               ((26, 512), torch.complex64), ((512, 26), torch.complex128),
               ((3, 7), torch.complex64), ((2, 5, 9), torch.complex128),
-              ((100, 2000), torch.complex128)]
+              ((100, 2000), torch.complex128), ((16, 12000), torch.complex64)]
 
 
 def _crandn(shape, dtype, seed):
@@ -2508,11 +2508,13 @@ def _crandn(shape, dtype, seed):
 @pytest.mark.parametrize("shape,dtype", CSVD_CASES, ids=str)
 def test_complex_jacobi_svd_matches_plain_and_captures(dev, global_capture,
                                                        shape, dtype):
-    """The complex form on the card against ``torch.linalg.svd`` and the
-    plain schedule on the card (8 L eps; 100 x 2000 rows too long for
-    shared memory), the device's ``jac_round`` count the sweeps times the
-    rounds; its "node" form captured under global mode and replayed
-    equals its "eager" form bit for bit."""
+    """The complex form on the card, in the clusters its geometry gives
+    (C 3 at 512 x 512, 8 at 26 x 512, 13 at 100 x 2000; 16 x 12000 rows too
+    long for any cluster's shared memory), against ``torch.linalg.svd``
+    and the plain schedule on the card (8 L eps), the device's
+    ``jac_round`` count the sweeps times the rounds; its "node" form
+    captured under global mode and replayed equals its "eager" form bit
+    for bit."""
     from sporco_tpu_torch.ops import device_loop
     from sporco_tpu_torch.ops import svd as tsvd
     a = _crandn(shape, dtype, 5).to(dev)
@@ -2522,7 +2524,9 @@ def test_complex_jacobi_svd_matches_plain_and_captures(dev, global_capture,
     u, s, vt = tsvd.jacobi_svd(a)
     assert tsvd.LAST["form"] == "eager"
     geo = tsvd.LAST["geometry"]
-    assert geo.C == 1 and u.dtype == vt.dtype == dtype
+    assert geo == tsvd.geometry(*shape[-2:], 16)
+    assert geo.shared == (shape != (16, 12000))
+    assert u.dtype == vt.dtype == dtype
     assert s.dtype == dtype.to_real()
     if len(shape) == 2:
         sweeps = int(tsvd.LAST["status"][1])
@@ -2551,6 +2555,32 @@ def test_complex_jacobi_svd_matches_plain_and_captures(dev, global_capture,
     graph.replay()
     for o, t in zip(outs, (u, s, vt)):
         assert torch.equal(o, t)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 6, 8, 13, 16])
+@pytest.mark.parametrize("shape", [(256, 192), (16, 12000)], ids=str)
+def test_complex_jacobi_svd_cluster_sizes_match_plain(dev, clusters, shape,
+                                                      cluster):
+    """The complex form in clusters of sizes the geometry may choose, any
+    from 1 to 16 (``svd.geometry`` forced to that C by the ``clusters``
+    fixture; the route, shared or global, as ``shared_rows`` gives it at
+    16-byte entries) against ``torch.linalg.svd`` and the plain schedule
+    at the same C, complex128, within 8 L eps; the device's count of
+    ``jac_round`` launches is the sweeps times the rounds a sweep."""
+    from sporco_tpu_torch.ops import svd as tsvd
+    clusters(cluster)
+    a = _crandn(shape, torch.complex128, 3).to(dev)
+    tsvd.prepare(dev)
+    torch.cuda.synchronize()
+    tsvd.reset_launches()
+    u, s, vt = tsvd.jacobi_svd(a)
+    geo = tsvd.LAST["geometry"]
+    sweeps = int(tsvd.LAST["status"][1])
+    assert geo.C == cluster
+    assert geo.shared == tsvd.shared_rows(geo.L, geo.w, cluster, 16)
+    assert tsvd.launches(dev) == sweeps * (geo.Pp // geo.w - 1)
+    _svd_within(a, u, s, vt, tsvd.svd_plain(a)[1])
+    _svd_within(a, u, s, vt, tsvd.jacobi_svd_plain(a)[1])
 
 
 def test_complex_jacobi_svd_nan_gives_nan_without_a_host_read(

@@ -221,23 +221,32 @@ def test_jacobi_plain_float32_works_in_float64():
     assert np.abs(out[1].double().numpy() - ref).max() <= 2.0 ** -23 * ref[0]
 
 
-# the prox shapes and long rows, for the clusters' slices and their sums
+# the prox shapes and long rows, for the clusters' slices and their sums;
+# the complex form's too (16 x 12000 rows too long for any cluster's
+# shared memory at 16-byte entries)
 CLUSTER_SHAPES = [((60, 60), torch.float64), ((26, 512), torch.float32),
                   ((512, 26), torch.float64), ((4, 20000), torch.float64),
-                  ((30000, 8), torch.float32)]
+                  ((30000, 8), torch.float32), ((26, 512), torch.complex64),
+                  ((48, 40), torch.complex128),
+                  ((16, 12000), torch.complex128)]
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("shape,dtype", CLUSTER_SHAPES,
                          ids=lambda v: "x".join(map(str, v))
                          if isinstance(v, tuple) else str(v).split(".")[-1])
 def test_jacobi_plain_cluster_sizes(clusters, shape, dtype, cluster):
     """The plain schedule with the rows cut in ``cluster`` slices (their
-    partial Gram matrices added in rank order) against numpy, at any
-    cluster size the geometry may choose."""
+    partial Gram matrices added in rank order, the last slice short where
+    C does not divide the row) against numpy, at cluster sizes the
+    geometry may choose, real and complex (the complex form takes any
+    size, 3 among them)."""
     clusters(cluster)
-    a = torch.tensor(np.random.default_rng(7).standard_normal(shape),
-                     dtype=dtype)
+    rng = np.random.default_rng(7)
+    if dtype.is_complex:
+        a = _complex(rng, shape, dtype)
+    else:
+        a = torch.tensor(rng.standard_normal(shape), dtype=dtype)
     _assert_svd(a, *tsvd.jacobi_svd_plain(a))
     assert tsvd.LAST["geometry"].C == cluster
     assert tsvd.LAST["sweeps"] < tsvd.SWEEP_CAP
@@ -395,37 +404,55 @@ def test_jacobi_plain_complex_failure_gives_nan(dtype):
 
 
 def test_geometry_complex():
-    """The complex form runs one block a pair of row blocks (C = 1), its
-    rows in shared memory where a pair's whole rows of 16-byte entries
-    fit beside G and R: up to 846 columns at w = 8; longer rows are read
-    in global memory."""
+    """The complex form takes clusters of C blocks a pair, C of any size
+    up to 16, as many as 96 SMs hold (``svd.CLUSTER_SMS``) with slices of
+    at least 64 columns, raised one at a time where that lets the slices
+    fit shared memory beside its Gram buffers (twice the real form's,
+    for 16-byte entries): at w = 8 a block's slice holds up to 696
+    entries of a row, so rows of up to 16 x 696 = 11136 entries take the
+    shared route, longer ones the global route."""
     G = tsvd.Geometry
-    assert tsvd.geometry(512, 512, 16) == G(512, 512, 8, 512, 1, True)
-    assert tsvd.geometry(26, 512, 16) == G(26, 512, 8, 32, 1, True)
-    assert tsvd.geometry(256, 192, 16) == G(192, 256, 8, 192, 1, True)
-    assert tsvd.geometry(100, 2000, 16) == G(100, 2000, 8, 112, 1, False)
-    assert tsvd.shared_rows(846, 8, 1, 16)
-    assert not tsvd.shared_rows(847, 8, 1, 16)
+    assert tsvd.geometry(512, 512, 16) == G(512, 512, 8, 512, 3, True)
+    assert tsvd.geometry(26, 512, 16) == G(26, 512, 8, 32, 8, True)
+    assert tsvd.geometry(512, 26, 16) == G(26, 512, 8, 32, 8, True)
+    assert tsvd.geometry(256, 192, 16) == G(192, 256, 8, 192, 4, True)
+    assert tsvd.geometry(100, 2000, 16) == G(100, 2000, 8, 112, 13, True)
+    # 128 pairs: C 1, raised to 3, the first whose slices fit
+    assert tsvd.geometry(2048, 2048, 16) == G(2048, 2048, 8, 2048, 3, True)
+    assert tsvd.geometry(48, 33, 16) == G(33, 48, 8, 48, 1, True)
+    assert tsvd.geometry(16, 11136, 16) == G(16, 11136, 8, 16, 16, True)
+    assert tsvd.geometry(16, 11137, 16) == G(16, 11137, 8, 16, 16, False)
+    assert tsvd.shared_rows(696, 8, 1, 16)
+    assert not tsvd.shared_rows(697, 8, 1, 16)
+    assert tsvd.shared_rows(11136, 8, 16, 16)
+    assert not tsvd.shared_rows(11137, 8, 16, 16)
     # the real form's geometry at the same shapes is unchanged
     assert tsvd.geometry(512, 512) == G(512, 512, 8, 512, 4, True)
     assert tsvd.geometry(512, 512, 8) == tsvd.geometry(512, 512)
 
 
 def test_complex_sweep_zeroes_each_pair():
-    """One inner round of the complex form on a Hermitian G: every pair
-    rotated is left with g_ij = 0, the diagonal real, R unitary, and R X
-    gives the Gram matrix J G J^H of the rows."""
+    """One inner round of the complex form on a Hermitian G, summed whole
+    (C = 1) and from C = 2 and 3 slices of the columns in rank order (the
+    last one short, as a cluster's): G is Hermitian with a real diagonal
+    and within rounding of the whole sum; every pair rotated is left with
+    g_ij = 0, R unitary, and R X gives the Gram matrix J G J^H of the
+    rows."""
     rng = np.random.default_rng(15)
     X = _complex(rng, (3, 8, 20), torch.complex128)
-    G = tsvd._gram(X, 1)
-    assert torch.equal(G, G.mH)
-    R, moved = tsvd._inner_rounds(G, tsvd._tol(20), cross=True)
-    assert bool(moved.all())
-    Y = R @ X
+    G1 = tsvd._gram(X, 1)
     eye = torch.eye(8, dtype=torch.complex128)
-    assert float((R @ R.mH - eye).abs().max()) < 1e-14
-    Gy = Y @ Y.mH
-    # the last inner round's pairs are orthogonal to rounding
-    for i, j in tsvd._inner_pairs(8, True)[-1]:
-        assert float(Gy[:, i, j].abs().max()) < 1e-12 * float(
-            Gy.diagonal(dim1=-2, dim2=-1).real.max())
+    for C in (1, 2, 3):
+        G = tsvd._gram(X, C)
+        assert torch.equal(G, G.mH)
+        assert float(G.diagonal(dim1=-2, dim2=-1).imag.abs().max()) == 0.0
+        assert float((G - G1).abs().max()) < 1e-14 * float(G1.abs().max())
+        R, moved = tsvd._inner_rounds(G, tsvd._tol(20), cross=True)
+        assert bool(moved.all())
+        Y = R @ X
+        assert float((R @ R.mH - eye).abs().max()) < 1e-14
+        Gy = Y @ Y.mH
+        # the last inner round's pairs are orthogonal to rounding
+        for i, j in tsvd._inner_pairs(8, True)[-1]:
+            assert float(Gy[:, i, j].abs().max()) < 1e-12 * float(
+                Gy.diagonal(dim1=-2, dim2=-1).real.max())

@@ -26,7 +26,8 @@ device loop's are seen), the synchronisations of a solve (the warnings of
 ``torch.cuda.set_sync_debug_mode("warn")``: also those inside torch's own
 calls, such as ``torch.linalg.svd``'s check of its status), the wall
 time an iteration of two more solves
-with nothing patched (the least is ``wall_ms_per_iter``) and, under
+with nothing patched (the least is ``wall_ms_per_iter``; the last one's
+final objective, where the model keeps one) and, under
 ``torch.profiler``, the device busy time an iteration and the idle share
 (with, where the tree counts them, the Jacobi SVD's ``jac_round``
 launches in that solve as the device counted them, beside the
@@ -39,7 +40,9 @@ and float64, rows too long for one block's shared memory, a video's
 pixels by frames, a large square) on a Gaussian matrix drawn from
 ``torch.Generator().manual_seed(7)``, through the tree's
 ``chip_smoke._svd_case``: its checks, its captured replay (``ms``) and
-``torch.linalg.svd`` (``plain_ms``), from CUDA events, the median of 5;
+``torch.linalg.svd`` (``plain_ms``), from CUDA events, the median of 5,
+and ``sha256``, a digest of the bytes of ``u``, ``s`` and ``v^T`` from
+one more call (equal digests in two trees: equal outputs bit for bit);
 ``--only csvd`` the complex form's at :data:`CSVD_CASES` the same way,
 ``--only svd.<case>`` one case of either.  ``rpca_complex`` and
 ``rpca_complex_full`` (by name) are ``chip_smoke.py``'s complex64 Robust
@@ -52,6 +55,7 @@ compare them on one card.
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import sys
@@ -79,12 +83,15 @@ SVD_CASES = {
     "video32": ((76800, 100), "float32"),
     "large32": ((2048, 2048), "float32"),
 }
-# the complex form's (--only csvd): Robust PCA's complex x-step shapes
+# the complex form's (--only csvd): Robust PCA's complex x-step shapes,
+# and rows too long for one block's shared memory (100 x 2000: the global
+# route of a form without clusters, the shared route of one with them)
 CSVD_CASES = {
     "cfull64": ((512, 512), "complex64"),
     "csmall64": ((26, 512), "complex64"),
     "cmid64": ((256, 192), "complex64"),
     "cfull128": ((512, 512), "complex128"),
+    "clong64": ((100, 2000), "complex64"),
 }
 SVD_REPS = 5
 
@@ -228,13 +235,17 @@ def _makers(cs, dev, torch, mesh):
 def _svd(cs, torch, dev, case):
     """The Jacobi SVD of a Gaussian matrix of ``SVD_CASES[case]`` (or
     ``CSVD_CASES[case]``), as ``chip_smoke._svd_case`` checks and times it
-    (no prox, not against the plain version)."""
+    (no prox, not against the plain version), and the digest of one more
+    call's outputs."""
     shape, dt = {**SVD_CASES, **CSVD_CASES}[case]
     a = torch.randn(shape, generator=torch.Generator().manual_seed(7),
                     dtype=getattr(torch, dt)).to(dev)
     rec = cs._svd_case(a, case, False, reps=SVD_REPS, prox=False)
     rec["geometry"] = list(rec["geometry"])
-    return {"dtype": dt, **rec}
+    digest = hashlib.sha256()
+    for t in cs.tsvd.jacobi_svd(a):
+        digest.update(t.contiguous().cpu().numpy().tobytes())
+    return {"dtype": dt, **rec, "sha256": digest.hexdigest()}
 
 
 def _dl(cs, dev, name):
@@ -297,6 +308,10 @@ def _measure(cs, torch, make):
     k = b.j if hasattr(b, "j") else int(b.state.k)
     loop = dict(cs.device_loop.LAST) if cs.device_loop.LAST.get(
         "live") == k else {}
+    # the last wall solve's final objective, where the model keeps one
+    its = b.getitstat() if hasattr(b, "getitstat") else None
+    obj = (float(its.ObjFun[-1]) if its is not None
+           and len(getattr(its, "ObjFun", ())) else None)
     # the Jacobi SVD's jac_round launches in the profiled solve, counted
     # on the device, where the tree counts them (beside the profiler's
     # count of the kernel's events in "top")
@@ -310,7 +325,8 @@ def _measure(cs, torch, make):
     # the profiler's count of jac_round events among the 16 kernels of
     # most device time (None where it is not among them)
     seen = [t["count"] for t in prof["top"] if "jac_round" in t["name"]]
-    return {"iterations": k, "jac_round_device_launches": jac,
+    return {"iterations": k, "final_objective": obj,
+            "jac_round_device_launches": jac,
             "jac_round_profiler_launches": sum(seen) if seen else None,
             "wall_ms_per_iter": 1e3 * min(walls) / k,
             "wall_ms_per_iter_runs": [1e3 * w / k for w in walls],
